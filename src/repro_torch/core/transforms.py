@@ -1,0 +1,464 @@
+"""Composable score transformations (paper Sec. 2.3), in PyTorch.
+
+Three transformation nodes compose a predictor's post-model DAG:
+
+  * :class:`PosteriorCorrection`  — ``T^C`` (Eq. 3), undoes undersampling bias.
+  * :class:`Aggregation`          — ``A``, weighted average of calibrated experts.
+  * :class:`QuantileMap`          — ``T^Q`` (Eq. 4), piecewise-linear CDF alignment.
+
+The nodes are frozen dataclasses of tensors that live on one explicit
+device.  A "seamless model update" replaces them under a stable routing
+intent; nothing is edited in place, so a dispatch holding an old node (or an
+old :class:`TransformBank`) keeps scoring on the parameters it snapshotted.
+Functions compute on the device of their inputs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import to_numpy
+
+Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Posterior Correction (Eq. 3)
+# ---------------------------------------------------------------------------
+
+def posterior_correction(scores: Tensor, beta: Tensor | float) -> Tensor:
+    """Eq. 3: ``T^C(y) = beta*y / (1 - (1-beta)*y)``.
+
+    ``beta`` is the undersampling ratio of the majority (negative) class used
+    when training the expert: ``beta = P(keep negative sample)``.  Scores are
+    posterior probabilities in [0, 1].  The map is monotone, fixes 0 and 1,
+    and is the exact analytical inverse of the prior shift introduced by
+    undersampling (Dal Pozzolo et al., 2015).
+    """
+    scores = torch.as_tensor(scores)
+    beta = torch.as_tensor(beta, dtype=scores.dtype, device=scores.device)
+    return (beta * scores) / (1.0 - (1.0 - beta) * scores)
+
+
+@dataclasses.dataclass(frozen=True)
+class PosteriorCorrection:
+    """Per-expert ``T^C_k`` node: carries the training undersampling ratio."""
+
+    beta: Tensor  # scalar (or broadcastable) undersampling ratio in (0, 1]
+
+    def __call__(self, scores: Tensor) -> Tensor:
+        return posterior_correction(scores, self.beta)
+
+    @staticmethod
+    def identity() -> "PosteriorCorrection":
+        # beta = 1.0 means "no undersampling" -> T^C is the identity map.
+        return PosteriorCorrection(beta=torch.tensor(1.0, dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# Ensemble aggregation (Sec. 2.3.2)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Aggregation:
+    """Weighted-average aggregation ``A`` over K calibrated expert scores.
+
+    Weights are normalized at call time so that updating them (the paper's
+    "lightweight model adaptation") never needs renormalization bookkeeping.
+    """
+
+    weights: Tensor  # (K,)
+
+    def __call__(self, expert_scores: Tensor) -> Tensor:
+        """``expert_scores``: (..., K) -> (...)."""
+        w = self.weights / torch.sum(self.weights)
+        return torch.einsum("...k,k->...", expert_scores, w)
+
+    @staticmethod
+    def uniform(k: int) -> "Aggregation":
+        return Aggregation(weights=torch.ones((k,), dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# Quantile Mapping (Eq. 4)
+# ---------------------------------------------------------------------------
+
+def _unit_grid(n: int) -> Tensor:
+    """``n`` evenly spaced float32 knots on [0, 1], bit for bit as
+    ``jnp.linspace(0, 1, n, dtype=float32)`` gives them on the CPU: knot i
+    is i times the float32 reciprocal of n - 1 (XLA turns the division by a
+    constant into that product), and the last knot is 1.  ``torch.linspace``
+    rounds differently: up to half the knots differ in the last bit."""
+    if n < 2:
+        return torch.zeros(n, dtype=torch.float32)
+    step = float(np.float32(1.0) / np.float32(n - 1))
+    steps = torch.arange(n - 1, dtype=torch.float32) * step
+    return torch.cat([steps, torch.ones(1, dtype=torch.float32)])
+
+
+def _bucket_index(table: Tensor, values: Tensor) -> Tensor:
+    """Index i s.t. table[i] <= v < table[i+1], as the exact count
+    #{n : v >= table[n]} - 1 clamped to [0, N-2] so interpolation always has
+    a right neighbour.  The count (not a binary search) fixes the index on
+    ties, on unsorted tables and on NaN (no comparison holds -> index 0)."""
+    n = table.shape[-1]
+    idx = torch.sum(values[..., None] >= table, dim=-1) - 1
+    return torch.clamp(idx, 0, n - 2)
+
+
+def quantile_map(
+    scores: Tensor,
+    src_quantiles: Tensor,
+    ref_quantiles: Tensor,
+) -> Tensor:
+    """Eq. 4: piecewise-linear map aligning CDF of S onto CDF of R.
+
+    ``src_quantiles``/``ref_quantiles``: (N,) monotone non-decreasing arrays of
+    matched quantiles q^S_i, q^R_i (same quantile levels).  The map is monotone
+    (non-decreasing), hence rank/ROC preserving — the paper's key invariant.
+    Values outside [q^S_1, q^S_N] are linearly extended from the edge segment
+    and clipped to the reference support.
+    """
+    scores = torch.as_tensor(scores)
+    dtype = scores.dtype
+    qs = src_quantiles.to(device=scores.device, dtype=dtype)
+    qr = ref_quantiles.to(device=scores.device, dtype=dtype)
+    i = _bucket_index(qs, scores)
+    q_s_i = qs[i]
+    q_s_n = qs[i + 1]
+    q_r_i = qr[i]
+    q_r_n = qr[i + 1]
+    # Guard degenerate (flat) source segments; slope first, as the reference.
+    diff = q_s_n - q_s_i
+    denom = torch.where(diff > 0, diff, torch.ones_like(diff))
+    slope = (q_r_n - q_r_i) / denom
+    out = q_r_i + (scores - q_s_i) * slope
+    return torch.clamp(out, qr[0], qr[-1])
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantileMap:
+    """``T^Q`` node: tenant-specific source quantiles -> shared reference."""
+
+    src_quantiles: Tensor  # (N,)
+    ref_quantiles: Tensor  # (N,)
+
+    def __call__(self, scores: Tensor) -> Tensor:
+        return quantile_map(scores, self.src_quantiles, self.ref_quantiles)
+
+    @property
+    def num_quantiles(self) -> int:
+        return self.src_quantiles.shape[-1]
+
+    @staticmethod
+    def identity(n: int = 64) -> "QuantileMap":
+        q = _unit_grid(n)
+        return QuantileMap(src_quantiles=q, ref_quantiles=q)
+
+    @staticmethod
+    def fit(
+        source_scores: np.ndarray | Tensor,
+        ref_quantiles: np.ndarray | Tensor,
+        levels: np.ndarray | None = None,
+    ) -> "QuantileMap":
+        """Fit tenant-specific source quantiles from (unlabeled!) scores.
+
+        This is the offline fitting path (Sec. 2.3.3): needs only raw score
+        samples, no labels.  ``ref_quantiles`` must be evaluated at the same
+        quantile ``levels`` (default: uniform grid of len(ref_quantiles)).
+        The fit runs in float64 numpy on the host; the tables land on the
+        device of ``ref_quantiles`` when it is a tensor, else on the CPU.
+        """
+        device = ref_quantiles.device \
+            if isinstance(ref_quantiles, torch.Tensor) else None
+        ref_q = to_numpy(ref_quantiles).astype(np.float64)
+        n = ref_q.shape[-1]
+        if levels is None:
+            levels = np.linspace(0.0, 1.0, n)
+        src = np.quantile(to_numpy(source_scores).astype(np.float64), levels)
+        src = np.maximum.accumulate(src)  # enforce monotone vs fp jitter
+        return QuantileMap(
+            src_quantiles=torch.tensor(src, dtype=torch.float32, device=device),
+            ref_quantiles=torch.tensor(ref_q, dtype=torch.float32,
+                                       device=device),
+        )
+
+
+# ---------------------------------------------------------------------------
+# Reference distributions (Sec. 2.3.3 / Sec. 7 of DESIGN.md)
+# ---------------------------------------------------------------------------
+
+def fraud_reference_quantiles(n: int = 256, *, a: float = 0.8, b: float = 8.0,
+                              tail_w: float = 0.02, tail_a: float = 6.0,
+                              tail_b: float = 1.5) -> Tensor:
+    """A configurable reference distribution R with high density near 0 and a
+    long tail toward 1 (the paper's guidance for imbalanced fraud settings:
+    more resolution in the 0.1%–1% alert-rate region).
+
+    Mixture: (1-tail_w)·Beta(a, b) + tail_w·Beta(tail_a, tail_b).
+    Returns its quantiles on a uniform level grid, via numerical CDF inversion.
+    """
+    from scipy import stats  # offline path only
+
+    levels = np.linspace(0.0, 1.0, n)
+    grid = np.linspace(0.0, 1.0, 65537)
+    cdf = (1.0 - tail_w) * stats.beta.cdf(grid, a, b) + tail_w * stats.beta.cdf(
+        grid, tail_a, tail_b
+    )
+    q = np.interp(levels, cdf, grid)
+    q = np.maximum.accumulate(q)
+    return torch.tensor(q, dtype=torch.float32)
+
+
+def uniform_reference_quantiles(n: int = 256) -> Tensor:
+    return _unit_grid(n)
+
+
+# ---------------------------------------------------------------------------
+# Full Eq. 2 pipeline (reference composition; fused kernel in kernels/)
+# ---------------------------------------------------------------------------
+
+def score_pipeline(
+    expert_scores: Tensor,
+    betas: Tensor,
+    weights: Tensor,
+    src_quantiles: Tensor,
+    ref_quantiles: Tensor,
+) -> Tensor:
+    """Eq. 2 end-to-end: ``T^Q(A([T^C_k(m_k(x))]))``.
+
+    ``expert_scores``: (..., K) raw scores from the K experts.
+    """
+    corrected = posterior_correction(expert_scores, betas)
+    w = weights / torch.sum(weights)
+    agg = torch.einsum("...k,k->...", corrected, w)
+    return quantile_map(agg, src_quantiles, ref_quantiles)
+
+
+def _pad_edge(x: Tensor, pad: int) -> Tensor:
+    """Repeat the last knot ``pad`` times (``jnp.pad(mode="edge")``)."""
+    return torch.cat([x, x[-1:].expand(pad)]) if pad else x
+
+
+def pad_quantile_tables(
+    value: "QuantileMap | tuple[Tensor, Tensor]", n: int, *,
+    row: int | None = None,
+) -> tuple[Tensor, Tensor]:
+    """Normalize one replacement T^Q table pair to exactly ``n`` knots.
+
+    ``value`` is a :class:`QuantileMap` or a raw ``(src, ref)`` pair.  Tables
+    narrower than ``n`` are edge-padded: the extra flat segments are
+    degenerate (guarded denominator in :func:`quantile_map`) and values past
+    the true support already clip to the reference edge, so padding is
+    semantics-preserving.  Wider tables, and a pair whose two tables differ
+    in length, are a shape error (``ValueError``, as the reference's scatter
+    raises for both).
+    """
+    src, ref = (value.src_quantiles, value.ref_quantiles) \
+        if isinstance(value, QuantileMap) else value
+    src = torch.as_tensor(src, dtype=torch.float32)
+    ref = torch.as_tensor(ref, dtype=torch.float32)
+    where = f"row {row}: " if row is not None else ""
+    if src.shape != ref.shape:
+        raise ValueError(f"{where}src {tuple(src.shape)} and ref "
+                         f"{tuple(ref.shape)} tables differ in shape")
+    pad = n - src.shape[-1]
+    if pad < 0:
+        raise ValueError(f"{where}{src.shape[-1]} knots > bank's {n}")
+    return _pad_edge(src, pad), _pad_edge(ref, pad)
+
+
+# ---------------------------------------------------------------------------
+# Tenant-indexed transform bank (mixed-tenant batched Eq. 2)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TransformBank:
+    """Stacked per-(tenant, predictor) transform parameters.
+
+    One row per distinct post-model pipeline; a mixed-tenant micro-batch
+    carries a per-row ``tenant_idx`` selecting its bank row, so the whole
+    batch runs Eq. 2 in ONE dispatch (``kernels/score_pipeline.py::
+    score_pipeline_banked``) instead of a Python loop of per-predictor calls.
+
+    Banks are immutable and carry a ``generation``: the calibration control
+    plane publishes a refreshed bank as a NEW object with a bumped generation
+    and swaps the reference atomically.  In-flight dispatches that already
+    snapshotted the old bank finish on the old parameters; the next window
+    sees the new generation — never a torn mix of rows from two calibration
+    versions.  No method writes into a bank's tensors.
+    """
+
+    betas: Tensor          # (T, K)
+    weights: Tensor        # (T, K)
+    src_quantiles: Tensor  # (T, N)
+    ref_quantiles: Tensor  # (T, N)
+    generation: int = 0
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.betas.shape[0])
+
+    @property
+    def num_experts(self) -> int:
+        return int(self.betas.shape[-1])
+
+    @property
+    def num_quantiles(self) -> int:
+        return int(self.src_quantiles.shape[-1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.betas.device
+
+    def __call__(self, expert_scores: Tensor, tenant_idx: Tensor) -> Tensor:
+        return banked_score_pipeline(
+            expert_scores, tenant_idx, self.betas, self.weights,
+            self.src_quantiles, self.ref_quantiles,
+        )
+
+    def pre_quantile(self, expert_scores: Tensor, tenant_idx: Tensor
+                     ) -> Tensor:
+        """Per-row T^Q input (corrected weighted aggregate) — what a
+        refreshed T^Q must be fitted on; see TransformPipeline.pre_quantile."""
+        return _banked_pre_quantile(expert_scores, tenant_idx, self.betas,
+                                    self.weights)
+
+    def with_rows(
+        self,
+        rows: Mapping[int, tuple[Tensor, Tensor]] | Mapping[int, "QuantileMap"],
+        *,
+        generation: int | None = None,
+    ) -> "TransformBank":
+        """Functional update: replace the T^Q tables of selected rows.
+
+        ``rows`` maps row index -> ``QuantileMap`` (or a raw ``(src, ref)``
+        pair).  Returns a NEW bank — the receiver is never mutated, so any
+        dispatch holding it keeps scoring with the old parameters.  The
+        scatter is the out-of-place ``index_copy``, which writes into a
+        clone: an in-place scatter into a published bank would be a torn read
+        for a window still scoring on it.  Tables narrower than the bank's N
+        are edge-padded; wider tables are a shape error.  ``generation``
+        defaults to the current one + 1.
+        """
+        if not rows:
+            return self if generation is None else dataclasses.replace(
+                self, generation=generation)
+        n = self.num_quantiles
+        idx, srcs, refs = [], [], []
+        for row, value in sorted(rows.items()):
+            if not 0 <= row < self.num_rows:
+                raise IndexError(f"row {row} outside bank of {self.num_rows}")
+            src, ref = pad_quantile_tables(value, n, row=row)
+            idx.append(row)
+            srcs.append(src.to(self.device))
+            refs.append(ref.to(self.device))
+        index = torch.tensor(idx, dtype=torch.long, device=self.device)
+        return dataclasses.replace(
+            self,
+            src_quantiles=self.src_quantiles.index_copy(
+                0, index, torch.stack(srcs)),
+            ref_quantiles=self.ref_quantiles.index_copy(
+                0, index, torch.stack(refs)),
+            generation=self.generation + 1 if generation is None else generation,
+        )
+
+    @staticmethod
+    def from_params(params: Sequence[tuple[Tensor, Tensor, Tensor, Tensor]],
+                    *, generation: int = 0,
+                    device: torch.device | str | None = None
+                    ) -> "TransformBank":
+        """Stack (betas, weights, src_q, ref_q) rows, padding ragged axes.
+
+        Expert axes are padded with ``beta=1, weight=0`` columns (identity
+        correction, zero aggregation mass).  Quantile tables are padded by
+        repeating the last knot: the extra flat segments are degenerate
+        (guarded denominator) and values past the true support already clip
+        to the reference edge, so padding is semantics-preserving.  The bank
+        lives on ``device`` (default: where the given tensors are).
+        """
+        if not params:
+            raise ValueError("cannot build an empty TransformBank")
+
+        def _f32(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+        rows = [(torch.atleast_1d(_f32(b)), torch.atleast_1d(_f32(w)),
+                 _f32(qs), _f32(qr)) for b, w, qs, qr in params]
+        k_max = max(b.shape[-1] for b, _, _, _ in rows)
+        n_max = max(qs.shape[-1] for _, _, qs, _ in rows)
+
+        def _pad_k(x, fill):
+            pad = k_max - x.shape[-1]
+            return torch.cat([x, x.new_full((pad,), fill)]) if pad else x
+
+        def _pad_n(x):
+            return _pad_edge(x, n_max - x.shape[-1])
+
+        return TransformBank(
+            betas=torch.stack([_pad_k(b, 1.0) for b, _, _, _ in rows]),
+            weights=torch.stack([_pad_k(w, 0.0) for _, w, _, _ in rows]),
+            src_quantiles=torch.stack([_pad_n(qs) for _, _, qs, _ in rows]),
+            ref_quantiles=torch.stack([_pad_n(qr) for _, _, _, qr in rows]),
+            generation=generation,
+        )
+
+
+def _banked_pre_quantile(expert_scores: Tensor, tenant_idx: Tensor,
+                         betas: Tensor, weights: Tensor) -> Tensor:
+    tenant_idx = torch.as_tensor(tenant_idx, device=betas.device).long()
+    b = betas.index_select(0, tenant_idx.reshape(-1)).reshape(
+        tenant_idx.shape + betas.shape[-1:])          # (B, K)
+    w = weights.index_select(0, tenant_idx.reshape(-1)).reshape(b.shape)
+    corrected = posterior_correction(expert_scores, b)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    return torch.sum(corrected * w, dim=-1)
+
+
+def banked_score_pipeline(
+    expert_scores: Tensor,
+    tenant_idx: Tensor,
+    betas: Tensor,
+    weights: Tensor,
+    src_quantiles: Tensor,
+    ref_quantiles: Tensor,
+) -> Tensor:
+    """Mixed-tenant Eq. 2: row ``i`` uses parameter row ``tenant_idx[i]``.
+
+    ``expert_scores``: (..., K); ``tenant_idx``: (...) int; bank params are
+    (T, K) / (T, N).  Plain PyTorch — the reference for the banked CUDA
+    kernel.  Weights are normalized per row (so padded expert columns with
+    weight 0 contribute nothing).  An id outside [0, T) raises (the gather
+    checks it).
+    """
+    expert_scores = torch.as_tensor(expert_scores)
+    tid = torch.as_tensor(tenant_idx, device=betas.device).long()
+    flat = tid.reshape(-1)
+
+    def gather(table: Tensor) -> Tensor:
+        return table.index_select(0, flat).reshape(
+            tid.shape + table.shape[-1:])
+
+    b = gather(betas)                                   # (..., K)
+    w = gather(weights)                                 # (..., K)
+    qs = gather(src_quantiles)                          # (..., N)
+    qr = gather(ref_quantiles)                          # (..., N)
+    corrected = posterior_correction(expert_scores, b)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    agg = torch.sum(corrected * w, dim=-1)              # (...)
+
+    qs = qs.to(agg.dtype)
+    qr = qr.to(agg.dtype)
+    i = _bucket_index(qs, agg)[..., None]
+    q_s_i = torch.gather(qs, -1, i)[..., 0]
+    q_s_n = torch.gather(qs, -1, i + 1)[..., 0]
+    q_r_i = torch.gather(qr, -1, i)[..., 0]
+    q_r_n = torch.gather(qr, -1, i + 1)[..., 0]
+    diff = q_s_n - q_s_i
+    denom = torch.where(diff > 0, diff, torch.ones_like(diff))
+    out = q_r_i + (agg - q_s_i) * (q_r_n - q_r_i) / denom
+    # torch.clamp propagates NaN, as jnp.clip does
+    return torch.clamp(out, qr[..., 0], qr[..., -1])

@@ -1,0 +1,46 @@
+"""Public entry points of the port's kernels, dispatched by tensor device.
+
+A CPU tensor runs the plain PyTorch version (``kernels/ref.py``); a CUDA
+tensor launches the hand-written kernel, which raises on what it does not
+take.  There is no switch and no fallback: a CUDA tensor never reaches the
+plain version through this module.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels import score_pipeline as _sp
+
+# launch counts of every hand-written kernel (the wrappers bump them)
+LAUNCHES = _sp.LAUNCHES
+
+
+def banked_skip_stats(tenant_idx, *, block: int = _sp.DEFAULT_BLOCK) -> dict:
+    """Host-side uniform-block report for a tenant layout (see
+    :func:`repro_torch.kernels.score_pipeline.banked_skip_stats`)."""
+    return _sp.banked_skip_stats(tenant_idx, block=block)
+
+
+def score_pipeline_banked(expert_scores: torch.Tensor,
+                          tenant_idx: torch.Tensor, betas: torch.Tensor,
+                          weights: torch.Tensor, src_quantiles: torch.Tensor,
+                          ref_quantiles: torch.Tensor) -> torch.Tensor:
+    """Mixed-tenant Eq. 2: ``expert_scores`` (..., K), ``tenant_idx`` (...)
+    indexing the (T, K) / (T, N) banks -> (...) scores."""
+    *batch_shape, k = expert_scores.shape
+    flat = expert_scores.reshape(-1, k)
+    idx = tenant_idx.reshape(-1)
+    if idx.shape[0] != flat.shape[0]:
+        raise ValueError(f"tenant_idx has {idx.shape[0]} rows for "
+                         f"{flat.shape[0]} score rows")
+    device = expert_scores.device.type
+    if device == "cpu":
+        out = ref.score_pipeline_banked(flat, idx, betas, weights,
+                                        src_quantiles, ref_quantiles)
+    elif device == "cuda":
+        out = _sp.score_pipeline_banked(flat, idx, betas, weights,
+                                        src_quantiles, ref_quantiles)
+    else:
+        raise ValueError(f"no score_pipeline_banked for device {device!r}")
+    return out.reshape(batch_shape)

@@ -1,0 +1,130 @@
+"""The banked (tenant-indexed) Eq. 2 kernel for Hopper and its host helpers.
+
+    T^Q( A( [T^C_k(y_k)]_k ) )   —  posterior correction -> weighted
+                                     aggregation -> quantile map
+
+:func:`score_pipeline_banked` launches the hand-written CUDA kernel of
+``csrc/score_pipeline_banked.cu`` (built by ``kernels/_build.py``) on
+PyTorch's current stream: one warp per row, direct indexed loads of the
+row's bank parameters, and an exact warp-wide count for the T^Q bucket.  It
+takes CUDA tensors only and raises on anything else; the plain PyTorch
+version is ``kernels/ref.py``, and ``kernels/ops.py`` picks between the two
+by the device of the tensors.
+
+:func:`banked_skip_stats` and :func:`_round_block` are the reference's
+host-side blocking report, kept unchanged so the ``skip_blocks_*`` serving
+metrics mean the same in both packages: the share of pow-2 row blocks that
+hold one tenant only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+DEFAULT_BLOCK = 1024
+
+# launches of each hand-written kernel, counted where the kernel launches
+LAUNCHES: dict[str, int] = {"score_pipeline_banked": 0}
+
+
+def _round_block(n: int, block: int) -> int:
+    """Next power of two >= n, capped at ``block`` — bounds the number of
+    distinct (block,) jit specializations the serving layer can trigger."""
+    b = 1
+    while b < min(n, block):
+        b *= 2
+    return min(b, block)
+
+
+def banked_skip_stats(tenant_idx, *, block: int = DEFAULT_BLOCK) -> dict:
+    """Host-side skip-rate report for a given tenant layout.
+
+    Mirrors the wrapper's blocking exactly (power-of-two block, edge-padded
+    tail) and returns how many grid blocks take the uniform fast path —
+    the fraction of blocks that skip the one-hot gather matmuls.
+    """
+    idx = np.asarray(tenant_idx).reshape(-1)
+    n = idx.shape[0]
+    blk = _round_block(max(n, 1), block)
+    pad = (-n) % blk
+    if pad and n:
+        idx = np.concatenate([idx, np.full(pad, idx[-1], idx.dtype)])
+    blocks = idx.reshape(-1, blk)
+    uniform = int((blocks == blocks[:, :1]).all(axis=1).sum())
+    total = blocks.shape[0]
+    return {"block": blk, "blocks": total, "uniform_blocks": uniform,
+            "skip_rate": uniform / total if total else 0.0}
+
+
+def _library() -> ctypes.CDLL:
+    """The kernel's library, with its C signatures declared for ctypes."""
+    lib = _build.library("score_pipeline_banked")
+    lib.score_pipeline_banked_launch.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.score_pipeline_banked_launch.restype = ctypes.c_int
+    lib.score_pipeline_banked_error_string.argtypes = [ctypes.c_int]
+    lib.score_pipeline_banked_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def score_pipeline_banked(expert_scores: torch.Tensor,
+                          tenant_idx: torch.Tensor, betas: torch.Tensor,
+                          weights: torch.Tensor, src_quantiles: torch.Tensor,
+                          ref_quantiles: torch.Tensor) -> torch.Tensor:
+    """Mixed-tenant Eq. 2 in ONE launch of the CUDA kernel.
+
+    ``expert_scores``: (M, K) float32; ``tenant_idx``: (M,) int32 row index
+    into the (T, K) / (T, N) float32 banks; every tensor contiguous and on
+    one CUDA device.  Returns (M,) float32.  A row whose id lies outside
+    [0, T) scores NaN.  Raises ``ValueError`` on any other input — there is
+    no fallback to the plain version.
+    """
+    tensors = {"expert_scores": expert_scores, "tenant_idx": tenant_idx,
+               "betas": betas, "weights": weights,
+               "src_quantiles": src_quantiles, "ref_quantiles": ref_quantiles}
+    device = expert_scores.device
+    for name, x in tensors.items():
+        if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
+            raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors")
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, scores on {device}")
+        want = torch.int32 if name == "tenant_idx" else torch.float32
+        if x.dtype != want:
+            raise ValueError(f"{name}: dtype {x.dtype}, expected {want}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if expert_scores.dim() != 2 or tenant_idx.dim() != 1:
+        raise ValueError("expert_scores must be (M, K) and tenant_idx (M,)")
+    m, k = expert_scores.shape
+    if tenant_idx.shape[0] != m:
+        raise ValueError(f"tenant_idx has {tenant_idx.shape[0]} rows for "
+                         f"{m} score rows")
+    if m == 0 or k == 0:
+        raise ValueError("empty input: the kernel needs M >= 1 and K >= 1")
+    if betas.dim() != 2 or betas.shape != weights.shape \
+            or betas.shape[1] != k:
+        raise ValueError(f"betas/weights must both be (T, {k})")
+    t = betas.shape[0]
+    if src_quantiles.dim() != 2 or src_quantiles.shape != ref_quantiles.shape \
+            or src_quantiles.shape[0] != t or src_quantiles.shape[1] < 2 \
+            or t == 0:
+        raise ValueError(f"src/ref quantiles must both be ({t}, N), N >= 2")
+    n = src_quantiles.shape[1]
+    out = torch.empty(m, dtype=torch.float32, device=device)
+    lib = _library()
+    with torch.cuda.device(device):
+        code = lib.score_pipeline_banked_launch(
+            expert_scores.data_ptr(), tenant_idx.data_ptr(),
+            betas.data_ptr(), weights.data_ptr(), src_quantiles.data_ptr(),
+            ref_quantiles.data_ptr(), out.data_ptr(), m, k, t, n,
+            torch.cuda.current_stream(device).cuda_stream)
+    if code != 0:
+        msg = lib.score_pipeline_banked_error_string(code).decode()
+        raise RuntimeError(f"score_pipeline_banked launch failed: {msg}")
+    LAUNCHES["score_pipeline_banked"] += 1
+    return out

@@ -1,0 +1,129 @@
+"""The port stands alone: no JAX, no reference package, no silent CPU.
+
+* Every ``repro_torch`` module imports, and a CPU ``score_batch`` runs, in a
+  process where importing ``jax`` fails; afterwards no ``repro`` module is
+  loaded.
+* Each module the port copies from the reference (routing, registry,
+  quantiles, types, data, shadow, batching, warmup) equals its source once
+  ``repro.`` imports are rewritten to ``repro_torch.``, apart from the
+  listed lines, so a copy that drifts fails here.
+* An entry point given no device on a machine without CUDA raises instead
+  of running on the CPU.
+"""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+# copied module -> the lines of the copy that may differ from the source
+# (the quantiles copy drops change-history tags from two docstring lines)
+COPIES = {
+    "core/routing.py": (),
+    "core/registry.py": (),
+    "core/quantiles.py": (
+        "exact checkpoint (reservoir + recent ring), merges per",
+        "        The fleet calibration plane's wire format IS the exact",
+    ),
+    "serving/types.py": (),
+    "training/data.py": (),
+    "serving/shadow.py": (),
+    "serving/batching.py": (),
+    "serving/warmup.py": (),
+}
+
+
+def _rewrite(text: str) -> str:
+    return re.sub(r"^(\s*)(from|import) repro\.", r"\1\2 repro_torch.",
+                  text, flags=re.M)
+
+
+@pytest.mark.parametrize("module", sorted(COPIES))
+def test_copied_module_has_not_drifted(module):
+    want = _rewrite((SRC / "repro" / module).read_text())
+    got = (SRC / "repro_torch" / module).read_text()
+    want_lines, got_lines = want.splitlines(), got.splitlines()
+    assert len(got_lines) == len(want_lines)
+    assert got.endswith("\n") == want.endswith("\n")
+    changed = [g for w, g in zip(want_lines, got_lines) if w != g]
+    assert changed == list(COPIES[module])
+
+
+SCRIPT = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    sys.modules["jax"] = None          # any `import jax` now fails
+    import numpy as np
+    import repro_torch
+
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")]
+    for name in names:
+        importlib.import_module(name)
+
+    from repro_torch.core.predictor import PredictorSpec
+    from repro_torch.core.routing import (Condition, Intent, RoutingTable,
+                                          ScoringRule)
+    from repro_torch.core.transforms import QuantileMap
+    from repro_torch.serving.server import MuseServer
+    from repro_torch.serving.types import ScoringRequest
+
+    rng = np.random.default_rng(0)
+    w = rng.normal(0, 1, (2, 8)).astype(np.float32)
+    factories = {f"m{i}": (lambda i=i: lambda x: 1 / (1 + np.exp(-(x @ w[i]))))
+                 for i in range(2)}
+    rules = (ScoringRule(Condition(tenants=("a",)), "pa"),
+             ScoringRule(Condition(), "pb"))
+    server = MuseServer(RoutingTable(rules, version="v1"), device="cpu")
+    for name, weights in (("pa", (1.0, 1.0)), ("pb", (2.0, 1.0))):
+        server.deploy(PredictorSpec(name, ("m0", "m1"), (0.2, 0.5), weights,
+                                    QuantileMap.identity(32)), factories)
+    reqs = [ScoringRequest(Intent(tenant="ab"[i % 2]),
+                           rng.normal(0, 1, 8).astype(np.float32))
+            for i in range(16)]
+    out = server.score_batch(reqs)
+    assert [r.predictor for r in out] == ["pa", "pb"] * 8
+    assert all(0.0 <= r.score <= 1.0 for r in out)
+    assert server.metrics["kernel_dispatches"] == 1
+    loaded = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+    assert not loaded, loaded
+    assert sys.modules["jax"] is None
+    print("MODULES", len(names))
+""")
+
+
+def test_port_runs_with_jax_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split("MODULES")[1]) >= 20
+
+
+def test_sources_import_neither_jax_nor_the_reference():
+    pattern = re.compile(r"^\s*(import jax|from jax|import repro\b|"
+                         r"from repro[ .])", re.M)
+    files = list((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable here")
+    from repro_torch.core.routing import RoutingTable
+    from repro_torch.experiments.fraud_world import Expert
+    from repro_torch.serving.server import MuseServer
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MuseServer(RoutingTable(()))
+    expert = Expert("m", 0.5, torch.zeros(4).numpy(), 0.0,
+                    torch.ones(4).numpy())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        expert.score_fn()
