@@ -20,8 +20,24 @@ Phases, each printing one JSON line:
              of 1,024 requests through the hand-written kernel, checked
              against the same traffic through the plain version, with a
              T^Q refresh published mid-run.
-4. kernels — every kernel of the port with its launches on the main path,
-             its error and its times at the main path's shapes.
+4. attention — the flash-attention kernel against its plain version on
+             the card, float32 and bfloat16: the reference's five cases,
+             Tq < Tk, a ragged T = 1,000, a window across tile edges,
+             D = 80 and D = 128, B > 1, and rows that see no key (exactly
+             0); then its time at the prefill shape of qwen3-8b (B=4,
+             T=2,048, 32/8 heads, D=128, bf16, causal) beside the plain
+             version, PyTorch's own attention call and the bound.
+5. llm_serve — the port's model path at the full width of qwen3-8b
+             (36 layers, d_model 4,096, vocab 151,936; bf16 weights from a
+             seed): ``launch.serve.serve`` prefills 4 x 2,048 tokens through
+             the kernel, decodes 16 greedy steps and maps the risk score
+             through T^Q.  Over six weight and prompt seeds the kernel
+             prefill's served risk scores and last-token logits are held
+             against float32 and bfloat16 reference prefills of the same
+             weights, and each attention call's last rows inside the model
+             against the plain version in float32.
+6. kernels — every kernel of the port with its launches on its path, its
+             error and its times at the path's shapes.
 
 Any failed check raises, so the script exits non-zero; it also exits
 non-zero, printing no result, without CUDA or outside the repository.  The
@@ -37,8 +53,11 @@ import time
 from pathlib import Path
 
 TOL = 2e-5            # the reference's f32 kernel tolerance
+ATTN_TOL = {"float32": 5e-5,   # the reference's flash property sweep
+            "bfloat16": 2e-2}  # the reference's bf16 kernel tolerance
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
 SLEEP_CYCLES = 20_000_000   # keeps the card busy while launches queue up
 
 
@@ -83,6 +102,29 @@ def banked_bound(m: int, k: int, t: int, n: int) -> tuple[float, str]:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / F32_FLOPS * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def attention_bound(b, tq, tk, hq, hkv, d, causal, window, itemsize
+                    ) -> tuple[float, str, float]:
+    """Least time for attention: 4*D flops per visible (query, key) pair
+    per query head over the bf16 tensor-core rate, against q, k, v read once
+    and o written once over the memory rate.  Returns (ms, bound_by,
+    flops)."""
+    import torch
+
+    qpos = torch.arange(tq)[:, None]
+    kpos = torch.arange(tk)[None, :]
+    mask = torch.ones(tq, tk, dtype=torch.bool)
+    if causal:
+        mask &= qpos >= kpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    flops = 4.0 * b * hq * d * int(mask.sum())
+    nbytes = (2 * b * tq * hq * d + 2 * b * tk * hkv * d) * itemsize
+    by_ops = flops / BF16_FLOPS * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return ((by_ops, "operations", flops) if by_ops >= by_bytes
+            else (by_bytes, "bytes", flops))
 
 
 # ---------------------------------------------------------------- phase 1
@@ -440,7 +482,391 @@ def phase_serve(dev) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_kernels(kernel: dict, serve: dict, main: dict) -> None:
+# (b, tq, tk, hq, hkv, d, causal, window)
+ATTN_CASES = {
+    "gqa_causal": (2, 128, 128, 4, 2, 64, True, 0),
+    "mha_causal": (1, 256, 256, 8, 8, 32, True, 0),
+    "bidirectional": (2, 128, 128, 4, 1, 64, False, 0),
+    "window_64": (1, 256, 256, 4, 2, 64, True, 64),
+    "ragged_100": (1, 100, 100, 2, 2, 32, True, 0),
+    "tq_lt_tk": (2, 96, 200, 4, 2, 64, True, 0),
+    "ragged_1000": (1, 1000, 1000, 8, 2, 128, True, 0),
+    "window_across_tiles": (2, 300, 300, 4, 2, 64, True, 50),
+    "d80_hubert": (2, 192, 192, 4, 4, 80, False, 0),
+    "d128_gqa": (3, 256, 256, 8, 2, 128, True, 0),
+}
+MAIN_ATTN = (4, 2048, 2048, 32, 8, 128, True, 0)   # qwen3-8b prefill
+
+
+def _qkv(case, dtype, dev, seed):
+    import torch
+
+    b, tq, tk, hq, hkv, d = case[:6]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, tq, hq, d), (b, tk, hkv, d), (b, tk, hkv, d))]
+
+
+def _attn_err(name, got, want, tol) -> float:
+    import torch
+
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: shape/dtype")
+    g, w = got.float(), want.float()
+    check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+    excess = ((g - w).abs() - (tol + tol * w.abs())).max().item()
+    check(excess <= 0, f"{name}: outside rtol = atol = {tol}")
+    return (g - w).abs().max().item()
+
+
+def phase_attention(dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    errs: dict[str, dict[str, float]] = {}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        errs[dname] = {}
+        for i, (name, case) in enumerate(ATTN_CASES.items()):
+            causal, win = case[6:]
+            q, k, v = _qkv(case, dtype, dev, seed=i)
+            errs[dname][name] = _attn_err(
+                f"{name}/{dname}",
+                fa.flash_attention(q, k, v, causal=causal, sliding_window=win),
+                ref.flash_attention(q, k, v, causal=causal, sliding_window=win),
+                ATTN_TOL[dname])
+        # rows past Tk + window - 1 see no key: the kernel gives exactly 0
+        # (the plain version's finite NEG_INF averages them instead)
+        q, k, v = _qkv((1, 256, 64, 4, 2, 64), dtype, dev, seed=99)
+        got = fa.flash_attention(q, k, v, causal=True, sliding_window=16)
+        want = ref.flash_attention(q, k, v, causal=True, sliding_window=16)
+        masked = torch.arange(256, device=dev) >= 64 + 16 - 1
+        check(bool((got[0, masked] == 0).all()),
+              f"fully masked rows are exactly 0 ({dname})")
+        errs[dname]["partly_masked"] = _attn_err(
+            f"partly_masked/{dname}", got[0, ~masked], want[0, ~masked],
+            ATTN_TOL[dname])
+
+    # the prefill shape of qwen3-8b (one launch per attention layer), in
+    # float32 at the tight tolerance and in bfloat16 as the model runs it
+    b, tq, tk, hq, hkv, d, causal, win = MAIN_ATTN
+    q, k, v = _qkv(MAIN_ATTN, torch.float32, dev, seed=123)
+    errs["float32"]["main_shape"] = _attn_err(
+        "main_shape/float32", fa.flash_attention(q, k, v, causal=causal),
+        ref.flash_attention(q, k, v, causal=causal), ATTN_TOL["float32"])
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    main_err = _attn_err(
+        "main_shape/bfloat16", fa.flash_attention(q, k, v, causal=causal),
+        ref.flash_attention(q, k, v, causal=causal), ATTN_TOL["bfloat16"])
+    errs["bfloat16"]["main_shape"] = main_err
+    torch.cuda.synchronize()
+    # one launch is milliseconds: a few reps, not device_ms's defaults
+    ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                   reps=5, inner=3)
+    plain_ms = device_ms(lambda: ref.flash_attention(q, k, v, causal=causal),
+                         reps=3, inner=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=5, inner=3)
+    bound_ms, bound_by, flops = attention_bound(*MAIN_ATTN, itemsize=2)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    result = {"phase": "attention", "name": "flash_attention",
+              "cases": {n: list(c) for n, c in ATTN_CASES.items()},
+              "tolerance": ATTN_TOL, "errors": errs,
+              "fully_masked_rows": "exactly 0",
+              "shape": {"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv,
+                        "D": d, "causal": causal, "dtype": "bfloat16"},
+              "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+              "library_ms": library_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "gflop": flops / 1e9,
+              "tflop_per_s": flops / (ms * 1e-3) / 1e12,
+              "timing": "CUDA events, median of 5 runs of 3 back-to-back "
+                        "launches (plain: 3 runs of 1) queued behind a busy "
+                        "card"}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 5
+LLM_ARCH = "qwen3-8b"
+LLM_BATCH, LLM_PROMPT, LLM_STEPS = 4, 2048, 16
+# (weight seed, prompt seed) of the accuracy check; the first is the
+# main path's model and prompt
+ACC_SEEDS = ((0, 0), (0, 1), (1, 2), (1, 3), (2, 4), (2, 5))
+
+
+def _max_diff(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _device_split(prof) -> dict:
+    """Device milliseconds of a profiler window by kernel kind, and the top
+    kernels; None where the trace holds no device time."""
+    import torch
+
+    cats = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        name = e.key.lower()
+        if "flash_attention_kernel" in name:
+            cats["flash_attention"] += ms
+        elif any(s in name for s in ("gemm", "gemv", "nvjet", "cutlass",
+                                     "xmma", "cublas", "sm90_")):
+            cats["matmul"] += ms
+        else:
+            cats["other"] += ms
+        top.append((ms, e.key[:80], e.count))
+    top.sort(reverse=True)
+    total = sum(cats.values())
+    if total == 0:
+        return None
+    return {"device_ms": cats, "device_ms_total": total,
+            "top": [{"kernel": k, "ms": ms, "count": n}
+                    for ms, k, n in top[:8]]}
+
+
+def _profile(model, prompt, transform) -> dict:
+    """One kernel prefill and two decode steps under ``torch.profiler``:
+    device time by kernel kind beside host wall time (the profiler's own
+    cost is in the wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    t_len = prompt.shape[1]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof_p:
+        t0 = time.perf_counter()
+        out, cache = model.prefill(prompt, cache_capacity=t_len + 2,
+                                   attn_impl="kernel", logits_mode="last")
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+    tok = torch.argmax(out.logits[:, -1], dim=-1)[:, None]
+    with profile(activities=acts) as prof_d:
+        t0 = time.perf_counter()
+        for i in range(2):
+            step = model.decode_step(cache, tok, pos=t_len + i,
+                                     attn_impl="kernel")
+            tok = torch.argmax(step.logits, dim=-1)[:, None]
+            transform(step.risk_score)
+        torch.cuda.synchronize()
+        wall_d = (time.perf_counter() - t0) / 2
+    result = {}
+    for name, prof, wall in (("prefill", prof_p, wall_p),
+                             ("decode_step", prof_d, wall_d)):
+        split = _device_split(prof)
+        if split is not None and name == "decode_step":
+            split["device_ms"] = {k: v / 2 for k, v in
+                                  split["device_ms"].items()}
+            split["device_ms_total"] /= 2
+        result[name] = {"wall_ms": wall * 1e3, "split": split,
+                        "device_busy_share": (split["device_ms_total"] /
+                                              (wall * 1e3)
+                                              if split else None),
+                        "cuda_launches": sum(
+                            e.count for e in prof.key_averages()
+                            if e.key in ("cudaLaunchKernel",
+                                         "cudaLaunchKernelExC"))
+                        / (2 if name == "decode_step" else 1)}
+    del out, cache
+    return result
+
+
+def _accuracy(model, prompt, rows: int = 64) -> dict:
+    """Last-token logits and served risk scores of a kernel prefill and a
+    bfloat16 reference prefill, each as its max distance from a float32
+    reference prefill of the same weights.  During the kernel prefill each
+    attention call's last ``rows`` query rows are also held against the
+    plain version in float32 on the same inputs, as a share of the bf16
+    rounding bound 2^-8 |o| + 1e-5 (at most 1 when only the output's
+    rounding to bf16 separates them), beside the bf16 reference path's
+    chunked attention on those inputs."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention
+
+    launch = ops.flash_attention
+    worst = {"kernel": 0.0, "bf16_reference": 0.0}
+    equal, total = 0, 0
+
+    def witness(q, k, v, *, causal, sliding_window):
+        nonlocal equal, total
+        out = launch(q, k, v, causal=causal, sliding_window=sliding_window)
+        want = ref.flash_attention(q.float(), k.float(), v.float(),
+                                   causal=causal,
+                                   sliding_window=sliding_window)[:, -rows:]
+        chunked = attention._gqa_scores_chunked(
+            q, k, v, causal=causal, q_offset=0,
+            sliding_window=sliding_window)[:, -rows:]
+        bound = 2.0 ** -8 * want.abs() + 1e-5
+        for key, got in (("kernel", out[:, -rows:]),
+                         ("bf16_reference", chunked)):
+            share = ((got.float() - want).abs() / bound).max().item()
+            worst[key] = max(worst[key], share)
+        equal += int((out[:, -rows:] == want.to(out.dtype)).sum())
+        total += want.numel()
+        return out
+
+    kw = dict(cache_capacity=prompt.shape[1], logits_mode="last")
+    # the model's attention reaches the kernel through ops.flash_attention
+    ops.flash_attention = witness
+    try:
+        ker, _ = model.prefill(prompt, attn_impl="kernel", **kw)
+    finally:
+        ops.flash_attention = launch
+    ref16, _ = model.prefill(prompt, attn_impl="reference", **kw)
+    ref32, _ = model.prefill(prompt, attn_impl="reference",
+                             compute_dtype=torch.float32, **kw)
+    torch.cuda.empty_cache()
+    return {
+        "logits": {"kernel": _max_diff(ker.logits, ref32.logits),
+                   "bf16_reference": _max_diff(ref16.logits, ref32.logits)},
+        "served_risk": {
+            "kernel": _max_diff(ker.risk_score, ref32.risk_score),
+            "bf16_reference": _max_diff(ref16.risk_score, ref32.risk_score),
+            "kernel_vs_bf16_reference": _max_diff(ker.risk_score,
+                                                  ref16.risk_score)},
+        "attention_last_rows": worst,
+        "attention_last_rows_equal_to_rounded_f32": equal / total}
+
+
+def phase_llm_serve(dev, attention: dict) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+
+    cfg = get_config(LLM_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    rng = np.random.default_rng(0)
+    prompt = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                       (LLM_BATCH, LLM_PROMPT)),
+                          dtype=torch.long, device=dev)
+    transform = serve.business_transform(dev)
+    n_attn = sum(s.mixer == "attn" for s in cfg.layer_pattern) * cfg.n_groups
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    first = serve.serve(model, prompt, decode_steps=LLM_STEPS,
+                        transform=transform)
+    launches = dict(ops.LAUNCHES)
+    check(launches["flash_attention"] == n_attn,
+          f"{launches['flash_attention']} kernel launches for one prefill "
+          f"and {LLM_STEPS} decode steps, expected {n_attn}")
+    runs = []
+    for _ in range(3):
+        before = ops.LAUNCHES["flash_attention"]
+        runs.append(serve.serve(model, prompt, decode_steps=LLM_STEPS,
+                                transform=transform))
+        check(ops.LAUNCHES["flash_attention"] - before == n_attn,
+              "launches per prefill")
+    peak = torch.cuda.max_memory_allocated()
+    breakdown = _profile(model, prompt, transform)
+
+    # decode steps and short prefills do not reach the kernel
+    before = ops.LAUNCHES["flash_attention"]
+    out, cache = model.prefill(prompt[:, :64], cache_capacity=65,
+                               attn_impl="kernel", logits_mode="last")
+    model.decode_step(cache, prompt[:, 64:65], pos=64, attn_impl="kernel")
+    check(ops.LAUNCHES["flash_attention"] == before,
+          "a 64-token prefill and a decode step launch no kernel")
+    del out, cache
+
+    for res in [first] + runs:
+        biz = res.business.float()
+        check(bool(((biz >= 0) & (biz <= 1)).all()),
+              f"business scores in [0, 1]: {biz.tolist()}")
+        check(bool(torch.isfinite(res.prefill.logits.float()).all()),
+              "finite prefill logits")
+    check(all(torch.equal(r.tokens, first.tokens) for r in runs),
+          "greedy tokens repeat across runs")
+
+    # kernel prefill against float32 and bfloat16 reference prefills, over
+    # several weight and prompt seeds; the first pair is the main path's
+    seeds = []
+    for ws, ps in ACC_SEEDS:
+        if ws != 0:
+            del model
+            torch.cuda.empty_cache()
+            model = Model(cfg, device=dev, dtype=torch.bfloat16, seed=ws)
+        p = torch.tensor(np.random.default_rng(ps).integers(
+            0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)),
+            dtype=torch.long, device=dev)
+        seeds.append({"weight_seed": ws, "prompt_seed": ps,
+                      **_accuracy(model, p)})
+    d_ker = max(a["logits"]["kernel"] for a in seeds)
+    d_ref = max(a["logits"]["bf16_reference"] for a in seeds)
+    r_ker = max(a["served_risk"]["kernel"] for a in seeds)
+    r_ref = max(a["served_risk"]["bf16_reference"] for a in seeds)
+    witness = {key: max(a["attention_last_rows"][key] for a in seeds)
+               for key in ("kernel", "bf16_reference")}
+    check(d_ker <= 2 * d_ref, f"kernel prefill logits {d_ker} from the f32 "
+          f"reference, bf16 reference {d_ref}")
+    check(r_ker <= 2 * max(r_ref, 1e-3), f"kernel prefill served risk "
+          f"{r_ker} from the f32 reference, bf16 reference {r_ref}")
+    check(witness["kernel"] <= 1.0, f"kernel attention inside the model "
+          f"{witness['kernel']} of its bf16 rounding bound from float32")
+
+    prefill_ms = statistics.median(r.prefill_s for r in runs) * 1e3
+    decode_s = statistics.median(r.decode_s for r in runs)
+    cache_bytes = (2 * cfg.n_layers * LLM_BATCH * (LLM_PROMPT + LLM_STEPS)
+                   * cfg.n_kv_heads * cfg.head_dim * 2)
+    result = {
+        "phase": "llm_serve", "arch": LLM_ARCH,
+        "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                   "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+                   "vocab_size": cfg.vocab_size},
+        "params": model.param_count(), "weight_bytes": weight_bytes,
+        "cache_bytes": cache_bytes, "max_memory_allocated": peak,
+        "init_s": init_s, "batch": LLM_BATCH, "prompt_len": LLM_PROMPT,
+        "decode_steps": LLM_STEPS, "launches": launches,
+        "launches_per_prefill": n_attn,
+        "prefill_ms": prefill_ms,
+        "prefill_ms_runs": [r.prefill_s * 1e3 for r in runs],
+        "first_prefill_ms": first.prefill_s * 1e3,
+        "decode_ms_per_token": decode_s / LLM_STEPS * 1e3,
+        "decode_tokens_per_s": LLM_BATCH * LLM_STEPS / decode_s,
+        "prefill_tokens_per_s": LLM_BATCH * LLM_PROMPT / (prefill_ms * 1e-3),
+        "kernel_share_of_prefill": n_attn * attention["ms"] / prefill_ms,
+        "logits_err_kernel_vs_f32": d_ker, "logits_err_bf16_ref_vs_f32": d_ref,
+        "risk_err_kernel_vs_f32": r_ker, "risk_err_bf16_ref_vs_f32": r_ref,
+        "attention_last_rows_vs_f32": witness,
+        "served_risk_check_per_seed": sum(
+            a["served_risk"]["kernel"]
+            <= 2 * max(a["served_risk"]["bf16_reference"], 1e-3)
+            for a in seeds),
+        "accuracy_seeds": seeds,
+        "breakdown": breakdown,
+        "risk_scores": first.prefill.risk_score.tolist(),
+        "business_scores": first.business.tolist(),
+        "timing": "host clock, each prefill and each 16-step decode loop "
+                  "ended by a device sync; median of 3 runs after one "
+                  "warm-up run"}
+    emit(result)
+    del model
+    torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------- phase 6
+def phase_kernels(kernel: dict, serve: dict, main: dict, attention: dict,
+                  llm: dict) -> None:
     from repro_torch.kernels import ref
     from repro_torch.kernels import score_pipeline as sp
 
@@ -464,6 +890,16 @@ def phase_kernels(kernel: dict, serve: dict, main: dict) -> None:
         "shape": {"M": m, "K": k, "T": t, "N": n},
         "realistic": {key: kernel[key] for key in
                       ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:25",
+        "launches": llm["launches"]["flash_attention"],
+        "max_abs_err": attention["max_abs_err"],
+        "ms": attention["ms"], "plain_ms": attention["plain_ms"],
+        "bound_ms": attention["bound_ms"], "bound_by": attention["bound_by"],
+        "library_ms": attention["library_ms"],
+        "shape": attention["shape"],
     }]})
 
 
@@ -487,10 +923,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
     name, smi = phase_device()
     kernel = phase_kernel(dev)
     serve, main_shapes = phase_serve(dev)
-    phase_kernels(kernel, serve, main_shapes)
+    attention = phase_attention(dev)
+    llm = phase_llm_serve(dev, attention)
+    phase_kernels(kernel, serve, main_shapes, attention, llm)
+    emit({"phase": "wall", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

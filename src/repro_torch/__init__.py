@@ -2,8 +2,10 @@
 
 The port of the JAX package ``repro``, module for module: ``core`` (routing,
 registry, quantiles, transforms, cold start, predictors), ``kernels`` (the
-banked score-pipeline CUDA kernel, its plain PyTorch version and the
-device dispatch), ``serving`` (the dense ``MuseServer`` data plane),
-``experiments`` (the FraudWorld fixture) and ``training`` (synthetic data).
-``convert`` builds the port's objects from the reference's parameters.
+banked score-pipeline and flash-attention CUDA kernels, their plain PyTorch
+versions and the device dispatch), ``serving`` (the dense ``MuseServer``
+data plane), ``models`` and ``configs`` (the dense and encoder attention +
+MLP model zoo), ``launch`` (the LLM serving launcher), ``experiments`` (the
+FraudWorld fixture) and ``training`` (synthetic data).  ``convert`` builds
+the port's objects from the reference's parameters.
 """

@@ -26,6 +26,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # name -> loaded library / seconds its nvcc took (0.0 when it was reused) /
 # what nvcc printed (ptxas lists registers, shared memory and spills)
 _LIBS: dict[str, ctypes.CDLL] = {}
+# launches of each hand-written kernel, counted by its wrapper where it
+# launches the kernel (``ops.LAUNCHES`` is this dict)
+LAUNCHES: dict[str, int] = {"score_pipeline_banked": 0,
+                             "flash_attention": 0}
 BUILD_SECONDS: dict[str, float] = {}
 BUILD_LOGS: dict[str, str] = {}
 _LOCK = threading.Lock()

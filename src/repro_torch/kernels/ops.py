@@ -9,11 +9,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import score_pipeline as _sp
 
 # launch counts of every hand-written kernel (the wrappers bump them)
-LAUNCHES = _sp.LAUNCHES
+LAUNCHES = _build.LAUNCHES
 
 
 def banked_skip_stats(tenant_idx, *, block: int = _sp.DEFAULT_BLOCK) -> dict:
@@ -44,3 +45,23 @@ def score_pipeline_banked(expert_scores: torch.Tensor,
     else:
         raise ValueError(f"no score_pipeline_banked for device {device!r}")
     return out.reshape(batch_shape)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, sliding_window: int = 0
+                    ) -> torch.Tensor:
+    """GQA attention, q: (B, Tq, Hq, D); k, v: (B, Tk, Hkv, D) ->
+    (B, Tq, Hq, D) in q's dtype, causal and/or sliding-window.
+
+    The reference's ``block_q``, ``block_k`` and ``interpret`` are TPU
+    tiling and Pallas knobs and are not carried over: the CUDA kernel picks
+    its own tiles, and the device of ``q`` picks the implementation.
+    """
+    device = q.device.type
+    if device == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal,
+                                   sliding_window=sliding_window)
+    if device == "cuda":
+        return _fa.flash_attention(q, k, v, causal=causal,
+                                   sliding_window=sliding_window)
+    raise ValueError(f"no flash_attention for device {device!r}")

@@ -27,8 +27,7 @@ from repro_torch.kernels import _build
 
 DEFAULT_BLOCK = 1024
 
-# launches of each hand-written kernel, counted where the kernel launches
-LAUNCHES: dict[str, int] = {"score_pipeline_banked": 0}
+LAUNCHES = _build.LAUNCHES
 
 
 def _round_block(n: int, block: int) -> int:

@@ -4,9 +4,12 @@
   process where importing ``jax`` fails; afterwards no ``repro`` module is
   loaded.
 * Each module the port copies from the reference (routing, registry,
-  quantiles, types, data, shadow, batching, warmup) equals its source once
-  ``repro.`` imports are rewritten to ``repro_torch.``, apart from the
-  listed lines, so a copy that drifts fails here.
+  quantiles, types, data, shadow, batching, warmup, the model config schema
+  and the architecture registry) equals its source once ``repro.`` imports
+  are rewritten to ``repro_torch.``, apart from the listed lines, so a copy
+  that drifts fails here.
+* No source of the port calls PyTorch's fused attention operator: the
+  attention kernel is the port's own.
 * An entry point given no device on a machine without CUDA raises instead
   of running on the CPU.
 """
@@ -37,6 +40,24 @@ COPIES = {
     "serving/shadow.py": (),
     "serving/batching.py": (),
     "serving/warmup.py": (),
+    "models/config.py": (),
+    # the registry names the port's config modules
+    "configs/__init__.py": tuple(
+        f'    "{arch}": "repro_torch.configs.{mod}",' for arch, mod in (
+            ("internlm2-1.8b", "internlm2_1_8b"),
+            ("llama3-405b", "llama3_405b"),
+            ("olmoe-1b-7b", "olmoe_1b_7b"),
+            ("qwen2-vl-7b", "qwen2_vl_7b"),
+            ("hubert-xlarge", "hubert_xlarge"),
+            ("deepseek-coder-33b", "deepseek_coder_33b"),
+            ("jamba-1.5-large-398b", "jamba_1_5_large_398b"),
+            ("qwen3-8b", "qwen3_8b"),
+            ("xlstm-1.3b", "xlstm_1_3b"),
+            ("llama4-maverick-400b-a17b", "llama4_maverick_400b_a17b"))),
+    **{f"configs/{name}.py": () for name in (
+        "shapes", "deepseek_coder_33b", "hubert_xlarge", "internlm2_1_8b",
+        "jamba_1_5_large_398b", "llama3_405b", "llama4_maverick_400b_a17b",
+        "olmoe_1b_7b", "qwen2_vl_7b", "qwen3_8b", "xlstm_1_3b")},
 }
 
 
@@ -60,6 +81,7 @@ SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
     sys.modules["jax"] = None          # any `import jax` now fails
     import numpy as np
+    import torch
     import repro_torch
 
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
@@ -91,6 +113,14 @@ SCRIPT = textwrap.dedent("""
     assert [r.predictor for r in out] == ["pa", "pb"] * 8
     assert all(0.0 <= r.score <= 1.0 for r in out)
     assert server.metrics["kernel_dispatches"] == 1
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    model = Model(get_smoke_config("qwen3-8b"), device="cpu", seed=1)
+    lm = model(torch.zeros((2, 8), dtype=torch.long))
+    assert lm.logits.shape == (2, 8, 512) and lm.risk_score.shape == (2,)
+    assert callable(serve.main)
     loaded = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
     assert not loaded, loaded
     assert sys.modules["jax"] is None
@@ -114,6 +144,14 @@ def test_sources_import_neither_jax_nor_the_reference():
     assert not offenders
 
 
+def test_no_source_calls_fused_attention():
+    files = [f for f in (SRC / "repro_torch").rglob("*")
+             if f.is_file() and f.suffix in (".py", ".cu", ".cuh", ".h")]
+    offenders = [str(f) for f in files
+                 if "scaled_dot_product_attention" in f.read_text()]
+    assert len(files) >= 40 and not offenders
+
+
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable here")
@@ -127,3 +165,24 @@ def test_entry_points_default_to_the_card():
                     torch.ones(4).numpy())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         expert.score_fn()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(get_smoke_config("qwen3-8b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "qwen3-8b", "--smoke"])
+
+
+def test_kernels_layer_loads_no_model_code():
+    """The data plane's kernels know nothing of the model zoo: importing
+    ``kernels.ops`` loads no ``repro_torch.models`` module."""
+    code = ("import sys, repro_torch.kernels.ops; "
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('repro_torch.models')))")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
