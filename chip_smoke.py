@@ -36,7 +36,23 @@ Phases, each printing one JSON line:
              against float32 and bfloat16 reference prefills of the same
              weights, and each attention call's last rows inside the model
              against the plain version in float32.
-6. kernels — every kernel of the port with its launches on its path, its
+6. score_kernels — the quantile-map and shared-parameter score-pipeline
+             kernels against their plain versions, float32 and bfloat16:
+             the reference's cases, scores on knots (bitwise), NaN scores,
+             scores outside the support, flat and unsorted tables, M = 1,
+             a (4, 7, 9) batch, K = 1; then their times at the benchmark's
+             65,536 rows and at a 1,024-row serve window.
+7. decode_attention — the decode kernel against its plain version, float32
+             and bfloat16: the reference's cases and per-row lengths,
+             valid_len 0 (exactly 0) and past S, S not a multiple of the
+             tile, D = 80 and 128, 1 and 8 query heads per KV head; then its
+             time at the benchmark's shape (4 x 16,384, 8/2 heads, D=64)
+             and at qwen3-8b's decode (4 x 2,064, 32/8 heads, D=128), bf16,
+             beside PyTorch's own attention call.
+8. bench_kernels — the port's kernel microbenchmark at full size, the path
+             of those three kernels: every entry agrees with its plain
+             version and every kernel launched.
+9. kernels — every kernel of the port with its launches on its path, its
              error and its times at the path's shapes.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -55,10 +71,6 @@ from pathlib import Path
 TOL = 2e-5            # the reference's f32 kernel tolerance
 ATTN_TOL = {"float32": 5e-5,   # the reference's flash property sweep
             "bfloat16": 2e-2}  # the reference's bf16 kernel tolerance
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
-BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
-SLEEP_CYCLES = 20_000_000   # keeps the card busy while launches queue up
 
 
 def emit(obj: dict) -> None:
@@ -68,63 +80,6 @@ def emit(obj: dict) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def device_ms(fn, *, reps: int = 20, inner: int = 50) -> float:
-    """Median over ``reps`` of the card's time per call of ``fn``, from CUDA
-    events around ``inner`` back-to-back calls queued behind a busy card
-    (so the host's launch cost is not what is timed)."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
-
-
-def banked_bound(m: int, k: int, t: int, n: int) -> tuple[float, str]:
-    """Least time for the banked pipeline: each input read once and the
-    output written once, over the memory rate, against its float32 work
-    (9K + N + 10 operations a row) over the card's float32 rate."""
-    nbytes = m * k * 4 + m * 4 + m * 4 + t * (2 * k + 2 * n) * 4
-    ops = m * (9 * k + n + 10)
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / F32_FLOPS * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
-def attention_bound(b, tq, tk, hq, hkv, d, causal, window, itemsize
-                    ) -> tuple[float, str, float]:
-    """Least time for attention: 4*D flops per visible (query, key) pair
-    per query head over the bf16 tensor-core rate, against q, k, v read once
-    and o written once over the memory rate.  Returns (ms, bound_by,
-    flops)."""
-    import torch
-
-    qpos = torch.arange(tq)[:, None]
-    kpos = torch.arange(tk)[None, :]
-    mask = torch.ones(tq, tk, dtype=torch.bool)
-    if causal:
-        mask &= qpos >= kpos
-    if window > 0:
-        mask &= kpos > qpos - window
-    flops = 4.0 * b * hq * d * int(mask.sum())
-    nbytes = (2 * b * tq * hq * d + 2 * b * tk * hkv * d) * itemsize
-    by_ops = flops / BF16_FLOPS * 1e3
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return ((by_ops, "operations", flops) if by_ops >= by_bytes
-            else (by_bytes, "bytes", flops))
 
 
 # ---------------------------------------------------------------- phase 1
@@ -163,24 +118,27 @@ def _bank(rng, t, k, n, dev):
             f32(np.sort(rng.uniform(0, 1, (t, n)), axis=-1)))
 
 
-def _compare(name, got, want, *, exact=False) -> float:
+def _compare(name, got, want, *, exact=False, tol=TOL) -> float:
     import torch
 
     got, want = got.cpu(), want.cpu()
-    check(got.shape == want.shape, f"{name}: shape")
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: shape/dtype")
     nan_g, nan_w = torch.isnan(got), torch.isnan(want)
     check(torch.equal(nan_g, nan_w), f"{name}: NaN rows differ")
     fin = ~nan_w
-    err = (got[fin] - want[fin]).abs().max().item() if fin.any() else 0.0
+    err = (got[fin].float() - want[fin].float()).abs().max().item() \
+        if fin.any() else 0.0
     if exact:
         check(torch.equal(got[fin], want[fin]), f"{name}: not bitwise equal")
-    check(err <= TOL, f"{name}: max abs err {err} > {TOL}")
+    check(err <= tol, f"{name}: max abs err {err} > {tol}")
     return err
 
 
 def phase_kernel(dev) -> dict:
     import numpy as np
     import torch
+    from repro_torch.benchmarks.timing import banked_bound, device_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels import score_pipeline as sp
 
@@ -522,6 +480,7 @@ def _attn_err(name, got, want, tol) -> float:
 def phase_attention(dev) -> dict:
     import torch
     import torch.nn.functional as F
+    from repro_torch.benchmarks.timing import attention_bound, device_ms
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -865,8 +824,371 @@ def phase_llm_serve(dev, attention: dict) -> dict:
 
 
 # ---------------------------------------------------------------- phase 6
+SCORE_TOL = {"float32": 2e-5,    # the reference's kernel tolerances
+             "bfloat16": 2e-2}   # (tests/test_kernels.py::_tol)
+QM_CASES = ((16, 8), (1000, 64), (4096, 256), (333, 33))   # (scores, N)
+SP_CASES = ((64, 3, 32), (1000, 8, 256), (7, 1, 8))        # (rows, K, N)
+# timed here at a serve window (rows, K, N); bench_kernels times its own size
+SCORE_WINDOW = (WINDOW, len(GROUP), 256)
+
+
+def _tables(rng, n, dev):
+    """(src, ref) float32 knots as the reference's tests make them: sorted
+    uniform, the source table spanning [0, 1]."""
+    import numpy as np
+    import torch
+
+    src = np.sort(rng.uniform(0, 1, n)).astype(np.float32)
+    refq = np.sort(rng.uniform(0, 1, n)).astype(np.float32)
+    src[0], src[-1] = 0.0, 1.0
+    return torch.tensor(src, device=dev), torch.tensor(refq, device=dev)
+
+
+def phase_score_kernels(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks.timing import (
+        device_ms, quantile_map_bound, score_pipeline_bound)
+    from repro_torch.kernels import quantile_map as qm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import score_pipeline as sp
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(13)
+    kernels = {"quantile_map": qm.quantile_map,
+               "score_pipeline": sp.score_pipeline}
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    def params(k):
+        return f32(rng.uniform(0.02, 1.0, k)), f32(rng.uniform(0.5, 2.0, k))
+
+    errs: dict[str, float] = {}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        def cmp(kind, name, *args, exact=False):
+            key = f"{kind}/{name}/{dname}"
+            got = kernels[kind](*args)
+            errs[key] = _compare(key, got, getattr(ref, kind)(*args),
+                                 exact=exact, tol=SCORE_TOL[dname])
+            return got
+
+        def scores(shape, lo=0.0, hi=1.0):
+            return f32(rng.uniform(lo, hi, shape)).to(dtype)
+
+        src, refq = _tables(rng, 256, dev)
+        # knots the scores' dtype holds exactly, with a flat run whose
+        # reference jumps; a score ON knot j maps to qr[j] bitwise
+        # (s - qs[j] = 0), save the last knot, which the map reaches by
+        # interpolating its last segment
+        knots = src.clone()
+        knots[100:120] = knots[100]
+        knots = knots.to(dtype).float()
+        on = knots.to(dtype)
+        flat = src.clone()
+        flat[40:90] = flat[40]
+        unsorted = f32(rng.uniform(0, 1, 256))
+        narrow = 0.4 + 0.2 * src
+        outside = torch.cat([scores(2048, -1.0, -0.01),
+                             scores(2048, 1.01, 2.0)])
+
+        # the reference's cases, then draws of its property sweeps
+        sweep = [(int(rng.integers(1, 513)), int(rng.choice([4, 16, 64, 128])))
+                 for _ in range(8)]
+        for m, nq in QM_CASES + tuple(sweep):
+            cmp("quantile_map", f"{m}x{nq}", scores(m), *_tables(rng, nq, dev))
+        cmp("quantile_map", "on_knots", on[:-1], knots, refq, exact=True)
+        cmp("quantile_map", "last_knot", on[-1:], knots, refq)
+        y = scores(4096)
+        y[::7] = float("nan")
+        got = cmp("quantile_map", "nan", y, src, refq)
+        check(bool(torch.isnan(got[::7]).all()), "NaN scores map to NaN")
+        cmp("quantile_map", "out_of_support", outside, narrow, refq,
+            exact=True)
+        cmp("quantile_map", "flat_segments", scores(4096), flat, refq)
+        cmp("quantile_map", "all_flat", scores(4096),
+            torch.full_like(src, 0.5), refq)
+        cmp("quantile_map", "unsorted", scores(4096), unsorted, refq)
+        cmp("quantile_map", "m1", scores(1), src, refq)
+        got = cmp("quantile_map", "batch_4x7x9", scores((4, 7, 9)),
+                  *_tables(rng, 32, dev))
+        check(got.shape == (4, 7, 9), "quantile_map keeps the batch shape")
+
+        sweep = [(int(rng.integers(1, 301)), int(rng.integers(1, 10)), 64)
+                 for _ in range(8)]
+        for m, k, nq in SP_CASES + tuple(sweep):
+            cmp("score_pipeline", f"{m}x{k}x{nq}", scores((m, k), 0.01, 0.99),
+                *params(k), *_tables(rng, nq, dev))
+        one = torch.ones(1, device=dev)   # K=1, beta=1, w=1: agg == score
+        cmp("score_pipeline", "on_knots", on[:-1, None], one, one, knots,
+            refq, exact=True)
+        y = scores((4096, 8))
+        y[::13, 3] = float("nan")
+        got = cmp("score_pipeline", "nan", y, *params(8), src, refq)
+        check(bool(torch.isnan(got[::13]).all()), "NaN scores score NaN")
+        cmp("score_pipeline", "out_of_support",
+            torch.cat([scores((2048, 3), 0.0, 0.02),
+                       scores((2048, 3), 0.98, 1.0)]), *params(3),
+            narrow, refq)
+        cmp("score_pipeline", "flat_segments", scores((4096, 8)), *params(8),
+            flat, refq)
+        cmp("score_pipeline", "unsorted", scores((4096, 8)), *params(8),
+            unsorted, refq)
+        cmp("score_pipeline", "m1", scores((1, 8)), *params(8), src, refq)
+        got = cmp("score_pipeline", "batch_4x7x9", scores((4, 7, 9, 3)),
+                  *params(3), *_tables(rng, 32, dev))
+        check(got.shape == (4, 7, 9), "score_pipeline keeps the batch shape")
+    torch.cuda.synchronize()
+
+    # times at a serve window, float32, inputs drawn as the benchmark draws
+    # them; the benchmark's size is timed by bench_kernels (phase 8)
+    m, k, nq = SCORE_WINDOW
+    y = f32(rng.uniform(0, 1, (m, k)))
+    x = y[:, 0].contiguous()
+    betas, weights = f32(rng.uniform(0.02, 0.5, k)), f32(np.ones(k))
+    src, refq = (f32(np.sort(rng.uniform(0, 1, nq))) for _ in range(2))
+    runs = {"quantile_map": ((x, src, refq), {"M": m, "N": nq},
+                             quantile_map_bound(m, nq, 4)),
+            "score_pipeline": ((y, betas, weights, src, refq),
+                               {"M": m, "K": k, "N": nq},
+                               score_pipeline_bound(m, k, nq, 4))}
+    timings: dict[str, dict] = {}
+    for kind, (args, shape, bound) in runs.items():
+        err = _compare(f"{kind}/window", kernels[kind](*args),
+                       getattr(ref, kind)(*args))
+        timings[kind] = {
+            "shape": shape, "max_abs_err": err,
+            "ms": device_ms(lambda: kernels[kind](*args)),
+            "plain_ms": device_ms(lambda: getattr(ref, kind)(*args),
+                                  inner=10),
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+    result = {"phase": "score_kernels", "tolerance": SCORE_TOL,
+              "errors": errs, "on_knots": "bitwise", "nan_scores": "NaN",
+              "timings": timings,
+              "timing": "CUDA events, median of 20 runs of 50 back-to-back "
+                        "launches (plain: 10) queued behind a busy card: "
+                        "throughput, not the latency of one launch",
+              "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 7
+DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# (b, s, hq, hkv, d, valid lengths)
+DECODE_CASES = {
+    "gqa_256": (2, 256, 8, 2, 64, (256, 256)),   # the reference's four
+    "partial_300": (1, 512, 4, 4, 32, (300,)),   # cases and its per-row
+    "qpk8_128": (4, 128, 16, 2, 64, (128,) * 4),  # lengths
+    "ragged_77": (1, 100, 2, 1, 32, (77,)),
+    "per_row": (3, 128, 4, 2, 32, (1, 64, 128)),
+    "zero_and_past_s": (3, 200, 4, 2, 64, (0, 500, 130)),
+    "s_777": (2, 777, 8, 2, 64, (777, 400)),      # S not a multiple of 64
+    "d80": (2, 300, 4, 4, 80, (300, 150)),
+    "d128_qpk1": (1, 640, 8, 8, 128, (640,)),
+    "d128_qwen3": (2, 1000, 32, 8, 128, (1000, 999)),
+}
+# the main path's shapes, every position valid: bench_kernels' (which
+# times the kernel there) and the decode of qwen3-8b as llm_serve runs it
+# (prompt 2,048 + 16 steps), each checked in float32 and bf16
+DECODE_SHAPES = {"bench": (4, 16_384, 8, 2, 64),
+                 "qwen3_8b": (LLM_BATCH, LLM_PROMPT + LLM_STEPS, 32, 8, 128)}
+
+
+def _decode_inputs(case, dtype, dev, seed):
+    import torch
+
+    b, s, hq, hkv, d = case[:5]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
+
+
+def _queued(fn, calls: int, cycles: int, lead: int = 0) -> dict:
+    """CUDA-event times of ``calls`` back-to-back calls of ``fn`` queued
+    behind a sleep of ``cycles`` and ``lead`` untimed calls, as
+    ``device_ms`` queues them: the sleep's time (with the lead calls), the
+    time a timed call, and the host's time to issue the timed calls."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(cycles)
+    for _ in range(lead):
+        fn()
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ev[2].record()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].synchronize()
+    return {"sleep_ms": ev[0].elapsed_time(ev[1]),
+            "ms": ev[1].elapsed_time(ev[2]) / calls, "issue_ms": issue_ms}
+
+
+def _decode_trace(fn, calls: int = 20) -> dict | None:
+    """Where a timed call of the decode kernel spends its time.  One queued
+    loop as ``device_ms`` times it, under ``torch.profiler``: its event
+    times, each pass's mean kernel time, the gaps between successive split
+    passes' starts (a call's period; its median less the two passes is the
+    device's idle time a call) and the other kernels the trace holds.  The
+    same loop behind a sleep five times as long, and behind the sleep and
+    one untimed call.  The trace may miss a few kernels, so it counts those
+    it holds; None where it holds too few."""
+    import statistics
+
+    import torch
+    from repro_torch.benchmarks.timing import SLEEP_CYCLES
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = _queued(fn, calls, SLEEP_CYCLES)
+    check(traced["issue_ms"] < traced["sleep_ms"], "the sleep outlasts the "
+          f"host's issue of the calls ({traced}), so the events time the card")
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    passes = {"split_pass": [e for e in kernels
+                             if "decode_partial_kernel" in e.name],
+              "combine_pass": [e for e in kernels
+                               if "decode_combine_kernel" in e.name]}
+    if min(len(v) for v in passes.values()) < calls // 2:
+        return None
+    ms = {k: statistics.mean(e.time_range.elapsed_us() for e in v) / 1e3
+          for k, v in passes.items()}
+    starts = [e.time_range.start for e in passes["split_pass"]]
+    gaps = [(b - a) / 1e3 for a, b in zip(starts, starts[1:])]
+    others: dict[str, int] = {}
+    for e in kernels:
+        if "decode_" not in e.name:
+            others[e.name] = others.get(e.name, 0) + 1
+    return {"traced_loop": traced, **ms,
+            "period_ms": statistics.median(gaps),
+            "idle_between_ms": statistics.median(gaps) - sum(ms.values()),
+            "gaps_ms": gaps,
+            "traced": {k: len(v) for k, v in passes.items()},
+            "other_kernels": others,
+            "long_sleep": _queued(fn, calls, 5 * SLEEP_CYCLES),
+            "after_one_call": _queued(fn, calls, SLEEP_CYCLES, lead=1)}
+
+
+def phase_decode_attention(dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.benchmarks.timing import decode_bound, device_ms
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+
+    t0 = time.perf_counter()
+    errs: dict[str, dict[str, float]] = {}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        errs[dname] = {}
+        for i, (name, case) in enumerate(DECODE_CASES.items()):
+            q, k, v = _decode_inputs(case, dtype, dev, seed=i)
+            vlen = torch.tensor(case[5], dtype=torch.int32, device=dev)
+            got = da.decode_attention(q, k, v, vlen)
+            want = ref.decode_attention(q, k, v, vlen)
+            # a row with no valid position: exactly 0 from the kernel (the
+            # plain version's finite NEG_INF averages it instead)
+            empty = vlen == 0
+            check(bool((got[empty] == 0).all()),
+                  f"{name}/{dname}: rows with valid_len 0 are exactly 0")
+            errs[dname][name] = _attn_err(f"{name}/{dname}", got[~empty],
+                                          want[~empty], DECODE_TOL[dname])
+    torch.cuda.synchronize()
+
+    # the main path's shapes: float32 at 2e-5, then bf16, which is timed
+    timings = {}
+    for label, shape in DECODE_SHAPES.items():
+        b, s, hq, hkv, d = shape
+        vlen = torch.full((b,), s, dtype=torch.int32, device=dev)
+        q, k, v = _decode_inputs(shape, torch.float32, dev, seed=100)
+        errs["float32"][label] = _attn_err(
+            f"{label}/float32", da.decode_attention(q, k, v, vlen),
+            ref.decode_attention(q, k, v, vlen), DECODE_TOL["float32"])
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        err = _attn_err(f"{label}/bfloat16",
+                        da.decode_attention(q, k, v, vlen),
+                        ref.decode_attention(q, k, v, vlen),
+                        DECODE_TOL["bfloat16"])
+        errs["bfloat16"][label] = err
+        q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        timings[label] = {
+            "shape": {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
+                      "valid_len": s, "dtype": "bfloat16"},
+            "max_abs_err": err,
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                q4, kt, vt, enable_gqa=True), inner=20),
+            "trace": _decode_trace(
+                lambda: da.decode_attention(q, k, v, vlen))}
+        if label != "bench":   # bench_kernels times the kernel at its shape
+            bound_ms, bound_by = decode_bound([s] * b, hq, hkv, d, 2)
+            timings[label].update(
+                ms=device_ms(lambda: da.decode_attention(q, k, v, vlen),
+                             inner=20),
+                plain_ms=device_ms(lambda: ref.decode_attention(q, k, v, vlen),
+                                   reps=5, inner=3),
+                bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, q4, kt, vt
+    result = {"phase": "decode_attention",
+              "cases": {n: list(c) for n, c in DECODE_CASES.items()},
+              "tolerance": DECODE_TOL, "errors": errs,
+              "valid_len_0": "exactly 0", "timings": timings,
+              "timing": "CUDA events, median of 20 runs of 20 back-to-back "
+                        "calls (plain: 5 runs of 3) queued behind a busy "
+                        "card; one call is two launches; trace: one such "
+                        "loop under torch.profiler",
+              "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 8
+def phase_bench_kernels() -> dict:
+    """The kernel microbenchmark, ``repro_torch.benchmarks.bench_kernels``,
+    at full size: the path of the three scoring and decode kernels."""
+    from repro_torch.benchmarks import bench_kernels
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    res = bench_kernels.run()
+    launches = dict(ops.LAUNCHES)
+    off = [n for n, e in res["entries"].items() if not e["kernel_allclose"]]
+    check(not off, f"bench_kernels entries off their plain versions: {off}")
+    check(all(n > 0 for n in launches.values()),
+          f"bench_kernels launches every kernel: {launches}")
+    result = {"phase": "bench_kernels", "launches": launches, "result": res,
+              "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 9
+def _benched(name: str, source: str, replaces: str, bench: dict,
+             library_ms: float | None, also: dict) -> dict:
+    """A kernels-line entry from bench_kernels' run (phase 8), the path of
+    the kernel, with the shapes a phase before it timed beside it."""
+    e = next(e for e in bench["result"]["entries"].values()
+             if e["kernel"] == name)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": bench["launches"][name],
+            "max_abs_err": e["max_abs_err"], "ms": e["us_per_call"] / 1e3,
+            "plain_ms": e["plain_us_per_call"] / 1e3,
+            "bound_ms": e["bound_us"] / 1e3, "bound_by": e["bound_by"],
+            "library_ms": library_ms, "shape": e["shape"], "also": also}
+
+
 def phase_kernels(kernel: dict, serve: dict, main: dict, attention: dict,
-                  llm: dict) -> None:
+                  llm: dict, scores: dict, decode: dict, bench: dict) -> None:
+    from repro_torch.benchmarks.timing import banked_bound, device_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels import score_pipeline as sp
 
@@ -900,7 +1222,18 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, attention: dict,
         "bound_ms": attention["bound_ms"], "bound_by": attention["bound_by"],
         "library_ms": attention["library_ms"],
         "shape": attention["shape"],
-    }]})
+    }, _benched("quantile_map", "src/repro_torch/csrc/quantile_map.cu",
+                "src/repro/kernels/quantile_map.py:25", bench, None,
+                {"window": scores["timings"]["quantile_map"]}),
+        _benched("score_pipeline", "src/repro_torch/csrc/score_pipeline.cu",
+                 "src/repro/kernels/score_pipeline.py:57", bench, None,
+                 {"window": scores["timings"]["score_pipeline"]}),
+        _benched("decode_attention",
+                 "src/repro_torch/csrc/decode_attention.cu",
+                 "src/repro/kernels/decode_attention.py:24", bench,
+                 decode["timings"]["bench"]["library_ms"],
+                 {"qwen3_8b": decode["timings"]["qwen3_8b"],
+                  "trace": decode["timings"]["bench"]["trace"]})]})
 
 
 def main() -> int:
@@ -929,7 +1262,11 @@ def main() -> int:
     serve, main_shapes = phase_serve(dev)
     attention = phase_attention(dev)
     llm = phase_llm_serve(dev, attention)
-    phase_kernels(kernel, serve, main_shapes, attention, llm)
+    scores = phase_score_kernels(dev)
+    decode = phase_decode_attention(dev)
+    bench = phase_bench_kernels()
+    phase_kernels(kernel, serve, main_shapes, attention, llm, scores, decode,
+                  bench)
     emit({"phase": "wall", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

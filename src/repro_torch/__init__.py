@@ -2,8 +2,10 @@
 
 The port of the JAX package ``repro``, module for module: ``core`` (routing,
 registry, quantiles, transforms, cold start, predictors), ``kernels`` (the
-banked score-pipeline and flash-attention CUDA kernels, their plain PyTorch
-versions and the device dispatch), ``serving`` (the dense ``MuseServer``
+CUDA kernels of every Pallas kernel of the reference — quantile map, score
+pipeline, banked score pipeline, flash and decode attention — their plain
+PyTorch versions and the device dispatch), ``benchmarks`` (the kernel
+microbenchmark and the card's timer), ``serving`` (the dense ``MuseServer``
 data plane), ``models`` and ``configs`` (the dense and encoder attention +
 MLP model zoo), ``launch`` (the LLM serving launcher), ``experiments`` (the
 FraudWorld fixture) and ``training`` (synthetic data).  ``convert`` builds

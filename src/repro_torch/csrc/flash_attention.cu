@@ -51,6 +51,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "dtype_io.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;         // query rows per block
@@ -72,14 +74,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
 __device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) {
   return a < b ? a : b;
 }

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface, so it compiles
 in seconds without PyTorch's headers and binds through ``ctypes``.  The
 shared library goes to ``build/repro_torch/`` at the repository root, named
-by a hash of the source and the flags: an edited source rebuilds, an
-unchanged one is loaded as built.  Nothing here runs at import time.
+by a hash of the source, the headers of ``csrc/`` and the flags: an edited
+source or header rebuilds, an unchanged one is loaded as built.  Nothing
+here runs at import time.
 """
 from __future__ import annotations
 
@@ -29,7 +30,10 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # launches of each hand-written kernel, counted by its wrapper where it
 # launches the kernel (``ops.LAUNCHES`` is this dict)
 LAUNCHES: dict[str, int] = {"score_pipeline_banked": 0,
-                             "flash_attention": 0}
+                             "flash_attention": 0,
+                             "quantile_map": 0,
+                             "score_pipeline": 0,
+                             "decode_attention": 0}
 BUILD_SECONDS: dict[str, float] = {}
 BUILD_LOGS: dict[str, str] = {}
 _LOCK = threading.Lock()
@@ -52,7 +56,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # every header of csrc/ counts too, so an edited header rebuilds
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -10,11 +10,49 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import quantile_map as _qm
 from repro_torch.kernels import score_pipeline as _sp
 
 # launch counts of every hand-written kernel (the wrappers bump them)
 LAUNCHES = _build.LAUNCHES
+
+
+def quantile_map(scores: torch.Tensor, src_quantiles: torch.Tensor,
+                 ref_quantiles: torch.Tensor) -> torch.Tensor:
+    """T^Q (Eq. 4): scores of any shape against (N,) tables -> the same
+    shape and dtype, float32 math.
+
+    The reference's ``block`` and ``interpret`` are TPU tiling and Pallas
+    knobs and are not carried over: the device of ``scores`` picks the
+    implementation.
+    """
+    device = scores.device.type
+    if device == "cpu":
+        return ref.quantile_map(scores, src_quantiles, ref_quantiles)
+    if device == "cuda":
+        return _qm.quantile_map(scores, src_quantiles, ref_quantiles)
+    raise ValueError(f"no quantile_map for device {device!r}")
+
+
+def score_pipeline(expert_scores: torch.Tensor, betas: torch.Tensor,
+                   weights: torch.Tensor, src_quantiles: torch.Tensor,
+                   ref_quantiles: torch.Tensor) -> torch.Tensor:
+    """Eq. 2 with one shared parameter set: ``expert_scores`` (..., K),
+    (K,) betas and weights, (N,) tables -> (...) in the scores' dtype.
+
+    The reference's ``block`` and ``interpret`` are TPU tiling and Pallas
+    knobs and are not carried over.
+    """
+    device = expert_scores.device.type
+    if device == "cpu":
+        return ref.score_pipeline(expert_scores, betas, weights,
+                                  src_quantiles, ref_quantiles)
+    if device == "cuda":
+        return _sp.score_pipeline(expert_scores, betas, weights,
+                                  src_quantiles, ref_quantiles)
+    raise ValueError(f"no score_pipeline for device {device!r}")
 
 
 def banked_skip_stats(tenant_idx, *, block: int = _sp.DEFAULT_BLOCK) -> dict:
@@ -65,3 +103,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _fa.flash_attention(q, k, v, causal=causal,
                                    sliding_window=sliding_window)
     raise ValueError(f"no flash_attention for device {device!r}")
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, valid_len) -> torch.Tensor:
+    """One query position against a KV cache: q (B, Hq, D), caches
+    (B, S, Hkv, D), ``valid_len`` (B,) -> (B, Hq, D) in q's dtype.  On the
+    card ``valid_len`` is an int32 CUDA tensor.
+
+    The reference's ``block_s`` and ``interpret`` are TPU tiling and Pallas
+    knobs and are not carried over: the CUDA kernel picks its own splits.
+    """
+    device = q.device.type
+    if device == "cpu":
+        return ref.decode_attention(q, k_cache, v_cache, valid_len)
+    if device == "cuda":
+        return _da.decode_attention(q, k_cache, v_cache, valid_len)
+    raise ValueError(f"no decode_attention for device {device!r}")

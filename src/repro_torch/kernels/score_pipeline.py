@@ -1,15 +1,21 @@
-"""The banked (tenant-indexed) Eq. 2 kernel for Hopper and its host helpers.
+"""The Eq. 2 kernels for Hopper and their host helpers.
 
     T^Q( A( [T^C_k(y_k)]_k ) )   —  posterior correction -> weighted
                                      aggregation -> quantile map
 
-:func:`score_pipeline_banked` launches the hand-written CUDA kernel of
-``csrc/score_pipeline_banked.cu`` (built by ``kernels/_build.py``) on
-PyTorch's current stream: one warp per row, direct indexed loads of the
-row's bank parameters, and an exact warp-wide count for the T^Q bucket.  It
-takes CUDA tensors only and raises on anything else; the plain PyTorch
-version is ``kernels/ref.py``, and ``kernels/ops.py`` picks between the two
-by the device of the tensors.
+Two entry points, as in the reference module:
+
+* :func:`score_pipeline` launches ``csrc/score_pipeline.cu``: one shared
+  (K,) / (N,) parameter set, one thread per row, the parameters and tables
+  staged in shared memory.
+* :func:`score_pipeline_banked` launches ``csrc/score_pipeline_banked.cu``:
+  one warp per row, direct indexed loads of the row's bank parameters, and
+  an exact warp-wide count for the T^Q bucket.
+
+Both are built by ``kernels/_build.py`` and launch on PyTorch's current
+stream.  They take CUDA tensors only and raise on anything else; the plain
+PyTorch versions are ``kernels/ref.py``, and ``kernels/ops.py`` picks
+between the two by the device of the tensors.
 
 :func:`banked_skip_stats` and :func:`_round_block` are the reference's
 host-side blocking report, kept unchanged so the ``skip_blocks_*`` serving
@@ -24,8 +30,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.quantile_map import (check_devices, check_scores,
+                                              check_tables)
 
 DEFAULT_BLOCK = 1024
+MAX_EXPERTS = 256
 
 LAUNCHES = _build.LAUNCHES
 
@@ -59,8 +68,67 @@ def banked_skip_stats(tenant_idx, *, block: int = DEFAULT_BLOCK) -> dict:
             "skip_rate": uniform / total if total else 0.0}
 
 
+def _shared_library() -> ctypes.CDLL:
+    """The shared-parameter kernel's library, with its C signatures."""
+    lib = _build.library("score_pipeline")
+    lib.score_pipeline_launch.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.score_pipeline_launch.restype = ctypes.c_int
+    lib.score_pipeline_error_string.argtypes = [ctypes.c_int]
+    lib.score_pipeline_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def score_pipeline(expert_scores: torch.Tensor, betas: torch.Tensor,
+                   weights: torch.Tensor, src_quantiles: torch.Tensor,
+                   ref_quantiles: torch.Tensor) -> torch.Tensor:
+    """Eq. 2 with one shared parameter set in ONE launch of the CUDA kernel.
+
+    ``expert_scores``: (..., K) float32 or bfloat16; ``betas``, ``weights``:
+    (K,) float32; the tables: (N,) float32; all on one CUDA device.  Returns
+    (...) in the scores' dtype (float32 math).  The rows are flattened as
+    the reference flattens them; a non-contiguous tensor is copied first.
+    Raises ``ValueError`` on any other input — there is no fallback to the
+    plain version.
+    """
+    check_scores(expert_scores)
+    if expert_scores.dim() < 1:
+        raise ValueError("expert_scores must be (..., K)")
+    *batch_shape, k = expert_scores.shape
+    if not 1 <= k <= MAX_EXPERTS:
+        raise ValueError(f"K = {k}: the kernel takes 1 <= K <= {MAX_EXPERTS}")
+    for name, x in (("betas", betas), ("weights", weights)):
+        if not isinstance(x, torch.Tensor) or tuple(x.shape) != (k,):
+            raise ValueError(f"{name} must be ({k},)")
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name}: dtype {x.dtype}, expected "
+                             "torch.float32")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    n = check_tables(src_quantiles, ref_quantiles)
+    check_devices(expert_scores, betas=betas, weights=weights,
+                  src_quantiles=src_quantiles, ref_quantiles=ref_quantiles)
+    device = expert_scores.device
+    flat = expert_scores.reshape(-1, k).contiguous()
+    out = torch.empty(flat.shape[0], dtype=expert_scores.dtype, device=device)
+    lib = _shared_library()
+    with torch.cuda.device(device):
+        code = lib.score_pipeline_launch(
+            flat.data_ptr(), betas.data_ptr(), weights.data_ptr(),
+            src_quantiles.data_ptr(), ref_quantiles.data_ptr(),
+            out.data_ptr(), flat.shape[0], k, n,
+            int(expert_scores.dtype == torch.bfloat16),
+            torch.cuda.current_stream(device).cuda_stream)
+    if code != 0:
+        msg = lib.score_pipeline_error_string(code).decode()
+        raise RuntimeError(f"score_pipeline launch failed: {msg}")
+    LAUNCHES["score_pipeline"] += 1
+    return out.reshape(batch_shape)
+
+
 def _library() -> ctypes.CDLL:
-    """The kernel's library, with its C signatures declared for ctypes."""
+    """The banked kernel's library, with its C signatures declared."""
     lib = _build.library("score_pipeline_banked")
     lib.score_pipeline_banked_launch.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,

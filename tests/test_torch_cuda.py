@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import quantile_map as qm
 from repro_torch.kernels import score_pipeline as sp
 
 pytestmark = pytest.mark.cuda
@@ -156,3 +158,194 @@ def test_model_forward_through_the_kernel(dev):
     torch.testing.assert_close(got.logits, want.logits, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got.risk_score, want.risk_score, rtol=1e-5,
                                atol=1e-5)
+
+
+# quantile_map and score_pipeline: the reference's tolerances per dtype
+SCORE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SCORE_DTYPES = pytest.mark.parametrize(
+    "dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+
+
+def _tables(rng, n, dev):
+    src = np.sort(rng.uniform(0, 1, n)).astype(np.float32)
+    refq = np.sort(rng.uniform(0, 1, n)).astype(np.float32)
+    src[0], src[-1] = 0.0, 1.0
+    return torch.tensor(src, device=dev), torch.tensor(refq, device=dev)
+
+
+def _close_with_nan(got, want, tol):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    torch.testing.assert_close(got[ok].float(), want[ok].float(), rtol=tol,
+                               atol=tol)
+
+
+@SCORE_DTYPES
+@pytest.mark.parametrize("shape,n", [((16,), 8), ((1000,), 64),
+                                     ((4096,), 256), ((333,), 33), ((1,), 2),
+                                     ((4, 7, 9), 32)])
+def test_quantile_map_kernel_matches_plain_version(dev, shape, n, dtype):
+    rng = np.random.default_rng(n)
+    src, refq = _tables(rng, n, dev)
+    x = torch.tensor(rng.uniform(-0.1, 1.1, shape).astype(np.float32),
+                     device=dev).to(dtype)
+    x.view(-1)[::5] = float("nan")
+    before = ops.LAUNCHES["quantile_map"]
+    got = ops.quantile_map(x, src, refq)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["quantile_map"] == before + 1
+    _close_with_nan(got, ref.quantile_map(x, src, refq), SCORE_TOL[dtype])
+
+
+@SCORE_DTYPES
+def test_scores_on_knots_map_bitwise(dev, dtype):
+    """Every knot but the last, flat run included: s - qs[j] = 0, so both
+    orders of operation give qr[j]."""
+    rng = np.random.default_rng(5)
+    src, refq = _tables(rng, 256, dev)
+    src[100:120] = src[100]
+    knots = src.to(dtype).float()
+    on = knots[:-1].to(dtype)
+    got = qm.quantile_map(on, knots, refq)
+    assert torch.equal(got, ref.quantile_map(on, knots, refq))
+    one = torch.ones(1, device=dev)
+    got = sp.score_pipeline(on[:, None], one, one, knots, refq)
+    assert torch.equal(got, ref.score_pipeline(on[:, None], one, one, knots,
+                                               refq))
+
+
+@SCORE_DTYPES
+@pytest.mark.parametrize("shape,n", [((64, 3), 32), ((1000, 8), 256),
+                                     ((7, 1), 8), ((4, 7, 9, 3), 32),
+                                     ((1, 8), 2)])
+def test_score_pipeline_kernel_matches_plain_version(dev, shape, n, dtype):
+    rng = np.random.default_rng(n + len(shape))
+    k = shape[-1]
+    src, refq = _tables(rng, n, dev)
+    betas = torch.tensor(rng.uniform(0.02, 1, k).astype(np.float32),
+                         device=dev)
+    weights = torch.tensor(rng.uniform(0.5, 2, k).astype(np.float32),
+                           device=dev)
+    y = torch.tensor(rng.uniform(0, 1, shape).astype(np.float32),
+                     device=dev).to(dtype)
+    y.view(-1, k)[::6, 0] = float("nan")
+    before = ops.LAUNCHES["score_pipeline"]
+    got = ops.score_pipeline(y, betas, weights, src, refq)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["score_pipeline"] == before + 1
+    assert got.shape == shape[:-1]
+    _close_with_nan(got, ref.score_pipeline(y, betas, weights, src, refq),
+                    SCORE_TOL[dtype])
+
+
+@pytest.mark.parametrize("table", ["flat", "unsorted"])
+def test_score_kernels_on_odd_tables(dev, table):
+    rng = np.random.default_rng(7)
+    src, refq = _tables(rng, 64, dev)
+    if table == "flat":
+        src[10:30] = src[10]
+    else:
+        src = torch.tensor(rng.uniform(0, 1, 64).astype(np.float32),
+                           device=dev)
+    x = torch.rand(3000, device=dev)
+    _close_with_nan(qm.quantile_map(x, src, refq),
+                    ref.quantile_map(x, src, refq), 2e-5)
+    y, b, w = torch.rand(3000, 4, device=dev), torch.rand(4, device=dev), \
+        torch.rand(4, device=dev) + 0.1
+    _close_with_nan(sp.score_pipeline(y, b, w, src, refq),
+                    ref.score_pipeline(y, b, w, src, refq), 2e-5)
+
+
+@pytest.mark.parametrize("bad", ["int", "knots", "table_dtype", "k"])
+def test_score_wrappers_reject_what_the_kernels_do_not_take(dev, bad):
+    src, refq = _tables(np.random.default_rng(0), 16, dev)
+    x, b, w = torch.rand(8, 3, device=dev), torch.rand(3, device=dev), \
+        torch.ones(3, device=dev)
+    if bad == "int":
+        x = (x * 10).int()
+    elif bad == "knots":
+        src, refq = src[:1], refq[:1]
+    elif bad == "table_dtype":
+        src = src.double()
+    else:
+        b = b[:2]
+    with pytest.raises(ValueError):
+        sp.score_pipeline(x, b, w, src, refq)
+    if bad != "k":
+        with pytest.raises(ValueError):
+            qm.quantile_map(x[:, 0], src, refq)
+
+
+# decode attention: (b, s, hq, hkv, d, valid lengths)
+DECODE_CASES = [
+    (2, 256, 8, 2, 64, (256, 256)),
+    (1, 512, 4, 4, 32, (300,)),
+    (4, 128, 16, 2, 64, (128,) * 4),
+    (1, 100, 2, 1, 32, (77,)),
+    (3, 128, 4, 2, 32, (1, 64, 128)),
+    (3, 200, 4, 2, 64, (0, 500, 130)),     # valid_len 0 and past S
+    (2, 777, 8, 2, 80, (777, 400)),         # S not a multiple of 64, D = 80
+    (1, 70, 8, 8, 128, (70,)),              # D = 128, one head per group
+    (1, 90, 64, 1, 16, (33,)),              # 64 query heads on one KV head
+]
+DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _decode_inputs(case, dtype, dev, seed=0):
+    b, s, hq, hkv, d = case[:5]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=lambda c: "-".join(map(str, c[:5])))
+def test_decode_kernel_matches_plain_version(dev, case, dtype):
+    q, k, v = _decode_inputs(case, dtype, dev)
+    vlen = torch.tensor(case[5], dtype=torch.int32, device=dev)
+    before = ops.LAUNCHES["decode_attention"]
+    got = ops.decode_attention(q, k, v, vlen)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    empty = vlen == 0
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+    want = ref.decode_attention(q, k, v, vlen)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got[~empty].float(), want[~empty].float(),
+                               rtol=tol, atol=tol)
+
+
+def test_decode_kernel_reads_strided_caches(dev):
+    """k and v as views of one packed (B, S, 2 Hkv, D) cache, q as a slice
+    of a wider projection, read in place by their strides."""
+    kv = torch.randn(2, 300, 4, 64, device=dev)
+    k, v = kv[:, :, :2], kv[:, :, 2:]
+    q = torch.randn(2, 12, 64, device=dev)[:, 2:10]
+    vlen = torch.tensor([300, 123], dtype=torch.int32, device=dev)
+    torch.testing.assert_close(da.decode_attention(q, k, v, vlen),
+                               ref.decode_attention(q, k, v, vlen),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("bad", ["vlen_dtype", "vlen_cpu", "d24", "mixed",
+                                 "group"])
+def test_decode_wrapper_rejects_what_the_kernel_does_not_take(dev, bad):
+    q, k, v = _decode_inputs((2, 64, 4, 2, 32), torch.float32, dev)
+    vlen = torch.full((2,), 64, dtype=torch.int32, device=dev)
+    if bad == "vlen_dtype":
+        vlen = vlen.long()
+    elif bad == "vlen_cpu":
+        vlen = vlen.cpu()
+    elif bad == "d24":
+        q, k, v = q[..., :24], k[..., :24], v[..., :24]
+    elif bad == "mixed":
+        k = k.to(torch.bfloat16)
+    else:
+        q = torch.randn(2, 130, 32, device=dev)
+        k, v = k[:, :, :1], v[:, :, :1]
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k, v, vlen)

@@ -8,8 +8,11 @@
   and the architecture registry) equals its source once ``repro.`` imports
   are rewritten to ``repro_torch.``, apart from the listed lines, so a copy
   that drifts fails here.
+* No source of the port imports the reference's top-level ``benchmarks``
+  package.
 * No source of the port calls PyTorch's fused attention operator: the
-  attention kernel is the port's own.
+  attention kernels are the port's own (the kernel microbenchmark lives in
+  the package, so it is covered too).
 * An entry point given no device on a machine without CUDA raises instead
   of running on the CPU.
 """
@@ -88,6 +91,9 @@ SCRIPT = textwrap.dedent("""
                                                    "repro_torch.")]
     for name in names:
         importlib.import_module(name)
+    import repro_torch.benchmarks.bench_kernels as bench
+    assert callable(bench.run) and "repro_torch.benchmarks.bench_kernels" \
+        in names
 
     from repro_torch.core.predictor import PredictorSpec
     from repro_torch.core.routing import (Condition, Intent, RoutingTable,
@@ -121,7 +127,8 @@ SCRIPT = textwrap.dedent("""
     lm = model(torch.zeros((2, 8), dtype=torch.long))
     assert lm.logits.shape == (2, 8, 512) and lm.risk_score.shape == (2,)
     assert callable(serve.main)
-    loaded = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+    loaded = [m for m in sys.modules if m in ("repro", "benchmarks")
+              or m.startswith(("repro.", "benchmarks."))]
     assert not loaded, loaded
     assert sys.modules["jax"] is None
     print("MODULES", len(names))
@@ -136,11 +143,22 @@ def test_port_runs_with_jax_blocked():
     assert int(proc.stdout.split("MODULES")[1]) >= 20
 
 
+def _port_python_files() -> list[pathlib.Path]:
+    return [*(SRC / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+
+
 def test_sources_import_neither_jax_nor_the_reference():
     pattern = re.compile(r"^\s*(import jax|from jax|import repro\b|"
                          r"from repro[ .])", re.M)
-    files = list((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    offenders = [str(f) for f in _port_python_files()
+                 if pattern.search(f.read_text())]
+    assert not offenders
+
+
+def test_sources_do_not_import_the_reference_benchmarks():
+    pattern = re.compile(r"^\s*(import|from) benchmarks\b", re.M)
+    offenders = [str(f) for f in _port_python_files()
+                 if pattern.search(f.read_text())]
     assert not offenders
 
 
@@ -150,6 +168,9 @@ def test_no_source_calls_fused_attention():
     offenders = [str(f) for f in files
                  if "scaled_dot_product_attention" in f.read_text()]
     assert len(files) >= 40 and not offenders
+    names = {f.relative_to(SRC / "repro_torch").as_posix() for f in files}
+    assert {"benchmarks/bench_kernels.py", "benchmarks/timing.py",
+            "csrc/decode_attention.cu"} <= names
 
 
 def test_entry_points_default_to_the_card():
@@ -173,6 +194,12 @@ def test_entry_points_default_to_the_card():
         Model(get_smoke_config("qwen3-8b"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "qwen3-8b", "--smoke"])
+    from repro_torch.benchmarks import bench_kernels
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_kernels.run(quick=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_kernels.main(["--quick"])
 
 
 def test_kernels_layer_loads_no_model_code():
