@@ -20,22 +20,27 @@ Phases, each printing one JSON line:
              of 1,024 requests through the hand-written kernel, checked
              against the same traffic through the plain version, with a
              T^Q refresh published mid-run.
-4. attention — the flash-attention kernel against its plain version on
-             the card, float32 and bfloat16: the reference's five cases,
-             Tq < Tk, a ragged T = 1,000, a window across tile edges,
-             D = 80 and D = 128, B > 1, and rows that see no key (exactly
-             0); then its time at the prefill shape of qwen3-8b (B=4,
-             T=2,048, 32/8 heads, D=128, bf16, causal) beside the plain
-             version, PyTorch's own attention call and the bound.
+4. attention — the two flash-attention kernels against their plain
+             version on the card, float32 and bfloat16 (bf16 with D = 64
+             or 128 runs the tensor-core form, the rest the SIMT form,
+             checked per case): the reference's five cases, Tq < Tk, a
+             ragged T = 1,000, a window across tile edges, D = 80 and
+             D = 128, B > 1, and rows that see no key (exactly 0); then
+             at the prefill shape of qwen3-8b (B=4, T=2,048, 32/8 heads,
+             D=128, causal) the tensor-core form's time in bf16 and the
+             SIMT form's in float32, each beside the plain version,
+             PyTorch's own attention call and the bound.
 5. llm_serve — the port's model path at the full width of qwen3-8b
              (36 layers, d_model 4,096, vocab 151,936; bf16 weights from a
              seed): ``launch.serve.serve`` prefills 4 x 2,048 tokens through
-             the kernel, decodes 16 greedy steps and maps the risk score
-             through T^Q.  Over six weight and prompt seeds the kernel
-             prefill's served risk scores and last-token logits are held
-             against float32 and bfloat16 reference prefills of the same
-             weights, and each attention call's last rows inside the model
-             against the plain version in float32.
+             the tensor-core kernel, decodes 16 greedy steps and maps the
+             risk score through T^Q.  Over six weight and prompt seeds the
+             kernel prefill's served risk scores and last-token logits are
+             held against float32 and bfloat16 reference prefills of the
+             same weights, and each attention call's last rows inside the
+             model against the plain version in float32.  A float32
+             prefill through the kernel branch (the SIMT form's path) is
+             held against the float32 reference prefill.
 6. score_kernels — the quantile-map and shared-parameter score-pipeline
              kernels against their plain versions, float32 and bfloat16:
              the reference's cases, scores on knots (bitwise), NaN scores,
@@ -94,7 +99,8 @@ def phase_device() -> tuple[str, str]:
     t0 = time.perf_counter()
     seconds = _build.build_all()
     regs = {name: [ln.strip() for ln in log.splitlines()
-                   if "registers" in ln or "spill" in ln]
+                   if "registers" in ln or "spill" in ln
+                   or "warning" in ln.lower()]
             for name, log in _build.BUILD_LOGS.items()}
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "count": torch.cuda.device_count(),
@@ -484,16 +490,30 @@ def phase_attention(dev) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
+    def form_of(launch):
+        """Run ``launch`` and name the form it ran by the launch counts."""
+        before = fa.LAUNCHES["flash_attention_wgmma"]
+        out = launch()
+        return out, ("wgmma" if fa.LAUNCHES["flash_attention_wgmma"] > before
+                     else "simt")
+
     errs: dict[str, dict[str, float]] = {}
+    forms: dict[str, dict[str, str]] = {}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-        errs[dname] = {}
+        errs[dname], forms[dname] = {}, {}
         for i, (name, case) in enumerate(ATTN_CASES.items()):
             causal, win = case[6:]
             q, k, v = _qkv(case, dtype, dev, seed=i)
+            got, form = form_of(lambda: fa.flash_attention(
+                q, k, v, causal=causal, sliding_window=win))
+            want_form = ("wgmma" if dtype == torch.bfloat16
+                         and case[5] in fa.WGMMA_HEAD_DIMS else "simt")
+            check(form == want_form, f"{name}/{dname} ran the {form} form, "
+                  f"not {want_form}")
+            forms[dname][name] = form
             errs[dname][name] = _attn_err(
-                f"{name}/{dname}",
-                fa.flash_attention(q, k, v, causal=causal, sliding_window=win),
+                f"{name}/{dname}", got,
                 ref.flash_attention(q, k, v, causal=causal, sliding_window=win),
                 ATTN_TOL[dname])
         # rows past Tk + window - 1 see no key: the kernel gives exactly 0
@@ -508,43 +528,73 @@ def phase_attention(dev) -> dict:
             f"partly_masked/{dname}", got[0, ~masked], want[0, ~masked],
             ATTN_TOL[dname])
 
-    # the prefill shape of qwen3-8b (one launch per attention layer), in
-    # float32 at the tight tolerance and in bfloat16 as the model runs it
+    # the prefill shape of qwen3-8b (one launch per attention layer): the
+    # SIMT form in float32 at the tight tolerance, the tensor-core form in
+    # bfloat16 as the model runs it; each timed with its plain version and
+    # PyTorch's own attention call on the same inputs
     b, tq, tk, hq, hkv, d, causal, win = MAIN_ATTN
     q, k, v = _qkv(MAIN_ATTN, torch.float32, dev, seed=123)
+    got, form = form_of(lambda: fa.flash_attention(q, k, v, causal=causal))
+    check(form == "simt", "float32 at the main shape runs the SIMT form")
     errs["float32"]["main_shape"] = _attn_err(
-        "main_shape/float32", fa.flash_attention(q, k, v, causal=causal),
-        ref.flash_attention(q, k, v, causal=causal), ATTN_TOL["float32"])
-    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
-    main_err = _attn_err(
-        "main_shape/bfloat16", fa.flash_attention(q, k, v, causal=causal),
-        ref.flash_attention(q, k, v, causal=causal), ATTN_TOL["bfloat16"])
-    errs["bfloat16"]["main_shape"] = main_err
+        "main_shape/float32", got, ref.flash_attention(q, k, v, causal=causal),
+        ATTN_TOL["float32"])
     torch.cuda.synchronize()
-    # one launch is milliseconds: a few reps, not device_ms's defaults
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    bound32 = attention_bound(*MAIN_ATTN, itemsize=4)
+    simt = {"form": "simt", "dtype": "float32",
+            "max_abs_err": errs["float32"]["main_shape"],
+            "ms": device_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                            reps=3, inner=1),
+            "plain_ms": device_ms(lambda: ref.flash_attention(
+                q, k, v, causal=causal), reps=3, inner=1),
+            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), reps=3, inner=3),
+            "bound_ms": bound32[0], "bound_by": bound32[1]}
+    want32 = ref.flash_attention(*(x.to(torch.bfloat16).float()
+                                   for x in (q, k, v)), causal=causal)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    got, form = form_of(lambda: fa.flash_attention(q, k, v, causal=causal))
+    check(form == "wgmma", "bf16 at the main shape runs the wgmma form")
+    main_err = _attn_err("main_shape/bfloat16", got,
+                         ref.flash_attention(q, k, v, causal=causal),
+                         ATTN_TOL["bfloat16"])
+    errs["bfloat16"]["main_shape"] = main_err
+    # the model check's measure on every row: the error from float32 on
+    # the same bf16 inputs as a share of the bf16 rounding bound
+    share = ((got.float() - want32).abs()
+             / (2.0 ** -8 * want32.abs() + 1e-5)).max().item()
+    del got, want32
+    torch.cuda.synchronize()
     ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
-                   reps=5, inner=3)
+                   reps=20, inner=10)
     plain_ms = device_ms(lambda: ref.flash_attention(q, k, v, causal=causal),
                          reps=3, inner=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), reps=5, inner=3)
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20, inner=10)
     bound_ms, bound_by, flops = attention_bound(*MAIN_ATTN, itemsize=2)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    result = {"phase": "attention", "name": "flash_attention",
+    result = {"phase": "attention", "name": "flash_attention_wgmma",
               "cases": {n: list(c) for n, c in ATTN_CASES.items()},
-              "tolerance": ATTN_TOL, "errors": errs,
+              "forms": forms, "tolerance": ATTN_TOL, "errors": errs,
               "fully_masked_rows": "exactly 0",
               "shape": {"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv,
                         "D": d, "causal": causal, "dtype": "bfloat16"},
-              "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+              "max_abs_err": main_err,
+              "share_of_bf16_bound_vs_f32": share,
+              "ms": ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "bound_ms": bound_ms,
               "bound_by": bound_by, "gflop": flops / 1e9,
+              # P in two bf16 terms: the tensor cores are issued 6*D flops
+              # a visible pair, not 4*D
+              "bound_ms_issued": 1.5 * bound_ms,
               "tflop_per_s": flops / (ms * 1e-3) / 1e12,
-              "timing": "CUDA events, median of 5 runs of 3 back-to-back "
-                        "launches (plain: 3 runs of 1) queued behind a busy "
-                        "card"}
+              "simt_f32_ms": simt["ms"], "simt_f32": simt,
+              "timing": "CUDA events, median of 20 runs of 10 back-to-back "
+                        "launches (SIMT form and plain versions: 3 runs of "
+                        "1) queued behind a busy card"}
     emit(result)
     return result
 
@@ -573,7 +623,8 @@ def _device_split(prof) -> dict:
             continue
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
-        if "flash_attention_kernel" in name:
+        if any(k in name for k in ("flash_attention_kernel",
+                                   "flash_attention_wgmma_kernel")):
             cats["flash_attention"] += ms
         elif any(s in name for s in ("gemm", "gemv", "nvjet", "cutlass",
                                      "xmma", "cublas", "sm90_")):
@@ -727,6 +778,9 @@ def phase_llm_serve(dev, attention: dict) -> dict:
     check(launches["flash_attention"] == n_attn,
           f"{launches['flash_attention']} kernel launches for one prefill "
           f"and {LLM_STEPS} decode steps, expected {n_attn}")
+    check(launches["flash_attention_wgmma"] == n_attn,
+          f"{launches['flash_attention_wgmma']} of the {n_attn} launches "
+          "ran the tensor-core form")
     runs = []
     for _ in range(3):
         before = ops.LAUNCHES["flash_attention"]
@@ -745,6 +799,23 @@ def phase_llm_serve(dev, attention: dict) -> dict:
     check(ops.LAUNCHES["flash_attention"] == before,
           "a 64-token prefill and a decode step launch no kernel")
     del out, cache
+
+    # the float32 path: a float32 prefill through the kernel branch runs
+    # the SIMT form; counts set to 0 just before, read just after
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    kw32 = dict(cache_capacity=LLM_PROMPT, compute_dtype=torch.float32,
+                logits_mode="last")
+    f32_kernel, _ = model.prefill(prompt, attn_impl="kernel", **kw32)
+    f32_launches = dict(ops.LAUNCHES)
+    check(f32_launches["flash_attention"] == n_attn
+          and f32_launches["flash_attention_wgmma"] == 0,
+          f"a float32 prefill runs the SIMT form {n_attn} times: "
+          f"{f32_launches}")
+    f32_reference, _ = model.prefill(prompt, attn_impl="reference", **kw32)
+    f32_err = _max_diff(f32_kernel.logits, f32_reference.logits)
+    del f32_kernel, f32_reference
+    torch.cuda.empty_cache()
 
     for res in [first] + runs:
         biz = res.business.float()
@@ -780,6 +851,11 @@ def phase_llm_serve(dev, attention: dict) -> dict:
           f"{r_ker} from the f32 reference, bf16 reference {r_ref}")
     check(witness["kernel"] <= 1.0, f"kernel attention inside the model "
           f"{witness['kernel']} of its bf16 rounding bound from float32")
+    # the float32 kernel path, on the main path's weights and prompt, is no
+    # farther from the float32 reference than the bf16 reference is
+    f32_bf16_ref = seeds[0]["logits"]["bf16_reference"]
+    check(f32_err <= f32_bf16_ref, f"float32 kernel prefill logits {f32_err} "
+          f"from the float32 reference, bf16 reference {f32_bf16_ref}")
 
     prefill_ms = statistics.median(r.prefill_s for r in runs) * 1e3
     decode_s = statistics.median(r.decode_s for r in runs)
@@ -805,6 +881,9 @@ def phase_llm_serve(dev, attention: dict) -> dict:
         "kernel_share_of_prefill": n_attn * attention["ms"] / prefill_ms,
         "logits_err_kernel_vs_f32": d_ker, "logits_err_bf16_ref_vs_f32": d_ref,
         "risk_err_kernel_vs_f32": r_ker, "risk_err_bf16_ref_vs_f32": r_ref,
+        "f32_path": {"launches": f32_launches,
+                     "logits_err_vs_f32_reference": f32_err,
+                     "bf16_reference_logits_err": f32_bf16_ref},
         "attention_last_rows_vs_f32": witness,
         "served_risk_check_per_seed": sum(
             a["served_risk"]["kernel"]
@@ -1192,6 +1271,7 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, attention: dict,
     from repro_torch.kernels import ref
     from repro_torch.kernels import score_pipeline as sp
 
+    simt = attention["simt_f32"]
     raws, idx, bank = main["raws"], main["idx"], main["bank"]
     m, k = raws.shape
     t, n = bank[2].shape
@@ -1213,15 +1293,25 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, attention: dict,
         "realistic": {key: kernel[key] for key in
                       ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
     }, {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "name": "flash_attention_wgmma", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
         "replaces": "src/repro/kernels/flash_attention.py:25",
-        "launches": llm["launches"]["flash_attention"],
+        "launches": llm["launches"]["flash_attention_wgmma"],
         "max_abs_err": attention["max_abs_err"],
         "ms": attention["ms"], "plain_ms": attention["plain_ms"],
         "bound_ms": attention["bound_ms"], "bound_by": attention["bound_by"],
         "library_ms": attention["library_ms"],
-        "shape": attention["shape"],
+        "bound_ms_issued": attention["bound_ms_issued"],
+        "shape": attention["shape"], "path": "bf16 prefill (llm_serve)",
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:25",
+        "launches": llm["f32_path"]["launches"]["flash_attention"],
+        **{key: simt[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")},
+        "shape": {**attention["shape"], "dtype": "float32"},
+        "path": "float32 prefill (llm_serve)",
     }, _benched("quantile_map", "src/repro_torch/csrc/quantile_map.cu",
                 "src/repro/kernels/quantile_map.py:25", bench, None,
                 {"window": scores["timings"]["quantile_map"]}),

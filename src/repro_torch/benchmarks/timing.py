@@ -90,8 +90,9 @@ def banked_bound(m: int, k: int, t: int, n: int) -> tuple[float, str]:
 def attention_bound(b, tq, tk, hq, hkv, d, causal, window, itemsize
                     ) -> tuple[float, str, float]:
     """Prefill attention: 4*D flops per visible (query, key) pair per query
-    head over the bf16 tensor-core rate, against q, k, v read once and o
-    written once.  Returns (ms, bound_by, flops)."""
+    head over the peak rate of the inputs' type (bf16 tensor cores for
+    2-byte items, float32 outside them for 4-byte), against q, k, v read
+    once and o written once.  Returns (ms, bound_by, flops)."""
     qpos = torch.arange(tq)[:, None]
     kpos = torch.arange(tk)[None, :]
     mask = torch.ones(tq, tk, dtype=torch.bool)
@@ -101,7 +102,8 @@ def attention_bound(b, tq, tk, hq, hkv, d, causal, window, itemsize
         mask &= kpos > qpos - window
     flops = 4.0 * b * hq * d * int(mask.sum())
     nbytes = (2 * b * tq * hq * d + 2 * b * tk * hkv * d) * itemsize
-    ms, by = _bound(nbytes, flops, BF16_FLOPS)
+    peak = F32_FLOPS if itemsize == 4 else BF16_FLOPS
+    ms, by = _bound(nbytes, flops, peak)
     return ms, by, flops
 
 

@@ -31,6 +31,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # launches the kernel (``ops.LAUNCHES`` is this dict)
 LAUNCHES: dict[str, int] = {"score_pipeline_banked": 0,
                              "flash_attention": 0,
+                             "flash_attention_wgmma": 0,
                              "quantile_map": 0,
                              "score_pipeline": 0,
                              "decode_attention": 0}
@@ -87,6 +88,7 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    target.with_suffix(".log").write_text(log)
     os.replace(tmp, target)  # atomic: a reader never sees half a library
 
 
@@ -99,6 +101,14 @@ def build_all(names: list[str] | None = None) -> dict[str, float]:
         for n, job in jobs.items():
             _finish(n, job)
     return {n: BUILD_SECONDS.get(n, 0.0) for n in names}
+
+
+def build_log(name: str) -> tuple[Path, str]:
+    """The built library of ``csrc/<name>.cu`` and what nvcc printed when
+    it was built (ptxas's registers, shared memory and spills)."""
+    build_all([name])
+    target = _target(name)
+    return target, target.with_suffix(".log").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

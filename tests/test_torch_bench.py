@@ -47,7 +47,10 @@ def test_quick_cpu_run_writes_five_entries(tmp_path):
     assert banked["skip_rate_adversarial"] == 0.0
     # on the CPU no hand-written kernel launches
     assert set(result["launches"].values()) == {0}
-    assert set(result["launches"]) == set(ENTRIES.values())
+    # one count per kernel; the flash entry's wrapper also counts the
+    # tensor-core form it picks on the card
+    assert set(result["launches"]) == set(ENTRIES.values()) | {
+        "flash_attention_wgmma"}
 
 
 def test_bounds_count_bytes_and_operations():
@@ -83,4 +86,9 @@ def test_attention_bounds():
     assert flops == 4.0 * 4 * 32 * 128 * (2048 * 2049 // 2)
     assert by == "operations" and ms == pytest.approx(
         flops / timing.BF16_FLOPS * 1e3)
+    # float32 inputs: the same flops at the float32 rate
+    ms32, by32, flops32 = timing.attention_bound(4, 2048, 2048, 32, 8, 128,
+                                                 True, 0, 4)
+    assert flops32 == flops and by32 == "operations"
+    assert ms32 == pytest.approx(flops / timing.F32_FLOPS * 1e3)
 

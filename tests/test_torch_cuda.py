@@ -141,6 +141,115 @@ def test_flash_kernel_fully_masked_rows_are_zero(dev):
                                rtol=5e-5, atol=5e-5)
 
 
+# the tensor-core form (csrc/flash_attention_wgmma.cu): bf16, D in (64, 128)
+# (b, tq, tk, hq, hkv, d, causal, window)
+WGMMA_CASES = [
+    (1, 1, 1, 4, 1, 64, True, 0),           # T = 1
+    (2, 127, 127, 8, 2, 128, True, 0),      # T = 127, 4 q heads per KV head
+    (1, 128, 128, 8, 1, 64, True, 0),       # T = 128, 8 per KV head
+    (2, 129, 129, 4, 4, 128, True, 0),      # T = 129, MHA
+    (1, 1000, 1000, 8, 2, 128, True, 0),
+    (1, 2049, 2049, 4, 1, 64, True, 0),
+    (2, 96, 300, 8, 1, 128, True, 0),       # Tq < Tk
+    (1, 300, 300, 4, 2, 128, True, 50),     # windows across tile edges
+    (1, 700, 700, 4, 4, 64, True, 200),
+    (1, 500, 500, 4, 1, 128, False, 130),
+    (2, 200, 333, 8, 2, 64, False, 0),      # non-causal, Tq < Tk
+    (1, 1, 257, 2, 2, 128, False, 0),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_wgmma_form_matches_plain_version(dev, case):
+    causal, win = case[6:]
+    q, k, v = _qkv(case, torch.bfloat16, dev, seed=1)
+    before = dict(ops.LAUNCHES)
+    got = ops.flash_attention(q, k, v, causal=causal, sliding_window=win)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"] + 1
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = ref.flash_attention(q, k, v, causal=causal, sliding_window=win)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_wgmma_form_reads_packed_strided_views(dev):
+    qkv = torch.randn(2, 300, 12, 128, device=dev).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    assert fa.kernel_form(q, k, v) == "wgmma"
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_wgmma_form_fully_masked_rows_are_zero(dev):
+    q, k, v = _qkv((1, 256, 64, 4, 2, 64), torch.bfloat16, dev)
+    before = ops.LAUNCHES["flash_attention_wgmma"]
+    got = fa.flash_attention(q, k, v, causal=True, sliding_window=16)
+    assert ops.LAUNCHES["flash_attention_wgmma"] == before + 1
+    masked = torch.arange(256, device=dev) >= 64 + 16 - 1
+    assert torch.equal(got[0, masked], torch.zeros_like(got[0, masked]))
+    want = ref.flash_attention(q, k, v, causal=True, sliding_window=16)
+    torch.testing.assert_close(got[0, ~masked].float(),
+                               want[0, ~masked].float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.float32, 128),
+                                     (torch.bfloat16, 80)])
+def test_other_inputs_take_the_simt_form(dev, dtype, d):
+    q, k, v = _qkv((1, 130, 130, 4, 2, d), dtype, dev)
+    before = dict(ops.LAUNCHES)
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert ops.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"]
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    want = ref.flash_attention(q, k, v, causal=True)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_misaligned_bf16_view_raises(dev):
+    base = torch.randn(1, 64, 4, 136, device=dev).to(torch.bfloat16)
+    q = base[..., 1:129]              # data pointer 2 bytes off
+    k = v = base[:, :, :2, :128]
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q, k, v)
+    assert ops.LAUNCHES == before
+
+
+def test_wgmma_kernel_uses_tensor_cores_and_tma_without_spills(dev):
+    """SASS of both instantiations holds HGMMA and UTMALDG; ptxas reports
+    no spills."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    lib, log = _build.build_log("flash_attention_wgmma")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        pytest.skip("needs cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    kernels = [f for f in sass.split("Function : ")[1:]
+               if "flash_attention_wgmma_kernel" in f.splitlines()[0]]
+    assert len(kernels) == 2   # D = 64 and D = 128
+    for f in kernels:
+        assert "HGMMA" in f and "UTMALDG" in f
+    spills = [ln for ln in log.splitlines() if "spill" in ln]
+    assert spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                          for ln in spills), log
+    assert "setmaxnreg ignored" not in log, log
+
+
 def test_model_forward_through_the_kernel(dev):
     """qwen3 smoke at T=160: the kernel branch against the reference path,
     both on the card, one launch per attention layer."""
