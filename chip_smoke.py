@@ -47,13 +47,18 @@ Phases, each printing one JSON line:
              scores outside the support, flat and unsorted tables, M = 1,
              a (4, 7, 9) batch, K = 1; then their times at the benchmark's
              65,536 rows and at a 1,024-row serve window.
-7. decode_attention — the decode kernel against its plain version, float32
-             and bfloat16: the reference's cases and per-row lengths,
-             valid_len 0 (exactly 0) and past S, S not a multiple of the
-             tile, D = 80 and 128, 1 and 8 query heads per KV head; then its
-             time at the benchmark's shape (4 x 16,384, 8/2 heads, D=64)
-             and at qwen3-8b's decode (4 x 2,064, 32/8 heads, D=128), bf16,
-             beside PyTorch's own attention call.
+7. decode_attention — the decode kernel against its plain version,
+             float32 within 2e-5 and bf16 within bf16's rounding of the
+             plain version run in float32 on the same inputs: the
+             reference's cases and per-row lengths, valid_len 0 (exactly
+             0) and past S, S not a multiple of a round, D = 80 and 128, 1
+             and 8 query heads per KV head; then at the benchmark's shape
+             (4 x 16,384, 8/2 heads, D=64) and at qwen3-8b's decode
+             (4 x 2,064, 32/8 heads, D=128): both checks, its time in
+             bf16 warm and with L2 cold, in float32 warm, beside PyTorch's
+             own attention call (warm and cold), the bounds and a traced
+             loop (a call's period, the combine's tail, the launches a
+             call: at most two, and no other kernel).
 8. bench_kernels — the port's kernel microbenchmark at full size, the path
              of those three kernels: every entry agrees with its plain
              version and every kernel launched.
@@ -1054,7 +1059,7 @@ def phase_score_kernels(dev) -> dict:
 
 
 # ---------------------------------------------------------------- phase 7
-DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+DECODE_TOL = 2e-5   # float32; bf16 runs the kernel's own check (bf16_excess)
 # (b, s, hq, hkv, d, valid lengths)
 DECODE_CASES = {
     "gqa_256": (2, 256, 8, 2, 64, (256, 256)),   # the reference's four
@@ -1084,6 +1089,27 @@ def _decode_inputs(case, dtype, dev, seed):
             for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
 
 
+def _decode_err(name, got, q, k, v, vlen) -> float:
+    """The decode kernel's output against its plain version: float32
+    within 2e-5; bf16 against the plain version run in float32 on the same
+    bf16 inputs, within bf16's rounding of o (``bf16_excess``)."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+
+    if q.dtype == torch.float32:
+        return _attn_err(name, got, ref.decode_attention(q, k, v, vlen),
+                         DECODE_TOL)
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          f"{name}: shape/dtype")
+    want = ref.decode_attention(q.float(), k.float(), v.float(), vlen)
+    check(bool(got.float().isfinite().all()), f"{name}: non-finite output")
+    excess = da.bf16_excess(got, want)
+    check(excess <= 0, f"{name}: outside bf16 rounding of the float32 "
+          f"plain version by {excess}")
+    return (got.float() - want).abs().max().item()
+
+
 def _queued(fn, calls: int, cycles: int, lead: int = 0) -> dict:
     """CUDA-event times of ``calls`` back-to-back calls of ``fn`` queued
     behind a sleep of ``cycles`` and ``lead`` untimed calls, as
@@ -1107,17 +1133,37 @@ def _queued(fn, calls: int, cycles: int, lead: int = 0) -> dict:
             "ms": ev[1].elapsed_time(ev[2]) / calls, "issue_ms": issue_ms}
 
 
+def _cold_ms(fns, reps: int = 10) -> float:
+    """``device_ms`` with the L2 cache cold: ``fns`` call the function on
+    copies of its inputs that together exceed the 50 MB L2, twice round
+    in each timed run, so no call finds its inputs in L2."""
+    import torch
+    from repro_torch.benchmarks.timing import SLEEP_CYCLES
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        calls = iter(fns * 2)
+        times.append(_queued(lambda: next(calls)(), 2 * len(fns),
+                             SLEEP_CYCLES)["ms"])
+    return statistics.median(times)
+
+
 def _decode_trace(fn, calls: int = 20) -> dict | None:
     """Where a timed call of the decode kernel spends its time.  One queued
     loop as ``device_ms`` times it, under ``torch.profiler``: its event
-    times, each pass's mean kernel time, the gaps between successive split
-    passes' starts (a call's period; its median less the two passes is the
-    device's idle time a call) and the other kernels the trace holds.  The
-    same loop behind a sleep five times as long, and behind the sleep and
-    one untimed call.  The trace may miss a few kernels, so it counts those
-    it holds; None where it holds too few."""
-    import statistics
-
+    times, the launches a call, a call's period (the median gap between
+    successive split passes' starts), the combine's tail (the median time
+    from a split pass's end to its combine's end) and the split pass's part
+    of the period (the period less the tail).  Both kernels are launched
+    with programmatic dependent launch, so a kernel's span in the trace
+    starts before the kernel before it has ended and includes its wait for
+    it; the spans are reported beside the rest.  The other kernels the
+    trace holds; the same loop behind a sleep five times as long, and
+    behind the sleep and one untimed call.  The trace may miss a few
+    kernels, so it counts those it holds; None where it holds too few."""
     import torch
     from repro_torch.benchmarks.timing import SLEEP_CYCLES
     from torch.profiler import ProfilerActivity, profile
@@ -1132,36 +1178,106 @@ def _decode_trace(fn, calls: int = 20) -> dict | None:
     kernels = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
-    passes = {"split_pass": [e for e in kernels
-                             if "decode_partial_kernel" in e.name],
-              "combine_pass": [e for e in kernels
-                               if "decode_combine_kernel" in e.name]}
-    if min(len(v) for v in passes.values()) < calls // 2:
+    split = [e for e in kernels if "decode_split_" in e.name]
+    combine = [e for e in kernels if "decode_combine_kernel" in e.name]
+    if min(len(split), len(combine)) < calls // 2:
         return None
-    ms = {k: statistics.mean(e.time_range.elapsed_us() for e in v) / 1e3
-          for k, v in passes.items()}
-    starts = [e.time_range.start for e in passes["split_pass"]]
-    gaps = [(b - a) / 1e3 for a, b in zip(starts, starts[1:])]
+    starts = [e.time_range.start for e in split]
+    period = statistics.median((b - a) / 1e3
+                               for a, b in zip(starts, starts[1:]))
+    # each split pass with the first combine that ends after it
+    tails = []
+    for e in split:
+        after = [c.time_range.end for c in combine
+                 if c.time_range.end > e.time_range.end]
+        if after:
+            tails.append((min(after) - e.time_range.end) / 1e3)
+    tail = statistics.median(tails)
     others: dict[str, int] = {}
     for e in kernels:
         if "decode_" not in e.name:
             others[e.name] = others.get(e.name, 0) + 1
-    return {"traced_loop": traced, **ms,
-            "period_ms": statistics.median(gaps),
-            "idle_between_ms": statistics.median(gaps) - sum(ms.values()),
-            "gaps_ms": gaps,
-            "traced": {k: len(v) for k, v in passes.items()},
+    return {"traced_loop": traced,
+            "launches_per_call": (len(split) + len(combine)) / calls,
+            "period_ms": period, "combine_tail_ms": tail,
+            "split_pass_ms": period - tail,
+            "span_ms": {k: statistics.median(e.time_range.elapsed_us()
+                                             for e in v) / 1e3
+                        for k, v in (("split_pass", split),
+                                     ("combine", combine))},
+            "traced": {"split_pass": len(split), "combine": len(combine)},
             "other_kernels": others,
             "long_sleep": _queued(fn, calls, 5 * SLEEP_CYCLES),
             "after_one_call": _queued(fn, calls, SLEEP_CYCLES, lead=1)}
 
 
-def phase_decode_attention(dev) -> dict:
+def _decode_timed(label, shape, dev, errs) -> dict:
+    """A timed shape, every position valid: float32 and bf16 checked; the
+    kernel's time warm (float32 and bf16) and L2-cold (bf16), SDPA's warm
+    and cold beside it, the plain version's, the bounds and a traced loop
+    (a call's launches among them)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.benchmarks.timing import decode_bound, device_ms
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
+
+    b, s, hq, hkv, d = shape
+    vlen = torch.full((b,), s, dtype=torch.int32, device=dev)
+    q, k, v = _decode_inputs(shape, torch.float32, dev, seed=100)
+    errs["float32"][label] = _decode_err(
+        f"{label}/float32", da.decode_attention(q, k, v, vlen), q, k, v,
+        vlen)
+    f32_ms = device_ms(lambda: da.decode_attention(q, k, v, vlen), inner=20)
+    f32_bound = decode_bound([s] * b, hq, hkv, d, 4)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    err = _decode_err(f"{label}/bfloat16", da.decode_attention(q, k, v, vlen),
+                      q, k, v, vlen)
+    errs["bfloat16"][label] = err
+    bound_ms, bound_by = decode_bound([s] * b, hq, hkv, d, 2)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=True)
+
+    # enough copies of the caches that each call's K and V left L2
+    copies = [(k, v)] + [(k.clone(), v.clone()) for _ in
+                         range(-(-100_000_000 // (2 * k.nbytes)))]
+    cold = _cold_ms([lambda kv=kv: da.decode_attention(q, *kv, vlen)
+                     for kv in copies])
+    library_cold = _cold_ms([lambda kv=kv: sdpa(q, *kv) for kv in copies])
+    del copies
+    share = bound_ms / cold
+    check(share <= 1.0, f"{label}: the cold time {cold} ms is under the "
+          f"bound {bound_ms} ms: an error of the timer")
+    ms = device_ms(lambda: da.decode_attention(q, k, v, vlen), inner=20)
+    trace = _decode_trace(lambda: da.decode_attention(q, k, v, vlen))
+    check(trace is None or (trace["launches_per_call"] <= 2
+                            and not trace["other_kernels"]),
+          f"{label}: a call is at most two launches and nothing else")
+    return {
+        "shape": {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
+                  "valid_len": s, "dtype": "bfloat16"},
+        "plan": dict(zip(("splits", "chunk"),
+                         da.plan_splits(b, hkv, s, d, torch.bfloat16))),
+        "max_abs_err": err,
+        "ms": ms, "cold_ms": cold, "bound_ms": bound_ms, "bound_by": bound_by,
+        "share_of_bound_cold": share,
+        "within_2x_bound": {"warm": ms <= 2 * bound_ms,
+                            "cold": cold <= 2 * bound_ms},
+        "library_ms": device_ms(lambda: sdpa(q, k, v), inner=20),
+        "library_cold_ms": library_cold,
+        "plain_ms": device_ms(lambda: ref.decode_attention(q, k, v, vlen),
+                              reps=5, inner=3),
+        "float32": {"ms": f32_ms, "bound_ms": f32_bound[0],
+                    "bound_by": f32_bound[1]},
+        "trace": trace}
+
+
+def phase_decode_attention(dev) -> dict:
+    import torch
+    from repro_torch.kernels import decode_attention as da
 
     t0 = time.perf_counter()
     errs: dict[str, dict[str, float]] = {}
@@ -1172,57 +1288,32 @@ def phase_decode_attention(dev) -> dict:
             q, k, v = _decode_inputs(case, dtype, dev, seed=i)
             vlen = torch.tensor(case[5], dtype=torch.int32, device=dev)
             got = da.decode_attention(q, k, v, vlen)
-            want = ref.decode_attention(q, k, v, vlen)
             # a row with no valid position: exactly 0 from the kernel (the
             # plain version's finite NEG_INF averages it instead)
             empty = vlen == 0
             check(bool((got[empty] == 0).all()),
                   f"{name}/{dname}: rows with valid_len 0 are exactly 0")
-            errs[dname][name] = _attn_err(f"{name}/{dname}", got[~empty],
-                                          want[~empty], DECODE_TOL[dname])
+            errs[dname][name] = _decode_err(
+                f"{name}/{dname}", got[~empty], q[~empty], k[~empty],
+                v[~empty], vlen[~empty])
     torch.cuda.synchronize()
 
-    # the main path's shapes: float32 at 2e-5, then bf16, which is timed
-    timings = {}
-    for label, shape in DECODE_SHAPES.items():
-        b, s, hq, hkv, d = shape
-        vlen = torch.full((b,), s, dtype=torch.int32, device=dev)
-        q, k, v = _decode_inputs(shape, torch.float32, dev, seed=100)
-        errs["float32"][label] = _attn_err(
-            f"{label}/float32", da.decode_attention(q, k, v, vlen),
-            ref.decode_attention(q, k, v, vlen), DECODE_TOL["float32"])
-        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
-        err = _attn_err(f"{label}/bfloat16",
-                        da.decode_attention(q, k, v, vlen),
-                        ref.decode_attention(q, k, v, vlen),
-                        DECODE_TOL["bfloat16"])
-        errs["bfloat16"][label] = err
-        q4, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-        timings[label] = {
-            "shape": {"B": b, "S": s, "Hq": hq, "Hkv": hkv, "D": d,
-                      "valid_len": s, "dtype": "bfloat16"},
-            "max_abs_err": err,
-            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
-                q4, kt, vt, enable_gqa=True), inner=20),
-            "trace": _decode_trace(
-                lambda: da.decode_attention(q, k, v, vlen))}
-        if label != "bench":   # bench_kernels times the kernel at its shape
-            bound_ms, bound_by = decode_bound([s] * b, hq, hkv, d, 2)
-            timings[label].update(
-                ms=device_ms(lambda: da.decode_attention(q, k, v, vlen),
-                             inner=20),
-                plain_ms=device_ms(lambda: ref.decode_attention(q, k, v, vlen),
-                                   reps=5, inner=3),
-                bound_ms=bound_ms, bound_by=bound_by)
-        del q, k, v, q4, kt, vt
+    timings = {label: _decode_timed(label, shape, dev, errs)
+               for label, shape in DECODE_SHAPES.items()}
     result = {"phase": "decode_attention",
               "cases": {n: list(c) for n, c in DECODE_CASES.items()},
-              "tolerance": DECODE_TOL, "errors": errs,
-              "valid_len_0": "exactly 0", "timings": timings,
+              "tolerance": {"float32": DECODE_TOL,
+                            "bfloat16": {"rtol": da.BF16_RTOL,
+                                         "atol": da.BF16_ATOL,
+                                         "against": "plain version in "
+                                                    "float32"}},
+              "errors": errs, "valid_len_0": "exactly 0", "timings": timings,
               "timing": "CUDA events, median of 20 runs of 20 back-to-back "
                         "calls (plain: 5 runs of 3) queued behind a busy "
-                        "card; one call is two launches; trace: one such "
-                        "loop under torch.profiler",
+                        "card; cold: median of 10 runs, each calling twice "
+                        "round copies of the caches that exceed L2; one "
+                        "call is two launches; trace: one warm loop under "
+                        "torch.profiler",
               "wall_s": time.perf_counter() - t0}
     emit(result)
     return result
@@ -1322,8 +1413,7 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, attention: dict,
                  "src/repro_torch/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:24", bench,
                  decode["timings"]["bench"]["library_ms"],
-                 {"qwen3_8b": decode["timings"]["qwen3_8b"],
-                  "trace": decode["timings"]["bench"]["trace"]})]})
+                 decode["timings"])]})
 
 
 def main() -> int:

@@ -397,8 +397,11 @@ DECODE_CASES = [
     (2, 777, 8, 2, 80, (777, 400)),         # S not a multiple of 64, D = 80
     (1, 70, 8, 8, 128, (70,)),              # D = 128, one head per group
     (1, 90, 64, 1, 16, (33,)),              # 64 query heads on one KV head
+    (1, 500, 64, 1, 128, (500,)),           # 64 heads at D = 128: 8 passes
+    (2, 3000, 4, 2, 80, (3000, 1777)),      # D = 80 over many splits
+    (2, 1000, 12, 2, 48, (1000, 999)),      # 6 heads a pass of 8, D = 48
 ]
-DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+DECODE_TOL = 2e-5   # float32; bf16 runs da.bf16_excess
 
 
 def _decode_inputs(case, dtype, dev, seed=0):
@@ -406,6 +409,18 @@ def _decode_inputs(case, dtype, dev, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn(shape, generator=g, device=dev).to(dtype)
             for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
+
+
+def _decode_close(got, q, k, v, vlen):
+    """float32 within 2e-5 of the plain version; bf16 within bf16's
+    rounding of the plain version run in float32 on the same inputs."""
+    assert got.dtype == q.dtype and got.shape == q.shape
+    if q.dtype == torch.float32:
+        torch.testing.assert_close(got, ref.decode_attention(q, k, v, vlen),
+                                   rtol=DECODE_TOL, atol=DECODE_TOL)
+        return
+    want = ref.decode_attention(q.float(), k.float(), v.float(), vlen)
+    assert da.bf16_excess(got, want) <= 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -419,13 +434,23 @@ def test_decode_kernel_matches_plain_version(dev, case, dtype):
     got = ops.decode_attention(q, k, v, vlen)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["decode_attention"] == before + 1
-    assert got.dtype == dtype and got.shape == q.shape
     empty = vlen == 0
     assert torch.equal(got[empty], torch.zeros_like(got[empty]))
-    want = ref.decode_attention(q, k, v, vlen)
-    tol = DECODE_TOL[dtype]
-    torch.testing.assert_close(got[~empty].float(), want[~empty].float(),
-                               rtol=tol, atol=tol)
+    _decode_close(got[~empty], q[~empty], k[~empty], v[~empty], vlen[~empty])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_lengths_at_split_boundaries(dev, dtype):
+    """Lengths one short of, at and one past the ends of the plan's
+    first, second and last splits, one per batch row."""
+    b, s, hkv, d = 9, 2000, 2, 64
+    splits, chunk = da.plan_splits(b, hkv, s, d, dtype)
+    assert splits > 2
+    lens = [j * chunk + e for j in (1, 2, splits - 1) for e in (-1, 0, 1)]
+    q, k, v = _decode_inputs((b, s, 8, hkv, d), dtype, dev, seed=3)
+    vlen = torch.tensor(lens, dtype=torch.int32, device=dev)
+    _decode_close(da.decode_attention(q, k, v, vlen), q, k, v, vlen)
 
 
 def test_decode_kernel_reads_strided_caches(dev):
@@ -438,6 +463,101 @@ def test_decode_kernel_reads_strided_caches(dev):
     torch.testing.assert_close(da.decode_attention(q, k, v, vlen),
                                ref.decode_attention(q, k, v, vlen),
                                rtol=2e-5, atol=2e-5)
+
+
+def test_decode_kernel_reads_packed_bf16_cache_views(dev):
+    """qwen3-8b's widths: k and v as views of one packed (B, S, 16, 128)
+    bf16 cache, q a slice of a wider projection."""
+    kv = torch.randn(2, 300, 16, 128, device=dev).to(torch.bfloat16)
+    k, v = kv[:, :, :8], kv[:, :, 8:]
+    q = torch.randn(2, 40, 128, device=dev).to(torch.bfloat16)[:, 4:36]
+    vlen = torch.tensor([300, 211], dtype=torch.int32, device=dev)
+    _decode_close(da.decode_attention(q, k, v, vlen), q, k, v, vlen)
+
+
+@pytest.mark.parametrize("view", ["pointer", "stride"])
+def test_decode_misaligned_view_raises(dev, view):
+    """A cache whose rows start 8 bytes off a 16-byte boundary, by its
+    pointer or by its row stride."""
+    q, k, v = _decode_inputs((1, 64, 4, 2, 128), torch.bfloat16, dev)
+    if view == "pointer":
+        k = torch.zeros(1, 64, 2, 136, device=dev,
+                        dtype=torch.bfloat16)[..., 4:132]
+    else:
+        k = torch.zeros(1, 64, 2, 132, device=dev,
+                        dtype=torch.bfloat16)[..., :128]
+    vlen = torch.full((1,), 64, dtype=torch.int32, device=dev)
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.decode_attention(q, k, v, vlen)
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape,launches", [((4, 16_384, 8, 2, 64), 2),
+                                            ((64, 64, 8, 8, 64), 1)],
+                         ids=["split", "one_split"])
+def test_decode_call_is_at_most_two_launches(dev, shape, launches):
+    """The profiler sees the split pass and the combine, or the split pass
+    alone where one split covers the cache, and nothing else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _decode_inputs(shape, torch.bfloat16, dev)
+    vlen = torch.full((shape[0],), shape[1], dtype=torch.int32, device=dev)
+    da.decode_attention(q, k, v, vlen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        da.decode_attention(q, k, v, vlen)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == launches, names
+    assert "decode_split_mma_kernel" in names[0]
+    assert all("decode_" in n for n in names)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_decode_waits_for_the_kernel_before_it(dev, dtype):
+    """Both kernels are launched with programmatic dependent launch: a
+    call right after kernels that rewrite q, the caches and the lengths in
+    the same stream reads what they wrote, and the next writes wait for
+    its combine to have read the workspace."""
+    case = (4, 4096, 8, 2, 64)
+    q, k, v = _decode_inputs(case, dtype, dev, seed=5)
+    vlen = torch.full((4,), 4096, dtype=torch.int32, device=dev)
+    da.decode_attention(q, k, v, vlen)
+    q2, k2, v2 = _decode_inputs(case, dtype, dev, seed=6)
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        q.copy_(q2)
+        k.copy_(k2)
+        v.copy_(v2)
+        vlen.sub_(7)
+        outs.append(da.decode_attention(q, k, v, vlen))
+        vlen.add_(7)
+    torch.cuda.synchronize()
+    for got in outs:
+        _decode_close(got, q2, k2, v2, vlen - 7)
+
+
+def test_decode_kernel_builds_without_spills(dev):
+    """ptxas compiled every instantiation without spills: the CUDA-core
+    split pass (float32 with 4 lane counts, bf16 with 3, each with 4 head
+    counts), the tensor-core split pass (D = 32, 64, 96, 128) and the
+    combine (2 dtypes)."""
+    from repro_torch.kernels import _build
+
+    _, log = _build.build_log("decode_attention")
+    entries = [ln for ln in log.splitlines()
+               if "Compiling entry function" in ln]
+    assert sum("decode_split_simt_kernel" in ln for ln in entries) == 28, log
+    assert sum("decode_split_mma_kernel" in ln for ln in entries) == 4, log
+    assert sum("decode_combine_kernel" in ln for ln in entries) == 2, log
+    spills = [ln for ln in log.splitlines() if "spill" in ln]
+    assert len(spills) >= 34 and all(
+        "0 bytes spill stores, 0 bytes spill loads" in ln
+        for ln in spills), log
 
 
 @pytest.mark.parametrize("bad", ["vlen_dtype", "vlen_cpu", "d24", "mixed",
