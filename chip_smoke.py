@@ -9,11 +9,22 @@ Phases, each printing one JSON line:
 
 1. device  — card name, power limit, and the nvcc build of every kernel of
              the port from the sources in this checkout.
-2. kernel  — each kernel against its plain PyTorch version on the card at
-             the realistic size (65,536 events, K=8, 4,096 bank rows, N=256):
-             tenant layouts, a partial tail, flat segments, ties on knots,
-             out-of-support and NaN scores, out-of-range ids, M=1; then its
-             time beside the plain version's and the memory/compute bound.
+2. kernel  — the banked kernel against its plain PyTorch version on the
+             card, N=256, on both of its paths: 65,536 events on a 64-row
+             bank staged in shared memory; a 1,024-event window on it, and
+             65,536 events on 4,096 rows and on the first T past the
+             card's shared-memory limit, read through L1/L2.  On each:
+             K = 1, 3, 5, 8 in sorted, interleaved and random layouts, a
+             partial tail, flat segments, unsorted tables and NaN knots,
+             ties on knots (bitwise), out-of-support and NaN scores, M=1,
+             and out-of-range ids (NaN in the plain version's rows, every
+             row compared); on the L1/L2 path also tables of N=33 and
+             tables 4 bytes off a 16-byte boundary, K = 3 and 8; then its
+             times at T=64 (each layout), at
+             T=4,096 and at a 1,024 x 3 serve window, each beside the
+             plain version's and the memory/compute bound, and both
+             kernels' times from 1,024 to 65,536 rows on one bank, where
+             the host's choice between them turns.
 3. serve   — the port's main path, ``MuseServer.score_batch``, over the
              FraudWorld ensemble (3 experts, 16 features, N=256) with 64
              tenant predictors and a shadow candidate: mixed-tenant windows
@@ -44,9 +55,10 @@ Phases, each printing one JSON line:
 6. score_kernels — the quantile-map and shared-parameter score-pipeline
              kernels against their plain versions, float32 and bfloat16:
              the reference's cases, scores on knots (bitwise), NaN scores,
-             scores outside the support, flat and unsorted tables, M = 1,
-             a (4, 7, 9) batch, K = 1; then their times at the benchmark's
-             65,536 rows and at a 1,024-row serve window.
+             scores outside the support, flat, all-flat, unsorted and
+             NaN-knot tables at K = 3 and 8, M = 1, a (4, 7, 9) batch,
+             K = 1; then their times at a 1,024-row serve window (the
+             benchmark's 65,536 rows are timed by phase 8).
 7. decode_attention — the decode kernel against its plain version,
              float32 within 2e-5 and bf16 within bf16's rounding of the
              plain version run in float32 on the same inputs: the
@@ -146,6 +158,139 @@ def _compare(name, got, want, *, exact=False, tol=TOL) -> float:
     return err
 
 
+def _ids(a, dev):
+    import numpy as np
+    import torch
+
+    return torch.tensor(np.asarray(a, np.int32), device=dev)
+
+
+def _layout(name, rng, t, m):
+    import numpy as np
+
+    if name == "sorted":          # tenant runs, as a shard-bucketed window
+        return np.repeat(np.arange(t), -(-m // t))[:m]
+    if name == "interleaved":     # tenants alternate row by row
+        return np.arange(m) % t
+    return rng.integers(0, t, m)
+
+
+def _banked_cases(dev, t, m, n, rng, errs, tag) -> None:
+    """Every case of the kernel phase on one bank size, so on one of the
+    banked kernel's two paths; errors go to ``errs`` under ``tag``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import score_pipeline as sp
+
+    def cmp(name, y, tid, bank, exact=False):
+        key = f"{tag}/{name}"
+        errs[key] = _compare(key, sp.score_pipeline_banked(y, tid, *bank),
+                             ref.score_pipeline_banked(y, tid, *bank),
+                             exact=exact)
+
+    def scores(rows, k, lo=0.0, hi=1.0):
+        return torch.tensor(rng.uniform(lo, hi, (rows, k)).astype(
+            np.float32), device=dev)
+
+    # K = 1, 3, 5, 8 (16-byte score reads at K = 8) in three layouts
+    for k in (1, 3, 5, 8):
+        bank = _bank(rng, t, k, n, dev)
+        y = scores(m, k)
+        for layout in ("sorted", "interleaved", "random"):
+            cmp(f"k{k}/{layout}", y, _ids(_layout(layout, rng, t, m), dev),
+                bank)
+    k = 8
+    bank = _bank(rng, t, k, n, dev)
+    betas, weights, src, refq = bank
+    y = scores(m, k)
+    tid = _ids(rng.integers(0, t, m), dev)
+
+    # partial tail: 17 rows past a whole number of warps and blocks
+    cmp("partial_tail", scores(m + 17, k),
+        _ids(np.concatenate([rng.integers(0, t, m), np.full(17, 5)]), dev),
+        bank)
+
+    # flat source segments and fully degenerate tables (search path)
+    flat = src.clone()
+    flat[:, 40:90] = flat[:, 40:41]
+    flat[::7] = 0.5
+    cmp("flat_segments", y, tid, (betas, weights, flat, refq))
+
+    # unsorted tables and NaN knots in some tenants' rows (count path)
+    odd = src.clone()
+    odd[1::5] = torch.rand(odd[1::5].shape, device=dev)
+    odd[2::5, 7] = float("nan")
+    cmp("unsorted_and_nan_knots", y, tid, (betas, weights, odd, refq))
+
+    # ties: identity T^C and A (K = 1, beta = w = 1: agg == score) with
+    # scores ON the knots of each row's table, a flat run whose reference
+    # jumps included: the bucket must be the exact count, so the outputs
+    # must be bitwise equal
+    knots = src.clone()
+    knots[:, 100:120] = knots[:, 100:101]
+    j = torch.tensor(rng.integers(0, n - 1, m), device=dev)
+    ones = torch.ones(t, 1, device=dev)
+    cmp("ties_on_knots", knots[tid.long(), j][:, None].contiguous(), tid,
+        (ones, ones, knots, refq), exact=True)
+
+    # aggregates far outside every table's support (clip to the edges)
+    cmp("out_of_support", torch.cat([scores(m // 2, k, 0.0, 0.02),
+                                     scores(m // 2, k, 0.98, 1.0)]), tid,
+        (betas, weights, 0.4 + 0.2 * src, refq))
+
+    # NaN scores come out NaN in the same rows
+    y_nan = y.clone()
+    y_nan[::13, 3] = float("nan")
+    cmp("nan_scores", y_nan, tid, bank)
+
+    cmp("m1", y[:1], tid[:1], bank)
+
+    # out-of-range ids: NaN in exactly the plain version's rows, every row
+    # compared (the plain version masks them to NaN too)
+    bad = tid.clone()
+    bad[::11] = t + 3
+    bad[5::17] = -1
+    bad[7::29] = -t
+    got = sp.score_pipeline_banked(y, bad, *bank)
+    out = (bad < 0) | (bad >= t)
+    check(bool(torch.isnan(got[out]).all()), f"{tag}: out-of-range ids NaN")
+    errs[f"{tag}/out_of_range_ids"] = _compare(
+        f"{tag}/out_of_range_ids", got,
+        ref.score_pipeline_banked(y, bad, *bank))
+
+
+def _four_bytes_off(x):
+    """``x`` copied into a contiguous tensor that starts 4 bytes past a
+    16-byte boundary."""
+    import torch
+
+    out = torch.empty(x.numel() + 1, device=x.device,
+                      dtype=x.dtype)[1:].view(x.shape)
+    out.copy_(x)
+    check(out.data_ptr() % 16 == 4, "table not 4 bytes off 16")
+    return out
+
+
+def _launch_path(path, y, tid, bank):
+    """One call of the banked kernel on ``path`` whatever the host's
+    choice, through its C launcher (the crossover timing only)."""
+    import torch
+    from repro_torch.kernels import score_pipeline as sp
+
+    out = torch.empty(y.shape[0], device=y.device)
+    (m, k), (t, n) = y.shape, bank[2].shape
+
+    def go():
+        code = sp._library().score_pipeline_banked_launch(
+            y.data_ptr(), tid.data_ptr(), *(x.data_ptr() for x in bank),
+            out.data_ptr(), m, k, t, n, int(path == "shared"),
+            torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"{path} launch failed ({code})")
+        return out
+    return go
+
+
 def phase_kernel(dev) -> dict:
     import numpy as np
     import torch
@@ -153,104 +298,92 @@ def phase_kernel(dev) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels import score_pipeline as sp
 
-    m, k, t, n = 65_536, 8, 4_096, 256
+    m, n = 65_536, 256
+    card = sp.card(dev)
+    past = card[0] // sp.banked_shared_bytes(1, n) + 1
     rng = np.random.default_rng(0)
-    bank = _bank(rng, t, k, n, dev)
-    betas, weights, src, refq = bank
-
-    def scores(rows, lo=0.0, hi=1.0):
-        return torch.tensor(rng.uniform(lo, hi, (rows, k)).astype(np.float32),
-                            device=dev)
-
-    def ids(a):
-        return torch.tensor(np.asarray(a, np.int32), device=dev)
-
-    y = scores(m)
-    layouts = {
-        "sorted": ids(np.repeat(np.arange(t), m // t)),
-        "interleaved": ids(np.arange(m) % t),
-        "random": ids(rng.integers(0, t, m)),
-    }
-    errs = {}
-    for name, tid in layouts.items():
-        errs[name] = _compare(name, sp.score_pipeline_banked(y, tid, *bank),
-                              ref.score_pipeline_banked(y, tid, *bank))
-
-    # partial tail: 17 rows past a whole number of 8-row blocks, edge-padded
-    tail = ids(np.concatenate([rng.integers(0, t, m), np.full(17, 5)]))
-    y_tail = scores(m + 17)
-    errs["partial_tail"] = _compare(
-        "partial_tail", sp.score_pipeline_banked(y_tail, tail, *bank),
-        ref.score_pipeline_banked(y_tail, tail, *bank))
-
-    # flat source segments and fully degenerate tables
-    flat = src.clone()
-    flat[:, 40:90] = flat[:, 40:41]
-    flat[::7] = 0.5
-    fbank = (betas, weights, flat, refq)
-    tid = layouts["random"]
-    errs["flat_segments"] = _compare(
-        "flat_segments", sp.score_pipeline_banked(y, tid, *fbank),
-        ref.score_pipeline_banked(y, tid, *fbank))
-
-    # ties: identity T^C and A (agg == score) with scores ON the knots of a
-    # table whose flat segment has a jump in the reference: the bucket must
-    # be the exact count, so the outputs must be bitwise equal
-    knots = np.linspace(0, 1, n).astype(np.float32)
-    knots[100:120] = knots[100]
-    tie_bank = (torch.ones(1, 1, device=dev), torch.ones(1, 1, device=dev),
-                torch.tensor(knots[None], device=dev),
-                torch.tensor(np.sort(rng.uniform(0, 1, n)).astype(
-                    np.float32)[None], device=dev))
-    y_tie = torch.tensor(knots[:, None], device=dev)
-    tid_tie = torch.zeros(n, dtype=torch.int32, device=dev)
-    errs["ties_on_knots"] = _compare(
-        "ties_on_knots", sp.score_pipeline_banked(y_tie, tid_tie, *tie_bank),
-        ref.score_pipeline_banked(y_tie, tid_tie, *tie_bank), exact=True)
-
-    # aggregates far outside every table's support (clip to the edges)
-    narrow = (betas, weights, 0.4 + 0.2 * src, refq)
-    y_out = torch.cat([scores(m // 2, 0.0, 0.02), scores(m // 2, 0.98, 1.0)])
-    errs["out_of_support"] = _compare(
-        "out_of_support", sp.score_pipeline_banked(y_out, tid, *narrow),
-        ref.score_pipeline_banked(y_out, tid, *narrow))
-
-    # NaN scores come out NaN in the same rows
-    y_nan = y.clone()
-    y_nan[::13, 3] = float("nan")
-    errs["nan_scores"] = _compare(
-        "nan_scores", sp.score_pipeline_banked(y_nan, tid, *bank),
-        ref.score_pipeline_banked(y_nan, tid, *bank))
-
-    # one row
-    errs["m1"] = _compare("m1", sp.score_pipeline_banked(y[:1], tid[:1], *bank),
-                          ref.score_pipeline_banked(y[:1], tid[:1], *bank))
-
-    # out-of-range ids: the kernel reads no bank memory and scores NaN; the
-    # other rows are unaffected (the plain gather would fault, so it only
-    # sees the in-range rows)
-    bad = tid.clone()
-    bad[::11] = t + 3
-    bad[5::17] = -1
-    got = sp.score_pipeline_banked(y, bad, *bank)
-    out = (bad < 0) | (bad >= t)
-    check(bool(torch.isnan(got[out]).all()), "out-of-range ids score NaN")
-    errs["out_of_range_ids"] = _compare(
-        "out_of_range_ids", got[~out],
-        ref.score_pipeline_banked(y[~out], bad[~out], *bank))
+    errs: dict[str, float] = {}
+    paths = {}
+    # 65,536 rows on T = 64 stage the bank in shared memory; a 1,024-row
+    # window on it, and 65,536 rows on T = 4,096 and on the first T past
+    # the card's limit, read it through L1/L2
+    for tag, t, rows in (("t64", 64, m), ("t64_window", 64, 1_024),
+                         ("t4096", 4_096, m), ("past_limit", past, m)):
+        paths[tag] = {"T": t, "M": rows,
+                      "path": sp.banked_path(t, n, rows, *card)}
+        _banked_cases(dev, t, rows, n, rng, errs, tag)
+    check([v["path"] for v in paths.values()]
+          == ["shared", "global", "global", "global"], f"paths {paths}")
+    # the L1/L2 kernel's float-at-a-time table reads: rows of N = 33, and
+    # tables 4 bytes off a 16-byte boundary, at K = 3 and 8
+    for tag, rows in (("t64_window", 1_024), ("past_limit", m)):
+        for tables, nn in (("n33", 33), ("misaligned", n)):
+            t = 64 if tag == "t64_window" else \
+                card[0] // sp.banked_shared_bytes(1, nn) + 1
+            check(sp.banked_path(t, nn, rows, *card) == "global",
+                  f"{tag}/{tables}: path")
+            for k in (3, 8):
+                betas, weights, src, refq = _bank(rng, t, k, nn, dev)
+                if tables == "misaligned":
+                    src, refq = _four_bytes_off(src), _four_bytes_off(refq)
+                bank = (betas, weights, src, refq)
+                y = torch.tensor(rng.uniform(0, 1, (rows, k)).astype(
+                    np.float32), device=dev)
+                tid = _ids(rng.integers(0, t, rows), dev)
+                key = f"{tag}/{tables}/k{k}"
+                errs[key] = _compare(
+                    key, sp.score_pipeline_banked(y, tid, *bank),
+                    ref.score_pipeline_banked(y, tid, *bank))
     torch.cuda.synchronize()
 
-    y_r, tid_r = y, layouts["random"]
-    kernel_ms = device_ms(lambda: sp.score_pipeline_banked(y_r, tid_r, *bank))
-    plain_ms = device_ms(lambda: ref.score_pipeline_banked(y_r, tid_r, *bank),
-                         inner=10)
-    bound_ms, bound_by = banked_bound(m, k, t, n)
+    # times: the benchmark's T = 64 bank in each layout, the reference
+    # benchmark's T = 4,096 bank in random order, and a serve window
+    timings = {}
+    for name, (rows, k, t, layout) in {
+            "t64_sorted": (m, 8, 64, "sorted"),
+            "t64_interleaved": (m, 8, 64, "interleaved"),
+            "t64_random": (m, 8, 64, "random"),
+            "t4096_random": (m, 8, 4_096, "random"),
+            "window_1024x3": (1_024, 3, 64, "random")}.items():
+        bank = _bank(rng, t, k, n, dev)
+        y = torch.tensor(rng.uniform(0, 1, (rows, k)).astype(np.float32),
+                         device=dev)
+        tid = _ids(_layout(layout, rng, t, rows), dev)
+        err = _compare(name, sp.score_pipeline_banked(y, tid, *bank),
+                       ref.score_pipeline_banked(y, tid, *bank))
+        bound_ms, bound_by = banked_bound(rows, k, t, n)
+        timings[name] = {
+            "shape": {"M": rows, "K": k, "T": t, "N": n, "layout": layout},
+            "path": sp.banked_path(t, n, rows, *card), "max_abs_err": err,
+            "ms": device_ms(lambda: sp.score_pipeline_banked(y, tid, *bank)),
+            "plain_ms": device_ms(
+                lambda: ref.score_pipeline_banked(y, tid, *bank), inner=10),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+    # where the host's choice turns: both kernels on one 64-tenant bank,
+    # random ids, K = 8, from a serve window to the benchmark's size (each
+    # held to the plain version first)
+    bank = _bank(rng, 64, 8, n, dev)
+    crossover = {}
+    for rows in (1_024, 4_096, 16_384, 32_768, 65_536):
+        y = torch.tensor(rng.uniform(0, 1, (rows, 8)).astype(np.float32),
+                         device=dev)
+        tid = _ids(rng.integers(0, 64, rows), dev)
+        want = ref.score_pipeline_banked(y, tid, *bank)
+        crossover[rows] = {"chosen": sp.banked_path(64, n, rows, *card)}
+        for path in ("shared", "global"):
+            fn = _launch_path(path, y, tid, bank)
+            _compare(f"crossover/{rows}/{path}", fn().clone(), want)
+            crossover[rows][path] = device_ms(fn)
+    big = timings["t4096_random"]
     result = {"phase": "kernel", "name": "score_pipeline_banked",
-              "shape": {"M": m, "K": k, "T": t, "N": n},
+              "card": {"shared_limit_bytes": card[0], "sms": card[1]},
+              "paths": paths, "shape": big["shape"],
               "max_abs_err": max(errs.values()), "errors": errs,
-              "ties_bitwise": True, "out_of_range_ids": "NaN",
-              "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "library_ms": None,
+              "ties_bitwise": True, "out_of_range_ids": "NaN, every row",
+              **{key: big[key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+              "timings": timings, "crossover_ms": crossover,
               "timing": "CUDA events, median of 20 runs of back-to-back "
                         "launches queued behind a busy card; bank warm in L2"}
     emit(result)
@@ -1017,8 +1150,19 @@ def phase_score_kernels(dev) -> dict:
             narrow, refq)
         cmp("score_pipeline", "flat_segments", scores((4096, 8)), *params(8),
             flat, refq)
-        cmp("score_pipeline", "unsorted", scores((4096, 8)), *params(8),
-            unsorted, refq)
+        # the block's proof sends an unsorted or NaN-knot table to the
+        # exact count and a sorted or flat one to the search; K = 8 reads
+        # 16 bytes at a time (8 bf16 or 4 float32 a read where K allows)
+        nan_knot = src.clone()
+        nan_knot[77] = float("nan")
+        for k in (3, 8):
+            for name, table in (("unsorted", unsorted),
+                                ("nan_knot", nan_knot), ("flat", flat),
+                                ("all_flat", torch.full_like(src, 0.5))):
+                y = scores((4096, k), -0.1, 1.1)
+                y[::17, 0] = float("nan")
+                cmp("score_pipeline", f"{name}_k{k}", y, *params(k), table,
+                    refq)
         cmp("score_pipeline", "m1", scores((1, 8)), *params(8), src, refq)
         got = cmp("score_pipeline", "batch_4x7x9", scores((4, 7, 9, 3)),
                   *params(3), *_tables(rng, 32, dev))
@@ -1381,8 +1525,10 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, attention: dict,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "shape": {"M": m, "K": k, "T": t, "N": n},
+        "path": sp.banked_path(t, n, m, *sp.card(raws.device)),
         "realistic": {key: kernel[key] for key in
                       ("shape", "ms", "plain_ms", "bound_ms", "bound_by")},
+        "timings": kernel["timings"],
     }, {
         "name": "flash_attention_wgmma", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",

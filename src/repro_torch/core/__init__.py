@@ -15,6 +15,7 @@ from repro_torch.core.transforms import (
     TransformBank,
     banked_score_pipeline,
     posterior_correction,
+    posterior_correction_inverse,
     quantile_map,
     score_pipeline,
 )
@@ -24,7 +25,8 @@ from repro_torch.core.registry import ModelPool
 
 __all__ = [
     "Aggregation", "PosteriorCorrection", "QuantileMap", "TransformBank",
-    "banked_score_pipeline", "posterior_correction", "quantile_map",
+    "banked_score_pipeline", "posterior_correction",
+    "posterior_correction_inverse", "quantile_map",
     "score_pipeline",
     "Predictor", "PredictorSpec", "TransformPipeline", "deploy_predictor",
     "Condition", "Intent", "Resolution", "RoutingTable", "ScoringRule", "ShadowRule",

@@ -43,6 +43,19 @@ def posterior_correction(scores: Tensor, beta: Tensor | float) -> Tensor:
     return (beta * scores) / (1.0 - (1.0 - beta) * scores)
 
 
+def posterior_correction_inverse(corrected: Tensor,
+                                 beta: Tensor | float) -> Tensor:
+    """Inverse of Eq. 3 — maps a true posterior back to the biased score.
+
+    Used by the synthetic data pipeline to *induce* undersampling bias with a
+    known ground truth, and in tests as the round-trip oracle.
+    """
+    corrected = torch.as_tensor(corrected)
+    beta = torch.as_tensor(beta, dtype=corrected.dtype,
+                           device=corrected.device)
+    return corrected / (beta + (1.0 - beta) * corrected)
+
+
 @dataclasses.dataclass(frozen=True)
 class PosteriorCorrection:
     """Per-expert ``T^C_k`` node: carries the training undersampling ratio."""
@@ -407,15 +420,34 @@ class TransformBank:
         )
 
 
+def _sum_k(x: Tensor) -> Tensor:
+    """Sum over the last axis in k order, ((x_0 + x_1) + x_2) + ..., as the
+    kernels sum.  ``torch.sum``'s order depends on the device: on CUDA it
+    sums K = 3 as (x_0 + x_2) + x_1, which a steep T^Q segment can turn
+    into more than the 2e-5 the kernel is held to."""
+    total = x[..., 0]
+    for e in range(1, x.shape[-1]):
+        total = total + x[..., e]
+    return total
+
+
 def _banked_pre_quantile(expert_scores: Tensor, tenant_idx: Tensor,
                          betas: Tensor, weights: Tensor) -> Tensor:
+    """The corrected weighted aggregate of each row under its bank row,
+    summed over K in k order as :func:`banked_score_pipeline` sums it.
+
+    An id outside [0, T) raises ``IndexError`` (the gather checks it): the
+    server forms ids from its own bank only, and the reference's
+    ``pre_quantile`` gathers by ``jnp.take`` in its own way, so there is no
+    out-of-range answer to match here.
+    """
     tenant_idx = torch.as_tensor(tenant_idx, device=betas.device).long()
     b = betas.index_select(0, tenant_idx.reshape(-1)).reshape(
         tenant_idx.shape + betas.shape[-1:])          # (B, K)
     w = weights.index_select(0, tenant_idx.reshape(-1)).reshape(b.shape)
     corrected = posterior_correction(expert_scores, b)
-    w = w / torch.sum(w, dim=-1, keepdim=True)
-    return torch.sum(corrected * w, dim=-1)
+    w = w / _sum_k(w)[..., None]
+    return _sum_k(corrected * w)
 
 
 def banked_score_pipeline(
@@ -430,13 +462,18 @@ def banked_score_pipeline(
 
     ``expert_scores``: (..., K); ``tenant_idx``: (...) int; bank params are
     (T, K) / (T, N).  Plain PyTorch — the reference for the banked CUDA
-    kernel.  Weights are normalized per row (so padded expert columns with
-    weight 0 contribute nothing).  An id outside [0, T) raises (the gather
-    checks it).
+    kernel, op for op, its sums over K in k order on every device.
+    Weights are normalized per row (so padded expert columns with weight 0
+    contribute nothing).  A row whose id lies outside [0, T)
+    scores NaN, as the CUDA kernel and the reference's Pallas kernel give
+    (the reference's ``jnp.take`` oracle gives NaN for ids >= T but wraps
+    negative ids); the other rows are untouched by it.
     """
     expert_scores = torch.as_tensor(expert_scores)
     tid = torch.as_tensor(tenant_idx, device=betas.device).long()
-    flat = tid.reshape(-1)
+    outside = (tid < 0) | (tid >= betas.shape[0])
+    # gather in range, then mask: the in-range rows are what they would be
+    flat = tid.clamp(0, betas.shape[0] - 1).reshape(-1)
 
     def gather(table: Tensor) -> Tensor:
         return table.index_select(0, flat).reshape(
@@ -447,8 +484,8 @@ def banked_score_pipeline(
     qs = gather(src_quantiles)                          # (..., N)
     qr = gather(ref_quantiles)                          # (..., N)
     corrected = posterior_correction(expert_scores, b)
-    w = w / torch.sum(w, dim=-1, keepdim=True)
-    agg = torch.sum(corrected * w, dim=-1)              # (...)
+    w = w / _sum_k(w)[..., None]
+    agg = _sum_k(corrected * w)                         # (...)
 
     qs = qs.to(agg.dtype)
     qr = qr.to(agg.dtype)
@@ -461,4 +498,5 @@ def banked_score_pipeline(
     denom = torch.where(diff > 0, diff, torch.ones_like(diff))
     out = q_r_i + (agg - q_s_i) * (q_r_n - q_r_i) / denom
     # torch.clamp propagates NaN, as jnp.clip does
-    return torch.clamp(out, qr[..., 0], qr[..., -1])
+    out = torch.clamp(out, qr[..., 0], qr[..., -1])
+    return out.masked_fill(outside, float("nan"))

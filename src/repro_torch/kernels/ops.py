@@ -66,10 +66,19 @@ def score_pipeline_banked(expert_scores: torch.Tensor,
                           weights: torch.Tensor, src_quantiles: torch.Tensor,
                           ref_quantiles: torch.Tensor) -> torch.Tensor:
     """Mixed-tenant Eq. 2: ``expert_scores`` (..., K), ``tenant_idx`` (...)
-    indexing the (T, K) / (T, N) banks -> (...) scores."""
+    indexing the (T, K) / (T, N) banks -> (...) scores.  A row whose id
+    lies outside [0, T) scores NaN.
+
+    The ids are cast to int32 on both devices, as the reference's wrapper
+    casts them (an integer of another width is taken modulo 2^32).
+    """
     *batch_shape, k = expert_scores.shape
     flat = expert_scores.reshape(-1, k)
-    idx = tenant_idx.reshape(-1)
+    if tenant_idx.is_floating_point() or tenant_idx.is_complex() \
+            or tenant_idx.dtype == torch.bool:
+        raise ValueError(f"tenant_idx: dtype {tenant_idx.dtype}, expected "
+                         "an integer type")
+    idx = tenant_idx.reshape(-1).to(torch.int32)
     if idx.shape[0] != flat.shape[0]:
         raise ValueError(f"tenant_idx has {idx.shape[0]} rows for "
                          f"{flat.shape[0]} score rows")

@@ -6,11 +6,15 @@
 Two entry points, as in the reference module:
 
 * :func:`score_pipeline` launches ``csrc/score_pipeline.cu``: one shared
-  (K,) / (N,) parameter set, one thread per row, the parameters and tables
-  staged in shared memory.
+  (K,) / (N,) parameter set, one thread per row, the tables staged in
+  shared memory, the bucket by a binary search where the block has proved
+  the table sorted and by the exact count otherwise.
 * :func:`score_pipeline_banked` launches ``csrc/score_pipeline_banked.cu``:
-  one warp per row, direct indexed loads of the row's bank parameters, and
-  an exact warp-wide count for the T^Q bucket.
+  one thread per row; a bank whose tables fit a block's shared memory, on
+  a window large enough to pay for the copies, has them staged there, its
+  source tables proved sorted and searched; otherwise the tables stay in
+  L1/L2 and each warp counts its rows' buckets together.
+  :func:`banked_path` picks the kernel.
 
 Both are built by ``kernels/_build.py`` and launch on PyTorch's current
 stream.  They take CUDA tensors only and raise on anything else; the plain
@@ -127,15 +131,63 @@ def score_pipeline(expert_scores: torch.Tensor, betas: torch.Tensor,
     return out.reshape(batch_shape)
 
 
+def banked_shared_bytes(t: int, n: int) -> int:
+    """Shared memory the shared-bank kernel takes for T table pairs of N
+    knots: both tables, each row padded to an odd number of 16-byte quads,
+    and a sorted flag a tenant, 4 bytes each
+    (``csrc/score_pipeline_banked.cu::shared_bytes``)."""
+    quads = -(-n // 4)
+    padded = 4 * (quads if quads % 2 else quads + 1)
+    return 4 * t * (2 * padded + 1)
+
+
+# Rows an SM must score before staging the bank in each of its blocks
+# pays for itself: on the H100 (132 SMs) the L1/L2 kernel is the faster
+# one up to 16,384 rows and the shared-memory kernel from 32,768 (T = 64,
+# K = 8; chip_smoke.py's kernel phase times both across that range).
+SHARED_ROWS_PER_SM = 200
+
+
+def banked_path(t: int, n: int, m: int, shared_limit: int, sms: int) -> str:
+    """Which banked kernel scores M rows against a bank of T tenants and N
+    knots on a card of ``sms`` SMs whose blocks may opt in to
+    ``shared_limit`` bytes of shared memory: ``"shared"`` (both tables
+    staged in each block) when they fit and the rows give every SM at least
+    ``SHARED_ROWS_PER_SM`` of them to pay for its copy, else ``"global"``
+    (the tables read through L1/L2).  Both are the hand-written kernel.  K
+    does not enter: beta and w are read through L1 on both paths."""
+    fits = banked_shared_bytes(t, n) <= shared_limit
+    return "shared" if fits and m >= SHARED_ROWS_PER_SM * sms else "global"
+
+
+# device index -> (opt-in shared memory per block, SMs), read once
+_CARD: dict[int, tuple[int, int]] = {}
+
+
+def card(device: torch.device) -> tuple[int, int]:
+    """The opt-in shared memory a block of ``device`` may take, as the card
+    reports it (``cudaDevAttrMaxSharedMemoryPerBlockOptin``), and its SM
+    count: what :func:`banked_path` needs to know of the card."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _CARD:
+        props = torch.cuda.get_device_properties(index)
+        _CARD[index] = (props.shared_memory_per_block_optin,
+                        props.multi_processor_count)
+    return _CARD[index]
+
+
 def _library() -> ctypes.CDLL:
     """The banked kernel's library, with its C signatures declared."""
     lib = _build.library("score_pipeline_banked")
     lib.score_pipeline_banked_launch.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
     lib.score_pipeline_banked_launch.restype = ctypes.c_int
     lib.score_pipeline_banked_error_string.argtypes = [ctypes.c_int]
     lib.score_pipeline_banked_error_string.restype = ctypes.c_char_p
+    lib.score_pipeline_banked_shared_bytes.argtypes = [ctypes.c_int] * 2
+    lib.score_pipeline_banked_shared_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -143,13 +195,15 @@ def score_pipeline_banked(expert_scores: torch.Tensor,
                           tenant_idx: torch.Tensor, betas: torch.Tensor,
                           weights: torch.Tensor, src_quantiles: torch.Tensor,
                           ref_quantiles: torch.Tensor) -> torch.Tensor:
-    """Mixed-tenant Eq. 2 in ONE launch of the CUDA kernel.
+    """Mixed-tenant Eq. 2 in ONE launch of a CUDA kernel, the one
+    :func:`banked_path` picks for the bank.
 
     ``expert_scores``: (M, K) float32; ``tenant_idx``: (M,) int32 row index
-    into the (T, K) / (T, N) float32 banks; every tensor contiguous and on
-    one CUDA device.  Returns (M,) float32.  A row whose id lies outside
-    [0, T) scores NaN.  Raises ``ValueError`` on any other input — there is
-    no fallback to the plain version.
+    into the (T, K) / (T, N) float32 banks (``ops.score_pipeline_banked``
+    casts other integer ids); every tensor contiguous and on one CUDA
+    device.  Returns (M,) float32.  A row whose id lies outside [0, T)
+    scores NaN.  Raises ``ValueError`` on any other input — there is no
+    fallback to the plain version.
     """
     tensors = {"expert_scores": expert_scores, "tenant_idx": tenant_idx,
                "betas": betas, "weights": weights,
@@ -182,6 +236,7 @@ def score_pipeline_banked(expert_scores: torch.Tensor,
             or t == 0:
         raise ValueError(f"src/ref quantiles must both be ({t}, N), N >= 2")
     n = src_quantiles.shape[1]
+    shared = banked_path(t, n, m, *card(device)) == "shared"
     out = torch.empty(m, dtype=torch.float32, device=device)
     lib = _library()
     with torch.cuda.device(device):
@@ -189,7 +244,7 @@ def score_pipeline_banked(expert_scores: torch.Tensor,
             expert_scores.data_ptr(), tenant_idx.data_ptr(),
             betas.data_ptr(), weights.data_ptr(), src_quantiles.data_ptr(),
             ref_quantiles.data_ptr(), out.data_ptr(), m, k, t, n,
-            torch.cuda.current_stream(device).cuda_stream)
+            int(shared), torch.cuda.current_stream(device).cuda_stream)
     if code != 0:
         msg = lib.score_pipeline_banked_error_string(code).decode()
         raise RuntimeError(f"score_pipeline_banked launch failed: {msg}")

@@ -59,9 +59,335 @@ def test_out_of_range_ids_score_nan(dev):
     y = torch.rand(6, 2, device=dev)
     tid = torch.tensor([0, -1, 4, 3, 1 << 30, 2], dtype=torch.int32,
                        device=dev)
-    got = sp.score_pipeline_banked(y, tid, *bank).cpu()
+    got = sp.score_pipeline_banked(y, tid, *bank)
     assert torch.isnan(got[[1, 2, 4]]).all()
     assert torch.isfinite(got[[0, 3, 5]]).all()
+    want = ref.score_pipeline_banked(y, tid, *bank)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got[[0, 3, 5]], want[[0, 3, 5]])
+
+
+def _limit_t(dev, n):
+    """The largest T whose bank of N-knot tables the shared-bank kernel
+    takes."""
+    return sp.card(dev)[0] // sp.banked_shared_bytes(1, n)
+
+
+# (T, rows, path): 65,536 rows on T = 64 and on the largest T that fits
+# stage the bank in shared memory; a 1,024-row window on T = 64 and 65,536
+# rows on the first T past the limit and on T = 4,096 read it through L1/L2
+BANKS = {"t64": (lambda dev: 64, 65_536, "shared"),
+         "t64_window": (lambda dev: 64, 1_024, "global"),
+         "at_limit": (lambda dev: _limit_t(dev, 256), 65_536, "shared"),
+         "past_limit": (lambda dev: _limit_t(dev, 256) + 1, 65_536,
+                        "global"),
+         "t4096": (lambda dev: 4096, 65_536, "global")}
+
+
+def _layout(name, rng, t, m):
+    if name == "sorted":
+        return np.repeat(np.arange(t), -(-m // t))[:m]
+    if name == "interleaved":
+        return np.arange(m) % t
+    return rng.integers(0, t, m)
+
+
+def _banked_case(dev, bank, k, seed):
+    rng = np.random.default_rng(seed)
+    t_of, m, path = BANKS[bank]
+    t = t_of(dev)
+    assert sp.banked_path(t, 256, m, *sp.card(dev)) == path
+    return rng, t, _bank(rng, t, k, 256, dev), torch.tensor(
+        rng.uniform(0, 1, (m, k)).astype(np.float32), device=dev)
+
+
+def _ids(a, dev):
+    return torch.tensor(np.asarray(a, np.int32), device=dev)
+
+
+def _same_or_close(got, want):
+    """NaN in the same rows and within 2e-5 elsewhere."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    torch.testing.assert_close(got[ok], want[ok], **TOL)
+
+
+@pytest.mark.parametrize("layout", ["sorted", "interleaved", "random"])
+@pytest.mark.parametrize("k", [1, 3, 5, 8])
+@pytest.mark.parametrize("bank", sorted(BANKS))
+def test_banked_paths_match_plain_version(dev, bank, k, layout):
+    rng, t, params, y = _banked_case(dev, bank, k, seed=k)
+    tid = _ids(_layout(layout, rng, t, y.shape[0]), dev)
+    before = ops.LAUNCHES["score_pipeline_banked"]
+    got = ops.score_pipeline_banked(y, tid, *params)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["score_pipeline_banked"] == before + 1
+    _same_or_close(got, ref.score_pipeline_banked(y, tid, *params))
+
+
+@pytest.mark.parametrize("bank", sorted(BANKS))
+def test_banked_paths_on_odd_tables(dev, bank):
+    """Unsorted tables, NaN knots and flat runs in some tenants' rows, NaN
+    scores in some rows: the count is the reference's on every table."""
+    rng, t, (b, w, src, refq), y = _banked_case(dev, bank, 3, seed=11)
+    src = src.clone()
+    src[1::5] = torch.rand(src[1::5].shape, device=dev)   # unsorted
+    src[2::5, 7] = float("nan")                           # a NaN knot
+    src[3::5, 20:90] = src[3::5, 20:21]                   # a flat run
+    y[::17, 1] = float("nan")
+    tid = _ids(rng.integers(0, t, y.shape[0]), dev)
+    _same_or_close(sp.score_pipeline_banked(y, tid, b, w, src, refq),
+                   ref.score_pipeline_banked(y, tid, b, w, src, refq))
+
+
+@pytest.mark.parametrize("bank", sorted(BANKS))
+def test_banked_paths_map_scores_on_knots_bitwise(dev, bank):
+    """Identity T^C and A (K = 1, beta = w = 1): a score on knot j of its
+    tenant's table, flat run included, maps to qr[j] bitwise."""
+    rng, t, (_, _, src, refq), y = _banked_case(dev, bank, 1, seed=12)
+    m = y.shape[0]
+    src = src.clone()
+    src[:, 100:120] = src[:, 100:101]
+    tid = _ids(rng.integers(0, t, m), dev)
+    j = torch.tensor(rng.integers(0, 255, m), device=dev)
+    y = src[tid.long(), j][:, None].contiguous()
+    ones = torch.ones(t, 1, device=dev)
+    got = sp.score_pipeline_banked(y, tid, ones, ones, src, refq)
+    assert torch.equal(got, ref.score_pipeline_banked(y, tid, ones, ones,
+                                                      src, refq))
+
+
+@pytest.mark.parametrize("bank", sorted(BANKS))
+def test_banked_paths_out_of_range_ids_on_every_row(dev, bank):
+    rng, t, params, y = _banked_case(dev, bank, 8, seed=13)
+    ids = rng.integers(0, t, y.shape[0])
+    ids[::11] = t + 3
+    ids[5::17] = -1
+    ids[7::29] = -t
+    tid = _ids(ids, dev)
+    got = ops.score_pipeline_banked(y, tid, *params)
+    want = ref.score_pipeline_banked(y, tid, *params)
+    out = (tid < 0) | (tid >= t)
+    assert torch.isnan(got[out]).all()
+    _same_or_close(got, want)
+
+
+def _four_bytes_off(x):
+    """``x`` copied into a contiguous tensor that starts 4 bytes past a
+    16-byte boundary."""
+    out = torch.empty(x.numel() + 1, device=x.device,
+                      dtype=x.dtype)[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("n,misaligned", [(33, False), (2, False),
+                                          (256, True)],
+                         ids=["n33", "n2", "misaligned"])
+def test_banked_shared_path_copies_odd_tables(dev, n, misaligned):
+    """Tables whose rows are not whole 16-byte quads, or that start off a
+    16-byte boundary, reach shared memory by cp.async instead of TMA bulk
+    copies; the kernel still agrees with the plain version."""
+    rng = np.random.default_rng(n)
+    t, m = 64, 32_768
+    betas, weights, src, refq = _bank(rng, t, 3, n, dev)
+    if misaligned:
+        src, refq = _four_bytes_off(src), _four_bytes_off(refq)
+        assert src.data_ptr() % 16 == 4
+    assert sp.banked_path(t, n, m, *sp.card(dev)) == "shared"
+    y = torch.tensor(rng.uniform(0, 1, (m, 3)).astype(np.float32),
+                     device=dev)
+    tid = _ids(rng.integers(0, t, m), dev)
+    _same_or_close(sp.score_pipeline_banked(y, tid, betas, weights, src,
+                                            refq),
+                   ref.score_pipeline_banked(y, tid, betas, weights, src,
+                                             refq))
+
+
+@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("n,misaligned", [(33, False), (256, True)],
+                         ids=["n33", "misaligned"])
+@pytest.mark.parametrize("bank", ["t64_window", "past_limit"])
+def test_banked_global_path_reads_odd_tables(dev, bank, n, misaligned, k):
+    """On the L1/L2 path, tables whose rows are not whole 16-byte quads, or
+    that start off a 16-byte boundary, are read a float at a time (at K = 8
+    with 16-byte score reads, at K = 3 without); the kernel still agrees
+    with the plain version on every row."""
+    rng = np.random.default_rng(100 * n + k)
+    m = BANKS[bank][1]
+    t = 64 if bank == "t64_window" else _limit_t(dev, n) + 1
+    betas, weights, src, refq = _bank(rng, t, k, n, dev)
+    if misaligned:
+        src, refq = _four_bytes_off(src), _four_bytes_off(refq)
+        assert src.data_ptr() % 16 == 4
+    assert sp.banked_path(t, n, m, *sp.card(dev)) == "global"
+    y = torch.tensor(rng.uniform(0, 1, (m, k)).astype(np.float32),
+                     device=dev)
+    tid = _ids(rng.integers(0, t, m), dev)
+    _same_or_close(sp.score_pipeline_banked(y, tid, betas, weights, src,
+                                            refq),
+                   ref.score_pipeline_banked(y, tid, betas, weights, src,
+                                             refq))
+
+
+def test_banked_shared_bytes_match_the_kernel(dev):
+    lib = sp._library()
+    for t, n in [(64, 256), (1, 2), (7, 33), (300, 130), (5, 28)]:
+        assert lib.score_pipeline_banked_shared_bytes(t, n) == \
+            sp.banked_shared_bytes(t, n)
+
+
+# One profiled call of each redesigned kernel on each of its paths, in a
+# process of its own: a CUDA-only profiler session here would leave later
+# ones in this process (the decode launch test's) with no device events.
+_LAUNCH_PROBE = r"""
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import score_pipeline as sp
+
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(0)
+
+
+def bank(t, k, n=256):
+    src, ref = (torch.sort(torch.rand(t, n, device=dev, generator=g), -1)[0]
+                for _ in range(2))
+    return (torch.rand(t, k, device=dev, generator=g),
+            torch.rand(t, k, device=dev, generator=g) + 0.1, src, ref)
+
+
+def kernels(fn):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+out = {}
+y = torch.rand(65_536, 8, device=dev, generator=g)
+for name, t, m in (("t64", 64, 65_536), ("t64_window", 64, 1_024),
+                   ("t4096", 4096, 65_536)):
+    b = bank(t, 8)
+    tid = torch.randint(0, t, (m,), device=dev, generator=g,
+                        dtype=torch.int32)
+    out[name] = kernels(lambda: sp.score_pipeline_banked(y[:m], tid, *b))
+src, ref = (torch.sort(torch.rand(256, device=dev, generator=g))[0]
+            for _ in range(2))
+w = torch.ones(8, device=dev)
+for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+    x = y.to(dtype)
+    out[name] = kernels(lambda: sp.score_pipeline(x, y[0], w, src, ref))
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def kernels_a_call():
+    """The CUDA kernels one call runs, by case, from a fresh process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = {**os.environ, "PYTHONPATH": str(src)}
+    run = subprocess.run([sys.executable, "-c", _LAUNCH_PROBE], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("bank", ["t64", "t64_window", "t4096"])
+def test_banked_call_is_one_launch(kernels_a_call, bank):
+    names = kernels_a_call[bank]
+    assert len(names) == 1, names
+    assert f"banked_{BANKS[bank][2]}_kernel" in names[0]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_score_pipeline_call_is_one_launch(kernels_a_call, dtype):
+    names = kernels_a_call[dtype]
+    assert len(names) == 1 and "score_pipeline_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("bank", ["t64", "t64_window", "t4096"])
+def test_banked_waits_for_the_kernel_before_it(dev, bank):
+    """Programmatic dependent launch: a call right after kernels that
+    rewrite the scores, ids and bank in the same stream reads what they
+    wrote."""
+    rng, t, params, y = _banked_case(dev, bank, 8, seed=15)
+    tid = _ids(rng.integers(0, t, y.shape[0]), dev)
+    _, t2, params2, y2 = _banked_case(dev, bank, 8, seed=16)
+    tid2 = _ids(rng.integers(0, t, y.shape[0]), dev)
+    sp.score_pipeline_banked(y, tid, *params)
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        y.copy_(y2)
+        tid.copy_(tid2)
+        for p, p2 in zip(params, params2):
+            p.copy_(p2)
+        outs.append(sp.score_pipeline_banked(y, tid, *params))
+        y.add_(1.0)      # the next writes wait for the call's reads
+        tid.add_(1)
+        for p in params:
+            p.mul_(0.5)
+    torch.cuda.synchronize()
+    want = ref.score_pipeline_banked(y2, tid2, *params2)
+    for got in outs:
+        _same_or_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_score_pipeline_waits_for_the_kernel_before_it(dev, dtype):
+    rng = np.random.default_rng(17)
+    src, refq = _tables(rng, 256, dev)
+    src2, refq2 = _tables(rng, 256, dev)
+    y = torch.rand(65_536, 8, device=dev).to(dtype)
+    y2 = torch.rand(65_536, 8, device=dev).to(dtype)
+    b, w = torch.rand(8, device=dev), torch.rand(8, device=dev) + 0.1
+    b2, w2 = torch.rand(8, device=dev), torch.rand(8, device=dev) + 0.1
+    sp.score_pipeline(y, b, w, src, refq)
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        for x, x2 in ((y, y2), (b, b2), (w, w2), (src, src2),
+                      (refq, refq2)):
+            x.copy_(x2)
+        outs.append(sp.score_pipeline(y, b, w, src, refq))
+        for x in (y, b, w, src, refq):
+            x.mul_(0.5)
+    torch.cuda.synchronize()
+    want = ref.score_pipeline(y2, b2, w2, src2, refq2)
+    for got in outs:
+        _close_with_nan(got, want, SCORE_TOL[dtype])
+
+
+@pytest.mark.parametrize("name,kernels", [
+    ("score_pipeline_banked", {"banked_shared_kernel": 2,
+                               "banked_global_kernel": 4}),
+    ("score_pipeline", {"score_pipeline_kernel": 3})])
+def test_score_kernels_build_without_spills(dev, name, kernels):
+    """ptxas compiled every instantiation without spills."""
+    from repro_torch.kernels import _build
+
+    _, log = _build.build_log(name)
+    entries = [ln for ln in log.splitlines()
+               if "Compiling entry function" in ln]
+    for kernel, count in kernels.items():
+        assert sum(kernel in ln for ln in entries) == count, log
+    spills = [ln for ln in log.splitlines() if "spill" in ln]
+    assert len(spills) >= sum(kernels.values()) and all(
+        "0 bytes spill stores, 0 bytes spill loads" in ln
+        for ln in spills), log
 
 
 @pytest.mark.parametrize("bad", ["dtype", "contiguity", "empty", "knots"])
@@ -346,6 +672,34 @@ def test_score_pipeline_kernel_matches_plain_version(dev, shape, n, dtype):
     assert got.shape == shape[:-1]
     _close_with_nan(got, ref.score_pipeline(y, betas, weights, src, refq),
                     SCORE_TOL[dtype])
+
+
+@SCORE_DTYPES
+@pytest.mark.parametrize("k", [3, 8])
+@pytest.mark.parametrize("table", ["sorted", "unsorted", "nan_knot", "flat",
+                                   "all_flat"])
+def test_score_pipeline_on_each_bucket_form(dev, table, k, dtype):
+    """A sorted, flat or all-flat table takes the block's binary search,
+    an unsorted or NaN-knot table the exact count; both agree with the
+    plain version, in float32 and bf16, with 16-byte and scalar loads."""
+    rng = np.random.default_rng(k)
+    src, refq = _tables(rng, 256, dev)
+    if table == "unsorted":
+        src = torch.tensor(rng.uniform(0, 1, 256).astype(np.float32),
+                           device=dev)
+    elif table == "nan_knot":
+        src[77] = float("nan")
+    elif table == "flat":
+        src[40:90] = src[40]
+    elif table == "all_flat":
+        src[:] = 0.5
+    y = torch.tensor(rng.uniform(-0.1, 1.1, (5000, k)).astype(np.float32),
+                     device=dev).to(dtype)
+    y[::13, 0] = float("nan")
+    b = torch.tensor(rng.uniform(0.02, 1, k).astype(np.float32), device=dev)
+    w = torch.tensor(rng.uniform(0.5, 2, k).astype(np.float32), device=dev)
+    _close_with_nan(sp.score_pipeline(y, b, w, src, refq),
+                    ref.score_pipeline(y, b, w, src, refq), SCORE_TOL[dtype])
 
 
 @pytest.mark.parametrize("table", ["flat", "unsorted"])

@@ -9,8 +9,9 @@ cases, and on a few cases to the Pallas kernels themselves in interpret
 mode, in float32 and bfloat16 (on bfloat16 the JAX oracle rounds its
 tables to bfloat16, the kernels do not).  Tolerances are the reference's
 ``_tol`` (``tests/test_kernels.py``): 2e-5 in float32, 2e-2 in bfloat16.
-The CUDA wrappers' argument checks run here too: they raise before any
-CUDA call.
+The CUDA wrappers' argument checks, the banked kernel's host-side path
+choice and a float32 emulation of the kernels' guarded bucket search run
+here too: they need no card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -227,3 +228,161 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(bad):
     if bad != "k":
         with pytest.raises(ValueError, match=match):
             tqm.quantile_map(x[:, 0], src, refq)
+
+
+def _banked_args(seed, t=5, k=3, n=16, m=60):
+    rng = np.random.default_rng(seed)
+    params = (rng.uniform(0.05, 1, (t, k)), rng.uniform(0.1, 2, (t, k)),
+              np.sort(rng.uniform(0, 1, (t, n)), -1),
+              np.sort(rng.uniform(0, 1, (t, n)), -1))
+    return rng, _t(*params), torch.tensor(rng.uniform(0, 1, (m, k)),
+                                          dtype=torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int16, torch.uint8])
+def test_banked_ids_of_any_integer_type_score_as_int32(dtype):
+    rng, params, y = _banked_args(40)
+    ids = rng.integers(0, 5, 60)
+    ids[::7] = 9                           # out of range: NaN either way
+    want = tops.score_pipeline_banked(y, torch.tensor(ids, dtype=torch.int32),
+                                      *params)
+    got = tops.score_pipeline_banked(y, torch.tensor(ids).to(dtype), *params)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(got[~torch.isnan(want)], want[~torch.isnan(want)])
+
+
+def test_banked_float_ids_raise():
+    _, params, y = _banked_args(41)
+    with pytest.raises(ValueError, match="integer"):
+        tops.score_pipeline_banked(y, torch.zeros(60), *params)
+
+
+H100 = (232_448, 132)   # opt-in shared memory per block, SMs
+
+
+@pytest.mark.parametrize("t,n,m,path", [
+    (64, 256, 65_536, "shared"),    # bench_kernels' window and bank
+    (64, 256, 1_024, "global"),     # the serve window: too few rows a SM
+    (64, 256, 32_768, "shared"),    # past 200 rows an SM
+    (64, 256, 26_399, "global"),
+    (4096, 256, 65_536, "global"),  # chip_smoke's large bank
+    (1, 2, 10 ** 6, "shared")])
+def test_banked_path_choice(t, n, m, path):
+    """K does not enter (beta and w are read through L1 on both paths):
+    the serve window's K = 3 and bench_kernels' K = 8 take one rule."""
+    assert tsp.banked_path(t, n, m, *H100) == path
+
+
+def test_banked_shared_bytes_cover_the_bank():
+    """Both tables (rows padded to an odd number of 16-byte quads) and a
+    flag a tenant; the limit falls between T and T + 1."""
+    assert tsp.banked_shared_bytes(64, 256) == 4 * 64 * (2 * 260 + 1)
+    assert tsp.banked_shared_bytes(3, 33) == 4 * 3 * (2 * 36 + 1)
+    assert tsp.banked_shared_bytes(3, 28) == 4 * 3 * (2 * 28 + 1)
+    t = H100[0] // tsp.banked_shared_bytes(1, 256)
+    assert tsp.banked_path(t, 256, 10 ** 6, *H100) == "shared"
+    assert tsp.banked_path(t + 1, 256, 10 ** 6, *H100) == "global"
+
+
+# The kernels' bucket (csrc/quantile_knots.cuh): search_le on a table the
+# block proved non-decreasing and free of NaN, the count over every knot on
+# any other.  Emulated here in float32, one table a row, and held to the
+# JAX count exactly.
+
+def _search_le(a, qs):
+    """search_le: ceil(log2 N) probes, then one more compare."""
+    base = torch.zeros(a.shape, dtype=torch.long)
+    length = qs.shape[-1]
+    while length > 1:
+        half = length // 2
+        probe = torch.gather(qs, -1, (base + half)[:, None])[:, 0]
+        base = torch.where(a >= probe, base + half, base)
+        length -= half
+    return base + (a >= torch.gather(qs, -1, base[:, None])[:, 0]).long()
+
+
+def _proved_sorted(qs):
+    """sorted_at over every knot: each neighbour pair in order, the last
+    knot a number (a NaN anywhere fails a pair)."""
+    last = qs[..., -1]
+    return (qs[..., :-1] <= qs[..., 1:]).all(-1) & (last == last)
+
+
+def _kernel_bucket(a, qs):
+    count = (a[:, None] >= qs).sum(-1)
+    return torch.where(_proved_sorted(qs), _search_le(a, qs), count)
+
+
+def _tables_of(kind, rng, rows, n):
+    qs = np.sort(rng.uniform(0, 1, (rows, n)), -1).astype(np.float32)
+    if kind == "tied":                       # flat runs, and a flat table
+        qs[:, n // 4:n // 2] = qs[:, n // 4:n // 4 + 1]
+        qs[::3] = 0.5
+    elif kind == "unsorted":
+        qs = rng.uniform(0, 1, (rows, n)).astype(np.float32)
+    elif kind == "nan_knot":
+        qs[np.arange(rows), rng.integers(0, n, rows)] = np.nan
+    elif kind == "mixed":                    # one of each, row by row
+        qs[1::4] = rng.uniform(0, 1, (len(qs[1::4]), n))
+        qs[2::4, n // 3] = np.nan
+        qs[3::4, 2:n - 1] = qs[3::4, 2:3]
+    return qs
+
+
+def _aggregates(rng, qs):
+    rows, n = qs.shape
+    a = rng.uniform(-0.2, 1.2, rows).astype(np.float32)
+    a[::5] = qs[::5, rng.integers(0, n)]     # on a knot
+    a[1::11] = np.nan
+    a[2::13] = np.inf
+    a[3::17] = -np.inf
+    return a
+
+
+@pytest.mark.parametrize("n", [2, 3, 33, 256])
+@pytest.mark.parametrize("kind", ["sorted", "tied", "unsorted", "nan_knot",
+                                  "mixed"])
+def test_guarded_search_is_the_jax_count(kind, n):
+    rng = np.random.default_rng(n)
+    qs = _tables_of(kind, rng, 400, n)
+    a = _aggregates(rng, qs)
+    want = np.asarray(jnp.sum(jnp.asarray(a)[:, None] >= jnp.asarray(qs),
+                              axis=-1))
+    got = _kernel_bucket(torch.from_numpy(a), torch.from_numpy(qs))
+    assert np.array_equal(got.numpy(), want)
+    if kind == "sorted":
+        assert _proved_sorted(torch.from_numpy(qs)).all()
+    elif kind in ("unsorted", "nan_knot") and n >= 33:
+        # the guard is what keeps these right: the bare search is not
+        assert not _proved_sorted(torch.from_numpy(qs)).any()
+        bare = _search_le(torch.from_numpy(a), torch.from_numpy(qs))
+        assert not np.array_equal(bare.numpy(), want)
+
+
+def test_guarded_search_through_the_interpolation_matches_jax():
+    """The guarded bucket through T^Q's interpolation gives the JAX
+    oracle's scores, one table a row, on every kind of table."""
+    rng = np.random.default_rng(3)
+    kinds = ["sorted", "tied", "unsorted", "nan_knot", "mixed"]
+    qs = np.concatenate([_tables_of(k, rng, 80, 64) for k in kinds])
+    qr = np.sort(rng.uniform(0, 1, qs.shape), -1).astype(np.float32)
+    y = _aggregates(rng, qs)
+    tqs, tqr, ty = torch.from_numpy(qs), torch.from_numpy(qr), \
+        torch.from_numpy(y)
+    # K = 1, beta = w = 1: T^C and A as the kernel runs them (an infinite
+    # score becomes NaN there: 0 * inf)
+    ta = 0.0 + (1.0 * ty) / (1.0 - (1.0 - 1.0) * ty) * 1.0
+    j = torch.clamp(_kernel_bucket(ta, tqs) - 1, 0, 62)[:, None]
+    qs_i, qs_n = tqs.gather(-1, j)[:, 0], tqs.gather(-1, j + 1)[:, 0]
+    qr_i, qr_n = tqr.gather(-1, j)[:, 0], tqr.gather(-1, j + 1)[:, 0]
+    d = torch.where(qs_n - qs_i > 0, qs_n - qs_i, torch.ones_like(qs_i))
+    got = torch.clamp(qr_i + (ta - qs_i) * (qr_n - qr_i) / d, tqr[:, 0],
+                      tqr[:, -1])
+    t = np.arange(len(y), dtype=np.int32)
+    ones = jnp.ones((len(y), 1), jnp.float32)
+    want = np.asarray(jref.score_pipeline_banked(
+        jnp.asarray(y)[:, None], jnp.asarray(t), ones, ones,
+        jnp.asarray(qs), jnp.asarray(qr)))
+    assert np.array_equal(np.isnan(got.numpy()), np.isnan(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got.numpy()[ok], want[ok], **TOL)

@@ -50,6 +50,29 @@ class TestElementwise:
             _np(jt.PosteriorCorrection(jnp.float32(0.3))(jnp.asarray(y))),
             **TOL)
 
+    @pytest.mark.parametrize("shape", [(7,), (33, 4), (5, 6, 3)])
+    def test_posterior_correction_inverse(self, shape):
+        rng = np.random.default_rng(10 + len(shape))
+        y = rng.uniform(0, 1, shape).astype(np.float32)
+        beta = rng.uniform(0.05, 1, shape[-1:]).astype(np.float32)
+        got = tt.posterior_correction_inverse(torch.from_numpy(y),
+                                              torch.from_numpy(beta))
+        want = jt.posterior_correction_inverse(jnp.asarray(y),
+                                               jnp.asarray(beta))
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)
+        np.testing.assert_allclose(
+            _np(tt.posterior_correction_inverse(torch.from_numpy(y), 0.3)),
+            _np(jt.posterior_correction_inverse(jnp.asarray(y), 0.3)), **TOL)
+
+    @pytest.mark.parametrize("beta", [0.02, 0.18, 0.5])
+    def test_inverse_round_trips_the_correction(self, beta):
+        """The reference's round trip (tests/test_transforms.py)."""
+        y = tt._unit_grid(23) * 0.98 + 0.01
+        biased = tt.posterior_correction_inverse(y, beta)
+        np.testing.assert_allclose(
+            _np(tt.posterior_correction(biased, beta)), _np(y), rtol=1e-5,
+            atol=1e-6)
+
     def test_identity_correction_and_uniform_aggregation(self):
         y = torch.linspace(0, 1, 11)
         assert torch.equal(tt.PosteriorCorrection.identity()(y), y)
@@ -225,6 +248,137 @@ class TestTransformBank:
         np.testing.assert_allclose(
             _np(tb(torch.from_numpy(y), torch.from_numpy(tid))),
             _np(jb(jnp.asarray(y), jnp.asarray(tid))), **TOL)
+
+
+def _bank_inputs(seed, t=4, k=3, n=16, m=40):
+    rng = np.random.default_rng(seed)
+    params = (rng.uniform(0.05, 1, (t, k)).astype(np.float32),
+              rng.uniform(0.1, 2, (t, k)).astype(np.float32),
+              np.sort(rng.uniform(0, 1, (t, n)), -1).astype(np.float32),
+              np.sort(rng.uniform(0, 1, (t, n)), -1).astype(np.float32))
+    y = rng.uniform(0, 1, (m, k)).astype(np.float32)
+    return rng, params, y
+
+
+def _banked_both(params, y, tid):
+    got = _np(tt.banked_score_pipeline(
+        torch.from_numpy(y), torch.from_numpy(tid),
+        *(torch.from_numpy(p) for p in params)))
+    want = _np(jt.banked_score_pipeline(
+        jnp.asarray(y), jnp.asarray(tid), *(jnp.asarray(p) for p in params)))
+    return got, want
+
+
+class TestOutOfRangeIds:
+    """A row whose tenant id lies outside [0, T) scores NaN; every other
+    row is what it is without such rows."""
+
+    @pytest.mark.parametrize("bad", [[4], [4, 9, 1 << 20], [2 ** 31 - 1]])
+    def test_ids_past_the_bank_are_nan_where_the_oracle_is(self, bad):
+        rng, params, y = _bank_inputs(20 + len(bad))
+        tid = rng.integers(0, 4, 40).astype(np.int32)
+        rows = rng.choice(40, 3 * len(bad), replace=False)
+        tid[rows] = np.resize(np.asarray(bad, np.int32), rows.size)
+        got, want = _banked_both(params, y, tid)
+        assert np.array_equal(np.isnan(got), np.isnan(want))
+        assert np.isnan(got[rows]).all()
+        ok = ~np.isnan(want)
+        np.testing.assert_allclose(got[ok], want[ok], **TOL)
+
+    def test_negative_ids_are_nan(self):
+        """The port follows the CUDA kernel and the reference's Pallas
+        kernel.  The reference's jnp.take oracle wraps a negative id
+        instead (-1 reads row T-1), so it is not compared here."""
+        rng, params, y = _bank_inputs(30)
+        tid = rng.integers(0, 4, 40).astype(np.int32)
+        tid[[1, 7, 33]] = [-1, -4, -(2 ** 31)]
+        got, want = _banked_both(params, y, tid)
+        assert np.isnan(got[[1, 7, 33]]).all()
+        ok = tid >= 0
+        assert not np.isnan(got[ok]).any()
+        np.testing.assert_allclose(got[ok], want[ok], **TOL)
+
+    def test_other_rows_are_unchanged_bit_for_bit(self):
+        rng, params, y = _bank_inputs(31)
+        tid = rng.integers(0, 4, 40).astype(np.int32)
+        clean, _ = _banked_both(params, y, tid)
+        bad = tid.copy()
+        bad[::5] = 7
+        bad[2::9] = -2
+        got, _ = _banked_both(params, y, bad)
+        ok = (bad >= 0) & (bad < 4)
+        assert np.array_equal(got[ok], clean[ok])
+        assert np.isnan(got[~ok]).all()
+
+    def test_pre_quantile_still_raises(self):
+        """``track`` forms its ids from the bank; an id outside it is a
+        caller's fault there, not a score."""
+        _, params, y = _bank_inputs(32)
+        tb = tt.TransformBank(*(torch.from_numpy(p) for p in params))
+        with pytest.raises(IndexError):
+            tb.pre_quantile(torch.from_numpy(y[:2]), torch.tensor([0, 4]))
+
+
+def _steep_bank(seed, k, t=4096, n=256):
+    """Random uniform tables as in the on-card T = 4,096 bank, one row a
+    tenant, each source segment holding a row's aggregate squeezed to
+    2e-6 around it: there one ulp of the aggregate moves the score by about
+    1e-4, so the order of the sums over K shows in the score."""
+    _, params, y = _bank_inputs(seed, t=t, k=k, n=n, m=t)
+    betas, weights, src, ref = params
+    tid = np.arange(t, dtype=np.int32)
+    agg = _np(tt.TransformBank(*(torch.from_numpy(p) for p in params))
+              .pre_quantile(torch.from_numpy(y), torch.from_numpy(tid)))
+    j = (agg[:, None] >= src).sum(-1) - 1
+    inner = np.flatnonzero((j >= 0) & (j < n - 1))
+    lo, hi = src[inner, j[inner]], src[inner, j[inner] + 1]
+    src[inner, j[inner]] = np.maximum(lo, agg[inner] - np.float32(1e-6))
+    src[inner, j[inner] + 1] = np.minimum(hi, agg[inner] + np.float32(1e-6))
+    assert (np.diff(src, axis=-1) >= 0).all()
+    return (betas, weights, src, ref), y, tid
+
+
+def _sum_reversed(x):
+    total = x[..., -1]
+    for e in range(x.shape[-1] - 2, -1, -1):
+        total = total + x[..., e]
+    return total
+
+
+class TestSumOverK:
+    """The plain banked version sums weights and terms over K in k order,
+    as the CUDA kernel does; held against the JAX oracle where a T^Q
+    segment is steep enough for the order to move a score past 2e-5."""
+
+    @pytest.mark.parametrize("k", [3, 8])
+    def test_k_order_matches_the_oracle_on_steep_segments(self, k,
+                                                          monkeypatch):
+        params, y, tid = _steep_bank(40 + k, k)
+        got, want = _banked_both(params, y, tid)
+        np.testing.assert_allclose(got, want, **TOL)
+        # another order moves some score past the tolerance: the input is
+        # steep where it has to be
+        monkeypatch.setattr(tt, "_sum_k", _sum_reversed)
+        other, _ = _banked_both(params, y, tid)
+        assert np.abs(other - want).max() > 2e-5
+
+    @pytest.mark.parametrize("k", [3, 8])
+    def test_pre_quantile_sums_in_k_order(self, k):
+        """``track`` records the aggregate that is scored: float32 terms
+        and sums in k order, bit for bit."""
+        _, params, y = _bank_inputs(50 + k, k=k)
+        betas, weights = params[:2]
+        tid = np.arange(40, dtype=np.int32) % 4
+        got = _np(tt.TransformBank(*(torch.from_numpy(p) for p in params))
+                  .pre_quantile(torch.from_numpy(y), torch.from_numpy(tid)))
+        b, w = betas[tid], weights[tid]
+        c = (b * y) / (np.float32(1) - (np.float32(1) - b) * y)
+        wsum, agg = w[:, 0], np.zeros_like(got)
+        for e in range(1, k):
+            wsum = wsum + w[:, e]
+        for e in range(k):
+            agg = agg + c[:, e] * (w[:, e] / wsum)
+        assert np.array_equal(got, agg)
 
 
 class TestPipeline:
