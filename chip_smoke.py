@@ -30,7 +30,11 @@ Phases, each printing one JSON line:
              tenant predictors and a shadow candidate: mixed-tenant windows
              of 1,024 requests through the hand-written kernel, checked
              against the same traffic through the plain version, with a
-             T^Q refresh published mid-run.
+             T^Q refresh published mid-run; then the same windows through
+             servers with fused device tracking at staging 4,096 (nothing
+             drained before the snapshot) and 64 (spills): responses and,
+             after the tracker's sync, estimator snapshots bitwise equal to
+             the eager server's, and the track stage's host ms of each.
 4. attention — the two flash-attention kernels against their plain
              version on the card, float32 and bfloat16 (bf16 with D = 64
              or 128 runs the tensor-core form, the rest the SIMT form,
@@ -57,8 +61,11 @@ Phases, each printing one JSON line:
              the reference's cases, scores on knots (bitwise), NaN scores,
              scores outside the support, flat, all-flat, unsorted and
              NaN-knot tables at K = 3 and 8, M = 1, a (4, 7, 9) batch,
-             K = 1; then their times at a 1,024-row serve window (the
-             benchmark's 65,536 rows are timed by phase 8).
+             K = 1; the quantile map on sizes no multiple of the block,
+             scores off a 16-byte boundary, N = 2, 4,095 and 4,096, and
+             tables that fail the sortedness proof; then their times at a
+             1,024-row serve window (the benchmark's 65,536 rows are timed
+             by phase 8).
 7. decode_attention — the decode kernel against its plain version,
              float32 within 2e-5 and bf16 within bf16's rounding of the
              plain version run in float32 on the same inputs: the
@@ -426,8 +433,9 @@ def _serve_setup(dev):
                                             for i in range(8))), ("cand",)),),
         version="v1")
 
-    def server(fused: bool) -> MuseServer:
-        s = MuseServer(routing, ServerConfig(fused_kernel=fused), device=dev)
+    def server(fused: bool, **config) -> MuseServer:
+        s = MuseServer(routing, ServerConfig(fused_kernel=fused, **config),
+                       device=dev)
         factories = world.model_factories(dev)
         for spec in specs + [cand]:
             s.deploy(spec, factories)
@@ -495,6 +503,60 @@ def _stage_ms(server, reqs, reps: int = 5) -> dict:
     return {name: float(np.median(v)) for name, v in samples.items()}
 
 
+def _same_snapshots(name, want: dict, got: dict) -> None:
+    """Estimator checkpoint snapshots equal: meta exactly, the live
+    prefixes of the reservoir and the recent ring bitwise."""
+    import numpy as np
+
+    check(want.keys() == got.keys() and len(want) > 0, f"{name}: streams")
+    for key, (arrays, meta) in want.items():
+        check(got[key][1] == meta, f"{name}: {key} meta")
+        for arr, live in (("buf", meta["filled"]),
+                          ("recent", meta["recent_filled"])):
+            check(np.array_equal(got[key][0][arr][:live], arrays[arr][:live]),
+                  f"{name}: {key} {arr} not bitwise equal")
+
+
+def _device_tracking(make_server, windows, refresh, resp, eager) -> dict:
+    """Fused device tracking at staging 4,096 (nothing drained before the
+    snapshot) and 64 (spills) against the eager server, over the same
+    windows: responses bitwise equal, and after the tracker's sync the
+    estimator snapshots bitwise equal."""
+    want = eager.snapshot_estimator_checkpoints()
+    out = {}
+    for staging in (4096, 64):
+        server = make_server(True, track_device=True, track_staging=staging)
+        got, secs = _drive(server, windows, refresh)
+        for w, (a, b) in enumerate(zip(resp, got)):
+            check([(r.score, r.predictor, r.bank_generation) for r in a] ==
+                  [(r.score, r.predictor, r.bank_generation) for r in b],
+                  f"staging {staging}, window {w}: responses bitwise equal "
+                  "to the eager server's")
+        tracker = server._tracker
+        pending = tracker.pending_total()
+        if staging == 4096:
+            check(pending > 0 and tracker.spills == 0,
+                  f"staging 4096: {pending} pending, {tracker.spills} "
+                  "spills before the sync")
+        else:
+            check(tracker.spills > 0, "staging 64 spills")
+        drains = tracker.drains
+        t0 = time.perf_counter()
+        snap = server.snapshot_estimator_checkpoints()
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        _same_snapshots(f"staging {staging}", want, snap)
+        check(tracker.pending_total() == 0, "the snapshot drained the plane")
+        out[str(staging)] = {
+            "pending_before_sync": pending, "spills": tracker.spills,
+            "host_fallbacks": tracker.host_fallbacks,
+            "appends": tracker.appends, "drains_before_sync": drains,
+            "drains": tracker.drains, "snapshot_ms": sync_ms,
+            "staged_windows": server.metrics["track_staged_windows"],
+            "events_per_s": (N_WINDOWS - 1) * WINDOW / sum(secs[1:]),
+            "stage_ms": _stage_ms(server, windows[-1])}
+    return out
+
+
 def phase_serve(dev) -> tuple[dict, dict]:
     import numpy as np
     import torch
@@ -552,6 +614,7 @@ def phase_serve(dev) -> tuple[dict, dict]:
     moved = float(np.abs(old - np.array([r.score for r in rows])).max())
     check(moved > 1e-4, f"refreshed T^Q moved tenant00's scores ({moved})")
 
+    tracking = _device_tracking(make_server, windows, refresh, resp, fused)
     lat = np.array(secs[1:]) * 1e3
     stages = _stage_ms(fused, windows[-1])
     result = {
@@ -567,6 +630,10 @@ def phase_serve(dev) -> tuple[dict, dict]:
         "timing": "host clock per score_batch window (ends in a device "
                   "sync), first window excluded",
         "stage_ms": stages,
+        "track_ms": {"eager": stages["track"],
+                     **{f"device_{k}": v["stage_ms"]["track"]
+                        for k, v in tracking.items()}},
+        "device_tracking": tracking,
         "bank_generation": metrics["bank_generation"],
         "shadow_records": metrics["shadow_evals"]}
     emit(result)
@@ -1131,6 +1198,29 @@ def phase_score_kernels(dev) -> dict:
         got = cmp("quantile_map", "batch_4x7x9", scores((4, 7, 9)),
                   *_tables(rng, 32, dev))
         check(got.shape == (4, 7, 9), "quantile_map keeps the batch shape")
+        # M no multiple of the block (and of a 16-byte pack of scores),
+        # scores off a 16-byte boundary, N = 2, 4,096 and N not a multiple
+        # of 4, tables that fail the block's sortedness proof (the exact
+        # count)
+        y = scores(131_088, -0.1, 1.1)
+        y[::11] = float("nan")
+        for m in range(131_073, 131_080):
+            cmp("quantile_map", f"tail_{m}", y[:m], src, refq)
+            cmp("quantile_map", f"tail_{m - 131_000}", y[:m - 131_000], src,
+                refq)
+        for off in (1, 2, 3, 7):
+            cmp("quantile_map", f"offset_{off}", y[off:off + 131_072], src,
+                refq)
+        cmp("quantile_map", "on_knots_offset",
+            torch.cat([on[:1], on[:-1]])[1:], knots, refq, exact=True)
+        for nq in (2, 4_095, 4_096):
+            cmp("quantile_map", f"n{nq}", y[:8_191], *_tables(rng, nq, dev))
+        nan_knot = src.clone()
+        nan_knot[77] = float("nan")
+        for name, table in (("nan_knot", nan_knot),
+                            ("descending", src.flip(0).contiguous()),
+                            ("unsorted", unsorted)):
+            cmp("quantile_map", f"{name}_nan_scores", y[:8_191], table, refq)
 
         sweep = [(int(rng.integers(1, 301)), int(rng.integers(1, 10)), 64)
                  for _ in range(8)]
@@ -1153,8 +1243,6 @@ def phase_score_kernels(dev) -> dict:
         # the block's proof sends an unsorted or NaN-knot table to the
         # exact count and a sorted or flat one to the search; K = 8 reads
         # 16 bytes at a time (8 bf16 or 4 float32 a read where K allows)
-        nan_knot = src.clone()
-        nan_knot[77] = float("nan")
         for k in (3, 8):
             for name, table in (("unsorted", unsorted),
                                 ("nan_knot", nan_knot), ("flat", flat),

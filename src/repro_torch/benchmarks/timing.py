@@ -10,6 +10,7 @@ power limit; each bound returns ``(ms, "bytes" | "operations")``.
 """
 from __future__ import annotations
 
+import math
 import statistics
 import time
 
@@ -63,28 +64,35 @@ def _bound(nbytes: float, ops: float, flops_per_s: float
     return by_ops, "operations"
 
 
+def _tq_ops(n: int) -> int:
+    """float32 operations of T^Q on one score against N knots: the exact
+    bucket by a search over the sorted knots (ceil(log2 N) + 1 compares)
+    and the interpolation and clip (10)."""
+    return math.ceil(math.log2(n)) + 11
+
+
 def quantile_map_bound(m: int, n: int, itemsize: int) -> tuple[float, str]:
     """T^Q of M scores against N-knot float32 tables: the scores read and
     the results written in their itemsize, the tables once, against
-    M * (N + 10) float32 operations."""
-    return _bound(2 * m * itemsize + 2 * n * 4, m * (n + 10), F32_FLOPS)
+    M * (ceil(log2 N) + 11) float32 operations."""
+    return _bound(2 * m * itemsize + 2 * n * 4, m * _tq_ops(n), F32_FLOPS)
 
 
 def score_pipeline_bound(m: int, k: int, n: int, itemsize: int
                          ) -> tuple[float, str]:
     """Eq. 2 of M rows of K scores with one parameter set: the scores and
     results in their itemsize, (2K + 2N) float32 parameters once, against
-    M * (9K + N + 10) float32 operations."""
+    M * (9K + ceil(log2 N) + 11) float32 operations."""
     return _bound(m * k * itemsize + m * itemsize + (2 * k + 2 * n) * 4,
-                  m * (9 * k + n + 10), F32_FLOPS)
+                  m * (9 * k + _tq_ops(n)), F32_FLOPS)
 
 
 def banked_bound(m: int, k: int, t: int, n: int) -> tuple[float, str]:
     """The banked pipeline: float32 scores, int32 ids and float32 results,
     each read or written once, and the (T, 2K + 2N) bank once, against
-    9K + N + 10 float32 operations a row."""
+    9K + ceil(log2 N) + 11 float32 operations a row."""
     return _bound(m * k * 4 + m * 4 + m * 4 + t * (2 * k + 2 * n) * 4,
-                  m * (9 * k + n + 10), F32_FLOPS)
+                  m * (9 * k + _tq_ops(n)), F32_FLOPS)
 
 
 def attention_bound(b, tq, tk, hq, hkv, d, causal, window, itemsize

@@ -32,17 +32,6 @@ namespace quantile_knots {
 // stay under the 48 KB a block gets without opting in.
 constexpr int kMaxKnots = 4096;
 
-// Stage ``n`` knots of each table into shared memory; the caller syncs.
-// ``qs`` must be 16-byte aligned (it is read as float4).
-__device__ __forceinline__ void stage(const float* __restrict__ src,
-                                      const float* __restrict__ ref,
-                                      float* qs, float* qr, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    qs[i] = src[i];
-    qr[i] = ref[i];
-  }
-}
-
 // #{i : s >= qs[i]} over the ``n`` knots in shared memory.
 __device__ __forceinline__ int count_le(float s, const float* qs, int n) {
   const float4* qs4 = reinterpret_cast<const float4*>(qs);
@@ -101,12 +90,6 @@ __device__ __forceinline__ float interpolate(float s, int count,
   v = v < lo ? lo : v;  // a NaN v fails both tests and stays NaN
   v = v > hi ? hi : v;
   return v;
-}
-
-// T^Q of one float32 value against the staged tables.
-__device__ __forceinline__ float map_score(float s, const float* qs,
-                                           const float* qr, int n) {
-  return interpolate(s, count_le(s, qs, n), qs, qr, n);
 }
 
 }  // namespace quantile_knots

@@ -10,9 +10,10 @@
 // What bounds it on an H100: at the benchmark's 65,536 x 8 float32 scores
 // and N = 256 it moves 2.4 MB (each score read once, each result written
 // once, the parameters once), 0.70 us at 3.35 TB/s, and does
-// M * (9K + N + 10) = 22.1 M float32 operations, 0.33 us at 67 TFLOP/s:
-// bound by bytes.  Both are far below the cost of a launch, so at such
-// sizes the launch and the block's prologue set its time.
+// M * (9K + ceil(log2 N) + 11) = 6.0 M float32 operations (the exact
+// bucket by a search), 0.09 us at 67 TFLOP/s: bound by bytes.  Both are
+// far below the cost of a launch, so at such sizes the launch and the
+// block's prologue set its time.
 //
 // Design.  The TPU kernel ran the correction on the VPU, the aggregate as
 // a (BLOCK, K) x (K,) matvec and the bucket as a (BLOCK, N) compare-and-
@@ -101,28 +102,14 @@ score_pipeline_kernel(Params p) {
   score_rows::let_next_kernel_launch();
 }
 
-bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
-}
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
-
 template <typename T, bool kVec>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const auto kernel = score_pipeline_kernel<T, kVec>;
   const size_t smem = sizeof(float) * 2 * size_t((p.n + 3) & ~3);
-  int per_sm = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kThreads, smem);
+  int blocks = 0;
+  const cudaError_t err =
+      score_rows::resident_grid(kernel, kThreads, smem, p.m, &blocks);
   if (err != cudaSuccess) return err;
-  const long long wanted = (p.m + kThreads - 1) / kThreads;
-  const long long most = (per_sm < 1 ? 1LL : per_sm) * sm_count();
-  const int blocks = int(wanted < most ? wanted : most);
   return score_rows::launch_pdl(kernel, blocks, kThreads, smem, stream, p);
 }
 
@@ -148,8 +135,9 @@ extern "C" int score_pipeline_launch(const void* scores, const void* betas,
   // 16-byte packs; float32 rows a float at a time (the 16-byte form of the
   // float32 kernel cost ptxas a spill around the divisions and bought no
   // time)
-  const bool vec = k % 8 == 0 && aligned16(scores) && aligned16(betas) &&
-                   aligned16(weights);
+  const bool vec = k % 8 == 0 && score_rows::aligned16(scores) &&
+                   score_rows::aligned16(betas) &&
+                   score_rows::aligned16(weights);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       !is_bf16 ? launch<float, false>(p, s)

@@ -8,9 +8,10 @@
 // What bounds it on an H100: bytes.  Per row it reads K scores and one id
 // and writes one float; the bank (T x (2K + 2N) floats: 137 KB at T=64,
 // K=8, N=256; 8.65 MB at T=4,096) is read from device memory about once
-// and then served from the 50 MB L2.  The arithmetic is ~9K + N + 10
-// flops a row, far below the card's rate, so the least time is the bytes
-// moved over 3.35 TB/s.
+// and then served from the 50 MB L2.  The arithmetic is ~9K +
+// ceil(log2 N) + 11 flops a row (the exact bucket by a search), far
+// below the card's rate, so the least time is the bytes moved over
+// 3.35 TB/s.
 //
 // Design.  The TPU kernel gathered each row's parameters with a one-hot
 // (BLOCK, T) matmul and found the bucket with an N-wide compare-and-sum,
@@ -309,33 +310,6 @@ banked_global_kernel(Bank p, int rows_per_warp) {
   score_rows::let_next_kernel_launch();
 }
 
-bool aligned16(const void* ptr) {
-  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
-}
-
-int sm_count() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
-
-// Blocks of ``threads`` for ``m`` rows, at most as many as fit the card at
-// once (a persistent grid).
-template <typename Kernel>
-cudaError_t grid_for(Kernel kernel, int threads, size_t smem, int64_t m,
-                     int* grid) {
-  int per_sm = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int64_t wanted = (m + threads - 1) / threads;
-  const int64_t most = int64_t(per_sm) * sm_count();
-  *grid = int(wanted < most ? wanted : most);
-  return cudaSuccess;
-}
-
 cudaError_t launch_shared(const Bank& p, bool vec, cudaStream_t stream) {
   auto kernel = vec ? banked_shared_kernel<true> : banked_shared_kernel<false>;
   const size_t smem = shared_bytes(p.t, p.n);
@@ -343,29 +317,29 @@ cudaError_t launch_shared(const Bank& p, bool vec, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   int grid = 0;
-  err = grid_for(kernel, kSharedThreads, smem, p.m, &grid);
+  err = score_rows::resident_grid(kernel, kSharedThreads, smem, p.m,
+                                  &grid);
   if (err != cudaSuccess) return err;
   return score_rows::launch_pdl(kernel, grid, kSharedThreads, smem, stream,
                                 p);
 }
 
 cudaError_t launch_global(const Bank& p, bool vec, cudaStream_t stream) {
-  const bool vec_tables = p.n % 4 == 0 && aligned16(p.src);
+  const bool vec_tables = p.n % 4 == 0 && score_rows::aligned16(p.src);
   auto kernel = vec ? (vec_tables ? banked_global_kernel<true, true>
                                   : banked_global_kernel<true, false>)
                     : (vec_tables ? banked_global_kernel<false, true>
                                   : banked_global_kernel<false, false>);
   // rows a warp takes: 32 once the rows fill about 16 warps an SM, fewer
   // below that, so a small window spreads over as many warps as it can
-  const int64_t warps = 16LL * sm_count();
+  const int64_t warps = 16LL * score_rows::sm_count();
   const int64_t rows = (p.m + warps - 1) / warps;
   const int rows_per_warp = int(rows < kWarp ? rows : kWarp);
   const int threads = kGlobalThreads;
   int grid = 0;
-  const cudaError_t err = grid_for(kernel, threads, 0,
-                                   (p.m + rows_per_warp - 1) /
-                                       rows_per_warp * kWarp,
-                                   &grid);
+  const int64_t lanes = (p.m + rows_per_warp - 1) / rows_per_warp * kWarp;
+  const cudaError_t err =
+      score_rows::resident_grid(kernel, threads, 0, lanes, &grid);
   if (err != cudaSuccess) return err;
   return score_rows::launch_pdl(kernel, grid, threads, 0, stream, p,
                                 rows_per_warp);
@@ -399,8 +373,9 @@ extern "C" int score_pipeline_banked_launch(
                static_cast<float*>(out),
                int64_t(m), k, t, n};
   // rows, beta and w 16 bytes at a time where K allows
-  const bool vec = k % 4 == 0 && aligned16(scores) && aligned16(betas) &&
-                   aligned16(weights);
+  const bool vec = k % 4 == 0 && score_rows::aligned16(scores) &&
+                   score_rows::aligned16(betas) &&
+                   score_rows::aligned16(weights);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       shared ? launch_shared(p, vec, s) : launch_global(p, vec, s);

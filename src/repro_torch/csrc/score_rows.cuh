@@ -1,7 +1,9 @@
 // What the two Eq. 2 kernels (csrc/score_pipeline.cu and
-// csrc/score_pipeline_banked.cu) share: the T^C -> A step of one row, the
+// csrc/score_pipeline_banked.cu) share: the T^C -> A step of one row.
+// What they share with the T^Q kernel (csrc/quantile_map.cu): the
 // asynchronous staging of tables into shared memory (cp.async, and TMA
-// bulk copies on an mbarrier), and programmatic dependent launch.
+// bulk copies on an mbarrier), programmatic dependent launch, and the
+// host's sizing of a resident grid.
 //
 //     A(T^C(y)) = sum_k c_k * wn_k   in k order,
 //     c_k = (beta_k * y_k) / (1 - (1 - beta_k) * y_k),   wn_k = w_k / sum(w)
@@ -52,7 +54,32 @@ cudaError_t launch_pdl(void (*kernel)(Params...), int grid, int threads,
   return cudaLaunchKernelEx(&cfg, kernel, Params(args)...);
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
+// The SMs of the current device.
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
+// Blocks of ``threads`` for ``items`` work items, one a thread, at most as
+// many as the card keeps resident at once (a persistent grid that loops
+// over a larger input).
+template <typename Kernel>
+cudaError_t resident_grid(Kernel kernel, int threads, size_t smem,
+                          int64_t items, int* grid) {
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t wanted = (items + threads - 1) / threads;
+  const int64_t most = int64_t(per_sm) * sm_count();
+  *grid = int(wanted < most ? wanted : most);
+  return cudaSuccess;
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 

@@ -2,9 +2,10 @@
 
 :func:`quantile_map` launches the hand-written CUDA kernel of
 ``csrc/quantile_map.cu`` (built by ``kernels/_build.py``) on PyTorch's
-current stream: one thread per score, both tables staged in shared memory,
-the bucket as the exact count of knots at or below the score.  It takes
-CUDA tensors only and raises on anything else; the plain PyTorch version is
+current stream: one score a thread, both tables staged in shared memory,
+the bucket from a binary search on a table the block proves sorted and free
+of NaN, else the exact count of knots at or below the score.  It takes CUDA
+tensors only and raises on anything else; the plain PyTorch version is
 ``kernels/ref.py``, and ``kernels/ops.py`` picks between the two by the
 device of the tensors.
 """

@@ -24,9 +24,15 @@ the old generation; the next stage pickup sees the complete new one.
 
 The server holds its predictors' pipelines and banks on one torch device
 (the card unless the caller asks for the CPU).  Between stages a window
-moves as numpy on the host, as in the reference.  The sharded and tiered
-topologies and fused device tracking are not ported yet: their
-configurations raise ``NotImplementedError``.
+moves as numpy on the host, as in the reference.  With
+``ServerConfig.track_device`` the track stage stays on the device
+(:class:`~repro_torch.kernels.quantile_track.DeviceQuantileTracker`): the
+window's aggregate is staged in a device tensor and the host estimators
+materialize only at the calibration plane's pull boundaries, bitwise equal
+to eager tracking.  Estimator streams checkpoint to the
+``training/checkpoint.py`` layout (:meth:`MuseServer.save_estimators`).
+The sharded and tiered topologies are not ported yet: their configurations
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,12 +52,19 @@ from repro_torch.core.routing import Intent, RoutingTable
 from repro_torch.core.transforms import QuantileMap, TransformBank
 from repro_torch.device import resolve_device, to_numpy
 from repro_torch.kernels import ops
+from repro_torch.kernels.quantile_track import DeviceQuantileTracker
 from repro_torch.serving.shadow import ShadowSink
 from repro_torch.serving.types import (
     ScoringRequest,
     ScoringResponse,
     ShadowRecord,
     StaleGenerationError,
+)
+from repro_torch.training.checkpoint import (
+    latest_step,
+    load_arrays,
+    load_metadata,
+    save_checkpoint,
 )
 
 __all__ = [
@@ -121,11 +134,18 @@ class ServerConfig:
     # version (TransformBank.__call__: same semantics, no hand-written kernel)
     fused_kernel: bool = True
     # not ported yet: only the dense defaults are accepted
-    # (tenant_shards > 1: ROADMAP Queue 1 item 11; tiering: item 10;
-    # track_device: item 6)
+    # (tenant_shards > 1: ROADMAP Queue 1 item 11; tiering: item 10)
     tenant_shards: int = 1
     tiering: Any = None
+    # fused device tracking (kernels/quantile_track.py): the track stage
+    # stages the banked pre_quantile aggregate in per-stream device
+    # buffers; host estimators materialize only at the calibration plane's
+    # pull boundary (Eq.-5 gating, checkpoint snapshots).  Bitwise-identical
+    # estimator state to eager host tracking.
     track_device: bool = False
+    # per-stream device staging capacity (samples buffered between pulls);
+    # a stream spills to host when its staging would overflow
+    track_staging: int = 4096
 
 
 def _shape_bucket(n: int) -> int:
@@ -178,9 +198,6 @@ def _check_config(config: ServerConfig) -> None:
     if config.tiering is not None:
         raise NotImplementedError(
             "the tiered bank store is not ported yet (ROADMAP Queue 1 item 10)")
-    if config.track_device:
-        raise NotImplementedError(
-            "fused device tracking is not ported yet (ROADMAP Queue 1 item 6)")
 
 
 class MuseServer:
@@ -197,9 +214,21 @@ class MuseServer:
         self.features = FeatureStore()
         # per (tenant, predictor) streaming estimators for calibration refresh
         self._estimators: dict[tuple[str, str], StreamingQuantileEstimator] = {}
-        # estimator MUTATION (track stage) vs reads of whole estimator state
-        # must not interleave
+        # estimator MUTATION (track stage) vs whole-state SNAPSHOT
+        # (save_estimators) must not interleave: a checkpoint written while
+        # an update is mid-flight would pair arrays with meta (seen counts,
+        # ring pointer, RNG state) from different moments — a torn restore
         self._estimator_lock = threading.Lock()
+        # fused device tracking: staged aggregates live in a device tensor
+        # owned by this control plane; every tracker call (append on the
+        # track stage, sync at calibration pulls) runs under the estimator
+        # lock, which is what serializes staging against materialization
+        self._tracker: DeviceQuantileTracker | None = None
+        if self.config.track_quantiles and self.config.track_device:
+            self._tracker = DeviceQuantileTracker(
+                self._apply_tracked,
+                staging_capacity=self.config.track_staging,
+                device=self.device)
         # THE served control-plane state: swapped wholesale on every deploy /
         # decommission / calibration publish (never mutated across a publish).
         self._plane = _ControlPlane(predictors={}, banks={}, generation=0)
@@ -281,8 +310,12 @@ class MuseServer:
             self.metrics["bank_generation"] = gen
         pred.release(self.pool)
         # and its estimator streams: a predictor redeployed under the same
-        # name has a different score distribution
+        # name has a different score distribution.  Staged device samples
+        # die with the streams (drop_where), so a redeploy under the same
+        # name can never materialize the dead model's scores.
         with self._estimator_lock:
+            if self._tracker is not None:
+                self._tracker.drop_where(lambda k: k[1] == name)
             self._estimators = {k: v for k, v in self._estimators.items()
                                 if k[1] != name}
 
@@ -596,8 +629,25 @@ class MuseServer:
             return
         keys = [(requests[i].intent.tenant, pred_names[j])
                 for j, i in enumerate(idxs)]
-        agg = to_numpy(bank.pre_quantile(*self._to_device(raws, tenant_idx)))
-        # one batched reservoir update per (tenant, predictor) stream
+        scores_d, idx_d = self._to_device(raws, tenant_idx)
+        if self._tracker is not None:
+            # device-fused mode: the aggregate is computed and staged on
+            # the device, never copied to the host here; host estimators
+            # materialize at the calibration plane's pull boundary
+            with self._estimator_lock:
+                staged = self._tracker.append_fused(keys, scores_d, idx_d,
+                                                    bank)
+                if not staged:
+                    # one stream outsized the whole staging plane: its
+                    # staged history was drained first (arrival order), so
+                    # an eager update here keeps per-stream sequences exact
+                    self._update_streams(keys, to_numpy(
+                        bank.pre_quantile(scores_d, idx_d)))
+            self.bump_metric("track_staged_windows", int(staged))
+            return
+        agg = to_numpy(bank.pre_quantile(scores_d, idx_d))
+        # one batched reservoir update per (tenant, predictor) stream,
+        # serialized with estimator checkpoints (see _estimator_lock)
         with self._estimator_lock:
             self._update_streams(keys, agg)
 
@@ -613,7 +663,8 @@ class MuseServer:
 
     def _stream_estimator(self, key: tuple[str, str]
                           ) -> StreamingQuantileEstimator:
-        """Get-or-create under ``_estimator_lock``."""
+        """Get-or-create under ``_estimator_lock`` — the single construction
+        site, so eager tracking and device-tracker drains seed identically."""
         est = self._estimators.get(key)
         if est is None:
             est = StreamingQuantileEstimator(
@@ -621,6 +672,19 @@ class MuseServer:
                 recent_capacity=self.config.recent_capacity)
             self._estimators[key] = est
         return est
+
+    def _apply_tracked(self, key: tuple[str, str],
+                       chunks: list[np.ndarray]) -> None:
+        """Device-tracker materialization callback (runs under
+        ``_estimator_lock``): replay staged windows as the separate update
+        calls they were (see the bitwise contract in quantile_track.py)."""
+        self._stream_estimator(key).apply_chunks(chunks)
+
+    def _sync_tracker_locked(self) -> None:
+        """Materialize staged device samples (caller holds the lock) —
+        every calibration host-pull boundary funnels through this."""
+        if self._tracker is not None:
+            self._tracker.sync()
 
     # -------------------------------------------------------- sync data path
     def score_batch(self, requests: list[ScoringRequest]) -> list[ScoringResponse]:
@@ -696,13 +760,90 @@ class MuseServer:
         Streams whose predictor has since been decommissioned are excluded —
         the calibration controller must never refit a dead pipeline.  The
         scan copies the dict first: the track stage may insert a stream for
-        a newly seen (tenant, predictor) from another thread mid-scan."""
+        a newly seen (tenant, predictor) from another thread mid-scan.
+        Under device tracking this is a host-pull boundary: staged samples
+        materialize first, so the scan never reads a stale estimator."""
+        if self._tracker is not None:
+            with self._estimator_lock:
+                self._sync_tracker_locked()
         return {k: est for k, est in dict(self._estimators).items()
                 if k[1] in self.predictors}
 
+    def snapshot_estimator_checkpoints(
+            self) -> dict[tuple[str, str], tuple[dict, dict]]:
+        """One consistent (tenant, predictor) -> (arrays, meta) snapshot.
+
+        Each live stream in the checkpoint serialization (reservoir +
+        recent ring + RNG state), taken under the estimator lock after a
+        tracker sync, so no stream pairs arrays with meta from different
+        moments even while the track stage keeps appending.  Streams of
+        decommissioned predictors are excluded, as in
+        :meth:`estimator_streams`.
+        """
+        live = self.predictors
+        with self._estimator_lock:
+            self._sync_tracker_locked()
+            return {key: (est.checkpoint_arrays(), est.checkpoint_meta())
+                    for key, est in self._estimators.items()
+                    if key[1] in live}
+
+    # ------------------------------------------------- estimator persistence
+    def save_estimators(self, directory: str, step: int = 0) -> str:
+        """Checkpoint every (tenant, predictor) estimator stream.
+
+        Uses the ``training/checkpoint.py`` layout (flat npz + json meta),
+        the reference package's: reservoir + recent-ring arrays land in
+        ``arrays.npz`` under integer stream keys; tenants/predictors and
+        scalar state (seen counts, ring pointers, RNG state) ride in
+        ``meta.json``.  A surged replica restores this and starts PAST the
+        Eq.-5 gate instead of cold.  The snapshot is taken under the
+        estimator lock after a tracker sync; only the write happens
+        outside it.
+        """
+        with self._estimator_lock:
+            self._sync_tracker_locked()
+            snaps = [(key, est.checkpoint_arrays(), est.checkpoint_meta())
+                     for key, est in sorted(self._estimators.items())]
+        tree = {str(i): arrays for i, (_, arrays, _) in enumerate(snaps)}
+        meta = {"streams": [
+            {"tenant": t, "predictor": p, **m}
+            for (t, p), _, m in snaps]}
+        return save_checkpoint(directory, step, tree, metadata=meta)
+
+    def restore_estimators(self, directory: str, step: int | None = None
+                           ) -> int:
+        """Restore streams saved by :meth:`save_estimators` (by either
+        package); returns the number restored.  Existing streams with the
+        same (tenant, predictor) key are replaced wholesale (the checkpoint
+        is the warmer state)."""
+        if step is None:
+            step = latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint under {directory}")
+        specs = load_metadata(directory, step)["streams"]
+        arrays = load_arrays(directory, step)
+        with self._estimator_lock:
+            # flush staged device samples into the OLD streams first: they
+            # predate the restore and die with the replaced state — they
+            # must never drain into a freshly restored estimator later
+            self._sync_tracker_locked()
+            for i, m in enumerate(specs):
+                est = StreamingQuantileEstimator.from_checkpoint(
+                    {"buf": arrays[f"{i}/buf"],
+                     "recent": arrays[f"{i}/recent"]}, m)
+                self._estimators[(m["tenant"], m["predictor"])] = est
+        return len(specs)
+
     def calibration_ready(self, tenant: str, predictor: str) -> bool:
-        """Eq. 5 gate: enough live events for a trustworthy custom T^Q?"""
-        est = self._estimators.get((tenant, predictor))
+        """Eq. 5 gate: enough live events for a trustworthy custom T^Q?
+
+        A calibration host-pull boundary: staged device samples for the
+        stream materialize before the gate reads the count."""
+        key = (tenant, predictor)
+        if self._tracker is not None and self._tracker.pending(key):
+            with self._estimator_lock:
+                self._sync_tracker_locked()
+        est = self._estimators.get(key)
         return est is not None and est.ready(
             self.config.refresh_alert_rate, self.config.refresh_rel_error
         )
@@ -710,6 +851,9 @@ class MuseServer:
     def fit_custom_quantile_map(self, tenant: str, predictor: str,
                                 ref_quantiles, n_levels: int = 256) -> QuantileMap:
         """Refresh path: fit T^Q_v1 from the live (unlabeled) score stream."""
+        if self._tracker is not None:
+            with self._estimator_lock:
+                self._sync_tracker_locked()
         est = self._estimators[(tenant, predictor)]
         levels = np.linspace(0.0, 1.0, n_levels)
         src = est.quantiles(levels)

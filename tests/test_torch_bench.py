@@ -57,8 +57,13 @@ def test_bounds_count_bytes_and_operations():
     hbm, f32, bf16 = (timing.HBM_BYTES_PER_S, timing.F32_FLOPS,
                       timing.BF16_FLOPS)
     m, k, n, t = 65_536, 8, 256, 64
+    # the exact bucket is a search: ceil(log2 N) + 1 compares, and 10
+    # operations of interpolation and clip
+    assert [timing._tq_ops(x) for x in (2, 33, 256, 4096)] == [12, 17, 19, 23]
     ms, by = timing.quantile_map_bound(m, n, 4)
-    assert by == "operations" and ms == pytest.approx(m * (n + 10) / f32 * 1e3)
+    nbytes = 2 * m * 4 + 2 * n * 4
+    assert by == "bytes" and ms == pytest.approx(nbytes / hbm * 1e3)
+    assert m * 19 / f32 < nbytes / hbm
     ms, by = timing.score_pipeline_bound(m, k, n, 4)
     nbytes = m * k * 4 + m * 4 + (2 * k + 2 * n) * 4
     assert by == "bytes" and ms == pytest.approx(nbytes / hbm * 1e3)

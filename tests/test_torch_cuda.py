@@ -244,6 +244,7 @@ _LAUNCH_PROBE = r"""
 import json
 import torch
 from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import quantile_map as qm
 from repro_torch.kernels import score_pipeline as sp
 
 dev = torch.device("cuda")
@@ -281,6 +282,13 @@ w = torch.ones(8, device=dev)
 for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
     x = y.to(dtype)
     out[name] = kernels(lambda: sp.score_pipeline(x, y[0], w, src, ref))
+    # T^Q on a size that is no multiple of the block, and on a view off a
+    # 16-byte boundary
+    flat = x.reshape(-1)
+    out[f"qm_{name}"] = kernels(lambda: qm.quantile_map(flat[:200_003], src,
+                                                        ref))
+    out[f"qm_{name}_off"] = kernels(lambda: qm.quantile_map(flat[1:1_001],
+                                                            src, ref))
 print(json.dumps(out))
 """
 
@@ -315,6 +323,13 @@ def test_banked_call_is_one_launch(kernels_a_call, bank):
 def test_score_pipeline_call_is_one_launch(kernels_a_call, dtype):
     names = kernels_a_call[dtype]
     assert len(names) == 1 and "score_pipeline_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("case", ["qm_f32", "qm_f32_off", "qm_bf16",
+                                  "qm_bf16_off"])
+def test_quantile_map_call_is_one_launch(kernels_a_call, case):
+    names = kernels_a_call[case]
+    assert len(names) == 1 and "quantile_map_kernel" in names[0], names
 
 
 @pytest.mark.parametrize("bank", ["t64", "t64_window", "t4096"])
@@ -374,7 +389,8 @@ def test_score_pipeline_waits_for_the_kernel_before_it(dev, dtype):
 @pytest.mark.parametrize("name,kernels", [
     ("score_pipeline_banked", {"banked_shared_kernel": 2,
                                "banked_global_kernel": 4}),
-    ("score_pipeline", {"score_pipeline_kernel": 3})])
+    ("score_pipeline", {"score_pipeline_kernel": 3}),
+    ("quantile_map", {"quantile_map_kernel": 2})])
 def test_score_kernels_build_without_spills(dev, name, kernels):
     """ptxas compiled every instantiation without spills."""
     from repro_torch.kernels import _build
@@ -648,6 +664,103 @@ def test_scores_on_knots_map_bitwise(dev, dtype):
     got = sp.score_pipeline(on[:, None], one, one, knots, refq)
     assert torch.equal(got, ref.score_pipeline(on[:, None], one, one, knots,
                                                refq))
+
+
+def _qm_scores(rng, m, dtype, dev, offset=0):
+    """``m`` scores over and past [0, 1], every fifth NaN, in a view that
+    starts ``offset`` elements past a 16-byte boundary."""
+    x = torch.tensor(rng.uniform(-0.1, 1.1, m + offset).astype(np.float32),
+                     device=dev).to(dtype)[offset:]
+    x[::5] = float("nan")
+    return x
+
+
+@SCORE_DTYPES
+@pytest.mark.parametrize("m,offset", [
+    (1, 0), (3, 0), (255, 0), (257, 0), (20_003, 0), (65_536, 0),
+    (2_000_003, 0), (3_001, 1), (3_001, 3), (65_535, 7)])
+def test_quantile_map_ragged_sizes_and_offsets(dev, dtype, m, offset):
+    """Sizes that are no multiple of the block, a grid that loops (past the
+    blocks the card keeps resident) and views off a 16-byte boundary; the
+    launch is counted once a call, and ops gives the same bits."""
+    rng = np.random.default_rng(40 + offset)
+    src, refq = _tables(rng, 256, dev)
+    x = _qm_scores(rng, m, dtype, dev, offset)
+    before = ops.LAUNCHES["quantile_map"]
+    got = qm.quantile_map(x, src, refq)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["quantile_map"] == before + 1
+    _close_with_nan(got, ref.quantile_map(x, src, refq), SCORE_TOL[dtype])
+    same = ops.quantile_map(x, src, refq)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), same.view(bits))
+
+
+@SCORE_DTYPES
+@pytest.mark.parametrize("table", ["sorted", "unsorted", "nan_knot", "flat",
+                                   "all_flat", "descending"])
+@pytest.mark.parametrize("n", [2, 5, 256, 4095, 4096])
+def test_quantile_map_on_each_bucket_form(dev, table, n, dtype):
+    """A sorted, flat or all-flat table takes the block's search, any
+    other the exact count, at the smallest and largest N and at N that is
+    not a multiple of 4; both agree with the plain version."""
+    rng = np.random.default_rng(n)
+    src, refq = _tables(rng, n, dev)
+    if table == "unsorted":
+        src = torch.tensor(rng.uniform(0, 1, n).astype(np.float32),
+                           device=dev)
+    elif table == "nan_knot":
+        src[n // 2] = float("nan")
+    elif table == "flat":
+        src[n // 4:n // 2 + 1] = src[n // 4]
+    elif table == "all_flat":
+        src[:] = 0.5
+    elif table == "descending":
+        src = src.flip(0).contiguous()
+    for m, offset in ((20_003, 0), (999, 1)):
+        x = _qm_scores(rng, m, dtype, dev, offset)
+        _close_with_nan(qm.quantile_map(x, src, refq),
+                        ref.quantile_map(x, src, refq), SCORE_TOL[dtype])
+
+
+@SCORE_DTYPES
+def test_quantile_map_tables_off_16_bytes(dev, dtype):
+    """Tables that start 4 bytes past a 16-byte boundary reach shared
+    memory by 4-byte copies; the scores on knots still map bitwise."""
+    rng = np.random.default_rng(9)
+    src, refq = _tables(rng, 256, dev)
+    src_off, refq_off = _four_bytes_off(src), _four_bytes_off(refq)
+    x = _qm_scores(rng, 10_000, dtype, dev)
+    knots = src.to(dtype).float()
+    on = knots[:-1].to(dtype)
+    _close_with_nan(qm.quantile_map(x, src_off, refq_off),
+                    ref.quantile_map(x, src, refq), SCORE_TOL[dtype])
+    assert torch.equal(qm.quantile_map(on, _four_bytes_off(knots), refq_off),
+                       ref.quantile_map(on, knots, refq))
+
+
+@SCORE_DTYPES
+def test_quantile_map_waits_for_the_kernel_before_it(dev, dtype):
+    """Programmatic dependent launch: a call right after kernels that
+    rewrite the scores and both tables reads what they wrote."""
+    rng = np.random.default_rng(18)
+    src, refq = _tables(rng, 256, dev)
+    src2, refq2 = _tables(rng, 256, dev)
+    x = torch.rand(65_536, device=dev).to(dtype)
+    x2 = torch.rand(65_536, device=dev).to(dtype)
+    qm.quantile_map(x, src, refq)
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        for a, b in ((x, x2), (src, src2), (refq, refq2)):
+            a.copy_(b)
+        outs.append(qm.quantile_map(x, src, refq))
+        for a in (x, src, refq):
+            a.mul_(0.5)
+    torch.cuda.synchronize()
+    want = ref.quantile_map(x2, src2, refq2)
+    for got in outs:
+        _close_with_nan(got, want, SCORE_TOL[dtype])
 
 
 @SCORE_DTYPES
@@ -932,3 +1045,87 @@ def test_decode_wrapper_rejects_what_the_kernel_does_not_take(dev, bad):
         k, v = k[:, :, :1], v[:, :, :1]
     with pytest.raises(ValueError):
         da.decode_attention(q, k, v, vlen)
+
+
+# fused device tracking: the staging tensor and the fused aggregate on the
+# card, against the port's eager tracking on the card
+TRACK_DIM, TRACK_TENANTS = 8, 4
+
+
+def _tracking_server(dev, track_device, staging=4096, track=True):
+    from repro_torch.core.predictor import PredictorSpec
+    from repro_torch.core.routing import Condition, RoutingTable, ScoringRule
+    from repro_torch.core.transforms import QuantileMap
+    from repro_torch.serving.server import MuseServer, ServerConfig
+
+    def linear(seed):
+        w = np.random.default_rng(seed).normal(0, 1, TRACK_DIM).astype(
+            np.float32)
+        return lambda x: 1.0 / (1.0 + np.exp(-(np.asarray(x, np.float32)
+                                                @ w)))
+
+    factories = {f"m{i}": (lambda i=i: linear(i)) for i in (1, 2)}
+    rules = tuple(ScoringRule(Condition(tenants=(f"t{i}",)), f"p{i}")
+                  for i in range(TRACK_TENANTS)) + \
+        (ScoringRule(Condition(), "p0"),)
+    server = MuseServer(
+        RoutingTable(rules, (), version="v1"),
+        ServerConfig(track_quantiles=track, track_device=track_device,
+                     track_staging=staging, quantile_capacity=256,
+                     recent_capacity=32),
+        device=dev)
+    for i in range(TRACK_TENANTS):
+        server.deploy(PredictorSpec(f"p{i}", ("m1", "m2"), (0.2, 0.4),
+                                    (1.0, 1.0), QuantileMap.identity(64)),
+                      factories)
+    return server
+
+
+def _tracking_windows():
+    from repro_torch.core.routing import Intent
+    from repro_torch.serving.types import ScoringRequest
+
+    def req(tenant, seed):
+        x = np.random.default_rng(seed).normal(0, 1, TRACK_DIM)
+        return ScoringRequest(Intent(tenant=tenant), x.astype(np.float32))
+
+    rng = np.random.default_rng(7)
+    out, k = [], 0
+    for _ in range(18):
+        out.append([req(f"t{rng.integers(0, TRACK_TENANTS)}", k := k + 1)
+                    for _ in range(48)])
+    out.append([req("t0", k := k + 1) for _ in range(101)])
+    return out
+
+
+@pytest.mark.parametrize("staging", [4096, 64, 8])
+def test_fused_tracking_equals_eager_tracking(dev, staging):
+    """Staging 4096 (nothing drained before the snapshot), 64 (spills) and
+    8 (host fallbacks): responses bitwise equal, and after the sync the
+    estimator snapshots bitwise equal (meta, live prefixes)."""
+    host = _tracking_server(dev, False)
+    fused = _tracking_server(dev, True, staging)
+    off = _tracking_server(dev, False, track=False)
+    windows = _tracking_windows()
+    for win in windows:
+        a, b, c = (s.score_batch(win) for s in (host, fused, off))
+        assert [r.score for r in a] == [r.score for r in b] == \
+            [r.score for r in c]
+    tracker = fused._tracker
+    assert tracker._staging.device.type == torch.device(dev).type
+    if staging == 4096:
+        assert tracker.pending_total() > 0 and tracker.spills == 0
+    elif staging == 64:
+        assert tracker.spills > 0
+    else:
+        assert tracker.host_fallbacks > 0
+    want = host.snapshot_estimator_checkpoints()
+    got = fused.snapshot_estimator_checkpoints()
+    assert tracker.pending_total() == 0
+    assert want.keys() == got.keys() and want
+    for key, (arrays, meta) in want.items():
+        assert got[key][1] == meta, key
+        for name, live in (("buf", meta["filled"]),
+                           ("recent", meta["recent_filled"])):
+            assert np.array_equal(got[key][0][name][:live],
+                                  arrays[name][:live]), (key, name)

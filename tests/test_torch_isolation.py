@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, no reference package, no silent CPU.
 
-* Every ``repro_torch`` module imports, and a CPU ``score_batch`` runs, in a
-  process where importing ``jax`` fails; afterwards no ``repro`` module is
-  loaded.
+* Every ``repro_torch`` module imports, and a CPU ``score_batch`` runs
+  (with eager and with device tracking, through an estimator checkpoint),
+  in a process where importing ``jax`` fails; afterwards no ``repro``
+  module is loaded.
 * Each module the port copies from the reference (routing, registry,
   quantiles, types, data, shadow, batching, warmup, the model config schema
   and the architecture registry) equals its source once ``repro.`` imports
@@ -94,6 +95,8 @@ SCRIPT = textwrap.dedent("""
     import repro_torch.benchmarks.bench_kernels as bench
     assert callable(bench.run) and "repro_torch.benchmarks.bench_kernels" \
         in names
+    assert {"repro_torch.kernels.quantile_track",
+            "repro_torch.training.checkpoint"} <= set(names)
 
     from repro_torch.core.predictor import PredictorSpec
     from repro_torch.core.routing import (Condition, Intent, RoutingTable,
@@ -119,6 +122,24 @@ SCRIPT = textwrap.dedent("""
     assert [r.predictor for r in out] == ["pa", "pb"] * 8
     assert all(0.0 <= r.score <= 1.0 for r in out)
     assert server.metrics["kernel_dispatches"] == 1
+
+    # fused device tracking and the estimator checkpoints, jax blocked
+    import tempfile
+    from repro_torch.serving.server import ServerConfig
+    tracked = MuseServer(RoutingTable(rules, version="v1"),
+                         ServerConfig(track_device=True), device="cpu")
+    for name, weights in (("pa", (1.0, 1.0)), ("pb", (2.0, 1.0))):
+        tracked.deploy(PredictorSpec(name, ("m0", "m1"), (0.2, 0.5), weights,
+                                     QuantileMap.identity(32)), factories)
+    assert [r.score for r in tracked.score_batch(reqs)] == \
+        [r.score for r in out]
+    assert tracked._tracker.pending_total() == 16
+    with tempfile.TemporaryDirectory() as tmp:
+        tracked.save_estimators(tmp, step=3)
+        assert server.restore_estimators(tmp) == 2
+    assert tracked._tracker.pending_total() == 0
+    assert {k: e.count for k, e in server.estimator_streams().items()} == \
+        {("a", "pa"): 8, ("b", "pb"): 8}
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve
@@ -170,7 +191,8 @@ def test_no_source_calls_fused_attention():
     assert len(files) >= 40 and not offenders
     names = {f.relative_to(SRC / "repro_torch").as_posix() for f in files}
     assert {"benchmarks/bench_kernels.py", "benchmarks/timing.py",
-            "csrc/decode_attention.cu"} <= names
+            "csrc/decode_attention.cu", "kernels/quantile_track.py",
+            "training/checkpoint.py"} <= names
 
 
 def test_entry_points_default_to_the_card():
@@ -200,6 +222,10 @@ def test_entry_points_default_to_the_card():
         bench_kernels.run(quick=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench_kernels.main(["--quick"])
+    from repro_torch.kernels.quantile_track import DeviceQuantileTracker
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DeviceQuantileTracker(lambda key, chunks: None)
 
 
 def test_kernels_layer_loads_no_model_code():

@@ -297,8 +297,7 @@ def test_plain_path_matches_fused_path(worlds):
 
 
 @pytest.mark.parametrize("config", [dict(tenant_shards=2),
-                                    dict(tiering=object()),
-                                    dict(track_device=True)])
+                                    dict(tiering=object())])
 def test_unported_configurations_raise(config):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserver.MuseServer(_routing(trouting), tserver.ServerConfig(**config),
