@@ -35,7 +35,25 @@ Phases, each printing one JSON line:
              drained before the snapshot) and 64 (spills): responses and,
              after the tracker's sync, estimator snapshots bitwise equal to
              the eager server's, and the track stage's host ms of each.
-4. attention — the two flash-attention kernels against their plain
+4. lifecycle — the model-update lifecycle (paper Fig. 3) through the
+             port's control plane: 32 FraudWorld tenants plus an onboarding
+             one, each on its own predictor, on two replicas (one with
+             fused device tracking) behind a fenced ``ReplicaSet``; a
+             ``FleetCalibrationController`` refits after a cold-start
+             phase; a ``RollingUpdate`` promotes {m1,m2} -> {m1,m2,m3}
+             with stale maps under traffic; one fleet refresh; a last
+             phase ending in a 32,768-request window (the banked kernel's
+             shared-memory path).  Eight tenants and the onboarding one run
+             a ``DecisionLoop`` into an ``AuditLog``.  Checks: alert rates
+             within 1.2 pp of a = 2% before and after the update, for all
+             32 tenants; fleet-monotone generations, no request lost or
+             repeated; every response within 2e-5 of the plain banked
+             version from its generation's archived parameters; every
+             audited decision replayed bit for bit through the kernel
+             (one-row banks of unpadded tables); a flipped byte caught at
+             its index; the device-tracking replica's estimators equal an
+             eager twin's over the same windows.
+5. attention — the two flash-attention kernels against their plain
              version on the card, float32 and bfloat16 (bf16 with D = 64
              or 128 runs the tensor-core form, the rest the SIMT form,
              checked per case): the reference's five cases, Tq < Tk, a
@@ -45,7 +63,7 @@ Phases, each printing one JSON line:
              D=128, causal) the tensor-core form's time in bf16 and the
              SIMT form's in float32, each beside the plain version,
              PyTorch's own attention call and the bound.
-5. llm_serve — the port's model path at the full width of qwen3-8b
+6. llm_serve — the port's model path at the full width of qwen3-8b
              (36 layers, d_model 4,096, vocab 151,936; bf16 weights from a
              seed): ``launch.serve.serve`` prefills 4 x 2,048 tokens through
              the tensor-core kernel, decodes 16 greedy steps and maps the
@@ -56,7 +74,7 @@ Phases, each printing one JSON line:
              model against the plain version in float32.  A float32
              prefill through the kernel branch (the SIMT form's path) is
              held against the float32 reference prefill.
-6. score_kernels — the quantile-map and shared-parameter score-pipeline
+7. score_kernels — the quantile-map and shared-parameter score-pipeline
              kernels against their plain versions, float32 and bfloat16:
              the reference's cases, scores on knots (bitwise), NaN scores,
              scores outside the support, flat, all-flat, unsorted and
@@ -65,8 +83,8 @@ Phases, each printing one JSON line:
              scores off a 16-byte boundary, N = 2, 4,095 and 4,096, and
              tables that fail the sortedness proof; then their times at a
              1,024-row serve window (the benchmark's 65,536 rows are timed
-             by phase 8).
-7. decode_attention — the decode kernel against its plain version,
+             by phase 9).
+8. decode_attention — the decode kernel against its plain version,
              float32 within 2e-5 and bf16 within bf16's rounding of the
              plain version run in float32 on the same inputs: the
              reference's cases and per-row lengths, valid_len 0 (exactly
@@ -78,10 +96,10 @@ Phases, each printing one JSON line:
              own attention call (warm and cold), the bounds and a traced
              loop (a call's period, the combine's tail, the launches a
              call: at most two, and no other kernel).
-8. bench_kernels — the port's kernel microbenchmark at full size, the path
+9. bench_kernels — the port's kernel microbenchmark at full size, the path
              of those three kernels: every entry agrees with its plain
              version and every kernel launched.
-9. kernels — every kernel of the port with its launches on its path, its
+10. kernels — every kernel of the port with its launches on its path, its
              error and its times at the path's shapes.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -90,6 +108,7 @@ last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -651,6 +670,485 @@ def phase_serve(dev) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------- phase 4
+# The model-update lifecycle (paper Fig. 3) on two replicas of the card.
+LIFECYCLE = dict(
+    tenants=32,          # calibrated tenants, each on its own predictor
+    audited=8,           # of them, with a client decision loop + audit log
+    events=4_000,        # per tenant and traffic phase
+    window=1_024,        # mixed-tenant requests a dispatch
+    big=32_768,          # phase C's last window: the shared-memory path
+    onboard=250,         # the onboarding tenant's events a phase
+    rollout_batches=3)   # windows between two rollout transitions
+LC_ALERT = 0.02          # the client's alert rate a, and the Eq.-5 target
+LC_REL_ERROR = 0.3       # Eq.-5 delta (gate ~2.1k events a stream)
+LC_BAND = 0.012          # +-1.2 pp: the reference's headline invariant
+COLD_KNOTS = 128         # the cold-start prior's table; refits have 256
+OLD, NEW = ("m1", "m2"), ("m1", "m2", "m3")
+
+
+class _Recorder:
+    """What the load balancer sent and answered, in dispatch order."""
+
+    def __init__(self):
+        self.sent: list[int] = []
+        self.responses: list = []
+        self.windows: list[tuple[str, list, list]] = []   # (phase, reqs, resp)
+        # (phase, replica id, requests, host ms) of each dispatch
+        self.timings: list[tuple[str, int, int, float]] = []
+
+
+def _lifecycle_world(dev, sizes):
+    """FraudWorld with the retrained third expert, 32 tenant feeds plus an
+    onboarding tenant, and the cold-start prior at ``COLD_KNOTS`` knots."""
+    import numpy as np
+    from repro_torch.core.coldstart import (default_quantile_map,
+                                            fit_beta_mixture)
+    from repro_torch.experiments.fraud_world import FraudWorld, train_expert
+    from repro_torch.training.data import FraudEventStream, TenantProfile
+
+    world = FraudWorld.build(n_experts=2, betas=(0.18, 0.18), seed=17,
+                             client_shift=0.3)
+    world.experts["m3"] = train_expert(FraudEventStream(TenantProfile(
+        "train-pool", fraud_rate=0.01, feature_shift=0.3, seed=303)),
+        "m3", 0.02, mask_seed=33)
+    n = sizes["tenants"]
+    tenants = [f"bank{i:02d}" for i in range(n)] + ["bank-new"]
+    feeds = {t: FraudEventStream(TenantProfile(
+        t, fraud_rate=0.006 + 0.003 * (i % 3),
+        feature_shift=0.25 + 0.06 * (i % 3), seed=500 + i))
+        for i, t in enumerate(tenants)}
+    # the Beta-mixture prior of world.coldstart_quantile_map, on a coarser
+    # table: every bank that mixes it with a 256-knot refit pads it
+    x, y = world.train_tenant.sample(60_000)
+    fit = fit_beta_mixture(world.ensemble_aggregated(OLD, x),
+                           fraud_prior=float(np.mean(y)), n_trials=1, seed=7)
+    ref = np.interp(np.linspace(0, 1, COLD_KNOTS),
+                    np.linspace(0, 1, len(world.ref_quantiles)),
+                    world.ref_quantiles)
+    cold = default_quantile_map(fit, ref)
+    return world, tenants, feeds, cold
+
+
+def _lifecycle_windows(feeds, tenants, sizes, rng, ids, *, big=False):
+    """One traffic phase: ``events`` per calibrated tenant and ``onboard``
+    for the onboarding one, shuffled into mixed windows of ``window``
+    requests (with ``big``, the last ``big`` requests form one window)."""
+    import numpy as np
+    from repro_torch.core.routing import Intent
+    from repro_torch.serving.types import ScoringRequest
+
+    rows = []
+    for t in tenants:
+        n = sizes["onboard"] if t == "bank-new" else sizes["events"]
+        rows.extend((t, x) for x in feeds[t].sample(n)[0])
+    reqs = [ScoringRequest(Intent(tenant=rows[i][0]), rows[i][1],
+                           request_id=next(ids))
+            for i in rng.permutation(len(rows))]
+    cut = len(reqs) - sizes["big"] if big else len(reqs)
+    out = [reqs[i:min(i + sizes["window"], cut)]
+           for i in range(0, cut, sizes["window"])]
+    return out + ([reqs[cut:]] if big else [])
+
+
+def phase_lifecycle(dev, sizes: dict | None = None) -> dict:
+    """The Fig.-3 lifecycle through the port's entry points: 32 tenants on
+    two replicas (one with fused device tracking), a fleet calibration
+    plane, a rolling promotion {m1,m2} -> {m1,m2,m3} with stale maps, a
+    fleet refresh, client decisions audited and replayed bit for bit
+    through the banked kernel."""
+    import copy
+    import dataclasses
+    import itertools
+
+    import numpy as np
+    import torch
+    from repro_torch.core.routing import (Condition, RoutingTable,
+                                          ScoringRule)
+    from repro_torch.core.quantiles import StreamingQuantileEstimator
+    from repro_torch.core.transforms import (TransformBank,
+                                             banked_score_pipeline)
+    from repro_torch.experiments.fraud_world import DIM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import score_pipeline as sp
+    from repro_torch.serving import (AuditLog, DecisionLoop, DecisionPolicy,
+                                     FleetCalibrationController,
+                                     GenerationLedger, MuseServer,
+                                     RefreshPolicy, Replica, ReplicaSet,
+                                     RollingUpdate, ServerConfig)
+    from repro_torch.serving.drift import realized_alert_rate
+
+    sizes = {**LIFECYCLE, **(sizes or {})}
+    t_start = time.perf_counter()
+    # the host's cyclic garbage collector: the run keeps every response,
+    # decision and audit entry alive, and a full collection walks them all
+    pauses: list[tuple[int, float]] = []
+    started: dict[str, float] = {}
+
+    def on_gc(stage, info):
+        if stage == "start":
+            started["t"] = time.perf_counter()
+        elif "t" in started:
+            pauses.append((info["generation"],
+                           (time.perf_counter() - started.pop("t")) * 1e3))
+
+    gc.callbacks.append(on_gc)
+    world, tenants, feeds, cold = _lifecycle_world(dev, sizes)
+    calibrated = tenants[:-1]
+    audited = set(calibrated[:sizes["audited"]]) | {"bank-new"}
+    factories = world.model_factories(dev)
+    device_servers: list = []
+
+    def make_server(version: str, group: tuple[str, ...], device: bool):
+        """A replica's server: every tenant on its own predictor of
+        ``group`` with the cold prior, tracking on the device (staging
+        4,096; the windows it scores are kept) or eagerly."""
+        routing = RoutingTable(tuple(
+            ScoringRule(Condition(tenants=(t,)), f"{version}-{t}")
+            for t in tenants), version=version)
+        server = MuseServer(routing, ServerConfig(
+            track_device=device, track_staging=4096,
+            refresh_alert_rate=LC_ALERT, refresh_rel_error=LC_REL_ERROR),
+            device=dev)
+        for t in tenants:
+            server.deploy(world.predictor_spec(f"{version}-{t}", group, cold),
+                          factories)
+        if device:
+            device_servers.append(server)
+            served = server.served_windows = []
+            inner = server.score_batch
+
+            def score_batch(requests):
+                served.append(list(requests))
+                return inner(requests)
+
+            server.score_batch = score_batch
+        return server
+
+    rec = _Recorder()
+    log, ledger = AuditLog(), GenerationLedger(device=dev)
+    loop = DecisionLoop(DecisionPolicy(alert_rate=LC_ALERT),
+                        world.ref_quantiles, audit=log)
+    current = ["A_cold"]
+
+    class Fleet(ReplicaSet):
+        """The load balancer: every dispatch is one client stream (the
+        payment gateway), fenced; the audited tenants' decisions are made
+        and logged, and every window is kept."""
+
+        def dispatch(self, requests, stream=None):
+            served = {r.replica_id: r.served for r in self.replicas}
+            t0 = time.perf_counter()
+            resp = super().dispatch(requests, stream=stream or "gateway")
+            ms = (time.perf_counter() - t0) * 1e3
+            rid = next(r.replica_id for r in self.replicas
+                       if r.served != served.get(r.replica_id, 0))
+            rec.timings.append((current[0], rid, len(requests), ms))
+            check([r.request_id for r in resp] ==
+                  [q.request_id for q in requests],
+                  f"{current[0]}: responses in request order")
+            rec.sent.extend(q.request_id for q in requests)
+            rec.responses.extend(resp)
+            rec.windows.append((current[0], requests, resp))
+            pairs = [(q, r) for q, r in zip(requests, resp)
+                     if q.intent.tenant in audited]
+            loop.process([q for q, _ in pairs], [r for _, r in pairs])
+            return resp
+
+    rs = Fleet([Replica(i, make_server("v1", OLD, i == 0), "v1", ready=True)
+                for i in range(2)])
+    fleet = FleetCalibrationController(
+        rs, world.ref_quantiles,
+        RefreshPolicy(alert_rate=LC_ALERT, rel_error=LC_REL_ERROR))
+    recorded: set[tuple[int, int]] = set()
+
+    def record_fleet():
+        """Archive what every ready replica serves, once per generation."""
+        for rep in rs.ready_replicas:
+            key = (id(rep.server), rep.server.bank_generation)
+            if key not in recorded:
+                ledger.record_server(rep.server)
+                recorded.add(key)
+
+    def serve(reqs):
+        record_fleet()
+        rs.dispatch(reqs)
+        return rec.timings[-1][3]
+
+    rng = np.random.default_rng(18)
+    ids = itertools.count()
+    phases: dict[str, dict] = {}
+    windows_launches = 0
+
+    def traffic_phase(phase, *, big=False):
+        nonlocal windows_launches
+        current[0] = phase
+        wins = _lifecycle_windows(feeds, tenants, sizes, rng, ids, big=big)
+        before = ops.LAUNCHES["score_pipeline_banked"]
+        ms = [serve(w) for w in wins]
+        windows_launches += ops.LAUNCHES["score_pipeline_banked"] - before
+        n = len(wins) - (1 if big else 0)
+        lat = np.array(ms[1:n])
+        phases[phase] = {
+            "windows": len(wins), "events": sum(map(len, wins)),
+            "events_per_s": sum(map(len, wins[1:n])) / lat.sum() * 1e3,
+            "p50_window_ms": float(np.percentile(lat, 50)),
+            "p99_window_ms": float(np.percentile(lat, 99)),
+            "max_window_ms": float(lat.max())}
+        if big:
+            phases[phase]["big_window"] = {
+                "requests": len(wins[-1]), "ms": ms[-1],
+                "events_per_s": len(wins[-1]) / ms[-1] * 1e3}
+
+    def refresh_times(res):
+        return {"fleet_generation": res.fleet_generation,
+                "refreshed": len(res.refreshed),
+                "rejected": len(res.rejected),
+                "not_ready": len(res.not_ready),
+                "acked": list(res.acked), "nacked": list(res.nacked),
+                "merged_streams": res.merged_streams,
+                **{k: getattr(res, k) for k in (
+                    "merge_seconds", "refit_seconds", "validate_seconds",
+                    "publish_seconds")}}
+
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    refreshes = {}
+    # A (cold): the prior serves while every stream passes the Eq.-5 gate
+    traffic_phase("A_cold")
+    res = fleet.refresh_fleet()
+    check(len(res.refreshed) == len(calibrated) and not res.nacked,
+          f"first fleet refresh: {len(res.refreshed)} refreshed, "
+          f"{[r.reasons for r in res.rejected]}")
+    refreshes["after_A_cold"] = refresh_times(res)
+    # A: calibrated v1, the pre-update baseline
+    traffic_phase("A")
+
+    # promotion: v2 ships with the stale prior, one fleet pass per surge
+    n_cal = len(calibrated)
+    one_window = {**sizes, "events": sizes["window"] // n_cal - 1,
+                  "onboard": n_cal}
+
+    def rollout_traffic():
+        while True:
+            for w in _lifecycle_windows(feeds, tenants, one_window, rng,
+                                        ids):
+                record_fleet()
+                yield w
+
+    v2_device = itertools.cycle((True, False))
+    update = RollingUpdate(rs, lambda: make_server("v2", NEW,
+                                                   next(v2_device)),
+                           "v2", schema_dim=DIM,
+                           warmup_batch_sizes=(1, sizes["window"]),
+                           fleet_calibration=fleet)
+    current[0] = "rollout"
+    before = ops.LAUNCHES["score_pipeline_banked"]
+    t0 = time.perf_counter()
+    timeline = update.run_with_traffic(
+        rollout_traffic(), batches_per_transition=sizes["rollout_batches"])
+    rollout_s = time.perf_counter() - t0
+    windows_launches += ops.LAUNCHES["score_pipeline_banked"] - before
+    check([r.version for r in rs.replicas] == ["v2", "v2"],
+          f"rollout ends on v2: {[r.version for r in rs.replicas]}")
+    refreshes["rollout"] = [refresh_times(r) for r in update.refreshes]
+
+    # B: the new ensemble on its stale maps; then one fleet refresh
+    traffic_phase("B_stale")
+    res = fleet.refresh_fleet()
+    refreshed = {r.tenant for r in res.refreshed
+                 if r.predictor == f"v2-{r.tenant}"}
+    check(set(calibrated) <= refreshed and res.acked == tuple(
+        str(r.replica_id) for r in rs.replicas),
+        f"v2 refresh: {len(refreshed)} refreshed, acked {res.acked}, "
+        f"{[(r.tenant, r.reasons) for r in res.rejected]}")
+    refreshes["after_B"] = refresh_times(res)
+    # C: refreshed v2, its last window one of ``big`` rows
+    traffic_phase("C", big=True)
+    record_fleet()
+    launches = dict(ops.LAUNCHES)
+    check(launches["score_pipeline_banked"] == windows_launches > 0,
+          f"lifecycle windows launched the banked kernel: {launches}")
+
+    # 1. the headline invariant: alert rates at the fixed client threshold
+    by_phase: dict[str, dict[str, list]] = {}
+    for phase, reqs, resp in rec.windows:
+        for q, r in zip(reqs, resp):
+            by_phase.setdefault(phase, {}).setdefault(
+                q.intent.tenant, []).append(r.score)
+    rates = {phase: {t: realized_alert_rate(np.asarray(s),
+                                            world.ref_quantiles, LC_ALERT)
+                     for t, s in per.items()}
+             for phase, per in by_phase.items()}
+    for phase in ("A", "C"):
+        off = {t: rates[phase][t] for t in calibrated
+               if abs(rates[phase][t] - LC_ALERT) > LC_BAND}
+        check(not off, f"phase {phase}: alert rates off a by > 1.2 pp: {off}")
+
+    # 2. fleet-monotone generations, no request lost or repeated
+    check(not rs.fleet_generation().divergent, "fleet divergent after run")
+    gens = [r.bank_generation for r in rec.responses]
+    check(gens == sorted(gens), "generations monotone on the gateway stream")
+    per_tenant: dict[str, list[int]] = {}
+    for phase, reqs, resp in rec.windows:
+        for q, r in zip(reqs, resp):
+            per_tenant.setdefault(q.intent.tenant, []).append(
+                r.bank_generation)
+    check(all(g == sorted(g) for g in per_tenant.values()),
+          "generations monotone per tenant")
+    got_ids = [r.request_id for r in rec.responses]
+    check(len(got_ids) == len(set(got_ids)) == len(rec.sent)
+          and sorted(got_ids) == sorted(rec.sent),
+          f"request ids: {len(rec.sent)} sent, {len(got_ids)} answered, "
+          f"{len(set(got_ids))} distinct")
+
+    # 3. every response against the plain banked version on the CPU, from
+    # its stamped generation's archived parameters
+    groups: dict[tuple[int, int], list] = {}
+    for r in rec.responses:
+        groups.setdefault((r.bank_generation, len(r.raw_scores)),
+                          []).append(r)
+    plain_err = 0.0
+    for (gen, _), resp in groups.items():
+        names = sorted({r.predictor for r in resp})
+        row = {n: i for i, n in enumerate(names)}
+        params = [ledger.params(gen, n) for n in names]
+        check(all(p is not None for p in params),
+              f"generation {gen} archived for every predictor served")
+        bank = TransformBank.from_params(
+            [tuple(torch.from_numpy(a) for a in p) for p in params],
+            device="cpu")
+        want = banked_score_pipeline(
+            torch.tensor([r.raw_scores for r in resp], dtype=torch.float32),
+            torch.tensor([row[r.predictor] for r in resp]), bank.betas,
+            bank.weights, bank.src_quantiles, bank.ref_quantiles).numpy()
+        got = np.array([r.score for r in resp], np.float32)
+        check(bool(np.isfinite(got).all()), f"generation {gen}: finite")
+        plain_err = max(plain_err, float(np.abs(got - want).max()))
+    check(plain_err <= TOL, f"served vs plain banked version: {plain_err}")
+
+    # 4. every audited decision replayed bit for bit through the kernel
+    entries = [json.loads(e.payload) for e in log.entries]
+    big_ids = {q.request_id for q in rec.windows[-1][1]}
+    big_bank = max(device_servers[-1].plane.banks.values(),
+                   key=lambda e: e.bank.num_rows).bank
+    big_path = sp.banked_path(big_bank.num_rows, big_bank.num_quantiles,
+                              len(big_ids), *sp.card(dev))
+    check(big_path == "shared", f"the {len(big_ids)}-row window's path: "
+          f"{big_path}")
+    widest: dict[tuple[int, str], int] = {}
+    for (gen, name), row in ledger._rows.items():
+        key = (gen, name.split("-")[0])
+        widest[key] = max(widest.get(key, 0), row[2].shape[0])
+    padded = sum(1 for e in entries if ledger.params(
+        e["bank_generation"], e["predictor"])[2].shape[0] < widest[
+            (e["bank_generation"], e["predictor"].split("-")[0])])
+    n_gens = len({e["bank_generation"] for e in entries})
+    n_big = sum(1 for e in entries if e["request_id"] in big_ids)
+    check(n_gens >= 3 and n_big > 0 and padded > 0,
+          f"audit covers {n_gens} generations, {n_big} big-window rows, "
+          f"{padded} padded rows")
+    before = ops.LAUNCHES["score_pipeline_banked"]
+    t0 = time.perf_counter()
+    verdict = log.verify(ledger, expected_head=log.head(),
+                         expected_length=len(log), fused=True)
+    verify_s = time.perf_counter() - t0
+    replay_launches = ops.LAUNCHES["score_pipeline_banked"] - before
+    check(verdict.ok, f"audit replay: {len(verdict.failures)} failures, "
+          f"first {verdict.failures[:3]}")
+    check(verdict.replayed == len(log) == replay_launches,
+          f"{verdict.replayed} replayed, {len(log)} entries, "
+          f"{replay_launches} kernel launches")
+
+    # 5. one flipped payload byte fails the chain at its index
+    tampered = copy.copy(log)
+    tampered.entries = list(log.entries)
+    at = len(log) // 2
+    e = log.entries[at]
+    pos = e.payload.index('"score":') + 9
+    tampered.entries[at] = dataclasses.replace(
+        e, payload=e.payload[:pos] + chr(ord(e.payload[pos]) ^ 1)
+        + e.payload[pos + 1:])
+    bad = tampered.verify()
+    check(not bad.ok and [f.index for f in bad.failures
+                          if f.kind == "chain"] == [at],
+          f"tampered entry {at}: {bad.failures[:3]}")
+
+    # 6. the device-tracking replica's estimators are eager tracking's:
+    # the same windows through an eager twin give the same snapshots
+    dev_server = device_servers[-1]
+    dev_rep = next(r for r in rs.replicas if r.server is dev_server)
+    other = next(r for r in rs.replicas if r is not dev_rep)
+    twin = make_server("v2", NEW, False)
+    mine = dev_server.served_windows
+    check(dev_server._tracker is not None and twin._tracker is None
+          and len(mine) > 0, "one device-tracking v2 replica, eager twin")
+    for reqs in mine:
+        twin.score_batch(reqs)
+    snap = dev_server.snapshot_estimator_checkpoints()
+    _same_snapshots("device replica vs eager twin",
+                    twin.snapshot_estimator_checkpoints(), snap)
+    rest = other.server.snapshot_estimator_checkpoints()
+    twin_snap = twin.snapshot_estimator_checkpoints()
+    for key in snap:
+        parts = [p for p in (rest.get(key),) if p is not None]
+        a = StreamingQuantileEstimator.merge_checkpoints([snap[key], *parts])
+        b = StreamingQuantileEstimator.merge_checkpoints([twin_snap[key],
+                                                          *parts])
+        check(a.count == b.count and np.array_equal(a.values(), b.values()),
+              f"merged {key}: device replica's fit differs from eager")
+
+    gc.callbacks.remove(on_gc)
+    full = [ms for g, ms in pauses if g == 2]
+    peak = max(ms for phase, _, _, ms in rec.timings if phase == "rollout")
+    # the slowest windows of ``window`` requests, with the replica that
+    # served them and how many windows that replica had served before
+    seen: dict[int, int] = {}
+    slow = []
+    for phase, rid, n, ms in rec.timings:
+        if n <= sizes["window"]:
+            slow.append((ms, phase, rid, seen.get(rid, 0)))
+        seen[rid] = seen.get(rid, 0) + 1
+    slow = [{"ms": ms, "phase": phase, "replica": rid,
+             "replica_windows_before": k}
+            for ms, phase, rid, k in sorted(slow, reverse=True)[:8]]
+    result = {
+        "phase": "lifecycle", "seconds": time.perf_counter() - t_start,
+        "tenants": len(calibrated), "onboarding_tenants": 1,
+        "bank_rows": big_bank.num_rows, "audited_tenants": len(audited),
+        "replicas": len(rs.replicas), "traffic": phases,
+        "alert_rates": {p: {"min": min(v[t] for t in calibrated),
+                            "max": max(v[t] for t in calibrated)}
+                        for p, v in rates.items()},
+        "refreshes": refreshes,
+        "rollout": {"seconds": rollout_s, "windows": len(timeline),
+                    "min_ready": min(t["ready_count"] for t in timeline),
+                    "max_pods": max(t["pod_count"] for t in timeline),
+                    "max_window_ms": peak,
+                    "phase_A_p99_window_ms": phases["A"]["p99_window_ms"],
+                    "events": [(e.kind, e.replica_id, e.pod_count)
+                               for e in update.events]},
+        "slowest_windows": slow,
+        "gc_full_collections": {
+            "count": len(full), "max_ms": max(full, default=0.0),
+            "total_ms": sum(full)},
+        "generations": sorted(ledger.generations()),
+        "launches": {"windows": windows_launches,
+                     "replays": replay_launches},
+        "replays": verdict.replayed, "replay_seconds": verify_s,
+        "replays_big_window": n_big, "replays_padded": padded,
+        "big_window_path": big_path,
+        "max_abs_err_vs_plain": plain_err,
+        "device_tracking": {"windows": len(mine),
+                            "drains": dev_server._tracker.drains,
+                            "spills": dev_server._tracker.spills},
+        "timing": "host clock around ReplicaSet.dispatch (the client's "
+                  "decision loop outside it); events/s over the windows "
+                  "of ``window`` requests after a phase's first"}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 5
 # (b, tq, tk, hq, hkv, d, causal, window)
 ATTN_CASES = {
     "gqa_causal": (2, 128, 128, 4, 2, 64, True, 0),
@@ -804,7 +1302,7 @@ def phase_attention(dev) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 5
+# ---------------------------------------------------------------- phase 6
 LLM_ARCH = "qwen3-8b"
 LLM_BATCH, LLM_PROMPT, LLM_STEPS = 4, 2048, 16
 # (weight seed, prompt seed) of the accuracy check; the first is the
@@ -1107,7 +1605,7 @@ def phase_llm_serve(dev, attention: dict) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 7
 SCORE_TOL = {"float32": 2e-5,    # the reference's kernel tolerances
              "bfloat16": 2e-2}   # (tests/test_kernels.py::_tol)
 QM_CASES = ((16, 8), (1000, 64), (4096, 256), (333, 33))   # (scores, N)
@@ -1290,7 +1788,7 @@ def phase_score_kernels(dev) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 7
+# ---------------------------------------------------------------- phase 8
 DECODE_TOL = 2e-5   # float32; bf16 runs the kernel's own check (bf16_excess)
 # (b, s, hq, hkv, d, valid lengths)
 DECODE_CASES = {
@@ -1551,7 +2049,7 @@ def phase_decode_attention(dev) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 8
+# ---------------------------------------------------------------- phase 9
 def phase_bench_kernels() -> dict:
     """The kernel microbenchmark, ``repro_torch.benchmarks.bench_kernels``,
     at full size: the path of the three scoring and decode kernels."""
@@ -1573,7 +2071,7 @@ def phase_bench_kernels() -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 9
+# ---------------------------------------------------------------- phase 10
 def _benched(name: str, source: str, replaces: str, bench: dict,
              library_ms: float | None, also: dict) -> dict:
     """A kernels-line entry from bench_kernels' run (phase 8), the path of
@@ -1588,8 +2086,9 @@ def _benched(name: str, source: str, replaces: str, bench: dict,
             "library_ms": library_ms, "shape": e["shape"], "also": also}
 
 
-def phase_kernels(kernel: dict, serve: dict, main: dict, attention: dict,
-                  llm: dict, scores: dict, decode: dict, bench: dict) -> None:
+def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
+                  attention: dict, llm: dict, scores: dict, decode: dict,
+                  bench: dict) -> None:
     from repro_torch.benchmarks.timing import banked_bound, device_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels import score_pipeline as sp
@@ -1609,7 +2108,10 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, attention: dict,
         "source": "src/repro_torch/csrc/score_pipeline_banked.cu",
         "replaces": "src/repro/kernels/score_pipeline.py:122",
         "launches": serve["launches"]["score_pipeline_banked"],
-        "max_abs_err": max(err, kernel["max_abs_err"]),
+        # the lifecycle phase's own run: served windows and audit replays
+        "lifecycle_launches": lifecycle["launches"],
+        "max_abs_err": max(err, kernel["max_abs_err"],
+                           lifecycle["max_abs_err_vs_plain"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "shape": {"M": m, "K": k, "T": t, "N": n},
@@ -1674,13 +2176,14 @@ def main() -> int:
     name, smi = phase_device()
     kernel = phase_kernel(dev)
     serve, main_shapes = phase_serve(dev)
+    lifecycle = phase_lifecycle(dev)
     attention = phase_attention(dev)
     llm = phase_llm_serve(dev, attention)
     scores = phase_score_kernels(dev)
     decode = phase_decode_attention(dev)
     bench = phase_bench_kernels()
-    phase_kernels(kernel, serve, main_shapes, attention, llm, scores, decode,
-                  bench)
+    phase_kernels(kernel, serve, main_shapes, lifecycle, attention, llm,
+                  scores, decode, bench)
     emit({"phase": "wall", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

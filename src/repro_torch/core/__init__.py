@@ -7,6 +7,8 @@ Sub-modules:
   predictor   — the p = <M, A, T^Q> abstraction (Eq. 2)
   routing     — intent-based routing tables (Sec. 2.5)
   registry    — deduplicated model pool (Sec. 2.2.1)
+  metrics     — ECE_SWEEP^EM, Brier, recall@FPR, Wilson intervals
+  adaptation  — label-based weight and beta fits (Sec. 2.3.2)
 """
 from repro_torch.core.transforms import (
     Aggregation,

@@ -31,6 +31,16 @@ window's aggregate is staged in a device tensor and the host estimators
 materialize only at the calibration plane's pull boundaries, bitwise equal
 to eager tracking.  Estimator streams checkpoint to the
 ``training/checkpoint.py`` layout (:meth:`MuseServer.save_estimators`).
+
+The calibration plane (``serving/calibration.py``) reads the server only
+through those boundaries: :meth:`MuseServer.estimator_streams` and
+:meth:`MuseServer.snapshot_estimator_checkpoints` (a fleet controller
+pulls and merges every replica's), and writes it only through
+:meth:`MuseServer.publish_quantile_maps` (fenced by ``generation=`` on a
+fleet, :class:`StaleGenerationError` otherwise).  ``serving/rollout.py``
+promotes replicas around it, and ``serving/audit.py`` archives each
+generation's parameters to replay served decisions through the same
+banked kernel.
 The sharded and tiered topologies are not ported yet: their configurations
 raise ``NotImplementedError``.
 """

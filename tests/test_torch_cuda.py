@@ -1129,3 +1129,76 @@ def test_fused_tracking_equals_eager_tracking(dev, staging):
                            ("recent", meta["recent_filled"])):
             assert np.array_equal(got[key][0][name][:live],
                                   arrays[name][:live]), (key, name)
+
+
+# ------------------------------------------------- audit replay on the card
+def _padded_lifecycle_bank(dev, t=33, short=128):
+    """T - 1 rows of 256-knot tables and one of ``short`` knots, as a fleet
+    serves a cold-start tenant beside refitted ones: the bank edge-pads
+    the short row to 256, the audit ledger keeps it unpadded."""
+    from repro_torch.core.transforms import TransformBank
+
+    rng = np.random.default_rng(t)
+    rows = []
+    for i in range(t):
+        n = short if i == t - 1 else 256
+        rows.append(tuple(torch.tensor(a.astype(np.float32)) for a in (
+            rng.uniform(0.05, 1, 3), rng.uniform(0.5, 2, 3),
+            np.sort(rng.beta(2, 5, n)), np.sort(rng.uniform(0, 1, n)))))
+    return rows, TransformBank.from_params(rows, device=dev)
+
+
+@pytest.mark.parametrize("m,path", [(1_024, "global"), (32_768, "shared")])
+def test_one_row_replay_equals_rows_served_on_either_path(dev, m, path):
+    """A row scored inside an M-row mixed window equals the same row
+    replayed alone through a one-row bank of its own unpadded tables, bit
+    for bit, on both banked paths; the padded tenant's rows included."""
+    from repro_torch.serving.audit import GenerationLedger
+
+    rows, bank = _padded_lifecycle_bank(dev)
+    t = bank.num_rows
+    if sp.banked_path(t, 256, m, *sp.card(dev)) != path:
+        pytest.skip(f"{m} rows take the other path on this card")
+    rng = np.random.default_rng(m)
+    y = torch.tensor(rng.uniform(0, 1, (m, 3)).astype(np.float32),
+                     device=dev)
+    tid = torch.tensor(rng.integers(0, t, m).astype(np.int32), device=dev)
+    served = ops.score_pipeline_banked(y, tid, bank.betas, bank.weights,
+                                       bank.src_quantiles,
+                                       bank.ref_quantiles).cpu()
+    ledger = GenerationLedger(device=dev)
+    for i, row in enumerate(rows):
+        ledger.record(0, f"p{i}", *row)
+    ids = tid.cpu().numpy()
+    picks = np.concatenate([np.flatnonzero(ids == t - 1)[:256],
+                            rng.choice(m, 256, replace=False)])
+    raws = y.cpu().numpy()
+    for j in picks:
+        got = ledger.replay_score({"bank_generation": 0,
+                                   "predictor": f"p{ids[j]}",
+                                   "raw_scores": raws[j].tolist()})
+        assert got == float(served[j]), (j, ids[j])
+
+
+def test_ledger_replay_launches_the_kernel_only(dev, monkeypatch):
+    """``replay_score(fused=True)`` on a CUDA ledger is one launch of the
+    hand-written kernel a replay, and never the plain version."""
+    from repro_torch.serving import audit
+
+    rows, _ = _padded_lifecycle_bank(dev, t=2)
+    ledger = audit.GenerationLedger(device="cuda")
+    ledger.record(3, "p", *rows[1])
+
+    def plain(*args):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(ref, "score_pipeline_banked", plain)
+    monkeypatch.setattr(audit, "banked_score_pipeline", plain)
+    before = ops.LAUNCHES["score_pipeline_banked"]
+    fields = {"bank_generation": 3, "predictor": "p",
+              "raw_scores": [0.1, 0.5, 0.9]}
+    scores = [ledger.replay_score(fields) for _ in range(3)]
+    assert ops.LAUNCHES["score_pipeline_banked"] == before + 3
+    assert len(set(scores)) == 1 and np.isfinite(scores[0])
+    with pytest.raises(AssertionError, match="plain version"):
+        ledger.replay_score(fields, fused=False)

@@ -5,9 +5,10 @@
   in a process where importing ``jax`` fails; afterwards no ``repro``
   module is loaded.
 * Each module the port copies from the reference (routing, registry,
-  quantiles, types, data, shadow, batching, warmup, the model config schema
-  and the architecture registry) equals its source once ``repro.`` imports
-  are rewritten to ``repro_torch.``, apart from the listed lines, so a copy
+  quantiles, types, data, shadow, batching, warmup, metrics, drift,
+  rollout, decision_loop, calibration, the model config schema and the
+  architecture registry) equals its source once ``repro.`` imports are
+  rewritten to ``repro_torch.``, apart from the listed lines, so a copy
   that drifts fails here.
 * No source of the port imports the reference's top-level ``benchmarks``
   package.
@@ -24,6 +25,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,6 +46,25 @@ COPIES = {
     "serving/shadow.py": (),
     "serving/batching.py": (),
     "serving/warmup.py": (),
+    "core/metrics.py": (),
+    "serving/drift.py": (),
+    "serving/rollout.py": (),
+    "serving/decision_loop.py": (),
+    # torch tensors for the candidate map; docstring links name the port
+    "serving/calibration.py": (
+        "     (:func:`repro_torch.core.quantiles.batch_sample_quantiles`): "
+        "reservoirs are",
+        "    (:class:`~repro_torch.serving.server.StaleGenerationError`), "
+        "so a late ack",
+        "accumulate in the :class:`~repro_torch.kernels.quantile_track."
+        "DeviceQuantileTracker`",
+        "import numpy as np",
+        "import torch",
+        "                    src_quantiles=torch.as_tensor(src, "
+        "dtype=torch.float32),",
+        "                    ref_quantiles=torch.as_tensor(ref, "
+        "dtype=torch.float32))",
+    ),
     "models/config.py": (),
     # the registry names the port's config modules
     "configs/__init__.py": tuple(
@@ -96,7 +117,13 @@ SCRIPT = textwrap.dedent("""
     assert callable(bench.run) and "repro_torch.benchmarks.bench_kernels" \
         in names
     assert {"repro_torch.kernels.quantile_track",
-            "repro_torch.training.checkpoint"} <= set(names)
+            "repro_torch.training.checkpoint",
+            "repro_torch.core.metrics", "repro_torch.core.adaptation",
+            "repro_torch.serving.drift", "repro_torch.serving.calibration",
+            "repro_torch.serving.rollout",
+            "repro_torch.serving.decision_loop",
+            "repro_torch.serving.audit",
+            "repro_torch.examples.model_update_lifecycle"} <= set(names)
 
     from repro_torch.core.predictor import PredictorSpec
     from repro_torch.core.routing import (Condition, Intent, RoutingTable,
@@ -140,6 +167,24 @@ SCRIPT = textwrap.dedent("""
     assert tracked._tracker.pending_total() == 0
     assert {k: e.count for k, e in server.estimator_streams().items()} == \
         {("a", "pa"): 8, ("b", "pb"): 8}
+
+    # the model-update lifecycle, jax blocked: a fleet refresh, a decision
+    # audited and replayed through the banked pipeline
+    from repro_torch.serving import (AuditLog, DecisionLoop, DecisionPolicy,
+                                     FleetCalibrationController,
+                                     GenerationLedger, RefreshPolicy,
+                                     Replica, ReplicaSet)
+    rs = ReplicaSet([Replica(0, server, "v1", ready=True)])
+    fleet = FleetCalibrationController(rs, np.linspace(0, 1, 32),
+                                       RefreshPolicy(alert_rate=0.3,
+                                                     rel_error=0.9))
+    assert fleet.refresh_fleet().fleet_generation >= 0
+    log, ledger = AuditLog(), GenerationLedger(device="cpu")
+    ledger.record_replicas(rs)
+    loop = DecisionLoop(DecisionPolicy(), np.linspace(0, 1, 32), audit=log)
+    loop.process(reqs, rs.dispatch(reqs, stream="c"))
+    check = log.verify(ledger)
+    assert check.ok and check.replayed == 16, check.failures
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve
@@ -226,6 +271,22 @@ def test_entry_points_default_to_the_card():
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DeviceQuantileTracker(lambda key, chunks: None)
+    # the model-update lifecycle: the audit ledger, the label fits and the
+    # example take the card by default; the calibration controllers take no
+    # device of their own, they publish through a server, which does
+    from repro_torch.core import adaptation
+    from repro_torch.examples import model_update_lifecycle
+    from repro_torch.serving.audit import GenerationLedger
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GenerationLedger()
+    scores, labels = np.full((4, 2), 0.5), np.zeros(4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        adaptation.fit_aggregation_weights(scores, labels)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        adaptation.generalized_correction_betas(scores, labels)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model_update_lifecycle.main([])
 
 
 def test_kernels_layer_loads_no_model_code():
