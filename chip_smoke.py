@@ -53,7 +53,28 @@ Phases, each printing one JSON line:
              (one-row banks of unpadded tables); a flipped byte caught at
              its index; the device-tracking replica's estimators equal an
              eager twin's over the same windows.
-5. attention — the two flash-attention kernels against their plain
+5. engine  — the async dispatch engine (``serving/engine.py``):
+             ``repro_torch.benchmarks.bench_async_engine`` at the
+             reference's sizes, 32 tenants each on its own predictor over
+             three MLP experts (64 -> 512 -> 512 -> 1), T^Q of 128 knots,
+             16,384 events in windows of 128 (adaptive up to 2,048): the sync
+             ``ServerBatcher``, the engine with fixed and with adaptive
+             windows, tracking off and fused device tracking on — events/s
+             of each, bitwise equal scores across all five, every event
+             tracked; then the serve phase's server tiered at 16 hot and 15
+             victim slots through the engine, bitwise equal to the dense
+             server (prefetched rows, cold-miss stalls).
+6. tiering — the tiered bank store (``serving/tiering.py``):
+             ``repro_torch.benchmarks.bench_tiered_bank`` at its sizes
+             (K = 4, N = 256, 384 hot + 127 victim slots + the prior):
+             bitwise equal to the dense bank at 1,024 tenants; device bytes
+             (1,064,960 at every size) and host bytes over 1,024 .. 10^6
+             tenants; hot-row events/s at batch 8,192; stall rates of a
+             95/5 hot/cold mix at batch 2,048 without and with prefetch (0
+             with it at 10^6); the p99 dispatch time at 100,000 tenants
+             under a concurrent prefetching thread, staging under the lock
+             against overlapped, and its staging conflicts.
+7. attention — the two flash-attention kernels against their plain
              version on the card, float32 and bfloat16 (bf16 with D = 64
              or 128 runs the tensor-core form, the rest the SIMT form,
              checked per case): the reference's five cases, Tq < Tk, a
@@ -63,7 +84,7 @@ Phases, each printing one JSON line:
              D=128, causal) the tensor-core form's time in bf16 and the
              SIMT form's in float32, each beside the plain version,
              PyTorch's own attention call and the bound.
-6. llm_serve — the port's model path at the full width of qwen3-8b
+8. llm_serve — the port's model path at the full width of qwen3-8b
              (36 layers, d_model 4,096, vocab 151,936; bf16 weights from a
              seed): ``launch.serve.serve`` prefills 4 x 2,048 tokens through
              the tensor-core kernel, decodes 16 greedy steps and maps the
@@ -74,17 +95,21 @@ Phases, each printing one JSON line:
              model against the plain version in float32.  A float32
              prefill through the kernel branch (the SIMT form's path) is
              held against the float32 reference prefill.
-7. score_kernels — the quantile-map and shared-parameter score-pipeline
+9. score_kernels — the quantile-map and shared-parameter score-pipeline
              kernels against their plain versions, float32 and bfloat16:
              the reference's cases, scores on knots (bitwise), NaN scores,
              scores outside the support, flat, all-flat, unsorted and
              NaN-knot tables at K = 3 and 8, M = 1, a (4, 7, 9) batch,
              K = 1; the quantile map on sizes no multiple of the block,
              scores off a 16-byte boundary, N = 2, 4,095 and 4,096, and
-             tables that fail the sortedness proof; then their times at a
+             tables that fail the sortedness proof; the last knot: 2,000
+             random tables of 128 knots, alone and edge-padded to 256,
+             scored on, one ulp past and one ulp below their last knot
+             through the three T^Q kernels (the banked one on both paths),
+             padded bitwise equal to unpadded; then their times at a
              1,024-row serve window (the benchmark's 65,536 rows are timed
-             by phase 9).
-8. decode_attention — the decode kernel against its plain version,
+             by phase 11).
+10. decode_attention — the decode kernel against its plain version,
              float32 within 2e-5 and bf16 within bf16's rounding of the
              plain version run in float32 on the same inputs: the
              reference's cases and per-row lengths, valid_len 0 (exactly
@@ -96,10 +121,10 @@ Phases, each printing one JSON line:
              own attention call (warm and cold), the bounds and a traced
              loop (a call's period, the combine's tail, the launches a
              call: at most two, and no other kernel).
-9. bench_kernels — the port's kernel microbenchmark at full size, the path
+11. bench_kernels — the port's kernel microbenchmark at full size, the path
              of those three kernels: every entry agrees with its plain
              version and every kernel launched.
-10. kernels — every kernel of the port with its launches on its path, its
+12. kernels — every kernel of the port with its launches on its path, its
              error and its times at the path's shapes.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -424,6 +449,8 @@ N_WINDOWS = 10
 
 
 def _serve_setup(dev):
+    """(world, server factory, windows) of the serve phase; the engine
+    phase serves the same configuration tiered."""
     import dataclasses
 
     import numpy as np
@@ -576,12 +603,12 @@ def _device_tracking(make_server, windows, refresh, resp, eager) -> dict:
     return out
 
 
-def phase_serve(dev) -> tuple[dict, dict]:
+def phase_serve(dev, setup) -> tuple[dict, dict]:
     import numpy as np
     import torch
     from repro_torch.kernels import ops
 
-    world, make_server, windows = _serve_setup(dev)
+    world, make_server, windows = setup
     fused, plain = make_server(True), make_server(False)
     before = {}
 
@@ -1149,6 +1176,133 @@ def phase_lifecycle(dev, sizes: dict | None = None) -> dict:
 
 
 # ---------------------------------------------------------------- phase 5
+ENGINE_TIERS = (16, 15)   # hot slots, victim slots of the tiered serve run
+
+
+def _engine_tiered(setup) -> dict:
+    """The serve phase's server (64 tenants, the FraudWorld ensemble, a
+    shadow candidate) tiered at 16 hot and 15 victim slots, fed its ten
+    windows through an ``AsyncDispatchEngine`` of 1,024-request windows
+    (the tiers rebalanced after the first): every response bitwise equal to
+    the dense server's over the same windows, sync.  The banked launches
+    are counted from just after the dense server has scored, and held to
+    the tiered stores' dispatches plus extra passes."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import AsyncDispatchEngine
+    from repro_torch.serving.tiering import TieringConfig
+
+    _, make_server, windows = setup
+    dense = make_server(True)
+    want = {r.request_id: (r.score, r.predictor, r.bank_generation)
+            for reqs in windows for r in dense.score_batch(reqs)}
+    hot, victims = ENGINE_TIERS
+    tiered = make_server(True, tiering=TieringConfig(
+        hot_capacity=hot, victim_capacity=victims))
+    engine = AsyncDispatchEngine(tiered, max_batch=WINDOW, max_wait_ms=1e9)
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    engine.submit_many(windows[0])
+    out = engine.drain(timeout=300.0)
+    tiered.rebalance_tiers()
+    t1 = time.perf_counter()
+    for reqs in windows[1:]:
+        engine.submit_many(reqs)
+    out += engine.drain(timeout=300.0)
+    t2 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    errors = list(engine.errors)
+    prefetch_errors = engine.prefetch_errors
+    engine.close()
+    check(not errors and not prefetch_errors,
+          f"tiered engine stage errors: {errors[:3]}")
+    got = {r.request_id: (r.score, r.predictor, r.bank_generation)
+           for r in out}
+    check(got == want, "tiered engine responses bitwise equal to the dense "
+          "server's")
+    m = tiered.tier_metrics()
+    check(m["prefetched_rows"] > 0, "the engine prefetched tier rows")
+    passes = m["dispatches"] + m["extra_passes"]
+    check(launches["score_pipeline_banked"] == passes > 0,
+          f"the tiered engine run launched the banked kernel "
+          f"{launches['score_pipeline_banked']} times for {passes} passes")
+    stores = tiered.tiered_stores()
+    store = stores[max(stores, key=len)]
+    return {"tenants": N_TENANTS, "hot": hot, "victims": victims,
+            "launches": launches,
+            "windows": N_WINDOWS, "window_requests": WINDOW,
+            "responses": len(out), "bitwise_vs_dense": True,
+            "device_bytes": store.device_bytes,
+            "host_bytes": store.host_bytes,
+            "events_per_s_after_rebalance":
+                (N_WINDOWS - 1) * WINDOW / (t2 - t1),
+            "first_window_s": t1 - t0, "tier_metrics": m}
+
+
+def phase_engine(dev, setup) -> dict:
+    """The async dispatch engine (``serving/engine.py``) on the card: the
+    port's ``bench_async_engine`` at the reference's sizes (five runs, each
+    response bitwise its raw scores replayed through the banked kernel,
+    every event tracked), then the tiered serve-phase server through the
+    engine against the dense server.  Launches: each run of the benchmark
+    counts its timed stream's (held there to its windows), the tiered run
+    its own."""
+    from repro_torch.benchmarks import bench_async_engine
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    bench = bench_async_engine.run(device=dev)
+    check(all(n > 0 for n in bench["launches"].values()),
+          f"every engine run launched the banked kernel: "
+          f"{bench['launches']}")
+    tiered = _engine_tiered(setup)
+    launches = {**bench["launches"],
+                "tiered": tiered["launches"]["score_pipeline_banked"]}
+    result = {"phase": "engine", "launches": launches, "bench": bench,
+              "tiered": tiered, "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 6
+TIER_DEVICE_BYTES = 1_064_960       # (384 + 127 + 1) x (2·4 + 2·256) x 4
+TIER_HOST_BYTES_AT_MAX = 2_080_000_000   # 10^6 x (2·4 + 2·256) x 4
+
+
+def phase_tiering(dev) -> dict:
+    """The tiered bank store (``serving/tiering.py``) on the card: the
+    port's ``bench_tiered_bank`` at the reference's sizes — bitwise parity
+    with the dense bank at 1,024 tenants, the sweep to 10^6 tenants, the
+    stall rates with and without prefetch, the staging p99 under churn.
+    Launches: the tiered stores' dispatches only (the benchmark counts them
+    and holds them to their passes), not its dense bank's."""
+    from repro_torch.benchmarks import bench_tiered_bank
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    bench = bench_tiered_bank.run(device=dev)
+    launches = {"score_pipeline_banked": bench["dispatch_launches"]}
+    check(bench["dispatch_launches"] == bench["dispatch_passes"] > 0,
+          f"the tiered stores launched the banked kernel "
+          f"{bench['dispatch_launches']} times for "
+          f"{bench['dispatch_passes']} passes")
+    rows = bench["rows"]
+    check(all(r["device_bytes"] == TIER_DEVICE_BYTES for r in rows),
+          f"device bytes {[r['device_bytes'] for r in rows]}")
+    check(rows[-1]["tenants"] == 1_000_000
+          and rows[-1]["host_bytes"] == TIER_HOST_BYTES_AT_MAX,
+          f"host bytes at 10^6 tenants: {rows[-1]['host_bytes']}")
+    result = {"phase": "tiering", "launches": launches, "bench": bench,
+              "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 7
 # (b, tq, tk, hq, hkv, d, causal, window)
 ATTN_CASES = {
     "gqa_causal": (2, 128, 128, 4, 2, 64, True, 0),
@@ -1302,7 +1456,7 @@ def phase_attention(dev) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 6
+# ---------------------------------------------------------------- phase 8
 LLM_ARCH = "qwen3-8b"
 LLM_BATCH, LLM_PROMPT, LLM_STEPS = 4, 2048, 16
 # (weight seed, prompt seed) of the accuracy check; the first is the
@@ -1605,7 +1759,7 @@ def phase_llm_serve(dev, attention: dict) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 7
+# ---------------------------------------------------------------- phase 9
 SCORE_TOL = {"float32": 2e-5,    # the reference's kernel tolerances
              "bfloat16": 2e-2}   # (tests/test_kernels.py::_tol)
 QM_CASES = ((16, 8), (1000, 64), (4096, 256), (333, 33))   # (scores, N)
@@ -1624,6 +1778,95 @@ def _tables(rng, n, dev):
     refq = np.sort(rng.uniform(0, 1, n)).astype(np.float32)
     src[0], src[-1] = 0.0, 1.0
     return torch.tensor(src, device=dev), torch.tensor(refq, device=dev)
+
+
+LAST_KNOT_TABLES = (2000, 128, 256)   # tables, their knots, the bank's N
+
+
+def _last_knot_cases(dev, errs) -> dict:
+    """Scores on, one ulp past and one ulp below the last knot of 2,000
+    random 128-knot tables (references of a fraud score's shape: mass near
+    0, last knot 1), each table alone and edge-padded to 256 knots: through
+    the three T^Q kernels (quantile_map, score_pipeline with identity T^C
+    and A, and the banked kernel on both its paths), the padded tables'
+    results must equal the unpadded ones bit for bit, and a score on or
+    past the last knot must map to exactly the last reference knot."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import quantile_map as qm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import score_pipeline as sp
+
+    tables, n, n_bank = LAST_KNOT_TABLES
+    rng = np.random.default_rng(19)
+    src = np.sort(rng.uniform(0, 1, (tables, n)), -1).astype(np.float32)
+    refq = np.concatenate([np.sort(rng.beta(0.3, 5, (tables, n - 1)), -1),
+                           np.ones((tables, 1))], -1).astype(np.float32)
+    pad = ((0, 0), (0, n_bank - n))
+    last = src[:, -1]
+    x = np.stack([last, np.nextafter(last, np.float32(np.inf)),
+                  np.nextafter(last, np.float32(-np.inf))], -1)
+
+    def dev32(a):
+        return torch.tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    unpadded = (dev32(src), dev32(refq))
+    padded = (dev32(np.pad(src, pad, "edge")), dev32(np.pad(refq, pad,
+                                                           "edge")))
+    xs = dev32(x)
+    one = torch.ones(1, device=dev)
+    want_last = dev32(refq[:, -1])
+    out = {}
+    for kind in ("quantile_map", "score_pipeline"):
+        got = {}
+        for name, (qs, qr) in (("unpadded", unpadded), ("padded", padded)):
+            rows = []
+            for i in range(tables):
+                if kind == "quantile_map":
+                    args = (xs[i], qs[i], qr[i])
+                    rows.append(qm.quantile_map(*args))
+                else:
+                    args = (xs[i][:, None], one, one, qs[i], qr[i])
+                    rows.append(sp.score_pipeline(*args))
+                if i % 97 == 0:      # a sample against the plain version
+                    errs[f"last_knot/{kind}/{name}/{i}"] = _compare(
+                        f"last_knot/{kind}/{name}/{i}", rows[-1],
+                        getattr(ref, kind)(*args))
+            got[name] = torch.stack(rows)
+        check(torch.equal(got["padded"], got["unpadded"]),
+              f"last_knot/{kind}: padded tables not bitwise the unpadded")
+        check(torch.equal(got["unpadded"][:, :2],
+                          want_last[:, None].expand(-1, 2)),
+              f"last_knot/{kind}: on or past the last knot is not qr[-1]")
+        out[kind] = "bitwise"
+    # the banked kernel, both paths: banks of 100 tables (they fit in
+    # shared memory at N = 256), each row's 3 scores repeated to 30,000
+    # rows so the shared path has its rows
+    chunk, reps = 100, 100
+    ones = torch.ones(chunk, 1, device=dev)
+    for path in ("shared", "global"):
+        for c in range(0, tables, chunk):
+            tid = torch.arange(chunk, dtype=torch.int32,
+                               device=dev).repeat_interleave(3).repeat(reps)
+            y = xs[c:c + chunk].reshape(-1, 1).repeat(reps, 1)
+            res = {}
+            for name, (qs, qr) in (("unpadded", unpadded),
+                                   ("padded", padded)):
+                bank = (ones, ones, qs[c:c + chunk].contiguous(),
+                        qr[c:c + chunk].contiguous())
+                res[name] = _launch_path(path, y, tid, bank)().clone()
+                if c == 0:
+                    errs[f"last_knot/banked_{path}/{name}"] = _compare(
+                        f"last_knot/banked_{path}/{name}", res[name],
+                        ref.score_pipeline_banked(y, tid, *bank))
+            check(torch.equal(res["padded"], res["unpadded"]),
+                  f"last_knot/banked_{path}: padded not bitwise unpadded")
+            check(torch.equal(res["unpadded"].view(reps, chunk, 3)[0, :, :2],
+                              want_last[c:c + chunk, None].expand(-1, 2)),
+                  f"last_knot/banked_{path}: on or past the last knot "
+                  "is not qr[-1]")
+        out[f"banked_{path}"] = "bitwise"
+    return {"tables": tables, "knots": n, "bank_knots": n_bank, **out}
 
 
 def phase_score_kernels(dev) -> dict:
@@ -1662,8 +1905,7 @@ def phase_score_kernels(dev) -> dict:
         src, refq = _tables(rng, 256, dev)
         # knots the scores' dtype holds exactly, with a flat run whose
         # reference jumps; a score ON knot j maps to qr[j] bitwise
-        # (s - qs[j] = 0), save the last knot, which the map reaches by
-        # interpolating its last segment
+        # (s - qs[j] = 0), and on the last knot to qr[-1]
         knots = src.clone()
         knots[100:120] = knots[100]
         knots = knots.to(dtype).float()
@@ -1681,7 +1923,10 @@ def phase_score_kernels(dev) -> dict:
         for m, nq in QM_CASES + tuple(sweep):
             cmp("quantile_map", f"{m}x{nq}", scores(m), *_tables(rng, nq, dev))
         cmp("quantile_map", "on_knots", on[:-1], knots, refq, exact=True)
-        cmp("quantile_map", "last_knot", on[-1:], knots, refq)
+        got = cmp("quantile_map", "last_knot", on[-1:], knots, refq,
+                  exact=True)
+        check(float(got[0]) == float(refq[-1].to(dtype)),
+              "the last knot maps to exactly the last reference knot")
         y = scores(4096)
         y[::7] = float("nan")
         got = cmp("quantile_map", "nan", y, src, refq)
@@ -1754,9 +1999,10 @@ def phase_score_kernels(dev) -> dict:
                   *params(3), *_tables(rng, 32, dev))
         check(got.shape == (4, 7, 9), "score_pipeline keeps the batch shape")
     torch.cuda.synchronize()
+    last_knot = _last_knot_cases(dev, errs)
 
     # times at a serve window, float32, inputs drawn as the benchmark draws
-    # them; the benchmark's size is timed by bench_kernels (phase 8)
+    # them; the benchmark's size is timed by bench_kernels (phase 11)
     m, k, nq = SCORE_WINDOW
     y = f32(rng.uniform(0, 1, (m, k)))
     x = y[:, 0].contiguous()
@@ -1779,7 +2025,7 @@ def phase_score_kernels(dev) -> dict:
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
     result = {"phase": "score_kernels", "tolerance": SCORE_TOL,
               "errors": errs, "on_knots": "bitwise", "nan_scores": "NaN",
-              "timings": timings,
+              "last_knot": last_knot, "timings": timings,
               "timing": "CUDA events, median of 20 runs of 50 back-to-back "
                         "launches (plain: 10) queued behind a busy card: "
                         "throughput, not the latency of one launch",
@@ -1788,7 +2034,7 @@ def phase_score_kernels(dev) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 8
+# ---------------------------------------------------------------- phase 10
 DECODE_TOL = 2e-5   # float32; bf16 runs the kernel's own check (bf16_excess)
 # (b, s, hq, hkv, d, valid lengths)
 DECODE_CASES = {
@@ -2049,7 +2295,7 @@ def phase_decode_attention(dev) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 9
+# ---------------------------------------------------------------- phase 11
 def phase_bench_kernels() -> dict:
     """The kernel microbenchmark, ``repro_torch.benchmarks.bench_kernels``,
     at full size: the path of the three scoring and decode kernels."""
@@ -2071,10 +2317,10 @@ def phase_bench_kernels() -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 10
+# ---------------------------------------------------------------- phase 12
 def _benched(name: str, source: str, replaces: str, bench: dict,
              library_ms: float | None, also: dict) -> dict:
-    """A kernels-line entry from bench_kernels' run (phase 8), the path of
+    """A kernels-line entry from bench_kernels' run (phase 11), the path of
     the kernel, with the shapes a phase before it timed beside it."""
     e = next(e for e in bench["result"]["entries"].values()
              if e["kernel"] == name)
@@ -2087,8 +2333,8 @@ def _benched(name: str, source: str, replaces: str, bench: dict,
 
 
 def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
-                  attention: dict, llm: dict, scores: dict, decode: dict,
-                  bench: dict) -> None:
+                  engine: dict, tiering: dict, attention: dict, llm: dict,
+                  scores: dict, decode: dict, bench: dict) -> None:
     from repro_torch.benchmarks.timing import banked_bound, device_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels import score_pipeline as sp
@@ -2110,6 +2356,10 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
         "launches": serve["launches"]["score_pipeline_banked"],
         # the lifecycle phase's own run: served windows and audit replays
         "lifecycle_launches": lifecycle["launches"],
+        # the engine path (each run's timed stream, and the tiered serve
+        # run) and the tiered stores' dispatches, each counted on its own
+        "engine_launches": engine["launches"],
+        "tiering_launches": tiering["launches"]["score_pipeline_banked"],
         "max_abs_err": max(err, kernel["max_abs_err"],
                            lifecycle["max_abs_err_vs_plain"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2175,15 +2425,18 @@ def main() -> int:
     t0 = time.perf_counter()
     name, smi = phase_device()
     kernel = phase_kernel(dev)
-    serve, main_shapes = phase_serve(dev)
+    setup = _serve_setup(dev)
+    serve, main_shapes = phase_serve(dev, setup)
     lifecycle = phase_lifecycle(dev)
+    engine = phase_engine(dev, setup)
+    tiering = phase_tiering(dev)
     attention = phase_attention(dev)
     llm = phase_llm_serve(dev, attention)
     scores = phase_score_kernels(dev)
     decode = phase_decode_attention(dev)
     bench = phase_bench_kernels()
-    phase_kernels(kernel, serve, main_shapes, lifecycle, attention, llm,
-                  scores, decode, bench)
+    phase_kernels(kernel, serve, main_shapes, lifecycle, engine, tiering,
+                  attention, llm, scores, decode, bench)
     emit({"phase": "wall", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

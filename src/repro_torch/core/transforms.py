@@ -112,14 +112,30 @@ def _unit_grid(n: int) -> Tensor:
     return torch.cat([steps, torch.ones(1, dtype=torch.float32)])
 
 
-def _bucket_index(table: Tensor, values: Tensor) -> Tensor:
-    """Index i s.t. table[i] <= v < table[i+1], as the exact count
-    #{n : v >= table[n]} - 1 clamped to [0, N-2] so interpolation always has
-    a right neighbour.  The count (not a binary search) fixes the index on
-    ties, on unsorted tables and on NaN (no comparison holds -> index 0)."""
-    n = table.shape[-1]
-    idx = torch.sum(values[..., None] >= table, dim=-1) - 1
-    return torch.clamp(idx, 0, n - 2)
+def _knot_count(table: Tensor, values: Tensor) -> Tensor:
+    """The exact count #{n : v >= table[n]}.  The count (not a binary
+    search) fixes the bucket on ties, on unsorted tables and on NaN (no
+    comparison holds -> count 0)."""
+    return torch.sum(values[..., None] >= table, dim=-1)
+
+
+def _bucket_index(count: Tensor, n: int) -> Tensor:
+    """Index i s.t. table[i] <= v < table[i+1]: the knot count - 1, clamped
+    to [0, N-2] so interpolation always has a right neighbour."""
+    return torch.clamp(count - 1, 0, n - 2)
+
+
+def _at_last_knot(out: Tensor, count: Tensor, n: int,
+                  ref_last: Tensor) -> Tensor:
+    """A value at or past every one of the ``n`` knots maps to exactly the
+    last reference knot, as the kernels map it.  Interpolating the last
+    segment there can round one ulp below it, where an edge-padded table
+    (a flat segment) gives it exactly: with this, padding changes no bit at
+    the last knot either.  NaN counts 0 and stays NaN.  The reference
+    interpolates, so the two differ there by at most one ulp (more only
+    where the last source segment is flat and its reference segment is
+    not, where the reference's own padded and unpadded tables disagree)."""
+    return torch.where(count == n, ref_last, out)
 
 
 def quantile_map(
@@ -132,14 +148,17 @@ def quantile_map(
     ``src_quantiles``/``ref_quantiles``: (N,) monotone non-decreasing arrays of
     matched quantiles q^S_i, q^R_i (same quantile levels).  The map is monotone
     (non-decreasing), hence rank/ROC preserving — the paper's key invariant.
-    Values outside [q^S_1, q^S_N] are linearly extended from the edge segment
-    and clipped to the reference support.
+    Values below q^S_1 are linearly extended from the first segment and
+    clipped to the reference support; values at or past every knot map to
+    exactly q^R_N (see :func:`_at_last_knot`).
     """
     scores = torch.as_tensor(scores)
     dtype = scores.dtype
     qs = src_quantiles.to(device=scores.device, dtype=dtype)
     qr = ref_quantiles.to(device=scores.device, dtype=dtype)
-    i = _bucket_index(qs, scores)
+    n = qs.shape[-1]
+    count = _knot_count(qs, scores)
+    i = _bucket_index(count, n)
     q_s_i = qs[i]
     q_s_n = qs[i + 1]
     q_r_i = qr[i]
@@ -149,6 +168,7 @@ def quantile_map(
     denom = torch.where(diff > 0, diff, torch.ones_like(diff))
     slope = (q_r_n - q_r_i) / denom
     out = q_r_i + (scores - q_s_i) * slope
+    out = _at_last_knot(out, count, n, qr[-1])
     return torch.clamp(out, qr[0], qr[-1])
 
 
@@ -489,7 +509,9 @@ def banked_score_pipeline(
 
     qs = qs.to(agg.dtype)
     qr = qr.to(agg.dtype)
-    i = _bucket_index(qs, agg)[..., None]
+    n = qs.shape[-1]
+    count = _knot_count(qs, agg)
+    i = _bucket_index(count, n)[..., None]
     q_s_i = torch.gather(qs, -1, i)[..., 0]
     q_s_n = torch.gather(qs, -1, i + 1)[..., 0]
     q_r_i = torch.gather(qr, -1, i)[..., 0]
@@ -497,6 +519,7 @@ def banked_score_pipeline(
     diff = q_s_n - q_s_i
     denom = torch.where(diff > 0, diff, torch.ones_like(diff))
     out = q_r_i + (agg - q_s_i) * (q_r_n - q_r_i) / denom
+    out = _at_last_knot(out, count, n, qr[..., -1])
     # torch.clamp propagates NaN, as jnp.clip does
     out = torch.clamp(out, qr[..., 0], qr[..., -1])
     return out.masked_fill(outside, float("nan"))

@@ -2,9 +2,11 @@
 // csrc/score_pipeline.cu and csrc/score_pipeline_banked.cu, on one (N,)
 // table pair:
 //
-//     j   = clip(#{n : s >= qs[n]} - 1, 0, N-2)
+//     c   = #{n : s >= qs[n]}
+//     j   = clip(c - 1, 0, N-2)
 //     out = clip(qr[j] + ((s - qs[j]) * (qr[j+1] - qr[j])) / d, qr[0], qr[N-1])
 //     d   = qs[j+1] - qs[j] if that is > 0, else 1
+//     out = qr[N-1] where c = N
 //
 // count_le is the exact count over every knot: it gives the reference's
 // index on ties, on unsorted tables and on NaN (no comparison holds ->
@@ -71,7 +73,13 @@ __device__ __forceinline__ bool sorted_at(const float* qs, int i, int n) {
 }
 
 // T^Q of s given its count of knots at or below it (count_le or
-// search_le), on tables in shared or global memory.
+// search_le), on tables in shared or global memory.  A score at or past
+// every knot (count n, read before j is clamped) maps to exactly qr[n-1]:
+// interpolating the last segment there can round one ulp below it, where
+// an edge-padded table's flat segment gives it exactly, so padding changes
+// no bit at the last knot either.  That is a select at the end, not an
+// early return: the warp stays on one path, and qr[n-1] is loaded for the
+// clip anyway.  A NaN s counts 0 and is interpolated to NaN.
 __device__ __forceinline__ float interpolate(float s, int count,
                                              const float* qs,
                                              const float* qr, int n) {
@@ -89,7 +97,7 @@ __device__ __forceinline__ float interpolate(float s, int count,
   const float hi = qr[n - 1];
   v = v < lo ? lo : v;  // a NaN v fails both tests and stays NaN
   v = v > hi ? hi : v;
-  return v;
+  return count == n ? hi : v;
 }
 
 }  // namespace quantile_knots

@@ -4,10 +4,17 @@ plane.
 A mixed-tenant window flows through three stages
 (``MuseServer.run_models`` -> ``MuseServer.apply_transforms`` ->
 ``MuseServer.track``); ``ServerBatcher`` runs them back-to-back on the
-caller's thread.  Every control-plane publish swaps one immutable
-``_ControlPlane`` (predictors + transform banks + generation), so every
-response is consistent with exactly one bank generation
-(``ScoringResponse.bank_generation``).
+caller's thread, and :class:`AsyncDispatchEngine` pipelines them across
+windows on three stage threads (window *N*'s experts run while window
+*N−1* runs the banked kernel and window *N−2*'s estimators update), all on
+the device's default stream.  ``ServerConfig(tiering=TieringConfig(...))``
+bounds device residency by configuration (``serving/tiering.py``: hot
+rows on the device, cold rows paged from a :class:`HostBankStore`, the
+cold-start prior for un-gated tenants); the engine prefetches pending
+windows' cold rows before their transform stage.  Every control-plane
+publish swaps one immutable ``_ControlPlane`` (predictors + transform
+banks + generation), so every response is consistent with exactly one
+bank generation (``ScoringResponse.bank_generation``).
 
 Around the server sits the model-update lifecycle (paper Fig. 3):
 
@@ -49,6 +56,7 @@ from repro_torch.serving.decision_loop import (
     DecisionPolicy,
     decide,
 )
+from repro_torch.serving.engine import AsyncDispatchEngine
 from repro_torch.serving.rollout import (
     FleetGenerationAudit,
     Replica,
@@ -62,10 +70,16 @@ from repro_torch.serving.server import (
     StaleGenerationError,
 )
 from repro_torch.serving.shadow import ShadowSink
+from repro_torch.serving.tiering import (
+    HostBankStore,
+    TieredBankStore,
+    TieringConfig,
+    prior_bank_row,
+)
 from repro_torch.serving.types import ScoringRequest, ScoringResponse, ShadowRecord
 
 __all__ = [
-    "AuditEntry", "AuditFailure", "AuditLog", "AuditVerification",
+    "AsyncDispatchEngine", "AuditEntry", "AuditFailure", "AuditLog", "AuditVerification",
     "GenerationLedger",
     "MicroBatcher", "ServerBatcher",
     "CalibrationController", "CandidateReport", "FleetCalibrationController",
@@ -75,4 +89,5 @@ __all__ = [
     "FleetGenerationAudit", "Replica", "ReplicaSet", "RollingUpdate",
     "FeatureStore", "MuseServer", "ServerConfig", "StaleGenerationError",
     "ShadowSink", "ScoringRequest", "ScoringResponse", "ShadowRecord",
+    "HostBankStore", "TieredBankStore", "TieringConfig", "prior_bank_row",
 ]

@@ -44,11 +44,11 @@ entry it recomputes:
      SAME banked kernel the data plane ran
      (:func:`repro_torch.kernels.ops.score_pipeline_banked`, single-row
      bank) for the entry's generation; the result must equal the recorded
-     ``score`` EXACTLY (f32 bit-for-bit — per-row compute is
-     batch-independent, and the edge padding a mixed bank gave the row's
-     shorter tables changes no bit, but for a score on or just past the
-     last knot of such a row, where the padded bank's flat segment gives
-     ``qr[-1]`` and the real last segment may round one ulp below it).
+     ``score`` EXACTLY (f32 bit-for-bit, with no exception — per-row
+     compute is batch-independent, and the edge padding a mixed bank gave
+     the row's shorter tables changes no bit: a score at or past every
+     knot maps to exactly ``qr[-1]`` on the padded and the unpadded table
+     alike, see ``core/transforms.py::_at_last_knot``).
      On a CUDA ledger that is the hand-written kernel
      (``csrc/score_pipeline_banked.cu``), on either of its paths for the
      served window and on the L1/L2 path for the one-row replay;

@@ -40,9 +40,27 @@ pulls and merges every replica's), and writes it only through
 fleet, :class:`StaleGenerationError` otherwise).  ``serving/rollout.py``
 promotes replicas around it, and ``serving/audit.py`` archives each
 generation's parameters to replay served decisions through the same
-banked kernel.
-The sharded and tiered topologies are not ported yet: their configurations
-raise ``NotImplementedError``.
+banked kernel.  ``serving/engine.py`` pipelines the three stages across
+windows on three stage threads, all on the device's default stream.
+
+Tiered serving topology
+-----------------------
+
+``ServerConfig(tiering=TieringConfig(...))`` bounds DEVICE residency by
+configuration instead of tenant count: the hottest tenants' bank rows live
+in a device bank, everything else pages on demand from a host-memory
+:class:`~repro_torch.serving.tiering.HostBankStore` through a bounded
+victim cache, and tenants that have not yet passed the Eq.-5 gate score
+through ONE shared cold-start prior row.  The async engine prefetches
+pending windows' cold rows before their transform stage dispatches
+(:meth:`MuseServer.prefetch_transforms`), promotion/demotion is an explicit
+generation-fenced control op (``rebalance_tiers``, which the calibration
+controllers call after each publish), and ``publish_quantile_maps`` lands
+refreshed maps in host rows AND every device-resident copy under one
+generation.  Scores equal a dense bank's bitwise (the same banked kernel
+on slot-remapped rows).  See ``serving/tiering.py``.  The sharded topology
+(and tiering over it) is not ported yet: ``tenant_shards > 1`` raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -64,6 +82,11 @@ from repro_torch.device import resolve_device, to_numpy
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantile_track import DeviceQuantileTracker
 from repro_torch.serving.shadow import ShadowSink
+from repro_torch.serving.tiering import (
+    HostBankStore,
+    TieredBankStore,
+    TieringConfig,
+)
 from repro_torch.serving.types import (
     ScoringRequest,
     ScoringResponse,
@@ -143,10 +166,12 @@ class ServerConfig:
     # fused tenant-indexed kernel launch; False runs the plain banked
     # version (TransformBank.__call__: same semantics, no hand-written kernel)
     fused_kernel: bool = True
-    # not ported yet: only the dense defaults are accepted
-    # (tenant_shards > 1: ROADMAP Queue 1 item 11; tiering: item 10)
+    # not ported yet: tenant_shards > 1 (ROADMAP Queue 1 item 11)
     tenant_shards: int = 1
-    tiering: Any = None
+    # tiered tenant-bank store (serving/tiering.py): hot rows on device,
+    # cold rows host-paged through a bounded victim cache, un-gated tenants
+    # through the cold-start prior.  None = fully device-resident banks.
+    tiering: TieringConfig | None = None
     # fused device tracking (kernels/quantile_track.py): the track stage
     # stages the banked pre_quantile aggregate in per-stream device
     # buffers; host estimators materialize only at the calibration plane's
@@ -176,10 +201,33 @@ class _BankEntry:
     redeploy replaces pipeline objects, so a stale entry fails the identity
     check and is rebuilt.  The bank itself carries the generation it was
     published under (see :class:`~repro_torch.core.transforms.TransformBank`).
+    ``tiered`` is the hot/victim/prior tiered store served when
+    ``ServerConfig.tiering`` is set; it replaces the dense bank entirely
+    (``bank`` is None) so device residency stays bounded by the configured
+    capacity instead of the group's tenant count.
     """
 
     pipelines: tuple[Any, ...]
-    bank: TransformBank
+    bank: TransformBank | None
+    tiered: TieredBankStore | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class _TieredWindowBank:
+    """The per-window 'bank' a tiered dispatch hands downstream stages.
+
+    A :class:`TieredBankStore` is mutable (a publish can land right after a
+    window scores), so ``apply_transforms`` wraps the store with the
+    generation the window ACTUALLY scored under — ``build_responses`` reads
+    a dispatch-time provenance stamp, exactly like the immutable dense
+    bank's, and ``track`` fits estimators through the same rows the window
+    served (numpy on the host, see ``TieredBankStore.pre_quantile``)."""
+
+    store: TieredBankStore
+    generation: int
+
+    def pre_quantile(self, expert_scores, tenant_idx):
+        return self.store.pre_quantile(expert_scores, tenant_idx)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,10 +252,8 @@ class _ControlPlane:
 def _check_config(config: ServerConfig) -> None:
     if config.tenant_shards > 1:
         raise NotImplementedError(
-            "tenant-sharded banks are not ported yet (ROADMAP Queue 1 item 11)")
-    if config.tiering is not None:
-        raise NotImplementedError(
-            "the tiered bank store is not ported yet (ROADMAP Queue 1 item 10)")
+            "tenant-sharded banks, and tiering over them, are not ported yet "
+            "(ROADMAP Queue 1 item 11)")
 
 
 class MuseServer:
@@ -242,6 +288,14 @@ class MuseServer:
         # THE served control-plane state: swapped wholesale on every deploy /
         # decommission / calibration publish (never mutated across a publish).
         self._plane = _ControlPlane(predictors={}, banks={}, generation=0)
+        # tiered topology: stateful stores OUTSIDE the plane (hotness, seen
+        # counts and victim-cache residency survive plane swaps); the plane's
+        # bank entries hold references, _tier_lock guards the dict itself
+        self._tiered_stores: dict[tuple[str, ...], TieredBankStore] = {}
+        self._tier_lock = threading.Lock()
+        # predictors routed through the cold-start prior until their stream
+        # re-passes the Eq.-5 gate (applied to stores built later, too)
+        self._cold_names: set[str] = set()
         self.metrics: dict[str, float] = {
             "requests": 0, "shadow_evals": 0, "kernel_dispatches": 0,
             "model_group_calls": 0, "model_calls": 0, "bank_generation": 0,
@@ -328,6 +382,12 @@ class MuseServer:
                 self._tracker.drop_where(lambda k: k[1] == name)
             self._estimators = {k: v for k, v in self._estimators.items()
                                 if k[1] != name}
+        # tiered stores holding the dead predictor's host row die with it
+        # (row indices are positions in the names tuple — unpatchable)
+        with self._tier_lock:
+            self._tiered_stores = {k: v for k, v in self._tiered_stores.items()
+                                   if name not in k}
+        self._cold_names.discard(name)
 
     def publish_routing(self, table: RoutingTable) -> None:
         """Atomic routing swap — the transparent model switching primitive."""
@@ -390,6 +450,32 @@ class MuseServer:
         # a bank-cache entry mid-iteration
         for key, entry in dict(plane.banks).items():
             touched = {i: updates[n] for i, n in enumerate(key) if n in updates}
+            if entry.tiered is not None:
+                store = entry.tiered
+                entry_fresh = len(entry.pipelines) == len(key) and all(
+                    ep is plane.predictors[n].pipeline
+                    for ep, n in zip(entry.pipelines, key))
+                if not entry_fresh:
+                    # host rows came from a dead pipeline — drop the entry;
+                    # the next dispatch rebuilds the store from the live
+                    # pipelines (re-adopting its hotness state)
+                    continue
+                try:
+                    if touched:
+                        # publish into BOTH tiers in ONE locked store op:
+                        # host rows rewritten + every device-resident copy
+                        # (hot or victim) scattered under the new generation
+                        store.apply_updates(touched, generation=gen)
+                    elif generation is not None:
+                        # fenced publish: fast-forward untouched stores so
+                        # later provenance stamps stay fleet-monotone
+                        store.apply_updates({}, generation=gen)
+                except ValueError:
+                    continue  # a table wider than the store: rebuild lazily
+                pipelines = tuple(new_predictors[n].pipeline for n in key)
+                store.source_pipelines = pipelines
+                new_banks[key] = _BankEntry(pipelines, None, tiered=store)
+                continue
             if not touched:
                 if generation is None:
                     new_banks[key] = entry
@@ -497,6 +583,11 @@ class MuseServer:
         if cached is not None and len(cached.pipelines) == len(pipelines) \
                 and all(a is b for a, b in zip(cached.pipelines, pipelines)):
             return cached
+        if self.config.tiering is not None:
+            entry = _BankEntry(pipelines, None,
+                               tiered=self._tiered_store_for(names, pipelines))
+            plane.banks[names] = entry
+            return entry
         bank = TransformBank.from_params(
             [(p.betas, p.weights, p.src_quantiles, p.ref_quantiles)
              for p in pipelines], generation=plane.generation,
@@ -504,6 +595,39 @@ class MuseServer:
         entry = _BankEntry(pipelines, bank)
         plane.banks[names] = entry
         return entry
+
+    def _tiered_store_for(self, names: tuple[str, ...],
+                          pipelines: tuple[Any, ...]) -> TieredBankStore:
+        """Fetch (or build) the stateful tiered store for a model group.
+
+        Stores live OUTSIDE the control plane so hotness/admission state
+        survives plane swaps; ``source_pipelines`` is the same identity
+        witness the bank cache uses, so a redeploy-stale store is rebuilt
+        from the live pipelines here — adopting the old store's hotness so
+        the hot set carries over."""
+        with self._tier_lock:
+            store = self._tiered_stores.get(names)
+            if store is not None \
+                    and store.source_pipelines is not None \
+                    and len(store.source_pipelines) == len(pipelines) \
+                    and all(a is b for a, b in
+                            zip(store.source_pipelines, pipelines)):
+                return store
+            host = HostBankStore.from_rows(
+                [(p.betas, p.weights, p.src_quantiles, p.ref_quantiles)
+                 for p in pipelines])
+            fresh = TieredBankStore(host, self.config.tiering,
+                                    generation=self._plane.generation,
+                                    device=self.device)
+            fresh.source_pipelines = pipelines
+            if store is not None:
+                fresh.adopt_hotness(store.hotness_snapshot())
+            cold = [i for i, n in enumerate(names) if n in self._cold_names]
+            if cold:
+                fresh.mark_cold(cold)
+            fresh.rebalance()
+            self._tiered_stores[names] = fresh
+            return fresh
 
     def score(self, request: ScoringRequest) -> ScoringResponse:
         return self.score_batch([request])[0]
@@ -583,7 +707,7 @@ class MuseServer:
 
     def apply_transforms(self, raws: np.ndarray, pred_names: list[str],
                          plane: _ControlPlane | None = None
-                         ) -> tuple[np.ndarray, TransformBank, np.ndarray]:
+                         ) -> tuple[np.ndarray, Any, np.ndarray]:
         """Stage 2: the whole window through ONE banked T^C/A/T^Q kernel.
 
         The bank is resolved from the stage-time ``plane`` snapshot — a
@@ -595,9 +719,18 @@ class MuseServer:
         """
         plane = self._plane if plane is None else plane
         bank_names = tuple(sorted(set(pred_names)))  # canonical cache key
-        bank = self._bank_for(bank_names, plane).bank
+        entry = self._bank_for(bank_names, plane)
         row_of = {n: r for r, n in enumerate(bank_names)}
         tenant_idx = np.asarray([row_of[n] for n in pred_names], np.int32)
+        if entry.tiered is not None:
+            # tiered topology: slot-remapped banked dispatch against the
+            # bounded device view; cold rows stage through the victim cache
+            # (normally prefetched by the engine before this stage runs)
+            scores, gen = entry.tiered.dispatch(raws, tenant_idx)
+            self.bump_metric("kernel_dispatches")
+            self.bump_metric("tier_dispatches")
+            return scores, _TieredWindowBank(entry.tiered, gen), tenant_idx
+        bank = entry.bank
         b = len(tenant_idx)
         pad = _shape_bucket(b) - b
         if pad:  # bucketed kernel shape, same reasoning as run_models
@@ -626,19 +759,33 @@ class MuseServer:
         return to_numpy(scores)[:b], bank, tenant_idx
 
     def track(self, requests: list[ScoringRequest], idxs: list[int],
-              pred_names: list[str], raws: np.ndarray, bank: TransformBank,
+              pred_names: list[str], raws: np.ndarray, bank: Any,
               tenant_idx: np.ndarray) -> None:
         """Stage 3: batched per-(tenant, predictor) reservoir updates.
 
         Tracks the T^Q INPUT distribution — the posterior-corrected weighted
         aggregate through the window's OWN bank snapshot; fitting a refreshed
         T^Q on raw means would mismatch the pipeline (the bug class the
-        paper's Sec.-3.1 update avoids).
+        paper's Sec.-3.1 update avoids).  Under the async engine this runs
+        on the track thread, on the same (default) stream as the transform
+        stage that made ``bank``, so no event orders the two.
         """
         if not self.config.track_quantiles:
             return
         keys = [(requests[i].intent.tenant, pred_names[j])
                 for j, i in enumerate(idxs)]
+        if isinstance(bank, _TieredWindowBank):
+            # tiered stores compute pre_quantile on the host through
+            # host-paged rows, so only the scatter-append fuses
+            agg = bank.pre_quantile(raws, tenant_idx)
+            with self._estimator_lock:
+                staged = self._tracker is not None \
+                    and self._tracker.append_agg(keys, agg)
+                if not staged:
+                    self._update_streams(keys, agg)
+            if self._tracker is not None:
+                self.bump_metric("track_staged_windows", int(staged))
+            return
         scores_d, idx_d = self._to_device(raws, tenant_idx)
         if self._tracker is not None:
             # device-fused mode: the aggregate is computed and staged on
@@ -874,3 +1021,94 @@ class MuseServer:
                                        dtype=torch.float32,
                                        device=self.device),
         )
+
+    # ----------------------------------------------------- tiering control
+    @property
+    def prefetch_enabled(self) -> bool:
+        """Whether the engine should prefetch pending windows' bank rows
+        (true only under a tiered topology — prefetch is a no-op and pure
+        overhead against fully-resident banks)."""
+        return self.config.tiering is not None
+
+    def tiered_stores(self) -> dict[tuple[str, ...], TieredBankStore]:
+        """Snapshot of the live model-group -> tiered-store map."""
+        with self._tier_lock:
+            return dict(self._tiered_stores)
+
+    def prefetch_transforms(self, pred_names, plane: Any = None, *,
+                            create: bool = False) -> int:
+        """Stage a pending window's cold bank rows into the victim cache
+        BEFORE its transform stage dispatches (the engine's anti-stall
+        hook).  ``create=False`` (the poll path) only touches stores that
+        already exist — speculative window contents must not build a store
+        for a predictor subset that may never dispatch; the model stage
+        passes ``create=True`` because ITS names-tuple is exactly what the
+        transform stage will use.  Returns rows staged."""
+        if self.config.tiering is None or not pred_names:
+            return 0
+        plane = self._plane if plane is None else plane
+        names = tuple(sorted(set(pred_names)))
+        if create:
+            if any(n not in plane.predictors for n in names):
+                return 0
+            store = self._bank_for(names, plane).tiered
+        else:
+            with self._tier_lock:
+                store = self._tiered_stores.get(names)
+        if store is None:
+            return 0
+        row_of = {n: r for r, n in enumerate(names)}
+        return store.prefetch(
+            np.asarray([row_of[n] for n in pred_names], np.int64))
+
+    def rebalance_tiers(self) -> dict[str, dict]:
+        """Run one promotion/demotion/admission pass on every tiered store
+        (the calibration controllers call this right after a publish so
+        newly admitted tenants get real slots).  Returns per-group stats."""
+        return {"+".join(k): s.rebalance()
+                for k, s in self.tiered_stores().items()}
+
+    def mark_cold_tenants(self, names) -> None:
+        """Route these predictors through the cold-start prior until their
+        streams re-pass the Eq.-5 gate (new-tenant onboarding).  Applies to
+        live stores now and to stores built later."""
+        names = set(names)
+        self._cold_names |= names
+        for key, store in self.tiered_stores().items():
+            rows = [i for i, n in enumerate(key) if n in names]
+            if rows:
+                store.mark_cold(rows)
+
+    def warm_tiers_from(self, other: Any) -> int:
+        """Adopt a predecessor replica's hotness/admission state (rollout
+        surge): for every model group the old replica served, build this
+        replica's store, adopt the old hot statistics, and promote — the
+        surged replica starts with a warm hot tier instead of paging its
+        entire working set through the victim cache.  Returns the number
+        of stores warmed."""
+        if self.config.tiering is None:
+            return 0
+        source = getattr(other, "tiered_stores", None)
+        if source is None:
+            return 0
+        plane = self._plane
+        warmed = 0
+        for names, theirs in source().items():
+            if any(n not in plane.predictors for n in names):
+                continue
+            store = self._bank_for(names, plane).tiered
+            if store is None:
+                continue
+            store.adopt_hotness(theirs.hotness_snapshot())
+            store.rebalance()
+            warmed += 1
+        self._cold_names |= set(getattr(other, "_cold_names", ()))
+        return warmed
+
+    def tier_metrics(self) -> dict[str, int]:
+        """Tiered-store counters aggregated across model groups."""
+        agg: dict[str, int] = {}
+        for store in self.tiered_stores().values():
+            for k, v in store.metrics.items():
+                agg[k] = agg.get(k, 0) + v
+        return agg

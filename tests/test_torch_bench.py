@@ -1,11 +1,12 @@
-"""The port's kernel microbenchmark and its timing module, on the CPU.
+"""The port's benchmarks and their timing module, on the CPU.
 
 ``python -m repro_torch.benchmarks.bench_kernels --quick --device cpu``
 runs in a subprocess and writes its five entries, each agreeing with its
 plain version (on the CPU ``ops`` runs the plain versions, so this shows
-the entry point works; it measures nothing of the card).  The least-time
-bounds of ``benchmarks/timing.py`` are checked against the byte and
-operation counts written out by hand.
+the entry point works; it measures nothing of the card); the async-engine
+and tiered-store benchmarks run the same way at their quick sizes.  The
+least-time bounds of ``benchmarks/timing.py`` are checked against the byte
+and operation counts written out by hand.
 """
 import json
 import os
@@ -51,6 +52,65 @@ def test_quick_cpu_run_writes_five_entries(tmp_path):
     # tensor-core form it picks on the card
     assert set(result["launches"]) == set(ENTRIES.values()) | {
         "flash_attention_wgmma"}
+
+
+def _quick_cpu(module, tmp_path):
+    out = tmp_path / f"{module}.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.benchmarks.{module}",
+         "--quick", "--device", "cpu", "--out", str(out)],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(out.read_text())
+    assert json.loads(proc.stdout) == result
+    assert result["device"] == "cpu" and result["nvidia_smi"] is None
+    assert result["quick"] is True
+    return result
+
+
+def test_async_engine_quick_cpu_run(tmp_path):
+    """The engine benchmark at the reference's quick sizes: five runs of
+    the same 12,288 events, every response bitwise its own raw scores
+    replayed through the banked pipeline, the runs within 2e-5 of each
+    other, a dispatch a window (the run raises otherwise), every event of
+    the device-tracking run tracked."""
+    result = _quick_cpu("bench_async_engine", tmp_path)
+    assert result["tenants"] == 16 and result["events"] == 12288
+    runs = {"sync", "engine_fixed", "engine_adaptive", "track_off",
+            "track_on"}
+    assert set(result["events_per_s"]) == set(result["replayed_bitwise_runs"]) \
+        == set(result["windows"]) == set(result["launches"]) == runs
+    assert all(v > 0 for v in result["events_per_s"].values())
+    assert result["window_sizes"]["engine_fixed"] == [128]
+    assert result["windows"]["sync"] == result["windows"]["engine_fixed"] \
+        == 12288 // 128
+    assert max(result["window_sizes"]["engine_adaptive"]) <= 2048
+    # the CPU runs the plain version: no kernel launch is counted
+    assert set(result["launches"].values()) == {0}
+    assert all(e <= 2e-5 for e in result["max_abs_err_vs_sync"].values())
+    assert result["tracked_events"] == 12288 + sum(
+        128 << i for i in range(5)) + 128
+    assert result["track_staged_windows"] > 0
+
+
+def test_tiered_bank_quick_cpu_run(tmp_path):
+    """The tiered-store benchmark at the reference's quick sizes: bitwise
+    parity with the dense bank (the run raises otherwise), device bytes
+    fixed by the configuration, stalls cut by the prefetch."""
+    result = _quick_cpu("bench_tiered_bank", tmp_path)
+    rows = result["rows"]
+    assert [r["tenants"] for r in rows] == [1024, 10_000]
+    assert {r["device_bytes"] for r in rows} == {512 * (2 * 4 + 2 * 256) * 4}
+    assert rows[-1]["host_bytes"] == 10_000 * (2 * 4 + 2 * 256) * 4
+    for r in rows:
+        assert r["stall_rate_prefetched"] < r["stall_rate_mixed"]
+    assert rows[-1]["stall_rate_prefetched"] == 0.0
+    assert result["p99_ms_dispatch_locked_staging"] > 0
+    assert result["p99_ms_dispatch_overlap_staging"] > 0
+    assert result["parity_passes"] > 1       # 1,024 cold rows, 127 victims
+    assert result["dispatch_launches"] == 0  # the plain version on the CPU
+    assert result["dispatch_passes"] > 0
 
 
 def test_bounds_count_bytes_and_operations():

@@ -1202,3 +1202,231 @@ def test_ledger_replay_launches_the_kernel_only(dev, monkeypatch):
     assert len(set(scores)) == 1 and np.isfinite(scores[0])
     with pytest.raises(AssertionError, match="plain version"):
         ledger.replay_score(fields, fused=False)
+
+
+# ------------------------------------------- the last knot, padded or not
+def _last_knot_tables(dev, tables=2000, n=128, n_bank=256):
+    """2,000 random 128-knot tables (references of a fraud score's shape:
+    mass near 0, last knot 1) alone and edge-padded to 256 knots, and three
+    scores a table: on its last knot and one ulp on either side."""
+    rng = np.random.default_rng(19)
+    src = np.sort(rng.uniform(0, 1, (tables, n)), -1).astype(np.float32)
+    refq = np.concatenate([np.sort(rng.beta(0.3, 5, (tables, n - 1)), -1),
+                           np.ones((tables, 1))], -1).astype(np.float32)
+    pad = ((0, 0), (0, n_bank - n))
+    last = src[:, -1]
+    x = np.stack([last, np.nextafter(last, np.float32(np.inf)),
+                  np.nextafter(last, np.float32(-np.inf))], -1)
+
+    def f32(a):
+        return torch.tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    return ((f32(src), f32(refq)),
+            (f32(np.pad(src, pad, "edge")), f32(np.pad(refq, pad, "edge"))),
+            f32(x), f32(refq[:, -1]))
+
+
+@pytest.mark.parametrize("kind", ["quantile_map", "score_pipeline"])
+def test_last_knot_is_bitwise_padded_or_not(dev, kind):
+    """A score on or past a table's last knot maps to exactly its last
+    reference knot, so edge padding changes no bit there (as at every
+    other knot), through the T^Q kernel and the shared-parameter one."""
+    unpadded, padded, x, last = _last_knot_tables(dev)
+    one = torch.ones(1, device=dev)
+    got = {}
+    for name, (qs, qr) in (("unpadded", unpadded), ("padded", padded)):
+        rows = []
+        for i in range(0, x.shape[0], 7):
+            if kind == "quantile_map":
+                rows.append(qm.quantile_map(x[i], qs[i], qr[i]))
+            else:
+                rows.append(sp.score_pipeline(x[i][:, None], one, one,
+                                              qs[i], qr[i]))
+        got[name] = torch.stack(rows)
+    assert torch.equal(got["padded"], got["unpadded"])
+    assert torch.equal(got["unpadded"][:, :2],
+                       last[::7, None].expand(-1, 2))
+
+
+@pytest.mark.parametrize("path", ["shared", "global"])
+def test_last_knot_is_bitwise_on_both_banked_paths(dev, path):
+    """The banked kernel on each path: a bank of 100 padded tables scores
+    the same bits as the bank of the same tables unpadded, and the plain
+    version agrees with both bit for bit."""
+    unpadded, padded, x, last = _last_knot_tables(dev, tables=100)
+    # 30,000 rows take the shared path, 300 the L1/L2 one
+    reps = 100 if path == "shared" else 1
+    tid = torch.arange(100, dtype=torch.int32,
+                       device=dev).repeat_interleave(3).repeat(reps)
+    y = x.reshape(-1, 1).repeat(reps, 1)
+    ones = torch.ones(100, 1, device=dev)
+    out = {}
+    for name, (qs, qr) in (("unpadded", unpadded), ("padded", padded)):
+        bank = (ones, ones, qs, qr)
+        n = qs.shape[1]
+        if sp.banked_path(100, n, y.shape[0], *sp.card(dev)) != path:
+            pytest.skip(f"{y.shape[0]} rows take the other path here")
+        out[name] = sp.score_pipeline_banked(y, tid, *bank)
+        assert torch.equal(out[name], ref.score_pipeline_banked(y, tid,
+                                                                *bank))
+    assert torch.equal(out["padded"], out["unpadded"])
+    assert torch.equal(out["unpadded"][:300].view(100, 3)[:, :2],
+                       last[:, None].expand(-1, 2))
+
+
+# ----------------------------------------------- the tiered store, on card
+def _tier_rows(rng, t, k=4, n=256):
+    inc = rng.uniform(1e-3, 1, (2, t, n)).astype(np.float32)
+    q = np.cumsum(inc, -1, dtype=np.float32)
+    q /= q[..., -1:]
+    return (rng.uniform(0.05, 1, (t, k)).astype(np.float32),
+            rng.uniform(0.1, 2, (t, k)).astype(np.float32), q[0], q[1])
+
+
+def _tier_store(dev, rows, **config):
+    from repro_torch.serving.tiering import (HostBankStore, TieredBankStore,
+                                             TieringConfig)
+
+    return TieredBankStore(HostBankStore(*rows), TieringConfig(**{
+        "hot_capacity": 8, "victim_capacity": 4, **config}), device=dev)
+
+
+def _dense_on(dev, rows, raws, tid):
+    return ops.score_pipeline_banked(
+        torch.tensor(raws, device=dev),
+        torch.tensor(np.asarray(tid, np.int32), device=dev),
+        *(torch.tensor(r, device=dev) for r in rows)).cpu().numpy()
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_tiered_dispatch_equals_dense_bank(dev, overlap):
+    """Tiered scores on the card equal the dense bank's bit for bit: cold
+    (staging passes through the victim cache), after a promotion, after a
+    prefetch and after a publish; every dispatch launches the kernel."""
+    from repro_torch.core.transforms import QuantileMap
+
+    rng = np.random.default_rng(21)
+    rows = _tier_rows(rng, 64)
+    store = _tier_store(dev, rows, overlap_staging=overlap)
+    assert store._view.betas.device.type == torch.device(dev).type
+    raws = rng.uniform(0, 1, (1000, 4)).astype(np.float32)
+    tid = rng.integers(0, 64, 1000)
+    before = ops.LAUNCHES["score_pipeline_banked"]
+    got, _ = store.dispatch(raws, tid)
+    assert store.metrics["extra_passes"] > 0
+    assert ops.LAUNCHES["score_pipeline_banked"] == \
+        before + store.metrics["extra_passes"] + 1
+    assert np.array_equal(got, _dense_on(dev, rows, raws, tid))
+    store.rebalance()
+    resident = set(store.resident_rows().tolist())
+    cold = [r for r in range(64) if r not in resident][:4]
+    assert store.prefetch(np.asarray(cold)) == 4
+    got, _ = store.dispatch(raws, tid)
+    assert np.array_equal(got, _dense_on(dev, rows, raws, tid))
+    src = np.sort(rng.uniform(0, 1, 256)).astype(np.float32)
+    hot = int(store.hot_rows()[0])
+    store.apply_updates({
+        hot: QuantileMap(torch.tensor(src), torch.tensor(src ** 2)),
+        cold[0]: QuantileMap(torch.tensor(src), torch.tensor(src ** 3))})
+    host = store.host
+    got, gen = store.dispatch(raws, tid)
+    assert gen == 1
+    assert np.array_equal(got, _dense_on(
+        dev, (host.betas, host.weights, host.src_quantiles,
+              host.ref_quantiles), raws, tid))
+
+
+def test_tiered_prefetch_under_concurrent_dispatch(dev):
+    """Prefetches built on the side stream (through the one pinned buffer)
+    while another thread dispatches: every dispatch bitwise the dense
+    bank, and a view once captured never written in place."""
+    import threading
+
+    rng = np.random.default_rng(22)
+    rows = _tier_rows(rng, 2000)
+    store = _tier_store(dev, rows, hot_capacity=64, victim_capacity=32)
+    store.tracker.record(np.arange(64))
+    store.rebalance()
+    first = store._view
+    snapshot = [x.clone() for x in (first.betas, first.src_quantiles)]
+    churn = [rng.integers(0, 2000, 16) for _ in range(64)]
+    stop = threading.Event()
+
+    def churner():
+        i = 0
+        while not stop.is_set():
+            store.prefetch(churn[i % len(churn)])
+            i += 1
+
+    th = threading.Thread(target=churner, daemon=True)
+    th.start()
+    try:
+        for w in range(40):
+            mix = np.where(rng.random(512) < 0.9, rng.integers(0, 64, 512),
+                           rng.integers(0, 2000, 512))
+            raws = rng.uniform(0, 1, (512, 4)).astype(np.float32)
+            got, _ = store.dispatch(raws, mix)
+            assert np.array_equal(got, _dense_on(dev, rows, raws, mix)), w
+    finally:
+        stop.set()
+        th.join()
+    assert store.metrics["prefetched_rows"] > 0
+    assert torch.equal(first.betas, snapshot[0])
+    assert torch.equal(first.src_quantiles, snapshot[1])
+
+
+def test_tiered_server_and_engine_equal_the_dense_server(dev):
+    """A tiered server through the async engine on the card: every
+    response bitwise the dense server's, prefetches landing before the
+    transform stage, and fused device tracking counting every event."""
+    from repro_torch.core.predictor import PredictorSpec
+    from repro_torch.core.routing import (Condition, Intent, RoutingTable,
+                                          ScoringRule)
+    from repro_torch.core.transforms import QuantileMap
+    from repro_torch.serving import (AsyncDispatchEngine, MuseServer,
+                                     ServerConfig, TieringConfig)
+    from repro_torch.serving.types import ScoringRequest
+
+    rng = np.random.default_rng(23)
+    w = rng.normal(0, 1, (3, 8)).astype(np.float32)
+    # row by row on the host (a row's score whatever the window's size)
+    factories = {f"m{i}": (lambda i=i: lambda x: 1.0 / (1.0 + np.exp(
+        -(np.asarray(x, np.float32) * w[i]).sum(axis=1)))) for i in range(3)}
+    n_t = 24
+    rules = tuple(ScoringRule(Condition(tenants=(f"t{i}",)), f"p{i}")
+                  for i in range(n_t))
+    tables = [np.sort(rng.uniform(0, 1, 128)).astype(np.float32)
+              for _ in range(n_t)]
+
+    def server(**config):
+        s = MuseServer(RoutingTable(rules, version="v1"),
+                       ServerConfig(**config), device=dev)
+        for i in range(n_t):
+            s.deploy(PredictorSpec(f"p{i}", ("m0", "m1", "m2"),
+                                   (0.2, 0.3, 0.1), (1.0, 1.0, 1.0),
+                                   QuantileMap(torch.tensor(tables[i]),
+                                               torch.linspace(0, 1, 128))),
+                     factories)
+        return s
+
+    reqs = [ScoringRequest(Intent(tenant=f"t{rng.integers(0, n_t)}"),
+                           rng.normal(0, 1, 8).astype(np.float32),
+                           request_id=i) for i in range(2048)]
+    dense = server()
+    want = {r.request_id: r.score for r in dense.score_batch(reqs)}
+    tiered = server(track_device=True, tiering=TieringConfig(
+        hot_capacity=6, victim_capacity=5))
+    engine = AsyncDispatchEngine(tiered, max_batch=256, max_wait_ms=1e9)
+    engine.submit_many(reqs[:256])
+    engine.drain(timeout=60)
+    tiered.rebalance_tiers()
+    engine.submit_many(reqs[256:])
+    out = engine.drain(timeout=60)
+    engine.close()
+    assert not engine.errors and not engine.prefetch_errors
+    assert len(out) == 2048 - 256
+    for r in out:
+        assert r.score == want[r.request_id], r.request_id
+    assert tiered.tier_metrics()["prefetched_rows"] > 0
+    tracked = sum(e.count for e in tiered.estimator_streams().values())
+    assert tracked == 2048

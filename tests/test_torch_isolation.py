@@ -6,8 +6,8 @@
   module is loaded.
 * Each module the port copies from the reference (routing, registry,
   quantiles, types, data, shadow, batching, warmup, metrics, drift,
-  rollout, decision_loop, calibration, the model config schema and the
-  architecture registry) equals its source once ``repro.`` imports are
+  rollout, decision_loop, calibration, hotness, the async engine, the
+  model config schema and the architecture registry) equals its source once ``repro.`` imports are
   rewritten to ``repro_torch.``, apart from the listed lines, so a copy
   that drifts fails here.
 * No source of the port imports the reference's top-level ``benchmarks``
@@ -50,6 +50,11 @@ COPIES = {
     "serving/drift.py": (),
     "serving/rollout.py": (),
     "serving/decision_loop.py": (),
+    "core/hotness.py": (),
+    # a docstring link names the port's rollout module
+    "serving/engine.py": (
+        "    (``score_batch``) so a :class:`~repro_torch.serving.rollout."
+        "Replica` can serve",),
     # torch tensors for the candidate map; docstring links name the port
     "serving/calibration.py": (
         "     (:func:`repro_torch.core.quantiles.batch_sample_quantiles`): "
@@ -123,7 +128,11 @@ SCRIPT = textwrap.dedent("""
             "repro_torch.serving.rollout",
             "repro_torch.serving.decision_loop",
             "repro_torch.serving.audit",
-            "repro_torch.examples.model_update_lifecycle"} <= set(names)
+            "repro_torch.examples.model_update_lifecycle",
+            "repro_torch.core.hotness", "repro_torch.serving.engine",
+            "repro_torch.serving.tiering",
+            "repro_torch.benchmarks.bench_async_engine",
+            "repro_torch.benchmarks.bench_tiered_bank"} <= set(names)
 
     from repro_torch.core.predictor import PredictorSpec
     from repro_torch.core.routing import (Condition, Intent, RoutingTable,
@@ -185,6 +194,21 @@ SCRIPT = textwrap.dedent("""
     loop.process(reqs, rs.dispatch(reqs, stream="c"))
     check = log.verify(ledger)
     assert check.ok and check.replayed == 16, check.failures
+
+    # the async engine over a tiered server, jax blocked
+    from repro_torch.serving import AsyncDispatchEngine, TieringConfig
+    tiered = MuseServer(RoutingTable(rules, version="v1"),
+                        ServerConfig(tiering=TieringConfig(
+                            hot_capacity=1, victim_capacity=1)),
+                        device="cpu")
+    for name, weights in (("pa", (1.0, 1.0)), ("pb", (2.0, 1.0))):
+        tiered.deploy(PredictorSpec(name, ("m0", "m1"), (0.2, 0.5), weights,
+                                    QuantileMap.identity(32)), factories)
+    engine = AsyncDispatchEngine(tiered, max_batch=8, max_wait_ms=1e9)
+    assert [r.score for r in engine.score_batch(reqs)] == \
+        [r.score for r in out]
+    engine.close()
+    assert tiered.tier_metrics()["events"] == 16
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve
@@ -287,6 +311,18 @@ def test_entry_points_default_to_the_card():
         adaptation.generalized_correction_betas(scores, labels)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model_update_lifecycle.main([])
+    # the tiered store and the two serving benchmarks
+    from repro_torch.benchmarks import bench_async_engine, bench_tiered_bank
+    from repro_torch.serving.tiering import HostBankStore, TieredBankStore
+
+    host = HostBankStore(np.ones((2, 1)), np.ones((2, 1)),
+                         np.zeros((2, 2)), np.ones((2, 2)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TieredBankStore(host)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_async_engine.run(quick=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_tiered_bank.main(["--quick"])
 
 
 def test_kernels_layer_loads_no_model_code():

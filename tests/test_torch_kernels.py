@@ -123,15 +123,30 @@ class TestBankedParity:
         _check(params, scores, rng.integers(0, t, b).astype(np.int32))
 
     def test_flat_source_segments(self):
+        """Tenant 1's table is all one knot, so its last source segment is
+        flat: an aggregate at or past it maps to exactly its last reference
+        knot in the port, where the reference interpolates the flat segment
+        (the port's one deliberate difference, ``_at_last_knot``); every
+        other row matches the Pallas kernel and the oracle."""
         rng = np.random.default_rng(7)
         t, k, n, b = 4, 3, 16, 512
         betas, weights, src, ref = _random_params(rng, t, k, n)
         src[:, 4:9] = src[:, 4:5]         # 5-knot plateau in every tenant
         src[1, :] = 0.5                   # tenant 1: fully degenerate table
         scores = rng.uniform(0, 1, (b, k)).astype(np.float32)
-        got = _check((betas, weights, src, ref), scores,
-                     rng.integers(0, t, b).astype(np.int32))
-        assert np.isfinite(got).all()
+        tid = rng.integers(0, t, b).astype(np.int32)
+        params = (betas, weights, src, ref)
+        got = _torch(params, scores, tid)
+        kern, oracle = _jax(params, scores, tid)
+        agg = TBank(*(torch.tensor(p) for p in params)).pre_quantile(
+            torch.tensor(scores), torch.tensor(tid)).numpy()
+        past = (agg[:, None] >= src[tid]).all(-1)
+        assert past.any() and np.isfinite(got).all()
+        assert np.array_equal(got[past], ref[tid[past], -1])
+        for want in (kern, oracle):
+            np.testing.assert_allclose(got[~past], want[~past], **TOL)
+            np.testing.assert_allclose(
+                got, np.where(past, ref[tid, -1], want), **TOL)
 
     def test_ties_on_flat_knots_pick_the_reference_bucket(self):
         """Aggregates exactly on a knot, including knots of a flat source

@@ -26,6 +26,7 @@ from repro.serving.batching import MicroBatcher as JMicroBatcher
 from repro.serving.batching import ServerBatcher as JServerBatcher
 from repro.training.data import FraudEventStream, TenantProfile
 from repro_torch.core import routing as trouting
+from repro_torch.core import transforms as tt
 from repro_torch.core.transforms import QuantileMap as TQuantileMap
 from repro_torch.experiments.fraud_world import FraudWorld as TWorld
 from repro_torch.serving import server as tserver
@@ -123,14 +124,38 @@ def _requests(stream, start=0):
     return make(jtypes, jrouting), make(ttypes, trouting)
 
 
-def _assert_same_responses(jr, tr):
+def _past_last_knot(server, responses, name):
+    """Which responses of predictor ``name`` had a T^Q input at or past
+    every source knot of its table edge-padded to the bank's 256 knots, and
+    that table's last reference knot.  The port maps such an input to
+    exactly that knot; the reference interpolates the last segment, which
+    for a table narrower than its reference table is a padded flat one."""
+    p = server.predictors[name].pipeline
+    rows = np.asarray([r.predictor == name for r in responses])
+    raws = torch.tensor([r.raw_scores for r in responses], dtype=torch.float32)
+    agg = tt._banked_pre_quantile(raws, torch.zeros(len(responses),
+                                                    dtype=torch.long),
+                                  p.betas[None], p.weights[None]).numpy()
+    past = rows & (agg >= float(p.src_quantiles.max()))
+    return past, float(p.ref_quantiles[-1])
+
+
+def _assert_same_responses(jr, tr, last_knot=None):
+    """``last_knot``: (mask, value) of the responses the port maps to a
+    table's last reference knot where the reference interpolates
+    (:func:`_past_last_knot`)."""
     assert len(jr) == len(tr)
     for a, b in zip(jr, tr):
         assert (a.request_id, a.predictor, a.routing_version,
                 a.bank_generation) == (b.request_id, b.predictor,
                                        b.routing_version, b.bank_generation)
-    np.testing.assert_allclose([b.score for b in tr], [a.score for a in jr],
-                               **TOL)
+    want = np.asarray([a.score for a in jr], np.float32)
+    got = np.asarray([b.score for b in tr], np.float32)
+    if last_knot is not None:
+        past, value = last_knot
+        want = np.where(past, np.float32(value), want)
+        assert np.array_equal(got[past], want[past])
+    np.testing.assert_allclose(got, want, **TOL)
     np.testing.assert_allclose([b.raw_scores for b in tr],
                                [a.raw_scores for a in jr], **TOL)
 
@@ -229,7 +254,11 @@ def test_refresh_publish_and_decommission(worlds):
     ts.swap_transformation("p0", tq)
     assert ts.bank_generation == js.bank_generation == 1
     jr, tr = _serve(js, ts, stream[2 * WINDOW:3 * WINDOW], 2 * WINDOW)
-    _assert_same_responses(jr, tr)
+    # p0's refit has 64 source knots against 256 reference knots, so the
+    # bank pads its source table with a flat last segment
+    last_knot = _past_last_knot(ts, tr, "p0")
+    assert last_knot[0].any()
+    _assert_same_responses(jr, tr, last_knot)
     assert {r.bank_generation for r in tr} == {1}
 
     # fenced publishes: forward lands, stale is refused, empty fast-forwards
@@ -247,7 +276,7 @@ def test_refresh_publish_and_decommission(worlds):
     assert js.publish_quantile_maps({}, generation=6) == \
         ts.publish_quantile_maps({}, generation=6) == 6
     jr, tr = _serve(js, ts, stream[3 * WINDOW:], 3 * WINDOW)
-    _assert_same_responses(jr, tr)
+    _assert_same_responses(jr, tr, _past_last_knot(ts, tr, "p0"))
     assert {r.bank_generation for r in tr} == {6}
 
     # retire the shadow: routing first, then the predictor
@@ -296,8 +325,10 @@ def test_plain_path_matches_fused_path(worlds):
     assert plain.metrics["skip_blocks_total"] == 0
 
 
-@pytest.mark.parametrize("config", [dict(tenant_shards=2),
-                                    dict(tiering=object())])
+@pytest.mark.parametrize("config", [
+    dict(tenant_shards=2),
+    dict(tiering=tserver.TieringConfig(hot_capacity=2, victim_capacity=1),
+         tenant_shards=2)])
 def test_unported_configurations_raise(config):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tserver.MuseServer(_routing(trouting), tserver.ServerConfig(**config),

@@ -444,3 +444,96 @@ class TestConvert:
         np.testing.assert_allclose(te.score_fn("cpu")(x).numpy(),
                                    np.asarray(je.score_fn()(x)), **TOL)
         assert te.score_fn("cpu")(x).dtype == torch.float32
+
+
+def _last_knot_case(seed=19, tables=2000, n=128, n_bank=256):
+    """``tables`` random (n,) table pairs, their (tables, n_bank) edge-padded
+    bank, and three scores a table: on its last knot and one ulp on either
+    side of it.  The reference tables have a fraud score's shape: mass near
+    0 (Beta(0.3, 5) draws) and a last knot of 1, so the last segment is
+    long and its interpolation can round below the last knot."""
+    rng = np.random.default_rng(seed)
+    src = np.sort(rng.uniform(0, 1, (tables, n)), -1).astype(np.float32)
+    ref = np.concatenate([np.sort(rng.beta(0.3, 5, (tables, n - 1)), -1),
+                          np.ones((tables, 1))], -1).astype(np.float32)
+    pad = ((0, 0), (0, n_bank - n))
+    src_pad, ref_pad = np.pad(src, pad, "edge"), np.pad(ref, pad, "edge")
+    last = src[:, -1]
+    x = np.stack([last, np.nextafter(last, np.float32(np.inf)),
+                  np.nextafter(last, np.float32(-np.inf))], -1)
+    return src, ref, src_pad, ref_pad, x.astype(np.float32)
+
+
+class TestLastKnot:
+    """A score on, or one ulp past, a table's last knot maps to exactly its
+    last reference knot, so edge padding is bitwise at the last knot as at
+    every other knot (a one-row replay of the unpadded tables equals the
+    padded bank's row)."""
+
+    def test_banked_padded_row_equals_unpadded_replay(self):
+        src, ref, src_pad, ref_pad, x = _last_knot_case()
+        t = len(src)
+        # K = 1, beta 1, weight 1: the aggregate is the score, bit for bit
+        y = torch.from_numpy(x.reshape(-1, 1))
+        tid = torch.arange(t, dtype=torch.int32).repeat_interleave(3)
+        ones = torch.ones((t, 1))
+        padded = _np(tt.banked_score_pipeline(
+            y, tid, ones, ones, torch.from_numpy(src_pad),
+            torch.from_numpy(ref_pad))).reshape(t, 3)
+        unpadded = _np(tt.banked_score_pipeline(
+            y, tid, ones, ones, torch.from_numpy(src),
+            torch.from_numpy(ref))).reshape(t, 3)
+        assert np.array_equal(padded, unpadded)
+        assert np.array_equal(padded[:, :2], np.stack([ref[:, -1]] * 2, -1))
+        # a literal one-row replay of a few tables
+        for i in (0, 7, t - 1):
+            one = _np(tt.banked_score_pipeline(
+                torch.from_numpy(x[i].reshape(3, 1)),
+                torch.zeros(3, dtype=torch.int32), torch.ones((1, 1)),
+                torch.ones((1, 1)), torch.from_numpy(src[i:i + 1]),
+                torch.from_numpy(ref[i:i + 1])))
+            assert np.array_equal(one, padded[i])
+        want = _np(jt.banked_score_pipeline(
+            jnp.asarray(x.reshape(-1, 1)), jnp.asarray(_np(tid)),
+            jnp.ones((t, 1)), jnp.ones((t, 1)), jnp.asarray(src),
+            jnp.asarray(ref))).reshape(t, 3)
+        np.testing.assert_allclose(unpadded, want, **TOL)
+
+    def test_quantile_map_padded_equals_unpadded(self):
+        src, ref, src_pad, ref_pad, x = _last_knot_case()
+        from repro_torch.kernels import ref as kref
+        for i in range(len(src)):
+            xi = torch.from_numpy(x[i])
+            for fn in (tt.quantile_map, kref.quantile_map):
+                padded = fn(xi, torch.from_numpy(src_pad[i]),
+                            torch.from_numpy(ref_pad[i]))
+                unpadded = fn(xi, torch.from_numpy(src[i]),
+                              torch.from_numpy(ref[i]))
+                assert torch.equal(padded, unpadded), i
+                assert float(unpadded[0]) == float(ref[i, -1])
+        got = np.stack([_np(tt.quantile_map(torch.from_numpy(x[i]),
+                                            torch.from_numpy(src[i]),
+                                            torch.from_numpy(ref[i])))
+                        for i in range(0, len(src), 10)])
+        want = np.stack([_np(jt.quantile_map(jnp.asarray(x[i]),
+                                             jnp.asarray(src[i]),
+                                             jnp.asarray(ref[i])))
+                         for i in range(0, len(src), 10)])
+        np.testing.assert_allclose(got, want, **TOL)
+
+    def test_nan_stays_nan_and_the_count_decides(self):
+        """NaN fails every comparison and stays NaN.  On an unsorted table
+        the last knot is not the largest: a score at or past it but below
+        another knot still interpolates (the count over every knot, not
+        the last knot alone, decides), as in the kernels."""
+        src = torch.tensor([0.0, 0.8, 0.5])
+        ref = torch.tensor([0.0, 0.5, 1.0])
+        x = torch.tensor([float("nan"), 0.6, 0.9])
+        out = tt.quantile_map(x, src, ref)
+        assert torch.isnan(out[0])
+        assert float(out[1]) != 1.0 and float(out[2]) == 1.0
+        banked = tt.banked_score_pipeline(
+            x[:, None], torch.zeros(3, dtype=torch.int32),
+            torch.ones((1, 1)), torch.ones((1, 1)), src[None], ref[None])
+        assert torch.isnan(banked[0])
+        assert torch.equal(banked[1:], out[1:])
