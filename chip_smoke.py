@@ -74,7 +74,30 @@ Phases, each printing one JSON line:
              with it at 10^6); the p99 dispatch time at 100,000 tenants
              under a concurrent prefetching thread, staging under the lock
              against overlapped, and its staging conflicts.
-7. attention — the two flash-attention kernels against their plain
+7. sharding — the tenant-sharded topology (``ShardedTransformBank``,
+             ``ShardedBankDispatcher``, ``ShardedTieredBankStore``):
+             ``repro_torch.benchmarks.bench_sharded_bank`` at its sizes (K =
+             4, N = 256, batch 8,192, T = 256 / 1,024 / 4,096, S = 1 / 2 /
+             4 / 8), every sharded row bitwise the dense launch, one launch
+             a call, resident bytes exact (1,064,960 a shard at T = 4,096,
+             S = 8); the dispatcher on an uneven assignment leaving one of 8
+             shards empty at the same sizes, bitwise; the serve phase's
+             configuration served at S = 4, at S = 8 and tiered over S = 4
+             (4 hot + 3 victim slots a shard) through the async engine,
+             each response bitwise the dense server's with equal
+             generations across a mid-run publish, launches held to the
+             sharded dispatches (passes on the composed store); then fleet
+             refreshes published by a writer thread while traffic runs
+             through the engine on the S = 4 server: consecutive
+             generations, every response replayed bit for bit through the
+             kernel from its own generation's parameters.
+8. main_bench — the main path's two benchmarks at the reference's sizes:
+             ``bench_serving_latency`` (the path at batch 1 / 16 / 64 / 256,
+             the shared-parameter kernel alone at 4,096 rows, the
+             transform's share of the path) and ``bench_multitenant_batch``
+             (one banked launch against 64 per-predictor launches at 64 x
+             1,024, each within 2e-5 of its plain version).
+9. attention — the two flash-attention kernels against their plain
              version on the card, float32 and bfloat16 (bf16 with D = 64
              or 128 runs the tensor-core form, the rest the SIMT form,
              checked per case): the reference's five cases, Tq < Tk, a
@@ -84,7 +107,7 @@ Phases, each printing one JSON line:
              D=128, causal) the tensor-core form's time in bf16 and the
              SIMT form's in float32, each beside the plain version,
              PyTorch's own attention call and the bound.
-8. llm_serve — the port's model path at the full width of qwen3-8b
+10. llm_serve — the port's model path at the full width of qwen3-8b
              (36 layers, d_model 4,096, vocab 151,936; bf16 weights from a
              seed): ``launch.serve.serve`` prefills 4 x 2,048 tokens through
              the tensor-core kernel, decodes 16 greedy steps and maps the
@@ -95,7 +118,7 @@ Phases, each printing one JSON line:
              model against the plain version in float32.  A float32
              prefill through the kernel branch (the SIMT form's path) is
              held against the float32 reference prefill.
-9. score_kernels — the quantile-map and shared-parameter score-pipeline
+11. score_kernels — the quantile-map and shared-parameter score-pipeline
              kernels against their plain versions, float32 and bfloat16:
              the reference's cases, scores on knots (bitwise), NaN scores,
              scores outside the support, flat, all-flat, unsorted and
@@ -108,8 +131,8 @@ Phases, each printing one JSON line:
              through the three T^Q kernels (the banked one on both paths),
              padded bitwise equal to unpadded; then their times at a
              1,024-row serve window (the benchmark's 65,536 rows are timed
-             by phase 11).
-10. decode_attention — the decode kernel against its plain version,
+             by phase 13).
+12. decode_attention — the decode kernel against its plain version,
              float32 within 2e-5 and bf16 within bf16's rounding of the
              plain version run in float32 on the same inputs: the
              reference's cases and per-row lengths, valid_len 0 (exactly
@@ -121,10 +144,10 @@ Phases, each printing one JSON line:
              own attention call (warm and cold), the bounds and a traced
              loop (a call's period, the combine's tail, the launches a
              call: at most two, and no other kernel).
-11. bench_kernels — the port's kernel microbenchmark at full size, the path
+13. bench_kernels — the port's kernel microbenchmark at full size, the path
              of those three kernels: every entry agrees with its plain
              version and every kernel launched.
-12. kernels — every kernel of the port with its launches on its path, its
+14. kernels — every kernel of the port with its launches on its path, its
              error and its times at the path's shapes.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -1303,6 +1326,410 @@ def phase_tiering(dev) -> dict:
 
 
 # ---------------------------------------------------------------- phase 7
+SHARD_DENSE_BYTES = {256: 532_480, 1024: 2_129_920, 4096: 8_519_680}
+SHARD_S8_BYTES = {256: 66_560, 1024: 266_240, 4096: 1_064_960}
+SERVE_SHARDS = (4, 8)
+SHARD_TIERS = (4, 3)      # hot, victim slots a shard of the composed run
+EMPTY_SHARD = 5           # the shard the uneven assignment leaves empty
+
+
+def _sharded_uneven(dev) -> list[dict]:
+    """The dispatcher at the benchmark's sizes on a skewed assignment over
+    8 shards that leaves one empty: bitwise the dense launch (the
+    benchmark's ``sharded_row`` raises otherwise), one launch a call."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import bench_sharded_bank as bsb
+    from repro_torch.core.transforms import ShardedTransformBank
+    from repro_torch.device import to_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_tenant_mesh
+    from repro_torch.serving.server import ShardedBankDispatcher
+
+    rng = np.random.default_rng(7)
+    disp = ShardedBankDispatcher(make_tenant_mesh(8, dev))
+    owners = np.array([s for s in range(8) if s != EMPTY_SHARD])
+    weights = 0.6 ** np.arange(len(owners))
+    rows = []
+    for t in (256, 1024, 4096):
+        bank = bsb.random_bank(rng, t, dev)
+        scores = rng.uniform(0, 1, (8192, bsb.K)).astype(np.float32)
+        tid = rng.integers(0, t, 8192)
+        dense = to_numpy(ops.score_pipeline_banked(
+            torch.from_numpy(scores).to(dev),
+            torch.from_numpy(tid.astype(np.int32)).to(dev), bank.betas,
+            bank.weights, bank.src_quantiles, bank.ref_quantiles))
+        assign = rng.choice(owners, t, p=weights / weights.sum())
+        sbank = ShardedTransformBank.from_dense(bank, 8, shard_of=assign)
+        check(sbank.row_counts[EMPTY_SHARD] == 0, "an empty shard")
+        rows.append({"tenants": t, "row_counts": sbank.row_counts.tolist(),
+                     "per_shard_bytes": sbank.per_shard_bytes,
+                     **bsb.sharded_row(disp, sbank, scores, tid, dense, 10)})
+    return rows
+
+
+def _sharded_kernel_ms(dev) -> dict:
+    """The banked kernel's own time (CUDA events) inside a dense launch and
+    inside the S = 8 dispatcher's launch at T = 4,096, batch 8,192: the
+    launch's rows and bank as the dispatcher packs them, beside the
+    bound.  These launches are not a path's (they come after its count)."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import bench_sharded_bank as bsb
+    from repro_torch.benchmarks.timing import banked_bound, device_ms
+    from repro_torch.core.transforms import ShardedTransformBank
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_tenant_mesh
+    from repro_torch.serving.server import ShardedBankDispatcher
+
+    rng = np.random.default_rng(11)
+    t, b = 4096, 8192
+    bank = bsb.random_bank(rng, t, dev)
+    scores = rng.uniform(0, 1, (b, bsb.K)).astype(np.float32)
+    tid = rng.integers(0, t, b)
+    real = ops.score_pipeline_banked
+    launches = {"dense": (torch.from_numpy(scores).to(dev),
+                          torch.from_numpy(tid.astype(np.int32)).to(dev),
+                          bank.betas, bank.weights, bank.src_quantiles,
+                          bank.ref_quantiles)}
+    disp = ShardedBankDispatcher(make_tenant_mesh(8, dev))
+    sbank = ShardedTransformBank.from_dense(bank, 8)
+    def capture(*args):      # the dispatcher's launch, as it packs it
+        launches["s8"] = args
+        return real(*args)
+
+    try:
+        ops.score_pipeline_banked = capture
+        disp(scores, tid, sbank)
+    finally:
+        ops.score_pipeline_banked = real
+    out = {}
+    for name, args in launches.items():
+        m, rows = args[0].shape[0], args[2].shape[0]
+        bound_ms, bound_by = banked_bound(m, bsb.K, rows, bsb.N)
+        out[name] = {"rows": m, "bank_rows": rows,
+                     "ms": device_ms(lambda: real(*args)),
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    return out
+
+
+def _responses(out) -> dict:
+    return {r.request_id: (r.score, r.predictor, r.bank_generation)
+            for r in out}
+
+
+def _serve_topologies(setup) -> dict:
+    """The serve phase's configuration served dense, at S = 4 and 8, and
+    tiered over S = 4 through the async engine, with the same T^Q refresh
+    published after the fifth window to each: every response bitwise the
+    dense server's, equal generations.  Launches are counted per topology
+    (set to 0 just before its run, read just after)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import AsyncDispatchEngine
+    from repro_torch.serving.tiering import TieringConfig
+
+    world, make_server, windows = setup
+    fitted = {}
+
+    def refresh(server):
+        if "qm" not in fitted:      # fitted once, on the dense server
+            fitted["qm"] = server.fit_custom_quantile_map(
+                "tenant00", "p0", world.ref_quantiles)
+        server.publish_quantile_maps({"p0": fitted["qm"]})
+
+    def counted(run):
+        for name in ops.LAUNCHES:
+            ops.LAUNCHES[name] = 0
+        out = run()
+        return out, ops.LAUNCHES["score_pipeline_banked"]
+
+    def window_ms(secs):
+        return [x * 1e3 for x in secs[1:]]
+
+    dense = make_server(True)
+    (resp, secs), dense_launches = counted(
+        lambda: _drive(dense, windows, refresh))
+    want = _responses([r for w in resp for r in w])
+    result = {"dense": {"launches": dense_launches,
+                        "p50_window_ms": float(np.median(secs[1:])) * 1e3,
+                        "window_ms": window_ms(secs),
+                        "stage_ms": _stage_ms(dense, windows[-1])}}
+    for s in SERVE_SHARDS:
+        server = make_server(True, tenant_shards=s)
+        (got, secs), launches = counted(
+            lambda: _drive(server, windows, refresh))
+        check(_responses([r for w in got for r in w]) == want,
+              f"S={s}: responses bitwise equal to the dense server's")
+        m = server.metrics
+        check(launches == m["kernel_dispatches"] == m["shard_dispatches"]
+              > 0, f"S={s}: {launches} launches, {m['kernel_dispatches']} "
+              f"dispatches, {m['shard_dispatches']} sharded")
+        key = max(server.plane.banks, key=len)
+        sbank = server.plane.banks[key].sharded
+        check(sbank.generation == server.bank_generation == 1,
+              f"S={s}: the sharded bank's generation")
+        result[f"s{s}"] = {
+            "launches": launches, "shard_dispatches": m["shard_dispatches"],
+            "rows_per_shard": sbank.rows_per_shard,
+            "per_shard_bytes": sbank.per_shard_bytes,
+            "dense_bytes": server.plane.banks[key].bank.num_rows
+            * (2 * sbank.num_experts + 2 * sbank.num_quantiles) * 4,
+            "p50_window_ms": float(np.median(secs[1:])) * 1e3,
+            "window_ms": window_ms(secs),
+            "events_per_s": (N_WINDOWS - 1) * WINDOW / sum(secs[1:]),
+            "stage_ms": _stage_ms(server, windows[-1])}
+
+    hot, victims = SHARD_TIERS
+    composed = make_server(True, tenant_shards=SERVE_SHARDS[0],
+                           tiering=TieringConfig(hot_capacity=hot,
+                                                 victim_capacity=victims))
+    engine = AsyncDispatchEngine(composed, max_batch=WINDOW, max_wait_ms=1e9)
+    half = N_WINDOWS // 2
+
+    def run():
+        out, marks = [], [time.perf_counter()]
+        for part in (windows[:1], windows[1:half], windows[half:]):
+            for reqs in part:
+                engine.submit_many(reqs)
+            out += engine.drain(timeout=300.0)
+            marks.append(time.perf_counter())
+            if len(out) == WINDOW:
+                composed.rebalance_tiers()
+            elif len(out) == half * WINDOW:
+                refresh(composed)
+        return out, marks
+
+    (out, marks), launches = counted(run)
+    errors, prefetch_errors = list(engine.errors), engine.prefetch_errors
+    engine.close()
+    check(not errors and not prefetch_errors,
+          f"composed engine stage errors: {errors[:3]}")
+    check(_responses(out) == want, "tiered over sharded through the engine: "
+          "responses bitwise equal to the dense server's")
+    tm = composed.tier_metrics()
+    passes = tm["dispatches"] + tm["extra_passes"]
+    check(launches == passes > 0, f"the composed stores launched the banked "
+          f"kernel {launches} times for {passes} passes")
+    check(tm["prefetched_rows"] > 0 and tm["cold_miss_stalls"] > 0
+          and tm["extra_passes"] > 0, f"prefetch, stalls, extra passes: {tm}")
+    stores = composed.tiered_stores()
+    store = stores[max(stores, key=len)]
+    result["tiered_s4"] = {
+        "launches": launches, "passes": passes, "hot": hot,
+        "victims": victims, "tier_metrics": tm,
+        "per_shard_device_bytes": store.per_shard_device_bytes,
+        "device_bytes": store.device_bytes, "host_bytes": store.host_bytes,
+        "shard_dispatches": composed.metrics["shard_dispatches"],
+        "ms_per_window_after_rebalance":
+            (marks[-1] - marks[1]) * 1e3 / (N_WINDOWS - 1)}
+    return result
+
+
+def _publish_under_traffic(dev, setup) -> dict:
+    """The reference's ``TestShardedRefreshAtomicity`` on the card: fleet
+    refreshes of all 64 streams published by a writer thread while the
+    serve windows stream through the engine on the S = 4 server (a window
+    enters once half as many publishes as windows before it have landed).  The
+    generations are consecutive; every response replays bit for bit
+    through the kernel from the parameters of the one generation it is
+    stamped with (a torn per-shard mix would not), and per predictor the
+    generations never step back."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.core.quantiles import StreamingQuantileEstimator
+    from repro_torch.core.transforms import TransformBank
+    from repro_torch.kernels import ops
+    from repro_torch.serving.calibration import (CalibrationController,
+                                                 RefreshPolicy)
+    from repro_torch.serving.engine import AsyncDispatchEngine
+
+    _, make_server, windows = setup
+    server = make_server(True, tenant_shards=SERVE_SHARDS[0])
+    for i in range(N_TENANTS):
+        est = StreamingQuantileEstimator(capacity=131072, seed=i)
+        est.update(np.random.default_rng(i).uniform(0, 1, 5000))
+        server._estimators[(f"tenant{i:02d}", f"p{i}")] = est
+    ctrl = CalibrationController(
+        server, np.linspace(0.0, 1.0, 64) ** 2,
+        RefreshPolicy(alert_rate=0.05, rel_error=0.5, n_levels=64))
+
+    def pipelines():
+        return {n: p.pipeline for n, p in server.predictors.items()}
+
+    registry = {0: pipelines()}
+    check(ctrl.refresh_fleet().generation == 1, "the first refresh")
+    registry[1] = pipelines()
+    engine = AsyncDispatchEngine(server, max_batch=WINDOW, max_wait_ms=1e9,
+                                 facade_timeout_s=300.0)
+    stop = threading.Event()
+    published: list[int] = []
+    refresh_s: list[float] = []
+
+    landed = threading.Condition()
+
+    def writer():
+        while not stop.is_set() and len(published) < 20:
+            t0 = time.perf_counter()
+            res = ctrl.refresh_fleet()
+            refresh_s.append(time.perf_counter() - t0)
+            registry[res.generation] = pipelines()
+            with landed:
+                published.append(res.generation)
+                landed.notify_all()
+
+    def traffic():
+        # window w goes in once w // 2 publishes have landed, so the
+        # publishes interleave with the traffic whatever their speed
+        for w, reqs in enumerate(windows):
+            with landed:
+                landed.wait_for(lambda: len(published) >= w // 2,
+                                timeout=60.0)
+            engine.submit_many(reqs)
+
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    wt = threading.Thread(target=writer)
+    tt = threading.Thread(target=traffic)
+    wt.start()
+    tt.start()
+    tt.join(timeout=300.0)
+    check(not tt.is_alive(), "traffic thread wedged")
+    responses = engine.drain(timeout=300.0)
+    stop.set()
+    wt.join(timeout=300.0)
+    wall = time.perf_counter() - t0
+    launches = ops.LAUNCHES["score_pipeline_banked"]
+    check(not wt.is_alive(), "refresh writer wedged")
+    errors = list(engine.errors)
+    engine.close()
+    check(not errors, f"engine stage errors: {errors[:3]}")
+    check(sorted(r.request_id for r in responses)
+          == list(range(N_WINDOWS * WINDOW)), "one response a request")
+    check(len(published) >= (N_WINDOWS - 1) // 2 and
+          published == list(range(2, 2 + len(published))),
+          f"consecutive fleet generations: {published}")
+    m = server.metrics
+    check(launches == m["shard_dispatches"] == m["kernel_dispatches"] > 0,
+          f"{launches} launches for {m['shard_dispatches']} sharded "
+          "dispatches")
+    # replay: one dense bank a generation, every response of it through
+    # the kernel (these launches are not the path's)
+    by_gen: dict[int, list] = {}
+    for r in responses:
+        by_gen.setdefault(r.bank_generation, []).append(r)
+    for gen, rs in by_gen.items():
+        names = sorted(registry[gen])
+        pipes = [registry[gen][n] for n in names]
+        bank = TransformBank.from_params(
+            [(p.betas, p.weights, p.src_quantiles, p.ref_quantiles)
+             for p in pipes], device=dev)
+        row_of = {n: i for i, n in enumerate(names)}
+        got = ops.score_pipeline_banked(
+            torch.tensor([r.raw_scores for r in rs], device=dev),
+            torch.tensor([row_of[r.predictor] for r in rs],
+                         dtype=torch.int32, device=dev),
+            bank.betas, bank.weights, bank.src_quantiles,
+            bank.ref_quantiles).cpu().numpy()
+        served = np.array([r.score for r in rs], np.float32)
+        differ = int(np.sum(got.view(np.uint32) != served.view(np.uint32)))
+        check(differ == 0, f"generation {gen}: {differ} of {len(rs)} "
+              "responses differ from their generation's replay")
+    last: dict[str, int] = {}
+    for r in sorted(responses, key=lambda r: r.request_id):
+        check(r.bank_generation >= last.get(r.predictor, -1),
+              f"{r.predictor}: generation stepped back")
+        last[r.predictor] = r.bank_generation
+    return {"publishes": len(published), "generations_seen": sorted(by_gen),
+            "launches": launches, "responses": len(responses),
+            "refresh_s_median": float(np.median(refresh_s)),
+            "events_per_s": len(responses) / wall}
+
+
+def phase_sharding(dev, setup) -> dict:
+    """The tenant-sharded topology on the card: the sharded benchmark at
+    full size, an uneven assignment with an empty shard, the serve
+    configuration at S = 4, 8 and tiered over S = 4, and fleet publishes
+    under traffic.  Launches: each part counted on its own."""
+    from repro_torch.benchmarks import bench_sharded_bank
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    bench = bench_sharded_bank.run(device=dev)
+    bench_launches = ops.LAUNCHES["score_pipeline_banked"]
+    rows = bench["rows"]
+    check(bench["all_bitwise_parity"], "sharded rows bitwise the dense launch")
+    check(all(r["launches_per_call"] == 1 for r in rows),
+          f"one launch a call: {[r['launches_per_call'] for r in rows]}")
+    for r in rows:
+        want = SHARD_DENSE_BYTES[r["tenants"]] // max(r["shards"], 1)
+        check(r["resident_bytes"] == want,
+              f"T={r['tenants']}, S={r['shards']}: {r['resident_bytes']} "
+              f"resident bytes, expected {want}")
+    check({r["tenants"]: r["resident_bytes"] for r in rows
+           if r["shards"] == 8} == SHARD_S8_BYTES, "S=8 resident bytes")
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    uneven = _sharded_uneven(dev)
+    uneven_launches = ops.LAUNCHES["score_pipeline_banked"]
+    serve = _serve_topologies(setup)
+    publish = _publish_under_traffic(dev, setup)
+    kernel_ms = _sharded_kernel_ms(dev)
+    launches = {"bench": bench_launches, "uneven": uneven_launches,
+                **{f"serve_{k}": v["launches"] for k, v in serve.items()},
+                "publish_under_traffic": publish["launches"]}
+    check(all(n > 0 for n in launches.values()),
+          f"every sharded run launched the banked kernel: {launches}")
+    result = {"phase": "sharding", "launches": launches, "bench": bench,
+              "uneven": uneven, "serve": serve,
+              "publish_under_traffic": publish, "kernel_ms": kernel_ms,
+              "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 8
+def phase_main_bench(dev) -> dict:
+    """The main path's two benchmarks at the reference's sizes: serving
+    latency and the transform's share of it, and the banked launch against
+    a per-predictor loop.  Each raises if a kernel is off its plain version
+    by more than 2e-5.  Launches: each benchmark counted on its own."""
+    from repro_torch.benchmarks import (bench_multitenant_batch,
+                                        bench_serving_latency)
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    launches = {}
+    results = {}
+    for name, bench in (("serving_latency", bench_serving_latency),
+                        ("multitenant_batch", bench_multitenant_batch)):
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        results[name] = bench.run(device=dev)
+        launches[name] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        check(launches[name].get("score_pipeline", 0) > 0
+              and launches[name].get("score_pipeline_banked", 0) > 0,
+              f"{name} launched both Eq. 2 kernels: {launches[name]}")
+    mt = results["multitenant_batch"]
+    check(mt["max_abs_err_vs_oracle"] <= TOL
+          and mt["max_abs_err_loop_vs_plain"] <= TOL,
+          f"multitenant errors {mt['max_abs_err_vs_oracle']}, "
+          f"{mt['max_abs_err_loop_vs_plain']}")
+    sl = results["serving_latency"]
+    check(sl["transform_pipeline_4096"]["max_abs_err_vs_plain"] <= TOL,
+          "serving latency's kernel against its plain version")
+    result = {"phase": "main_bench", "launches": launches, **results,
+              "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 9
 # (b, tq, tk, hq, hkv, d, causal, window)
 ATTN_CASES = {
     "gqa_causal": (2, 128, 128, 4, 2, 64, True, 0),
@@ -1456,7 +1883,7 @@ def phase_attention(dev) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 8
+# ---------------------------------------------------------------- phase 10
 LLM_ARCH = "qwen3-8b"
 LLM_BATCH, LLM_PROMPT, LLM_STEPS = 4, 2048, 16
 # (weight seed, prompt seed) of the accuracy check; the first is the
@@ -1759,7 +2186,7 @@ def phase_llm_serve(dev, attention: dict) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 9
+# ---------------------------------------------------------------- phase 11
 SCORE_TOL = {"float32": 2e-5,    # the reference's kernel tolerances
              "bfloat16": 2e-2}   # (tests/test_kernels.py::_tol)
 QM_CASES = ((16, 8), (1000, 64), (4096, 256), (333, 33))   # (scores, N)
@@ -2002,7 +2429,7 @@ def phase_score_kernels(dev) -> dict:
     last_knot = _last_knot_cases(dev, errs)
 
     # times at a serve window, float32, inputs drawn as the benchmark draws
-    # them; the benchmark's size is timed by bench_kernels (phase 11)
+    # them; the benchmark's size is timed by bench_kernels (phase 13)
     m, k, nq = SCORE_WINDOW
     y = f32(rng.uniform(0, 1, (m, k)))
     x = y[:, 0].contiguous()
@@ -2034,7 +2461,7 @@ def phase_score_kernels(dev) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 10
+# ---------------------------------------------------------------- phase 12
 DECODE_TOL = 2e-5   # float32; bf16 runs the kernel's own check (bf16_excess)
 # (b, s, hq, hkv, d, valid lengths)
 DECODE_CASES = {
@@ -2295,7 +2722,7 @@ def phase_decode_attention(dev) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 11
+# ---------------------------------------------------------------- phase 13
 def phase_bench_kernels() -> dict:
     """The kernel microbenchmark, ``repro_torch.benchmarks.bench_kernels``,
     at full size: the path of the three scoring and decode kernels."""
@@ -2317,10 +2744,10 @@ def phase_bench_kernels() -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 12
+# ---------------------------------------------------------------- phase 14
 def _benched(name: str, source: str, replaces: str, bench: dict,
              library_ms: float | None, also: dict) -> dict:
-    """A kernels-line entry from bench_kernels' run (phase 11), the path of
+    """A kernels-line entry from bench_kernels' run (phase 13), the path of
     the kernel, with the shapes a phase before it timed beside it."""
     e = next(e for e in bench["result"]["entries"].values()
              if e["kernel"] == name)
@@ -2333,7 +2760,8 @@ def _benched(name: str, source: str, replaces: str, bench: dict,
 
 
 def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
-                  engine: dict, tiering: dict, attention: dict, llm: dict,
+                  engine: dict, tiering: dict, sharding: dict,
+                  main_bench: dict, attention: dict, llm: dict,
                   scores: dict, decode: dict, bench: dict) -> None:
     from repro_torch.benchmarks.timing import banked_bound, device_ms
     from repro_torch.kernels import ref
@@ -2360,6 +2788,13 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
         # run) and the tiered stores' dispatches, each counted on its own
         "engine_launches": engine["launches"],
         "tiering_launches": tiering["launches"]["score_pipeline_banked"],
+        # the sharded paths (benchmark, uneven assignment, the serve
+        # topologies, publishes under traffic) and the two main-path
+        # benchmarks, each counted on its own
+        "sharding_launches": sharding["launches"],
+        "main_bench_launches": {
+            k: v["score_pipeline_banked"]
+            for k, v in main_bench["launches"].items()},
         "max_abs_err": max(err, kernel["max_abs_err"],
                            lifecycle["max_abs_err_vs_plain"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2392,9 +2827,15 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
     }, _benched("quantile_map", "src/repro_torch/csrc/quantile_map.cu",
                 "src/repro/kernels/quantile_map.py:25", bench, None,
                 {"window": scores["timings"]["quantile_map"]}),
-        _benched("score_pipeline", "src/repro_torch/csrc/score_pipeline.cu",
-                 "src/repro/kernels/score_pipeline.py:57", bench, None,
-                 {"window": scores["timings"]["score_pipeline"]}),
+        {**_benched("score_pipeline", "src/repro_torch/csrc/score_pipeline.cu",
+                    "src/repro/kernels/score_pipeline.py:57", bench, None,
+                    {"window": scores["timings"]["score_pipeline"],
+                     "serving_latency_4096": main_bench["serving_latency"][
+                         "transform_pipeline_4096"]}),
+         # the main path's two benchmarks, each counted on its own
+         "main_bench_launches": {
+             k: v["score_pipeline"]
+             for k, v in main_bench["launches"].items()}},
         _benched("decode_attention",
                  "src/repro_torch/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:24", bench,
@@ -2430,13 +2871,15 @@ def main() -> int:
     lifecycle = phase_lifecycle(dev)
     engine = phase_engine(dev, setup)
     tiering = phase_tiering(dev)
+    sharding = phase_sharding(dev, setup)
+    main_bench = phase_main_bench(dev)
     attention = phase_attention(dev)
     llm = phase_llm_serve(dev, attention)
     scores = phase_score_kernels(dev)
     decode = phase_decode_attention(dev)
     bench = phase_bench_kernels()
     phase_kernels(kernel, serve, main_shapes, lifecycle, engine, tiering,
-                  attention, llm, scores, decode, bench)
+                  sharding, main_bench, attention, llm, scores, decode, bench)
     emit({"phase": "wall", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -43,15 +43,13 @@ and measures nothing of the card.
 """
 from __future__ import annotations
 
-import argparse
-import json
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.benchmarks import cli
 from repro_torch.core.predictor import PredictorSpec
 from repro_torch.core.routing import Condition, Intent, RoutingTable, ScoringRule
 from repro_torch.core.transforms import QuantileMap, TransformBank
@@ -129,13 +127,6 @@ def _warm(server: MuseServer, n_tenants: int, sizes: list[int]) -> None:
     for s in sizes:
         feats = rng.normal(0, 1, (s, DIM)).astype(np.float32)
         server.score_batch(requests(feats, n_tenants))
-
-
-def _nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def _banked_launches() -> int:
@@ -302,7 +293,7 @@ def run(quick: bool = False, device: torch.device | str | None = None
 
     return {
         "device": torch.cuda.get_device_name(dev) if cuda else str(dev),
-        "nvidia_smi": _nvidia_smi() if cuda else None,
+        "nvidia_smi": cli.nvidia_smi() if cuda else None,
         "quick": quick,
         "timer": ("host clock over the timed stream, ended by the engine's "
                   "drain (each window ends in a device sync)"
@@ -333,21 +324,7 @@ def run(quick: bool = False, device: torch.device | str | None = None
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--quick", action="store_true",
-                        help="the reference's quick sizes")
-    parser.add_argument("--device", default=None,
-                        help="torch device (default: the card, or fail)")
-    parser.add_argument("--out", default=None,
-                        help="write the result as JSON to this path")
-    args = parser.parse_args(argv)
-    result = run(quick=args.quick, device=args.device)
-    text = json.dumps(result, indent=1)
-    print(text)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write(text + "\n")
-    return 0
+    return cli.main(run, __doc__, argv)
 
 
 if __name__ == "__main__":

@@ -24,14 +24,12 @@ It prints the result as JSON and writes it to ``--out`` when given.
 """
 from __future__ import annotations
 
-import argparse
-import json
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
+from repro_torch.benchmarks import cli
 from repro_torch.benchmarks.timing import (attention_bound, banked_bound,
                                            decode_bound, device_ms, host_ms,
                                            quantile_map_bound,
@@ -64,13 +62,6 @@ def _entry(kernel, plain, dev, *, tol, bound, reps=(20, 50),
     result["plain_us_per_call"] = _time_ms(plain, dev, *plain_reps) * 1e3
     result["bound_us"], result["bound_by"] = bound[0] * 1e3, bound[1]
     return result
-
-
-def _nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def run(quick: bool = False, device: torch.device | str | None = None
@@ -174,7 +165,7 @@ def run(quick: bool = False, device: torch.device | str | None = None
     cuda = dev.type == "cuda"
     return {
         "device": torch.cuda.get_device_name(dev) if cuda else str(dev),
-        "nvidia_smi": _nvidia_smi() if cuda else None,
+        "nvidia_smi": cli.nvidia_smi() if cuda else None,
         "quick": quick,
         "timer": ("CUDA events, median of runs of back-to-back calls queued "
                   "behind a busy card" if cuda else
@@ -186,22 +177,8 @@ def run(quick: bool = False, device: torch.device | str | None = None
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--quick", action="store_true",
-                        help="the reference's quick sizes")
-    parser.add_argument("--device", default=None,
-                        help="torch device (default: the card, or fail)")
-    parser.add_argument("--out", default=None,
-                        help="write the result as JSON to this path")
-    args = parser.parse_args(argv)
-    result = run(quick=args.quick, device=args.device)
-    text = json.dumps(result, indent=1)
-    print(text)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write(text + "\n")
-    return 0 if all(e["kernel_allclose"]
-                    for e in result["entries"].values()) else 1
+    return cli.main(run, __doc__, argv, ok=lambda result: all(
+        e["kernel_allclose"] for e in result["entries"].values()))
 
 
 if __name__ == "__main__":

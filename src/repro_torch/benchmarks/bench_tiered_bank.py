@@ -13,9 +13,10 @@ victim slots and the prior row (512 device rows), tenants swept over 1,024,
     1,064,960 at every size, while the host store grows with the tenants;
   * **hot throughput** — events/s of a dispatch whose rows all sit in hot
     slots (one slot remap, one banked kernel launch, the window's upload
-    and the scores' download), at batch 8,192 (2,048), beside the same
-    round trip through a dense 4,096-row bank (the reference's fallback
-    baseline: the port has no sharded bank yet);
+    and the scores' download), at batch 8,192 (2,048), beside the S = 8
+    sharded dispatch of a 4,096-row bank at the same batch, K and N,
+    measured in the same run (the reference's baseline: its
+    ``bench_sharded_bank``'s widest row);
   * **stalls** — a 95/5 hot/cold mix at batch 2,048 (1,024), 4 windows (2),
     without and with the engine's prefetch before each dispatch: the share
     of events that waited on a synchronous host->device page-in.  With the
@@ -33,8 +34,8 @@ victim slots and the prior row (512 device rows), tenants swept over 1,024,
     the overlapped run's ``staging_conflicts``.
 
 Every banked kernel launch of the tiered stores is counted (on the card)
-and held to their dispatches plus extra passes; the dense bank's launches
-(the parity oracle, the dense round trip) are not among them.
+and held to their dispatches plus extra passes; the launches of the dense
+bank (the parity oracle) and of the sharded baseline are not among them.
 
 Host rows are cumulative sums of seeded positive float32 draws, so 10^6
 rows of 256 knots build in seconds.  On the card (the default) times are
@@ -47,10 +48,7 @@ run shows the entry point works and measures nothing of the card.
 """
 from __future__ import annotations
 
-import argparse
 import gc
-import json
-import subprocess
 import sys
 import threading
 import time
@@ -58,8 +56,12 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.benchmarks import cli
+from repro_torch.core.transforms import ShardedTransformBank, TransformBank
 from repro_torch.device import resolve_device, to_numpy
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_tenant_mesh
+from repro_torch.serving.server import ShardedBankDispatcher
 from repro_torch.serving.tiering import (
     HostBankStore,
     TieredBankStore,
@@ -216,31 +218,24 @@ def p99_under_churn(rng, t: int, dev, *, overlap: bool, batch: int,
             int(store.metrics["staging_conflicts"]), dict(store.metrics))
 
 
-def _dense_round_trip(rng, dev, b: int, repeat: int) -> float:
-    """events/s of the dense path's round trip at batch ``b`` over a
-    4,096-row bank: upload the window, one banked kernel launch, download
-    the scores (the tiered hot path's work without the slot remap)."""
+SHARDS = 8
+
+
+def _sharded_baseline(rng, dev, b: int, repeat: int) -> float:
+    """events/s of the S = 8 sharded dispatch at batch ``b`` over a
+    4,096-row bank (``bench_sharded_bank``'s widest row, the reference's
+    baseline): bucket and pack on the host, upload the window, ONE banked
+    launch over every shard's rows, download the scores."""
     t = 4096
-    bank = [torch.tensor(a, device=dev) for a in (
+    bank = TransformBank(*(torch.tensor(a, device=dev) for a in (
         rng.uniform(0.05, 1.0, (t, K)).astype(np.float32),
         rng.uniform(0.1, 2.0, (t, K)).astype(np.float32),
-        monotone_rows(rng, t, N), monotone_rows(rng, t, N))]
+        monotone_rows(rng, t, N), monotone_rows(rng, t, N))))
     raws = rng.uniform(0, 1, (b, K)).astype(np.float32)
-    tid = rng.integers(0, t, b).astype(np.int32)
-
-    def call():
-        return to_numpy(ops.score_pipeline_banked(
-            torch.from_numpy(raws).to(dev), torch.from_numpy(tid).to(dev),
-            *bank))
-
-    return b / _timeit(call, repeat)
-
-
-def _nvidia_smi() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    tid = rng.integers(0, t, b)
+    sbank = ShardedTransformBank.from_dense(bank, SHARDS)
+    disp = ShardedBankDispatcher(make_tenant_mesh(SHARDS, dev))
+    return b / _timeit(lambda: disp(raws, tid, sbank), repeat)
 
 
 def _passes(metrics: dict) -> int:
@@ -288,7 +283,7 @@ def run(quick: bool = False, device: torch.device | str | None = None
     parity_passes = store.metrics["extra_passes"] + 1
     del store, host, dense
 
-    dense_eps = _dense_round_trip(rng, dev, b, repeat)
+    sharded_eps = _sharded_baseline(rng, dev, b, repeat)
     rows: list[dict] = []
     for i, t in enumerate(tenant_counts):
         t_build = time.perf_counter()
@@ -336,7 +331,7 @@ def run(quick: bool = False, device: torch.device | str | None = None
 
     return {
         "device": torch.cuda.get_device_name(dev) if cuda else str(dev),
-        "nvidia_smi": _nvidia_smi() if cuda else None,
+        "nvidia_smi": cli.nvidia_smi() if cuda else None,
         "quick": quick,
         "timer": ("host clock of whole dispatches (each ends in a device "
                   "sync)" if cuda else "host clock of a CPU run of the plain "
@@ -346,8 +341,8 @@ def run(quick: bool = False, device: torch.device | str | None = None
         "mix_windows": windows,
         "bitwise_parity_events": 1024, "parity_passes": parity_passes,
         "rows": rows,
-        "dense_events_per_s_t4096": dense_eps,
-        "hot_vs_dense_ratio": last["events_per_s_hot"] / dense_eps,
+        "sharded_s8_events_per_s_t4096": sharded_eps,
+        "hot_vs_sharded_s8_ratio": last["events_per_s_hot"] / sharded_eps,
         "churn_tenants": t_churn, "churn_batch": churn_b,
         "churn_windows": churn_w,
         "p99_ms_dispatch_locked_staging": p99_locked,
@@ -364,21 +359,7 @@ def run(quick: bool = False, device: torch.device | str | None = None
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--quick", action="store_true",
-                        help="the reference's quick sizes")
-    parser.add_argument("--device", default=None,
-                        help="torch device (default: the card, or fail)")
-    parser.add_argument("--out", default=None,
-                        help="write the result as JSON to this path")
-    args = parser.parse_args(argv)
-    result = run(quick=args.quick, device=args.device)
-    text = json.dumps(result, indent=1)
-    print(text)
-    if args.out:
-        with open(args.out, "w") as f:
-            f.write(text + "\n")
-    return 0
+    return cli.main(run, __doc__, argv)
 
 
 if __name__ == "__main__":

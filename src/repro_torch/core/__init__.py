@@ -14,6 +14,8 @@ from repro_torch.core.transforms import (
     Aggregation,
     PosteriorCorrection,
     QuantileMap,
+    ShardedTransformBank,
+    TENANT_AXIS,
     TransformBank,
     banked_score_pipeline,
     posterior_correction,
@@ -26,7 +28,8 @@ from repro_torch.core.routing import Condition, Intent, Resolution, RoutingTable
 from repro_torch.core.registry import ModelPool
 
 __all__ = [
-    "Aggregation", "PosteriorCorrection", "QuantileMap", "TransformBank",
+    "Aggregation", "PosteriorCorrection", "QuantileMap",
+    "ShardedTransformBank", "TENANT_AXIS", "TransformBank",
     "banked_score_pipeline", "posterior_correction",
     "posterior_correction_inverse", "quantile_map",
     "score_pipeline",

@@ -523,3 +523,204 @@ def banked_score_pipeline(
     # torch.clamp propagates NaN, as jnp.clip does
     out = torch.clamp(out, qr[..., 0], qr[..., -1])
     return out.masked_fill(outside, float("nan"))
+
+
+# ---------------------------------------------------------------------------
+# Tenant-sharded transform bank (row partition over a "tenants" axis)
+# ---------------------------------------------------------------------------
+
+TENANT_AXIS = "tenants"  # axis name the bank rows are partitioned over
+
+
+def shard_rows(num_rows: int, num_shards: int,
+               shard_of: np.ndarray | None = None
+               ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Row-partition rule shared by every sharded container.
+
+    Assigns each of ``num_rows`` global rows an owning shard (default:
+    round-robin ``t % S``, occupancy within one row of even) and a local
+    id in global-row order within the shard.  Both
+    :meth:`ShardedTransformBank.from_dense` and the tiered-over-sharded
+    store (``serving/tiering.ShardedTieredBankStore``) derive their
+    global<->local remaps from THIS function, so a hotness snapshot or a
+    publish addressed by global row id lands on the same (shard, local)
+    coordinates whichever container serves it.
+
+    Returns ``(shard_of, local_of, row_counts)`` as int64 numpy arrays.
+    """
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    assign = (np.arange(num_rows) % num_shards if shard_of is None
+              else np.asarray(shard_of, np.int64).reshape(-1))
+    if assign.shape[0] != num_rows:
+        raise ValueError(
+            f"shard_of has {assign.shape[0]} entries for {num_rows} rows")
+    if assign.size and (assign.min() < 0 or assign.max() >= num_shards):
+        raise ValueError("shard_of entries outside [0, num_shards)")
+    counts = np.bincount(assign, minlength=num_shards).astype(np.int64)
+    order = np.argsort(assign, kind="stable")
+    starts = np.cumsum(counts) - counts
+    local = np.empty(num_rows, np.int64)
+    local[order] = np.arange(num_rows) - np.repeat(starts, counts)
+    return assign, local, counts
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedTransformBank:
+    """A :class:`TransformBank` row-partitioned over a "tenants" axis.
+
+    Parameter tensors carry a leading shard axis ((S, Tl, K) / (S, Tl, N),
+    ``Tl`` = the largest shard's occupancy), so a shard's device holds ONLY
+    its local rows (``per_shard_bytes`` ~ dense / S).  ``shard_of`` /
+    ``local_of`` are the host-side (numpy) global<->local remap the serving
+    layer buckets requests with; occupancy may be uneven and shards may be
+    empty (rows beyond ``row_counts[s]`` are inert identity padding that no
+    request selects).  On one card every shard lives on the bank's device,
+    and the stacks are contiguous, so ``(S·Tl, ·)`` views of them are what
+    one launch of the banked kernel reads (``ShardedBankDispatcher``).
+
+    Like the dense bank, a sharded bank is immutable and generation-stamped:
+    ``with_rows`` scatters refreshed T^Q tables ONLY into each row's owning
+    shard and returns a NEW object under one bumped generation, so a
+    calibration publish swaps every shard's sub-bank in the same single
+    control-plane assignment — per-shard generations can never diverge.
+    """
+
+    betas: Tensor          # (S, Tl, K)
+    weights: Tensor        # (S, Tl, K)
+    src_quantiles: Tensor  # (S, Tl, N)
+    ref_quantiles: Tensor  # (S, Tl, N)
+    shard_of: np.ndarray   # (T,) owning shard per global bank row
+    local_of: np.ndarray   # (T,) local row within the owning shard
+    row_counts: np.ndarray  # (S,) occupied rows per shard
+    generation: int = 0
+
+    # ------------------------------------------------------------ geometry
+    @property
+    def num_shards(self) -> int:
+        return int(self.betas.shape[0])
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.shard_of.shape[0])
+
+    @property
+    def rows_per_shard(self) -> int:
+        return int(self.betas.shape[1])
+
+    @property
+    def num_experts(self) -> int:
+        return int(self.betas.shape[-1])
+
+    @property
+    def num_quantiles(self) -> int:
+        return int(self.src_quantiles.shape[-1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.betas.device
+
+    @property
+    def per_shard_bytes(self) -> int:
+        """Bank bytes RESIDENT on one shard (the 1/S residency headline)."""
+        tl, k, n = self.rows_per_shard, self.num_experts, self.num_quantiles
+        return tl * (2 * k + 2 * n) * 4
+
+    def locate(self, tenant_idx) -> tuple[np.ndarray, np.ndarray]:
+        """Global row ids -> (owning shard, local row) — the dispatch remap."""
+        tid = np.asarray(to_numpy(tenant_idx), np.int64).reshape(-1)
+        return self.shard_of[tid], self.local_of[tid]
+
+    # --------------------------------------------------------- conversions
+    @staticmethod
+    def from_dense(bank: TransformBank, num_shards: int,
+                   shard_of: np.ndarray | None = None
+                   ) -> "ShardedTransformBank":
+        """Partition a dense bank's rows over ``num_shards`` shards, on the
+        dense bank's device.
+
+        ``shard_of`` (optional, (T,)) assigns each global row an owning
+        shard — any assignment is legal, including empty shards.  Default is
+        round-robin (``t % S``).  Local ids are assigned in global-row order
+        within each shard; shards are padded to the max occupancy with
+        identity rows (beta=1, weight=1, the float32 ``np.linspace`` grid as
+        both tables, bit for bit the reference's padding).
+        """
+        t = bank.num_rows
+        assign, local, counts = shard_rows(t, num_shards, shard_of)
+        tl = max(int(counts.max()) if counts.size else 0, 1)
+        k, n = bank.num_experts, bank.num_quantiles
+
+        betas = np.ones((num_shards, tl, k), np.float32)
+        weights = np.ones((num_shards, tl, k), np.float32)
+        ident = np.linspace(0.0, 1.0, n, dtype=np.float32)
+        src = np.broadcast_to(ident, (num_shards, tl, n)).copy()
+        ref = src.copy()
+        betas[assign, local] = to_numpy(bank.betas)
+        weights[assign, local] = to_numpy(bank.weights)
+        src[assign, local] = to_numpy(bank.src_quantiles)
+        ref[assign, local] = to_numpy(bank.ref_quantiles)
+        return ShardedTransformBank(
+            *(torch.from_numpy(a).to(bank.device)
+              for a in (betas, weights, src, ref)),
+            shard_of=assign, local_of=local, row_counts=counts,
+            generation=bank.generation)
+
+    def shard_bank(self, shard: int) -> TransformBank:
+        """The dense sub-bank one shard serves (its occupied local rows)."""
+        c = max(int(self.row_counts[shard]), 1)  # empty: one inert row
+        return TransformBank(
+            betas=self.betas[shard, :c], weights=self.weights[shard, :c],
+            src_quantiles=self.src_quantiles[shard, :c],
+            ref_quantiles=self.ref_quantiles[shard, :c],
+            generation=self.generation)
+
+    def to_dense(self) -> TransformBank:
+        """Reassemble the global dense bank (parity/inspection path)."""
+        sh = torch.from_numpy(self.shard_of).to(self.device)
+        lo = torch.from_numpy(self.local_of).to(self.device)
+        return TransformBank(
+            betas=self.betas[sh, lo], weights=self.weights[sh, lo],
+            src_quantiles=self.src_quantiles[sh, lo],
+            ref_quantiles=self.ref_quantiles[sh, lo],
+            generation=self.generation)
+
+    # ------------------------------------------------------------- updates
+    def with_rows(
+        self,
+        rows: Mapping[int, tuple[Tensor, Tensor]] | Mapping[int, "QuantileMap"],
+        *,
+        generation: int | None = None,
+    ) -> "ShardedTransformBank":
+        """Functional T^Q update addressed by GLOBAL row id.
+
+        Each replacement table is scattered only into its row's owning
+        shard (one out-of-place ``index_put`` per table stack, at (shard,
+        local)); every other row is carried over untouched.  Semantics
+        otherwise match :meth:`TransformBank.with_rows` (edge-padding of
+        narrow tables by :func:`pad_quantile_tables`, so the last-knot rule
+        holds here too; generation defaulting to current + 1).
+        """
+        if not rows:
+            return self if generation is None else dataclasses.replace(
+                self, generation=generation)
+        n = self.num_quantiles
+        s_idx, l_idx, srcs, refs = [], [], [], []
+        for row, value in sorted(rows.items()):
+            if not 0 <= row < self.num_rows:
+                raise IndexError(f"row {row} outside bank of {self.num_rows}")
+            src, ref = pad_quantile_tables(value, n, row=row)
+            s_idx.append(int(self.shard_of[row]))
+            l_idx.append(int(self.local_of[row]))
+            srcs.append(src.to(self.device))
+            refs.append(ref.to(self.device))
+        where = (torch.tensor(s_idx, dtype=torch.long, device=self.device),
+                 torch.tensor(l_idx, dtype=torch.long, device=self.device))
+        return dataclasses.replace(
+            self,
+            src_quantiles=self.src_quantiles.index_put(
+                where, torch.stack(srcs)),
+            ref_quantiles=self.ref_quantiles.index_put(
+                where, torch.stack(refs)),
+            generation=self.generation + 1 if generation is None else generation,
+        )

@@ -11,7 +11,14 @@ the device's default stream.  ``ServerConfig(tiering=TieringConfig(...))``
 bounds device residency by configuration (``serving/tiering.py``: hot
 rows on the device, cold rows paged from a :class:`HostBankStore`, the
 cold-start prior for un-gated tenants); the engine prefetches pending
-windows' cold rows before their transform stage.  Every control-plane
+windows' cold rows before their transform stage.
+``ServerConfig(tenant_shards=S)`` row-partitions every model-group bank
+over an S-way "tenants" axis
+(:class:`~repro_torch.core.transforms.ShardedTransformBank`): a window is
+bucketed by owning shard on the host and scored by ONE launch of the banked
+kernel over every shard's local rows (:class:`ShardedBankDispatcher`), and
+tiering composes with it (:class:`ShardedTieredBankStore`: a hot tier and
+victim cache per shard).  Every control-plane
 publish swaps one immutable ``_ControlPlane`` (predictors + transform
 banks + generation), so every response is consistent with exactly one
 bank generation (``ScoringResponse.bank_generation``).
@@ -67,11 +74,13 @@ from repro_torch.serving.server import (
     FeatureStore,
     MuseServer,
     ServerConfig,
+    ShardedBankDispatcher,
     StaleGenerationError,
 )
 from repro_torch.serving.shadow import ShadowSink
 from repro_torch.serving.tiering import (
     HostBankStore,
+    ShardedTieredBankStore,
     TieredBankStore,
     TieringConfig,
     prior_bank_row,
@@ -87,7 +96,9 @@ __all__ = [
     "ReplicaPullFailure",
     "Decision", "DecisionLoop", "DecisionPolicy", "decide",
     "FleetGenerationAudit", "Replica", "ReplicaSet", "RollingUpdate",
-    "FeatureStore", "MuseServer", "ServerConfig", "StaleGenerationError",
+    "FeatureStore", "MuseServer", "ServerConfig", "ShardedBankDispatcher",
+    "StaleGenerationError",
     "ShadowSink", "ScoringRequest", "ScoringResponse", "ShadowRecord",
-    "HostBankStore", "TieredBankStore", "TieringConfig", "prior_bank_row",
+    "HostBankStore", "ShardedTieredBankStore", "TieredBankStore",
+    "TieringConfig", "prior_bank_row",
 ]

@@ -58,9 +58,30 @@ generation-fenced control op (``rebalance_tiers``, which the calibration
 controllers call after each publish), and ``publish_quantile_maps`` lands
 refreshed maps in host rows AND every device-resident copy under one
 generation.  Scores equal a dense bank's bitwise (the same banked kernel
-on slot-remapped rows).  See ``serving/tiering.py``.  The sharded topology
-(and tiering over it) is not ported yet: ``tenant_shards > 1`` raises
-``NotImplementedError``.
+on slot-remapped rows).  See ``serving/tiering.py``.
+
+Sharded serving topology
+------------------------
+
+With ``ServerConfig(tenant_shards=S)`` the server serves every model-group
+bank as a :class:`~repro_torch.core.transforms.ShardedTransformBank`
+row-partitioned over an S-way "tenants" axis
+(:func:`repro_torch.launch.mesh.make_tenant_mesh`).  ``apply_transforms``
+then routes through :class:`ShardedBankDispatcher`: a window's rows are
+bucketed by owning shard on the host and packed (S, Bs, K), and ONE launch
+of the banked kernel scores every shard against its own local rows (the
+reference's ``shard_map`` runs one program a device; the port's S shards
+share one card, so their (S, Tl, ·) stacks are read as (S·Tl, ·) views and
+each shard's ids are offset by ``s·Tl``).  Results gather back in request
+order.  The per-row compute is the dense path's kernel, so sharded and
+dense scores agree bitwise.  ``publish_quantile_maps`` rebuilds the dense
+bank AND its per-shard sub-banks (scattering only into each row's owning
+shard) inside the same single control-plane swap — one generation, never a
+torn per-shard mix.  Tiering composes with sharding
+(``ServerConfig(tenant_shards=S, tiering=...)``): every shard gets its own
+hot tier and victim cache (:class:`~repro_torch.serving.tiering.
+ShardedTieredBankStore`), scored through the same dispatcher, one launch a
+pass.
 """
 from __future__ import annotations
 
@@ -77,13 +98,20 @@ from repro_torch.core.predictor import Predictor, PredictorSpec, deploy_predicto
 from repro_torch.core.quantiles import StreamingQuantileEstimator
 from repro_torch.core.registry import ModelPool
 from repro_torch.core.routing import Intent, RoutingTable
-from repro_torch.core.transforms import QuantileMap, TransformBank
+from repro_torch.core.transforms import (
+    QuantileMap,
+    ShardedTransformBank,
+    TransformBank,
+    banked_score_pipeline,
+)
 from repro_torch.device import resolve_device, to_numpy
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantile_track import DeviceQuantileTracker
+from repro_torch.launch.mesh import TenantMesh, make_tenant_mesh
 from repro_torch.serving.shadow import ShadowSink
 from repro_torch.serving.tiering import (
     HostBankStore,
+    ShardedTieredBankStore,
     TieredBankStore,
     TieringConfig,
 )
@@ -101,7 +129,7 @@ from repro_torch.training.checkpoint import (
 )
 
 __all__ = [
-    "FeatureStore", "MuseServer", "ServerConfig",
+    "FeatureStore", "MuseServer", "ServerConfig", "ShardedBankDispatcher",
     "StaleGenerationError",  # canonical home is serving/types.py
 ]
 
@@ -166,11 +194,15 @@ class ServerConfig:
     # fused tenant-indexed kernel launch; False runs the plain banked
     # version (TransformBank.__call__: same semantics, no hand-written kernel)
     fused_kernel: bool = True
-    # not ported yet: tenant_shards > 1 (ROADMAP Queue 1 item 11)
+    # row-shard every model-group bank over an S-way "tenants" axis
+    # (1 = dense single-replica banks, the default); see the module
+    # docstring's "Sharded serving topology"
     tenant_shards: int = 1
     # tiered tenant-bank store (serving/tiering.py): hot rows on device,
     # cold rows host-paged through a bounded victim cache, un-gated tenants
     # through the cold-start prior.  None = fully device-resident banks.
+    # Composes with tenant_shards > 1: each shard gets its own hot tier +
+    # victim cache over a per-shard host store (ShardedTieredBankStore).
     tiering: TieringConfig | None = None
     # fused device tracking (kernels/quantile_track.py): the track stage
     # stages the banked pre_quantile aggregate in per-stream device
@@ -201,6 +233,9 @@ class _BankEntry:
     redeploy replaces pipeline objects, so a stale entry fails the identity
     check and is rebuilt.  The bank itself carries the generation it was
     published under (see :class:`~repro_torch.core.transforms.TransformBank`).
+    ``sharded`` is the row-partitioned view served when
+    ``ServerConfig.tenant_shards > 1`` — always built/updated alongside the
+    dense bank in the SAME control-plane swap, so their generations agree.
     ``tiered`` is the hot/victim/prior tiered store served when
     ``ServerConfig.tiering`` is set; it replaces the dense bank entirely
     (``bank`` is None) so device residency stays bounded by the configured
@@ -209,7 +244,8 @@ class _BankEntry:
 
     pipelines: tuple[Any, ...]
     bank: TransformBank | None
-    tiered: TieredBankStore | None = None
+    sharded: ShardedTransformBank | None = None
+    tiered: TieredBankStore | ShardedTieredBankStore | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,7 +259,7 @@ class _TieredWindowBank:
     bank's, and ``track`` fits estimators through the same rows the window
     served (numpy on the host, see ``TieredBankStore.pre_quantile``)."""
 
-    store: TieredBankStore
+    store: TieredBankStore | ShardedTieredBankStore
     generation: int
 
     def pre_quantile(self, expert_scores, tenant_idx):
@@ -249,11 +285,106 @@ class _ControlPlane:
     generation: int
 
 
-def _check_config(config: ServerConfig) -> None:
-    if config.tenant_shards > 1:
-        raise NotImplementedError(
-            "tenant-sharded banks, and tiering over them, are not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+class ShardedBankDispatcher:
+    """Banked dispatch over a tenant-sharded bank, one launch a pass.
+
+    The data-plane half of the sharded topology: a window's rows are
+    bucketed by owning shard on the host (the bank's global->local remap),
+    packed into one (S, Bs, K) batch padded per shard, and every shard's
+    rows are scored against ONLY its local rows.  The reference runs one
+    ``shard_map`` program a device; here the S shards share the mesh's
+    device, so :meth:`run_packed` is ONE launch of the banked kernel on the
+    packed window flattened to (S·Bs, K), with ids ``s·Tl + local`` into the
+    (S, Tl, ·) stacks viewed as (S·Tl, ·).  Results gather back into
+    request order on the host.  Shard buckets pad their id vector
+    edge-wise (an empty shard's padding reads its local row 0).
+
+    Per-row compute is the dense path's kernel, independent of batch and
+    bank shape, so sharded scores match the dense launch BITWISE.
+    ``fused=False`` runs the plain banked version instead (the reference's
+    knob, mirrored; a CPU tensor runs the plain version either way).
+    """
+
+    def __init__(self, mesh: TenantMesh, *, fused: bool = True) -> None:
+        self.mesh = mesh
+        self.fused = fused
+
+    def run_packed(self, packed: np.ndarray, pidx: np.ndarray,
+                   betas: torch.Tensor, weights: torch.Tensor,
+                   src_quantiles: torch.Tensor, ref_quantiles: torch.Tensor
+                   ) -> np.ndarray:
+        """One launch over an already-packed (S, Bs, K) window against
+        explicit (S, R, ·) per-shard parameter stacks; returns (S, Bs).
+
+        The raw launch entry: ``__call__`` buckets and packs a window
+        against a :class:`ShardedTransformBank` and lands here; the
+        tiered-over-sharded store packs slot-remapped buckets itself and
+        calls this with its stacked per-shard tier views.  The stacks must
+        be contiguous: they are read through views, never copied.
+        """
+        s, bs, k = packed.shape
+        r = betas.shape[1]
+        ids = pidx.astype(np.int64) + (np.arange(s, dtype=np.int64) * r)[:, None]
+        device = self.mesh.device
+        scores = torch.from_numpy(
+            np.ascontiguousarray(packed.reshape(s * bs, k), np.float32))
+        idx = torch.from_numpy(ids.reshape(-1).astype(np.int32))
+        impl = ops.score_pipeline_banked if self.fused \
+            else banked_score_pipeline
+        out = impl(scores.to(device), idx.to(device),
+                   *(x.view(s * r, x.shape[-1]) for x in (
+                       betas, weights, src_quantiles, ref_quantiles)))
+        return to_numpy(out).reshape(s, bs)
+
+    def _run(self, packed: np.ndarray, pidx: np.ndarray,
+             sbank: ShardedTransformBank) -> np.ndarray:
+        """One launch over the packed (S, Bs, ·) window."""
+        return self.run_packed(packed, pidx, sbank.betas, sbank.weights,
+                               sbank.src_quantiles, sbank.ref_quantiles)
+
+    @staticmethod
+    def _pack_bucket(packed, pidx, shard, rows_raws, rows_idx, bs):
+        """Place one shard's rows, edge-padding its id vector so a
+        single-tenant bucket stays uniform (the dense server's padding)."""
+        n = len(rows_idx)
+        packed[shard, :n] = rows_raws
+        pidx[shard, :n] = rows_idx
+        if n and n < bs:
+            pidx[shard, n:] = pidx[shard, n - 1]
+
+    def __call__(self, raws: np.ndarray, tenant_idx: np.ndarray,
+                 sbank: ShardedTransformBank) -> np.ndarray:
+        raws = np.asarray(raws, np.float32)
+        shard_ids, local_ids = sbank.locate(tenant_idx)
+        s = sbank.num_shards
+        if s == 1:
+            # single-shard degenerate case: no argsort, no fancy-index
+            # gather, so S=1 costs what the dense path costs
+            b = len(local_ids)
+            bs = _shape_bucket(b) if b else 1
+            packed = np.zeros((1, bs, raws.shape[-1]), np.float32)
+            pidx = np.zeros((1, bs), np.int32)
+            self._pack_bucket(packed, pidx, 0, raws, local_ids, bs)
+            return self._run(packed, pidx, sbank)[0, :b]
+        counts = np.bincount(shard_ids, minlength=s)
+        bs = _shape_bucket(int(counts.max())) if counts.max() else 1
+        order = np.argsort(shard_ids, kind="stable")
+        packed = np.zeros((s, bs, raws.shape[-1]), np.float32)
+        pidx = np.zeros((s, bs), np.int32)
+        buckets: list[np.ndarray] = []
+        start = 0
+        for shard in range(s):
+            rows = order[start:start + counts[shard]]
+            start += counts[shard]
+            buckets.append(rows)
+            if len(rows):
+                self._pack_bucket(packed, pidx, shard, raws[rows],
+                                  local_ids[rows], bs)
+        out = self._run(packed, pidx, sbank)
+        result = np.empty(len(shard_ids), np.float32)
+        for shard, rows in enumerate(buckets):
+            result[rows] = out[shard, :len(rows)]
+        return result
 
 
 class MuseServer:
@@ -261,7 +392,6 @@ class MuseServer:
                  config: ServerConfig | None = None,
                  device: torch.device | str | None = None) -> None:
         self.config = config or ServerConfig()
-        _check_config(self.config)
         # where predictors' pipelines and the transform banks live
         self.device = resolve_device(device)
         self.pool = ModelPool()
@@ -288,10 +418,20 @@ class MuseServer:
         # THE served control-plane state: swapped wholesale on every deploy /
         # decommission / calibration publish (never mutated across a publish).
         self._plane = _ControlPlane(predictors={}, banks={}, generation=0)
+        # sharded topology: one mesh + dispatcher per server when configured.
+        # With tiering ALSO set, the dispatcher serves the composed
+        # tiered-over-sharded stores (per-shard hot tiers, one launch a
+        # pass) instead of fully-resident sharded banks.
+        self._sharded_dispatch: ShardedBankDispatcher | None = None
+        if self.config.tenant_shards > 1:
+            self._sharded_dispatch = ShardedBankDispatcher(
+                make_tenant_mesh(self.config.tenant_shards, self.device),
+                fused=self.config.fused_kernel)
         # tiered topology: stateful stores OUTSIDE the plane (hotness, seen
         # counts and victim-cache residency survive plane swaps); the plane's
         # bank entries hold references, _tier_lock guards the dict itself
-        self._tiered_stores: dict[tuple[str, ...], TieredBankStore] = {}
+        self._tiered_stores: dict[
+            tuple[str, ...], TieredBankStore | ShardedTieredBankStore] = {}
         self._tier_lock = threading.Lock()
         # predictors routed through the cold-start prior until their stream
         # re-passes the Eq.-5 gate (applied to stores built later, too)
@@ -484,7 +624,9 @@ class MuseServer:
                     # fleet generation
                     new_banks[key] = _BankEntry(
                         entry.pipelines,
-                        entry.bank.with_rows({}, generation=gen))
+                        entry.bank.with_rows({}, generation=gen),
+                        None if entry.sharded is None
+                        else entry.sharded.with_rows({}, generation=gen))
                 continue
             pipelines = tuple(new_predictors[n].pipeline for n in key)
             # the with_rows fast path (scatter only the refreshed T^Q rows)
@@ -494,17 +636,26 @@ class MuseServer:
             entry_fresh = len(entry.pipelines) == len(key) and all(
                 ep is plane.predictors[n].pipeline
                 for ep, n in zip(entry.pipelines, key))
-            bank = None
+            bank = sharded = None
             if entry_fresh:
                 try:
                     bank = entry.bank.with_rows(touched, generation=gen)
+                    # the sharded sub-banks take the SAME refreshed rows,
+                    # scattered into their owning shards, under the SAME
+                    # generation — published in the one plane swap below
+                    if entry.sharded is not None:
+                        sharded = entry.sharded.with_rows(
+                            touched, generation=gen)
                 except ValueError:
-                    bank = None  # a table wider than the bank: rebuild
+                    bank = sharded = None  # a table wider than the bank
             if bank is None:
                 bank = TransformBank.from_params(
                     [(p.betas, p.weights, p.src_quantiles, p.ref_quantiles)
                      for p in pipelines], generation=gen, device=self.device)
-            new_banks[key] = _BankEntry(pipelines, bank)
+            if sharded is None and self._sharded_dispatch is not None:
+                sharded = ShardedTransformBank.from_dense(
+                    bank, self.config.tenant_shards)
+            new_banks[key] = _BankEntry(pipelines, bank, sharded)
 
         # the publish point: ONE whole-plane swap, never in-place edits
         self._plane = _ControlPlane(new_predictors, new_banks, gen)
@@ -576,7 +727,9 @@ class MuseServer:
         redeploy replaces the pipeline object, failing the identity check
         and rebuilding the bank — banks never serve stale parameters.
         ``plane`` is the stage-time snapshot; lookups go through it so a
-        concurrent publish can't produce a torn read."""
+        concurrent publish can't produce a torn read.  Under a sharded
+        topology the entry carries the row-partitioned sub-banks too (built
+        in the same insertion, same generation)."""
         plane = self._plane if plane is None else plane
         pipelines = tuple(plane.predictors[n].pipeline for n in names)
         cached = plane.banks.get(names)
@@ -592,19 +745,28 @@ class MuseServer:
             [(p.betas, p.weights, p.src_quantiles, p.ref_quantiles)
              for p in pipelines], generation=plane.generation,
             device=self.device)
-        entry = _BankEntry(pipelines, bank)
+        sharded = None
+        if self._sharded_dispatch is not None:
+            sharded = ShardedTransformBank.from_dense(
+                bank, self.config.tenant_shards)
+        entry = _BankEntry(pipelines, bank, sharded)
         plane.banks[names] = entry
         return entry
 
-    def _tiered_store_for(self, names: tuple[str, ...],
-                          pipelines: tuple[Any, ...]) -> TieredBankStore:
+    def _tiered_store_for(
+            self, names: tuple[str, ...], pipelines: tuple[Any, ...]
+    ) -> TieredBankStore | ShardedTieredBankStore:
         """Fetch (or build) the stateful tiered store for a model group.
 
         Stores live OUTSIDE the control plane so hotness/admission state
         survives plane swaps; ``source_pipelines`` is the same identity
         witness the bank cache uses, so a redeploy-stale store is rebuilt
         from the live pipelines here — adopting the old store's hotness so
-        the hot set carries over."""
+        the hot set carries over.  Under a sharded topology the store is
+        the composed :class:`ShardedTieredBankStore` (per-shard hot tiers
+        over per-shard host slices, dispatched through this server's
+        dispatcher); its global-indexed hotness snapshot lets the adoption
+        below cross topologies too."""
         with self._tier_lock:
             store = self._tiered_stores.get(names)
             if store is not None \
@@ -616,9 +778,17 @@ class MuseServer:
             host = HostBankStore.from_rows(
                 [(p.betas, p.weights, p.src_quantiles, p.ref_quantiles)
                  for p in pipelines])
-            fresh = TieredBankStore(host, self.config.tiering,
-                                    generation=self._plane.generation,
-                                    device=self.device)
+            if self._sharded_dispatch is not None:
+                fresh: TieredBankStore | ShardedTieredBankStore = \
+                    ShardedTieredBankStore(
+                        host, self.config.tenant_shards, self.config.tiering,
+                        dispatcher=self._sharded_dispatch,
+                        generation=self._plane.generation,
+                        device=self.device)
+            else:
+                fresh = TieredBankStore(host, self.config.tiering,
+                                        generation=self._plane.generation,
+                                        device=self.device)
             fresh.source_pipelines = pipelines
             if store is not None:
                 fresh.adopt_hotness(store.hotness_snapshot())
@@ -729,9 +899,19 @@ class MuseServer:
             scores, gen = entry.tiered.dispatch(raws, tenant_idx)
             self.bump_metric("kernel_dispatches")
             self.bump_metric("tier_dispatches")
+            if isinstance(entry.tiered, ShardedTieredBankStore):
+                self.bump_metric("shard_dispatches")
             return scores, _TieredWindowBank(entry.tiered, gen), tenant_idx
         bank = entry.bank
         b = len(tenant_idx)
+        if entry.sharded is not None:
+            # sharded topology: bucket by owning shard, one launch of the
+            # banked kernel a window (the dispatcher pads per shard, so no
+            # outer shape-bucket pad is needed here); no skip-block stats
+            scores = self._sharded_dispatch(raws, tenant_idx, entry.sharded)
+            self.bump_metric("kernel_dispatches")
+            self.bump_metric("shard_dispatches")
+            return scores, bank, tenant_idx
         pad = _shape_bucket(b) - b
         if pad:  # bucketed kernel shape, same reasoning as run_models
             kraws = np.concatenate(
@@ -1030,7 +1210,8 @@ class MuseServer:
         overhead against fully-resident banks)."""
         return self.config.tiering is not None
 
-    def tiered_stores(self) -> dict[tuple[str, ...], TieredBankStore]:
+    def tiered_stores(self) -> dict[
+            tuple[str, ...], TieredBankStore | ShardedTieredBankStore]:
         """Snapshot of the live model-group -> tiered-store map."""
         with self._tier_lock:
             return dict(self._tiered_stores)

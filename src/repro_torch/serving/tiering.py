@@ -65,11 +65,26 @@ buffer.  The new tensors are recorded on the dispatch stream
 again while a dispatch kernel may still read them.  On the CPU there is no
 stream, and the same code runs the plain path.
 
-Tiering over sharding (``ShardedTieredBankStore``) waits for the sharded
-bank (ROADMAP Queue 1 item 11).
+Tiered over sharded
+-------------------
+
+:class:`ShardedTieredBankStore` composes this store with the tenant-sharded
+topology: global rows are partitioned over the "tenants" axis by the same
+round-robin rule as :class:`~repro_torch.core.transforms.ShardedTransformBank`
+(``core.transforms.shard_rows``), each shard owns a per-shard
+:class:`HostBankStore` plus its own hot/victim/prior
+:class:`TieredBankStore`, and a dispatch buckets the window by owning
+shard, resolves slots per shard, and launches the banked kernel ONCE a
+pass through the sharded dispatcher over the stacked per-shard views (the
+dispatch stream waits on every view's ``ready`` event first).  Device
+residency is ``(hot+victims+1)·(2K+2N)·4`` bytes PER SHARD, independent of
+tenant count; publishes land in every shard's host rows and device view
+under ONE generation (all shard locks held in shard order, per-shard
+generations advance in lockstep).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Any, Mapping, Sequence
@@ -84,6 +99,7 @@ from repro_torch.core.transforms import (
     TransformBank,
     banked_score_pipeline,
     pad_quantile_tables,
+    shard_rows,
 )
 from repro_torch.device import resolve_device, to_numpy
 from repro_torch.kernels import ops
@@ -379,8 +395,8 @@ class TieredBankStore:
         self.config = config or TieringConfig()
         self.device = resolve_device(device)
         t = host.num_rows
-        # hot_slots: explicit hot-tier size override (the reference's
-        # composed sharded store gives every shard the same value)
+        # hot_slots: explicit hot-tier size override (the composed sharded
+        # store gives every shard the same value)
         self._hot = min(self.config.hot_capacity, t) if hot_slots is None \
             else int(hot_slots)
         self._victims = self.config.victim_capacity
@@ -425,8 +441,8 @@ class TieredBankStore:
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(self.device))
         self._view = _TierView(*tensors, generation=generation, ready=ready)
-        # RLock: the reference's composed sharded store holds every shard's
-        # lock and then calls per-shard methods that re-acquire their own
+        # RLock: the composed sharded store holds every shard's lock and
+        # then calls per-shard methods that re-acquire their own
         self._lock = threading.RLock()
         # victim slots reserved by an in-flight overlapped prefetch (its
         # copy runs OFF the lock); concurrent prefetches avoid these.
@@ -907,5 +923,450 @@ class TieredBankStore:
             self.host.admitted[:n] = adm[:n]
 
 
-__all__ = ["HostBankStore", "TieredBankStore", "TieringConfig",
-           "prior_bank_row"]
+class ShardedTieredBankStore:
+    """Per-shard hot/victim/prior tiers over a row-partitioned host store.
+
+    Global rows partition over the "tenants" axis by the SAME round-robin
+    rule as :class:`~repro_torch.core.transforms.ShardedTransformBank`
+    (``shard_rows``), each shard owning a :class:`HostBankStore` slice and
+    a full :class:`TieredBankStore` (hot slots, victim clock, pinned prior
+    row, all PER SHARD — device residency is ``(hot+victims+1)·(2K+2N)·4``
+    bytes per shard regardless of tenant count).  The public surface
+    mirrors :class:`TieredBankStore` addressed by GLOBAL row ids, so the
+    serving layer (publish, rebalance, prefetch, warm start, mark_cold)
+    treats both interchangeably; hotness snapshots are global-indexed, so
+    a rollout can warm a composed store from a single-tier predecessor and
+    vice versa.
+
+    A dispatch buckets events by owning shard, runs every shard's staging
+    pass, packs one ``(S, Bs, K)`` slot-remapped batch (edge-padded per
+    shard, as the pure-sharded dispatcher pads), and launches the banked
+    kernel ONCE through the dispatcher's ``run_packed`` over the stacked
+    per-shard views — per-row compute is the dense path's kernel, so
+    composed scores match the dense bank BITWISE.  Cross-shard operations
+    (dispatch, publish, rebalance, hotness snapshots) take every shard's
+    lock in shard order; per-shard operations (prefetch, mark_cold) take
+    one shard's lock at a time and never wait for another's while holding
+    one.  ``dispatcher`` defaults to a :class:`ShardedBankDispatcher` over
+    ``num_shards`` shards on ``device`` (the card unless the caller asks
+    for another); a given one's mesh device is the stores' device.
+    """
+
+    def __init__(self, host: HostBankStore, num_shards: int,
+                 config: TieringConfig | None = None, *,
+                 dispatcher: Any = None,
+                 generation: int = 0,
+                 shard_of: np.ndarray | None = None,
+                 device: torch.device | str | None = None) -> None:
+        self.config = config or TieringConfig()
+        t = host.num_rows
+        assign, local, counts = shard_rows(t, num_shards, shard_of)
+        self.shard_of = assign
+        self.local_of = local
+        self.row_counts = counts
+        self.global_of = [np.flatnonzero(assign == s)
+                          for s in range(num_shards)]
+        # every shard gets the SAME hot-slot count (even the underfull
+        # ones) so the per-shard views stack into one (S, R, ·) operand
+        hot_slots = min(self.config.hot_capacity,
+                        max(int(counts.max()) if counts.size else 1, 1))
+        if dispatcher is None:
+            # deferred: serving.server imports this module at the top
+            from repro_torch.launch.mesh import make_tenant_mesh
+            from repro_torch.serving.server import ShardedBankDispatcher
+            dispatcher = ShardedBankDispatcher(
+                make_tenant_mesh(num_shards, device),
+                fused=self.config.fused_kernel)
+        if device is None:    # where the dispatcher's shards live
+            device = getattr(getattr(dispatcher, "mesh", None), "device",
+                             None)
+        self.device = resolve_device(device)
+        self.dispatcher = dispatcher
+        self.shards: list[TieredBankStore] = []
+        for s in range(num_shards):
+            g = self.global_of[s]
+            sub = HostBankStore(
+                host.betas[g], host.weights[g],
+                host.src_quantiles[g], host.ref_quantiles[g],
+                admitted=host.admitted[g])
+            self.shards.append(TieredBankStore(
+                sub, self.config, generation=generation,
+                hot_slots=hot_slots, device=self.device))
+        # identity witness for the serving layer's bank cache (same
+        # contract as TieredBankStore.source_pipelines)
+        self.source_pipelines: tuple | None = None
+        # stacked-view cache: restacking S x R rows costs a device copy
+        # per dispatch; keyed on the per-shard view IDENTITIES (strong
+        # refs — any staging/publish/rebalance swaps a view and misses).
+        # On the card the stack carries the event that marks it written.
+        self._stacked_key: tuple | None = None
+        self._stacked: tuple | None = None
+        self._stacked_ready: Any = None
+        self.joint_metrics: dict[str, int] = {
+            "dispatches": 0, "extra_passes": 0}
+
+    # ------------------------------------------------------------- geometry
+    @property
+    def num_rows(self) -> int:
+        return int(self.shard_of.shape[0])
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def hot_capacity(self) -> int:
+        return self.shards[0].hot_capacity
+
+    @property
+    def victim_capacity(self) -> int:
+        return self.shards[0].victim_capacity
+
+    @property
+    def generation(self) -> int:
+        # all shards agree by construction (lockstep publishes)
+        return self.shards[0].generation
+
+    @property
+    def gate_samples(self) -> int:
+        return self.shards[0].gate_samples
+
+    @property
+    def per_shard_device_bytes(self) -> int:
+        """Device-resident bank bytes of ONE shard — a function of
+        configured capacity, independent of tenant count."""
+        return self.shards[0].device_bytes
+
+    @property
+    def device_bytes(self) -> int:
+        return sum(st.device_bytes for st in self.shards)
+
+    @property
+    def host_bytes(self) -> int:
+        return sum(st.host_bytes for st in self.shards)
+
+    @property
+    def metrics(self) -> dict[str, int]:
+        """Aggregated counters: composed-level ``dispatches`` /
+        ``extra_passes`` (joint windows and joint passes) plus every
+        per-shard counter summed; the per-shard window counts land under
+        ``shard_windows`` so they don't double-count dispatches."""
+        agg = dict(self.joint_metrics)
+        for st in self.shards:
+            for k, v in st.metrics.items():
+                if k == "dispatches":
+                    k = "shard_windows"
+                elif k == "extra_passes":
+                    continue  # composed passes counted jointly
+                agg[k] = agg.get(k, 0) + v
+        return agg
+
+    def hot_rows(self) -> np.ndarray:
+        """GLOBAL tenant ids currently in any shard's hot tier."""
+        return np.concatenate(
+            [self.global_of[s][st.hot_rows()]
+             for s, st in enumerate(self.shards)] or
+            [np.empty(0, np.int64)])
+
+    def resident_rows(self) -> np.ndarray:
+        """GLOBAL tenant ids device-resident in any shard, either tier."""
+        return np.concatenate(
+            [self.global_of[s][st.resident_rows()]
+             for s, st in enumerate(self.shards)] or
+            [np.empty(0, np.int64)])
+
+    def dense_bank(self, generation: int = 0,
+                   device: torch.device | str | None = None
+                   ) -> TransformBank:
+        """The dense global bank the per-shard host rows describe (the
+        parity oracle), on ``device`` (the card unless the caller asks for
+        another) — :meth:`HostBankStore.dense_bank`'s contract."""
+        k = self.shards[0].host.num_experts
+        n = self.shards[0].host.num_quantiles
+        t = self.num_rows
+        rows = (np.empty((t, k), np.float32), np.empty((t, k), np.float32),
+                np.empty((t, n), np.float32), np.empty((t, n), np.float32))
+        for s, st in enumerate(self.shards):
+            g = self.global_of[s]
+            for dst, src in zip(rows, (st.host.betas, st.host.weights,
+                                       st.host.src_quantiles,
+                                       st.host.ref_quantiles)):
+                dst[g] = src
+        return HostBankStore(*rows).dense_bank(generation, device)
+
+    # --------------------------------------------------------------- private
+    @contextlib.contextmanager
+    def _locked(self):
+        """Hold every shard's lock, acquired in shard order (the one
+        global lock order — no deadlock against per-shard paths)."""
+        with contextlib.ExitStack() as stack:
+            for st in self.shards:
+                stack.enter_context(st._lock)
+            yield
+
+    def _stacked_views(self, views: Sequence[_TierView]) -> tuple:
+        """The per-shard views stacked into (S, R, ·) operands, cached on
+        the views' identities.  On the card a view may have been built on
+        its shard's copier side stream: the stack (on the dispatch stream)
+        waits on every view's ``ready`` event first, and the views'
+        tensors are recorded on the dispatch stream so the allocator cannot
+        reuse them while it reads them.  A cached stack is waited on
+        through the event recorded when it was written."""
+        key = tuple(views)
+        cuda = self.device.type == "cuda"
+        stream = torch.cuda.current_stream(self.device) if cuda else None
+        if self._stacked is None or self._stacked_key is None \
+                or len(self._stacked_key) != len(key) \
+                or not all(a is b for a, b in zip(self._stacked_key, key)):
+            if cuda:
+                for v in key:
+                    if v.ready is not None:
+                        stream.wait_event(v.ready)
+                    for x in (v.betas, v.weights, v.src_quantiles,
+                              v.ref_quantiles):
+                        x.record_stream(stream)
+            self._stacked = (
+                torch.stack([v.betas for v in key]),
+                torch.stack([v.weights for v in key]),
+                torch.stack([v.src_quantiles for v in key]),
+                torch.stack([v.ref_quantiles for v in key]))
+            self._stacked_key = key
+            self._stacked_ready = None
+            if cuda:
+                self._stacked_ready = torch.cuda.Event()
+                self._stacked_ready.record(stream)
+        elif cuda:
+            stream.wait_event(self._stacked_ready)
+            for x in self._stacked:
+                x.record_stream(stream)
+        return self._stacked
+
+    def _bucket(self, tid: np.ndarray
+                ) -> tuple[np.ndarray, list[np.ndarray]]:
+        """Local ids + per-shard event-index buckets for one window."""
+        shard_ids = self.shard_of[tid]
+        local = self.local_of[tid]
+        buckets = [np.flatnonzero(shard_ids == s)
+                   for s in range(self.num_shards)]
+        return local, buckets
+
+    # -------------------------------------------------------------- serving
+    def dispatch(self, expert_scores: np.ndarray, tenant_idx: np.ndarray
+                 ) -> tuple[np.ndarray, int]:
+        """Score one mixed-tenant window across all shards; returns
+        ``(scores, generation)``.
+
+        Hot path: per-shard slot remap + ONE launch of the banked kernel
+        over the stacked per-shard views.  Cold misses stage per shard
+        exactly like the single store; a window that overflows some
+        shard's victim cache runs joint multi-pass rounds (every shard's
+        pass scores in the same launch)."""
+        raws = np.asarray(expert_scores, np.float32)
+        tid = np.asarray(tenant_idx, np.int64).ravel()
+        if tid.size == 0:
+            return np.empty(0, np.float32), self.generation
+        local, buckets = self._bucket(tid)
+        k = raws.shape[-1]
+        s_count = self.num_shards
+        with self._locked():
+            gen = self.shards[0]._view.generation
+            for s, st in enumerate(self.shards):
+                if len(buckets[s]):
+                    st._record_window_locked(local[buckets[s]])
+            self.joint_metrics["dispatches"] += 1
+            out = np.empty(len(tid), np.float32)
+            done = [np.zeros(len(b), bool) for b in buckets]
+            passes = 0
+            while not all(d.all() for d in done):
+                ready_evs: list[np.ndarray] = []
+                slot_vecs: list[np.ndarray] = []
+                views: list[_TierView] = []
+                for s, st in enumerate(self.shards):
+                    if not len(buckets[s]) or done[s].all():
+                        ready_evs.append(np.empty(0, np.int64))
+                        slot_vecs.append(np.empty(0, np.int32))
+                        views.append(st._view)
+                        continue
+                    eff, ready = st._resolve_pass_locked(
+                        local[buckets[s]], done[s])
+                    ev = np.flatnonzero(ready)
+                    ready_evs.append(ev)
+                    slot_vecs.append(eff[ev].astype(np.int32))
+                    views.append(st._view)
+                widest = max(len(e) for e in ready_evs)
+                if widest == 0:  # pragma: no cover — per-shard progress
+                    raise RuntimeError(
+                        "tiered+sharded dispatch made no progress")
+                bs = _shape_bucket(widest)
+                packed = np.zeros((s_count, bs, k), np.float32)
+                pidx = np.zeros((s_count, bs), np.int32)
+                for s, ev in enumerate(ready_evs):
+                    n = len(ev)
+                    if n:
+                        packed[s, :n] = raws[buckets[s][ev]]
+                        pidx[s, :n] = slot_vecs[s]
+                        if n < bs:
+                            # edge pad per shard, as the pure-sharded
+                            # dispatcher's _pack_bucket pads
+                            pidx[s, n:] = pidx[s, n - 1]
+                res = self.dispatcher.run_packed(
+                    packed, pidx, *self._stacked_views(views))
+                for s, ev in enumerate(ready_evs):
+                    n = len(ev)
+                    if n:
+                        out[buckets[s][ev]] = res[s, :n]
+                        done[s][ev] = True
+                passes += 1
+            if passes > 1:
+                self.joint_metrics["extra_passes"] += passes - 1
+            return out, gen
+
+    def prefetch(self, tenant_idx: np.ndarray) -> int:
+        """Per-shard anti-stall prefetch (each shard's copy overlaps its
+        own lock independently, one shard's lock at a time); returns total
+        rows staged."""
+        tid = np.asarray(tenant_idx, np.int64).ravel()
+        if tid.size == 0:
+            return 0
+        local, buckets = self._bucket(tid)
+        staged = 0
+        for s, st in enumerate(self.shards):
+            if len(buckets[s]):
+                staged += st.prefetch(local[buckets[s]])
+        return staged
+
+    def pre_quantile(self, expert_scores: np.ndarray,
+                     tenant_idx: np.ndarray) -> np.ndarray:
+        """Per-event T^Q input through each row's owning shard (row-local
+        numpy math — identical values to the single-store path)."""
+        raws = np.asarray(expert_scores, np.float32)
+        tid = np.asarray(tenant_idx, np.int64).ravel()
+        local, buckets = self._bucket(tid)
+        out: np.ndarray | None = None
+        for s, st in enumerate(self.shards):
+            if not len(buckets[s]):
+                continue
+            vals = st.pre_quantile(raws[buckets[s]], local[buckets[s]])
+            if out is None:
+                out = np.empty(len(tid), vals.dtype)
+            out[buckets[s]] = vals
+        return out if out is not None else np.empty(0, np.float32)
+
+    # -------------------------------------------------------------- control
+    def rebalance(self, *, generation: int | None = None) -> dict[str, int]:
+        """One promotion/demotion/admission pass on EVERY shard under the
+        full lock set (generation fencing checked once, against the
+        lockstep store generation)."""
+        with self._locked():
+            cur = self.shards[0]._view.generation
+            if generation is not None and generation < cur:
+                raise StaleGenerationError(generation, cur)
+            agg = {"admitted": 0, "promoted": 0, "demoted": 0}
+            for st in self.shards:
+                r = st.rebalance()
+                agg["admitted"] += r["admitted"]
+                agg["promoted"] += r["promoted"]
+                agg["demoted"] += r["demoted"]
+            return {**agg, "generation": cur}
+
+    def apply_updates(self, updates: Mapping[int, "QuantileMap | tuple"],
+                      *, generation: int | None = None) -> int:
+        """Publish refreshed T^Q tables (GLOBAL row ids) into every
+        shard's host rows AND device-resident copies under ONE generation.
+
+        All shard locks are held across the whole publish; every shard's
+        ``apply_updates`` lands with the SAME explicit generation
+        (untouched shards take an empty fenced fast-forward), so per-shard
+        generations can never diverge.  Row ids and table widths are
+        validated BEFORE the first shard write — a bad update raises with
+        no shard touched.  Fencing matches
+        :meth:`TieredBankStore.apply_updates`.
+        """
+        with self._locked():
+            cur = self.shards[0]._view.generation
+            if generation is None:
+                if not updates:
+                    return cur
+                gen = cur + 1
+            else:
+                if generation <= cur:
+                    raise StaleGenerationError(generation, cur)
+                gen = generation
+            n = self.shards[0].host.num_quantiles
+            per: list[dict] = [dict() for _ in range(self.num_shards)]
+            for row, value in updates.items():
+                if not 0 <= row < self.num_rows:
+                    raise IndexError(
+                        f"row {row} outside store of {self.num_rows}")
+                # dry-run pad: raises ValueError on an over-wide table
+                # BEFORE any shard is written
+                pad_quantile_tables(value, n, row=row)
+                per[int(self.shard_of[row])][int(self.local_of[row])] = value
+            for s, st in enumerate(self.shards):
+                st.apply_updates(per[s], generation=gen)
+            return gen
+
+    def mark_cold(self, rows: Sequence[int]) -> None:
+        """Send GLOBAL rows back behind the Eq.-5 gate on their owning
+        shards."""
+        ids = np.asarray(list(rows), np.int64)
+        if not len(ids):
+            return
+        local, buckets = self._bucket(ids)
+        for s, st in enumerate(self.shards):
+            if len(buckets[s]):
+                st.mark_cold(local[buckets[s]])
+
+    def seen(self, row: int) -> int:
+        return self.shards[int(self.shard_of[row])].seen(
+            int(self.local_of[row]))
+
+    # ---------------------------------------------------------- persistence
+    def hotness_snapshot(self) -> dict:
+        """GLOBAL-indexed hotness/admission state — the layout a single
+        :class:`TieredBankStore` emits, so rollouts warm start across
+        topologies (single-tier <-> sharded-tier)."""
+        t = self.num_rows
+        scores = np.zeros(t, np.float64)
+        seen = np.zeros(t, np.int64)
+        adm = np.zeros(t, bool)
+        windows = 0
+        with self._locked():
+            for s, st in enumerate(self.shards):
+                g = self.global_of[s]
+                scores[g] = st.tracker.scores()
+                seen[g] = st._seen
+                adm[g] = st.host.admitted
+                windows = max(windows, st.tracker.windows)
+        return {"tracker": {"num_keys": t, "decay": float(self.config.decay),
+                            "scores": scores, "windows": windows},
+                "seen": seen, "admitted": adm}
+
+    def adopt_hotness(self, snap: dict) -> None:
+        scores = np.asarray(snap["tracker"]["scores"], np.float64)
+        seen = np.asarray(snap["seen"], np.int64)
+        adm = np.asarray(snap["admitted"], bool)
+        windows = int(snap["tracker"].get("windows", 0))
+        n = min(len(scores), self.num_rows)
+        with self._locked():
+            for s, st in enumerate(self.shards):
+                g = self.global_of[s]
+                valid = g < n
+                # rows past the snapshot (size mismatch) keep their local
+                # seen/admitted state — the single store's prefix-adopt
+                # semantics; tracker scores reset to 0 either way
+                sub_scores = np.zeros(len(g), np.float64)
+                sub_seen = st._seen.copy()
+                sub_adm = st.host.admitted.copy()
+                sub_scores[valid] = scores[g[valid]]
+                sub_seen[valid] = seen[g[valid]]
+                sub_adm[valid] = adm[g[valid]]
+                st.adopt_hotness({
+                    "tracker": {"num_keys": len(g),
+                                "decay": float(self.config.decay),
+                                "scores": sub_scores, "windows": windows},
+                    "seen": sub_seen, "admitted": sub_adm})
+
+
+__all__ = ["HostBankStore", "ShardedTieredBankStore", "TieredBankStore",
+           "TieringConfig", "prior_bank_row"]

@@ -3,8 +3,9 @@
 ``python -m repro_torch.benchmarks.bench_kernels --quick --device cpu``
 runs in a subprocess and writes its five entries, each agreeing with its
 plain version (on the CPU ``ops`` runs the plain versions, so this shows
-the entry point works; it measures nothing of the card); the async-engine
-and tiered-store benchmarks run the same way at their quick sizes.  The
+the entry point works; it measures nothing of the card); the async-engine,
+tiered-store, sharded-bank, serving-latency and multi-tenant-batch
+benchmarks run the same way at their quick sizes.  The
 least-time bounds of ``benchmarks/timing.py`` are checked against the byte
 and operation counts written out by hand.
 """
@@ -111,6 +112,71 @@ def test_tiered_bank_quick_cpu_run(tmp_path):
     assert result["parity_passes"] > 1       # 1,024 cold rows, 127 victims
     assert result["dispatch_launches"] == 0  # the plain version on the CPU
     assert result["dispatch_passes"] > 0
+
+
+def test_tiered_bank_baseline_is_the_sharded_dispatch(tmp_path):
+    """The tiered benchmark's baseline is the S = 8 sharded dispatch at its
+    batch, K and N, measured in the same run (the reference's baseline)."""
+    result = _quick_cpu("bench_tiered_bank", tmp_path)
+    assert result["sharded_s8_events_per_s_t4096"] > 0
+    assert result["hot_vs_sharded_s8_ratio"] == pytest.approx(
+        result["rows"][-1]["events_per_s_hot"]
+        / result["sharded_s8_events_per_s_t4096"])
+
+
+def test_sharded_bank_quick_cpu_run(tmp_path):
+    """The sharded-bank benchmark at the reference's quick sizes: every
+    sharded row bitwise equal to the dense launch (the run raises
+    otherwise), resident bytes exactly 1/S of the dense bank."""
+    result = _quick_cpu("bench_sharded_bank", tmp_path)
+    rows = result["rows"]
+    assert result["batch"] == 2048 and result["tenant_counts"] == [256, 1024]
+    assert [(r["tenants"], r["shards"]) for r in rows] == [
+        (t, s) for t in (256, 1024) for s in (0, 1, 2, 4, 8)]
+    for r in rows:
+        dense = r["tenants"] * (2 * 4 + 2 * 256) * 4
+        assert r["resident_bytes"] == dense // max(r["shards"], 1)
+        assert r["residency_ratio"] == 1 / max(r["shards"], 1)
+        assert r["bitwise_parity"] is True and r["events_per_s"] > 0
+        assert r["launches_per_call"] == 0      # the plain version on the CPU
+        assert r["banked_path"] == "plain"
+    assert result["per_shard_bytes_at_smax"] == 266_240
+    assert result["all_bitwise_parity"] is True
+
+
+def test_serving_latency_quick_cpu_run(tmp_path):
+    """The serving-latency benchmark: the path at four batch sizes, the
+    transform alone at 4,096 rows within 2e-5 of its plain version, and
+    the transform's share of the path by the reference's formula."""
+    result = _quick_cpu("bench_serving_latency", tmp_path)
+    for bs in (1, 16, 64, 256):
+        row = result[f"batch_{bs}"]
+        assert row["latency_ms"] > 0
+        assert row["events_per_s"] == pytest.approx(
+            bs / row["latency_ms"] * 1e3)
+    pipe = result["transform_pipeline_4096"]
+    assert pipe["max_abs_err_vs_plain"] == 0.0 and pipe["kernel_ms"] is None
+    share = 100.0 * (pipe["latency_ms"] / 4096) / (
+        result["batch_256"]["latency_ms"] / 256)
+    assert result["transform_share_of_path_pct"] == pytest.approx(share)
+    assert set(result["launches"].values()) == {0}
+    # warm-up (two calls of each batch) plus 21 calls of each batch
+    assert result["kernel_dispatches"] == 4 * 21
+
+
+def test_multitenant_batch_quick_cpu_run(tmp_path):
+    """The banked launch against the per-predictor loop at the reference's
+    quick sizes: both agree with their plain versions."""
+    result = _quick_cpu("bench_multitenant_batch", tmp_path)
+    assert (result["tenants"], result["batch"]) == (16, 256)
+    assert result["loop_launches_per_call"] == 16
+    assert result["max_abs_err_vs_oracle"] == 0.0
+    assert result["bitwise_vs_oracle"] is True
+    assert result["max_abs_err_loop_vs_plain"] == 0.0
+    assert result["max_abs_diff_loop_vs_banked"] <= 2e-5
+    assert result["us_banked"] > 0 and result["us_per_predictor_loop"] > 0
+    assert result["quantile_update_speedup"] > 1.0
+    assert set(result["launches"].values()) == {0}
 
 
 def test_bounds_count_bytes_and_operations():

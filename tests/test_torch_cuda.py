@@ -1430,3 +1430,108 @@ def test_tiered_server_and_engine_equal_the_dense_server(dev):
     assert tiered.tier_metrics()["prefetched_rows"] > 0
     tracked = sum(e.count for e in tiered.estimator_streams().values())
     assert tracked == 2048
+
+
+# ------------------------------------- sharded and tiered-over-sharded, card
+def _sharded_stores(dev, rows, s, **config):
+    """(pure-sharded bank + dispatcher, composed store) over ``rows``."""
+    from repro_torch.core.transforms import ShardedTransformBank, TransformBank
+    from repro_torch.launch.mesh import make_tenant_mesh
+    from repro_torch.serving import ShardedBankDispatcher
+    from repro_torch.serving.tiering import (HostBankStore,
+                                             ShardedTieredBankStore,
+                                             TieringConfig)
+
+    bank = TransformBank(*(torch.tensor(r, device=dev) for r in rows))
+    disp = ShardedBankDispatcher(make_tenant_mesh(s, dev))
+    composed = ShardedTieredBankStore(
+        HostBankStore(*rows), s, TieringConfig(**{
+            "hot_capacity": 6, "victim_capacity": 4, **config}),
+        dispatcher=disp)
+    return ShardedTransformBank.from_dense(bank, s), disp, composed
+
+
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+def test_dense_sharded_and_composed_are_bitwise_equal(dev, s):
+    """Dense == sharded == tiered-over-sharded on the card, bit for bit,
+    cold (multi-pass), after a rebalance and after a publish, over an
+    assignment with an empty shard too; one banked launch a pass."""
+    from repro_torch.core.transforms import QuantileMap, ShardedTransformBank
+
+    rng = np.random.default_rng(30 + s)
+    t = 300
+    rows = _tier_rows(rng, t)
+    sbank, disp, composed = _sharded_stores(dev, rows, s)
+    raws = rng.uniform(0, 1, (2048, 4)).astype(np.float32)
+    tid = rng.integers(0, t, 2048)
+    want = _dense_on(dev, rows, raws, tid)
+    before = ops.LAUNCHES["score_pipeline_banked"]
+    assert np.array_equal(disp(raws, tid, sbank), want)
+    assert ops.LAUNCHES["score_pipeline_banked"] == before + 1
+    if s > 1:
+        empty = ShardedTransformBank.from_dense(
+            sbank.to_dense(), s, shard_of=rng.integers(0, s - 1, t))
+        assert empty.row_counts[-1] == 0
+        assert np.array_equal(disp(raws, tid, empty), want)
+    before = ops.LAUNCHES["score_pipeline_banked"]
+    got, _ = composed.dispatch(raws, tid)
+    m = composed.metrics
+    assert ops.LAUNCHES["score_pipeline_banked"] == \
+        before + m["dispatches"] + m["extra_passes"]
+    assert m["extra_passes"] > 0 and np.array_equal(got, want)
+    composed.rebalance()
+    assert np.array_equal(composed.dispatch(raws, tid)[0], want)
+    src = np.sort(rng.uniform(0, 1, 256)).astype(np.float32)
+    qm = QuantileMap(torch.tensor(src), torch.tensor(src ** 2))
+    updates = {int(r): qm for r in rng.choice(t, 5, replace=False)}
+    assert composed.apply_updates(updates) == 1
+    sbank = sbank.with_rows(updates)
+    host = composed.dense_bank(1, dev)
+    want = ops.score_pipeline_banked(
+        torch.tensor(raws, device=dev),
+        torch.tensor(tid.astype(np.int32), device=dev), host.betas,
+        host.weights, host.src_quantiles, host.ref_quantiles).cpu().numpy()
+    got, gen = composed.dispatch(raws, tid)
+    assert gen == 1 and np.array_equal(got, want)
+    assert np.array_equal(disp(raws, tid, sbank), want)
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_composed_store_under_concurrent_prefetch(dev, overlap):
+    """The composed store on the card while a thread prefetches per shard
+    (side-stream views behind their events): every dispatch bitwise the
+    dense bank, no deadlock between per-shard and all-shard locks."""
+    import threading
+
+    rng = np.random.default_rng(40)
+    t = 4000
+    rows = _tier_rows(rng, t)
+    _, _, store = _sharded_stores(dev, rows, 4, hot_capacity=32,
+                                  victim_capacity=16, overlap_staging=overlap)
+    for st in store.shards:
+        st.tracker.record(np.arange(32))
+    store.rebalance()
+    churn = [rng.integers(0, t, 32) for _ in range(64)]
+    stop = threading.Event()
+
+    def churner():
+        i = 0
+        while not stop.is_set():
+            store.prefetch(churn[i % len(churn)])
+            i += 1
+
+    th = threading.Thread(target=churner, daemon=True)
+    th.start()
+    try:
+        for w in range(40):
+            hot = store.hot_rows()
+            mix = np.where(rng.random(512) < 0.9, rng.choice(hot, 512),
+                           rng.integers(0, t, 512))
+            raws = rng.uniform(0, 1, (512, 4)).astype(np.float32)
+            got, _ = store.dispatch(raws, mix)
+            assert np.array_equal(got, _dense_on(dev, rows, raws, mix)), w
+    finally:
+        stop.set()
+        th.join(timeout=60)
+    assert not th.is_alive()
+    assert store.metrics["prefetched_rows"] > 0

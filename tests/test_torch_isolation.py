@@ -132,7 +132,11 @@ SCRIPT = textwrap.dedent("""
             "repro_torch.core.hotness", "repro_torch.serving.engine",
             "repro_torch.serving.tiering",
             "repro_torch.benchmarks.bench_async_engine",
-            "repro_torch.benchmarks.bench_tiered_bank"} <= set(names)
+            "repro_torch.benchmarks.bench_tiered_bank",
+            "repro_torch.launch.mesh",
+            "repro_torch.benchmarks.bench_sharded_bank",
+            "repro_torch.benchmarks.bench_serving_latency",
+            "repro_torch.benchmarks.bench_multitenant_batch"} <= set(names)
 
     from repro_torch.core.predictor import PredictorSpec
     from repro_torch.core.routing import (Condition, Intent, RoutingTable,
@@ -209,6 +213,20 @@ SCRIPT = textwrap.dedent("""
         [r.score for r in out]
     engine.close()
     assert tiered.tier_metrics()["events"] == 16
+
+    # the sharded server and tiering over it, jax blocked
+    for config in (ServerConfig(tenant_shards=2),
+                   ServerConfig(tenant_shards=2, tiering=TieringConfig(
+                       hot_capacity=1, victim_capacity=1))):
+        sharded = MuseServer(RoutingTable(rules, version="v1"), config,
+                             device="cpu")
+        for name, weights in (("pa", (1.0, 1.0)), ("pb", (2.0, 1.0))):
+            sharded.deploy(PredictorSpec(name, ("m0", "m1"), (0.2, 0.5),
+                                         weights, QuantileMap.identity(32)),
+                           factories)
+        assert [r.score for r in sharded.score_batch(reqs)] == \
+            [r.score for r in out]
+        assert sharded.metrics["shard_dispatches"] == 1
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve
@@ -323,6 +341,24 @@ def test_entry_points_default_to_the_card():
         bench_async_engine.run(quick=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench_tiered_bank.main(["--quick"])
+    # the tenant mesh, the composed store and the three benchmarks of the
+    # sharded and main paths
+    from repro_torch.benchmarks import (bench_multitenant_batch,
+                                        bench_serving_latency,
+                                        bench_sharded_bank)
+    from repro_torch.launch.mesh import make_tenant_mesh
+    from repro_torch.serving.tiering import ShardedTieredBankStore
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_tenant_mesh(2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardedTieredBankStore(host, 2)
+    for bench in (bench_sharded_bank, bench_serving_latency,
+                  bench_multitenant_batch):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            bench.run(quick=True)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            bench.main(["--quick"])
 
 
 def test_kernels_layer_loads_no_model_code():

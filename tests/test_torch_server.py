@@ -323,13 +323,3 @@ def test_plain_path_matches_fused_path(worlds):
     fused, unfused = ts.score_batch(a), plain.score_batch(b)
     assert [r.score for r in fused] == [r.score for r in unfused]
     assert plain.metrics["skip_blocks_total"] == 0
-
-
-@pytest.mark.parametrize("config", [
-    dict(tenant_shards=2),
-    dict(tiering=tserver.TieringConfig(hot_capacity=2, victim_capacity=1),
-         tenant_shards=2)])
-def test_unported_configurations_raise(config):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserver.MuseServer(_routing(trouting), tserver.ServerConfig(**config),
-                           device="cpu")

@@ -12,8 +12,8 @@ exactly, and scores agree within the reference's f32 tolerance
 (the jnp oracle), so no Pallas kernel runs; the port's run ``ops`` on CPU
 tensors (the plain banked version).  The tiered server, the calibration
 controllers, the async engine's prefetch and the rollout warm start are
-covered the same way.  The sharded case of the reference's suite waits for
-the sharded bank (ROADMAP Queue 1 item 11).
+covered the same way.  The reference suite's sharded cases are ported in
+``tests/test_torch_tiered_sharded.py``.
 """
 import threading
 
@@ -1171,12 +1171,13 @@ class TestRolloutWarmStart:
 
 
 def test_module_surface_matches_the_reference():
-    """The port's tiering module exports the reference's single-store API
-    (the sharded store waits for ROADMAP Queue 1 item 11)."""
-    assert set(ttier.__all__) == {"HostBankStore", "TieredBankStore",
-                                  "TieringConfig", "prior_bank_row"}
+    """The port's tiering module exports the reference's API: the single
+    store and the composed tiered-over-sharded store."""
+    assert set(ttier.__all__) == {"HostBankStore", "ShardedTieredBankStore",
+                                  "TieredBankStore", "TieringConfig",
+                                  "prior_bank_row"}
+    assert all(hasattr(jtier, name) for name in ttier.__all__)
     assert ttier._shape_bucket(5) == jtier._shape_bucket(5) == 8
-    assert not hasattr(ttier, "ShardedTieredBankStore")
     assert TieringConfig().__dict__ == jtier.TieringConfig().__dict__
     for bad in (dict(hot_capacity=0), dict(victim_capacity=0)):
         with pytest.raises(ValueError):
