@@ -97,7 +97,25 @@ Phases, each printing one JSON line:
              transform's share of the path) and ``bench_multitenant_batch``
              (one banked launch against 64 per-predictor launches at 64 x
              1,024, each within 2e-5 of its plain version).
-9. attention — the two flash-attention kernels against their plain
+9. paper_bench — the paper's tables and figures at the reference's full
+             sizes (``repro_torch.benchmarks``): Table 1 (T^C on the
+             card), Fig. 4 (T^Q of 400,000 and 200,000 live scores through
+             the quantile-map kernel, and the fleet refresh at 4-128
+             tenants through the banked kernel), Fig. 6 (three T^Q
+             launches of 400,000 scores), Fig. 5 (a rolling update over 3
+             replicas under traffic), the fleet calibration plane (2-16
+             replicas) and the attack campaign (every audited decision
+             replayed bit for bit through the banked kernel), each with
+             its own launch counts; the T^Q kernel on the live scores
+             within 2e-5 of its plain version (bitwise on knots, no score
+             changing bin unless within 2e-5 of an edge) and its time
+             at 400,000 x 256 beside its plain version and bound; Table 1
+             and Figs. 4 and 6 against the port's CPU run at the same
+             size (the values whose bits differ counted);
+             the rollout's, the fleet's and the campaign's invariants;
+             then ``python -m repro_torch.examples.quickstart`` on the
+             card, line for line its CPU run.
+10. attention — the two flash-attention kernels against their plain
              version on the card, float32 and bfloat16 (bf16 with D = 64
              or 128 runs the tensor-core form, the rest the SIMT form,
              checked per case): the reference's five cases, Tq < Tk, a
@@ -107,7 +125,7 @@ Phases, each printing one JSON line:
              D=128, causal) the tensor-core form's time in bf16 and the
              SIMT form's in float32, each beside the plain version,
              PyTorch's own attention call and the bound.
-10. llm_serve — the port's model path at the full width of qwen3-8b
+11. llm_serve — the port's model path at the full width of qwen3-8b
              (36 layers, d_model 4,096, vocab 151,936; bf16 weights from a
              seed): ``launch.serve.serve`` prefills 4 x 2,048 tokens through
              the tensor-core kernel, decodes 16 greedy steps and maps the
@@ -118,9 +136,10 @@ Phases, each printing one JSON line:
              model against the plain version in float32.  A float32
              prefill through the kernel branch (the SIMT form's path) is
              held against the float32 reference prefill.
-11. score_kernels — the quantile-map and shared-parameter score-pipeline
-             kernels against their plain versions, float32 and bfloat16:
-             the reference's cases, scores on knots (bitwise), NaN scores,
+12. score_kernels — the quantile-map and shared-parameter score-pipeline
+             kernels against their plain versions, float32 and bfloat16
+             (the score-pipeline kernel bit for bit on every case): the
+             reference's cases, scores on knots (bitwise), NaN scores,
              scores outside the support, flat, all-flat, unsorted and
              NaN-knot tables at K = 3 and 8, M = 1, a (4, 7, 9) batch,
              K = 1; the quantile map on sizes no multiple of the block,
@@ -131,8 +150,8 @@ Phases, each printing one JSON line:
              through the three T^Q kernels (the banked one on both paths),
              padded bitwise equal to unpadded; then their times at a
              1,024-row serve window (the benchmark's 65,536 rows are timed
-             by phase 13).
-12. decode_attention — the decode kernel against its plain version,
+             by phase 14).
+13. decode_attention — the decode kernel against its plain version,
              float32 within 2e-5 and bf16 within bf16's rounding of the
              plain version run in float32 on the same inputs: the
              reference's cases and per-row lengths, valid_len 0 (exactly
@@ -144,10 +163,10 @@ Phases, each printing one JSON line:
              own attention call (warm and cold), the bounds and a traced
              loop (a call's period, the combine's tail, the launches a
              call: at most two, and no other kernel).
-13. bench_kernels — the port's kernel microbenchmark at full size, the path
+14. bench_kernels — the port's kernel microbenchmark at full size, the path
              of those three kernels: every entry agrees with its plain
              version and every kernel launched.
-14. kernels — every kernel of the port with its launches on its path, its
+15. kernels — every kernel of the port with its launches on its path, its
              error and its times at the path's shapes.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -1730,6 +1749,193 @@ def phase_main_bench(dev) -> dict:
 
 
 # ---------------------------------------------------------------- phase 9
+# The card's run of Table 1, Fig. 4 and Fig. 6 against the port's CPU run of
+# the same module at the same size.  Table 1: T^C is the same float32
+# expression of separate IEEE operations on both devices, so equal bits are
+# expected; 1e-6 relative admits an ulp a corrected score.  Figs. 4 and 6:
+# the kernel's T^Q differs from the plain version's by an ulp or so a
+# score, which changes a statistic only where a score crosses a bin edge or
+# a threshold: one crossing moves a bin's relative error by 1/(n·expected)
+# <= 1.8e-3 (n = 200,000, least expected bin mass 0.00276), a recall by 1 /
+# positives (3e-4) and an alert rate or bin mass by 1/n; 5e-3 admits two
+# crossings, and every bin change must lie within 2e-5 of an edge.
+PAPER_TOL = {"table1": {"rtol": 1e-6}, "fig4": {"atol": 5e-3},
+             "fig6": {"atol": 5e-3}}
+PAPER_STAMP = frozenset({"device", "nvidia_smi", "launches", "tq_vs_plain"})
+QUICKSTART_LINES = ("models provisioned: 2 (3 predictors share 2 physical "
+                    "models)", "live score via bank1-predictor-v1: ",
+                    "shadow records written: 1",
+                    "after T^Q swap (no model re-provisioning): ",
+                    "after promotion, same intent now served by "
+                    "bank1-predictor-v2 (routing v2): ")
+
+
+def _live_tq(name, checks: dict) -> None:
+    """The kernel against its plain version on a figure's live scores."""
+    for label, c in checks.items():
+        where = f"{name}/{label}"
+        check(c["max_abs_err"] <= TOL,
+              f"{where}: quantile_map off its plain version by "
+              f"{c['max_abs_err']}")
+        check(c["on_knot_equal"], f"{where}: scores on knots not bitwise")
+        check(c["bin_changes"] == 0 or c["bin_changes_max_edge_gap"] <= TOL,
+              f"{where}: {c['bin_changes']} scores changed bin, "
+              f"{c['bin_changes_max_edge_gap']} from an edge")
+
+
+def _quickstart(dev) -> dict:
+    """``python -m repro_torch.examples.quickstart`` on the card, in a
+    process of its own, against the same example run on the CPU here."""
+    import contextlib
+    import io
+    import os
+    from repro_torch.examples import quickstart
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.quickstart"],
+        capture_output=True, text=True, timeout=300, cwd=root,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"quickstart: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    check(len(lines) == len(QUICKSTART_LINES)
+          and all(a.startswith(b) for a, b in zip(lines, QUICKSTART_LINES)),
+          f"quickstart printed {lines}")
+    cpu = io.StringIO()
+    with contextlib.redirect_stdout(cpu):
+        quickstart.main(["--device", "cpu"])
+    check(lines == cpu.getvalue().splitlines(),
+          f"quickstart on the card {lines}, on the CPU "
+          f"{cpu.getvalue().splitlines()}")
+    return {"lines": lines, "seconds": seconds, "equals_cpu_run": True}
+
+
+LIVE_TQ = (400_000, 256)   # Fig. 4's v0 and Fig. 6's launches: scores, N
+
+
+def _live_tq_ms(dev) -> dict:
+    """The T^Q kernel's time at the figures' launch size: 400,000 float32
+    scores of the fraud score's shape against a fitted 256-knot table."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks.timing import device_ms, quantile_map_bound
+    from repro_torch.core.transforms import (QuantileMap,
+                                             fraud_reference_quantiles)
+    from repro_torch.kernels import ops, ref
+
+    m, n = LIVE_TQ
+    rng = np.random.default_rng(21)
+    qm = QuantileMap.fit(rng.beta(0.5, 8.0, m), fraud_reference_quantiles(n))
+    x = torch.tensor(rng.beta(0.5, 8.0, m), dtype=torch.float32, device=dev)
+    args = (x, qm.src_quantiles.to(dev), qm.ref_quantiles.to(dev))
+    bound = quantile_map_bound(m, n, 4)
+    return {"shape": {"M": m, "N": n},
+            "max_abs_err": _compare("quantile_map/live", ops.quantile_map(
+                *args), ref.quantile_map(*args)),
+            "ms": device_ms(lambda: ops.quantile_map(*args)),
+            "plain_ms": device_ms(lambda: ref.quantile_map(*args), inner=10),
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+
+
+def phase_paper_bench(dev) -> dict:
+    """The paper's tables and figures on the card at full size: Table 1,
+    Fig. 4 (and its fleet refresh), Fig. 6, Fig. 5, the fleet calibration
+    plane and the attack campaign, each with the launch counts set to 0
+    just before it and read just after.  The T^Q kernel on Figs. 4 and 6's
+    live scores is held to its plain version on the same tensors; Table 1
+    and Figs. 4 and 6 to the port's CPU run at the same size (PAPER_TOL);
+    Fig. 5, the fleet refresh and the attack campaign to the invariants
+    their results carry.  Then the quickstart on the card."""
+    from repro_torch.benchmarks import (bench_attack_campaign,
+                                        bench_fig4_quantile_update,
+                                        bench_fig5_rollout,
+                                        bench_fig6_model_update,
+                                        bench_fleet_refresh,
+                                        bench_table1_calibration, paper)
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    runs = {"table1": (bench_table1_calibration.run, None),
+            "fig4": (bench_fig4_quantile_update.run, "quantile_map"),
+            "fig4_refresh": (bench_fig4_quantile_update.run_refresh,
+                             "score_pipeline_banked"),
+            "fig6": (bench_fig6_model_update.run, "quantile_map"),
+            "fig5": (bench_fig5_rollout.run, "score_pipeline_banked"),
+            "fleet_refresh": (bench_fleet_refresh.run,
+                              "score_pipeline_banked"),
+            "attack_campaign": (bench_attack_campaign.run,
+                                "score_pipeline_banked")}
+    results, launches, seconds = {}, {}, {}
+    for name, (fn, kernel) in runs.items():
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        t1 = time.perf_counter()
+        results[name] = fn(device=dev)
+        seconds[name] = time.perf_counter() - t1
+        launches[name] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        check(kernel is None or launches[name].get(kernel, 0) > 0,
+              f"{name} launched {kernel}: {launches[name]}")
+    for name in ("fig4", "fig6"):
+        _live_tq(name, results[name]["tq_vs_plain"])
+    live = _live_tq_ms(dev)
+
+    # the card against the CPU, at the same size
+    cpu_seconds, diffs = {}, {}
+    for name, tol in PAPER_TOL.items():
+        t1 = time.perf_counter()
+        cpu = runs[name][0](device="cpu")
+        cpu_seconds[name] = time.perf_counter() - t1
+        off = paper.differences(cpu, results[name], skip=PAPER_STAMP, **tol)
+        check(not off, f"{name}: the card against the CPU: {off[:5]}")
+        # the values whose bits differ, all within the tolerance
+        not_bitwise = paper.differences(cpu, results[name], skip=PAPER_STAMP)
+        diffs[name] = {"values_not_bitwise": len(not_bitwise),
+                       "first": not_bitwise[:5]}
+
+    # the invariants the other results carry
+    f5 = results["fig5"]
+    check(f5["invariants_ok"] and f5["min_ready"] >= f5["pod_baseline"]
+          and f5["pod_final"] == f5["pod_baseline"],
+          f"fig5 rollout invariants: {f5}")
+    check(results["fleet_refresh"]["all_within_bound"],
+          "fleet refresh: a published table past the rank-error bound")
+    check(all(r["generation"] == 1 for r in results["fig4_refresh"]["rows"]),
+          "fig4 refresh: one published generation a pass")
+    attack = results["attack_campaign"]
+    check(attack["attack_refreshes"] > 0, "attack campaign: no refresh")
+    for regime in ("quiet", "attack"):
+        r = attack[regime]
+        check(r["audit_replayed_bitwise"] == r["audit_entries"]
+              == r["audit_replay_launches"] > 0,
+              f"attack {regime}: {r['audit_replayed_bitwise']} replayed "
+              f"bitwise through {r['audit_replay_launches']} launches, "
+              f"{r['audit_entries']} entries")
+    quickstart = _quickstart(dev)
+
+    def scalars(res):
+        return {k: v for k, v in res.items()
+                if isinstance(v, (int, float, str, bool)) or v is None}
+
+    result = {"phase": "paper_bench", "launches": launches,
+              "seconds": seconds, "cpu_seconds": cpu_seconds,
+              "tolerance": PAPER_TOL,
+              "card_vs_cpu": diffs,
+              "tq_vs_plain": {n: results[n]["tq_vs_plain"]
+                              for n in ("fig4", "fig6")},
+              "quantile_map_live": live,
+              "results": {n: scalars(r) for n, r in results.items()},
+              "fig4_refresh_rows": results["fig4_refresh"]["rows"],
+              "fleet_rows": results["fleet_refresh"]["rows"],
+              "attack": {k: attack[k] for k in ("quiet", "attack")},
+              "quickstart": quickstart,
+              "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 10
 # (b, tq, tk, hq, hkv, d, causal, window)
 ATTN_CASES = {
     "gqa_causal": (2, 128, 128, 4, 2, 64, True, 0),
@@ -1883,7 +2089,7 @@ def phase_attention(dev) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 10
+# ---------------------------------------------------------------- phase 11
 LLM_ARCH = "qwen3-8b"
 LLM_BATCH, LLM_PROMPT, LLM_STEPS = 4, 2048, 16
 # (weight seed, prompt seed) of the accuracy check; the first is the
@@ -2186,7 +2392,7 @@ def phase_llm_serve(dev, attention: dict) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 11
+# ---------------------------------------------------------------- phase 12
 SCORE_TOL = {"float32": 2e-5,    # the reference's kernel tolerances
              "bfloat16": 2e-2}   # (tests/test_kernels.py::_tol)
 QM_CASES = ((16, 8), (1000, 64), (4096, 256), (333, 33))   # (scores, N)
@@ -2320,10 +2526,13 @@ def phase_score_kernels(dev) -> dict:
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         def cmp(kind, name, *args, exact=False):
+            # the shared-parameter kernel sums and interpolates in its
+            # plain version's order: bit for bit on every case
             key = f"{kind}/{name}/{dname}"
             got = kernels[kind](*args)
             errs[key] = _compare(key, got, getattr(ref, kind)(*args),
-                                 exact=exact, tol=SCORE_TOL[dname])
+                                 exact=exact or kind == "score_pipeline",
+                                 tol=SCORE_TOL[dname])
             return got
 
         def scores(shape, lo=0.0, hi=1.0):
@@ -2429,7 +2638,7 @@ def phase_score_kernels(dev) -> dict:
     last_knot = _last_knot_cases(dev, errs)
 
     # times at a serve window, float32, inputs drawn as the benchmark draws
-    # them; the benchmark's size is timed by bench_kernels (phase 13)
+    # them; the benchmark's size is timed by bench_kernels (phase 14)
     m, k, nq = SCORE_WINDOW
     y = f32(rng.uniform(0, 1, (m, k)))
     x = y[:, 0].contiguous()
@@ -2443,7 +2652,8 @@ def phase_score_kernels(dev) -> dict:
     timings: dict[str, dict] = {}
     for kind, (args, shape, bound) in runs.items():
         err = _compare(f"{kind}/window", kernels[kind](*args),
-                       getattr(ref, kind)(*args))
+                       getattr(ref, kind)(*args),
+                       exact=kind == "score_pipeline")
         timings[kind] = {
             "shape": shape, "max_abs_err": err,
             "ms": device_ms(lambda: kernels[kind](*args)),
@@ -2452,6 +2662,7 @@ def phase_score_kernels(dev) -> dict:
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
     result = {"phase": "score_kernels", "tolerance": SCORE_TOL,
               "errors": errs, "on_knots": "bitwise", "nan_scores": "NaN",
+              "score_pipeline": "bitwise on every case",
               "last_knot": last_knot, "timings": timings,
               "timing": "CUDA events, median of 20 runs of 50 back-to-back "
                         "launches (plain: 10) queued behind a busy card: "
@@ -2461,7 +2672,7 @@ def phase_score_kernels(dev) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 12
+# ---------------------------------------------------------------- phase 13
 DECODE_TOL = 2e-5   # float32; bf16 runs the kernel's own check (bf16_excess)
 # (b, s, hq, hkv, d, valid lengths)
 DECODE_CASES = {
@@ -2722,7 +2933,7 @@ def phase_decode_attention(dev) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 13
+# ---------------------------------------------------------------- phase 14
 def phase_bench_kernels() -> dict:
     """The kernel microbenchmark, ``repro_torch.benchmarks.bench_kernels``,
     at full size: the path of the three scoring and decode kernels."""
@@ -2744,10 +2955,10 @@ def phase_bench_kernels() -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 14
+# ---------------------------------------------------------------- phase 15
 def _benched(name: str, source: str, replaces: str, bench: dict,
              library_ms: float | None, also: dict) -> dict:
-    """A kernels-line entry from bench_kernels' run (phase 13), the path of
+    """A kernels-line entry from bench_kernels' run (phase 14), the path of
     the kernel, with the shapes a phase before it timed beside it."""
     e = next(e for e in bench["result"]["entries"].values()
              if e["kernel"] == name)
@@ -2761,8 +2972,9 @@ def _benched(name: str, source: str, replaces: str, bench: dict,
 
 def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
                   engine: dict, tiering: dict, sharding: dict,
-                  main_bench: dict, attention: dict, llm: dict,
-                  scores: dict, decode: dict, bench: dict) -> None:
+                  main_bench: dict, paper_bench: dict, attention: dict,
+                  llm: dict, scores: dict, decode: dict,
+                  bench: dict) -> None:
     from repro_torch.benchmarks.timing import banked_bound, device_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels import score_pipeline as sp
@@ -2795,6 +3007,11 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
         "main_bench_launches": {
             k: v["score_pipeline_banked"]
             for k, v in main_bench["launches"].items()},
+        # the paper's benchmarks that serve, each counted on its own
+        "paper_bench_launches": {
+            k: v["score_pipeline_banked"]
+            for k, v in paper_bench["launches"].items()
+            if "score_pipeline_banked" in v},
         "max_abs_err": max(err, kernel["max_abs_err"],
                            lifecycle["max_abs_err_vs_plain"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2824,9 +3041,18 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
                                       "bound_ms", "bound_by", "library_ms")},
         "shape": {**attention["shape"], "dtype": "float32"},
         "path": "float32 prefill (llm_serve)",
-    }, _benched("quantile_map", "src/repro_torch/csrc/quantile_map.cu",
-                "src/repro/kernels/quantile_map.py:25", bench, None,
-                {"window": scores["timings"]["quantile_map"]}),
+    }, {**_benched("quantile_map", "src/repro_torch/csrc/quantile_map.cu",
+                   "src/repro/kernels/quantile_map.py:25", bench, None,
+                   {"window": scores["timings"]["quantile_map"]}),
+        # Figs. 4 and 6: T^Q of the live scores, each counted on its own,
+        # and the kernel's largest difference from its plain version there
+        "paper_bench_launches": {
+            k: v["quantile_map"] for k, v in paper_bench["launches"].items()
+            if "quantile_map" in v},
+        "paper_bench_max_abs_err": max(
+            c["max_abs_err"] for checks in paper_bench["tq_vs_plain"].values()
+            for c in checks.values()),
+        "paper_bench_live": paper_bench["quantile_map_live"]},
         {**_benched("score_pipeline", "src/repro_torch/csrc/score_pipeline.cu",
                     "src/repro/kernels/score_pipeline.py:57", bench, None,
                     {"window": scores["timings"]["score_pipeline"],
@@ -2873,13 +3099,15 @@ def main() -> int:
     tiering = phase_tiering(dev)
     sharding = phase_sharding(dev, setup)
     main_bench = phase_main_bench(dev)
+    paper_bench = phase_paper_bench(dev)
     attention = phase_attention(dev)
     llm = phase_llm_serve(dev, attention)
     scores = phase_score_kernels(dev)
     decode = phase_decode_attention(dev)
     bench = phase_bench_kernels()
     phase_kernels(kernel, serve, main_shapes, lifecycle, engine, tiering,
-                  sharding, main_bench, attention, llm, scores, decode, bench)
+                  sharding, main_bench, paper_bench, attention, llm, scores,
+                  decode, bench)
     emit({"phase": "wall", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -75,6 +75,17 @@ class PosteriorCorrection:
 # Ensemble aggregation (Sec. 2.3.2)
 # ---------------------------------------------------------------------------
 
+def _sum_k(x: Tensor) -> Tensor:
+    """Sum over the last axis in k order, ((x_0 + x_1) + x_2) + ..., as the
+    kernels sum.  ``torch.sum``'s order depends on the device: on CUDA it
+    sums K = 3 as (x_0 + x_2) + x_1, which a steep T^Q segment can turn
+    into more than the 2e-5 the kernel is held to."""
+    total = x[..., 0]
+    for e in range(1, x.shape[-1]):
+        total = total + x[..., e]
+    return total
+
+
 @dataclasses.dataclass(frozen=True)
 class Aggregation:
     """Weighted-average aggregation ``A`` over K calibrated expert scores.
@@ -86,9 +97,10 @@ class Aggregation:
     weights: Tensor  # (K,)
 
     def __call__(self, expert_scores: Tensor) -> Tensor:
-        """``expert_scores``: (..., K) -> (...)."""
-        w = self.weights / torch.sum(self.weights)
-        return torch.einsum("...k,k->...", expert_scores, w)
+        """``expert_scores``: (..., K) -> (...), weights and terms summed
+        in k order, as the kernels sum them."""
+        w = self.weights / _sum_k(self.weights)
+        return _sum_k(expert_scores * w)
 
     @staticmethod
     def uniform(k: int) -> "Aggregation":
@@ -136,6 +148,22 @@ def _at_last_knot(out: Tensor, count: Tensor, n: int,
     where the last source segment is flat and its reference segment is
     not, where the reference's own padded and unpadded tables disagree)."""
     return torch.where(count == n, ref_last, out)
+
+
+def _interpolate(x: Tensor, count: Tensor, n: int, q_s_i: Tensor,
+                 q_s_n: Tensor, q_r_i: Tensor, q_r_n: Tensor, lo: Tensor,
+                 hi: Tensor) -> Tensor:
+    """T^Q of ``x`` in bucket [q_s_i, q_s_n] as the kernels compute it
+    (``csrc/quantile_knots.cuh::interpolate``): the product before the
+    division, ``q_r_i + ((x - q_s_i) * (q_r_n - q_r_i)) / denom``, then the
+    last-knot rule and the clip to [lo, hi].  :func:`quantile_map` divides
+    first, as the reference's oracle does; the two differ by an ulp."""
+    diff = q_s_n - q_s_i
+    denom = torch.where(diff > 0, diff, torch.ones_like(diff))
+    out = q_r_i + (x - q_s_i) * (q_r_n - q_r_i) / denom
+    out = _at_last_knot(out, count, n, hi)
+    # torch.clamp propagates NaN, as jnp.clip does
+    return torch.clamp(out, lo, hi)
 
 
 def quantile_map(
@@ -263,12 +291,21 @@ def score_pipeline(
 ) -> Tensor:
     """Eq. 2 end-to-end: ``T^Q(A([T^C_k(m_k(x))]))``.
 
-    ``expert_scores``: (..., K) raw scores from the K experts.
+    ``expert_scores``: (..., K) raw scores from the K experts.  Op for op
+    :func:`banked_score_pipeline` on a one-row bank, and so the kernels'
+    order: weights and terms summed in k order, T^Q by
+    :func:`_interpolate`.
     """
     corrected = posterior_correction(expert_scores, betas)
-    w = weights / torch.sum(weights)
-    agg = torch.einsum("...k,k->...", corrected, w)
-    return quantile_map(agg, src_quantiles, ref_quantiles)
+    w = weights / _sum_k(weights)
+    agg = _sum_k(corrected * w)
+    qs = src_quantiles.to(device=agg.device, dtype=agg.dtype)
+    qr = ref_quantiles.to(device=agg.device, dtype=agg.dtype)
+    n = qs.shape[-1]
+    count = _knot_count(qs, agg)
+    i = _bucket_index(count, n)
+    return _interpolate(agg, count, n, qs[i], qs[i + 1], qr[i], qr[i + 1],
+                        qr[0], qr[-1])
 
 
 def _pad_edge(x: Tensor, pad: int) -> Tensor:
@@ -440,17 +477,6 @@ class TransformBank:
         )
 
 
-def _sum_k(x: Tensor) -> Tensor:
-    """Sum over the last axis in k order, ((x_0 + x_1) + x_2) + ..., as the
-    kernels sum.  ``torch.sum``'s order depends on the device: on CUDA it
-    sums K = 3 as (x_0 + x_2) + x_1, which a steep T^Q segment can turn
-    into more than the 2e-5 the kernel is held to."""
-    total = x[..., 0]
-    for e in range(1, x.shape[-1]):
-        total = total + x[..., e]
-    return total
-
-
 def _banked_pre_quantile(expert_scores: Tensor, tenant_idx: Tensor,
                          betas: Tensor, weights: Tensor) -> Tensor:
     """The corrected weighted aggregate of each row under its bank row,
@@ -516,12 +542,8 @@ def banked_score_pipeline(
     q_s_n = torch.gather(qs, -1, i + 1)[..., 0]
     q_r_i = torch.gather(qr, -1, i)[..., 0]
     q_r_n = torch.gather(qr, -1, i + 1)[..., 0]
-    diff = q_s_n - q_s_i
-    denom = torch.where(diff > 0, diff, torch.ones_like(diff))
-    out = q_r_i + (agg - q_s_i) * (q_r_n - q_r_i) / denom
-    out = _at_last_knot(out, count, n, qr[..., -1])
-    # torch.clamp propagates NaN, as jnp.clip does
-    out = torch.clamp(out, qr[..., 0], qr[..., -1])
+    out = _interpolate(agg, count, n, q_s_i, q_s_n, q_r_i, q_r_n,
+                       qr[..., 0], qr[..., -1])
     return out.masked_fill(outside, float("nan"))
 
 

@@ -5,7 +5,8 @@ runs in a subprocess and writes its five entries, each agreeing with its
 plain version (on the CPU ``ops`` runs the plain versions, so this shows
 the entry point works; it measures nothing of the card); the async-engine,
 tiered-store, sharded-bank, serving-latency and multi-tenant-batch
-benchmarks run the same way at their quick sizes.  The
+benchmarks, and the seven of the paper's tables and figures, run the same
+way at their quick sizes.  The
 least-time bounds of ``benchmarks/timing.py`` are checked against the byte
 and operation counts written out by hand.
 """
@@ -177,6 +178,32 @@ def test_multitenant_batch_quick_cpu_run(tmp_path):
     assert result["us_banked"] > 0 and result["us_per_predictor_loop"] > 0
     assert result["quantile_update_speedup"] > 1.0
     assert set(result["launches"].values()) == {0}
+
+
+# the paper's tables and figures: one fact of each quick result beside the
+# checks every CLI run gets (their parity with the reference:
+# tests/test_torch_paper_figs.py and tests/test_torch_paper_fleet.py)
+PAPER_CLI = {
+    "bench_table1_calibration": lambda r: len(r["rows"]) == 7,
+    "bench_fig4_quantile_update": lambda r: (
+        r["refresh"]["max_tenants"] == 64
+        and r["tq_vs_plain"]["v1"]["scores"] == 60_000),
+    "bench_fig6_model_update": lambda r: r["recall_p1.5"] == r["recall_p2"],
+    "bench_fig5_rollout": lambda r: r["invariants_ok"] is True,
+    "bench_appendix_a": lambda r: len(r["rows"]) == 8,
+    "bench_fleet_refresh": lambda r: r["all_within_bound"] is True,
+    "bench_attack_campaign": lambda r: r["attack_refreshes"] > 0,
+}
+
+
+@pytest.mark.parametrize("module", sorted(PAPER_CLI))
+def test_paper_benchmark_quick_cpu_run(module, tmp_path):
+    """``python -m repro_torch.benchmarks.<module> --quick --device cpu
+    --out PATH`` prints the result it writes, on the CPU, launching no
+    kernel."""
+    result = _quick_cpu(module, tmp_path)
+    assert PAPER_CLI[module](result)
+    assert set(result.get("launches", {0: 0}).values()) == {0}
 
 
 def test_bounds_count_bytes_and_operations():

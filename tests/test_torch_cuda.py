@@ -788,6 +788,34 @@ def test_score_pipeline_kernel_matches_plain_version(dev, shape, n, dtype):
 
 
 @SCORE_DTYPES
+@pytest.mark.parametrize("k", [1, 3, 5, 8])
+@pytest.mark.parametrize("table", ["sorted", "unsorted", "flat"])
+def test_score_pipeline_kernel_is_its_plain_version_bitwise(dev, table, k,
+                                                            dtype):
+    """The shared-parameter kernel and its plain version sum weights and
+    terms over K in k order and interpolate product first, so every score
+    is bit for bit the plain version's (NaN where it is NaN), on both
+    bucket forms, with 16-byte and scalar loads."""
+    rng = np.random.default_rng(100 + k)
+    src, refq = _tables(rng, 256, dev)
+    if table == "unsorted":
+        src = torch.tensor(rng.uniform(0, 1, 256).astype(np.float32),
+                           device=dev)
+    elif table == "flat":
+        src[40:90] = src[40]
+    y = torch.tensor(rng.uniform(-0.05, 1.05, (65_536, k)).astype(
+        np.float32), device=dev).to(dtype)
+    y[::101, 0] = float("nan")
+    b = torch.tensor(rng.uniform(0.02, 1, k).astype(np.float32), device=dev)
+    w = torch.tensor(rng.uniform(0.1, 2, k).astype(np.float32), device=dev)
+    got = sp.score_pipeline(y, b, w, src, refq)
+    want = ref.score_pipeline(y, b, w, src, refq)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(got[ok], want[ok])
+
+
+@SCORE_DTYPES
 @pytest.mark.parametrize("k", [3, 8])
 @pytest.mark.parametrize("table", ["sorted", "unsorted", "nan_knot", "flat",
                                    "all_flat"])

@@ -136,7 +136,13 @@ SCRIPT = textwrap.dedent("""
             "repro_torch.launch.mesh",
             "repro_torch.benchmarks.bench_sharded_bank",
             "repro_torch.benchmarks.bench_serving_latency",
-            "repro_torch.benchmarks.bench_multitenant_batch"} <= set(names)
+            "repro_torch.benchmarks.bench_multitenant_batch",
+            *(f"repro_torch.benchmarks.{m}" for m in (
+                "paper", "bench_table1_calibration",
+                "bench_fig4_quantile_update", "bench_fig6_model_update",
+                "bench_fig5_rollout", "bench_appendix_a",
+                "bench_fleet_refresh", "bench_attack_campaign", "run")),
+            "repro_torch.examples.quickstart"} <= set(names)
 
     from repro_torch.core.predictor import PredictorSpec
     from repro_torch.core.routing import (Condition, Intent, RoutingTable,
@@ -359,6 +365,31 @@ def test_entry_points_default_to_the_card():
             bench.run(quick=True)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             bench.main(["--quick"])
+    # the paper's tables and figures, the runner and the quickstart
+    from repro_torch.benchmarks import (bench_appendix_a,
+                                        bench_attack_campaign,
+                                        bench_fig4_quantile_update,
+                                        bench_fig5_rollout,
+                                        bench_fig6_model_update,
+                                        bench_fleet_refresh,
+                                        bench_table1_calibration)
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.examples import quickstart
+
+    for bench in (bench_table1_calibration, bench_fig4_quantile_update,
+                  bench_fig6_model_update, bench_fig5_rollout,
+                  bench_appendix_a, bench_fleet_refresh,
+                  bench_attack_campaign):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            bench.run(quick=True)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            bench.main(["--quick"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_fig4_quantile_update.run_refresh(quick=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_run.main(["--quick"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quickstart.main([])
 
 
 def test_kernels_layer_loads_no_model_code():

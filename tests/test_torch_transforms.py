@@ -381,6 +381,42 @@ class TestSumOverK:
         assert np.array_equal(got, agg)
 
 
+class TestSharedSumOverK:
+    """The plain shared-parameter pipeline is the plain banked one on a
+    one-row bank, op for op: weights and terms summed in k order, the
+    interpolation's product before its division (the kernels' order).  So
+    the shared kernel can be held to it bit for bit, as the banked one is."""
+
+    @pytest.mark.parametrize("k", range(2, 9))
+    def test_shared_pipeline_is_banked_on_one_row_banks(self, k):
+        rng = np.random.default_rng(60 + k)
+        for _ in range(8):
+            y = rng.uniform(0, 1, (4096, k)).astype(np.float32)
+            betas = rng.uniform(0.02, 1, k).astype(np.float32)
+            w = rng.uniform(0.1, 2, k).astype(np.float32)
+            src, ref = _tables(rng, 256)
+            args = [torch.from_numpy(a) for a in (betas, w, src, ref)]
+            shared = tt.score_pipeline(torch.from_numpy(y), *args)
+            banked = tt.banked_score_pipeline(
+                torch.from_numpy(y), torch.zeros(4096, dtype=torch.int32),
+                *(a[None] for a in args))
+            assert torch.equal(shared, banked)
+
+    @pytest.mark.parametrize("k", [1, 3, 8])
+    def test_aggregation_is_a_k_order_loop(self, k):
+        rng = np.random.default_rng(70 + k)
+        s = rng.uniform(0, 1, (500, k)).astype(np.float32)
+        w = rng.uniform(0.1, 2, k).astype(np.float32)
+        wsum = w[0]
+        for e in range(1, k):
+            wsum = np.float32(wsum + w[e])
+        want = s[:, 0] * (w[0] / wsum)
+        for e in range(1, k):
+            want = want + s[:, e] * (w[e] / wsum)
+        got = tt.Aggregation(torch.from_numpy(w))(torch.from_numpy(s))
+        assert np.array_equal(_np(got), want)
+
+
 class TestPipeline:
     def _specs(self):
         rng = np.random.default_rng(6)
