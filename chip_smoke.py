@@ -136,7 +136,25 @@ Phases, each printing one JSON line:
              model against the plain version in float32.  A float32
              prefill through the kernel branch (the SIMT form's path) is
              held against the float32 reference prefill.
-12. score_kernels — the quantile-map and shared-parameter score-pipeline
+12. zoo_serve — the MoE and xLSTM families at full width and depth, each
+             built in bf16 from seed 0 and freed before the next:
+             olmoe-1b-7b (16 layers, d_model 2,048, 64 experts of 1,024,
+             top-8) and xlstm-1.3b (48 blocks, sLSTM:mLSTM 1:7): through
+             ``launch.serve.serve`` a 4 x 2,048 prefill through the kernel
+             branch (olmoe: 16 tensor-core flash launches, 16/16 heads of
+             128) and 16 decode steps, each risk score through T^Q by the
+             ``score_pipeline`` kernel (17 launches a run); times, CUDA
+             launches, device busy share and its split (cuBLAS, flash,
+             the MoE's scatter and gather, the rest), peak memory; qwen3's
+             accuracy rule over six seeds, and for olmoe the share of
+             (token, slot) routes that differ between bf16 and float32
+             (printed, not gated); the flash kernel at olmoe's prefill
+             shape against its plain version, with its time, bound and
+             PyTorch's attention call; then ``python -m
+             repro_torch.examples.serve_e2e`` on the card in a process of
+             its own (three transformer experts, one of them olmoe smoke,
+             behind the banked kernel), with its banked launches.
+13. score_kernels — the quantile-map and shared-parameter score-pipeline
              kernels against their plain versions, float32 and bfloat16
              (the score-pipeline kernel bit for bit on every case): the
              reference's cases, scores on knots (bitwise), NaN scores,
@@ -150,8 +168,8 @@ Phases, each printing one JSON line:
              through the three T^Q kernels (the banked one on both paths),
              padded bitwise equal to unpadded; then their times at a
              1,024-row serve window (the benchmark's 65,536 rows are timed
-             by phase 14).
-13. decode_attention — the decode kernel against its plain version,
+             by phase 15).
+14. decode_attention — the decode kernel against its plain version,
              float32 within 2e-5 and bf16 within bf16's rounding of the
              plain version run in float32 on the same inputs: the
              reference's cases and per-row lengths, valid_len 0 (exactly
@@ -163,10 +181,10 @@ Phases, each printing one JSON line:
              own attention call (warm and cold), the bounds and a traced
              loop (a call's period, the combine's tail, the launches a
              call: at most two, and no other kernel).
-14. bench_kernels — the port's kernel microbenchmark at full size, the path
+15. bench_kernels — the port's kernel microbenchmark at full size, the path
              of those three kernels: every entry agrees with its plain
              version and every kernel launched.
-15. kernels — every kernel of the port with its launches on its path, its
+16. kernels — every kernel of the port with its launches on its path, its
              error and its times at the path's shapes.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -2101,12 +2119,16 @@ def _max_diff(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def _device_split(prof) -> dict:
+def _device_split(prof, extra: dict | None = None) -> dict:
     """Device milliseconds of a profiler window by kernel kind, and the top
-    kernels; None where the trace holds no device time."""
+    kernels; None where the trace holds no device time.  ``extra`` names
+    more kinds, each by substrings of its kernels' names, taken after the
+    flash kernels and the matmuls."""
     import torch
 
-    cats = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    extra = extra or {}
+    cats = {"flash_attention": 0.0, "matmul": 0.0,
+            **{kind: 0.0 for kind in extra}, "other": 0.0}
     top = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -2120,7 +2142,9 @@ def _device_split(prof) -> dict:
                                      "xmma", "cublas", "sm90_")):
             cats["matmul"] += ms
         else:
-            cats["other"] += ms
+            kind = next((k for k, subs in extra.items()
+                         if any(sub in name for sub in subs)), "other")
+            cats[kind] += ms
         top.append((ms, e.key[:80], e.count))
     top.sort(reverse=True)
     total = sum(cats.values())
@@ -2131,7 +2155,7 @@ def _device_split(prof) -> dict:
                     for ms, k, n in top[:8]]}
 
 
-def _profile(model, prompt, transform) -> dict:
+def _profile(model, prompt, transform, extra: dict | None = None) -> dict:
     """One kernel prefill and two decode steps under ``torch.profiler``:
     device time by kernel kind beside host wall time (the profiler's own
     cost is in the wall time)."""
@@ -2160,7 +2184,7 @@ def _profile(model, prompt, transform) -> dict:
     result = {}
     for name, prof, wall in (("prefill", prof_p, wall_p),
                              ("decode_step", prof_d, wall_d)):
-        split = _device_split(prof)
+        split = _device_split(prof, extra)
         if split is not None and name == "decode_step":
             split["device_ms"] = {k: v / 2 for k, v in
                                   split["device_ms"].items()}
@@ -2186,7 +2210,9 @@ def _accuracy(model, prompt, rows: int = 64) -> dict:
     plain version in float32 on the same inputs, as a share of the bf16
     rounding bound 2^-8 |o| + 1e-5 (at most 1 when only the output's
     rounding to bf16 separates them), beside the bf16 reference path's
-    chunked attention on those inputs."""
+    chunked attention on those inputs.  A model without attention layers
+    takes no kernel in its prefill: its kernel-branch prefill is its bf16
+    reference prefill, run once."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.models import attention
@@ -2214,13 +2240,18 @@ def _accuracy(model, prompt, rows: int = 64) -> dict:
         return out
 
     kw = dict(cache_capacity=prompt.shape[1], logits_mode="last")
-    # the model's attention reaches the kernel through ops.flash_attention
-    ops.flash_attention = witness
-    try:
-        ker, _ = model.prefill(prompt, attn_impl="kernel", **kw)
-    finally:
-        ops.flash_attention = launch
+    has_attention = any(b.spec.mixer == "attn" for b in model.stack)
+    if has_attention:
+        # the model's attention reaches the kernel through
+        # ops.flash_attention
+        ops.flash_attention = witness
+        try:
+            ker, _ = model.prefill(prompt, attn_impl="kernel", **kw)
+        finally:
+            ops.flash_attention = launch
     ref16, _ = model.prefill(prompt, attn_impl="reference", **kw)
+    if not has_attention:
+        ker = ref16
     ref32, _ = model.prefill(prompt, attn_impl="reference",
                              compute_dtype=torch.float32, **kw)
     torch.cuda.empty_cache()
@@ -2233,7 +2264,8 @@ def _accuracy(model, prompt, rows: int = 64) -> dict:
             "kernel_vs_bf16_reference": _max_diff(ker.risk_score,
                                                   ref16.risk_score)},
         "attention_last_rows": worst,
-        "attention_last_rows_equal_to_rounded_f32": equal / total}
+        "attention_last_rows_equal_to_rounded_f32": (equal / total
+                                                     if total else None)}
 
 
 def phase_llm_serve(dev, attention: dict) -> dict:
@@ -2393,6 +2425,285 @@ def phase_llm_serve(dev, attention: dict) -> dict:
 
 
 # ---------------------------------------------------------------- phase 12
+ZOO_ARCHS = ("olmoe-1b-7b", "xlstm-1.3b")
+OLMOE_ATTN = (4, 2048, 2048, 16, 16, 128, True, 0)   # olmoe-1b-7b prefill
+# the MoE's dispatch and combine (slot table scatter, buffer and output
+# gathers, the stable sort of the router, the position count) and the
+# embedding lookup, apart from the rest of the elementwise work
+ZOO_SPLIT = {"scatter_gather": ("scatter", "gather", "index", "sort",
+                                "scan")}
+E2E_ARGS = ("--batches", "20", "--batch", "32")
+# serve_e2e in a process of its own, printing its kernels' launches last
+E2E_CODE = """
+import json, sys
+from repro_torch.examples import serve_e2e
+from repro_torch.kernels import ops
+for name in ops.LAUNCHES:
+    ops.LAUNCHES[name] = 0
+serve_e2e.main(sys.argv[1:])
+print("LAUNCHES " + json.dumps(ops.LAUNCHES))
+"""
+
+
+def _olmoe_flash(dev) -> dict:
+    """The tensor-core flash form at olmoe's prefill shape (16 query heads
+    over 16 KV heads, D = 128, bf16) against its plain version within the
+    bf16 tolerance, timed beside it, PyTorch's attention call and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.benchmarks.timing import attention_bound, device_ms
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    causal = OLMOE_ATTN[6]
+    q, k, v = _qkv(OLMOE_ATTN, torch.bfloat16, dev, seed=124)
+    before = fa.LAUNCHES["flash_attention_wgmma"]
+    got = fa.flash_attention(q, k, v, causal=causal)
+    check(fa.LAUNCHES["flash_attention_wgmma"] == before + 1,
+          "olmoe's prefill shape runs the tensor-core form")
+    err = _attn_err("olmoe_shape/bfloat16", got,
+                    ref.flash_attention(q, k, v, causal=causal),
+                    ATTN_TOL["bfloat16"])
+    del got
+    torch.cuda.synchronize()
+    ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                   reps=20, inner=10)
+    plain_ms = device_ms(lambda: ref.flash_attention(q, k, v, causal=causal),
+                         reps=3, inner=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20, inner=10)
+    bound_ms, bound_by, flops = attention_bound(*OLMOE_ATTN, itemsize=2)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    b, tq, tk, hq, hkv, d = OLMOE_ATTN[:6]
+    return {"shape": {"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv,
+                      "D": d, "causal": causal, "dtype": "bfloat16"},
+            "max_abs_err": err, "tolerance": ATTN_TOL["bfloat16"],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_issued": 1.5 * bound_ms,
+            "tflop_per_s": flops / (ms * 1e-3) / 1e12,
+            "timing": "CUDA events, median of 20 runs of 10 back-to-back "
+                      "launches (plain: 3 runs of 1)"}
+
+
+def _zoo_accuracy(model, prompt, n_moe: int) -> dict:
+    """qwen3's accuracy measures (``_accuracy``) on one seed, and for a MoE
+    model the share of (token, slot) routes of the bf16 reference prefill
+    that differ from the float32 one's, over every MoE layer (each layer
+    takes the inputs its own run gives it)."""
+    from repro_torch.models import moe
+
+    seen = []
+    route = moe.route
+
+    def witness(m, xf, mo):
+        out = route(m, xf, mo)
+        seen.append(out[2])
+        return out
+
+    moe.route = witness
+    try:
+        acc = _accuracy(model, prompt)
+    finally:
+        moe.route = route
+    if n_moe:
+        # _accuracy runs the kernel, the bf16 and the float32 prefills
+        # (every MoE model here has attention layers)
+        check(len(seen) == 3 * n_moe, f"{len(seen)} routed layers")
+        r16, r32 = seen[n_moe:2 * n_moe], seen[2 * n_moe:]
+        acc["routes_differ_bf16_vs_f32"] = (
+            sum(int((a != b).sum()) for a, b in zip(r16, r32))
+            / sum(a.numel() for a in r16))
+        acc["routes_differ_kernel_vs_bf16"] = (
+            sum(int((a != b).sum()) for a, b in zip(seen[:n_moe], r16))
+            / sum(a.numel() for a in r16))
+    return acc
+
+
+def _zoo_model(arch: str, dev) -> dict:
+    """One architecture at full width and depth in bf16 from seed 0: the
+    launcher's serve path (counts set to 0 just before, read just after),
+    three timed runs, a profiled prefill and two decode steps, and the
+    accuracy rule over ``ACC_SEEDS``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+
+    cfg = get_config(arch)
+    blocks = cfg.layer_pattern * cfg.n_groups
+    n_attn = sum(s.mixer == "attn" for s in blocks)
+    n_moe = sum(s.ffn == "moe" for s in blocks)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    params = model.param_count()
+    prompt = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)), dtype=torch.long,
+        device=dev)
+    transform = serve.business_transform(dev)
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    first = serve.serve(model, prompt, decode_steps=LLM_STEPS,
+                        transform=transform)
+    launches = dict(ops.LAUNCHES)
+    check(launches["flash_attention"] == n_attn
+          and launches["flash_attention_wgmma"] == n_attn,
+          f"{arch}: {launches} for one prefill and {LLM_STEPS} decode "
+          f"steps, expected {n_attn} tensor-core flash launches")
+    check(launches["score_pipeline"] == LLM_STEPS + 1,
+          f"{arch}: T^Q launched score_pipeline "
+          f"{launches['score_pipeline']} times, expected {LLM_STEPS + 1}")
+    check(sum(launches.values()) == 2 * n_attn + LLM_STEPS + 1,
+          f"{arch}: no other kernel of the port launched: {launches}")
+    runs = []
+    for _ in range(3):
+        before = dict(ops.LAUNCHES)
+        runs.append(serve.serve(model, prompt, decode_steps=LLM_STEPS,
+                                transform=transform))
+        check(all(ops.LAUNCHES[k] - before[k] == launches[k]
+                  for k in launches), f"{arch}: launches per run")
+    peak = torch.cuda.max_memory_allocated()
+    breakdown = _profile(model, prompt, transform, ZOO_SPLIT)
+    for res in [first] + runs:
+        biz = res.business.float()
+        check(bool(((biz >= 0) & (biz <= 1)).all()),
+              f"{arch}: business scores in [0, 1]: {biz.tolist()}")
+        check(bool(torch.isfinite(res.prefill.logits.float()).all()),
+              f"{arch}: finite prefill logits")
+        check(res.tokens.shape == (LLM_BATCH, LLM_STEPS),
+              f"{arch}: {LLM_STEPS} greedy tokens a row")
+    check(all(torch.equal(r.tokens, first.tokens) for r in runs),
+          f"{arch}: greedy tokens repeat across runs")
+    aux = float(first.prefill.moe_aux)
+    check((aux > 0) == (n_moe > 0) and aux == aux,
+          f"{arch}: the prefill's MoE aux loss {aux}")
+
+    seeds = []
+    for ws, ps in ACC_SEEDS:
+        if ws != 0:
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = Model(cfg, device=dev, dtype=torch.bfloat16, seed=ws)
+        p = torch.tensor(np.random.default_rng(ps).integers(
+            0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)),
+            dtype=torch.long, device=dev)
+        seeds.append({"weight_seed": ws, "prompt_seed": ps,
+                      **_zoo_accuracy(model, p, n_moe)})
+    d_ker = max(a["logits"]["kernel"] for a in seeds)
+    d_ref = max(a["logits"]["bf16_reference"] for a in seeds)
+    r_ker = max(a["served_risk"]["kernel"] for a in seeds)
+    r_ref = max(a["served_risk"]["bf16_reference"] for a in seeds)
+    witness = max(a["attention_last_rows"]["kernel"] for a in seeds)
+    check(d_ker <= 2 * d_ref, f"{arch}: kernel prefill logits {d_ker} from "
+          f"the f32 reference, bf16 reference {d_ref}")
+    check(r_ker <= 2 * max(r_ref, 1e-3), f"{arch}: kernel prefill served "
+          f"risk {r_ker} from the f32 reference, bf16 reference {r_ref}")
+    check(witness <= 1.0, f"{arch}: kernel attention inside the model "
+          f"{witness} of its bf16 rounding bound from float32")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prefill_ms = statistics.median(r.prefill_s for r in runs) * 1e3
+    decode_s = statistics.median(r.decode_s for r in runs)
+    return {
+        "arch": arch,
+        "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                   "head_dim": cfg.head_dim, "vocab_size": cfg.vocab_size,
+                   "pattern": [f"{b.mixer}/{b.ffn}"
+                               for b in cfg.layer_pattern],
+                   "moe": (None if cfg.moe is None else
+                           {"experts": cfg.moe.num_experts,
+                            "top_k": cfg.moe.top_k,
+                            "d_ff_expert": cfg.moe.d_ff_expert,
+                            "capacity_factor": cfg.moe.capacity_factor})},
+        "params": params,
+        "weight_bytes": weight_bytes, "max_memory_allocated": peak,
+        "init_s": init_s, "batch": LLM_BATCH, "prompt_len": LLM_PROMPT,
+        "decode_steps": LLM_STEPS, "launches": launches,
+        "attention_layers": n_attn, "moe_layers": n_moe,
+        "prefill_ms": prefill_ms,
+        "prefill_ms_runs": [r.prefill_s * 1e3 for r in runs],
+        "first_prefill_ms": first.prefill_s * 1e3,
+        "decode_ms_per_token": decode_s / LLM_STEPS * 1e3,
+        "decode_ms_runs": [r.decode_s / LLM_STEPS * 1e3 for r in runs],
+        "prefill_tokens_per_s": LLM_BATCH * LLM_PROMPT / (prefill_ms * 1e-3),
+        "decode_tokens_per_s": LLM_BATCH * LLM_STEPS / decode_s,
+        "moe_aux": aux,
+        "logits_err_kernel_vs_f32": d_ker, "logits_err_bf16_ref_vs_f32": d_ref,
+        "risk_err_kernel_vs_f32": r_ker, "risk_err_bf16_ref_vs_f32": r_ref,
+        "attention_last_rows_vs_f32": witness,
+        "routes_differ_bf16_vs_f32": (
+            [a["routes_differ_bf16_vs_f32"] for a in seeds] if n_moe
+            else None),
+        "accuracy_seeds": seeds,
+        "breakdown": breakdown,
+        "risk_scores": first.prefill.risk_score.tolist(),
+        "business_scores": first.business.tolist(),
+        "timing": "host clock, each prefill and each 16-step decode loop "
+                  "ended by a device sync; median of 3 runs after one "
+                  "warm-up run"}
+
+
+def _serve_e2e() -> dict:
+    """``python -m repro_torch.examples.serve_e2e`` on the card in a
+    process of its own: its printed lines and its kernels' launches."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", E2E_CODE, *E2E_ARGS], capture_output=True,
+        text=True, timeout=600, cwd=root,
+        env={**os.environ, "PYTHONPATH": str(root / "src")})
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"serve_e2e: {proc.stderr[-2000:]}")
+    *lines, last = proc.stdout.strip().splitlines()
+    check(last.startswith("LAUNCHES "), f"serve_e2e printed {last!r} last")
+    launches = json.loads(last.split(" ", 1)[1])
+    check(len(lines) == 7 and lines[0].startswith(
+        "deployed 3 predictors over 3 physical models")
+        and lines[3].startswith("shadow evaluations recorded: 320 ")
+        and lines[4] == "calibration refresh gate (Eq. 5) open: True"
+        and lines[5].startswith("after live T^Q refresh: score=")
+        and lines[6].startswith("after promotion: bank1 served by "
+                                "bank1-ensemble-v2 (routing v2)"),
+          f"serve_e2e printed {lines}")
+    check(launches["score_pipeline_banked"] > 0,
+          f"serve_e2e's windows launched the banked kernel: {launches}")
+    return {"lines": lines, "launches": launches, "seconds": seconds}
+
+
+def phase_zoo_serve(dev) -> dict:
+    """olmoe-1b-7b and xlstm-1.3b at full width and depth through the
+    serve launcher, each freed before the next; the flash kernel at
+    olmoe's prefill shape; the end-to-end serving example on the card."""
+    t0 = time.perf_counter()
+    models = {arch: _zoo_model(arch, dev) for arch in ZOO_ARCHS}
+    flash = _olmoe_flash(dev)
+    e2e = _serve_e2e()
+    result = {"phase": "zoo_serve", "models": models,
+              "olmoe_flash": flash, "serve_e2e": e2e,
+              "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 13
 SCORE_TOL = {"float32": 2e-5,    # the reference's kernel tolerances
              "bfloat16": 2e-2}   # (tests/test_kernels.py::_tol)
 QM_CASES = ((16, 8), (1000, 64), (4096, 256), (333, 33))   # (scores, N)
@@ -2638,7 +2949,7 @@ def phase_score_kernels(dev) -> dict:
     last_knot = _last_knot_cases(dev, errs)
 
     # times at a serve window, float32, inputs drawn as the benchmark draws
-    # them; the benchmark's size is timed by bench_kernels (phase 14)
+    # them; the benchmark's size is timed by bench_kernels (phase 15)
     m, k, nq = SCORE_WINDOW
     y = f32(rng.uniform(0, 1, (m, k)))
     x = y[:, 0].contiguous()
@@ -2672,7 +2983,7 @@ def phase_score_kernels(dev) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 13
+# ---------------------------------------------------------------- phase 14
 DECODE_TOL = 2e-5   # float32; bf16 runs the kernel's own check (bf16_excess)
 # (b, s, hq, hkv, d, valid lengths)
 DECODE_CASES = {
@@ -2933,7 +3244,7 @@ def phase_decode_attention(dev) -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 14
+# ---------------------------------------------------------------- phase 15
 def phase_bench_kernels() -> dict:
     """The kernel microbenchmark, ``repro_torch.benchmarks.bench_kernels``,
     at full size: the path of the three scoring and decode kernels."""
@@ -2955,10 +3266,10 @@ def phase_bench_kernels() -> dict:
     return result
 
 
-# ---------------------------------------------------------------- phase 15
+# ---------------------------------------------------------------- phase 16
 def _benched(name: str, source: str, replaces: str, bench: dict,
              library_ms: float | None, also: dict) -> dict:
-    """A kernels-line entry from bench_kernels' run (phase 14), the path of
+    """A kernels-line entry from bench_kernels' run (phase 15), the path of
     the kernel, with the shapes a phase before it timed beside it."""
     e = next(e for e in bench["result"]["entries"].values()
              if e["kernel"] == name)
@@ -2973,7 +3284,7 @@ def _benched(name: str, source: str, replaces: str, bench: dict,
 def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
                   engine: dict, tiering: dict, sharding: dict,
                   main_bench: dict, paper_bench: dict, attention: dict,
-                  llm: dict, scores: dict, decode: dict,
+                  llm: dict, zoo: dict, scores: dict, decode: dict,
                   bench: dict) -> None:
     from repro_torch.benchmarks.timing import banked_bound, device_ms
     from repro_torch.kernels import ref
@@ -3012,6 +3323,9 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
             k: v["score_pipeline_banked"]
             for k, v in paper_bench["launches"].items()
             if "score_pipeline_banked" in v},
+        # the end-to-end serving example's windows, in its own process
+        "serve_e2e_launches": zoo["serve_e2e"]["launches"][
+            "score_pipeline_banked"],
         "max_abs_err": max(err, kernel["max_abs_err"],
                            lifecycle["max_abs_err_vs_plain"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -3032,6 +3346,11 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
         "library_ms": attention["library_ms"],
         "bound_ms_issued": attention["bound_ms_issued"],
         "shape": attention["shape"], "path": "bf16 prefill (llm_serve)",
+        # olmoe-1b-7b's prefill (zoo_serve), counted on its own, and the
+        # kernel at its shape (16/16 heads of 128)
+        "olmoe_launches": zoo["models"]["olmoe-1b-7b"]["launches"][
+            "flash_attention_wgmma"],
+        "olmoe_shape": zoo["olmoe_flash"],
     }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -3061,7 +3380,13 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
          # the main path's two benchmarks, each counted on its own
          "main_bench_launches": {
              k: v["score_pipeline"]
-             for k, v in main_bench["launches"].items()}},
+             for k, v in main_bench["launches"].items()},
+         # the serve launcher's T^Q after the prefill and each decode step,
+         # each model's path counted on its own
+         "llm_launches": {
+             LLM_ARCH: llm["launches"]["score_pipeline"],
+             **{arch: m["launches"]["score_pipeline"]
+                for arch, m in zoo["models"].items()}}},
         _benched("decode_attention",
                  "src/repro_torch/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:24", bench,
@@ -3102,12 +3427,13 @@ def main() -> int:
     paper_bench = phase_paper_bench(dev)
     attention = phase_attention(dev)
     llm = phase_llm_serve(dev, attention)
+    zoo = phase_zoo_serve(dev)
     scores = phase_score_kernels(dev)
     decode = phase_decode_attention(dev)
     bench = phase_bench_kernels()
     phase_kernels(kernel, serve, main_shapes, lifecycle, engine, tiering,
-                  sharding, main_bench, paper_bench, attention, llm, scores,
-                  decode, bench)
+                  sharding, main_bench, paper_bench, attention, llm, zoo,
+                  scores, decode, bench)
     emit({"phase": "wall", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

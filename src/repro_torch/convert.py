@@ -57,7 +57,9 @@ def model_from_numpy(cfg: ModelConfig, params, *, device: torch.device | str,
 
     The reference stacks each pattern position's leaves over a leading
     ``n_groups`` axis; layer ``g * P + i`` of the port is group g of
-    position i.  Linear weights are (in, out) there and (out, in) here.
+    position i.  Linear weights are (in, out) there and (out, in) here;
+    the MoE experts' and the mLSTM's head-wise weights have one layout on
+    both sides.
     """
     model = Model(cfg, device=device, dtype=dtype, seed=None)
     _copy(model.embed.table, params["embed"]["table"])
@@ -73,16 +75,55 @@ def model_from_numpy(cfg: ModelConfig, params, *, device: torch.device | str,
         g, i = divmod(layer, n_pat)
         src = params["stack"][i]
         _copy(block.mixer_norm.scale, src["mixer_norm"]["scale"][g])
-        mix = src["mixer"]
-        for name in ("wq", "wk", "wv", "wo"):
-            _copy(getattr(block.mixer, name).weight, mix[name]["w"][g],
-                  transpose=True)
-        if block.mixer.q_norm is not None:
-            _copy(block.mixer.q_norm, mix["q_norm"][g])
-            _copy(block.mixer.k_norm, mix["k_norm"][g])
+        _MIXERS[block.spec.mixer](block.mixer, src["mixer"], g)
         if block.ffn is not None:
             _copy(block.ffn_norm.scale, src["ffn_norm"]["scale"][g])
-            for name in ("gate", "up", "down"):
-                _copy(getattr(block.ffn, name).weight,
-                      src["ffn"][name]["w"][g], transpose=True)
+            _FFNS[block.spec.ffn](block.ffn, src["ffn"], g)
     return model
+
+
+def _copy_linear(dst, src, g) -> None:
+    """A reference linear (``w`` (in, out), optional ``b``) of group g."""
+    _copy(dst.weight, src["w"][g], transpose=True)
+    if dst.bias is not None:
+        _copy(dst.bias, src["b"][g])
+
+
+def _copy_mlp(dst, src, g) -> None:
+    for name in ("gate", "up", "down"):
+        _copy_linear(getattr(dst, name), src[name], g)
+
+
+def _copy_attention(dst, src, g) -> None:
+    for name in ("wq", "wk", "wv", "wo"):
+        _copy_linear(getattr(dst, name), src[name], g)
+    if dst.q_norm is not None:
+        _copy(dst.q_norm, src["q_norm"][g])
+        _copy(dst.k_norm, src["k_norm"][g])
+
+
+def _copy_mlstm(dst, src, g) -> None:
+    # the head-wise (H, hd, hd) blocks keep their layout
+    for name in ("wq", "wk", "wv"):
+        _copy(getattr(dst, name), src[name][g])
+    for name in ("up", "w_if", "down"):
+        _copy_linear(getattr(dst, name), src[name], g)
+
+
+def _copy_slstm(dst, src, g) -> None:
+    for name in ("w_in", "w_rec", "up", "down"):
+        _copy_linear(getattr(dst, name), src[name], g)
+
+
+def _copy_moe(dst, src, g) -> None:
+    # the experts' (E, d, f) / (E, f, d) weights are the same on both sides
+    _copy_linear(dst.router, src["router"], g)
+    for name in ("gate", "up", "down"):
+        _copy(getattr(dst, name), src[name][g])
+    if dst.shared is not None:
+        _copy_mlp(dst.shared, src["shared"], g)
+
+
+_MIXERS = {"attn": _copy_attention, "mlstm": _copy_mlstm,
+           "slstm": _copy_slstm}
+_FFNS = {"mlp": _copy_mlp, "moe": _copy_moe}

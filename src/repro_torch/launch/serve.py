@@ -5,9 +5,16 @@ risk-score head), on the card unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --smoke \\
       --batch 4 --prompt-len 32 --decode-steps 16
 
-The prefill takes the attention kernel branch (``attn_impl="kernel"``):
-prompts of 128 tokens or more run the hand-written flash-attention kernel
-on the card, shorter ones and the decode steps the chunked reference path.
+Every decoder of the registry serves but jamba: the dense attention + MLP
+models, the MoE models (olmoe-1b-7b, llama4-maverick) and xlstm-1.3b
+(sLSTM and mLSTM blocks).  jamba's Mamba mixer raises
+``NotImplementedError`` (ROADMAP Queue 1 item 13c), and hubert-xlarge is
+encoder-only.  The prefill takes the attention kernel branch
+(``attn_impl="kernel"``): attention over prompts of 128 tokens or more runs
+the hand-written flash-attention kernel on the card, shorter ones and the
+decode steps the chunked reference path; the xLSTM mixers have no kernel.
+Each risk score goes through T^Q by ``kernels.ops.score_pipeline``, the
+hand-written ``csrc/score_pipeline.cu`` on the card.
 """
 from __future__ import annotations
 
@@ -23,22 +30,24 @@ from repro_torch.core.transforms import (
     QuantileMap,
     _unit_grid,
     fraud_reference_quantiles,
-    score_pipeline,
 )
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models.model import Model, ModelOutput
 
 
 def business_transform(device):
     """Single-model predictor's T^Q onto ``fraud_reference_quantiles(128)``,
-    the source grid built as the reference's ``jnp.linspace(0, 1, 128)``."""
+    the source grid built as the reference's ``jnp.linspace(0, 1, 128)``:
+    Eq. 2 with one expert through ``ops.score_pipeline`` (the kernel on
+    the card, its plain version on the CPU)."""
     qm = QuantileMap(_unit_grid(128).to(device),
                      fraud_reference_quantiles(128).to(device))
     ones = torch.ones(1, device=device)
 
     def transform(scores: torch.Tensor) -> torch.Tensor:
-        return score_pipeline(scores[:, None], ones, ones, qm.src_quantiles,
-                              qm.ref_quantiles)
+        return ops.score_pipeline(scores[:, None], ones, ones,
+                                  qm.src_quantiles, qm.ref_quantiles)
 
     return transform
 

@@ -611,6 +611,98 @@ def test_model_forward_through_the_kernel(dev):
                                atol=1e-5)
 
 
+@pytest.fixture
+def no_tf32():
+    """float32 matmuls in full float32 (as chip_smoke.py runs them)."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _moe_layer(device, **changes):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+
+    cfg = get_smoke_config("olmoe-1b-7b")
+    mo = dataclasses.replace(cfg.moe, **changes)
+    layer = moe.MoE(cfg.d_model, mo, device=device)
+    layer.reset_parameters(torch.Generator(device=device).manual_seed(3))
+    return layer, mo
+
+
+def test_moe_layer_on_the_card_matches_the_cpu(dev, no_tf32):
+    """olmoe smoke's MoE layer with drops (capacity_factor 0.5) over two
+    chunks and a short third: the card's dispatch slots (scatter, gather,
+    the stable sort's tie order) equal the CPU's exactly, out within
+    1e-4."""
+    from repro_torch.models import moe
+
+    cpu, mo = _moe_layer("cpu", capacity_factor=0.5)
+    card, _ = _moe_layer(dev, capacity_factor=0.5)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn((2, 40, 128), generator=torch.Generator().manual_seed(4))
+    want, want_aux = moe.moe_forward(cpu, x, mo, dispatch_chunk=32)
+    got, aux = moe.moe_forward(card, x.to(dev), mo, dispatch_chunk=32)
+    _, _, want_idx = moe.route(cpu, x.reshape(80, 128), mo)
+    _, _, got_idx = moe.route(card, x.to(dev).reshape(80, 128), mo)
+    assert torch.equal(got_idx.cpu(), want_idx)
+    cap = moe.capacity(32, mo)
+    for s in range(0, 80, 32):
+        assert torch.equal(
+            moe.dispatch_slots(got_idx[s:s + 32], mo.num_experts, cap).cpu(),
+            moe.dispatch_slots(want_idx[s:s + 32], mo.num_experts, cap))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "xlstm-1.3b"])
+def test_moe_and_xlstm_smoke_on_the_card_match_the_cpu(dev, no_tf32, arch):
+    """The smoke model's float32 prefill and two decode steps on the card
+    against the same weights on the CPU (logits 1e-4, risk 1e-5)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+
+    cfg = get_smoke_config(arch)
+    cpu = Model(cfg, device="cpu", seed=0)
+    card = Model(cfg, device=dev, seed=None)
+    card.load_state_dict(cpu.state_dict())
+    tok = torch.randint(0, cfg.vocab_size, (2, 42),
+                        generator=torch.Generator().manual_seed(5))
+    kw = dict(cache_capacity=42, compute_dtype=torch.float32,
+              cache_dtype=torch.float32)
+    want, want_cache = cpu.prefill(tok[:, :40], **kw)
+    got, got_cache = card.prefill(tok[:, :40].to(dev), **kw)
+    torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=1e-4,
+                               atol=1e-4)
+    for s in (40, 41):
+        want = cpu.decode_step(want_cache, tok[:, s:s + 1], pos=s,
+                               compute_dtype=torch.float32)
+        got = card.decode_step(got_cache, tok[:, s:s + 1].to(dev), pos=s,
+                               compute_dtype=torch.float32)
+        want_cache, got_cache = want.cache, got.cache
+        torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=1e-4,
+                                   atol=1e-4)
+        torch.testing.assert_close(got.risk_score.cpu(), want.risk_score,
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_serve_launcher_maps_each_risk_score_through_the_kernel(dev):
+    """``launch.serve.business_transform`` on the card is one
+    ``score_pipeline`` launch a call, bit for bit its plain version on the
+    same scores."""
+    from repro_torch.launch import serve
+
+    scores = torch.rand(4, generator=torch.Generator().manual_seed(6))
+    transform = serve.business_transform(dev)
+    before = ops.LAUNCHES["score_pipeline"]
+    got = transform(scores.to(dev))
+    assert ops.LAUNCHES["score_pipeline"] == before + 1
+    assert torch.equal(got.cpu(), serve.business_transform("cpu")(scores))
+
+
 # quantile_map and score_pipeline: the reference's tolerances per dtype
 SCORE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SCORE_DTYPES = pytest.mark.parametrize(

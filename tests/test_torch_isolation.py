@@ -142,7 +142,9 @@ SCRIPT = textwrap.dedent("""
                 "bench_fig4_quantile_update", "bench_fig6_model_update",
                 "bench_fig5_rollout", "bench_appendix_a",
                 "bench_fleet_refresh", "bench_attack_campaign", "run")),
-            "repro_torch.examples.quickstart"} <= set(names)
+            "repro_torch.examples.quickstart",
+            "repro_torch.models.moe", "repro_torch.models.xlstm",
+            "repro_torch.examples.serve_e2e"} <= set(names)
 
     from repro_torch.core.predictor import PredictorSpec
     from repro_torch.core.routing import (Condition, Intent, RoutingTable,
@@ -390,6 +392,13 @@ def test_entry_points_default_to_the_card():
         bench_run.main(["--quick"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         quickstart.main([])
+    # the end-to-end serving driver over transformer experts (MoE included)
+    from repro_torch.examples import serve_e2e
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_e2e.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "olmoe-1b-7b", "--smoke"])
 
 
 def test_kernels_layer_loads_no_model_code():

@@ -24,6 +24,7 @@ from repro.models.model import Model as JModel
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import model_from_numpy
 from repro_torch.kernels import ops
+from repro_torch.models.config import BlockSpec
 from repro_torch.models.model import Model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -158,14 +159,31 @@ def test_bfloat16_forward_tracks_reference():
     _close(got.logits, want.logits, dict(rtol=5e-2, atol=5e-2))
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("olmoe-1b-7b", "13b"), ("llama4-maverick-400b-a17b", "13b"),
-    ("jamba-1.5-large-398b", "13c"), ("xlstm-1.3b", "13d")])
-def test_unported_families_raise(arch, item):
-    get_config(arch)  # the registry builds every config
+def _unported(case):
+    """A smoke config the port refuses: jamba (Mamba), olmoe with the
+    all-to-all MoE or expert-parallel constraints, and a Mamba block inside
+    a pattern of ported blocks."""
+    if case == "jamba":
+        return get_smoke_config("jamba-1.5-large-398b")
+    cfg = get_smoke_config("olmoe-1b-7b")
+    if case == "mamba_in_pattern":
+        return dataclasses.replace(cfg, layer_pattern=(
+            BlockSpec("attn", "moe"), BlockSpec("mamba", "mlp")))
+    change = {"a2a": {"impl": "a2a"},
+              "ep_sharding": {"ep_sharding_constraint": True}}[case]
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            **change))
+
+
+@pytest.mark.parametrize("case,item", [
+    ("jamba", "item 13c"), ("a2a", "item 13b's moe_a2a, with item 11b"),
+    ("ep_sharding", "item 13f"), ("mamba_in_pattern", "item 13c")])
+def test_unported_families_raise(case, item):
+    for arch in ("jamba-1.5-large-398b", "olmoe-1b-7b"):
+        get_config(arch)  # the registry builds every config
     with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item}"):
-        Model(get_smoke_config(arch), device="cpu")
+                       match=f"ROADMAP Queue 1 {item}"):
+        Model(_unported(case), device="cpu")
 
 
 @pytest.mark.parametrize("option,item", [("remat", "13e"),
