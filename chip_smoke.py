@@ -136,21 +136,36 @@ Phases, each printing one JSON line:
              model against the plain version in float32.  A float32
              prefill through the kernel branch (the SIMT form's path) is
              held against the float32 reference prefill.
-12. zoo_serve — the MoE and xLSTM families at full width and depth, each
+12. zoo_serve — the MoE, xLSTM and Mamba families at full width, each
              built in bf16 from seed 0 and freed before the next:
              olmoe-1b-7b (16 layers, d_model 2,048, 64 experts of 1,024,
-             top-8) and xlstm-1.3b (48 blocks, sLSTM:mLSTM 1:7): through
-             ``launch.serve.serve`` a 4 x 2,048 prefill through the kernel
-             branch (olmoe: 16 tensor-core flash launches, 16/16 heads of
-             128) and 16 decode steps, each risk score through T^Q by the
+             top-8), xlstm-1.3b (48 blocks, sLSTM:mLSTM 1:7) and the first
+             five layers of jamba-1.5-large-398b (d_model 8,192: four
+             Mamba layers of d_inner 16,384, N = 16, one attention layer of
+             64/8 heads of 128, three MLPs of 24,576, two MoEs of 16
+             experts of 24,576, top-2; one 8-layer period does not fit one
+             card): through ``launch.serve.serve`` a 4 x 2,048 prefill
+             through the kernel branch (olmoe: 16 tensor-core flash
+             launches, 16/16 heads of 128; jamba: 1, and 4 selective-scan
+             launches) and 16 decode steps (jamba: 4 selective-scan
+             launches a step), each risk score through T^Q by the
              ``score_pipeline`` kernel (17 launches a run); times, CUDA
              launches, device busy share and its split (cuBLAS, flash,
-             the MoE's scatter and gather, the rest), peak memory; qwen3's
-             accuracy rule over six seeds, and for olmoe the share of
-             (token, slot) routes that differ between bf16 and float32
-             (printed, not gated); the flash kernel at olmoe's prefill
-             shape against its plain version, with its time, bound and
-             PyTorch's attention call; then ``python -m
+             the selective scan, the MoE's scatter and gather, the rest),
+             peak memory; qwen3's accuracy rule over six seeds (jamba, whose
+             float32 copy would not fit, layer by layer: each Mamba layer
+             of the kernel-branch prefill, as served, against a float32
+             copy of it on the same input, no farther than twice the bf16
+             layer with the plain scan), and for olmoe and jamba the share
+             of (token, slot) routes that differ between bf16 and float32
+             (printed, not gated); the selective-scan kernel against its
+             plain version within 2e-5 (y and h_T) on small cases (T = 1,
+             ragged T and C, N = 8 and 16, h0 given or not, an aliased
+             in-place state) and on the float32 inputs a served prefill
+             gives each of jamba's four Mamba layers, timed there beside
+             its plain version and its bound; the flash kernel at olmoe's
+             prefill shape against its plain version, with its time, bound
+             and PyTorch's attention call; then ``python -m
              repro_torch.examples.serve_e2e`` on the card in a process of
              its own (three transformer experts, one of them olmoe smoke,
              behind the banked kernel), with its banked launches.
@@ -2202,43 +2217,57 @@ def _profile(model, prompt, transform, extra: dict | None = None) -> dict:
     return result
 
 
-def _accuracy(model, prompt, rows: int = 64) -> dict:
-    """Last-token logits and served risk scores of a kernel prefill and a
-    bfloat16 reference prefill, each as its max distance from a float32
-    reference prefill of the same weights.  During the kernel prefill each
-    attention call's last ``rows`` query rows are also held against the
-    plain version in float32 on the same inputs, as a share of the bf16
+def _flash_witness(launch, rows: int = 64):
+    """A stand-in for ``ops.flash_attention`` that launches ``launch`` and
+    holds each call's last ``rows`` query rows against the plain version in
+    float32 on the same inputs (one batch row at a time, so that the
+    float32 logits of a wide layer stay a few GB), as a share of the bf16
     rounding bound 2^-8 |o| + 1e-5 (at most 1 when only the output's
     rounding to bf16 separates them), beside the bf16 reference path's
-    chunked attention on those inputs.  A model without attention layers
-    takes no kernel in its prefill: its kernel-branch prefill is its bf16
-    reference prefill, run once."""
+    chunked attention on those inputs.  Returns (witness, stats); stats
+    fill in as the witness is called."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ref
     from repro_torch.models import attention
 
-    launch = ops.flash_attention
-    worst = {"kernel": 0.0, "bf16_reference": 0.0}
-    equal, total = 0, 0
+    stats = {"calls": 0, "worst": {"kernel": 0.0, "bf16_reference": 0.0},
+             "equal": 0, "total": 0}
 
     def witness(q, k, v, *, causal, sliding_window):
-        nonlocal equal, total
         out = launch(q, k, v, causal=causal, sliding_window=sliding_window)
-        want = ref.flash_attention(q.float(), k.float(), v.float(),
-                                   causal=causal,
-                                   sliding_window=sliding_window)[:, -rows:]
+        want = torch.cat([ref.flash_attention(
+            q[i:i + 1].float(), k[i:i + 1].float(), v[i:i + 1].float(),
+            causal=causal, sliding_window=sliding_window)[:, -rows:]
+            for i in range(q.shape[0])])
         chunked = attention._gqa_scores_chunked(
             q, k, v, causal=causal, q_offset=0,
             sliding_window=sliding_window)[:, -rows:]
         bound = 2.0 ** -8 * want.abs() + 1e-5
+        worst = stats["worst"]
         for key, got in (("kernel", out[:, -rows:]),
                          ("bf16_reference", chunked)):
             share = ((got.float() - want).abs() / bound).max().item()
             worst[key] = max(worst[key], share)
-        equal += int((out[:, -rows:] == want.to(out.dtype)).sum())
-        total += want.numel()
+        stats["calls"] += 1
+        stats["equal"] += int((out[:, -rows:] == want.to(out.dtype)).sum())
+        stats["total"] += want.numel()
         return out
 
+    return witness, stats
+
+
+def _accuracy(model, prompt, rows: int = 64) -> dict:
+    """Last-token logits and served risk scores of a kernel prefill and a
+    bfloat16 reference prefill, each as its max distance from a float32
+    reference prefill of the same weights.  During the kernel prefill each
+    attention call is held against the plain version (``_flash_witness``).
+    A model without attention layers takes no kernel in its prefill: its
+    kernel-branch prefill is its bf16 reference prefill, run once."""
+    import torch
+    from repro_torch.kernels import ops
+
+    launch = ops.flash_attention
+    witness, stats = _flash_witness(launch, rows)
     kw = dict(cache_capacity=prompt.shape[1], logits_mode="last")
     has_attention = any(b.spec.mixer == "attn" for b in model.stack)
     if has_attention:
@@ -2263,9 +2292,9 @@ def _accuracy(model, prompt, rows: int = 64) -> dict:
             "bf16_reference": _max_diff(ref16.risk_score, ref32.risk_score),
             "kernel_vs_bf16_reference": _max_diff(ker.risk_score,
                                                   ref16.risk_score)},
-        "attention_last_rows": worst,
-        "attention_last_rows_equal_to_rounded_f32": (equal / total
-                                                     if total else None)}
+        "attention_last_rows": stats["worst"],
+        "attention_last_rows_equal_to_rounded_f32": (
+            stats["equal"] / stats["total"] if stats["total"] else None)}
 
 
 def phase_llm_serve(dev, attention: dict) -> dict:
@@ -2425,13 +2454,25 @@ def phase_llm_serve(dev, attention: dict) -> dict:
 
 
 # ---------------------------------------------------------------- phase 12
-ZOO_ARCHS = ("olmoe-1b-7b", "xlstm-1.3b")
+JAMBA = "jamba-1.5-large-398b"
+ZOO_ARCHS = ("olmoe-1b-7b", "xlstm-1.3b", JAMBA)
+# what is cut, by architecture: jamba keeps its first five layers
+ZOO_REDUCED = {JAMBA: {"n_layers": "72 -> 5 (layers 0-4 of the 8-layer "
+                                   "period; 90.5 GB bf16 for one period "
+                                   "does not fit one 80 GB card)"}}
 OLMOE_ATTN = (4, 2048, 2048, 16, 16, 128, True, 0)   # olmoe-1b-7b prefill
-# the MoE's dispatch and combine (slot table scatter, buffer and output
-# gathers, the stable sort of the router, the position count) and the
-# embedding lookup, apart from the rest of the elementwise work
-ZOO_SPLIT = {"scatter_gather": ("scatter", "gather", "index", "sort",
+# the Mamba scan's kernel; then the MoE's dispatch and combine (slot table
+# scatter, buffer and output gathers, the stable sort of the router, the
+# position count) and the embedding lookup, apart from the rest of the
+# elementwise work (the first kind whose substring a kernel's name holds)
+ZOO_SPLIT = {"selective_scan": ("selective_scan",),
+             "scatter_gather": ("scatter", "gather", "index", "sort",
                                 "scan")}
+SCAN_TOL = 2e-5   # rtol = atol, y and h_T against the plain version
+# (B, T, C, N, h0 given): T = 1, T past and not a multiple of the 64-step
+# tile, C not a multiple of the 128-channel block, N = 8 and 16
+SCAN_CASES = ((2, 1, 128, 16, True), (3, 70, 200, 8, False),
+              (1, 129, 33, 16, True), (4, 300, 130, 8, True))
 E2E_ARGS = ("--batches", "20", "--batch", "32")
 # serve_e2e in a process of its own, printing its kernels' launches last
 E2E_CODE = """
@@ -2443,6 +2484,210 @@ for name in ops.LAUNCHES:
 serve_e2e.main(sys.argv[1:])
 print("LAUNCHES " + json.dumps(ops.LAUNCHES))
 """
+
+
+def _zoo_config(arch: str):
+    """The architecture's full config, cut in depth where ``ZOO_REDUCED``
+    says so (jamba: its first five layers, every width kept)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == JAMBA:
+        cfg = dataclasses.replace(cfg, n_layers=5,
+                                  layer_pattern=cfg.layer_pattern[:5])
+    return cfg
+
+
+def _scan_err(name, got, want) -> float:
+    """Largest |got - want|; raises past rtol = atol = ``SCAN_TOL``."""
+    import torch
+
+    diff = (got - want).abs()
+    worst = (diff / (SCAN_TOL + SCAN_TOL * want.abs())).max().item()
+    check(worst <= 1.0 and bool(torch.isfinite(got).all()),
+          f"selective_scan {name}: {diff.max().item()} from its plain "
+          f"version ({worst} of the tolerance)")
+    return diff.max().item()
+
+
+def _scan_inputs(dev, b, t, c, n, given, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = 0.001 + 0.1 * torch.rand((b, t, c), generator=g, device=dev)
+    x, bm, cm = (torch.randn(shape, generator=g, device=dev)
+                 for shape in ((b, t, c), (b, t, n), (b, t, n)))
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).repeat(c, 1)
+    h0 = torch.randn((b, c, n), generator=g, device=dev) if given else None
+    return [dt, x, bm, cm, a, h0]
+
+
+def _scan_cases(dev) -> dict:
+    """The selective-scan kernel against its plain version on
+    ``SCAN_CASES`` and on a decode step's aliased in-place state; and a
+    decode step's scan timed with the state written in place and with h_T
+    written anew and copied into the state, as the stack would."""
+    import torch
+    from repro_torch.benchmarks.timing import device_ms
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ss
+
+    errs = {}
+    for b, t, c, n, given in SCAN_CASES:
+        args = _scan_inputs(dev, b, t, c, n, given, seed=t)
+        y, h = ss.selective_scan(*args)
+        want_y, want_h = ref.selective_scan(*args)
+        name = f"{b}x{t}x{c}/N{n}/{'h0' if given else 'zeros'}"
+        errs[name] = max(_scan_err(name + "/y", y, want_y),
+                         _scan_err(name + "/h", h, want_h))
+    args = _scan_inputs(dev, 4, 1, 16384, 16, True, seed=11)
+    h0 = args[5]
+    want_y, want_h = ref.selective_scan(*args[:5], h0.clone())
+    y, h = ss.selective_scan(*args[:5], h0, state_out=h0)
+    check(h is h0, "the aliased state is the one returned")
+    errs["aliased_4x1x16384/N16"] = max(
+        _scan_err("aliased/y", y, want_y), _scan_err("aliased/h", h0, want_h))
+
+    def copied():
+        _, h = ss.selective_scan(*args[:5], h0)
+        h0.copy_(h)
+
+    decode_ms = {
+        "in_place": device_ms(lambda: ss.selective_scan(
+            *args[:5], h0, state_out=h0), reps=20, inner=50),
+        "anew_and_copied": device_ms(copied, reps=20, inner=50)}
+    del args, h0, want_y, want_h, y, h
+    torch.cuda.empty_cache()
+    return {"errors": errs, "decode_step_ms": decode_ms,
+            "timing": "CUDA events, median of 20 runs of 50 back-to-back "
+                      "calls at (4, 1, 16,384, N = 16)"}
+
+
+def _scan_live(model, prompt) -> dict:
+    """The selective-scan kernel on the float32 inputs a served prefill
+    gives each Mamba layer, against its plain version within 2e-5 (y and
+    h_T), and its time at that shape beside the plain version's and the
+    bound."""
+    import torch
+    from repro_torch.benchmarks.timing import device_ms, selective_scan_bound
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import selective_scan as ss
+
+    seen = []
+    launch = ops.selective_scan
+
+    def witness(*args, **kw):
+        seen.append(args)
+        return launch(*args, **kw)
+
+    ops.selective_scan = witness
+    try:
+        model.prefill(prompt, cache_capacity=prompt.shape[1],
+                      attn_impl="kernel", logits_mode="last")
+    finally:
+        ops.selective_scan = launch
+    errs = []
+    for i, args in enumerate(seen):
+        check(args[5] is None and args[1].shape == seen[0][1].shape,
+              f"Mamba layer {i}: a prefill's scan starts from zeros")
+        y, h = ss.selective_scan(*args)
+        want_y, want_h = ref.selective_scan(*args)
+        errs.append({"y": _scan_err(f"layer {i}/y", y, want_y),
+                     "h": _scan_err(f"layer {i}/h", h, want_h),
+                     "y_max_abs": want_y.abs().max().item(),
+                     "h_bitwise": bool(torch.equal(h, want_h))})
+        del y, h, want_y, want_h
+    args = seen[0]
+    ms = device_ms(lambda: ss.selective_scan(*args), reps=10, inner=5)
+    plain_ms = device_ms(lambda: ref.selective_scan(*args), reps=3, inner=1)
+    b, t, c = args[1].shape
+    n = args[4].shape[1]
+    bound_ms, bound_by = selective_scan_bound(b, t, c, n)
+    del seen, args
+    torch.cuda.empty_cache()
+    return {"shape": {"B": b, "T": t, "C": c, "N": n}, "layers": errs,
+            "max_abs_err": max(max(e["y"], e["h"]) for e in errs),
+            "tolerance": SCAN_TOL, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms, "library_ms": None,
+            "timing": "CUDA events, median of 10 runs of 5 back-to-back "
+                      "launches (plain: 3 runs of 1) on layer 0's inputs"}
+
+
+def _mamba_accuracy(model, prompt, n_attn: int, n_moe: int) -> dict:
+    """Each Mamba layer of the kernel-branch bf16 prefill, on the input it
+    was given there: its output as served (bf16, the kernel), the bf16
+    layer with the plain scan and a float32 copy of the layer with the
+    plain scan; the first two as their max distance from the third.  Each
+    attention call of that prefill held against the plain version
+    (``_flash_witness``).  And the share of (token, slot) routes of each
+    MoE layer's served input that a float32 router (the same weights and
+    input) would route otherwise."""
+    import copy
+
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import mamba, moe
+
+    layers_seen, routes_seen = [], []
+    forward, route = mamba.mamba_forward, moe.route
+    flash = ops.flash_attention
+    flash_witness, flash_stats = _flash_witness(flash)
+
+    def mamba_witness(params, x, mc, **kw):
+        out = forward(params, x, mc, **kw)
+        layers_seen.append((params, mc, x, out[0]))
+        return out
+
+    def route_witness(m, xf, mo):
+        out = route(m, xf, mo)
+        routes_seen.append((m, xf, mo, out[2]))
+        return out
+
+    mamba.mamba_forward, moe.route = mamba_witness, route_witness
+    ops.flash_attention = flash_witness
+    try:
+        model.prefill(prompt, cache_capacity=prompt.shape[1],
+                      attn_impl="kernel", logits_mode="last")
+    finally:
+        mamba.mamba_forward, moe.route = forward, route
+        ops.flash_attention = flash
+    check(len(routes_seen) == n_moe, f"{len(routes_seen)} routed layers")
+    check(flash_stats["calls"] == n_attn,
+          f"{flash_stats['calls']} attention calls held, expected {n_attn}")
+
+    def plain(*args, state_out=None):
+        return ref.selective_scan(*args)
+
+    launch = ops.selective_scan
+    result = []
+    for params, mc, x, served in layers_seen:
+        f32 = copy.deepcopy(params).float()
+        ops.selective_scan = plain
+        try:
+            plain16, _ = forward(params, x, mc)
+            want, _ = forward(f32, x.float(), mc)
+        finally:
+            ops.selective_scan = launch
+        result.append({"kernel": _max_diff(served, want),
+                       "bf16_plain": _max_diff(plain16, want),
+                       "kernel_vs_bf16_plain": _max_diff(served, plain16),
+                       "out_max_abs": want.abs().max().item()})
+        del f32, plain16, want
+    routes = []
+    for m, xf, mo, idx16 in routes_seen:
+        _, _, idx32 = route(m, xf.float(), mo)
+        routes.append(int((idx16 != idx32).sum()) / idx16.numel())
+    del layers_seen, routes_seen
+    torch.cuda.empty_cache()
+    return {"mamba_layers": result, "routes_differ_bf16_vs_f32": (
+        sum(routes) / len(routes) if routes else None),
+        "routes_differ_by_layer": routes,
+        "attention_last_rows": flash_stats["worst"],
+        "attention_last_rows_equal_to_rounded_f32": (
+            flash_stats["equal"] / flash_stats["total"])}
 
 
 def _olmoe_flash(dev) -> dict:
@@ -2524,21 +2769,23 @@ def _zoo_accuracy(model, prompt, n_moe: int) -> dict:
 
 
 def _zoo_model(arch: str, dev) -> dict:
-    """One architecture at full width and depth in bf16 from seed 0: the
-    launcher's serve path (counts set to 0 just before, read just after),
-    three timed runs, a profiled prefill and two decode steps, and the
-    accuracy rule over ``ACC_SEEDS``."""
+    """One architecture at full width in bf16 from seed 0 (full depth but
+    where ``ZOO_REDUCED`` cuts it): the launcher's serve path (counts set
+    to 0 just before, read just after), three timed runs, a profiled
+    prefill and two decode steps, the selective-scan kernel on a served
+    prefill's inputs (a model with Mamba layers), and the accuracy rule
+    over ``ACC_SEEDS``."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import Model
 
-    cfg = get_config(arch)
+    cfg = _zoo_config(arch)
     blocks = cfg.layer_pattern * cfg.n_groups
     n_attn = sum(s.mixer == "attn" for s in blocks)
     n_moe = sum(s.ffn == "moe" for s in blocks)
+    n_mamba = sum(s.mixer == "mamba" for s in blocks)
     t0 = time.perf_counter()
     model = Model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
     torch.cuda.synchronize()
@@ -2565,7 +2812,11 @@ def _zoo_model(arch: str, dev) -> dict:
     check(launches["score_pipeline"] == LLM_STEPS + 1,
           f"{arch}: T^Q launched score_pipeline "
           f"{launches['score_pipeline']} times, expected {LLM_STEPS + 1}")
-    check(sum(launches.values()) == 2 * n_attn + LLM_STEPS + 1,
+    check(launches["selective_scan"] == n_mamba * (LLM_STEPS + 1),
+          f"{arch}: {launches['selective_scan']} selective-scan launches, "
+          f"expected {n_mamba} a prefill and a decode step")
+    check(sum(launches.values())
+          == 2 * n_attn + (n_mamba + 1) * (LLM_STEPS + 1),
           f"{arch}: no other kernel of the port launched: {launches}")
     runs = []
     for _ in range(3):
@@ -2589,6 +2840,7 @@ def _zoo_model(arch: str, dev) -> dict:
     aux = float(first.prefill.moe_aux)
     check((aux > 0) == (n_moe > 0) and aux == aux,
           f"{arch}: the prefill's MoE aux loss {aux}")
+    scan = _scan_live(model, prompt) if n_mamba else None
 
     seeds = []
     for ws, ps in ACC_SEEDS:
@@ -2600,19 +2852,11 @@ def _zoo_model(arch: str, dev) -> dict:
         p = torch.tensor(np.random.default_rng(ps).integers(
             0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)),
             dtype=torch.long, device=dev)
-        seeds.append({"weight_seed": ws, "prompt_seed": ps,
-                      **_zoo_accuracy(model, p, n_moe)})
-    d_ker = max(a["logits"]["kernel"] for a in seeds)
-    d_ref = max(a["logits"]["bf16_reference"] for a in seeds)
-    r_ker = max(a["served_risk"]["kernel"] for a in seeds)
-    r_ref = max(a["served_risk"]["bf16_reference"] for a in seeds)
-    witness = max(a["attention_last_rows"]["kernel"] for a in seeds)
-    check(d_ker <= 2 * d_ref, f"{arch}: kernel prefill logits {d_ker} from "
-          f"the f32 reference, bf16 reference {d_ref}")
-    check(r_ker <= 2 * max(r_ref, 1e-3), f"{arch}: kernel prefill served "
-          f"risk {r_ker} from the f32 reference, bf16 reference {r_ref}")
-    check(witness <= 1.0, f"{arch}: kernel attention inside the model "
-          f"{witness} of its bf16 rounding bound from float32")
+        acc = (_mamba_accuracy(model, p, n_attn, n_moe) if n_mamba
+               else _zoo_accuracy(model, p, n_moe))
+        seeds.append({"weight_seed": ws, "prompt_seed": ps, **acc})
+    accuracy = (_mamba_rule(arch, seeds) if n_mamba
+                else _whole_model_rule(arch, seeds))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2631,11 +2875,13 @@ def _zoo_model(arch: str, dev) -> dict:
                             "top_k": cfg.moe.top_k,
                             "d_ff_expert": cfg.moe.d_ff_expert,
                             "capacity_factor": cfg.moe.capacity_factor})},
-        "params": params,
+        "params": params, "config_param_count": cfg.param_count(),
+        "reduced": ZOO_REDUCED.get(arch),
         "weight_bytes": weight_bytes, "max_memory_allocated": peak,
         "init_s": init_s, "batch": LLM_BATCH, "prompt_len": LLM_PROMPT,
         "decode_steps": LLM_STEPS, "launches": launches,
         "attention_layers": n_attn, "moe_layers": n_moe,
+        "mamba_layers": n_mamba,
         "prefill_ms": prefill_ms,
         "prefill_ms_runs": [r.prefill_s * 1e3 for r in runs],
         "first_prefill_ms": first.prefill_s * 1e3,
@@ -2643,10 +2889,7 @@ def _zoo_model(arch: str, dev) -> dict:
         "decode_ms_runs": [r.decode_s / LLM_STEPS * 1e3 for r in runs],
         "prefill_tokens_per_s": LLM_BATCH * LLM_PROMPT / (prefill_ms * 1e-3),
         "decode_tokens_per_s": LLM_BATCH * LLM_STEPS / decode_s,
-        "moe_aux": aux,
-        "logits_err_kernel_vs_f32": d_ker, "logits_err_bf16_ref_vs_f32": d_ref,
-        "risk_err_kernel_vs_f32": r_ker, "risk_err_bf16_ref_vs_f32": r_ref,
-        "attention_last_rows_vs_f32": witness,
+        "moe_aux": aux, **accuracy, "selective_scan": scan,
         "routes_differ_bf16_vs_f32": (
             [a["routes_differ_bf16_vs_f32"] for a in seeds] if n_moe
             else None),
@@ -2657,6 +2900,50 @@ def _zoo_model(arch: str, dev) -> dict:
         "timing": "host clock, each prefill and each 16-step decode loop "
                   "ended by a device sync; median of 3 runs after one "
                   "warm-up run"}
+
+
+def _whole_model_rule(arch: str, seeds: list) -> dict:
+    """qwen3's rule on whole-model prefills over the seeds: the kernel
+    prefill's logits and served risk no farther from float32 than twice the
+    bf16 reference's (risk floor 1e-3), attention rows within bf16
+    rounding."""
+    d_ker = max(a["logits"]["kernel"] for a in seeds)
+    d_ref = max(a["logits"]["bf16_reference"] for a in seeds)
+    r_ker = max(a["served_risk"]["kernel"] for a in seeds)
+    r_ref = max(a["served_risk"]["bf16_reference"] for a in seeds)
+    witness = max(a["attention_last_rows"]["kernel"] for a in seeds)
+    check(d_ker <= 2 * d_ref, f"{arch}: kernel prefill logits {d_ker} from "
+          f"the f32 reference, bf16 reference {d_ref}")
+    check(r_ker <= 2 * max(r_ref, 1e-3), f"{arch}: kernel prefill served "
+          f"risk {r_ker} from the f32 reference, bf16 reference {r_ref}")
+    check(witness <= 1.0, f"{arch}: kernel attention inside the model "
+          f"{witness} of its bf16 rounding bound from float32")
+    return {"logits_err_kernel_vs_f32": d_ker,
+            "logits_err_bf16_ref_vs_f32": d_ref,
+            "risk_err_kernel_vs_f32": r_ker, "risk_err_bf16_ref_vs_f32": r_ref,
+            "attention_last_rows_vs_f32": witness}
+
+
+def _mamba_rule(arch: str, seeds: list) -> dict:
+    """qwen3's 2x rule at the Mamba sublayer, every layer and seed: the
+    served layer (the kernel) no farther from its float32 copy than twice
+    the bf16 layer with the plain scan, floor 1e-3; and the attention
+    rows within bf16 rounding, as in ``_whole_model_rule``."""
+    rows = [(a["weight_seed"], a["prompt_seed"], i, m)
+            for a in seeds for i, m in enumerate(a["mamba_layers"])]
+    bad = [(ws, ps, i, m) for ws, ps, i, m in rows
+           if m["kernel"] > 2 * max(m["bf16_plain"], 1e-3)]
+    check(not bad, f"{arch}: Mamba layers farther from float32 than twice "
+          f"the bf16 plain layer: {bad}")
+    witness = max(a["attention_last_rows"]["kernel"] for a in seeds)
+    check(witness <= 1.0, f"{arch}: kernel attention inside the model "
+          f"{witness} of its bf16 rounding bound from float32")
+    return {"attention_last_rows_vs_f32": witness,
+            "mamba_layer_err_kernel_vs_f32": max(
+                m["kernel"] for *_, m in rows),
+            "mamba_layer_err_bf16_plain_vs_f32": max(
+                m["bf16_plain"] for *_, m in rows),
+            "mamba_layer_checks": len(rows)}
 
 
 def _serve_e2e() -> dict:
@@ -2689,14 +2976,21 @@ def _serve_e2e() -> dict:
 
 
 def phase_zoo_serve(dev) -> dict:
-    """olmoe-1b-7b and xlstm-1.3b at full width and depth through the
-    serve launcher, each freed before the next; the flash kernel at
-    olmoe's prefill shape; the end-to-end serving example on the card."""
+    """olmoe-1b-7b, xlstm-1.3b and jamba-1.5-large-398b's first five layers
+    at full width through the serve launcher, each freed before the next;
+    the selective-scan kernel on small cases; the flash kernel at olmoe's
+    prefill shape; the end-to-end serving example on the card."""
     t0 = time.perf_counter()
-    models = {arch: _zoo_model(arch, dev) for arch in ZOO_ARCHS}
+    models = {}
+    for arch in ZOO_ARCHS:
+        t1 = time.perf_counter()
+        models[arch] = _zoo_model(arch, dev)
+        models[arch]["wall_s"] = time.perf_counter() - t1
+    scan_cases = _scan_cases(dev)
     flash = _olmoe_flash(dev)
     e2e = _serve_e2e()
     result = {"phase": "zoo_serve", "models": models,
+              "selective_scan_cases": scan_cases,
               "olmoe_flash": flash, "serve_e2e": e2e,
               "wall_s": time.perf_counter() - t0}
     emit(result)
@@ -3255,7 +3549,7 @@ def phase_bench_kernels() -> dict:
     for name in ops.LAUNCHES:
         ops.LAUNCHES[name] = 0
     res = bench_kernels.run()
-    launches = dict(ops.LAUNCHES)
+    launches = res["launches"]
     off = [n for n, e in res["entries"].items() if not e["kernel_allclose"]]
     check(not off, f"bench_kernels entries off their plain versions: {off}")
     check(all(n > 0 for n in launches.values()),
@@ -3346,9 +3640,11 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
         "library_ms": attention["library_ms"],
         "bound_ms_issued": attention["bound_ms_issued"],
         "shape": attention["shape"], "path": "bf16 prefill (llm_serve)",
-        # olmoe-1b-7b's prefill (zoo_serve), counted on its own, and the
-        # kernel at its shape (16/16 heads of 128)
+        # olmoe-1b-7b's and jamba's prefills (zoo_serve), each counted on
+        # its own, and the kernel at olmoe's shape (16/16 heads of 128)
         "olmoe_launches": zoo["models"]["olmoe-1b-7b"]["launches"][
+            "flash_attention_wgmma"],
+        "jamba_launches": zoo["models"][JAMBA]["launches"][
             "flash_attention_wgmma"],
         "olmoe_shape": zoo["olmoe_flash"],
     }, {
@@ -3391,7 +3687,30 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
                  "src/repro_torch/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention.py:24", bench,
                  decode["timings"]["bench"]["library_ms"],
-                 decode["timings"])]})
+                 decode["timings"]),
+        _selective_scan_entry(zoo)]})
+
+
+def _selective_scan_entry(zoo: dict) -> dict:
+    """The Mamba scan: launches on jamba's serve path (zoo_serve's main
+    path run), its error over the small cases and the four layers' live
+    inputs, its times at the prefill's shape.  The JAX package computes
+    the scan in XLA, with no Pallas kernel."""
+    jamba = zoo["models"][JAMBA]
+    live = jamba["selective_scan"]
+    cases = zoo["selective_scan_cases"]["errors"]
+    return {"name": "selective_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/selective_scan.cu",
+            "replaces": "src/repro/models/mamba.py:148",
+            "replaces_note": "chunk_step, an XLA scan: the JAX package "
+                             "has no Pallas kernel for it",
+            "launches": jamba["launches"]["selective_scan"],
+            "max_abs_err": max(live["max_abs_err"], *cases.values()),
+            **{key: live[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "shape")},
+            "path": "jamba-1.5-large-398b serve (zoo_serve): 4 a prefill, "
+                    "4 a decode step"}
 
 
 def main() -> int:

@@ -19,6 +19,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
+# special-function results (exp2 and kin) a second: 16 a clock an SM at
+# compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
+# instruction throughput), 132 SMs at the 1.98 GHz behind F32_FLOPS
+SFU_OPS = 132 * 16 * 1.98e9
 SLEEP_CYCLES = 20_000_000   # keeps the card busy while launches queue up
 
 
@@ -124,3 +128,22 @@ def decode_bound(valid: list[int], hq: int, hkv: int, d: int, itemsize: int
     b, total = len(valid), sum(valid)
     nbytes = (2 * total * hkv * d + 2 * b * hq * d) * itemsize + 4 * b
     return _bound(nbytes, 4.0 * d * hq * total, BF16_FLOPS)
+
+
+def selective_scan_bound(b: int, t: int, c: int, n: int, *,
+                         h0: bool = False) -> tuple[float, str]:
+    """The Mamba scan of (B, T, C) float32 dt and x into y with N states a
+    channel: dt and x read and y written once, (B, T, N) Bm and Cm and
+    (C, N) A read once, h_T written (h0 read when given), against the
+    larger of one exponential per (b, t, c, n) on the special-function
+    units and the float32 operations around it (per (b, t, c, n) the
+    decay's product, the input's, the state's product and sum, y's product
+    and sum; per (b, t, c) dt * x)."""
+    nbytes = 4 * (3 * b * t * c + 2 * b * t * n + c * n
+                  + (2 if h0 else 1) * b * c * n)
+    exps = b * t * c * n
+    by_ops = max(exps / SFU_OPS, (6 * exps + b * t * c) / F32_FLOPS) * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes"
+    return by_ops, "operations"

@@ -58,8 +58,8 @@ def model_from_numpy(cfg: ModelConfig, params, *, device: torch.device | str,
     The reference stacks each pattern position's leaves over a leading
     ``n_groups`` axis; layer ``g * P + i`` of the port is group g of
     position i.  Linear weights are (in, out) there and (out, in) here;
-    the MoE experts' and the mLSTM's head-wise weights have one layout on
-    both sides.
+    the MoE experts', the mLSTM's head-wise and the Mamba conv's and
+    ``A_log``'s weights have one layout on both sides.
     """
     model = Model(cfg, device=device, dtype=dtype, seed=None)
     _copy(model.embed.table, params["embed"]["table"])
@@ -102,6 +102,14 @@ def _copy_attention(dst, src, g) -> None:
         _copy(dst.k_norm, src["k_norm"][g])
 
 
+def _copy_mamba(dst, src, g) -> None:
+    for name in ("in_proj", "x_proj", "dt_proj", "out_proj"):
+        _copy_linear(getattr(dst, name), src[name], g)
+    # conv_w keeps its (K, C) layout; A_log is (C, N) on both sides
+    for name in ("conv_w", "conv_b", "dt_bias", "A_log", "D"):
+        _copy(getattr(dst, name), src[name][g])
+
+
 def _copy_mlstm(dst, src, g) -> None:
     # the head-wise (H, hd, hd) blocks keep their layout
     for name in ("wq", "wk", "wv"):
@@ -124,6 +132,6 @@ def _copy_moe(dst, src, g) -> None:
         _copy_mlp(dst.shared, src["shared"], g)
 
 
-_MIXERS = {"attn": _copy_attention, "mlstm": _copy_mlstm,
-           "slstm": _copy_slstm}
+_MIXERS = {"attn": _copy_attention, "mamba": _copy_mamba,
+           "mlstm": _copy_mlstm, "slstm": _copy_slstm}
 _FFNS = {"mlp": _copy_mlp, "moe": _copy_moe}

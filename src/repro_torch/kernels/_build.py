@@ -34,7 +34,8 @@ LAUNCHES: dict[str, int] = {"score_pipeline_banked": 0,
                              "flash_attention_wgmma": 0,
                              "quantile_map": 0,
                              "score_pipeline": 0,
-                             "decode_attention": 0}
+                             "decode_attention": 0,
+                             "selective_scan": 0}
 BUILD_SECONDS: dict[str, float] = {}
 BUILD_LOGS: dict[str, str] = {}
 _LOCK = threading.Lock()

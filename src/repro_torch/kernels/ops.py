@@ -14,6 +14,7 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quantile_map as _qm
 from repro_torch.kernels import score_pipeline as _sp
+from repro_torch.kernels import selective_scan as _ss
 
 # launch counts of every hand-written kernel (the wrappers bump them)
 LAUNCHES = _build.LAUNCHES
@@ -129,3 +130,28 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if device == "cuda":
         return _da.decode_attention(q, k_cache, v_cache, valid_len)
     raise ValueError(f"no decode_attention for device {device!r}")
+
+
+def selective_scan(dt: torch.Tensor, x: torch.Tensor, b_mat: torch.Tensor,
+                   c_mat: torch.Tensor, a: torch.Tensor,
+                   h0: torch.Tensor | None = None, *,
+                   state_out: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba mixer's diagonal SSM scan, float32: dt, x (B, T, C);
+    b_mat, c_mat (B, T, N); a (C, N); h0 (B, C, N) or None for zeros ->
+    (y (B, T, C), h_T (B, C, N)).  ``state_out`` (B, C, N), when given,
+    receives h_T and is returned as it; it may be ``h0`` itself.
+
+    The reference's chunks and associative scan are its way to bound the
+    TPU's VMEM and are not carried over: the whole sequence is one scan.
+    """
+    device = x.device.type
+    if device == "cpu":
+        y, h = ref.selective_scan(dt, x, b_mat, c_mat, a, h0)
+        if state_out is None:
+            return y, h
+        return y, state_out.copy_(h)
+    if device == "cuda":
+        return _ss.selective_scan(dt, x, b_mat, c_mat, a, h0,
+                                  state_out=state_out)
+    raise ValueError(f"no selective_scan for device {device!r}")

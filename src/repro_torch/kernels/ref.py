@@ -11,7 +11,9 @@ each CUDA kernel against them on the same inputs:
 * :func:`flash_attention` — GQA prefill attention, for
   ``csrc/flash_attention.cu``;
 * :func:`decode_attention` — one query position against a KV cache, for
-  ``csrc/decode_attention.cu``.
+  ``csrc/decode_attention.cu``;
+* :func:`selective_scan` — the Mamba mixer's diagonal SSM scan, for
+  ``csrc/selective_scan.cu``.
 """
 from __future__ import annotations
 
@@ -110,5 +112,40 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-__all__ = ["NEG_INF", "decode_attention", "flash_attention", "quantile_map",
-           "score_pipeline", "score_pipeline_banked", "softmax_scale"]
+SCAN_CHUNK = 64   # time steps whose decays the plain scan forms at once
+
+
+def selective_scan(dt: torch.Tensor, x: torch.Tensor, b_mat: torch.Tensor,
+                   c_mat: torch.Tensor, a: torch.Tensor,
+                   h0: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The diagonal SSM recurrence, sequential in t, float32:
+
+        h_t = exp(dt_t · A) · h_{t-1} + (dt_t · x_t) · Bm_t
+        y_t = Σ_n h_t[..., n] · Cm_t[n]
+
+    dt, x (B, T, C); b_mat, c_mat (B, T, N); a (C, N); h0 (B, C, N) or
+    None for zeros -> (y (B, T, C), h_T (B, C, N)).  The decays and inputs
+    of ``SCAN_CHUNK`` steps are formed at once (op for op the kernel's),
+    the state then advances one step at a time as a product and a sum."""
+    b, t, c = x.shape
+    h = (torch.zeros((b, c, a.shape[1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.clone())
+    y = torch.empty_like(x)
+    for s in range(0, t, SCAN_CHUNK):
+        d = dt[:, s:s + SCAN_CHUNK]
+        abar = torch.exp(d[..., None] * a)                  # (B, Q, C, N)
+        bx = (d * x[:, s:s + SCAN_CHUNK])[..., None] \
+            * b_mat[:, s:s + SCAN_CHUNK, None, :]
+        hs = torch.empty_like(abar)
+        for i in range(abar.shape[1]):
+            h = torch.mul(abar[:, i], h, out=hs[:, i])
+            h += bx[:, i]
+        y[:, s:s + SCAN_CHUNK] = torch.sum(
+            hs * c_mat[:, s:s + SCAN_CHUNK, None, :], dim=-1)
+    return y, h.clone(memory_format=torch.contiguous_format)
+
+
+__all__ = ["NEG_INF", "SCAN_CHUNK", "decode_attention", "flash_attention",
+           "quantile_map", "score_pipeline", "score_pipeline_banked",
+           "selective_scan", "softmax_scale"]

@@ -5,16 +5,18 @@ risk-score head), on the card unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --smoke \\
       --batch 4 --prompt-len 32 --decode-steps 16
 
-Every decoder of the registry serves but jamba: the dense attention + MLP
-models, the MoE models (olmoe-1b-7b, llama4-maverick) and xlstm-1.3b
-(sLSTM and mLSTM blocks).  jamba's Mamba mixer raises
-``NotImplementedError`` (ROADMAP Queue 1 item 13c), and hubert-xlarge is
-encoder-only.  The prefill takes the attention kernel branch
-(``attn_impl="kernel"``): attention over prompts of 128 tokens or more runs
-the hand-written flash-attention kernel on the card, shorter ones and the
-decode steps the chunked reference path; the xLSTM mixers have no kernel.
-Each risk score goes through T^Q by ``kernels.ops.score_pipeline``, the
-hand-written ``csrc/score_pipeline.cu`` on the card.
+Every decoder of the registry serves: the dense attention + MLP models,
+the MoE models (olmoe-1b-7b, llama4-maverick), xlstm-1.3b (sLSTM and mLSTM
+blocks) and jamba-1.5-large (Mamba and attention blocks, MLP and MoE
+FFNs); hubert-xlarge is encoder-only.  The prefill takes the attention
+kernel branch (``attn_impl="kernel"``): attention over prompts of 128
+tokens or more runs the hand-written flash-attention kernel on the card,
+shorter ones and the decode steps the chunked reference path.  The Mamba
+mixer's scan runs the hand-written ``csrc/selective_scan.cu`` on the card,
+one launch a Mamba layer in the prefill and in each decode step; the xLSTM
+mixers have no kernel.  Each risk score goes through T^Q by
+``kernels.ops.score_pipeline``, the hand-written ``csrc/score_pipeline.cu``
+on the card.
 """
 from __future__ import annotations
 

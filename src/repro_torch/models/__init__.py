@@ -1,4 +1,4 @@
-"""Model zoo in PyTorch: the dense and encoder attention + MLP family."""
+"""Model zoo in PyTorch: attention, Mamba and xLSTM mixers, MLP and MoE FFNs."""
 from repro_torch.models.config import (
     BlockSpec,
     MambaConfig,

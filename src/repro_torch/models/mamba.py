@@ -1,0 +1,185 @@
+"""Mamba (S6) selective state-space mixer, numerically as the reference's
+``models/mamba.py``.
+
+    xz = in_proj(x);  x_in, z = split(xz)
+    x_conv = silu(causal_conv(x_in))               (K shifted adds)
+    dt, Bm, Cm = split(x_proj(x_conv));  dt = softplus(dt_proj(dt) + dt_bias)
+    h_t = exp(dt_t · A) · h_{t-1} + (dt_t · x_conv_t) · Bm_t,  A = -exp(A_log)
+    y_t = Σ_n h_t · Cm_t + x_conv_t · D;  out = out_proj(y · silu(z))
+
+The reference bounds the TPU's VMEM with a chunked two-level scan (a
+sequential ``lax.scan`` over chunks, an associative scan inside each).
+Here the whole sequence is one call of ``kernels.ops.selective_scan``: on
+the card the hand-written ``csrc/selective_scan.cu``, whose threads keep
+the (d_inner × N) states in registers, so no state reaches device memory;
+on the CPU its plain version.  The scan, the skip and the gate run in
+float32 and the rest in the compute dtype, where the reference does.
+
+Decode is the O(1) recurrent step with a (B, d_conv-1, d_inner) conv tail
+and a (B, d_inner, N) float32 SSM state.  Unlike the reference, which
+returns a new state, the step writes the SSM state into the state it was
+given, in place (the kernel's output aliases its input), as the port's
+decode writes keys and values and the xLSTM states.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+from repro_torch.models.config import MambaConfig
+
+
+class MambaState(NamedTuple):
+    conv: torch.Tensor  # (B, d_conv-1, d_inner) trailing inputs of the conv
+    ssm: torch.Tensor   # (B, d_inner, N) recurrent SSM state (float32)
+
+
+def dt_rank_of(d_model: int, mc: MambaConfig) -> int:
+    return mc.dt_rank or -(-d_model // 16)
+
+
+class Mamba(nn.Module):
+    """The reference's ``init_mamba`` parameters: ``in_proj`` to (x, z),
+    the depthwise ``conv_w`` (d_conv, d_in) and ``conv_b``, ``x_proj`` to
+    (dt, B, C), ``dt_proj`` with ``dt_bias``, ``A_log`` (d_in, N), the skip
+    ``D`` and ``out_proj``."""
+
+    def __init__(self, d_model: int, mc: MambaConfig, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        d_in = mc.expand * d_model
+        rank = dt_rank_of(d_model, mc)
+        kw = dict(device=device, dtype=dtype)
+        self.in_proj = layers.Linear(d_model, 2 * d_in, **kw)
+        self.conv_w = layers.empty_param((mc.d_conv, d_in), device, dtype)
+        self.conv_b = layers.empty_param((d_in,), device, dtype)
+        self.x_proj = layers.Linear(d_in, rank + 2 * mc.d_state, **kw)
+        self.dt_proj = layers.Linear(rank, d_in, **kw)
+        self.dt_bias = layers.empty_param((d_in,), device, dtype)
+        self.A_log = layers.empty_param((d_in, mc.d_state), device, dtype)
+        self.D = layers.empty_param((d_in,), device, dtype)
+        self.out_proj = layers.Linear(d_in, d_model, **kw)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """The reference's init: S4D-real A (A_log = log 1..N), dt_bias the
+        inverse softplus of dt drawn log-uniformly from [0.001, 0.1]."""
+        self.in_proj.reset_parameters(gen)
+        self.conv_w.normal_(0.0, 1.0, generator=gen).mul_(0.1)
+        self.conv_b.zero_()
+        self.x_proj.reset_parameters(gen)
+        self.dt_proj.reset_parameters(gen)
+        f32 = dict(dtype=torch.float32, device=self.D.device)
+        u = torch.empty(self.dt_bias.shape, **f32).uniform_(generator=gen)
+        dt = torch.exp(u * (math.log(0.1) - math.log(0.001))
+                       + math.log(0.001))
+        self.dt_bias.copy_(torch.log(torch.expm1(dt)))
+        n = self.A_log.shape[1]
+        self.A_log.copy_(torch.log(torch.arange(1, n + 1, **f32)).expand(
+            self.A_log.shape))
+        self.D.fill_(1.0)
+        self.out_proj.reset_parameters(gen)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                tail: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv over time, x (B, T, C), w (K, C): K shifted
+    adds in x's dtype, in the reference's order.  ``tail`` (B, K-1, C):
+    the previous inputs (decode, a continued sequence); zeros if None."""
+    k = w.shape[0]
+    if tail is None:
+        tail = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    xp = torch.cat([tail.to(x.dtype), x], dim=1)          # (B, T+K-1, C)
+    t = x.shape[1]
+    out = torch.zeros_like(x)
+    for i in range(k):
+        out = out + xp[:, i:i + t] * w[i].to(x.dtype)
+    return out + b.to(x.dtype)
+
+
+def _ssm_inputs(params: Mamba, x_conv: torch.Tensor, mc: MambaConfig):
+    """dt (float32, softplus in x's dtype), Bm and Cm (float32,
+    contiguous) and A = -exp(A_log) (float32) of the scan."""
+    rank = dt_rank_of(params.in_proj.weight.shape[1], mc)
+    n = mc.d_state
+    proj = layers.linear(params.x_proj, x_conv)
+    dt_raw, b_mat, c_mat = torch.split(proj, [rank, n, n], dim=-1)
+    dt = F.softplus(layers.linear(params.dt_proj, dt_raw)
+                    + params.dt_bias.to(x_conv.dtype)).to(torch.float32)
+    a = -torch.exp(params.A_log.to(torch.float32))
+    f32 = torch.float32
+    return (dt.contiguous(), b_mat.to(f32).contiguous(),
+            c_mat.to(f32).contiguous(), a.contiguous())
+
+
+def _gate_out(params: Mamba, y: torch.Tensor, x_conv: torch.Tensor,
+              z: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The skip and the gate in float32, cast back before ``out_proj``."""
+    f32 = torch.float32
+    y = y + x_conv.to(f32) * params.D.to(f32)
+    y = (y * F.silu(z.to(f32))).to(dtype)
+    return layers.linear(params.out_proj, y)
+
+
+def mamba_forward(params: Mamba, x: torch.Tensor, mc: MambaConfig, *,
+                  initial_state: MambaState | None = None,
+                  return_state: bool = False
+                  ) -> tuple[torch.Tensor, MambaState | None]:
+    """Full-sequence mixer: x (B, T, d_model) -> (out, the final state if
+    ``return_state``).  ``initial_state`` continues a sequence."""
+    xz = layers.linear(params.in_proj, x)
+    x_in, z = torch.chunk(xz, 2, dim=-1)
+    tail = initial_state.conv if initial_state is not None else None
+    x_conv = F.silu(causal_conv(x_in, params.conv_w, params.conv_b, tail))
+    dt, b_mat, c_mat, a = _ssm_inputs(params, x_conv, mc)
+    h0 = initial_state.ssm if initial_state is not None else None
+    y, h_final = ops.selective_scan(
+        dt, x_conv.to(torch.float32).contiguous(), b_mat, c_mat, a, h0)
+    out = _gate_out(params, y, x_conv, z, x.dtype)
+
+    state = None
+    if return_state:
+        k = params.conv_w.shape[0]
+        src = x_in if initial_state is None else torch.cat(
+            [initial_state.conv.to(x_in.dtype), x_in], dim=1)
+        conv_tail = src[:, -(k - 1):]
+        short = k - 1 - conv_tail.shape[1]
+        if short > 0:
+            conv_tail = F.pad(conv_tail, (0, 0, short, 0))
+        state = MambaState(conv=conv_tail, ssm=h_final)
+    return out, state
+
+
+def mamba_decode_step(params: Mamba, x: torch.Tensor, mc: MambaConfig,
+                      state: MambaState
+                      ) -> tuple[torch.Tensor, MambaState]:
+    """One-token step, x (B, 1, d_model).  Writes the new SSM state into
+    ``state.ssm`` in place and returns it with the new conv tail."""
+    xz = layers.linear(params.in_proj, x)
+    x_in, z = torch.chunk(xz, 2, dim=-1)                   # (B, 1, d_in)
+    x_conv = F.silu(causal_conv(x_in, params.conv_w, params.conv_b,
+                                state.conv))
+    new_conv = torch.cat([state.conv.to(x_in.dtype), x_in], dim=1)[:, 1:]
+    dt, b_mat, c_mat, a = _ssm_inputs(params, x_conv, mc)
+    y, ssm = ops.selective_scan(
+        dt, x_conv.to(torch.float32).contiguous(), b_mat, c_mat, a,
+        state.ssm, state_out=state.ssm)
+    out = _gate_out(params, y, x_conv, z, x.dtype)
+    return out, MambaState(conv=new_conv, ssm=ssm)
+
+
+def init_mamba_state(batch: int, d_model: int, mc: MambaConfig,
+                     dtype=torch.bfloat16, device=None) -> MambaState:
+    """A zero state: the conv tail in ``dtype`` (the cache's), the SSM
+    state in float32."""
+    d_in = mc.expand * d_model
+    return MambaState(
+        conv=torch.zeros((batch, mc.d_conv - 1, d_in), dtype=dtype,
+                         device=device),
+        ssm=torch.zeros((batch, d_in, mc.d_state), dtype=torch.float32,
+                        device=device))

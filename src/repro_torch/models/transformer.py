@@ -1,20 +1,20 @@
 """Block composition and the layer stack.
 
-A *block* = sequence mixer (attention, mLSTM or sLSTM) + optional FFN
-(dense SwiGLU or MoE), pre-norm residual.  The stack is one
+A *block* = sequence mixer (attention, Mamba, mLSTM or sLSTM) + optional
+FFN (dense SwiGLU or MoE), pre-norm residual.  The stack is one
 ``nn.ModuleList`` of ``n_layers`` blocks, layer ``g * P + i`` being pattern
 position ``i`` of group ``g`` (P = ``len(cfg.layer_pattern)``), and
 ``stack_forward`` loops over it in Python.
 
 Caches keep the reference's layout: ``cache[i]`` is the state for pattern
-position ``i`` (a ``KVCache`` for attention, an ``MLSTMState`` or
-``SLSTMState`` for the xLSTM mixers), every leaf carrying a leading
-``n_groups`` axis.
+position ``i`` (a ``KVCache`` for attention, a ``MambaState`` for Mamba,
+an ``MLSTMState`` or ``SLSTMState`` for the xLSTM mixers), every leaf
+carrying a leading ``n_groups`` axis.
 
 Still raising ``NotImplementedError``, each naming the ROADMAP item that
-ports it: the Mamba mixer (13c), the all-to-all MoE (``impl="a2a"``, 13b's
-``moe_a2a`` with 11b), rematerialisation for training (13e), and sharded
-activations and expert-parallel constraints (13f).
+ports it: the all-to-all MoE (``impl="a2a"``, 13b's ``moe_a2a`` with 11b),
+rematerialisation for training (13e), and sharded activations and
+expert-parallel constraints (13f).
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from torch import nn
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import KVCache
@@ -30,14 +31,12 @@ from repro_torch.models.config import BlockSpec, ModelConfig
 
 # what is not ported yet -> the ROADMAP item that ports it
 NOT_PORTED = {
-    "mamba": "the Mamba mixer (models/mamba.py) is not ported yet: "
-             "ROADMAP Queue 1 item 13c",
     "remat": "training (remat=True, training/, launch/train.py) is not "
              "ported yet: ROADMAP Queue 1 item 13e",
     "act_pspec": "sharded activations (act_pspec) are not ported yet: "
                  "ROADMAP Queue 1 item 13f",
 }
-MIXERS = ("attn", "mlstm", "slstm")
+MIXERS = ("attn", "mamba", "mlstm", "slstm")
 FFNS = ("mlp", "moe", "none")
 
 
@@ -61,6 +60,8 @@ class Block(nn.Module):
         self.mixer_norm = layers.RMSNorm(cfg.d_model, **kw)
         if spec.mixer == "attn":
             self.mixer = attn_mod.Attention(cfg, **kw)
+        elif spec.mixer == "mamba":
+            self.mixer = mamba_mod.Mamba(cfg.d_model, cfg.mamba, **kw)
         elif spec.mixer == "mlstm":
             self.mixer = xlstm_mod.MLSTM(cfg.d_model, cfg.n_heads, cfg.xlstm,
                                          **kw)
@@ -103,11 +104,17 @@ def _stacked_zeros(state, n_groups: int):
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                dtype=torch.bfloat16, device=None) -> list:
     """Fresh decode cache, one entry per pattern position, leaves stacked
-    over ``n_groups``.  Attention caches take ``dtype``; the xLSTM states
-    are float32, as the reference's."""
+    over ``n_groups``.  Attention caches and the Mamba conv tail take
+    ``dtype``; the Mamba SSM state and the xLSTM states are float32, as the
+    reference's."""
     out = []
     for spec in cfg.layer_pattern:
         check_ported(spec)
+        if spec.mixer == "mamba":
+            out.append(_stacked_zeros(mamba_mod.init_mamba_state(
+                batch, cfg.d_model, cfg.mamba, dtype, device),
+                cfg.n_groups))
+            continue
         if spec.mixer == "mlstm":
             out.append(_stacked_zeros(xlstm_mod.init_mlstm_state(
                 batch, cfg.d_model, cfg.n_heads, cfg.xlstm, device),
@@ -128,6 +135,11 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
 def _mixer_forward(block: Block, x, cfg, *, angles, mode, cache, cache_pos,
                    attn_impl):
     mixer, kind = block.mixer, block.spec.mixer
+    if kind == "mamba":
+        if mode == "decode":
+            return mamba_mod.mamba_decode_step(mixer, x, cfg.mamba, cache)
+        return mamba_mod.mamba_forward(mixer, x, cfg.mamba,
+                                       return_state=(mode == "prefill"))
     if kind == "mlstm":
         if mode == "decode":
             return xlstm_mod.mlstm_decode_step(mixer, x, cfg.n_heads,
@@ -191,7 +203,8 @@ def stack_forward(
 
     ``prefill`` takes the attention capacities from ``cache`` and returns a
     new cache in the reference's layout; ``decode`` writes into ``cache``
-    in place (attention keys and values at ``cache_pos``, xLSTM states
+    in place (attention keys and values at ``cache_pos``, the Mamba SSM
+    state by the scan itself, the Mamba conv tail and the xLSTM states
     replaced) and returns it.
     """
     if remat:
@@ -214,8 +227,11 @@ def stack_forward(
         if mode == "prefill":
             built[i].append(c_out)
         elif mode == "decode" and block.spec.mixer != "attn":
+            # a leaf the mixer wrote in place comes back as the cache's own
+            # tensor (the Mamba SSM state); every other leaf is copied in
             for dst, src in zip(c_in, c_out):
-                dst.copy_(src)
+                if src is not dst:
+                    dst.copy_(src)
     if mode == "prefill":
         new_cache = [type(cs[0])(*(torch.stack(leaves)
                                    for leaves in zip(*cs)))

@@ -703,6 +703,109 @@ def test_serve_launcher_maps_each_risk_score_through_the_kernel(dev):
     assert torch.equal(got.cpu(), serve.business_transform("cpu")(scores))
 
 
+def _scan_inputs(dev, b, t, c, n, seed, given=True):
+    g = torch.Generator().manual_seed(seed)
+    dt = 0.001 + 0.2 * torch.rand((b, t, c), generator=g)
+    x, bm, cm = (torch.randn(shape, generator=g)
+                 for shape in ((b, t, c), (b, t, n), (b, t, n)))
+    a = -torch.arange(1, n + 1, dtype=torch.float32).repeat(c, 1)
+    h0 = torch.randn((b, c, n), generator=g) if given else None
+    return [v.to(dev) if v is not None else None
+            for v in (dt, x, bm, cm, a, h0)]
+
+
+# (B, T, C, N, h0 given): T = 1, T past and not a multiple of the 64-step
+# tile, C not a multiple of the 128-channel block, N = 8 and 16
+SCAN_CASES = [(2, 1, 128, 16, True), (3, 70, 200, 8, False),
+              (1, 129, 33, 16, True), (2, 64, 256, 16, False),
+              (4, 300, 130, 8, True)]
+
+
+@pytest.mark.parametrize("b,t,c,n,given", SCAN_CASES)
+def test_selective_scan_matches_plain_version(dev, b, t, c, n, given):
+    """y and h_T within 2e-5 of the plain version on the same inputs, one
+    launch a call."""
+    from repro_torch.kernels import selective_scan as ss
+
+    args = _scan_inputs(dev, b, t, c, n, seed=t, given=given)
+    before = ops.LAUNCHES["selective_scan"]
+    y, h = ops.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["selective_scan"] == before + 1
+    want_y, want_h = ref.selective_scan(*args)
+    torch.testing.assert_close(y, want_y, **TOL)
+    torch.testing.assert_close(h, want_h, **TOL)
+    assert ss.LAUNCHES is ops.LAUNCHES
+
+
+def test_selective_scan_writes_an_aliased_state_in_place(dev):
+    """A decode step's shape (T = 1) with ``state_out`` the h0 tensor
+    itself: h_T lands in it, equal to the plain version from a copy."""
+    args = _scan_inputs(dev, 4, 1, 300, 16, seed=2)
+    h0 = args[5]
+    want_y, want_h = ref.selective_scan(*args[:5], h0.clone())
+    y, h = ops.selective_scan(*args[:5], h0, state_out=h0)
+    torch.cuda.synchronize()
+    assert h is h0
+    torch.testing.assert_close(y, want_y, **TOL)
+    torch.testing.assert_close(h0, want_h, **TOL)
+
+
+@pytest.mark.parametrize("bad", ["bf16", "strided", "n17", "mixed"])
+def test_selective_scan_wrapper_rejects_what_the_kernel_does_not_take(
+        dev, bad):
+    from repro_torch.kernels import selective_scan as ss
+
+    dt, x, bm, cm, a, h0 = _scan_inputs(dev, 2, 5, 8, 16, seed=1)
+    if bad == "bf16":
+        x = x.to(torch.bfloat16)
+    elif bad == "strided":
+        bm = torch.cat([bm, cm], dim=-1)[..., :16]
+    elif bad == "n17":
+        a, bm, cm = (torch.zeros(v.shape[:-1] + (17,), device=dev)
+                     for v in (a, bm, cm))
+    else:
+        a = a.cpu()
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError):
+        ss.selective_scan(dt, x, bm, cm, a, h0)
+    assert ops.LAUNCHES == before
+
+
+def test_jamba_smoke_on_the_card_matches_the_cpu(dev, no_tf32):
+    """jamba smoke's float32 prefill and two decode steps on the card
+    against the same weights on the CPU (logits 1e-4, risk 1e-5), the
+    Mamba layer's scan one kernel launch a prefill and a step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    cpu = Model(cfg, device="cpu", seed=0)
+    card = Model(cfg, device=dev, seed=None)
+    card.load_state_dict(cpu.state_dict())
+    tok = torch.randint(0, cfg.vocab_size, (2, 42),
+                        generator=torch.Generator().manual_seed(5))
+    kw = dict(cache_capacity=42, compute_dtype=torch.float32,
+              cache_dtype=torch.float32)
+    before = ops.LAUNCHES["selective_scan"]
+    want, want_cache = cpu.prefill(tok[:, :40], **kw)
+    got, got_cache = card.prefill(tok[:, :40].to(dev), **kw)
+    assert ops.LAUNCHES["selective_scan"] == before + 1
+    torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=1e-4,
+                               atol=1e-4)
+    for s in (40, 41):
+        want = cpu.decode_step(want_cache, tok[:, s:s + 1], pos=s,
+                               compute_dtype=torch.float32)
+        got = card.decode_step(got_cache, tok[:, s:s + 1].to(dev), pos=s,
+                               compute_dtype=torch.float32)
+        want_cache, got_cache = want.cache, got.cache
+        torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=1e-4,
+                                   atol=1e-4)
+        torch.testing.assert_close(got.risk_score.cpu(), want.risk_score,
+                                   rtol=1e-5, atol=1e-5)
+    assert ops.LAUNCHES["selective_scan"] == before + 3
+
+
 # quantile_map and score_pipeline: the reference's tolerances per dtype
 SCORE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SCORE_DTYPES = pytest.mark.parametrize(

@@ -24,7 +24,8 @@ from repro.models.model import Model as JModel
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import model_from_numpy
 from repro_torch.kernels import ops
-from repro_torch.models.config import BlockSpec
+from repro_torch.launch import serve
+from repro_torch.models.config import BlockSpec, MambaConfig
 from repro_torch.models.model import Model
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -160,15 +161,9 @@ def test_bfloat16_forward_tracks_reference():
 
 
 def _unported(case):
-    """A smoke config the port refuses: jamba (Mamba), olmoe with the
-    all-to-all MoE or expert-parallel constraints, and a Mamba block inside
-    a pattern of ported blocks."""
-    if case == "jamba":
-        return get_smoke_config("jamba-1.5-large-398b")
+    """A smoke config the port refuses: olmoe with the all-to-all MoE or
+    expert-parallel constraints."""
     cfg = get_smoke_config("olmoe-1b-7b")
-    if case == "mamba_in_pattern":
-        return dataclasses.replace(cfg, layer_pattern=(
-            BlockSpec("attn", "moe"), BlockSpec("mamba", "mlp")))
     change = {"a2a": {"impl": "a2a"},
               "ep_sharding": {"ep_sharding_constraint": True}}[case]
     return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
@@ -176,14 +171,40 @@ def _unported(case):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("jamba", "item 13c"), ("a2a", "item 13b's moe_a2a, with item 11b"),
-    ("ep_sharding", "item 13f"), ("mamba_in_pattern", "item 13c")])
+    ("a2a", "item 13b's moe_a2a, with item 11b"),
+    ("ep_sharding", "item 13f")])
 def test_unported_families_raise(case, item):
     for arch in ("jamba-1.5-large-398b", "olmoe-1b-7b"):
         get_config(arch)  # the registry builds every config
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 {item}"):
         Model(_unported(case), device="cpu")
+
+
+def _mamba_family(case):
+    """jamba smoke, and a Mamba block inside a pattern of olmoe's blocks."""
+    if case == "jamba":
+        return get_smoke_config("jamba-1.5-large-398b")
+    cfg = get_smoke_config("olmoe-1b-7b")
+    return dataclasses.replace(
+        cfg, mamba=MambaConfig(d_state=8),
+        layer_pattern=(BlockSpec("attn", "moe"), BlockSpec("mamba", "mlp")))
+
+
+@pytest.mark.parametrize("case", ["jamba", "mamba_in_pattern"])
+def test_mamba_families_build_and_serve(case):
+    """Both once raised (ROADMAP Queue 1 item 13c); now each builds and
+    serves a prompt and a decoded token through the launcher's path."""
+    cfg = _mamba_family(case)
+    tm = Model(cfg, device="cpu")
+    assert "mamba" in [b.spec.mixer for b in tm.stack]
+    prompt = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 12)), dtype=torch.long)
+    res = serve.serve(tm, prompt, decode_steps=1,
+                      transform=serve.business_transform("cpu"))
+    assert res.tokens.shape == (2, 1)
+    assert bool(((res.business >= 0) & (res.business <= 1)).all())
+    assert bool(torch.isfinite(res.prefill.logits.float()).all())
 
 
 @pytest.mark.parametrize("option,item", [("remat", "13e"),
