@@ -199,7 +199,27 @@ Phases, each printing one JSON line:
 15. bench_kernels — the port's kernel microbenchmark at full size, the path
              of those three kernels: every entry agrees with its plain
              version and every kernel launched.
-16. kernels — every kernel of the port with its launches on its path, its
+16. train   — training on the card: the selective scan's backward kernel
+             against its plain version within 2e-5 on every gradient
+             (T = 1, ragged T and C, N = 8 and 16, h0 given or not, dh_T
+             zero and nonzero); jamba-1.5-large-398b's first layer at full
+             width (Mamba d_inner 16,384, N = 16, MLP of 24,576, vocab
+             65,536; 2,098,085,889 float32 parameters from seed 0) trained
+             12 steps of 4 x 2,048 tokens by ``Trainer.fit`` with AdamW on
+             a cosine schedule, remat and bf16 compute: losses and gradient
+             norms finite, the loss falling, ms a step, tokens/s, peak
+             memory, launches (two forward scans a step, remat's recompute
+             one of them, and one backward of each of its two kernels);
+             the backward kernel on step 1's live inputs within 2e-5 of its
+             plain version, timed beside it and its bound; the Mamba
+             layer's parameter gradients through the kernels in bf16 no
+             farther from a float32 plain-scan copy than twice the bf16
+             plain layer (three seeds); one profiled step's busy share and
+             split; then ``python -m
+             repro_torch.examples.train_fraud_scorer`` at the reference's
+             defaults in a process of its own, and again from its
+             checkpoints.
+17. kernels — every kernel of the port with its launches on its path, its
              error and its times at the path's shapes.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -3561,6 +3581,342 @@ def phase_bench_kernels() -> dict:
 
 
 # ---------------------------------------------------------------- phase 16
+# jamba's first layer at full width: what is cut, and the built count (the
+# config's 2,098,053,121 omits conv_b and dt_bias)
+TRAIN_REDUCED = {"n_layers": "72 -> 1 (period position 0: Mamba + MLP; a "
+                             "second layer is a 16-expert MoE, 195 GB of "
+                             "training state)"}
+TRAIN_PARAMS = 2_098_085_889
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 12
+TRAIN_LR = (3e-4, 2)            # peak of the cosine schedule, warm-up steps
+GRAD_SEEDS = (0, 1, 2)          # the gradient rule's cotangents (and rows)
+# (B, T, C, N, h0 given, dh_T nonzero): T = 1, T past and not a multiple of
+# the 64-step tile, C not a multiple of the 128-channel block, N = 8 and 16
+SCAN_BWD_CASES = ((2, 1, 128, 16, True, True), (3, 70, 200, 8, False, False),
+                  (1, 129, 33, 16, True, False), (4, 300, 130, 8, True, True),
+                  (2, 64, 256, 16, False, True))
+SCAN_GRADS = ("ddt", "dx", "dBm", "dCm", "dA", "dh0")
+TRAIN_SPLIT = {"selective_scan_bwd": ("selective_scan_bwd",),
+               "selective_scan": ("selective_scan",)}
+FRAUD_ARGS = ()   # train_fraud_scorer at the reference's defaults
+
+
+def _train_config():
+    """jamba-1.5-large-398b cut to its first layer, every width kept."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(JAMBA)
+    return dataclasses.replace(cfg, n_layers=1,
+                               layer_pattern=cfg.layer_pattern[:1])
+
+
+def _scan_bwd_errs(tag, got, want) -> float:
+    """Every gradient within ``SCAN_TOL`` of the plain backward's."""
+    errs = [_scan_err(f"{tag}/{name}", g, w)
+            for name, g, w in zip(SCAN_GRADS, got, want) if w is not None]
+    return max(errs)
+
+
+def _scan_bwd_cases(dev) -> dict:
+    """The backward kernel against its plain version on ``SCAN_BWD_CASES``
+    (the tile checkpoints of the forward too)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ss
+
+    errs = {}
+    for b, t, c, n, given, dh in SCAN_BWD_CASES:
+        args = _scan_inputs(dev, b, t, c, n, given, seed=t)
+        g = torch.Generator(device=dev).manual_seed(t + 1)
+        dy = torch.randn((b, t, c), generator=g, device=dev)
+        dh_t = torch.randn((b, c, n), generator=g, device=dev) if dh else None
+        _, _, chunks = ss.selective_scan(*args, chunk_states=True)
+        _, _, want_chunks = ref.selective_scan(*args, chunk_states=True)
+        name = (f"{b}x{t}x{c}/N{n}/{'h0' if given else 'zeros'}/"
+                f"{'dh' if dh else 'no_dh'}")
+        chunk_err = _scan_err(name + "/chunks", chunks, want_chunks)
+        got = ss.selective_scan_backward(*args[:5], chunks, dy, dh_t,
+                                         want_dh0=given)
+        want = ref.selective_scan_backward(*args[:5], chunks, dy, dh_t,
+                                           want_dh0=given)
+        errs[name] = max(chunk_err, _scan_bwd_errs(name, got, want))
+    return errs
+
+
+def _plain_scan_fn():
+    """A stand-in for ``ops.selective_scan`` that runs the plain forward
+    and the plain backward on the card (for the gradient rule's baselines,
+    outside the port)."""
+    import torch
+    from repro_torch.kernels import ref
+
+    class PlainScan(torch.autograd.Function):
+        @staticmethod
+        def forward(dt, x, b_mat, c_mat, a, h0):
+            return ref.selective_scan(dt, x, b_mat, c_mat, a, h0,
+                                      chunk_states=True)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.mark_non_differentiable(output[2])
+            ctx.save_for_backward(*inputs[:5], output[2])
+
+        @staticmethod
+        def backward(ctx, dy, dh_t, _):
+            dt, x, b_mat, c_mat, a, chunks = ctx.saved_tensors
+            got = ref.selective_scan_backward(dt, x, b_mat, c_mat, a, chunks,
+                                              dy.contiguous(),
+                                              dh_t.contiguous())
+            return (*got[:5], None)
+
+    def scan(*args, state_out=None):
+        return PlainScan.apply(*args)[:2]
+
+    return scan
+
+
+def _grad_rule(layer, live_x, mc) -> dict:
+    """The Mamba layer's parameter gradients on one batch row of step 1's
+    live input (B = 1, T = 2,048), each seed's cotangent drawn on the card:
+    through the kernels in bf16 (as trained), through the plain scan and
+    backward in bf16, and through the plain pair in float32 on the float32
+    input.  Each distance is max |g - g_f32| over max |g_f32| per
+    parameter; the kernels' no farther than twice the bf16 plain layer's
+    (floor 1e-3): zoo_serve's 2x rule for jamba, on the gradients."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba
+
+    names = [n for n, _ in layer.named_parameters()]
+    plain, launch = _plain_scan_fn(), ops.selective_scan
+
+    def grads(x, cot, scan):
+        ops.selective_scan = scan
+        try:
+            out, _ = mamba.mamba_forward(layer, x, mc)
+            found = torch.autograd.grad(
+                torch.sum(out.float() * cot), list(layer.parameters()))
+        finally:
+            ops.selective_scan = launch
+        return dict(zip(names, found))
+
+    seeds, bad = [], []
+    for seed in GRAD_SEEDS:
+        row = seed % live_x.shape[0]
+        x16 = live_x[row:row + 1]
+        g = torch.Generator(device=x16.device).manual_seed(seed)
+        cot = torch.randn(x16.shape, generator=g, device=x16.device)
+        want = grads(x16.float(), cot, plain)
+        kernel, plain16 = grads(x16, cot, launch), grads(x16, cot, plain)
+        dist = {}
+        for name in names:
+            scale = max(want[name].abs().max().item(), 1e-30)
+            d_ker = _max_diff(kernel[name], want[name]) / scale
+            d_plain = _max_diff(plain16[name], want[name]) / scale
+            dist[name] = {"kernel": d_ker, "bf16_plain": d_plain}
+            if d_ker > 2 * max(d_plain, 1e-3):
+                bad.append((seed, name, d_ker, d_plain))
+        seeds.append({"seed": seed, "row": row, "distances": dist})
+        del want, kernel, plain16
+    check(not bad, f"Mamba gradients through the kernels farther from "
+          f"float32 than twice the bf16 plain layer: {bad}")
+    return {"seeds": seeds, "checks": len(seeds) * len(names),
+            "kernel_vs_f32": max(d["kernel"] for s in seeds
+                                 for d in s["distances"].values()),
+            "bf16_plain_vs_f32": max(d["bf16_plain"] for s in seeds
+                                     for d in s["distances"].values())}
+
+
+def _scan_bwd_live(args) -> dict:
+    """The backward kernel on the float32 inputs step 1 gave it, against
+    its plain version within 2e-5, timed beside it and its bound."""
+    import torch
+    from repro_torch.benchmarks.timing import (device_ms,
+                                               selective_scan_bwd_bound)
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import selective_scan as ss
+
+    got = ss.selective_scan_backward(*args)
+    want = ref.selective_scan_backward(*args)
+    err = _scan_bwd_errs("live", got, want)
+    bitwise = all(torch.equal(g, w) for g, w in zip(got, want)
+                  if w is not None)
+    del got, want
+    ms = device_ms(lambda: ss.selective_scan_backward(*args), reps=5,
+                   inner=3)
+    plain_ms = device_ms(lambda: ref.selective_scan_backward(*args), reps=2,
+                         inner=1)
+    b, t, c = args[1].shape
+    n = args[4].shape[1]
+    bound_ms, bound_by = selective_scan_bwd_bound(b, t, c, n,
+                                                  dh_t=args[7] is not None)
+    return {"shape": {"B": b, "T": t, "C": c, "N": n}, "max_abs_err": err,
+            "bitwise": bitwise, "tolerance": SCAN_TOL, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms, "library_ms": None,
+            "timing": "CUDA events, median of 5 runs of 3 back-to-back "
+                      "calls (two launches each; plain: 2 runs of 1) on "
+                      "step 1's inputs"}
+
+
+def _train_fraud_scorer() -> dict:
+    """``python -m repro_torch.examples.train_fraud_scorer`` at the
+    reference's defaults on the card, in a process of its own, then again
+    from its checkpoints: each run's summary and seconds."""
+    import os
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    runs = []
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 "repro_torch.examples.train_fraud_scorer", "--ckpt-dir",
+                 ckpt_dir, *FRAUD_ARGS], capture_output=True, text=True,
+                timeout=600, cwd=root,
+                env={**os.environ, "PYTHONPATH": str(root / "src")})
+            check(proc.returncode == 0,
+                  f"train_fraud_scorer: {proc.stderr[-2000:]}")
+            lines = proc.stdout.strip().splitlines()
+            loss = lines[-1].split()
+            check(loss[0] == "loss" and loss[2] == "->",
+                  f"train_fraud_scorer printed {lines[-1]!r} last")
+            runs.append({"seconds": time.perf_counter() - t0,
+                         "first_loss": float(loss[1]),
+                         "last_loss": float(loss[3]), "summary": lines[-1],
+                         "resumed": any(ln.startswith("resumed params from")
+                                        for ln in lines)})
+    first, again = runs
+    check(first["last_loss"] < first["first_loss"] and not first["resumed"],
+          f"train_fraud_scorer: the loss falls: {first}")
+    check(again["resumed"] and again["first_loss"] < first["first_loss"],
+          f"train_fraud_scorer resumes from its checkpoint: {again}")
+    return {"runs": runs}
+
+
+def phase_train(dev) -> dict:
+    """Training on the card: the scan's backward kernel on small cases;
+    jamba-1.5-large-398b's first layer at full width trained 12 steps by
+    ``Trainer.fit`` (counts set to 0 just before, read just after); the
+    backward kernel on step 1's live inputs; the gradient rule over three
+    seeds; one profiled step; then ``train_fraud_scorer`` and its resume."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.models import Model, mamba
+    from repro_torch.training import AdamW, Trainer, cosine_schedule
+    from repro_torch.training.data import TokenStream
+
+    t0 = time.perf_counter()
+    cases = _scan_bwd_cases(dev)
+    torch.cuda.empty_cache()
+    cfg = _train_config()
+    t1 = time.perf_counter()
+    model = Model(cfg, device=dev, dtype=torch.float32, seed=0)
+    trainer = Trainer(model, AdamW(learning_rate=cosine_schedule(
+        TRAIN_LR[0], TRAIN_LR[1], TRAIN_STEPS)), remat=True,
+        compute_dtype=torch.bfloat16)
+    state = trainer.init_state(None)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t1
+    params = model.param_count()
+    check(params == TRAIN_PARAMS, f"{params} parameters built")
+    stream = iter(TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+
+    # step 1's Mamba input and its scan backward's arguments, recorded
+    live = {}
+    forward, backward = mamba.mamba_forward, ss.selective_scan_backward
+
+    def forward_witness(params, x, mc, **kw):
+        live.setdefault("x", x.detach())
+        return forward(params, x, mc, **kw)
+
+    def backward_witness(*args, **kw):
+        live.setdefault("bwd", tuple(
+            a.detach() if isinstance(a, torch.Tensor) else a for a in args))
+        return backward(*args, **kw)
+
+    mamba.mamba_forward, ss.selective_scan_backward = (forward_witness,
+                                                       backward_witness)
+    lines = []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # the main path: counts set to 0 just before, read just after
+        for name in ops.LAUNCHES:
+            ops.LAUNCHES[name] = 0
+        state, history = trainer.fit(state, stream, TRAIN_STEPS, log_every=1,
+                                     log_fn=lines.append)
+        launches = dict(ops.LAUNCHES)
+    finally:
+        mamba.mamba_forward, ss.selective_scan_backward = forward, backward
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == {**{k: 0 for k in launches},
+                       "selective_scan": 2 * TRAIN_STEPS,
+                       "selective_scan_bwd": TRAIN_STEPS,
+                       "selective_scan_bwd_reduce": TRAIN_STEPS},
+          f"train launches {launches}: 2 forward scans (remat recomputes "
+          f"one) and one backward of each kernel a step, nothing else")
+    losses = [r["loss"] for r in history]
+    gnorms = [r["grad_norm"] for r in history]
+    check(len(history) == TRAIN_STEPS
+          and all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"finite losses and gradient norms: {losses}, {gnorms}")
+    check(losses[-1] < losses[0], f"the loss falls: {losses}")
+    elapsed = [r["elapsed_s"] for r in history]
+    step_ms = [(b - a) * 1e3 for a, b in zip([0.0] + elapsed, elapsed)]
+    ms = statistics.median(step_ms[-8:])
+
+    bwd_live = _scan_bwd_live(live.pop("bwd"))
+    rule = _grad_rule(model.stack[0].mixer, live.pop("x"), cfg.mamba)
+    torch.cuda.empty_cache()
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    step = iter([next(stream)])
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        state, _ = trainer.fit(state, step, 1, log_fn=lambda line: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    split = _device_split(prof, TRAIN_SPLIT)
+    del state, trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    fraud = _train_fraud_scorer()
+    result = {
+        "phase": "train", "arch": JAMBA, "reduced": TRAIN_REDUCED,
+        "params": params, "config_param_count": cfg.param_count(),
+        "train_state_bytes": 16 * params, "init_s": init_s,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "compute_dtype": "bfloat16", "remat": True,
+        "lr": {"peak": TRAIN_LR[0], "warmup": TRAIN_LR[1]},
+        "log": lines, "history": history, "step_ms": step_ms,
+        "ms_per_step": ms,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms * 1e-3),
+        "max_memory_allocated": peak, "launches": launches,
+        "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()
+                              if v},
+        "profiled_step": {"wall_ms": wall * 1e3, "split": split,
+                          "device_busy_share": (split["device_ms_total"]
+                                                / (wall * 1e3)
+                                                if split else None)},
+        "scan_bwd_cases": cases, "scan_bwd_live": bwd_live,
+        "grad_rule": rule, "train_fraud_scorer": fraud,
+        "timing": "host clock: each step of Trainer.fit ends in a device "
+                  "sync (its logged loss); ms a step the median of the "
+                  "last 8",
+        "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 17
 def _benched(name: str, source: str, replaces: str, bench: dict,
              library_ms: float | None, also: dict) -> dict:
     """A kernels-line entry from bench_kernels' run (phase 15), the path of
@@ -3579,7 +3935,7 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
                   engine: dict, tiering: dict, sharding: dict,
                   main_bench: dict, paper_bench: dict, attention: dict,
                   llm: dict, zoo: dict, scores: dict, decode: dict,
-                  bench: dict) -> None:
+                  bench: dict, train: dict) -> None:
     from repro_torch.benchmarks.timing import banked_bound, device_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels import score_pipeline as sp
@@ -3688,14 +4044,16 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
                  "src/repro/kernels/decode_attention.py:24", bench,
                  decode["timings"]["bench"]["library_ms"],
                  decode["timings"]),
-        _selective_scan_entry(zoo)]})
+        _selective_scan_entry(zoo, train),
+        _selective_scan_bwd_entry(train)]})
 
 
-def _selective_scan_entry(zoo: dict) -> dict:
+def _selective_scan_entry(zoo: dict, train: dict) -> dict:
     """The Mamba scan: launches on jamba's serve path (zoo_serve's main
-    path run), its error over the small cases and the four layers' live
-    inputs, its times at the prefill's shape.  The JAX package computes
-    the scan in XLA, with no Pallas kernel."""
+    path run) and on its training path (the train phase's), its error over
+    the small cases and the four layers' live inputs, its times at the
+    prefill's shape.  The JAX package computes the scan in XLA, with no
+    Pallas kernel."""
     jamba = zoo["models"][JAMBA]
     live = jamba["selective_scan"]
     cases = zoo["selective_scan_cases"]["errors"]
@@ -3710,7 +4068,31 @@ def _selective_scan_entry(zoo: dict) -> dict:
                                           "bound_by", "library_ms",
                                           "shape")},
             "path": "jamba-1.5-large-398b serve (zoo_serve): 4 a prefill, "
-                    "4 a decode step"}
+                    "4 a decode step",
+            "train_launches": train["launches"]["selective_scan"]}
+
+
+def _selective_scan_bwd_entry(train: dict) -> dict:
+    """The scan's backward: launches on jamba's training path (the train
+    phase's main path run), its error over the small cases and step 1's
+    live inputs, its times at the training shape.  The JAX package
+    differentiates its XLA scan with jax.value_and_grad."""
+    live = train["scan_bwd_live"]
+    return {"name": "selective_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/selective_scan_bwd.cu",
+            "replaces": "src/repro/models/mamba.py:148",
+            "replaces_note": "XLA's autodiff of chunk_step: the JAX package "
+                             "has no kernel for it",
+            "launches": train["launches"]["selective_scan_bwd"],
+            "reduce_launches": train["launches"][
+                "selective_scan_bwd_reduce"],
+            "max_abs_err": max(live["max_abs_err"],
+                               *train["scan_bwd_cases"].values()),
+            **{key: live[key] for key in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms",
+                                          "shape")},
+            "path": "jamba-1.5-large-398b training (train): 1 a step, and "
+                    "1 launch of its reduction"}
 
 
 def main() -> int:
@@ -3750,9 +4132,10 @@ def main() -> int:
     scores = phase_score_kernels(dev)
     decode = phase_decode_attention(dev)
     bench = phase_bench_kernels()
+    train = phase_train(dev)
     phase_kernels(kernel, serve, main_shapes, lifecycle, engine, tiering,
                   sharding, main_bench, paper_bench, attention, llm, zoo,
-                  scores, decode, bench)
+                  scores, decode, bench, train)
     emit({"phase": "wall", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

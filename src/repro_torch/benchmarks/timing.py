@@ -147,3 +147,27 @@ def selective_scan_bound(b: int, t: int, c: int, n: int, *,
     if by_bytes >= by_ops:
         return by_bytes, "bytes"
     return by_ops, "operations"
+
+
+def selective_scan_bwd_bound(b: int, t: int, c: int, n: int, *,
+                             dh_t: bool = False) -> tuple[float, str]:
+    """The Mamba scan's backward at (B, T, C) float32 with N states a
+    channel: dt, x and dy read and ddt and dx written once, (B, T, N) Bm
+    and Cm read and dBm and dCm written, (C, N) A read and dA written, dh_T
+    read when given (the tile checkpoints the kernel reads are its own
+    choice, and a dh0 it writes is not asked of training: neither counts),
+    against the larger of one
+    exponential per (b, t, c, n) on the special-function units and the
+    float32 operations of the gradients (per (b, t, c, n) g's product and
+    sum, the dCm, dBm, du, q·A and dA terms each a product and a sum, q's
+    two products and the carry's; per (b, t, c) u, ddt's product and sum
+    and dx)."""
+    nbytes = 4 * (5 * b * t * c + 4 * b * t * n + 2 * c * n
+                  + (b * c * n if dh_t else 0))
+    exps = b * t * c * n
+    by_ops = max(exps / SFU_OPS, (16 * exps + 4 * b * t * c) / F32_FLOPS) \
+        * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes"
+    return by_ops, "operations"

@@ -1,7 +1,9 @@
-"""Build the port's objects from the reference package's parameters.
+"""Build the port's objects from the reference package's parameters, and
+back.
 
-The inputs are plain numpy arrays (``np.asarray`` of the reference's
-arrays), so this module needs neither JAX nor the reference package.
+The inputs and outputs are plain numpy arrays (``np.asarray`` of the
+reference's arrays), so this module needs neither JAX nor the reference
+package.
 """
 from __future__ import annotations
 
@@ -11,7 +13,9 @@ import torch
 from repro_torch.core.transforms import QuantileMap, TransformBank
 from repro_torch.experiments.fraud_world import Expert
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import Linear
 from repro_torch.models.model import Model
+from repro_torch.training.optimizer import AdamWState
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -42,96 +46,136 @@ def expert_from_numpy(name: str, beta: float, w, b: float,
                   feature_mask=np.array(feature_mask, np.float64))
 
 
-def _copy(dst: torch.Tensor, src, *, transpose: bool = False) -> None:
-    a = np.asarray(src)
-    if transpose:
-        a = a.T
-    dst.copy_(torch.tensor(np.ascontiguousarray(a)))
+# ---------------------------------------------------------------------------
+# The port's parameters (and gradients, moments) <-> the reference's tree
+# ---------------------------------------------------------------------------
+
+def _leaf_path(module: torch.nn.Module, name: str) -> tuple[tuple, bool]:
+    """Where ``module``'s parameter ``name`` sits in the reference's tree of
+    that module, and whether it is transposed there: a ``Linear``'s weight
+    (out, in) is the reference's ``w`` (in, out) and its bias ``b``; every
+    other leaf (norm scales, the MoE experts', the mLSTM's head-wise and
+    the Mamba conv's and ``A_log``'s weights) keeps its name and layout."""
+    *owner, attr = name.split(".")
+    transpose = False
+    if isinstance(module.get_submodule(".".join(owner)), Linear):
+        attr, transpose = {"weight": ("w", True), "bias": ("b", False)}[attr]
+    return (*owner, attr), transpose
+
+
+def _ref_leaf(cfg: ModelConfig, model: Model, name: str):
+    """(key path, group or None, transposed) of the model's parameter
+    ``name``: layer ``g * P + i`` of the stack is group g of
+    ``params["stack"][i]``, whose leaves carry a leading ``n_groups``
+    axis."""
+    path, transpose = _leaf_path(model, name)
+    if path[0] == "stack":
+        g, i = divmod(int(path[1]), len(cfg.layer_pattern))
+        return ("stack", i, *path[2:]), g, transpose
+    return path, None, transpose
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _set(tree, path, leaf) -> None:
+    for key in path[:-1]:
+        tree = tree[key] if isinstance(key, int) else tree.setdefault(key,
+                                                                       {})
+    tree[path[-1]] = leaf
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # numpy cannot hand it to torch
+        return torch.tensor(a.astype(np.float32), device=device).to(
+            torch.bfloat16)
+    return torch.tensor(np.ascontiguousarray(a), device=device)
+
+
+@torch.no_grad()
+def _copy_module(dst: torch.nn.Module, src, g: int) -> None:
+    """``dst``'s parameters from the reference's tree of that module,
+    group g of each stacked leaf."""
+    for name, p in dst.named_parameters():
+        path, transpose = _leaf_path(dst, name)
+        a = np.asarray(_get(src, path))[g]
+        p.copy_(_tensor(a.T if transpose else a, p.device))
+
+
+def tree_from_numpy(cfg: ModelConfig, model: Model, tree,
+                    device: torch.device | str | None = None
+                    ) -> dict[str, torch.Tensor]:
+    """A reference tree shaped like the parameters (weights, gradients,
+    moments) as tensors keyed by the port's parameter names, in each
+    leaf's own dtype (bf16 kept), on ``device`` (default the model's)."""
+    device = model.device if device is None else device
+    out = {}
+    for name in dict(model.named_parameters()):
+        path, g, transpose = _ref_leaf(cfg, model, name)
+        a = np.asarray(_get(tree, path))
+        if g is not None:
+            a = a[g]
+        out[name] = _tensor(a.T if transpose else a, device)
+    return out
 
 
 def model_from_numpy(cfg: ModelConfig, params, *, device: torch.device | str,
                      dtype: torch.dtype = torch.float32) -> Model:
     """The reference's ``Model(cfg).init(...)`` parameters, every leaf a
     numpy array (``jax.tree.map(np.asarray, params)``) -> the port's
-    ``Model`` with those weights on ``device`` in ``dtype``.
-
-    The reference stacks each pattern position's leaves over a leading
-    ``n_groups`` axis; layer ``g * P + i`` of the port is group g of
-    position i.  Linear weights are (in, out) there and (out, in) here;
-    the MoE experts', the mLSTM's head-wise and the Mamba conv's and
-    ``A_log``'s weights have one layout on both sides.
-    """
+    ``Model`` with those weights on ``device`` in ``dtype``
+    (:func:`tree_from_numpy`'s mapping)."""
     model = Model(cfg, device=device, dtype=dtype, seed=None)
-    _copy(model.embed.table, params["embed"]["table"])
-    _copy(model.final_norm.scale, params["final_norm"]["scale"])
-    if model.lm_head is not None:
-        _copy(model.lm_head.weight, params["lm_head"]["w"], transpose=True)
-    if model.score_head is not None:
-        _copy(model.score_head.weight, params["score_head"]["w"],
-              transpose=True)
-        _copy(model.score_head.bias, params["score_head"]["b"])
-    n_pat = len(cfg.layer_pattern)
-    for layer, block in enumerate(model.stack):
-        g, i = divmod(layer, n_pat)
-        src = params["stack"][i]
-        _copy(block.mixer_norm.scale, src["mixer_norm"]["scale"][g])
-        _MIXERS[block.spec.mixer](block.mixer, src["mixer"], g)
-        if block.ffn is not None:
-            _copy(block.ffn_norm.scale, src["ffn_norm"]["scale"][g])
-            _FFNS[block.spec.ffn](block.ffn, src["ffn"], g)
+    with torch.no_grad():
+        for name, t in tree_from_numpy(cfg, model, params).items():
+            model.get_parameter(name).copy_(t)
     return model
 
 
-def _copy_linear(dst, src, g) -> None:
-    """A reference linear (``w`` (in, out), optional ``b``) of group g."""
-    _copy(dst.weight, src["w"][g], transpose=True)
-    if dst.bias is not None:
-        _copy(dst.bias, src["b"][g])
+def _host(t: torch.Tensor | None, like: torch.Tensor) -> np.ndarray:
+    if t is None:                      # a gradient the loss does not reach
+        t = torch.zeros_like(like)
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
 
 
-def _copy_mlp(dst, src, g) -> None:
-    for name in ("gate", "up", "down"):
-        _copy_linear(getattr(dst, name), src[name], g)
+def model_to_numpy(cfg: ModelConfig, model: Model,
+                   values: dict[str, torch.Tensor | None] | None = None):
+    """The inverse of :func:`model_from_numpy`: the reference's parameter
+    tree (numpy leaves; the stack's leaves stacked over ``n_groups``;
+    linear weights (in, out)) of the model's parameters, or of ``values``
+    keyed by parameter name (gradients, AdamW moments; None counts as
+    zeros, bf16 comes back as float32)."""
+    params = dict(model.named_parameters())
+    values = params if values is None else values
+    tree: dict = {"stack": [{} for _ in cfg.layer_pattern]}
+    stacked: dict[tuple, dict[int, np.ndarray]] = {}
+    for name, p in params.items():
+        path, g, transpose = _ref_leaf(cfg, model, name)
+        a = _host(values.get(name), p)
+        a = np.ascontiguousarray(a.T) if transpose else a
+        if g is None:
+            _set(tree, path, a)
+        else:
+            stacked.setdefault(path, {})[g] = a
+    for path, by_group in stacked.items():
+        _set(tree, path, np.stack([by_group[g] for g in sorted(by_group)]))
+    return tree
 
 
-def _copy_attention(dst, src, g) -> None:
-    for name in ("wq", "wk", "wv", "wo"):
-        _copy_linear(getattr(dst, name), src[name], g)
-    if dst.q_norm is not None:
-        _copy(dst.q_norm, src["q_norm"][g])
-        _copy(dst.k_norm, src["k_norm"][g])
-
-
-def _copy_mamba(dst, src, g) -> None:
-    for name in ("in_proj", "x_proj", "dt_proj", "out_proj"):
-        _copy_linear(getattr(dst, name), src[name], g)
-    # conv_w keeps its (K, C) layout; A_log is (C, N) on both sides
-    for name in ("conv_w", "conv_b", "dt_bias", "A_log", "D"):
-        _copy(getattr(dst, name), src[name][g])
-
-
-def _copy_mlstm(dst, src, g) -> None:
-    # the head-wise (H, hd, hd) blocks keep their layout
-    for name in ("wq", "wk", "wv"):
-        _copy(getattr(dst, name), src[name][g])
-    for name in ("up", "w_if", "down"):
-        _copy_linear(getattr(dst, name), src[name], g)
-
-
-def _copy_slstm(dst, src, g) -> None:
-    for name in ("w_in", "w_rec", "up", "down"):
-        _copy_linear(getattr(dst, name), src[name], g)
-
-
-def _copy_moe(dst, src, g) -> None:
-    # the experts' (E, d, f) / (E, f, d) weights are the same on both sides
-    _copy_linear(dst.router, src["router"], g)
-    for name in ("gate", "up", "down"):
-        _copy(getattr(dst, name), src[name][g])
-    if dst.shared is not None:
-        _copy_mlp(dst.shared, src["shared"], g)
-
-
-_MIXERS = {"attn": _copy_attention, "mamba": _copy_mamba,
-           "mlstm": _copy_mlstm, "slstm": _copy_slstm}
-_FFNS = {"mlp": _copy_mlp, "moe": _copy_moe}
+def adamw_state_from_numpy(cfg: ModelConfig, model: Model, state
+                           ) -> AdamWState:
+    """The reference's ``AdamWState`` (``step``, ``mu``, ``nu``; numpy
+    leaves, ``jax.tree.map(np.asarray, state)``) as the port's, keyed by
+    the model's parameter names on its device."""
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=model.device),
+        mu=tree_from_numpy(cfg, model, state.mu),
+        nu=tree_from_numpy(cfg, model, state.nu))

@@ -33,6 +33,12 @@
 // in n order.  N is a template parameter (1..16), so the state arrays stay
 // in registers.  A decode step is T = 1; h0 and h_T may be the same array,
 // since each thread reads its own states before it writes them.
+//
+// For training, the launch may also write the state at the start of each
+// tile of 64 steps (h0, or zeros, for the first) into h_chunks, a
+// (B, ceil(T/64), C, N) array: the checkpoints from which
+// csrc/selective_scan_bwd.cu recomputes a tile's states.  The serve path
+// passes null and writes nothing more.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,8 +55,8 @@ selective_scan_kernel(const float* __restrict__ dt,
                       const float* __restrict__ bm,
                       const float* __restrict__ cm,
                       const float* __restrict__ a, const float* h0,
-                      float* __restrict__ y, float* h_out, int t_len,
-                      int c_len) {
+                      float* __restrict__ y, float* h_out,
+                      float* __restrict__ h_chunks, int t_len, int c_len) {
   __shared__ float sb[kTile * N];
   __shared__ float sc[kTile * N];
   const int b = blockIdx.y;
@@ -64,8 +70,15 @@ selective_scan_kernel(const float* __restrict__ dt,
     av[n] = live ? a[int64_t(c) * N + n] : 0.0f;
     h[n] = (live && h0 != nullptr) ? h0[lane * N + n] : 0.0f;
   }
+  const int n_tiles = (t_len + kTile - 1) / kTile;
   for (int t0 = 0; t0 < t_len; t0 += kTile) {
     const int steps = min(kTile, t_len - t0);
+    if (h_chunks != nullptr && live) {
+      float* hc =
+          h_chunks + ((int64_t(b) * n_tiles + t0 / kTile) * c_len + c) * N;
+#pragma unroll
+      for (int n = 0; n < N; ++n) hc[n] = h[n];
+    }
     __syncthreads();   // every reader of the last tile is done
     for (int i = threadIdx.x; i < steps * N; i += kThreads) {
       sb[i] = bm[(rows + t0) * N + i];
@@ -103,17 +116,17 @@ selective_scan_kernel(const float* __restrict__ dt,
 template <int N>
 cudaError_t launch(const float* dt, const float* x, const float* bm,
                    const float* cm, const float* a, const float* h0,
-                   float* y, float* h_out, int batch, int t_len, int c_len,
-                   cudaStream_t stream) {
+                   float* y, float* h_out, float* h_chunks, int batch,
+                   int t_len, int c_len, cudaStream_t stream) {
   const dim3 grid((c_len + kThreads - 1) / kThreads, batch);
   selective_scan_kernel<N><<<grid, kThreads, 0, stream>>>(
-      dt, x, bm, cm, a, h0, y, h_out, t_len, c_len);
+      dt, x, bm, cm, a, h0, y, h_out, h_chunks, t_len, c_len);
   return cudaGetLastError();
 }
 
 using Launcher = cudaError_t (*)(const float*, const float*, const float*,
                                  const float*, const float*, const float*,
-                                 float*, float*, int, int, int,
+                                 float*, float*, float*, int, int, int,
                                  cudaStream_t);
 
 constexpr Launcher kLaunchers[kMaxState] = {
@@ -128,13 +141,14 @@ constexpr Launcher kLaunchers[kMaxState] = {
 // returns the launch's cudaError_t (0 = success).  The caller has checked
 // that every array is float32, contiguous and on one card: dt, x, y
 // (B, T, C); bm, cm (B, T, N); a (C, N); h0 (B, C, N) or null for zeros;
-// h_out (B, C, N), which may be h0.  1 <= n <= 16, every size >= 1, C and
-// B within a grid.
+// h_out (B, C, N), which may be h0; h_chunks (B, ceil(T/64), C, N) or null.
+// 1 <= n <= 16, every size >= 1, C and B within a grid.
 extern "C" int selective_scan_launch(const void* dt, const void* x,
                                      const void* bm, const void* cm,
                                      const void* a, const void* h0, void* y,
-                                     void* h_out, int batch, int t_len,
-                                     int c_len, int n, void* stream) {
+                                     void* h_out, void* h_chunks, int batch,
+                                     int t_len, int c_len, int n,
+                                     void* stream) {
   if (batch < 1 || batch > 65535 || t_len < 1 || c_len < 1 || n < 1 ||
       n > kMaxState)
     return int(cudaErrorInvalidValue);
@@ -142,8 +156,9 @@ extern "C" int selective_scan_launch(const void* dt, const void* x,
       static_cast<const float*>(dt), static_cast<const float*>(x),
       static_cast<const float*>(bm), static_cast<const float*>(cm),
       static_cast<const float*>(a), static_cast<const float*>(h0),
-      static_cast<float*>(y), static_cast<float*>(h_out), batch, t_len,
-      c_len, static_cast<cudaStream_t>(stream)));
+      static_cast<float*>(y), static_cast<float*>(h_out),
+      static_cast<float*>(h_chunks), batch, t_len, c_len,
+      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* selective_scan_error_string(int code) {

@@ -18,6 +18,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -35,10 +37,24 @@ LAUNCHES: dict[str, int] = {"score_pipeline_banked": 0,
                              "quantile_map": 0,
                              "score_pipeline": 0,
                              "decode_attention": 0,
-                             "selective_scan": 0}
+                             "selective_scan": 0,
+                             "selective_scan_bwd": 0,
+                             "selective_scan_bwd_reduce": 0}
 BUILD_SECONDS: dict[str, float] = {}
 BUILD_LOGS: dict[str, str] = {}
 _LOCK = threading.Lock()
+
+
+def refuse_grad(kernel: str, tensors, hint: str = "") -> None:
+    """Raise ``RuntimeError`` when grad mode is on and a given tensor
+    requires grad.  A kernel launched through ctypes returns a tensor with
+    no ``grad_fn``, so its output would cut the gradient without an error;
+    the JAX package cannot differentiate its Pallas calls either."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward, and an input "
+            f"requires grad{hint}; run it under torch.no_grad()")
 
 
 def sources() -> list[str]:

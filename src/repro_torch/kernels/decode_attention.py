@@ -153,7 +153,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q: (B, Hq, D); caches: (B, S, Hkv, D); ``valid_len``: (B,) int32 ->
     (B, Hq, D) in q's dtype.  Query head h attends to positions
     < clamp(valid_len[b], 0, S) of KV head h // (Hq / Hkv); a row with no
-    such position comes out 0."""
+    such position comes out 0.  Raises ``RuntimeError`` under grad mode
+    when an input requires grad (the kernel has no backward)."""
+    _build.refuse_grad("decode_attention", (q, k_cache, v_cache),
+                       ': train with attn_impl="reference"')
     check_inputs(q, k_cache, v_cache, valid_len)
     b, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]

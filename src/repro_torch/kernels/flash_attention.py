@@ -125,7 +125,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     h reads KV head h // (Hq / Hkv); positions count from 0 on both sides.
     A query row that sees no key comes out 0.  ``LAUNCHES`` counts every
     launch under ``"flash_attention"`` and the wgmma form's also under
-    ``"flash_attention_wgmma"``."""
+    ``"flash_attention_wgmma"``.  Raises ``RuntimeError`` under grad mode
+    when an input requires grad (the kernel has no backward)."""
+    _build.refuse_grad("flash_attention", (q, k, v),
+                       ': train with attn_impl="reference"')
     check_inputs(q, k, v, sliding_window)
     form = kernel_form(q, k, v)
     b, tq, hq, d = q.shape

@@ -3,7 +3,11 @@
 A CPU tensor runs the plain PyTorch version (``kernels/ref.py``); a CUDA
 tensor launches the hand-written kernel, which raises on what it does not
 take.  There is no switch and no fallback: a CUDA tensor never reaches the
-plain version through this module.
+plain version through this module.  The plain versions are torch ops, so
+autograd differentiates them; of the kernels only the selective scan has a
+backward (:class:`SelectiveScanFn`), and every other kernel raises when
+grad mode is on and an input requires grad, rather than return a tensor
+that cuts the gradient.
 """
 from __future__ import annotations
 
@@ -132,6 +136,60 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     raise ValueError(f"no decode_attention for device {device!r}")
 
 
+def _scan_forward(dt, x, b_mat, c_mat, a, h0, **kw):
+    device = x.device.type
+    if device == "cpu":
+        return ref.selective_scan(dt, x, b_mat, c_mat, a, h0, **kw)
+    if device == "cuda":
+        return _ss.selective_scan(dt, x, b_mat, c_mat, a, h0, **kw)
+    raise ValueError(f"no selective_scan for device {device!r}")
+
+
+def selective_scan_backward(dt, x, b_mat, c_mat, a, chunks, dy, dh_t=None,
+                            *, want_dh0: bool = False):
+    """The scan's gradients (ddt, dx, dBm, dCm, dA, dh0): the hand-written
+    ``csrc/selective_scan_bwd.cu`` for CUDA tensors, its plain version
+    (``kernels/ref.py::selective_scan_backward``) for CPU tensors."""
+    device = x.device.type
+    if device == "cpu":
+        return ref.selective_scan_backward(dt, x, b_mat, c_mat, a, chunks,
+                                           dy, dh_t, want_dh0=want_dh0)
+    if device == "cuda":
+        return _ss.selective_scan_backward(dt, x, b_mat, c_mat, a, chunks,
+                                           dy, dh_t, want_dh0=want_dh0)
+    raise ValueError(f"no selective_scan_backward for device {device!r}")
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """The scan with its gradient: the forward saves the state at the start
+    of every 64 steps, the backward recomputes each tile from it (on the
+    card both are hand-written kernels, on the CPU their plain versions).
+    Returns (y, h_T, chunks); ``chunks`` takes no gradient."""
+
+    @staticmethod
+    def forward(dt, x, b_mat, c_mat, a, h0):
+        return _scan_forward(dt, x, b_mat, c_mat, a, h0, chunk_states=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        dt, x, b_mat, c_mat, a, _ = inputs
+        chunks = output[2]
+        ctx.mark_non_differentiable(chunks)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(dt, x, b_mat, c_mat, a, chunks)
+
+    @staticmethod
+    def backward(ctx, dy, dh_t, _):
+        dt, x, b_mat, c_mat, a, chunks = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dh_t is not None:
+            dh_t = dh_t.contiguous()
+        ddt, dx, d_bm, d_cm, da, dh0 = selective_scan_backward(
+            dt, x, b_mat, c_mat, a, chunks, dy, dh_t,
+            want_dh0=ctx.needs_input_grad[5])
+        return ddt, dx, d_bm, d_cm, da, dh0
+
+
 def selective_scan(dt: torch.Tensor, x: torch.Tensor, b_mat: torch.Tensor,
                    c_mat: torch.Tensor, a: torch.Tensor,
                    h0: torch.Tensor | None = None, *,
@@ -142,16 +200,27 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, b_mat: torch.Tensor,
     (y (B, T, C), h_T (B, C, N)).  ``state_out`` (B, C, N), when given,
     receives h_T and is returned as it; it may be ``h0`` itself.
 
-    The reference's chunks and associative scan are its way to bound the
-    TPU's VMEM and are not carried over: the whole sequence is one scan.
+    Under grad mode with an input that requires grad the scan runs through
+    :class:`SelectiveScanFn`, whose backward is a kernel too; ``state_out``
+    (an in-place write, for a decode step under ``torch.no_grad``) then
+    raises.  Otherwise it is one forward launch that saves nothing, as
+    served.  The reference's chunks and associative scan are its way to
+    bound the TPU's VMEM and are not carried over: the whole sequence is
+    one scan.
     """
-    device = x.device.type
-    if device == "cpu":
-        y, h = ref.selective_scan(dt, x, b_mat, c_mat, a, h0)
+    inputs = (dt, x, b_mat, c_mat, a, h0)
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in inputs)
+    if needs_grad:
+        if state_out is not None:
+            raise RuntimeError("selective_scan: state_out writes h_T in "
+                               "place and takes no gradient; run a decode "
+                               "step under torch.no_grad()")
+        y, h, _ = SelectiveScanFn.apply(*inputs)
+        return y, h
+    if x.device.type == "cpu":
+        y, h = ref.selective_scan(*inputs)
         if state_out is None:
             return y, h
         return y, state_out.copy_(h)
-    if device == "cuda":
-        return _ss.selective_scan(dt, x, b_mat, c_mat, a, h0,
-                                  state_out=state_out)
-    raise ValueError(f"no selective_scan for device {device!r}")
+    return _scan_forward(*inputs, state_out=state_out)

@@ -85,7 +85,11 @@ def quantile_map(scores: torch.Tensor, src_quantiles: torch.Tensor,
     """Scores of any shape, float32 or bfloat16, against (N,) float32 tables
     -> mapped scores of the same shape and dtype, in ONE launch of the CUDA
     kernel (float32 math).  The scores are flattened as the reference
-    flattens them; a non-contiguous tensor is copied first."""
+    flattens them; a non-contiguous tensor is copied first.  Raises
+    ``RuntimeError`` under grad mode when an input requires grad (the
+    kernel has no backward)."""
+    _build.refuse_grad("quantile_map", (scores, src_quantiles,
+                                        ref_quantiles))
     check_scores(scores)
     n = check_tables(src_quantiles, ref_quantiles)
     check_devices(scores, src_quantiles=src_quantiles,

@@ -94,8 +94,11 @@ def score_pipeline(expert_scores: torch.Tensor, betas: torch.Tensor,
     (...) in the scores' dtype (float32 math).  The rows are flattened as
     the reference flattens them; a non-contiguous tensor is copied first.
     Raises ``ValueError`` on any other input — there is no fallback to the
-    plain version.
+    plain version — and ``RuntimeError`` under grad mode when an input
+    requires grad (the kernel has no backward).
     """
+    _build.refuse_grad("score_pipeline", (expert_scores, betas, weights,
+                                          src_quantiles, ref_quantiles))
     check_scores(expert_scores)
     if expert_scores.dim() < 1:
         raise ValueError("expert_scores must be (..., K)")
@@ -203,8 +206,11 @@ def score_pipeline_banked(expert_scores: torch.Tensor,
     casts other integer ids); every tensor contiguous and on one CUDA
     device.  Returns (M,) float32.  A row whose id lies outside [0, T)
     scores NaN.  Raises ``ValueError`` on any other input — there is no
-    fallback to the plain version.
+    fallback to the plain version — and ``RuntimeError`` under grad mode
+    when an input requires grad (the kernel has no backward).
     """
+    _build.refuse_grad("score_pipeline_banked", (
+        expert_scores, betas, weights, src_quantiles, ref_quantiles))
     tensors = {"expert_scores": expert_scores, "tenant_idx": tenant_idx,
                "betas": betas, "weights": weights,
                "src_quantiles": src_quantiles, "ref_quantiles": ref_quantiles}

@@ -8,6 +8,7 @@ reference does, so the bfloat16 paths round at the same points.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -16,10 +17,32 @@ from torch import nn
 
 
 def empty_param(shape, device, dtype) -> nn.Parameter:
-    """An uninitialised, frozen parameter (the port serves; it does not
-    train)."""
+    """An uninitialised parameter created frozen, so that a served model
+    builds no autograd graph; a trainer turns it on
+    (``model.requires_grad_(True)``, ``training/train.py``)."""
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
+
+
+@contextlib.contextmanager
+def parameters_as(module: nn.Module, tensors: dict[str, torch.Tensor]):
+    """Run with the parameters of ``module`` named in ``tensors`` (names as
+    ``module.named_parameters()`` gives them) replaced by those tensors,
+    restored on exit.  The training step runs the model on bf16 casts of
+    its float32 masters this way (``cast_params_bf16``), and each remat
+    group swaps in the very tensors its first forward ran on when autograd
+    recomputes it."""
+    saved = []
+    try:
+        for name, tensor in tensors.items():
+            owner_name, _, attr = name.rpartition(".")
+            owner = module.get_submodule(owner_name)
+            saved.append((owner, attr, owner._parameters[attr]))
+            owner._parameters[attr] = tensor
+        yield
+    finally:
+        for owner, attr, param in reversed(saved):
+            owner._parameters[attr] = param
 
 
 class Linear(nn.Module):

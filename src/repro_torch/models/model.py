@@ -52,10 +52,15 @@ class Model(nn.Module):
             if cfg.score_head else None
         if seed is not None:
             gen = torch.Generator(device=dev).manual_seed(seed)
-            for mod in (self.embed, *self.stack, self.final_norm,
-                        self.lm_head, self.score_head):
-                if mod is not None:
-                    mod.reset_parameters(gen)
+            self.reset_parameters(gen)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        """Draw every weight from ``gen`` (the reference's init scheme)."""
+        for mod in (self.embed, *self.stack, self.final_norm, self.lm_head,
+                    self.score_head):
+            if mod is not None:
+                mod.reset_parameters(gen)
 
     @property
     def device(self) -> torch.device:
@@ -97,14 +102,17 @@ class Model(nn.Module):
                                 device=h.device)
         return logits, score, h_norm
 
-    # -- full-sequence forward (eval / encoder serve) ------------------------
-    @torch.no_grad()
+    # -- full-sequence forward (train / eval / encoder serve) ----------------
     def forward(self, tokens: torch.Tensor | None = None,
                 embeds: torch.Tensor | None = None, *,
                 position_ids: torch.Tensor | None = None,
                 remat: bool = False, compute_dtype=torch.bfloat16,
                 attn_impl: str = "reference", logits_mode: str = "all",
                 act_pspec=None) -> ModelOutput:
+        """The whole sequence, differentiable: it builds an autograd graph
+        only where a parameter requires grad (a served model's do not; the
+        trainer turns them on).  ``remat`` recomputes each group of
+        ``len(cfg.layer_pattern)`` blocks in the backward."""
         x = self._embed_input(tokens, embeds, compute_dtype)
         b, t = x.shape[:2]
         angles = self._angles(b, t, 0, position_ids)

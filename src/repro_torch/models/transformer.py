@@ -11,15 +11,22 @@ position ``i`` (a ``KVCache`` for attention, a ``MambaState`` for Mamba,
 an ``MLSTMState`` or ``SLSTMState`` for the xLSTM mixers), every leaf
 carrying a leading ``n_groups`` axis.
 
+``remat=True`` wraps each group of P blocks in
+``torch.utils.checkpoint.checkpoint`` (non-reentrant), the counterpart of
+the reference's ``jax.checkpoint(group_body)``: the backward recomputes a
+group's activations from its input instead of keeping them.
+
 Still raising ``NotImplementedError``, each naming the ROADMAP item that
 ports it: the all-to-all MoE (``impl="a2a"``, 13b's ``moe_a2a`` with 11b),
-rematerialisation for training (13e), and sharded activations and
-expert-parallel constraints (13f).
+and sharded activations and expert-parallel constraints (13f).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
@@ -31,8 +38,6 @@ from repro_torch.models.config import BlockSpec, ModelConfig
 
 # what is not ported yet -> the ROADMAP item that ports it
 NOT_PORTED = {
-    "remat": "training (remat=True, training/, launch/train.py) is not "
-             "ported yet: ROADMAP Queue 1 item 13e",
     "act_pspec": "sharded activations (act_pspec) are not ported yet: "
                  "ROADMAP Queue 1 item 13f",
 }
@@ -184,6 +189,35 @@ def block_forward(block: Block, x, cfg, *, angles, mode, cache, cache_pos,
     return x, new_cache, aux
 
 
+def _group_forward(blocks: nn.ModuleList, names: list[str], cfg, angles,
+                   attn_impl, x, aux, *tensors):
+    """One remat group: ``blocks`` run on ``tensors`` (their parameters, by
+    ``names``), so a recompute uses the tensors the first run used even if
+    the caller swapped the parameters for that run only (the training
+    step's bf16 casts); ``aux`` carries the running MoE sum, added in
+    layer order as without remat."""
+    with layers.parameters_as(blocks, dict(zip(names, tensors))):
+        for block in blocks:
+            x, _, layer_aux = block_forward(
+                block, x, cfg, angles=angles, mode="forward", cache=None,
+                cache_pos=0, attn_impl=attn_impl)
+            if layer_aux is not None:
+                aux = aux + layer_aux
+    return x, aux
+
+
+def _remat_forward(stack, x, cfg, *, angles, attn_impl):
+    n_pat = len(cfg.layer_pattern)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for g in range(0, len(stack), n_pat):
+        blocks = stack[g:g + n_pat]
+        names, tensors = zip(*blocks.named_parameters())
+        run = functools.partial(_group_forward, blocks, list(names), cfg,
+                                angles, attn_impl)
+        x, aux = checkpoint(run, x, aux, *tensors, use_reentrant=False)
+    return x, None, aux
+
+
 def stack_forward(
     stack: nn.ModuleList,
     x: torch.Tensor,
@@ -205,12 +239,17 @@ def stack_forward(
     new cache in the reference's layout; ``decode`` writes into ``cache``
     in place (attention keys and values at ``cache_pos``, the Mamba SSM
     state by the scan itself, the Mamba conv tail and the xLSTM states
-    replaced) and returns it.
+    replaced) and returns it.  ``remat`` (the full-sequence forward only)
+    checkpoints each group of P blocks.
     """
-    if remat:
-        raise NotImplementedError(NOT_PORTED["remat"])
     if act_pspec is not None:
         raise NotImplementedError(NOT_PORTED["act_pspec"])
+    if remat:
+        if mode != "forward":
+            raise ValueError("remat applies to the full-sequence forward, "
+                             f"not to {mode!r}")
+        return _remat_forward(stack, x, cfg, angles=angles,
+                              attn_impl=attn_impl)
     n_pat = len(cfg.layer_pattern)
     built: list[list] = [[] for _ in range(n_pat)]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -772,6 +772,188 @@ def test_selective_scan_wrapper_rejects_what_the_kernel_does_not_take(
     assert ops.LAUNCHES == before
 
 
+# (B, T, C, N, h0 given, dh_T nonzero): T = 1, T past and not a multiple of
+# the 64-step tile, C not a multiple of the 128-channel block, N = 8 and 16
+SCAN_BWD_CASES = [(2, 1, 128, 16, True, True), (3, 70, 200, 8, False, False),
+                  (1, 129, 33, 16, True, False), (2, 64, 256, 16, False, True),
+                  (4, 300, 130, 8, True, True)]
+
+
+def _scan_cotangents(dev, b, t, c, n, dh, seed):
+    g = torch.Generator().manual_seed(seed)
+    dy = torch.randn((b, t, c), generator=g)
+    dh_t = torch.randn((b, c, n), generator=g) if dh else None
+    return dy.to(dev), dh_t.to(dev) if dh else None
+
+
+@pytest.mark.parametrize("b,t,c,n,given,dh", SCAN_BWD_CASES)
+def test_selective_scan_backward_matches_plain_version(dev, b, t, c, n,
+                                                       given, dh):
+    """The tile checkpoints and every gradient (ddt, dx, dBm, dCm, dA, dh0)
+    within 2e-5 of the plain versions on the same inputs; one launch of
+    each of the backward's two kernels."""
+    from repro_torch.kernels import selective_scan as ss
+
+    args = _scan_inputs(dev, b, t, c, n, seed=t, given=given)
+    dy, dh_t = _scan_cotangents(dev, b, t, c, n, dh, seed=t + 1)
+    _, _, chunks = ss.selective_scan(*args, chunk_states=True)
+    _, _, want_chunks = ref.selective_scan(*args, chunk_states=True)
+    torch.testing.assert_close(chunks, want_chunks, **TOL)
+    before = dict(ops.LAUNCHES)
+    got = ss.selective_scan_backward(*args[:5], chunks, dy, dh_t,
+                                     want_dh0=given)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["selective_scan_bwd"] == \
+        before["selective_scan_bwd"] + 1
+    assert ops.LAUNCHES["selective_scan_bwd_reduce"] == \
+        before["selective_scan_bwd_reduce"] + 1
+    want = ref.selective_scan_backward(*args[:5], chunks, dy, dh_t,
+                                       want_dh0=given)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            torch.testing.assert_close(g, w, **TOL)
+
+
+def test_scan_gradient_runs_both_kernels_on_the_card(dev):
+    """``ops.selective_scan`` under grad: one forward launch (saving the
+    tile states), and a backward of the kernel's own, within 2e-5 of the
+    plain backward on the card."""
+    args = _scan_inputs(dev, 2, 100, 300, 16, seed=4)
+    dy, dh_t = _scan_cotangents(dev, 2, 100, 300, 16, True, seed=5)
+    leaves = [v.requires_grad_() for v in args]
+    before = dict(ops.LAUNCHES)
+    y, h = ops.selective_scan(*args)
+    got = torch.autograd.grad(torch.sum(y * dy) + torch.sum(h * dh_t),
+                              leaves)
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before
+            if ops.LAUNCHES[k] != before[k]} == {
+        "selective_scan": 1, "selective_scan_bwd": 1,
+        "selective_scan_bwd_reduce": 1}
+    with torch.no_grad():
+        plain = [v.detach() for v in args]
+        _, _, chunks = ref.selective_scan(*plain, chunk_states=True)
+        want = ref.selective_scan_backward(*plain[:5], chunks, dy, dh_t,
+                                           want_dh0=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.parametrize("bad", ["chunks", "dy_bf16", "dh_cpu", "grad"])
+def test_selective_scan_backward_rejects_what_it_does_not_take(dev, bad):
+    from repro_torch.kernels import selective_scan as ss
+
+    args = _scan_inputs(dev, 2, 70, 8, 16, seed=1)
+    _, _, chunks = ss.selective_scan(*args, chunk_states=True)
+    dy, dh_t = _scan_cotangents(dev, 2, 70, 8, 16, True, seed=2)
+    error = ValueError
+    if bad == "chunks":
+        chunks = chunks[:, :1].contiguous()
+    elif bad == "dy_bf16":
+        dy = dy.to(torch.bfloat16)
+    elif bad == "dh_cpu":
+        dh_t = dh_t.cpu()
+    else:
+        dy.requires_grad_()
+        error = RuntimeError
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(error):
+        ss.selective_scan_backward(*args[:5], chunks, dy, dh_t)
+    assert ops.LAUNCHES == before
+
+
+def _grad_case(kernel, dev):
+    """(call, its inputs) of one kernel wrapper at a small shape."""
+    from repro_torch.kernels import selective_scan as ss
+
+    g = torch.Generator().manual_seed(0)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g).to(dev)
+
+    if kernel == "flash_attention":
+        return ops.flash_attention, (rand(1, 128, 2, 64), rand(1, 128, 2, 64),
+                                     rand(1, 128, 2, 64))
+    if kernel == "decode_attention":
+        return (lambda q, k, v: ops.decode_attention(
+            q, k, v, torch.full((1,), 9, dtype=torch.int32, device=dev)),
+            (rand(1, 2, 64), rand(1, 16, 2, 64), rand(1, 16, 2, 64)))
+    src, refq = _tables(np.random.default_rng(0), 16, dev)
+    if kernel == "quantile_map":
+        return ops.quantile_map, (rand(64), src, refq)
+    if kernel == "score_pipeline":
+        return ops.score_pipeline, (rand(64, 3), rand(3) * 0.5 + 0.2,
+                                    rand(3) + 0.5, src, refq)
+    if kernel == "score_pipeline_banked":
+        bank = _bank(np.random.default_rng(1), 4, 3, 16, dev)
+        ids = torch.zeros(64, dtype=torch.int32, device=dev)
+        return (lambda y, *b: ops.score_pipeline_banked(y, ids, *b),
+                (rand(64, 3), *bank))
+    return ss.selective_scan, _scan_inputs(dev, 2, 5, 8, 16, seed=3)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "decode_attention",
+                                    "score_pipeline", "score_pipeline_banked",
+                                    "quantile_map", "selective_scan"])
+def test_kernels_without_a_backward_refuse_inputs_that_need_one(dev,
+                                                                kernel):
+    """A CUDA input that requires grad, under grad mode: RuntimeError and
+    no launch (the attention kernels name the reference path); under
+    ``torch.no_grad`` the same call launches."""
+    call, inputs = _grad_case(kernel, dev)
+    inputs[0].requires_grad_()
+    before = dict(ops.LAUNCHES)
+    match = 'attn_impl="reference"' if "attention" in kernel \
+        else "no backward"
+    with pytest.raises(RuntimeError, match=match):
+        call(*inputs)
+    assert ops.LAUNCHES == before
+    with torch.no_grad():
+        call(*inputs)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[kernel] == before[kernel] + 1
+
+
+def test_jamba_smoke_trains_on_the_card_as_on_the_cpu(dev, no_tf32):
+    """Two float32 train steps with remat of jamba smoke on the card and on
+    the CPU from the same weights: loss, ce, aux and grad_norm within
+    1e-4; the Mamba layer's scan two forward launches a step (remat
+    recomputes it) and one backward of each kernel."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Model
+    from repro_torch.training import AdamW, Trainer, make_train_step
+    from repro_torch.training.data import TokenStream
+
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    cpu = Model(cfg, device="cpu", seed=0)
+    card = Model(cfg, device=dev, seed=None)
+    card.load_state_dict(cpu.state_dict())
+    metrics = {}
+    for model in (cpu, card):
+        opt = AdamW(learning_rate=1e-3)
+        state = Trainer(model, opt).init_state(None)
+        step = make_train_step(model, opt, remat=True,
+                               compute_dtype=torch.float32)
+        stream = iter(TokenStream(cfg.vocab_size, 40, 2))
+        before = dict(ops.LAUNCHES)
+        seen = []
+        for _ in range(2):
+            toks, labels = (torch.as_tensor(a, dtype=torch.long,
+                                            device=model.device)
+                            for a in next(stream))
+            state, m = step(state, toks, labels)
+            seen.append([float(v) for v in m])
+        metrics[model.device.type] = seen
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCHES[k] - before[k] for k in before
+            if ops.LAUNCHES[k] != before[k]} == {
+        "selective_scan": 4, "selective_scan_bwd": 2,
+        "selective_scan_bwd_reduce": 2}
+    np.testing.assert_allclose(metrics["cuda"], metrics["cpu"], rtol=1e-4,
+                               atol=1e-6)
+
+
 def test_jamba_smoke_on_the_card_matches_the_cpu(dev, no_tf32):
     """jamba smoke's float32 prefill and two decode steps on the card
     against the same weights on the CPU (logits 1e-4, risk 1e-5), the

@@ -144,7 +144,10 @@ SCRIPT = textwrap.dedent("""
                 "bench_fleet_refresh", "bench_attack_campaign", "run")),
             "repro_torch.examples.quickstart",
             "repro_torch.models.moe", "repro_torch.models.xlstm",
-            "repro_torch.examples.serve_e2e"} <= set(names)
+            "repro_torch.examples.serve_e2e",
+            "repro_torch.training.optimizer", "repro_torch.training.train",
+            "repro_torch.launch.train",
+            "repro_torch.examples.train_fraud_scorer"} <= set(names)
 
     from repro_torch.core.predictor import PredictorSpec
     from repro_torch.core.routing import (Condition, Intent, RoutingTable,
@@ -399,6 +402,14 @@ def test_entry_points_default_to_the_card():
         serve_e2e.main([])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "olmoe-1b-7b", "--smoke"])
+    # training: the launcher and the example
+    from repro_torch.examples import train_fraud_scorer
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_fraud_scorer.main([])
 
 
 def test_kernels_layer_loads_no_model_code():

@@ -67,8 +67,8 @@ def _mixer(seed=1, dtype=torch.float32):
     jmc = j_smoke(ARCH).mamba
     params = j_m.init_mamba(jax.random.key(seed), D_MODEL, jmc)
     mod = t_m.Mamba(D_MODEL, _mc(), device="cpu", dtype=dtype)
-    convert._copy_mamba(mod, jax.tree.map(lambda a: np.asarray(a)[None],
-                                          params), 0)
+    convert._copy_module(mod, jax.tree.map(lambda a: np.asarray(a)[None],
+                                           params), 0)
     return jmc, params, mod
 
 

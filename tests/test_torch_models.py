@@ -207,15 +207,13 @@ def test_mamba_families_build_and_serve(case):
     assert bool(torch.isfinite(res.prefill.logits.float()).all())
 
 
-@pytest.mark.parametrize("option,item", [("remat", "13e"),
-                                         ("act_pspec", "13f")])
+@pytest.mark.parametrize("option,item", [("act_pspec", "13f")])
 def test_unported_options_raise(option, item):
     tm = Model(get_smoke_config("qwen3-8b"), device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.long)
-    kw = {"remat": True} if option == "remat" else {"act_pspec": object()}
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item}"):
-        tm(tok, **kw)
+        tm(tok, **{option: object()})
 
 
 def test_unknown_attn_impl_raises():

@@ -76,7 +76,7 @@ def _load_moe(moe, params):
     """The converter's MoE leaves for an unstacked layer (a group axis of
     one added)."""
     from repro_torch import convert
-    convert._copy_moe(moe, jax.tree.map(lambda a: a[None], params), 0)
+    convert._copy_module(moe, jax.tree.map(lambda a: a[None], params), 0)
 
 
 def _x(shape, seed=0):

@@ -59,7 +59,7 @@ def _mlstm(seed=1):
                             cfg.xlstm)
     mod = t_x.MLSTM(cfg.d_model, cfg.n_heads, get_smoke_config(ARCH).xlstm,
                     device="cpu")
-    convert._copy_mlstm(mod, _grouped(params), 0)
+    convert._copy_module(mod, _grouped(params), 0)
     return cfg, params, mod
 
 
@@ -67,7 +67,7 @@ def _slstm(seed=2):
     cfg = j_smoke(ARCH)
     params = j_x.init_slstm(jax.random.key(seed), cfg.d_model, cfg.xlstm)
     mod = t_x.SLSTM(cfg.d_model, get_smoke_config(ARCH).xlstm, device="cpu")
-    convert._copy_slstm(mod, _grouped(params), 0)
+    convert._copy_module(mod, _grouped(params), 0)
     return cfg, params, mod
 
 
