@@ -219,7 +219,19 @@ Phases, each printing one JSON line:
              repro_torch.examples.train_fraud_scorer`` at the reference's
              defaults in a process of its own, and again from its
              checkpoints.
-17. kernels — every kernel of the port with its launches on its path, its
+17. roofline — every path phases 11, 12 and 16 timed (qwen3-8b, olmoe-1b-7b,
+             xlstm-1.3b and jamba's five layers, prefill and decode; jamba's
+             one-layer train step) read against the one-card roofline
+             (``launch/roofline.py`` at the H100's published rates) at that
+             run's batch, length and kind: mfu, flops_share, hbm_share,
+             roofline_share and the bottleneck, none over 1.05; the
+             dry-run's trace of each step on meta (``launch/dryrun.py``:
+             its kernel calls equal to the run's launches; its argument
+             bytes at most the measured peak, its predicted peak over the
+             measured one); nothing is timed again; then ``python -m
+             repro_torch.launch.dryrun`` on qwen3-8b x decode_32k in a
+             process of its own.
+18. kernels — every kernel of the port with its launches on its path, its
              error and its times at the path's shapes.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -3917,6 +3929,147 @@ def phase_train(dev) -> dict:
 
 
 # ---------------------------------------------------------------- phase 17
+ROOFLINE_CAP = 1.05     # a share over this means the count is wrong
+DRYRUN_CELL = ("qwen3-8b", "decode_32k")
+
+
+def _roofline_path(path: str, arch: str, cfg, shape, seconds: float,
+                   measured_peak: int, *, param_bytes: int,
+                   launches: dict, cache_capacity: int | None = None
+                   ) -> dict:
+    """One measured path against the one-card roofline: the dry-run's
+    trace of the same step at the run's shape on meta (its kernels' calls
+    held to the run's launches), the analytic terms with the run's real
+    parameter and cache bytes, and the shares of the measured time."""
+    from repro_torch.benchmarks.timing import BF16_FLOPS, HBM_BYTES_PER_S
+    from repro_torch.launch import dryrun, roofline
+
+    counts = dryrun.count_step(arch, shape, cfg=cfg)
+    bundle = counts.pop("bundle")
+    pb, cb = dryrun.step_bytes(bundle, cache_capacity)
+    check(pb == param_bytes, f"{path}: the dry-run's parameter bytes {pb} "
+          f"are the run's {param_bytes}")
+    calls = {k: v["calls"] for k, v in counts["kernels"].items()}
+    check(calls == {k: v for k, v in launches.items() if v},
+          f"{path}: the trace's kernel calls {calls} are the run's "
+          f"launches {launches}")
+    t = roofline.terms(cfg, shape, shape.kind, param_bytes=pb,
+                       cache_bytes=cb)
+    shares = {"mfu": t["model_flops"] / (seconds * BF16_FLOPS),
+              "flops_share": t["flops"] / (seconds * BF16_FLOPS),
+              "hbm_share": t["bytes"] / (seconds * HBM_BYTES_PER_S),
+              "roofline_share": max(t["compute_s"], t["memory_s"])
+              / seconds}
+    check(max(shares.values()) <= ROOFLINE_CAP,
+          f"{path}: a share of the roofline over {ROOFLINE_CAP}: {shares}")
+    peak = counts["argument_bytes"] + counts["temp_bytes"]
+    check(counts["argument_bytes"] <= measured_peak,
+          f"{path}: the dry-run's {counts['argument_bytes']} argument bytes "
+          f"exceed the measured peak {measured_peak}")
+    return {"path": path, "arch": arch, "kind": shape.kind,
+            "batch": shape.global_batch, "seq_len": shape.seq_len,
+            "measured_s": seconds, **shares,
+            "bottleneck": t["bottleneck"],
+            "model_flops": t["model_flops"], "analytic_flops": t["flops"],
+            "analytic_hbm_bytes": t["bytes"], "param_bytes": pb,
+            "cache_bytes": cb, "compute_s": t["compute_s"],
+            "memory_s": t["memory_s"], "counted_flops": counts["flops"],
+            "counted_bytes": counts["bytes"], "kernel_calls": calls,
+            "predicted": {"argument_bytes": counts["argument_bytes"],
+                          "temp_bytes": counts["temp_bytes"],
+                          "peak_bytes": peak},
+            "measured_peak": measured_peak,
+            "predicted_over_measured_peak": peak / measured_peak,
+            "traced_groups": counts["traced_groups"],
+            "trace_s": counts["seconds"]}
+
+
+def _dryrun_cli() -> dict:
+    """``python -m repro_torch.launch.dryrun`` on one full-size cell in a
+    process of its own, into a scratch directory."""
+    import os
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    arch, shape = DRYRUN_CELL
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", out], capture_output=True,
+            text=True, timeout=600, cwd=root,
+            env={**os.environ, "PYTHONPATH": str(root / "src")})
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"dryrun CLI: {proc.stderr[-2000:]}")
+        cell = json.loads((Path(out) / f"{arch}__{shape}__h100.json")
+                          .read_text())
+    check(cell["device"] == "meta"
+          and cell["roofline"]["bottleneck"] == "memory",
+          f"dryrun CLI cell: {cell['device']}, "
+          f"{cell['roofline']['bottleneck']}")
+    return {"cell": f"{arch}__{shape}", "seconds": seconds,
+            "memory_analysis": cell["memory_analysis"],
+            "fits_one_card": cell["fits_one_card"],
+            "roofline": {k: cell["roofline"][k] for k in (
+                "compute_s", "memory_s", "bottleneck", "flops_per_chip",
+                "bytes_per_chip", "counted_flops", "counted_bytes")},
+            "stdout": proc.stdout.strip().splitlines()[-2:]}
+
+
+def phase_roofline(dev, llm: dict, zoo: dict, train: dict,
+                   smi: str = "") -> dict:
+    """Every path the llm_serve, zoo_serve and train phases timed, read
+    against the one-card roofline (``launch/roofline.py``) at that run's
+    batch, length and kind: mfu, flops_share, hbm_share, roofline_share and
+    the bottleneck, none over 1.05; the dry-run's predicted bytes of each
+    step against the run's measured peak; then the dry-run's CLI on one
+    full-size cell.  Nothing is timed again."""
+    from repro_torch.configs import InputShape, get_config
+
+    t0 = time.perf_counter()
+    paths = []
+    models = [(llm["arch"], get_config(llm["arch"]), llm)] + [
+        (arch, _zoo_config(arch), m) for arch, m in zoo["models"].items()]
+    for arch, cfg, m in models:
+        b, t, steps = m["batch"], m["prompt_len"], m["decode_steps"]
+        runs = steps + 1
+        paths.append(_roofline_path(
+            f"{arch} prefill", arch, cfg,
+            InputShape("serve_prefill", t, b, "prefill"),
+            m["prefill_ms"] / 1e3, m["max_memory_allocated"],
+            param_bytes=m["weight_bytes"], cache_capacity=t + steps,
+            launches={"flash_attention": m["launches"]["flash_attention"],
+                      "selective_scan": m["launches"]["selective_scan"]
+                      // runs}))
+        paths.append(_roofline_path(
+            f"{arch} decode", arch, cfg,
+            InputShape("serve_decode", t + steps, b, "decode"),
+            m["decode_ms_per_token"] / 1e3, m["max_memory_allocated"],
+            param_bytes=m["weight_bytes"],
+            launches={"selective_scan": m["launches"]["selective_scan"]
+                      // runs}))
+    steps = train["steps"]
+    paths.append(_roofline_path(
+        f"{JAMBA} train step", JAMBA, _train_config(),
+        InputShape("train_step", train["seq"], train["batch"], "train"),
+        train["ms_per_step"] / 1e3, train["max_memory_allocated"],
+        param_bytes=train["train_state_bytes"],
+        launches={"selective_scan": train["launches"]["selective_scan"]
+                  // steps,
+                  "selective_scan_bwd": train["launches"][
+                      "selective_scan_bwd"] // steps}))
+    cli = _dryrun_cli()
+    result = {"phase": "roofline", "nvidia_smi": smi,
+              "device": str(dev), "cap": ROOFLINE_CAP,
+              "rates": "H100 SXM published peaks: 989e12 bf16 FLOP/s, "
+                       "3.35e12 HBM bytes/s",
+              "paths": paths, "dryrun_cli": cli,
+              "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 18
 def _benched(name: str, source: str, replaces: str, bench: dict,
              library_ms: float | None, also: dict) -> dict:
     """A kernels-line entry from bench_kernels' run (phase 15), the path of
@@ -4133,6 +4286,7 @@ def main() -> int:
     decode = phase_decode_attention(dev)
     bench = phase_bench_kernels()
     train = phase_train(dev)
+    phase_roofline(dev, llm, zoo, train, smi)
     phase_kernels(kernel, serve, main_shapes, lifecycle, engine, tiering,
                   sharding, main_bench, paper_bench, attention, llm, zoo,
                   scores, decode, bench, train)

@@ -8,11 +8,23 @@ autograd differentiates them; of the kernels only the selective scan has a
 backward (:class:`SelectiveScanFn`), and every other kernel raises when
 grad mode is on and an input requires grad, rather than return a tensor
 that cuts the gradient.
+
+A meta tensor (``device="meta"``: shapes and dtypes, no data) launches
+nothing: the wrapper returns empty meta tensors in the shapes and dtypes
+its plain version returns and, inside :func:`meta_work`, tallies what the
+kernel would do, by the formulas of its bound (``benchmarks/timing.py``).
+That is how the dry-run (``launch/dryrun.py``) traces a step through the
+kernel branch, as ``jax.eval_shape`` traces the reference's Pallas calls.
 """
 from __future__ import annotations
 
+import contextlib
+import math
+from typing import Iterator
+
 import torch
 
+from repro_torch.benchmarks import timing
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
@@ -22,6 +34,35 @@ from repro_torch.kernels import selective_scan as _ss
 
 # launch counts of every hand-written kernel (the wrappers bump them)
 LAUNCHES = _build.LAUNCHES
+
+# the open meta_work tallies; a meta call adds to each
+_TALLIES: list[dict[str, dict[str, float]]] = []
+
+
+@contextlib.contextmanager
+def meta_work() -> Iterator[dict[str, dict[str, float]]]:
+    """A tally of the kernel calls made on meta tensors while it is open:
+    kernel name -> {"calls", "flops", "bytes"}, the work of each call by
+    the formulas of the kernel's bound.  A meta call bumps no
+    :data:`LAUNCHES`."""
+    tally: dict[str, dict[str, float]] = {}
+    _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLIES.remove(tally)
+
+
+def _meta(kernel: str, flops: float, nbytes: float, out):
+    """Record one meta call of ``kernel`` in every open tally; returns
+    ``out``."""
+    for tally in _TALLIES:
+        entry = tally.setdefault(kernel, {"calls": 0, "flops": 0.0,
+                                          "bytes": 0.0})
+        entry["calls"] += 1
+        entry["flops"] += float(flops)
+        entry["bytes"] += float(nbytes)
+    return out
 
 
 def quantile_map(scores: torch.Tensor, src_quantiles: torch.Tensor,
@@ -38,6 +79,11 @@ def quantile_map(scores: torch.Tensor, src_quantiles: torch.Tensor,
         return ref.quantile_map(scores, src_quantiles, ref_quantiles)
     if device == "cuda":
         return _qm.quantile_map(scores, src_quantiles, ref_quantiles)
+    if device == "meta":
+        return _meta("quantile_map", *timing.quantile_map_work(
+            scores.numel(), src_quantiles.shape[-1], scores.element_size()),
+            torch.empty_like(scores,
+                             memory_format=torch.contiguous_format))
     raise ValueError(f"no quantile_map for device {device!r}")
 
 
@@ -57,6 +103,12 @@ def score_pipeline(expert_scores: torch.Tensor, betas: torch.Tensor,
     if device == "cuda":
         return _sp.score_pipeline(expert_scores, betas, weights,
                                   src_quantiles, ref_quantiles)
+    if device == "meta":
+        *rows, k = expert_scores.shape
+        return _meta("score_pipeline", *timing.score_pipeline_work(
+            math.prod(rows), k, src_quantiles.shape[-1],
+            expert_scores.element_size()),
+            expert_scores.new_empty(rows))
     raise ValueError(f"no score_pipeline for device {device!r}")
 
 
@@ -94,6 +146,12 @@ def score_pipeline_banked(expert_scores: torch.Tensor,
     elif device == "cuda":
         out = _sp.score_pipeline_banked(flat, idx, betas, weights,
                                         src_quantiles, ref_quantiles)
+    elif device == "meta":
+        dtype = torch.promote_types(torch.promote_types(
+            flat.dtype, betas.dtype), weights.dtype)
+        out = _meta("score_pipeline_banked", *timing.banked_work(
+            flat.shape[0], k, betas.shape[0], src_quantiles.shape[-1]),
+            flat.new_empty(flat.shape[:1], dtype=dtype))
     else:
         raise ValueError(f"no score_pipeline_banked for device {device!r}")
     return out.reshape(batch_shape)
@@ -116,6 +174,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if device == "cuda":
         return _fa.flash_attention(q, k, v, causal=causal,
                                    sliding_window=sliding_window)
+    if device == "meta":
+        b, tq, hq, d = q.shape
+        return _meta("flash_attention", *timing.attention_work(
+            b, tq, k.shape[1], hq, k.shape[2], d, causal, sliding_window,
+            q.element_size()),
+            torch.empty_like(q, memory_format=torch.contiguous_format))
     raise ValueError(f"no flash_attention for device {device!r}")
 
 
@@ -133,7 +197,34 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return ref.decode_attention(q, k_cache, v_cache, valid_len)
     if device == "cuda":
         return _da.decode_attention(q, k_cache, v_cache, valid_len)
+    if device == "meta":
+        b, s = k_cache.shape[:2]
+        if isinstance(valid_len, torch.Tensor) and \
+                valid_len.device.type == "meta":
+            valid = [s] * b   # lengths without values: every slot counts
+        else:
+            valid = [min(max(int(v), 0), s) for v in valid_len]
+        return _meta("decode_attention", *timing.decode_work(
+            valid, q.shape[1], k_cache.shape[2], q.shape[2],
+            q.element_size()),
+            torch.empty_like(q, memory_format=torch.contiguous_format))
     raise ValueError(f"no decode_attention for device {device!r}")
+
+
+def _scan_meta(dt, x, b_mat, c_mat, a, h0, *, state_out=None,
+               chunk_states: bool = False):
+    """The forward scan on meta tensors: the plain version's outputs
+    (``state_out`` returned as h_T when given)."""
+    b, t, c = x.shape
+    n = a.shape[1]
+    y = x.new_empty((b, t, c))
+    h = state_out if state_out is not None else x.new_empty((b, c, n))
+    out = (y, h)
+    if chunk_states:
+        out += (x.new_empty((b, -(-t // ref.SCAN_CHUNK), c, n)),)
+    exps, ops, nbytes = timing.selective_scan_work(b, t, c, n,
+                                                   h0=h0 is not None)
+    return _meta("selective_scan", exps + ops, nbytes, out)
 
 
 def _scan_forward(dt, x, b_mat, c_mat, a, h0, **kw):
@@ -142,6 +233,8 @@ def _scan_forward(dt, x, b_mat, c_mat, a, h0, **kw):
         return ref.selective_scan(dt, x, b_mat, c_mat, a, h0, **kw)
     if device == "cuda":
         return _ss.selective_scan(dt, x, b_mat, c_mat, a, h0, **kw)
+    if device == "meta":
+        return _scan_meta(dt, x, b_mat, c_mat, a, h0, **kw)
     raise ValueError(f"no selective_scan for device {device!r}")
 
 
@@ -157,6 +250,16 @@ def selective_scan_backward(dt, x, b_mat, c_mat, a, chunks, dy, dh_t=None,
     if device == "cuda":
         return _ss.selective_scan_backward(dt, x, b_mat, c_mat, a, chunks,
                                            dy, dh_t, want_dh0=want_dh0)
+    if device == "meta":
+        b, t, c = x.shape
+        n = a.shape[1]
+        exps, ops, nbytes = timing.selective_scan_bwd_work(
+            b, t, c, n, dh_t=dh_t is not None)
+        return _meta("selective_scan_bwd", exps + ops, nbytes, (
+            x.new_empty((b, t, c)), x.new_empty((b, t, c)),
+            x.new_empty((b, t, n)), x.new_empty((b, t, n)),
+            x.new_empty((c, n)),
+            x.new_empty((b, c, n)) if want_dh0 else None))
     raise ValueError(f"no selective_scan_backward for device {device!r}")
 
 

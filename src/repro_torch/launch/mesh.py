@@ -8,8 +8,10 @@ of them in one launch of the banked kernel.  That is the port's counterpart
 of the reference's S forced host devices on one CPU.  A mesh over several
 cards (one launch a card) is ROADMAP Queue 1 item 11b and raises here.
 
-Only the tenant part of the reference's ``launch/mesh.py`` is ported; the
-pod meshes and the TPU peak constants belong to Queue 1 item 14.
+Only the tenant part of the reference's ``launch/mesh.py`` is ported.  The
+pod meshes belong to a mesh over several cards (ROADMAP Queue 1 items 13f
+and 11b); the one-card roofline takes the H100's rates in place of the
+TPU's peak constants (``launch/roofline.py``).
 """
 from __future__ import annotations
 

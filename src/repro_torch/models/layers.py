@@ -175,9 +175,11 @@ def mrope_angles(position_ids: torch.Tensor, head_dim: int, theta: float,
     assert sum(sections) == half, (sections, half)
     inv = rope_frequencies(head_dim, theta, position_ids.device)
     ang = position_ids[..., None].to(torch.float32) * inv  # (3, B, T, half)
-    sec_idx = torch.repeat_interleave(
-        torch.arange(3, device=position_ids.device),
-        torch.tensor(sections, device=position_ids.device))  # (half,)
+    # the section of each rotary half-dim, from the section sizes on the
+    # host: no copy to the device, no sync, and it traces on meta
+    dim = torch.arange(half, device=position_ids.device)
+    sec_idx = ((dim >= sections[0]).long()
+               + (dim >= sections[0] + sections[1]).long())  # (half,)
     ang = torch.movedim(ang, 0, -1)                          # (B, T, half, 3)
     idx = sec_idx.view(1, 1, half, 1).expand(*ang.shape[:3], 1)
     return torch.gather(ang, -1, idx)[..., 0]                # (B, T, half)

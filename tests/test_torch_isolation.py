@@ -147,7 +147,9 @@ SCRIPT = textwrap.dedent("""
             "repro_torch.examples.serve_e2e",
             "repro_torch.training.optimizer", "repro_torch.training.train",
             "repro_torch.launch.train",
-            "repro_torch.examples.train_fraud_scorer"} <= set(names)
+            "repro_torch.examples.train_fraud_scorer",
+            *(f"repro_torch.launch.{m}" for m in (
+                "specs", "roofline", "dryrun", "report"))} <= set(names)
 
     from repro_torch.core.predictor import PredictorSpec
     from repro_torch.core.routing import (Condition, Intent, RoutingTable,

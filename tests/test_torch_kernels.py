@@ -265,11 +265,17 @@ class TestNoFallback:
         assert tsp.LAUNCHES == before
 
     def test_other_devices_raise(self):
-        params = [p.to("meta") for p in self._params()]
-        with pytest.raises(ValueError, match="device"):
-            tops.score_pipeline_banked(
-                torch.zeros(4, 2, device="meta"),
-                torch.zeros(4, dtype=torch.int32, device="meta"), *params)
+        # the meta device has a shape-only branch (the dry-run's), so the
+        # other device is an XPU one, faked: shapes and dtypes, no data
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            params = [torch.zeros(p.shape, dtype=p.dtype, device="xpu")
+                      for p in self._params()]
+            with pytest.raises(ValueError, match="device 'xpu'"):
+                tops.score_pipeline_banked(
+                    torch.zeros(4, 2, device="xpu"),
+                    torch.zeros(4, dtype=torch.int32, device="xpu"), *params)
 
     def test_cpu_path_counts_no_launch(self):
         before = dict(tops.LAUNCHES)
