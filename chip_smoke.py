@@ -2501,10 +2501,13 @@ ZOO_SPLIT = {"selective_scan": ("selective_scan",),
              "scatter_gather": ("scatter", "gather", "index", "sort",
                                 "scan")}
 SCAN_TOL = 2e-5   # rtol = atol, y and h_T against the plain version
-# (B, T, C, N, h0 given): T = 1, T past and not a multiple of the 64-step
-# tile, C not a multiple of the 128-channel block, N = 8 and 16
+# (B, T, C, N, h0 given): T = 1, T past and not a multiple of the 16-step
+# chunk or of 64, C not a multiple of the 128-channel block, N = 1, 3, 5, 8
+# and 16
 SCAN_CASES = ((2, 1, 128, 16, True), (3, 70, 200, 8, False),
-              (1, 129, 33, 16, True), (4, 300, 130, 8, True))
+              (1, 129, 33, 16, True), (4, 300, 130, 8, True),
+              (2, 37, 130, 1, True), (1, 19, 33, 3, False),
+              (3, 45, 129, 5, True))
 E2E_ARGS = ("--batches", "20", "--batch", "32")
 # serve_e2e in a process of its own, printing its kernels' launches last
 E2E_CODE = """
@@ -2544,6 +2547,21 @@ def _scan_err(name, got, want) -> float:
     return diff.max().item()
 
 
+def _ptxas(name: str) -> dict:
+    """What ptxas said of the kernels of ``csrc/<name>.cu`` as built: how
+    many, the most registers one uses, and the stack frame and spill bytes
+    summed over them (0 each: every state stays in registers)."""
+    from repro_torch.kernels import _build
+
+    report = _build.ptxas_report(name).values()
+    return {"kernels": len(report),
+            "max_registers": max(v.get("registers", 0) for v in report),
+            "stack_frame_bytes": sum(v.get("stack_frame", 0)
+                                     for v in report),
+            "spill_bytes": sum(v.get("spill_stores", 0)
+                               + v.get("spill_loads", 0) for v in report)}
+
+
 def _scan_inputs(dev, b, t, c, n, given, seed):
     import torch
 
@@ -2574,6 +2592,8 @@ def _scan_cases(dev) -> dict:
         name = f"{b}x{t}x{c}/N{n}/{'h0' if given else 'zeros'}"
         errs[name] = max(_scan_err(name + "/y", y, want_y),
                          _scan_err(name + "/h", h, want_h))
+        check(torch.equal(h, want_h),
+              f"selective_scan {name}: h_T not bitwise its plain version")
     args = _scan_inputs(dev, 4, 1, 16384, 16, True, seed=11)
     h0 = args[5]
     want_y, want_h = ref.selective_scan(*args[:5], h0.clone())
@@ -2581,6 +2601,8 @@ def _scan_cases(dev) -> dict:
     check(h is h0, "the aliased state is the one returned")
     errs["aliased_4x1x16384/N16"] = max(
         _scan_err("aliased/y", y, want_y), _scan_err("aliased/h", h0, want_h))
+    check(torch.equal(h0, want_h),
+          "selective_scan: the aliased state not bitwise its plain version")
 
     def copied():
         _, h = ss.selective_scan(*args[:5], h0)
@@ -2630,6 +2652,8 @@ def _scan_live(model, prompt) -> dict:
                      "h": _scan_err(f"layer {i}/h", h, want_h),
                      "y_max_abs": want_y.abs().max().item(),
                      "h_bitwise": bool(torch.equal(h, want_h))})
+        check(errs[-1]["h_bitwise"],
+              f"selective_scan layer {i}: h_T not bitwise its plain version")
         del y, h, want_y, want_h
     args = seen[0]
     ms = device_ms(lambda: ss.selective_scan(*args), reps=10, inner=5)
@@ -2644,6 +2668,7 @@ def _scan_live(model, prompt) -> dict:
             "tolerance": SCAN_TOL, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "share_of_bound": bound_ms / ms, "library_ms": None,
+            "ptxas": _ptxas("selective_scan"),
             "timing": "CUDA events, median of 10 runs of 5 back-to-back "
                       "launches (plain: 3 runs of 1) on layer 0's inputs"}
 
@@ -3603,10 +3628,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 12
 TRAIN_LR = (3e-4, 2)            # peak of the cosine schedule, warm-up steps
 GRAD_SEEDS = (0, 1, 2)          # the gradient rule's cotangents (and rows)
 # (B, T, C, N, h0 given, dh_T nonzero): T = 1, T past and not a multiple of
-# the 64-step tile, C not a multiple of the 128-channel block, N = 8 and 16
+# the 16-step chunk or of 64, C not a multiple of the 128-channel block,
+# N = 1, 3, 5, 8 and 16
 SCAN_BWD_CASES = ((2, 1, 128, 16, True, True), (3, 70, 200, 8, False, False),
                   (1, 129, 33, 16, True, False), (4, 300, 130, 8, True, True),
-                  (2, 64, 256, 16, False, True))
+                  (2, 64, 256, 16, False, True), (2, 37, 130, 1, True, True),
+                  (1, 19, 33, 3, False, True), (3, 45, 129, 5, True, False))
 SCAN_GRADS = ("ddt", "dx", "dBm", "dCm", "dA", "dh0")
 TRAIN_SPLIT = {"selective_scan_bwd": ("selective_scan_bwd",),
                "selective_scan": ("selective_scan",)}
@@ -3654,6 +3681,9 @@ def _scan_bwd_cases(dev) -> dict:
         want = ref.selective_scan_backward(*args[:5], chunks, dy, dh_t,
                                            want_dh0=given)
         errs[name] = max(chunk_err, _scan_bwd_errs(name, got, want))
+        check(torch.equal(chunks, want_chunks) and all(
+            torch.equal(g, w) for g, w in zip(got, want) if w is not None),
+            f"selective_scan_bwd {name}: not bitwise its plain version")
     return errs
 
 
@@ -3755,6 +3785,11 @@ def _scan_bwd_live(args) -> dict:
     err = _scan_bwd_errs("live", got, want)
     bitwise = all(torch.equal(g, w) for g, w in zip(got, want)
                   if w is not None)
+    check(bitwise, "selective_scan_bwd: step 1's gradients not bitwise its "
+          "plain version")
+    ptxas = _ptxas("selective_scan_bwd")
+    check(ptxas["stack_frame_bytes"] == 0 and ptxas["spill_bytes"] == 0,
+          f"selective_scan_bwd: ptxas reports a stack or spills: {ptxas}")
     del got, want
     ms = device_ms(lambda: ss.selective_scan_backward(*args), reps=5,
                    inner=3)
@@ -3768,6 +3803,7 @@ def _scan_bwd_live(args) -> dict:
             "bitwise": bitwise, "tolerance": SCAN_TOL, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "share_of_bound": bound_ms / ms, "library_ms": None,
+            "ptxas": ptxas,
             "timing": "CUDA events, median of 5 runs of 3 back-to-back "
                       "calls (two launches each; plain: 2 runs of 1) on "
                       "step 1's inputs"}

@@ -27,6 +27,10 @@ BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
 # compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
 # instruction throughput), 132 SMs at the 1.98 GHz behind F32_FLOPS
 SFU_OPS = 132 * 16 * 1.98e9
+# float32 instructions a second outside the tensor cores: 128 a clock an SM
+# (F32_FLOPS counts each as a fused multiply-add, two FLOPs); the scan
+# kernels build with -fmad=false, so each product and each sum is one
+SCALAR_F32_OPS = 132 * 128 * 1.98e9
 SLEEP_CYCLES = 20_000_000   # keeps the card busy while launches queue up
 
 
@@ -178,8 +182,9 @@ def decode_bound(valid: list[int], hq: int, hkv: int, d: int, itemsize: int
 
 def _scan_bound(exps: int, ops: int, nbytes: int) -> tuple[float, str]:
     """The larger of the exponentials on the special-function units and
-    the float32 operations, against the bytes."""
-    by_ops = max(exps / SFU_OPS, ops / F32_FLOPS) * 1e3
+    the float32 operations (each its own instruction), against the
+    bytes."""
+    by_ops = max(exps / SFU_OPS, ops / SCALAR_F32_OPS) * 1e3
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     if by_bytes >= by_ops:
         return by_bytes, "bytes"

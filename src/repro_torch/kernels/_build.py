@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -126,6 +127,31 @@ def build_log(name: str) -> tuple[Path, str]:
     build_all([name])
     target = _target(name)
     return target, target.with_suffix(".log").read_text()
+
+
+def ptxas_report(name: str) -> dict[str, dict[str, int]]:
+    """Each kernel of ``csrc/<name>.cu`` (by its mangled name) and what
+    ptxas said of it: ``registers``, ``stack_frame``, ``spill_stores`` and
+    ``spill_loads`` (bytes)."""
+    report: dict[str, dict[str, int]] = {}
+    current = None
+    for line in build_log(name)[1].splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$.]+)'?", line)
+        if found:
+            current = report.setdefault(found.group(1), {})
+            continue
+        if current is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if frame:
+            current.update(zip(("stack_frame", "spill_stores",
+                                "spill_loads"), map(int, frame.groups())))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            current["registers"] = int(regs.group(1))
+    return report
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -265,7 +265,7 @@ def selective_scan_backward(dt, x, b_mat, c_mat, a, chunks, dy, dh_t=None,
 
 class SelectiveScanFn(torch.autograd.Function):
     """The scan with its gradient: the forward saves the state at the start
-    of every 64 steps, the backward recomputes each tile from it (on the
+    of every 16 steps, the backward recomputes each chunk from it (on the
     card both are hand-written kernels, on the CPU their plain versions).
     Returns (y, h_T, chunks); ``chunks`` takes no gradient."""
 

@@ -114,9 +114,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-SCAN_CHUNK = 64   # time steps whose decays the plain scan forms at once
+SCAN_CHUNK = 16   # steps between the states saved for the backward
+SCAN_GROUP = 4    # threads that share a lane's states in the kernels
+SCAN_WARP = 8     # channels of one warp of the backward kernel
 SCAN_BLOCK = 128  # channels of one block of the backward kernel
-SCAN_QUARTER = 32  # channels one thread of that block sums in order
 
 
 def selective_scan(dt: torch.Tensor, x: torch.Tensor, b_mat: torch.Tensor,
@@ -134,8 +135,10 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, b_mat: torch.Tensor,
     steps, (B, ceil(T / SCAN_CHUNK), C, N), as the kernel writes it.  The
     decays and inputs of ``SCAN_CHUNK`` steps are formed at once (op for op
     the kernel's), the state then advances one step at a time as a product
-    and a sum.  Torch ops only, so autograd differentiates it (a test
-    holds :func:`selective_scan_backward` to that)."""
+    and a sum; y sums over n (the kernel in n order, so y is within
+    rounding of it and h_T bitwise).  Torch ops only, so autograd
+    differentiates it (a test holds :func:`selective_scan_backward` to
+    that)."""
     b, t, c = x.shape
     h = (torch.zeros((b, c, a.shape[1]), dtype=x.dtype, device=x.device)
          if h0 is None else h0)
@@ -168,17 +171,41 @@ def _sum_last(v: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _halve(v: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis (a power of two long) as a halving tree: the
+    first half plus the second, until one is left."""
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def _sum_states(v: torch.Tensor) -> torch.Tensor:
+    """(..., N) -> (...): Σ over n in the backward kernel's order: each of
+    the ``SCAN_GROUP`` threads of a lane sums its ceil(N / 4) states in
+    order (states past N count as 0, as the kernel's masked ones), then
+    the four partials as (p0 + p1) + (p2 + p3)."""
+    n = v.shape[-1]
+    per = -(-n // SCAN_GROUP)
+    v = torch.nn.functional.pad(v, (0, per * SCAN_GROUP - n))
+    part = _sum_last(v.reshape(*v.shape[:-1], SCAN_GROUP, per))
+    while part.shape[-1] > 1:      # neighbours, then pairs (xor 1, then 2)
+        part = part[..., 0::2] + part[..., 1::2]
+    return part[..., 0]
+
+
 def _sum_channels(v: torch.Tensor) -> torch.Tensor:
     """(B, Q, C, N) -> (B, Q, N): Σ over C in the backward kernel's order:
-    each quarter of ``SCAN_QUARTER`` channels in channel order, the four
-    quarters of a ``SCAN_BLOCK``-channel block in order, then the blocks in
-    order (channels past C count as 0, as the kernel's idle lanes)."""
+    the ``SCAN_WARP`` channels of a warp as a halving tree (channels 4
+    apart, then 2, then 1), the ``SCAN_BLOCK // SCAN_WARP`` warps of a
+    block in order, then the blocks in order (channels past C count as 0,
+    as the kernel's idle lanes)."""
     b, q, c, n = v.shape
     blocks = -(-c // SCAN_BLOCK)
     v = torch.nn.functional.pad(v, (0, 0, 0, blocks * SCAN_BLOCK - c))
-    v = v.reshape(b, q, blocks, SCAN_BLOCK // SCAN_QUARTER, SCAN_QUARTER, n)
-    quarters = _sum_last(v.movedim(-2, -1))          # (B, Q, blocks, 4, N)
-    per_block = _sum_last(quarters.movedim(-2, -1))  # (B, Q, blocks, N)
+    v = v.reshape(b, q, blocks, SCAN_BLOCK // SCAN_WARP, SCAN_WARP, n)
+    warps = _halve(v.movedim(-2, -1))                # (B, Q, blocks, 16, N)
+    per_block = _sum_last(warps.movedim(-2, -1))     # (B, Q, blocks, N)
     return _sum_last(per_block.movedim(-2, -1))
 
 
@@ -201,10 +228,11 @@ def selective_scan_backward(dt: torch.Tensor, x: torch.Tensor,
         ddt_t = du_t · x_t + Σ_n q_t · A      dx_t = du_t · dt_t
         dA = Σ_b Σ_t q_t · dt_t       dh0 = abar_0 · g_0
 
-    Op for op ``csrc/selective_scan_bwd.cu``: each tile of ``SCAN_CHUNK``
+    Op for op ``csrc/selective_scan_bwd.cu``: each chunk of ``SCAN_CHUNK``
     steps recomputed from its checkpoint as the forward ran it, every sum
-    in the kernel's order (n in order; dA over t downwards, then over b in
-    order; the channel sums by :func:`_sum_channels`)."""
+    in the kernel's order (du and Σ_n q · A by :func:`_sum_states`; dA
+    over t downwards, then over b in order; the channel sums by
+    :func:`_sum_channels`)."""
     b, t, c = x.shape
     n = a.shape[1]
     carry = (torch.zeros((b, c, n), dtype=x.dtype, device=x.device)
@@ -234,9 +262,9 @@ def selective_scan_backward(dt: torch.Tensor, x: torch.Tensor,
             gs[i] = gy[:, i, :, None] * cm[:, i] + carry
             carry = abar[:, i] * gs[i]
         g = torch.stack(gs, dim=1)
-        du = _sum_last(g * bm)
+        du = _sum_states(g * bm)
         q = (g * h_prev) * abar
-        ddt[:, s0:s1] = du * xx + _sum_last(q * a)
+        ddt[:, s0:s1] = du * xx + _sum_states(q * a)
         dx[:, s0:s1] = du * d
         for i in reversed(range(s1 - s0)):
             da = da + q[:, i] * d[:, i, :, None]

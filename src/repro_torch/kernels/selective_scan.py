@@ -3,12 +3,14 @@
 :func:`selective_scan` launches the hand-written CUDA kernel of
 ``csrc/selective_scan.cu`` (built by ``kernels/_build.py``) on PyTorch's
 current stream: one thread a (batch, channel) lane holding its N states in
-registers over the whole sequence, ``Bm`` and ``Cm`` staged in shared
-memory a tile of time steps at a time.  For training it also writes the
-state at the start of every tile of ``CHUNK`` steps, from which
-:func:`selective_scan_backward` (``csrc/selective_scan_bwd.cu``: a lane a
-thread walking the tiles in reverse, then a second launch that sums the
-per-block partials of dBm, dCm and dA in a fixed order) recomputes them.
+registers over the whole sequence, each ``CHUNK`` steps of its inputs
+copied into shared memory (cp.async) while the chunk before is computed.
+For training it also writes the state at the start of every ``CHUNK``
+steps, from which :func:`selective_scan_backward`
+(``csrc/selective_scan_bwd.cu``: four threads a lane walking the chunks in
+reverse, each chunk's states recomputed into registers, the channel sums
+by warp shuffles; then a second launch that sums the per-block partials of
+dBm, dCm and dA in a fixed order) recomputes them.
 Both take float32 contiguous CUDA tensors only and raise on anything else;
 the plain PyTorch versions are ``kernels/ref.py::selective_scan`` and
 ``selective_scan_backward``, and ``kernels/ops.py`` picks between the two
@@ -27,7 +29,7 @@ from repro_torch.kernels import _build
 
 LAUNCHES = _build.LAUNCHES
 MAX_STATE = 16      # the kernel keeps N <= 16 states a thread in registers
-CHUNK = 64          # steps between the states saved for the backward
+CHUNK = 16          # steps between the states saved for the backward
 
 
 def check_inputs(dt: torch.Tensor, x: torch.Tensor, b_mat: torch.Tensor,
@@ -89,7 +91,16 @@ def _library() -> ctypes.CDLL:
     lib.selective_scan_launch.restype = ctypes.c_int
     lib.selective_scan_error_string.argtypes = [ctypes.c_int]
     lib.selective_scan_error_string.restype = ctypes.c_char_p
+    lib.selective_scan_chunk.argtypes = []
+    lib.selective_scan_chunk.restype = ctypes.c_int
+    _check_chunk(lib.selective_scan_chunk())
     return lib
+
+
+def _check_chunk(built: int) -> None:
+    if built != CHUNK:
+        raise RuntimeError(f"the scan kernels save a state every {built} "
+                           f"steps, the wrappers expect {CHUNK}")
 
 
 def _ptr(t: torch.Tensor | None):
@@ -106,8 +117,8 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, b_mat: torch.Tensor,
     ``y_t = Σ_n h_t · Cm_t`` from ``h0`` (zeros when None), in ONE launch.
     ``state_out``, when given, receives h_T and is returned as it; it may
     be ``h0`` itself (a decode step updates its cache in place).  With
-    ``chunk_states`` the launch also writes the state at the start of each
-    tile of ``CHUNK`` steps, returned third as (B, ceil(T / CHUNK), C, N)."""
+    ``chunk_states`` the launch also writes the state at the start of every
+    ``CHUNK`` steps, returned third as (B, ceil(T / CHUNK), C, N)."""
     _build.refuse_grad("selective_scan", (dt, x, b_mat, c_mat, a, h0))
     check_inputs(dt, x, b_mat, c_mat, a, h0, state_out)
     check_devices(x, dt=dt, b_mat=b_mat, c_mat=c_mat, a=a, h0=h0,
@@ -147,6 +158,9 @@ def _bwd_library() -> ctypes.CDLL:
     lib.selective_scan_bwd_blocks.restype = ctypes.c_int
     lib.selective_scan_bwd_error_string.argtypes = [ctypes.c_int]
     lib.selective_scan_bwd_error_string.restype = ctypes.c_char_p
+    lib.selective_scan_bwd_chunk.argtypes = []
+    lib.selective_scan_bwd_chunk.restype = ctypes.c_int
+    _check_chunk(lib.selective_scan_bwd_chunk())
     return lib
 
 

@@ -714,17 +714,20 @@ def _scan_inputs(dev, b, t, c, n, seed, given=True):
             for v in (dt, x, bm, cm, a, h0)]
 
 
-# (B, T, C, N, h0 given): T = 1, T past and not a multiple of the 64-step
-# tile, C not a multiple of the 128-channel block, N = 8 and 16
+# (B, T, C, N, h0 given): T = 1, T past and not a multiple of the 16-step
+# chunk or of 64, C not a multiple of the 128-channel block, N = 1, 3, 5, 8
+# and 16
 SCAN_CASES = [(2, 1, 128, 16, True), (3, 70, 200, 8, False),
               (1, 129, 33, 16, True), (2, 64, 256, 16, False),
-              (4, 300, 130, 8, True)]
+              (4, 300, 130, 8, True), (2, 37, 130, 1, True),
+              (1, 19, 33, 3, False), (3, 45, 129, 5, True),
+              (2, 1, 200, 5, True)]
 
 
 @pytest.mark.parametrize("b,t,c,n,given", SCAN_CASES)
 def test_selective_scan_matches_plain_version(dev, b, t, c, n, given):
-    """y and h_T within 2e-5 of the plain version on the same inputs, one
-    launch a call."""
+    """y within 2e-5 of the plain version on the same inputs and h_T
+    bitwise (the same operations in the same order), one launch a call."""
     from repro_torch.kernels import selective_scan as ss
 
     args = _scan_inputs(dev, b, t, c, n, seed=t, given=given)
@@ -735,13 +738,16 @@ def test_selective_scan_matches_plain_version(dev, b, t, c, n, given):
     want_y, want_h = ref.selective_scan(*args)
     torch.testing.assert_close(y, want_y, **TOL)
     torch.testing.assert_close(h, want_h, **TOL)
+    assert torch.equal(h, want_h)
     assert ss.LAUNCHES is ops.LAUNCHES
 
 
-def test_selective_scan_writes_an_aliased_state_in_place(dev):
-    """A decode step's shape (T = 1) with ``state_out`` the h0 tensor
-    itself: h_T lands in it, equal to the plain version from a copy."""
-    args = _scan_inputs(dev, 4, 1, 300, 16, seed=2)
+@pytest.mark.parametrize("t,c,n", [(1, 300, 16), (1, 130, 5), (37, 130, 3)])
+def test_selective_scan_writes_an_aliased_state_in_place(dev, t, c, n):
+    """``state_out`` the h0 tensor itself (a decode step's T = 1, and a
+    longer call): h_T lands in it, bitwise the plain version from a
+    copy."""
+    args = _scan_inputs(dev, 4, t, c, n, seed=2)
     h0 = args[5]
     want_y, want_h = ref.selective_scan(*args[:5], h0.clone())
     y, h = ops.selective_scan(*args[:5], h0, state_out=h0)
@@ -749,6 +755,7 @@ def test_selective_scan_writes_an_aliased_state_in_place(dev):
     assert h is h0
     torch.testing.assert_close(y, want_y, **TOL)
     torch.testing.assert_close(h0, want_h, **TOL)
+    assert torch.equal(h0, want_h)
 
 
 @pytest.mark.parametrize("bad", ["bf16", "strided", "n17", "mixed"])
@@ -773,10 +780,12 @@ def test_selective_scan_wrapper_rejects_what_the_kernel_does_not_take(
 
 
 # (B, T, C, N, h0 given, dh_T nonzero): T = 1, T past and not a multiple of
-# the 64-step tile, C not a multiple of the 128-channel block, N = 8 and 16
+# the 16-step chunk or of 64, C not a multiple of the 128-channel block,
+# N = 1, 3, 5, 8 and 16
 SCAN_BWD_CASES = [(2, 1, 128, 16, True, True), (3, 70, 200, 8, False, False),
                   (1, 129, 33, 16, True, False), (2, 64, 256, 16, False, True),
-                  (4, 300, 130, 8, True, True)]
+                  (4, 300, 130, 8, True, True), (2, 37, 130, 1, True, True),
+                  (1, 19, 33, 3, False, True), (3, 45, 129, 5, True, False)]
 
 
 def _scan_cotangents(dev, b, t, c, n, dh, seed):
@@ -789,9 +798,10 @@ def _scan_cotangents(dev, b, t, c, n, dh, seed):
 @pytest.mark.parametrize("b,t,c,n,given,dh", SCAN_BWD_CASES)
 def test_selective_scan_backward_matches_plain_version(dev, b, t, c, n,
                                                        given, dh):
-    """The tile checkpoints and every gradient (ddt, dx, dBm, dCm, dA, dh0)
-    within 2e-5 of the plain versions on the same inputs; one launch of
-    each of the backward's two kernels."""
+    """The chunk checkpoints and every gradient (ddt, dx, dBm, dCm, dA,
+    dh0) bitwise the plain versions on the same inputs (the same operations
+    in the same order); one launch of each of the backward's two
+    kernels."""
     from repro_torch.kernels import selective_scan as ss
 
     args = _scan_inputs(dev, b, t, c, n, seed=t, given=given)
@@ -799,6 +809,7 @@ def test_selective_scan_backward_matches_plain_version(dev, b, t, c, n,
     _, _, chunks = ss.selective_scan(*args, chunk_states=True)
     _, _, want_chunks = ref.selective_scan(*args, chunk_states=True)
     torch.testing.assert_close(chunks, want_chunks, **TOL)
+    assert torch.equal(chunks, want_chunks)
     before = dict(ops.LAUNCHES)
     got = ss.selective_scan_backward(*args[:5], chunks, dy, dh_t,
                                      want_dh0=given)
@@ -813,6 +824,23 @@ def test_selective_scan_backward_matches_plain_version(dev, b, t, c, n,
         assert (g is None) == (w is None)
         if w is not None:
             torch.testing.assert_close(g, w, **TOL)
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name,kernel", [
+    ("selective_scan", "selective_scan_kernel"),
+    ("selective_scan_bwd", "selective_scan_bwd_kernel")])
+def test_scan_kernels_build_without_stack_or_spills(dev, name, kernel):
+    """ptxas compiled every instantiation (N = 1..16) of both scan kernels,
+    and the backward's reduction, with no stack frame and no spills: each
+    chunk's states stay in registers."""
+    from repro_torch.kernels import _build
+
+    report = _build.ptxas_report(name)
+    assert sum(kernel in k for k in report) == 16, report
+    for k, info in report.items():
+        assert info["stack_frame"] == 0 and info["spill_stores"] == 0 \
+            and info["spill_loads"] == 0, (k, info)
 
 
 def test_scan_gradient_runs_both_kernels_on_the_card(dev):

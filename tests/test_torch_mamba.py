@@ -222,10 +222,13 @@ def _reference_scan(dt, x, bm, cm, a, h0, q):
 
 
 @pytest.mark.parametrize("t,n,given", [(1, 16, True), (70, 8, False),
-                                       (130, 16, True), (64, 4, False)])
+                                       (130, 16, True), (64, 4, False),
+                                       (37, 1, True), (19, 3, False),
+                                       (45, 5, True)])
 def test_plain_scan_matches_the_references(t, n, given):
-    """T = 1, T across the plain version's 64-step chunks and not a
-    multiple of the reference's 32, N = 4 / 8 / 16, h0 given or zeros."""
+    """T = 1, T across the plain version's 16-step chunks and not a
+    multiple of 16, 64 or the reference's 32, N = 1 / 3 / 4 / 5 / 8 / 16,
+    h0 given or zeros."""
     dt, x, bm, cm, a, h0 = _scan_inputs(2, t, 24, n, seed=t)
     h0 = h0 if given else np.zeros_like(h0)
     want_y, want_h = _reference_scan(dt, x, bm, cm, a, h0, q=32)

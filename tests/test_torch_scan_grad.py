@@ -3,12 +3,20 @@
 * The plain backward (``kernels/ref.py::selective_scan_backward``) against
   torch autograd through the plain forward (``ref.selective_scan``, torch
   ops) in float64, within rtol = atol = 1e-10: T = 1, T past and not a
-  multiple of the 64-step tile, C not a multiple of the 128-channel block,
-  N = 8 and 16, h0 given or not, dh_T zero and nonzero.
+  multiple of the 16-step chunk or of 64, C not a multiple of the
+  128-channel block nor of a warp's 8 channels, N = 1, 3, 5, 8 and 16
+  (states a thread 1 to 4, the last ones masked), h0 given or not, dh_T
+  zero and nonzero.
 * ``kernels.ops.selective_scan`` under grad runs ``SelectiveScanFn``: the
   forward bitwise the plain one, the gradients bitwise the plain backward.
-* The channel sums of dBm and dCm bitwise in the kernel's order (quarters
-  of 32 channels, then the quarters, then the blocks).
+* The channel sums of dBm and dCm bitwise in the kernel's order (a halving
+  tree over a warp's 8 channels, then the 16 warps, then the blocks), and
+  du and the sum of q · A over n in its order (each thread's states in
+  order, then the group's four partials pairwise).
+* The scan kernels' bounds at jamba-1.5-large's shape: the forward by its
+  exponentials, the backward by its float32 operations, one instruction
+  each under ``-fmad=false``; the ptxas report the on-card checks read;
+  ``benchmarks/bench_scan.py`` refusing to run without a card.
 * The Mamba mixer's gradients against ``jax.grad`` of the reference's
   ``mamba_forward`` (XLA: chunks, an associative scan in each) on its own
   converted weights, float32: every parameter, the input and the initial
@@ -36,7 +44,9 @@ F64 = dict(rtol=1e-10, atol=1e-10)
 
 # (B, T, C, N, h0 given, dh_T nonzero)
 CASES = [(2, 1, 16, 8, True, True), (2, 70, 40, 8, False, False),
-         (1, 130, 200, 16, True, False), (3, 64, 130, 16, False, True)]
+         (1, 130, 200, 16, True, False), (3, 64, 130, 16, False, True),
+         (2, 37, 130, 1, True, True), (1, 19, 33, 3, False, True),
+         (2, 45, 129, 5, True, False)]
 
 
 def _inputs(b, t, c, n, given, dh, dtype=torch.float64, seed=0):
@@ -111,20 +121,57 @@ def test_scan_without_grad_saves_no_chunks_and_state_out_needs_no_grad():
 
 
 def test_channel_sums_follow_the_kernel_order():
-    v = torch.randn((2, 3, 300, 4), generator=torch.Generator().manual_seed(1))
-    got = ref._sum_channels(v)
-    want = torch.zeros((2, 3, 4))
-    for blk in range(-(-300 // ref.SCAN_BLOCK)):
+    """Each warp's 8 channels as ((c0 + c4) + (c2 + c6)) + ((c1 + c5) +
+    (c3 + c7)), the block's 16 warps in order, then the blocks in order;
+    channels past C count as 0."""
+    c = 300
+    v = torch.randn((2, 3, c, 4), generator=torch.Generator().manual_seed(1))
+
+    def ch(i):
+        return v[:, :, i] if i < c else torch.zeros((2, 3, 4))
+
+    want = None
+    for blk in range(-(-c // ref.SCAN_BLOCK)):
         block = None
-        for q in range(ref.SCAN_BLOCK // ref.SCAN_QUARTER):
-            lo = blk * ref.SCAN_BLOCK + q * ref.SCAN_QUARTER
-            acc = None
-            for c in range(lo, lo + ref.SCAN_QUARTER):
-                term = v[:, :, c] if c < 300 else torch.zeros((2, 3, 4))
-                acc = term if acc is None else acc + term
-            block = acc if block is None else block + acc
-        want = block if blk == 0 else want + block
-    assert torch.equal(got, want)
+        for w in range(ref.SCAN_BLOCK // ref.SCAN_WARP):
+            lo = blk * ref.SCAN_BLOCK + w * ref.SCAN_WARP
+            warp = ((ch(lo) + ch(lo + 4)) + (ch(lo + 2) + ch(lo + 6))) \
+                + ((ch(lo + 1) + ch(lo + 5)) + (ch(lo + 3) + ch(lo + 7)))
+            block = warp if block is None else block + warp
+        want = block if want is None else want + block
+    assert torch.equal(ref._sum_channels(v), want)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 8, 16])
+def test_state_sums_follow_the_kernel_order(n):
+    """Σ over n as the backward kernel's group of four threads takes it:
+    each thread its ceil(N / 4) states in order (masked states as 0), then
+    (p0 + p1) + (p2 + p3)."""
+    v = torch.randn((3, 7, n), generator=torch.Generator().manual_seed(n))
+    per = -(-n // ref.SCAN_GROUP)
+    parts = []
+    for g in range(ref.SCAN_GROUP):
+        acc = None
+        for j in range(g * per, g * per + per):
+            term = v[..., j] if j < n else torch.zeros((3, 7))
+            acc = term if acc is None else acc + term
+        parts.append(acc)
+    want = (parts[0] + parts[1]) + (parts[2] + parts[3])
+    assert torch.equal(ref._sum_states(v), want)
+
+
+def test_scan_bounds_at_jambas_shape():
+    """(4, 2,048, 16,384, 16): the forward's 2.15 G exponentials on the
+    SFUs (0.5135 ms) above its 13.0 G operations (0.389 ms); the
+    backward's 34.9 G operations at 128 float32 instructions a clock an
+    SM (1.0431 ms) above its bytes (0.8026 ms) and exponentials."""
+    from repro_torch.benchmarks import timing
+
+    ms, by = timing.selective_scan_bound(4, 2048, 16384, 16)
+    assert by == "operations" and ms == pytest.approx(0.51354, rel=1e-4)
+    ms, by = timing.selective_scan_bwd_bound(4, 2048, 16384, 16)
+    assert by == "operations" and ms == pytest.approx(1.04312, rel=1e-4)
+    assert timing.SCALAR_F32_OPS == pytest.approx(33.45e12, rel=1e-3)
 
 
 def _mixer(seed=1):
@@ -190,3 +237,41 @@ def test_mixer_gradients_match_jax(t, chunk, given, dh):
         _close(ts0.grad, js)
     else:
         assert ts0.grad is None
+
+
+def test_ptxas_report_reads_registers_stack_and_spills(monkeypatch):
+    """``_build.ptxas_report`` (what chip_smoke and the on-card tests hold
+    the scan kernels to) reads each kernel's registers, stack frame and
+    spill bytes from what nvcc printed."""
+    from repro_torch.kernels import _build
+
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelILi16EEvPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelILi16EEvPf
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 8576 bytes smem
+ptxas info    : Compiling entry function '_Z6reduceEv' for 'sm_90a'
+ptxas info    : Function properties for _Z6reduceEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+    monkeypatch.setattr(_build, "build_log", lambda name: (None, log))
+    assert _build.ptxas_report("selective_scan_bwd") == {
+        "_Z6kernelILi16EEvPf": {"stack_frame": 8, "spill_stores": 4,
+                                "spill_loads": 12, "registers": 128},
+        "_Z6reduceEv": {"stack_frame": 0, "spill_stores": 0,
+                        "spill_loads": 0, "registers": 32}}
+
+
+def test_bench_scan_needs_a_card():
+    """``benchmarks/bench_scan.py`` times the CUDA kernels only: with no
+    card, or asked for the CPU, it raises before anything runs."""
+    from repro_torch.benchmarks import bench_scan
+
+    for device in ("cpu", None):
+        if device is None and torch.cuda.is_available():
+            continue
+        with pytest.raises(RuntimeError, match="needs a card"):
+            bench_scan.run(quick=True, device=device)
+    with pytest.raises(RuntimeError, match="needs a card"):
+        bench_scan.main(["--quick", "--device", "cpu", "--against", "x"])
