@@ -219,7 +219,20 @@ Phases, each printing one JSON line:
              repro_torch.examples.train_fraud_scorer`` at the reference's
              defaults in a process of its own, and again from its
              checkpoints.
-17. roofline — every path phases 11, 12 and 16 timed (qwen3-8b, olmoe-1b-7b,
+17. expert_parallel — expert parallelism on the card: NCCL brought up in
+             this process as a world of one rank over a (1, 1) ("data",
+             "model") mesh (no fallback); olmoe-1b-7b's MoE layer at full
+             width (d 2,048, 64 experts of 1,024, top-8, capacity factor
+             1.25, bf16, 4 x 2,048 tokens) through ``moe_forward_a2a``
+             against ``moe_forward(..., dispatch_chunk=n)`` (the same
+             capacity at one rank, so the same pairs drop): bitwise, aux
+             within 1e-5, times and peaks; then olmoe's whole prefill (16
+             layers, 4 x 2,048, drop-free capacity factor 8) with
+             ``impl="a2a"`` and with ``"einsum"``, each model freed before
+             the next: last-token logits within 5e-2, each prefill's time
+             and peak, the a2a prefill's collectives by kind (bytes and
+             counts, held to E·cap·d a layer) and its flash launches.
+18. roofline — every path phases 11, 12 and 16 timed (qwen3-8b, olmoe-1b-7b,
              xlstm-1.3b and jamba's five layers, prefill and decode; jamba's
              one-layer train step) read against the one-card roofline
              (``launch/roofline.py`` at the H100's published rates) at that
@@ -231,7 +244,7 @@ Phases, each printing one JSON line:
              measured one); nothing is timed again; then ``python -m
              repro_torch.launch.dryrun`` on qwen3-8b x decode_32k in a
              process of its own.
-18. kernels — every kernel of the port with its launches on its path, its
+19. kernels — every kernel of the port with its launches on its path, its
              error and its times at the path's shapes.
 
 Any failed check raises, so the script exits non-zero; it also exits
@@ -3965,6 +3978,236 @@ def phase_train(dev) -> dict:
 
 
 # ---------------------------------------------------------------- phase 17
+EP_ARCH = "olmoe-1b-7b"
+EP_DROP_FREE = 8.0      # E / k: every expert can take every token
+# the layer at one rank against the einsum layer dispatching all tokens at
+# once: the same routes, slots, capacity and bmm shapes, so bitwise
+EP_LAYER_TOL = 0.0
+EP_AUX_RTOL = 1e-5      # float32 sums of 8,192 rows in another order
+# the two prefills' last-token logits: the bf16 rule of the port's MoE
+# model tests (tests/test_torch_moe.py::BF16), rtol = atol
+EP_PREFILL_TOL = 5e-2
+EP_RUNS = 3
+EP_BACKEND = "nccl"     # the card's; nothing falls back to gloo
+
+
+def _ep_collectives(tally) -> dict:
+    return {"bytes_by_kind": dict(tally.bytes_by_kind),
+            "count_by_kind": dict(tally.count_by_kind),
+            "total_bytes": tally.total_bytes}
+
+
+def _ep_layer(dev, mesh) -> dict:
+    """olmoe's MoE layer at full width (d 2,048, 64 experts of 1,024,
+    top-8, capacity factor 1.25, bf16, 4 x 2,048 tokens) through
+    ``moe_forward_a2a`` against ``moe_forward(..., dispatch_chunk=n)``,
+    timed beside it, each peak read after a reset."""
+    import dataclasses
+
+    import torch
+    from repro_torch.benchmarks.timing import device_ms
+    from repro_torch.configs import get_config
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe, moe_a2a
+
+    cfg = get_config(EP_ARCH)
+    mo = cfg.moe
+    mo_a2a = dataclasses.replace(mo, impl="a2a")
+    layer = moe.MoE(cfg.d_model, mo, device=dev, dtype=torch.bfloat16)
+    with torch.no_grad():
+        layer.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    x = torch.randn((LLM_BATCH, LLM_PROMPT, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1)
+                    ).to(torch.bfloat16)
+    n = LLM_BATCH * LLM_PROMPT
+
+    def a2a():
+        return moe_a2a.moe_forward_a2a(layer, x, mo_a2a)
+
+    def einsum():
+        return moe.moe_forward(layer, x, mo, dispatch_chunk=n)
+
+    peaks = {}
+    with torch.no_grad(), mesh_lib.set_mesh(mesh):
+        for name, fn in (("a2a", a2a), ("einsum", einsum)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if name == "a2a":
+                with coll.tally() as tally:
+                    got, aux = fn()
+            else:
+                want, aux_want = fn()
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() - base
+        err = float((got.float() - want.float()).abs().max())
+        check(err <= EP_LAYER_TOL, f"a2a layer {err} from the einsum layer")
+        aux, aux_want = float(aux), float(aux_want)
+        check(abs(aux - aux_want) <= EP_AUX_RTOL * abs(aux_want),
+              f"a2a aux {aux} against {aux_want}")
+        cap = moe.capacity(n, mo)
+        buf = mo.num_experts * cap * cfg.d_model * 2
+        toks = n * cfg.d_model * 2
+        want_tally = {"all-gather": buf + 2 * toks, "reduce-scatter": buf,
+                      "all-reduce": 2 * (2 * mo.num_experts + 1) * 4}
+        check(tally.bytes_by_kind == want_tally
+              and tally.count_by_kind == {"all-gather": 3,
+                                          "reduce-scatter": 1,
+                                          "all-reduce": 2},
+              f"the layer's collectives {_ep_collectives(tally)}, "
+              f"predicted {want_tally}")
+        a2a_ms = device_ms(a2a, reps=10, inner=3)
+        einsum_ms = device_ms(einsum, reps=10, inner=3)
+    del got, want, layer, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"shape": {"B": LLM_BATCH, "T": LLM_PROMPT, "d": cfg.d_model,
+                      "experts": mo.num_experts, "top_k": mo.top_k,
+                      "d_ff_expert": mo.d_ff_expert,
+                      "capacity_factor": mo.capacity_factor,
+                      "capacity": cap, "dtype": "bfloat16"},
+            "max_abs_err": err, "bitwise": err == 0.0,
+            "tolerance": EP_LAYER_TOL, "aux": aux, "aux_einsum": aux_want,
+            "a2a_ms": a2a_ms, "einsum_ms": einsum_ms,
+            "peak_bytes_above_inputs": peaks,
+            "collectives": _ep_collectives(tally),
+            "timing": "CUDA events, median of 10 runs of 3 back-to-back "
+                      "calls"}
+
+
+def _ep_prefill(dev, mesh, impl: str, prompt) -> dict:
+    """olmoe-1b-7b's prefill at full width in bf16 from seed 0 with the
+    MoE's ``impl`` at the drop-free capacity: one warm-up run, then
+    ``EP_RUNS`` timed (host clock ended by a device sync), the first with
+    the kernels' counts set to 0 just before and read just after and the
+    collectives tallied; the peak reset before the timed runs."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import Model
+
+    cfg = get_config(EP_ARCH)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=EP_DROP_FREE, impl=impl))
+    model = Model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+
+    def prefill():
+        out, _ = model.prefill(prompt, cache_capacity=LLM_PROMPT,
+                               attn_impl="kernel", logits_mode="last")
+        return out
+
+    with torch.no_grad(), mesh_lib.set_mesh(mesh):
+        prefill()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for run in range(EP_RUNS):
+            if run == 0:
+                for name in ops.LAUNCHES:
+                    ops.LAUNCHES[name] = 0
+            t0 = time.perf_counter()
+            with coll.tally() as tally:
+                out = prefill()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if run == 0:
+                launches = dict(ops.LAUNCHES)
+                collectives = _ep_collectives(tally)
+                logits = out.logits[:, -1].float()
+                aux = float(out.moe_aux)
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = cfg.n_layers
+    check(launches["flash_attention"] == n_layers
+          and launches["flash_attention_wgmma"] == n_layers
+          and sum(launches.values()) == 2 * n_layers,
+          f"{impl} prefill: {launches}, expected {n_layers} tensor-core "
+          "flash launches and no other kernel")
+    check(bool(torch.isfinite(logits).all()), f"{impl}: finite logits")
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"impl": impl, "capacity_factor": EP_DROP_FREE,
+            "launches": launches, "collectives": collectives,
+            "prefill_ms": statistics.median(times), "prefill_ms_runs": times,
+            "max_memory_allocated": peak, "weight_bytes": weight_bytes,
+            "moe_aux": aux, "logits": logits}
+
+
+def phase_expert_parallel(dev, smi: str) -> dict:
+    """NCCL in process as a world of one rank over a (1, 1) ("data",
+    "model") mesh on the card: olmoe's MoE layer through the all-to-all
+    MoE against the einsum layer, then olmoe's whole prefill with each."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
+
+    t0 = time.perf_counter()
+    card = dev if dev.type != "cuda" or dev.index is not None else \
+        torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group(
+        EP_BACKEND, store=dist.HashStore(), rank=0, world_size=1,
+        device_id=card if card.type == "cuda" else None)
+    try:
+        check(dist.get_backend() == EP_BACKEND,
+              f"the process group runs {EP_BACKEND}")
+        mesh = mesh_lib.init_mesh(mesh_lib.make_host_mesh(), device=card)
+        layer = _ep_layer(card, mesh)
+        cfg = get_config(EP_ARCH)
+        prompt = torch.tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)), dtype=torch.long,
+            device=card)
+        runs = {impl: _ep_prefill(card, mesh, impl, prompt)
+                for impl in ("a2a", "einsum")}
+    finally:
+        dist.destroy_process_group()
+    a, e = runs["a2a"].pop("logits"), runs["einsum"].pop("logits")
+    err = float((a - e).abs().max())
+    check(bool(torch.allclose(a, e, rtol=EP_PREFILL_TOL,
+                              atol=EP_PREFILL_TOL)),
+          f"a2a prefill's last-token logits {err} from the einsum prefill's")
+    n = LLM_BATCH * LLM_PROMPT
+    cap = moe.capacity(n, dataclasses.replace(cfg.moe,
+                                              capacity_factor=EP_DROP_FREE))
+    buf = cfg.moe.num_experts * cap * cfg.d_model * 2
+    toks = n * cfg.d_model * 2
+    per_layer = {"all-gather": buf + 2 * toks, "reduce-scatter": buf,
+                 "all-reduce": 2 * (2 * cfg.moe.num_experts + 1) * 4}
+    tally = runs["a2a"]["collectives"]
+    check(tally["bytes_by_kind"] == {k: cfg.n_layers * v
+                                     for k, v in per_layer.items()}
+          and runs["einsum"]["collectives"]["total_bytes"] == 0,
+          f"the a2a prefill's collectives {tally}, predicted "
+          f"{per_layer} a layer")
+    result = {"phase": "expert_parallel", "nvidia_smi": smi,
+              "backend": EP_BACKEND, "world_size": 1, "mesh": mesh.shape,
+              "layer": layer,
+              "prefill": {"arch": EP_ARCH, "batch": LLM_BATCH,
+                          "prompt_len": LLM_PROMPT, "runs": runs,
+                          "max_abs_diff_last_logits": err,
+                          "bitwise": err == 0.0,
+                          "tolerance": EP_PREFILL_TOL,
+                          "tally_bytes_per_layer_predicted": per_layer,
+                          "timing": "host clock, each prefill ended by a "
+                                    "device sync; median of 3 runs after "
+                                    "one warm-up run"},
+              "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 18
 ROOFLINE_CAP = 1.05     # a share over this means the count is wrong
 DRYRUN_CELL = ("qwen3-8b", "decode_32k")
 
@@ -4105,7 +4348,7 @@ def phase_roofline(dev, llm: dict, zoo: dict, train: dict,
     return result
 
 
-# ---------------------------------------------------------------- phase 18
+# ---------------------------------------------------------------- phase 19
 def _benched(name: str, source: str, replaces: str, bench: dict,
              library_ms: float | None, also: dict) -> dict:
     """A kernels-line entry from bench_kernels' run (phase 15), the path of
@@ -4124,7 +4367,7 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
                   engine: dict, tiering: dict, sharding: dict,
                   main_bench: dict, paper_bench: dict, attention: dict,
                   llm: dict, zoo: dict, scores: dict, decode: dict,
-                  bench: dict, train: dict) -> None:
+                  bench: dict, train: dict, ep: dict) -> None:
     from repro_torch.benchmarks.timing import banked_bound, device_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels import score_pipeline as sp
@@ -4191,6 +4434,9 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
             "flash_attention_wgmma"],
         "jamba_launches": zoo["models"][JAMBA]["launches"][
             "flash_attention_wgmma"],
+        # olmoe's prefill with the all-to-all MoE (expert_parallel)
+        "expert_parallel_launches": ep["prefill"]["runs"]["a2a"][
+            "launches"]["flash_attention_wgmma"],
         "olmoe_shape": zoo["olmoe_flash"],
     }, {
         "name": "flash_attention", "route": "cuda",
@@ -4322,10 +4568,11 @@ def main() -> int:
     decode = phase_decode_attention(dev)
     bench = phase_bench_kernels()
     train = phase_train(dev)
+    ep = phase_expert_parallel(dev, smi)
     phase_roofline(dev, llm, zoo, train, smi)
     phase_kernels(kernel, serve, main_shapes, lifecycle, engine, tiering,
                   sharding, main_bench, paper_bench, attention, llm, zoo,
-                  scores, decode, bench, train)
+                  scores, decode, bench, train, ep)
     emit({"phase": "wall", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

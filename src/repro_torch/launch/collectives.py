@@ -1,0 +1,226 @@
+"""The port's collectives, and a tally of what they move.
+
+Every collective the port issues goes through this module: an all-to-all,
+an all-gather, a reduce-scatter or an all-reduce over one axis of a
+:class:`~repro_torch.launch.mesh.Mesh`.  The reference reads its
+collectives out of XLA's compiled HLO (``launch/hlo_costs.py``), weighting
+each by the trip counts of the loops around it.  The port has no HLO, so it
+counts at the source: while a :func:`tally` is active, each call adds its
+result's per-device bytes and one count under the reference's kind names
+(``_COLLECTIVE_RE`` / ``_shape_bytes``: a result's bytes, each op once).  A
+Python loop over layers counts every call, so no trip count is needed.
+
+On meta tensors the functions return outputs of the right shape and only
+count, with no process group: the dry run of one rank of a pod mesh.  That
+path is chosen by the tensor's device.
+
+Over an axis of one rank the all-gather, reduce-scatter and all-reduce are
+still issued, and an all-to-all is not: the reference's compiled program
+keeps the first three and drops the last (``tests/test_torch_moe_a2a.py``
+holds the tally to it op for op).
+
+The differentiable forms are ``torch.autograd.Function``s whose backward is
+the adjoint collective: an all-to-all's is the reverse all-to-all (the same
+exchange), an all-gather's a reduce-scatter and a reduce-scatter's an
+all-gather.  An all-reduce's result is the same on every rank and each rank
+takes its cotangent as the cotangent of that one value (a loss every rank
+computes alike), so its backward passes the cotangent through.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+from typing import Iterator
+
+import torch
+
+from repro_torch.launch.mesh import Mesh
+
+@dataclasses.dataclass
+class Collectives:
+    """Per-device collective bytes and counts by kind (the reference's
+    ``HloCollectives``).  ``static_count`` is every call counted."""
+
+    bytes_by_kind: dict[str, float] = dataclasses.field(default_factory=dict)
+    count_by_kind: dict[str, float] = dataclasses.field(default_factory=dict)
+    static_count: int = 0
+
+    def add(self, kind: str, nbytes: int) -> None:
+        self.bytes_by_kind[kind] = self.bytes_by_kind.get(kind, 0.0) + nbytes
+        self.count_by_kind[kind] = self.count_by_kind.get(kind, 0.0) + 1
+        self.static_count += 1
+
+    def weighted_bytes(self, factors: dict[str, float]) -> float:
+        return sum(factors.get(k, 1.0) * v
+                   for k, v in self.bytes_by_kind.items())
+
+    @property
+    def total_bytes(self) -> float:
+        return sum(self.bytes_by_kind.values())
+
+
+_TALLY: contextvars.ContextVar[Collectives | None] = contextvars.ContextVar(
+    "collective_tally", default=None)
+
+
+@contextlib.contextmanager
+def tally() -> Iterator[Collectives]:
+    """Count every collective issued inside the ``with`` block."""
+    counts = Collectives()
+    token = _TALLY.set(counts)
+    try:
+        yield counts
+    finally:
+        _TALLY.reset(token)
+
+
+def _count(kind: str, result: torch.Tensor) -> torch.Tensor:
+    counts = _TALLY.get()
+    if counts is not None:
+        counts.add(kind, result.numel() * result.element_size())
+    return result
+
+
+def _front(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return x.movedim(dim, 0).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the collectives (no autograd)
+# ---------------------------------------------------------------------------
+
+def all_to_all_raw(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """Dim 0 of ``x`` in ``n`` equal chunks, chunk j to rank j of ``axis``;
+    dim 0 of the result is the chunk each rank sent here, by rank."""
+    n = mesh.shape[axis]
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 ({x.shape[0]}) is not a multiple of "
+                         f"{axis}'s {n} ranks")
+    if n == 1:
+        return x
+    if x.device.type == "meta":
+        return _count("all-to-all", torch.empty_like(x))
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=mesh.group(axis))
+    return _count("all-to-all", out)
+
+
+def all_gather_raw(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
+                   ) -> torch.Tensor:
+    """Every rank's ``x`` of ``axis`` concatenated along ``dim``, by rank
+    (contiguous)."""
+    n = mesh.shape[axis]
+    shape = list(x.shape)
+    shape[dim] *= n
+    if x.device.type == "meta":
+        return _count("all-gather", x.new_empty(shape))
+    import torch.distributed as dist
+
+    src = _front(x, dim)
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=mesh.group(axis))
+    return _count("all-gather", out.movedim(0, dim).contiguous())
+
+
+def reduce_scatter_raw(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
+                       ) -> torch.Tensor:
+    """The sum over the ranks of ``axis`` of their ``x``, split in equal
+    chunks along ``dim``: chunk j to rank j (contiguous)."""
+    n = mesh.shape[axis]
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} ({x.shape[dim]}) is not a multiple of "
+                         f"{axis}'s {n} ranks")
+    shape = list(x.shape)
+    shape[dim] //= n
+    if x.device.type == "meta":
+        return _count("reduce-scatter", x.new_empty(shape))
+    import torch.distributed as dist
+
+    src = _front(x, dim)
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=mesh.group(axis))
+    return _count("reduce-scatter", out.movedim(0, dim).contiguous())
+
+
+def all_reduce_raw(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum over the ranks of ``axis`` of their ``x`` (a new tensor)."""
+    if x.device.type == "meta":
+        return _count("all-reduce", torch.empty_like(x))
+    import torch.distributed as dist
+
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=mesh.group(axis))
+    return _count("all-reduce", out)
+
+
+# ---------------------------------------------------------------------------
+# differentiable forms
+# ---------------------------------------------------------------------------
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_to_all_raw(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_raw(g, ctx.mesh, ctx.axis), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather_raw(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_raw(g, ctx.mesh, ctx.axis, ctx.dim), None,
+                None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return reduce_scatter_raw(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather_raw(g, ctx.mesh, ctx.axis, ctx.dim), None, None,
+                None)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce_raw(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    if mesh.shape[axis] == 1:
+        return all_to_all_raw(x, mesh, axis)
+    return _AllToAll.apply(x, mesh, axis)
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
+               ) -> torch.Tensor:
+    return _AllGather.apply(x, mesh, axis, dim)
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
+                   ) -> torch.Tensor:
+    return _ReduceScatter.apply(x, mesh, axis, dim)
+
+
+def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    return _AllReduce.apply(x, mesh, axis)

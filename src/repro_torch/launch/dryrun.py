@@ -20,9 +20,15 @@ dry-run is started.  Steps deeper than two groups of the layer pattern are
 traced at one and at two groups, and the counts of the whole depth are
 extrapolated from them (the groups are identical, so every count is
 linear in their number; so is the peak, whose growth a group is what one
-more group holds).  The reference's pod meshes, sharding rules, multi-pod
-and ``--variant`` bundles and its HLO collective parser belong to a mesh
-over several cards (ROADMAP Queue 1 items 13f and 11b).
+more group holds).
+
+On the pod meshes (``launch/mesh.py::make_production_mesh``),
+:func:`build_shardings` gives every argument and output of a cell's step
+its spec under the production rules (``launch/shardings.py``), FSDP
+decided as the reference decides it, and :func:`argument_bytes_per_device`
+what one rank holds.  Tracing a cell over a pod mesh, its collective term
+and the ``--variant`` bundles belong to the tensor-parallel model
+(``launch/mesh.py::TENSOR_PARALLEL``) and raise.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \\
@@ -39,6 +45,7 @@ import os
 import time
 import traceback
 import weakref
+from typing import Any
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -47,7 +54,11 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCH_IDS, applicable_shapes
 from repro_torch.kernels import ops
-from repro_torch.launch import roofline, specs
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import roofline, shardings, specs
+from repro_torch.launch.shardings import P
+from repro_torch.training.optimizer import AdamWState
+from repro_torch.training.train import StepMetrics, TrainState
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "benchmarks", "results", "dryrun_h100")
@@ -264,6 +275,90 @@ def step_bytes(bundle: specs.StepBundle, capacity: int | None = None
                                 capacity or shape.seq_len)))
 
 
+# ---------------------------------------------------------------------------
+# the pod meshes: specs and per-rank argument bytes
+# ---------------------------------------------------------------------------
+
+# per-rank parameter bytes past which the parameters are FSDP'd (ZeRO-3)
+FSDP_THRESHOLD_BYTES = 4 * 2**30
+
+
+def _logits_pspec(mesh, batch: int, vocab: int, ndim: int) -> P:
+    spec: list = [None] * ndim
+    dsize = mesh_lib.data_axis_size(mesh)
+    if batch % dsize == 0 and dsize > 1:
+        spec[0] = mesh_lib.data_axes(mesh)
+    if vocab % mesh_lib.model_axis_size(mesh) == 0:
+        spec[-1] = "model"
+    return P(*spec)
+
+
+def _decide_fsdp(params, mesh) -> bool:
+    per_rank = specs.total_param_bytes(params) / mesh_lib.model_axis_size(
+        mesh)
+    return per_rank > FSDP_THRESHOLD_BYTES
+
+
+def build_shardings(bundle: specs.StepBundle, mesh, *,
+                    fsdp: bool | None = None) -> tuple[Any, Any, bool]:
+    """(in_specs, out_specs, fsdp_used): nests of ``PartitionSpec`` like
+    the step's arguments and outputs (the reference's ``build_shardings``,
+    specs in place of ``NamedSharding``s).  ``fsdp=None`` decides it as
+    the reference does: a train step when its float32 parameters or
+    moments pass :data:`FSDP_THRESHOLD_BYTES` a rank, else when the bf16
+    parameters do."""
+    rep = P()
+    b = bundle.shape.global_batch
+    cfg, model = bundle.cfg, bundle.model
+    batch_sh = shardings.batch_pspec(b, mesh, 0)
+
+    if bundle.kind == "train":
+        state = bundle.abstract_args[0]
+        if fsdp is None:
+            fsdp = _decide_fsdp(state.params, mesh) or _decide_fsdp(
+                state.opt.mu, mesh)
+        psh = shardings.param_pspecs(cfg, model, mesh, fsdp=fsdp)
+        state_sh = TrainState(psh, AdamWState(step=rep, mu=psh, nu=psh))
+        tok = shardings.batch_pspec(b, mesh, 1)
+        return ((state_sh, tok, tok),
+                (state_sh, StepMetrics(rep, rep, rep, rep)), fsdp)
+
+    params = bundle.abstract_args[0]
+    if fsdp is None:
+        fsdp = _decide_fsdp(params, mesh)
+    psh = shardings.param_pspecs(cfg, model, mesh, fsdp=fsdp)
+    if bundle.kind == "prefill":
+        inputs = bundle.abstract_args[1]
+        in_sh = {k: shardings.batch_pspec(b, mesh, v.ndim - 1)
+                 for k, v in inputs.items()}
+        out_sh = {"logits": _logits_pspec(mesh, b, cfg.vocab_size, 3),
+                  "risk_score": batch_sh}
+        if cfg.has_decode:
+            out_sh["cache"] = shardings.cache_pspecs(
+                model.init_cache(b, bundle.shape.seq_len), b, mesh)
+        return (psh, in_sh), out_sh, fsdp
+
+    _, cache, inputs, _pos = bundle.abstract_args
+    cache_sh = shardings.cache_pspecs(cache, b, mesh)
+    in_sh = {k: shardings.batch_pspec(b, mesh, v.ndim - 1)
+             for k, v in inputs.items()}
+    out_sh = {"logits": _logits_pspec(mesh, b, cfg.vocab_size, 2),
+              "risk_score": batch_sh, "cache": cache_sh}
+    return (psh, cache_sh, in_sh, rep), out_sh, fsdp
+
+
+def argument_bytes_per_device(bundle: specs.StepBundle, mesh, *,
+                              fsdp: bool | None = None) -> dict:
+    """What one rank of ``mesh`` holds of the step's arguments under
+    :func:`build_shardings`: bytes by argument and in all, and whether
+    FSDP was used."""
+    in_sh, _, used = build_shardings(bundle, mesh, fsdp=fsdp)
+    by_arg = [shardings.per_device_bytes(a, s, mesh)
+              for a, s in zip(bundle.abstract_args, in_sh, strict=True)]
+    return {"mesh": mesh.shape, "fsdp": used, "by_argument": by_arg,
+            "total": sum(by_arg)}
+
+
 def _card_memory() -> int | None:
     if not torch.cuda.is_available():
         return None
@@ -271,10 +366,16 @@ def _card_memory() -> int | None:
 
 
 def run_cell(arch: str, shape_name: str, *, moment_dtype=torch.float32,
-             out_dir: str = RESULTS_DIR, extra_tag: str = "",
+             out_dir: str = RESULTS_DIR, extra_tag: str = "", mesh=None,
              **build_kwargs) -> dict:
-    """Dry-run one cell; writes ``<arch>__<shape>__h100[_tag].json`` into
-    ``out_dir`` and returns its record."""
+    """Dry-run one cell on one card; writes
+    ``<arch>__<shape>__h100[_tag].json`` into ``out_dir`` and returns its
+    record.  A ``mesh`` of more than one rank raises: tracing over a pod
+    mesh belongs to the tensor-parallel model."""
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"a dry-run over the {mesh.shape} mesh traces the "
+            f"tensor-parallel step: {mesh_lib.TENSOR_PARALLEL}")
     t0 = time.perf_counter()
     counts = count_step(arch, shape_name, moment_dtype=moment_dtype,
                         **build_kwargs)

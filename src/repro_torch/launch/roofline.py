@@ -22,6 +22,7 @@ import dataclasses
 from typing import Any
 
 from repro_torch.benchmarks.timing import BF16_FLOPS, HBM_BYTES_PER_S
+from repro_torch.launch.mesh import TENSOR_PARALLEL
 
 HBM_CAPACITY_BYTES = 80e9      # one H100's device memory, 80 GB
 ONE_CARD = "one card: no collective, the collective term is 0"
@@ -206,8 +207,8 @@ def analyze(bundle, counted: dict[str, float | None], chips: int = 1, *,
     compiled XLA object."""
     if chips != 1:
         raise NotImplementedError(
-            "a roofline over several cards needs their collectives: ROADMAP "
-            "Queue 1 items 13f and 11b")
+            "a roofline over several cards needs the pod dry-run's "
+            f"collective term: {TENSOR_PARALLEL}")
     cfg, shape, kind = bundle.cfg, bundle.shape, bundle.kind
     t = terms(cfg, shape, kind, param_bytes=param_bytes_global,
               cache_bytes=cache_bytes_global)

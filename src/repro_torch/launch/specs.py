@@ -16,9 +16,11 @@ work.  long_500k on dense/MoE/VLM decoders switches the config to the
 sliding-window variant (window 8192), the sub-quadratic requirement; SSM /
 hybrid archs run their native constant-state decode.
 
-The reference's sharded activations (``act_pspec``) and its all-to-all
-MoE need a mesh over several cards and raise here (ROADMAP Queue 1 items
-13f and 11b).
+``moe_impl="a2a"`` builds MoE layers that run the expert-parallel MoE
+(``models/moe_a2a.py``), traced under an active mesh
+(``launch/mesh.py::set_mesh``).  The reference's sharded activations
+(``act_pspec``) and expert-parallel constraints belong to the
+tensor-parallel model and raise (``launch/mesh.py::TENSOR_PARALLEL``).
 """
 from __future__ import annotations
 

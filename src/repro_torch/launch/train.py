@@ -8,8 +8,8 @@ As the reference's launcher: float32 compute, ``remat=True``, AdamW on
 ``cosine_schedule(lr, 10, steps)`` (``--bf16-moments`` keeps the moments
 in bf16) and the synthetic ``TokenStream``.  Unlike it, there is no mesh:
 the reference shards the parameters over every device it finds
-(``make_mesh_for_devices``, the production sharding rules); that is
-ROADMAP Queue 1 item 11b, which waits for several cards.  Without
+(``make_mesh_for_devices``, the production sharding rules); a train step
+across ranks is ROADMAP Queue 1 item 13g.  Without
 ``--smoke`` the full config must fit one card.
 """
 from __future__ import annotations

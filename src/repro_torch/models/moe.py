@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.launch.mesh import TENSOR_PARALLEL
 from repro_torch.models import layers
 from repro_torch.models.config import MoEConfig
 
@@ -36,18 +37,14 @@ DISPATCH_CHUNK = 4096
 
 
 def check_options(mo: MoEConfig) -> None:
-    """The MoE options that need a mesh raise, naming what ports them."""
-    if mo.impl == "a2a":
-        raise NotImplementedError(
-            "the all-to-all MoE (impl='a2a', models/moe_a2a.py) needs a "
-            "'model' mesh axis over several cards: ROADMAP Queue 1 item "
-            "13b's moe_a2a, with item 11b")
-    if mo.impl != "einsum":
+    """The MoE options that need the tensor-parallel model raise, naming
+    it; ``impl="a2a"`` runs ``models/moe_a2a.py`` under an active mesh."""
+    if mo.impl not in ("einsum", "a2a"):
         raise ValueError(f"unknown MoE impl {mo.impl!r}")
     if mo.ep_sharding_constraint:
         raise NotImplementedError(
             "expert-parallel sharding constraints (ep_sharding_constraint) "
-            "are sharded activations: ROADMAP Queue 1 item 13f")
+            f"are sharded activations: {TENSOR_PARALLEL}")
 
 
 class MoE(nn.Module):
@@ -123,31 +120,53 @@ def dispatch_slots(expert_idx: torch.Tensor, num_experts: int, cap: int
     return slot.reshape(expert_idx.shape)
 
 
+def dispatch(xc: torch.Tensor, expert_idx: torch.Tensor, num_experts: int,
+             cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (E, cap, d) expert buffers of one chunk ``xc`` (c, d) and each
+    pair's slot (:func:`dispatch_slots`); a slot no pair fills is 0."""
+    c, d = xc.shape
+    slot = dispatch_slots(expert_idx, num_experts, cap)        # (c, k)
+    # the token that fills each buffer slot; c (a zero row) where none does
+    tokens = torch.arange(c, device=xc.device).repeat_interleave(
+        expert_idx.shape[1])
+    filler = torch.full((num_experts * cap + 1,), c, dtype=torch.int64,
+                        device=xc.device)
+    filler.scatter_(0, slot.reshape(-1), tokens)
+    xz = torch.cat([xc, xc.new_zeros(1, d)])
+    return xz[filler[:-1]].view(num_experts, cap, d), slot
+
+
+def expert_ffn(expert_in: torch.Tensor, gate: torch.Tensor,
+               up: torch.Tensor, down: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU, batched over E: (E, C, d) -> (E, C, d)."""
+    dtype = expert_in.dtype
+    g = F.silu(torch.bmm(expert_in, gate.to(dtype)))
+    u = torch.bmm(expert_in, up.to(dtype))
+    return torch.bmm(g * u, down.to(dtype))
+
+
+def combine(expert_out: torch.Tensor, slot: torch.Tensor,
+            gate_vals: torch.Tensor) -> torch.Tensor:
+    """Each token's k outputs from the (E, cap, d) buffers (dropped pairs
+    read the zero row), weighted by its gates cast to the compute dtype,
+    summed in float32: -> (c, d)."""
+    c, k = slot.shape
+    d = expert_out.shape[-1]
+    dtype = expert_out.dtype
+    out_z = torch.cat([expert_out.reshape(-1, d), expert_out.new_zeros(1, d)])
+    picked = out_z[slot.reshape(-1)].view(c, k, d)
+    weighted = picked.to(torch.float32) \
+        * gate_vals.to(dtype).to(torch.float32)[..., None]
+    return torch.sum(weighted, dim=1).to(dtype)
+
+
 def _dispatch_chunk(moe: MoE, xc: torch.Tensor, gate_vals: torch.Tensor,
                     expert_idx: torch.Tensor, mo: MoEConfig, cap: int
                     ) -> torch.Tensor:
     """One token chunk: xc (c, d), gates and ids (c, k) -> (c, d)."""
-    c, d = xc.shape
-    e = mo.num_experts
-    slot = dispatch_slots(expert_idx, e, cap)                  # (c, k)
-    # the token that fills each buffer slot; c (a zero row) where none does
-    tokens = torch.arange(c, device=xc.device).repeat_interleave(mo.top_k)
-    filler = torch.full((e * cap + 1,), c, dtype=torch.int64,
-                        device=xc.device)
-    filler.scatter_(0, slot.reshape(-1), tokens)
-    xz = torch.cat([xc, xc.new_zeros(1, d)])
-    expert_in = xz[filler[:-1]].view(e, cap, d)
-    dtype = xc.dtype
-    g = F.silu(torch.bmm(expert_in, moe.gate.to(dtype)))
-    u = torch.bmm(expert_in, moe.up.to(dtype))
-    expert_out = torch.bmm(g * u, moe.down.to(dtype))          # (e, cap, d)
-    # each token gathers its k outputs (dropped pairs read the zero row),
-    # weighted by its gates cast to the compute dtype, summed in float32
-    out_z = torch.cat([expert_out.reshape(e * cap, d), xc.new_zeros(1, d)])
-    picked = out_z[slot.reshape(-1)].view(c, mo.top_k, d)
-    weighted = picked.to(torch.float32) \
-        * gate_vals.to(dtype).to(torch.float32)[..., None]
-    return torch.sum(weighted, dim=1).to(dtype)
+    expert_in, slot = dispatch(xc, expert_idx, mo.num_experts, cap)
+    return combine(expert_ffn(expert_in, moe.gate, moe.up, moe.down), slot,
+                   gate_vals)
 
 
 def moe_forward(moe: MoE, x: torch.Tensor, mo: MoEConfig, *,

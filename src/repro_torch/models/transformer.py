@@ -16,9 +16,10 @@ carrying a leading ``n_groups`` axis.
 the reference's ``jax.checkpoint(group_body)``: the backward recomputes a
 group's activations from its input instead of keeping them.
 
-Still raising ``NotImplementedError``, each naming the ROADMAP item that
-ports it: the all-to-all MoE (``impl="a2a"``, 13b's ``moe_a2a`` with 11b),
-and sharded activations and expert-parallel constraints (13f).
+A MoE block with ``impl="a2a"`` runs the expert-parallel MoE
+(``models/moe_a2a.py``) over the active mesh.  Sharded activations and
+expert-parallel constraints raise ``NotImplementedError``, naming the
+ROADMAP item that ports them (the tensor-parallel model).
 """
 from __future__ import annotations
 
@@ -28,10 +29,12 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.mesh import TENSOR_PARALLEL
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import moe_a2a
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import BlockSpec, ModelConfig
@@ -39,7 +42,7 @@ from repro_torch.models.config import BlockSpec, ModelConfig
 # what is not ported yet -> the ROADMAP item that ports it
 NOT_PORTED = {
     "act_pspec": "sharded activations (act_pspec) are not ported yet: "
-                 "ROADMAP Queue 1 item 13f",
+                 + TENSOR_PARALLEL,
 }
 MIXERS = ("attn", "mamba", "mlstm", "slstm")
 FFNS = ("mlp", "moe", "none")
@@ -184,7 +187,10 @@ def block_forward(block: Block, x, cfg, *, angles, mode, cache, cache_pos,
         x = x + layers.mlp(block.ffn, h2)
     elif block.spec.ffn == "moe":
         h2 = layers.rmsnorm(block.ffn_norm, x, cfg.norm_eps)
-        out2, aux = moe_mod.moe_forward(block.ffn, h2, cfg.moe)
+        if cfg.moe.impl == "a2a":
+            out2, aux = moe_a2a.moe_forward_a2a(block.ffn, h2, cfg.moe)
+        else:
+            out2, aux = moe_mod.moe_forward(block.ffn, h2, cfg.moe)
         x = x + out2
     return x, new_cache, aux
 

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import (TENSOR_PARALLEL, TRAIN_ACROSS_RANKS,
+                                     get_active_mesh)
 from repro_torch.models import layers
 from repro_torch.models.model import Model
 from repro_torch.training import checkpoint as ckpt
@@ -42,8 +44,8 @@ class StepMetrics(NamedTuple):
     grad_norm: torch.Tensor
 
 
-ACT_PSPEC = ("sharded activations (act_pspec) are not ported yet: ROADMAP "
-             "Queue 1 item 13f")
+ACT_PSPEC = ("sharded activations (act_pspec) are not ported yet: "
+             + TENSOR_PARALLEL)
 
 
 def _bf16_casts(params: Tree) -> Tree:
@@ -101,6 +103,11 @@ def make_train_step(model: Model, optimizer: AdamW, *,
 
     def train_step(state: TrainState, tokens: torch.Tensor,
                    labels: torch.Tensor) -> tuple[TrainState, StepMetrics]:
+        mesh = get_active_mesh()
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                "a train step over several ranks needs the gradient "
+                f"all-reduce of the replicated leaves: {TRAIN_ACROSS_RANKS}")
         names = list(state.params)
         with torch.enable_grad():
             loss, (ce, aux) = loss_fn(state.params, tokens, labels)

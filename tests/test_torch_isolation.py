@@ -149,7 +149,9 @@ SCRIPT = textwrap.dedent("""
             "repro_torch.launch.train",
             "repro_torch.examples.train_fraud_scorer",
             *(f"repro_torch.launch.{m}" for m in (
-                "specs", "roofline", "dryrun", "report"))} <= set(names)
+                "specs", "roofline", "dryrun", "report", "mesh",
+                "shardings", "collectives")),
+            "repro_torch.models.moe_a2a"} <= set(names)
 
     from repro_torch.core.predictor import PredictorSpec
     from repro_torch.core.routing import (Condition, Intent, RoutingTable,

@@ -208,8 +208,6 @@ def test_reference_trains_float32_parameters_and_moments():
 def test_mesh_options_raise():
     with pytest.raises(NotImplementedError, match="13f"):
         specs.build_step("qwen3-8b", "decode_32k", act_pspec=("data",))
-    with pytest.raises(NotImplementedError, match="11b"):
-        specs.build_step("olmoe-1b-7b", "prefill_32k", moe_impl="a2a")
 
 
 # ---------------------------------------------------------------------------

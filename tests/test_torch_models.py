@@ -161,18 +161,16 @@ def test_bfloat16_forward_tracks_reference():
 
 
 def _unported(case):
-    """A smoke config the port refuses: olmoe with the all-to-all MoE or
-    expert-parallel constraints."""
+    """A smoke config the port refuses: olmoe with expert-parallel
+    constraints."""
     cfg = get_smoke_config("olmoe-1b-7b")
-    change = {"a2a": {"impl": "a2a"},
-              "ep_sharding": {"ep_sharding_constraint": True}}[case]
+    change = {"ep_sharding": {"ep_sharding_constraint": True}}[case]
     return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                             **change))
 
 
 @pytest.mark.parametrize("case,item", [
-    ("a2a", "item 13b's moe_a2a, with item 11b"),
-    ("ep_sharding", "item 13f")])
+    ("ep_sharding", "item 13f, the tensor-parallel model")])
 def test_unported_families_raise(case, item):
     for arch in ("jamba-1.5-large-398b", "olmoe-1b-7b"):
         get_config(arch)  # the registry builds every config

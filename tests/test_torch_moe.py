@@ -198,8 +198,7 @@ def test_tied_router_probabilities_keep_top_k_order(dtype):
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"impl": "a2a"}, "13b's moe_a2a, with item 11b"),
-    ({"ep_sharding_constraint": True}, "item 13f")])
+    ({"ep_sharding_constraint": True}, "item 13f, the tensor-parallel")])
 def test_mesh_options_raise_in_the_layer(option, item):
     _, _, moe, tmo = _layer("olmoe-1b-7b")
     with pytest.raises(NotImplementedError, match=item):
