@@ -232,6 +232,21 @@ Phases, each printing one JSON line:
              the next: last-token logits within 5e-2, each prefill's time
              and peak, the a2a prefill's collectives by kind (bytes and
              counts, held to E·cap·d a layer) and its flash launches.
+17b. tensor_parallel — the tensor-parallel dense model on the card, NCCL
+             as a world of one rank over the (1, 1) mesh again: qwen3-8b
+             (bf16, seed 0, full width and depth) sharded by
+             ``models/parallel.py`` (every shard a view of the plain
+             model's weight) prefilling 4 x 2,048 tokens through the
+             flash kernel against the plain model: logits and risk scores
+             bitwise (else the first differing op named and the 2x bf16
+             rule held), 36 flash launches each, the collectives equal to
+             the schedule's count, median of 3 timed runs and the peak of
+             each; then internlm2-1.8b (24 layers, 1,889,112,065 float32
+             parameters, bf16 compute, remat, AdamW, 4 x 2,048 tokens):
+             step 1 of a fresh state without a mesh, then of a fresh
+             sharded state from the same seed, held to each other, and 11
+             more sharded steps: ms a step, tokens/s, mfu, peak, the
+             step's all-reduces against the schedule's.
 18. roofline — every path phases 11, 12 and 16 timed (qwen3-8b, olmoe-1b-7b,
              xlstm-1.3b and jamba's five layers, prefill and decode; jamba's
              one-layer train step) read against the one-card roofline
@@ -255,6 +270,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -4367,7 +4383,7 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
                   engine: dict, tiering: dict, sharding: dict,
                   main_bench: dict, paper_bench: dict, attention: dict,
                   llm: dict, zoo: dict, scores: dict, decode: dict,
-                  bench: dict, train: dict, ep: dict) -> None:
+                  bench: dict, train: dict, ep: dict, tp: dict) -> None:
     from repro_torch.benchmarks.timing import banked_bound, device_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels import score_pipeline as sp
@@ -4437,6 +4453,10 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
         # olmoe's prefill with the all-to-all MoE (expert_parallel)
         "expert_parallel_launches": ep["prefill"]["runs"]["a2a"][
             "launches"]["flash_attention_wgmma"],
+        # qwen3-8b's prefill through the tensor-parallel model
+        # (tensor_parallel)
+        "tensor_parallel_launches": tp["prefill"]["runs"][
+            "tensor_parallel"]["launches"]["flash_attention_wgmma"],
         "olmoe_shape": zoo["olmoe_flash"],
     }, {
         "name": "flash_attention", "route": "cuda",
@@ -4530,6 +4550,345 @@ def _selective_scan_bwd_entry(train: dict) -> dict:
                     "1 launch of its reduction"}
 
 
+# ------------------------------------------------------- tensor parallel
+TP_ARCH = "qwen3-8b"             # (a): the TP prefill, full width and depth
+TP_TRAIN_ARCH = "internlm2-1.8b"  # (b): the TP train step, whole depth
+# the model's own count; the config's formula (cfg.param_count()) gives
+# 1,889,161,217, 49,152 = 24 x 2,048 more
+TP_TRAIN_PARAMS = 1_889_112_065
+TP_RUNS = 3
+TP_BACKEND = "nccl"     # the card's; nothing falls back to gloo
+TP_LEAF_TOL = 2e-5      # PERF.md §2's training rule, of a leaf's largest
+
+
+def _tp_prefill_schedule(cfg, batch: int, seq: int) -> dict:
+    """The collectives of one rank's bf16 prefill at a mesh of one rank,
+    from the Megatron schedule: the vocab-parallel embedding's all-reduce
+    and two a layer (the row-parallel wo and down); no gather (every
+    head is whole at one rank) and no all-to-all (over one rank it is not
+    issued)."""
+    act = batch * seq * cfg.d_model * 2
+    n = 1 + 2 * cfg.n_layers
+    return {"bytes_by_kind": {"all-reduce": float(n * act)},
+            "count_by_kind": {"all-reduce": float(n)}}
+
+
+def _tp_train_schedule(model) -> dict:
+    """The all-reduces of one rank's train step (remat) at a mesh of one
+    rank: a layer's two in the forward, one in its recompute (up to the
+    down projection), two "f" in its backward; the embedding's, the lm
+    head's "f", the cross entropy's three, the metrics', every leaf's
+    gradient over "data" and the global norm's one over "model"."""
+    leaves = sum(1 for _ in model.parameters())
+    return {"all-reduce": float(5 * model.cfg.n_layers + 1 + 1 + 3 + 1
+                                + leaves + 1)}
+
+
+def _first_difference(tp, plain, prompt) -> str:
+    """The first op of the prefill whose output differs between the
+    sharded and the plain model on the same input: the embedding, a
+    layer's attention or MLP, or the heads."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import layers
+
+    with torch.no_grad():
+        x = layers.embed(plain.embed, prompt, torch.bfloat16)
+        if not torch.equal(layers.embed(tp.embed, prompt, torch.bfloat16),
+                           x):
+            return "embedding"
+        angles = plain._angles(x.shape[0], x.shape[1], 0, None)
+        for i, (a, b) in enumerate(zip(tp.stack, plain.stack)):
+            h = layers.rmsnorm(b.mixer_norm, x, plain.cfg.norm_eps)
+            want, _ = attn_mod.attention_forward(
+                b.mixer, h, plain.cfg, angles=angles, attn_impl="kernel")
+            got, _ = attn_mod.attention_forward(
+                a.mixer, h, plain.cfg, angles=angles, attn_impl="kernel")
+            if not torch.equal(got, want):
+                return f"layer {i} attention"
+            x = x + want
+            h = layers.rmsnorm(b.ffn_norm, x, plain.cfg.norm_eps)
+            want = layers.mlp(b.ffn, h)
+            if not torch.equal(layers.mlp(a.ffn, h), want):
+                return f"layer {i} mlp"
+            x = x + want
+    return "heads"
+
+
+def _step1_against(state, plain_params: dict, plain_mu: dict) -> dict:
+    """The sharded state after step 1 against the no-mesh one, leaf by
+    leaf: whether every parameter and first moment is bitwise the same
+    and, for the rule that holds where they are not, the largest
+    difference over its tolerance (``TP_LEAF_TOL`` of the leaf's largest
+    entry) of the first moments, which carry the gradients, and of the
+    parameters where |g| is at least 50 times that tolerance of the
+    leaf's largest: AdamW's step 1 moves a parameter by about
+    lr·sign(g), so a gradient within rounding of 0 may flip it.  The
+    no-mesh leaves come back from the host one at a time and are
+    compared on the state's device."""
+    import torch
+
+    bitwise, mu_worst, param_worst = True, 0.0, 0.0
+    for k, p in state.params.items():
+        mu, p = state.opt.mu[k].detach(), p.detach()
+        want_mu = plain_mu[k].to(mu.device)
+        want_p = plain_params[k].to(p.device)
+        bitwise = bitwise and torch.equal(mu, want_mu) \
+            and torch.equal(p, want_p)
+        top = want_mu.abs().max().item()
+        mu_worst = max(mu_worst, (mu - want_mu).abs().max().item()
+                       / (TP_LEAF_TOL * max(top, 1e-6)))
+        clear = want_mu.abs() > 50 * TP_LEAF_TOL * top
+        if clear.any():
+            param_worst = max(param_worst, (p - want_p)[clear].abs().max()
+                              .item() / (TP_LEAF_TOL * max(
+                                  want_p.abs().max().item(), 1e-6)))
+    return {"bitwise": bitwise, "mu_diff_over_tol": mu_worst,
+            "param_diff_over_tol": param_worst}
+
+
+def _tp_prefill(dev, mesh) -> dict:
+    """(a) qwen3-8b at full width and depth in bf16 from seed 0, sharded
+    over the (1, 1) mesh (every shard a view of the plain model's
+    weights), prefilling 4 x 2,048 tokens with the flash kernel: its
+    logits and risk scores against the plain model's on the same tensors,
+    its flash launches and collectives (counts set to 0 just before the
+    first timed run, read just after), and the median of 3 timed runs of
+    each after a warm-up, with each one's peak."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import Model, parallel
+
+    cfg = get_config(TP_ARCH)
+    plain = Model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    tp = Model(cfg, device="meta", dtype=torch.bfloat16, seed=None)
+    tp.load_state_dict(plain.state_dict(), assign=True)
+    parallel.parallelize(tp, mesh)
+    check(all(a.data_ptr() == b.data_ptr() for a, b in
+              zip(tp.parameters(), plain.parameters())),
+          "at one rank every shard is a view of the whole weight")
+    prompt = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)), dtype=torch.long,
+        device=dev)
+    predicted = _tp_prefill_schedule(cfg, LLM_BATCH, LLM_PROMPT)
+    runs, outs = {}, {}
+    with torch.no_grad(), mesh_lib.set_mesh(mesh):
+        for name, model in (("tensor_parallel", tp), ("plain", plain)):
+            def prefill():
+                out, _ = model.prefill(prompt, cache_capacity=LLM_PROMPT,
+                                       attn_impl="kernel")
+                return out
+
+            prefill()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for run in range(TP_RUNS):
+                if run == 0:
+                    for key in ops.LAUNCHES:
+                        ops.LAUNCHES[key] = 0
+                t0 = time.perf_counter()
+                with coll.tally() as tally:
+                    out = prefill()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if run == 0:
+                    launches = dict(ops.LAUNCHES)
+                    outs[name] = out
+                    collectives = _ep_collectives(tally)
+                del out
+            runs[name] = {"launches": launches, "collectives": collectives,
+                          "prefill_ms": statistics.median(times),
+                          "prefill_ms_runs": times,
+                          "max_memory_allocated":
+                              torch.cuda.max_memory_allocated()}
+    got, want = outs.pop("tensor_parallel"), outs.pop("plain")
+    n = cfg.n_layers
+    for name, r in runs.items():
+        check(r["launches"]["flash_attention"] == n
+              and r["launches"]["flash_attention_wgmma"] == n
+              and sum(r["launches"].values()) == 2 * n,
+              f"{name} prefill: {r['launches']}, expected {n} tensor-core "
+              "flash launches and no other kernel")
+    tally = runs["tensor_parallel"]["collectives"]
+    check({k: tally[k] for k in ("bytes_by_kind", "count_by_kind")}
+          == predicted and runs["plain"]["collectives"]["total_bytes"] == 0,
+          f"the TP prefill's collectives {tally}, predicted {predicted}")
+    bitwise = bool(torch.equal(got.logits, want.logits)
+                   and torch.equal(got.risk_score, want.risk_score))
+    result = {"arch": TP_ARCH, "batch": LLM_BATCH, "prompt_len": LLM_PROMPT,
+              "dtype": "bfloat16", "runs": runs,
+              "tally_predicted": predicted, "bitwise": bitwise,
+              "max_abs_diff_logits": _max_diff(got.logits, want.logits),
+              "max_abs_diff_risk": _max_diff(got.risk_score,
+                                             want.risk_score),
+              "timing": "host clock, each prefill ended by a device sync; "
+                        "median of 3 runs after one warm-up run"}
+    if not bitwise:
+        # name the op, then the port's 2x bf16 rule against a float32
+        # reference prefill of the same weights (last-token logits)
+        result["first_difference"] = _first_difference(tp, plain, prompt)
+        with torch.no_grad():
+            ref32, _ = plain.prefill(prompt, cache_capacity=LLM_PROMPT,
+                                     compute_dtype=torch.float32,
+                                     logits_mode="last")
+        rule = {"tensor_parallel": _max_diff(got.logits[:, -1:],
+                                             ref32.logits),
+                "plain": _max_diff(want.logits[:, -1:], ref32.logits)}
+        result["rule_2x_bf16"] = rule
+        check(rule["tensor_parallel"] <= 2 * rule["plain"],
+              f"TP logits outside the 2x bf16 rule "
+              f"({result['first_difference']} differs first): {rule}")
+    del got, want, tp, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _tp_train(dev, mesh) -> dict:
+    """(b) internlm2-1.8b at full width and whole depth, float32 masters,
+    bf16 compute, remat, AdamW, 4 x 2,048 tokens: step 1 of a fresh state
+    from seed 0 without a mesh, then the same step of a fresh state from
+    the same seed sharded over the (1, 1) mesh (two states side by side
+    would not fit), held to each other, then 11 more steps of the sharded
+    one, timed (host clock, each step ended by reading its loss)."""
+    import torch
+    from repro_torch.benchmarks.timing import BF16_FLOPS
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import roofline
+    from repro_torch.models import Model, parallel
+    from repro_torch.training import AdamW, Trainer, cosine_schedule
+    from repro_torch.training.data import TokenStream
+    from repro_torch.training.train import make_train_step
+
+    cfg = get_config(TP_TRAIN_ARCH)
+    stream = iter(TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+    batches = [tuple(torch.as_tensor(a, dtype=torch.long, device=dev)
+                     for a in next(stream)) for _ in range(TRAIN_STEPS)]
+    schedule = cosine_schedule(TRAIN_LR[0], TRAIN_LR[1], TRAIN_STEPS)
+
+    def fresh(sharded: bool):
+        model = Model(cfg, device=dev, dtype=torch.float32, seed=0)
+        if sharded:
+            parallel.parallelize(model, mesh)
+        opt = AdamW(learning_rate=schedule)
+        state = Trainer(model, opt).init_state(None)
+        step = make_train_step(model, opt, remat=True,
+                               compute_dtype=torch.bfloat16)
+        return model, state, step
+
+    model, state, step = fresh(False)
+    params = model.param_count()
+    check(params == TP_TRAIN_PARAMS, f"{params} parameters built")
+    state, m = step(state, *batches[0])
+    plain_metrics = [float(v) for v in m]
+    plain_after = {k: p.detach().cpu() for k, p in state.params.items()}
+    plain_mu = {k: mu.detach().cpu() for k, mu in state.opt.mu.items()}
+    del model, state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, state, step = fresh(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    history, step_ms = [], []
+    with mesh_lib.set_mesh(mesh):
+        for i, (toks, labels) in enumerate(batches):
+            if i == 0:
+                for key in ops.LAUNCHES:
+                    ops.LAUNCHES[key] = 0
+            t0 = time.perf_counter()
+            with coll.tally() as tally:
+                state, m = step(state, toks, labels)
+                metrics = [float(v) for v in m]
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            history.append(dict(zip(("loss", "ce", "moe_aux", "grad_norm"),
+                                    metrics)))
+            if i == 0:
+                launches = dict(ops.LAUNCHES)
+                collectives = _ep_collectives(tally)
+                step1 = _step1_against(state, plain_after, plain_mu)
+                first_metrics = metrics
+    peak = torch.cuda.max_memory_allocated()
+    del plain_after, plain_mu
+    check(launches == {k: 0 for k in launches},
+          f"train launches {launches}: attention trains on the plain path")
+    predicted = _tp_train_schedule(model)
+    check(collectives["count_by_kind"] == predicted,
+          f"the TP step's collectives {collectives}, predicted {predicted}")
+    bitwise = first_metrics == plain_metrics and step1["bitwise"]
+    # bitwise is expected at one rank; where it is not, the metrics within
+    # rtol 1e-5 and the leaves within the training rule
+    check(bitwise or (all(abs(a - b) <= 1e-5 * abs(b) for a, b in
+                          zip(first_metrics, plain_metrics))
+                      and step1["mu_diff_over_tol"] <= 1.0
+                      and step1["param_diff_over_tol"] <= 1.0),
+          f"step 1 sharded {first_metrics} against {plain_metrics}, "
+          f"leaves {step1}")
+    losses = [h["loss"] for h in history]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"the sharded model's loss falls: {losses}")
+    ms = statistics.median(step_ms[-8:])
+    shape = InputShape("tp_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    mfu = roofline.model_flops(cfg, shape, "train") / (ms * 1e-3 * BF16_FLOPS)
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": TP_TRAIN_ARCH, "params": params,
+            "config_param_count": cfg.param_count(), "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": TRAIN_STEPS, "compute_dtype": "bfloat16",
+            "remat": True, "train_state_bytes": 16 * params,
+            "step1": {"no_mesh": plain_metrics, "sharded": first_metrics,
+                      **step1, "bitwise": bitwise},
+            "history": history, "step_ms": step_ms, "ms_per_step": ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms * 1e-3),
+            "mfu": mfu, "max_memory_allocated": peak,
+            "launches": launches, "collectives": collectives,
+            "collectives_predicted": predicted,
+            "timing": "host clock: each step ends in reading its loss; ms "
+                      "a step the median of the last 8 of 12"}
+
+
+def phase_tensor_parallel(dev, smi: str) -> dict:
+    """NCCL in process as a world of one rank over the (1, 1) ("data",
+    "model") mesh on the card: qwen3-8b's prefill through the
+    tensor-parallel model against the plain model, then internlm2-1.8b
+    trained 12 steps at whole depth through the train step across
+    ranks."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    card = dev if dev.type != "cuda" or dev.index is not None else \
+        torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group(
+        TP_BACKEND, store=dist.HashStore(), rank=0, world_size=1,
+        device_id=card if card.type == "cuda" else None)
+    try:
+        check(dist.get_backend() == TP_BACKEND,
+              f"the process group runs {TP_BACKEND}")
+        mesh = mesh_lib.init_mesh(mesh_lib.make_host_mesh(), device=card)
+        prefill = _tp_prefill(card, mesh)
+        train = _tp_train(card, mesh)
+    finally:
+        dist.destroy_process_group()
+    result = {"phase": "tensor_parallel", "nvidia_smi": smi,
+              "backend": TP_BACKEND, "world_size": 1, "mesh": mesh.shape,
+              "prefill": prefill, "train": train,
+              "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -4569,10 +4928,11 @@ def main() -> int:
     bench = phase_bench_kernels()
     train = phase_train(dev)
     ep = phase_expert_parallel(dev, smi)
+    tp = phase_tensor_parallel(dev, smi)
     phase_roofline(dev, llm, zoo, train, smi)
     phase_kernels(kernel, serve, main_shapes, lifecycle, engine, tiering,
                   sharding, main_bench, paper_bench, attention, llm, zoo,
-                  scores, decode, bench, train, ep)
+                  scores, decode, bench, train, ep, tp)
     emit({"phase": "wall", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,7 +3,8 @@ back.
 
 The inputs and outputs are plain numpy arrays (``np.asarray`` of the
 reference's arrays), so this module needs neither JAX nor the reference
-package.
+package.  Given a mesh, a rank gets its shards of the reference's tree
+(``models/parallel.py``) and gives back the whole tree, gathered.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from repro_torch.core.transforms import QuantileMap, TransformBank
 from repro_torch.experiments.fraud_world import Expert
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Linear
+from repro_torch.launch.shardings import local_shard
+from repro_torch.models import parallel
 from repro_torch.models.model import Model
 from repro_torch.training.optimizer import AdamWState
 
@@ -111,28 +114,38 @@ def tree_from_numpy(cfg: ModelConfig, model: Model, tree,
                     ) -> dict[str, torch.Tensor]:
     """A reference tree shaped like the parameters (weights, gradients,
     moments) as tensors keyed by the port's parameter names, in each
-    leaf's own dtype (bf16 kept), on ``device`` (default the model's)."""
+    leaf's own dtype (bf16 kept), on ``device`` (default the model's); of
+    a sharded model, this rank's blocks."""
     device = model.device if device is None else device
+    par = parallel.of(model)
     out = {}
     for name in dict(model.named_parameters()):
         path, g, transpose = _ref_leaf(cfg, model, name)
         a = np.asarray(_get(tree, path))
         if g is not None:
             a = a[g]
-        out[name] = _tensor(a.T if transpose else a, device)
+        t = _tensor(a.T if transpose else a, device)
+        if par is not None:
+            t = local_shard(t, par.specs[name], par.mesh,
+                            par.mesh.coords()).contiguous()
+        out[name] = t
     return out
 
 
 def model_from_numpy(cfg: ModelConfig, params, *, device: torch.device | str,
-                     dtype: torch.dtype = torch.float32) -> Model:
+                     dtype: torch.dtype = torch.float32, mesh=None,
+                     fsdp: bool = False) -> Model:
     """The reference's ``Model(cfg).init(...)`` parameters, every leaf a
     numpy array (``jax.tree.map(np.asarray, params)``) -> the port's
     ``Model`` with those weights on ``device`` in ``dtype``
-    (:func:`tree_from_numpy`'s mapping)."""
+    (:func:`tree_from_numpy`'s mapping); with ``mesh``, this rank's
+    shards of it (``models/parallel.py::parallelize``)."""
     model = Model(cfg, device=device, dtype=dtype, seed=None)
     with torch.no_grad():
         for name, t in tree_from_numpy(cfg, model, params).items():
             model.get_parameter(name).copy_(t)
+    if mesh is not None:
+        parallel.parallelize(model, mesh, fsdp=fsdp)
     return model
 
 
@@ -151,9 +164,16 @@ def model_to_numpy(cfg: ModelConfig, model: Model,
     tree (numpy leaves; the stack's leaves stacked over ``n_groups``;
     linear weights (in, out)) of the model's parameters, or of ``values``
     keyed by parameter name (gradients, AdamW moments; None counts as
-    zeros, bf16 comes back as float32)."""
+    zeros, bf16 comes back as float32).  Of a sharded model, every rank
+    calls it and each gets the whole tree, all-gathered."""
     params = dict(model.named_parameters())
     values = params if values is None else values
+    par = parallel.of(model)
+    if par is not None:
+        values = {k: parallel.gather_full(
+            torch.zeros_like(params[k]) if values.get(k) is None
+            else values[k].detach(), par.specs[k], par.mesh)
+            for k in params}
     tree: dict = {"stack": [{} for _ in cfg.layer_pattern]}
     stacked: dict[tuple, dict[int, np.ndarray]] = {}
     for name, p in params.items():

@@ -24,12 +24,19 @@ the adjoint collective: an all-to-all's is the reverse all-to-all (the same
 exchange), an all-gather's a reduce-scatter and a reduce-scatter's an
 all-gather.  An all-reduce's result is the same on every rank and each rank
 takes its cotangent as the cotangent of that one value (a loss every rank
-computes alike), so its backward passes the cotangent through.
+computes alike), so its backward passes the cotangent through: Megatron's
+"g".  :func:`copy_to` is its "f", the identity forward whose backward
+all-reduces: a replicated activation entering a column-parallel layer, or
+a replicated parameter used on a rank's share of the heads, gets on every
+rank the sum of the ranks' partial cotangents.
+
+The tally is one stack for the process, not a context variable: on the
+card autograd runs the backward (and the recompute of a remat group) on
+a thread of its own, whose collectives count all the same.
 """
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import dataclasses
 from typing import Iterator
 
@@ -37,10 +44,12 @@ import torch
 
 from repro_torch.launch.mesh import Mesh
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class Collectives:
     """Per-device collective bytes and counts by kind (the reference's
-    ``HloCollectives``).  ``static_count`` is every call counted."""
+    ``HloCollectives``).  ``static_count`` is every call counted.  Two
+    tallies are equal only if they are the same object, so an open tally
+    is found by identity."""
 
     bytes_by_kind: dict[str, float] = dataclasses.field(default_factory=dict)
     count_by_kind: dict[str, float] = dataclasses.field(default_factory=dict)
@@ -60,24 +69,23 @@ class Collectives:
         return sum(self.bytes_by_kind.values())
 
 
-_TALLY: contextvars.ContextVar[Collectives | None] = contextvars.ContextVar(
-    "collective_tally", default=None)
+_TALLIES: list[Collectives] = []
 
 
 @contextlib.contextmanager
 def tally() -> Iterator[Collectives]:
-    """Count every collective issued inside the ``with`` block."""
+    """Count every collective issued inside the ``with`` block (nested
+    blocks each count it)."""
     counts = Collectives()
-    token = _TALLY.set(counts)
+    _TALLIES.append(counts)
     try:
         yield counts
     finally:
-        _TALLY.reset(token)
+        _TALLIES.remove(counts)
 
 
 def _count(kind: str, result: torch.Tensor) -> torch.Tensor:
-    counts = _TALLY.get()
-    if counts is not None:
+    for counts in _TALLIES:
         counts.add(kind, result.numel() * result.element_size())
     return result
 
@@ -146,15 +154,28 @@ def reduce_scatter_raw(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
     return _count("reduce-scatter", out.movedim(0, dim).contiguous())
 
 
-def all_reduce_raw(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
-    """The sum over the ranks of ``axis`` of their ``x`` (a new tensor)."""
+def all_reduce_raw(x: torch.Tensor, mesh: Mesh, axis: str, op: str = "sum"
+                   ) -> torch.Tensor:
+    """The sum (or, ``op="max"``, the largest) over the ranks of ``axis``
+    of their ``x`` (a new tensor)."""
     if x.device.type == "meta":
         return _count("all-reduce", torch.empty_like(x))
+    out = x.clone(memory_format=torch.contiguous_format)
+    return all_reduce_(out, mesh, axis, op)
+
+
+def all_reduce_(x: torch.Tensor, mesh: Mesh, axis: str, op: str = "sum"
+                ) -> torch.Tensor:
+    """:func:`all_reduce_raw` into ``x`` itself (contiguous), as the
+    data-parallel reduction of the gradients does."""
+    if x.device.type == "meta":
+        return _count("all-reduce", x)
     import torch.distributed as dist
 
-    out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=mesh.group(axis))
-    return _count("all-reduce", out)
+    dist.all_reduce(x, op={"sum": dist.ReduceOp.SUM,
+                           "max": dist.ReduceOp.MAX}[op],
+                    group=mesh.group(axis))
+    return _count("all-reduce", x)
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +227,17 @@ class _AllReduce(torch.autograd.Function):
         return g, None, None
 
 
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_raw(g, ctx.mesh, ctx.axis), None, None
+
+
 def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     if mesh.shape[axis] == 1:
         return all_to_all_raw(x, mesh, axis)
@@ -224,3 +256,11 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
 
 def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     return _AllReduce.apply(x, mesh, axis)
+
+
+def copy_to(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """Megatron's "f": ``x`` itself forward, the all-reduce of its
+    cotangent over ``axis`` backward.  Outside autograd it is ``x``."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyTo.apply(x, mesh, axis)

@@ -26,15 +26,24 @@ On the pod meshes (``launch/mesh.py::make_production_mesh``),
 :func:`build_shardings` gives every argument and output of a cell's step
 its spec under the production rules (``launch/shardings.py``), FSDP
 decided as the reference decides it, and :func:`argument_bytes_per_device`
-what one rank holds.  Tracing a cell over a pod mesh, its collective term
-and the ``--variant`` bundles belong to the tensor-parallel model
-(``launch/mesh.py::TENSOR_PARALLEL``) and raise.
+what one rank holds.  ``run_cell(..., mesh=pod)`` traces one rank of the
+pod mesh on meta, as the one-card trace does: the step of the model
+sharded by ``models/parallel.py``, its collectives counted by kind
+(``launch/collectives.py::tally``; on meta they only count), its argument
+bytes held to :func:`argument_bytes_per_device`, and the roofline's
+collective term over the mesh's slowest link (``launch/roofline.py``).
+The dense family's train and prefill cells run; the other families' pod
+cells and every decode cell over a pod raise, naming ROADMAP Queue 1 item
+13h (``launch/mesh.py::TP_FAMILIES``), and the ``--variant`` bundles item
+13i.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \\
       --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
       [--continue-on-error] [--bf16-moments] [--out DIR]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both
+      (--single-pod: the (16, 16) mesh, --multi-pod: (2, 16, 16))
 """
 from __future__ import annotations
 
@@ -54,9 +63,11 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCH_IDS, applicable_shapes
 from repro_torch.kernels import ops
+from repro_torch.launch import collectives as coll
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import roofline, shardings, specs
 from repro_torch.launch.shardings import P
+from repro_torch.models import parallel
 from repro_torch.training.optimizer import AdamWState
 from repro_torch.training.train import StepMetrics, TrainState
 
@@ -197,7 +208,7 @@ def trace(bundle: specs.StepBundle) -> dict:
     counter = FlopCounterMode(display=False)
     mode = _Trace(counter.flop_registry)
     mode.know(args)
-    with ops.meta_work() as kernels, counter, mode:
+    with ops.meta_work() as kernels, coll.tally() as tally, counter, mode:
         out = bundle.step_fn(*bundle.abstract_args)
     outs = [t for t in specs.tensors_of(out)
             if _storage(t)._cdata not in mode.known]
@@ -209,6 +220,8 @@ def trace(bundle: specs.StepBundle) -> dict:
         "output_bytes": _unique_bytes(outs),
         "temp_bytes": mode.peak,
         "kernels": kernels,
+        "collectives": {"bytes_by_kind": dict(tally.bytes_by_kind),
+                        "count_by_kind": dict(tally.count_by_kind)},
         "seconds": time.perf_counter() - t0,
     }
     del out, outs
@@ -220,34 +233,44 @@ def _at_groups(cfg, groups: int):
     return dataclasses.replace(cfg, n_layers=groups * n_pat)
 
 
-def count_step(arch: str, shape, *, cfg=None, **build_kwargs) -> dict:
+def count_step(arch: str, shape, *, cfg=None, lo: int = 1,
+               **build_kwargs) -> dict:
     """The trace of one step, at its whole depth: traced outright when it
-    is at most two groups of its layer pattern deep, else extrapolated
-    from traces at one and at two groups (every count is linear in the
-    number of identical groups).  Returns the bundle of the whole depth
-    and the counts."""
+    is at most ``lo + 1`` groups of its layer pattern deep, else
+    extrapolated from traces at ``lo`` and ``lo + 1`` groups (every count
+    is linear in the number of identical groups).  Returns the bundle of
+    the whole depth and the counts.  A rank of a pod traces at 2 and 3:
+    its first group's peak (the logits' and the gathered heads' buffers
+    beside a small stack) grows by more than a group holds."""
     bundle = specs.build_step(arch, shape, cfg=cfg, **build_kwargs)
     g = bundle.cfg.n_groups
-    if g <= 2:
+    hi = lo + 1
+    if g <= hi:
         counts = trace(bundle)
         counts["traced_groups"] = [g]
     else:
         one = trace(specs.build_step(arch, shape, cfg=_at_groups(
-            bundle.cfg, 1), **build_kwargs))
+            bundle.cfg, lo), **build_kwargs))
         two = trace(specs.build_step(arch, shape, cfg=_at_groups(
-            bundle.cfg, 2), **build_kwargs))
-        counts = {k: one[k] + (g - 1) * (two[k] - one[k])
+            bundle.cfg, hi), **build_kwargs))
+        more = g - lo
+        counts = {k: one[k] + more * (two[k] - one[k])
                   for k in ("flops", "bytes", "output_bytes", "temp_bytes")}
         counts["kernels"] = {
             name: {k: one["kernels"].get(name, {}).get(k, 0)
-                   + (g - 1) * (two["kernels"][name][k]
-                                - one["kernels"].get(name, {}).get(k, 0))
+                   + more * (two["kernels"][name][k]
+                             - one["kernels"].get(name, {}).get(k, 0))
                    for k in ("calls", "flops", "bytes")}
             for name in two["kernels"]}
+        counts["collectives"] = {
+            by: {kind: one["collectives"][by].get(kind, 0)
+                 + more * (n - one["collectives"][by].get(kind, 0))
+                 for kind, n in two["collectives"][by].items()}
+            for by in ("bytes_by_kind", "count_by_kind")}
         counts["argument_bytes"] = _unique_bytes(
             specs.tensors_of(bundle.abstract_args))
         counts["seconds"] = one["seconds"] + two["seconds"]
-        counts["traced_groups"] = [1, 2]
+        counts["traced_groups"] = [lo, hi]
     return {"bundle": bundle, **counts}
 
 
@@ -279,8 +302,7 @@ def step_bytes(bundle: specs.StepBundle, capacity: int | None = None
 # the pod meshes: specs and per-rank argument bytes
 # ---------------------------------------------------------------------------
 
-# per-rank parameter bytes past which the parameters are FSDP'd (ZeRO-3)
-FSDP_THRESHOLD_BYTES = 4 * 2**30
+FSDP_THRESHOLD_BYTES = specs.FSDP_THRESHOLD_BYTES
 
 
 def _logits_pspec(mesh, batch: int, vocab: int, ndim: int) -> P:
@@ -293,10 +315,7 @@ def _logits_pspec(mesh, batch: int, vocab: int, ndim: int) -> P:
     return P(*spec)
 
 
-def _decide_fsdp(params, mesh) -> bool:
-    per_rank = specs.total_param_bytes(params) / mesh_lib.model_axis_size(
-        mesh)
-    return per_rank > FSDP_THRESHOLD_BYTES
+_decide_fsdp = specs.decide_fsdp
 
 
 def build_shardings(bundle: specs.StepBundle, mesh, *,
@@ -368,24 +387,38 @@ def _card_memory() -> int | None:
 def run_cell(arch: str, shape_name: str, *, moment_dtype=torch.float32,
              out_dir: str = RESULTS_DIR, extra_tag: str = "", mesh=None,
              **build_kwargs) -> dict:
-    """Dry-run one cell on one card; writes
-    ``<arch>__<shape>__h100[_tag].json`` into ``out_dir`` and returns its
-    record.  A ``mesh`` of more than one rank raises: tracing over a pod
-    mesh belongs to the tensor-parallel model."""
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"a dry-run over the {mesh.shape} mesh traces the "
-            f"tensor-parallel step: {mesh_lib.TENSOR_PARALLEL}")
+    """Dry-run one cell on one card, or one rank of a pod ``mesh``
+    (``make_production_mesh``); writes ``<arch>__<shape>__h100[_tag].json``
+    (``h100_pod1`` / ``h100_pod2`` over a pod) into ``out_dir`` and
+    returns its record."""
     t0 = time.perf_counter()
+    pod = mesh is not None and mesh.size > 1
+    expected = None
+    if pod:
+        whole = specs.build_step(arch, shape_name, moment_dtype=moment_dtype,
+                                 **build_kwargs)
+        expected = argument_bytes_per_device(whole, mesh)
+        param_bytes, cache_bytes = step_bytes(whole)
+        build_kwargs = {**build_kwargs, "mesh": mesh,
+                        "fsdp": expected["fsdp"], "lo": 2}
+        del whole
     counts = count_step(arch, shape_name, moment_dtype=moment_dtype,
                         **build_kwargs)
     bundle = counts.pop("bundle")
-    param_bytes, cache_bytes = step_bytes(bundle)
+    if not pod:
+        param_bytes, cache_bytes = step_bytes(bundle)
+    elif counts["argument_bytes"] != expected["total"]:
+        raise AssertionError(
+            f"{arch} x {shape_name}: the rank's arguments are "
+            f"{counts['argument_bytes']} bytes, the rules give "
+            f"{expected['total']}")
     resident = counts["argument_bytes"] + counts["temp_bytes"]
+    chips = mesh.size if pod else 1
     report = roofline.analyze(
         bundle, {"flops": counts["flops"], "bytes": counts["bytes"],
-                 "peak_bytes": float(resident)},
-        param_bytes_global=param_bytes, cache_bytes_global=cache_bytes)
+                 "peak_bytes": float(resident)}, chips,
+        param_bytes_global=param_bytes, cache_bytes_global=cache_bytes,
+        collectives=counts["collectives"] if pod else None, mesh=mesh)
     card = _card_memory()
     result = {
         "arch": arch,
@@ -415,27 +448,62 @@ def run_cell(arch: str, shape_name: str, *, moment_dtype=torch.float32,
         },
         "roofline": report.as_dict(),
     }
+    if pod:
+        result.update({
+            "multi_pod": "pod" in mesh.shape,
+            "fsdp": bundle.fsdp,
+            "collectives": counts["collectives"],
+            "argument_bytes_per_device": expected,
+        })
     ma = result["memory_analysis"]
     print(f"[dryrun] {arch:>26s} x {shape_name:<12s}"
+          f" mesh={report.mesh_desc:<16s}"
           f" trace={counts['seconds']:7.1f}s"
           f" args={ma['argument_bytes'] / 2**30:8.2f}GiB"
           f" temp={ma['temp_bytes'] / 2**30:8.2f}GiB"
           f" flops={report.flops_per_chip:.3e}"
-          f" counted={report.counted_flops:.3e}"
+          f" coll={report.collective_bytes_per_chip:.3e}B"
           f" bottleneck={report.bottleneck}", flush=True)
     os.makedirs(out_dir, exist_ok=True)
-    tag = TAG + (f"_{extra_tag}" if extra_tag else "")
+    tag = TAG
+    if pod:
+        tag += "_pod2" if "pod" in mesh.shape else "_pod1"
+    tag += f"_{extra_tag}" if extra_tag else ""
     with open(os.path.join(out_dir, f"{arch}__{shape_name}__{tag}.json"),
               "w") as f:
         json.dump(result, f, indent=2)
     return result
 
 
+def pod_cells() -> list[tuple[str, str]]:
+    """The cells a pod mesh traces: the dense family's train and prefill
+    steps (decode over a mesh and the other families: item 13h)."""
+    from repro_torch.configs import get_config
+
+    cells = []
+    for arch in ARCH_IDS:
+        try:
+            parallel.check_dense(get_config(arch))
+        except NotImplementedError:
+            continue
+        cells += [(arch, s) for s in applicable_shapes(arch)
+                  if specs.SHAPES[s].kind != "decode"]
+    return cells
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=list(specs.SHAPES))
-    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--all", action="store_true",
+                    help="every cell (over a pod: the cells it traces, "
+                         "pod_cells)")
+    ap.add_argument("--single-pod", action="store_true",
+                    help="one rank of the (16, 16) mesh")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="one rank of the (2, 16, 16) mesh")
+    ap.add_argument("--both", action="store_true",
+                    help="single-pod AND multi-pod meshes")
     ap.add_argument("--bf16-moments", action="store_true",
                     help="AdamW moments in bf16 (memory optimization)")
     ap.add_argument("--continue-on-error", action="store_true")
@@ -444,22 +512,31 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     moment_dtype = torch.bfloat16 if args.bf16_moments else torch.float32
-    cells: list[tuple[str, str]] = []
-    if args.all:
-        for arch in ARCH_IDS:
-            for shape in applicable_shapes(arch):
-                cells.append((arch, shape))
-    else:
-        if not args.arch or not args.shape:
-            ap.error("--arch and --shape required unless --all")
-        cells.append((args.arch, args.shape))
+    meshes = [None]
+    if args.both or args.single_pod or args.multi_pod:
+        meshes = [mesh_lib.make_production_mesh(multi_pod=mp)
+                  for mp in (False, True)
+                  if args.both or (args.multi_pod if mp
+                                   else args.single_pod)]
+    runs: list[tuple[str, str, Any]] = []
+    for mesh in meshes:
+        if args.all:
+            cells = pod_cells() if mesh is not None else [
+                (arch, shape) for arch in ARCH_IDS
+                for shape in applicable_shapes(arch)]
+        else:
+            if not args.arch or not args.shape:
+                ap.error("--arch and --shape required unless --all")
+            cells = [(args.arch, args.shape)]
+        runs += [(arch, shape, mesh) for arch, shape in cells]
 
     failures = []
     t0 = time.perf_counter()
-    for arch, shape in cells:
+    for arch, shape, mesh in runs:
         try:
             run_cell(arch, shape, moment_dtype=moment_dtype, out_dir=args.out,
-                     extra_tag="bf16m" if args.bf16_moments else "")
+                     extra_tag="bf16m" if args.bf16_moments else "",
+                     mesh=mesh)
         except Exception as e:  # noqa: BLE001 - reported, then re-raised
             failures.append((arch, shape, repr(e)))
             print(f"[dryrun] FAILED {arch} x {shape}: {e}")
@@ -471,7 +548,7 @@ def main(argv=None) -> None:
         for f in failures:
             print("  ", f)
         raise SystemExit(1)
-    print(f"\nall {len(cells)} dry-run cells traced OK in "
+    print(f"\nall {len(runs)} dry-run cells traced OK in "
           f"{time.perf_counter() - t0:.1f}s")
 
 

@@ -40,10 +40,14 @@ from repro_torch.core.transforms import TENANT_AXIS
 from repro_torch.device import resolve_device
 
 # what is not ported yet, named as ROADMAP Queue 1 names it
-TENSOR_PARALLEL = ("ROADMAP Queue 1 item 13f, the tensor-parallel model "
-                   "(Megatron column / row parallel layers with explicit "
-                   "collectives under launch/shardings.py's rules)")
-TRAIN_ACROSS_RANKS = "ROADMAP Queue 1 item 13g, a train step across ranks"
+TP_FAMILIES = ("ROADMAP Queue 1 item 13h, tensor parallelism for the MoE "
+               "einsum (ep_sharding_constraint), Mamba and xLSTM, and the "
+               "decode under a mesh")
+VARIANTS = ("ROADMAP Queue 1 item 13i, the --variant bundles (act_pspec "
+            "sequence parallelism, cast_params_bf16 before the FSDP "
+            "gathers, remat off, a2a)")
+TRAIN_ACROSS_RANKS = ("ROADMAP Queue 1 item 13g's MoE half, a train step "
+                      "across ranks with MoE blocks")
 SEVERAL_CARDS = ("ROADMAP Queue 1 item 11b, the tenant mesh over several "
                  "cards")
 

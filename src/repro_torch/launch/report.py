@@ -1,13 +1,22 @@
-"""Render the one-card dry-run and roofline tables from
+"""Render the dry-run and roofline tables from
 ``benchmarks/results/dryrun_h100/*.json`` (written by ``launch/dryrun.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.report [--table roofline|dryrun]
+  PYTHONPATH=src python -m repro_torch.launch.report --pod pod1|pod2
 
 The roofline table: the compute and memory terms at the H100's rates,
 the bottleneck, model FLOPs over analytic FLOPs (MF/AF), analytic and
 counted FLOPs, bytes a card and whether arguments + temp fit 80 GB.  The
 dry-run table: trace seconds, argument and temp bytes, counted FLOPs.  One
 card has no collective, so neither table has collective columns.
+
+``--pod`` reads the pod records (``<arch>__<shape>__h100_pod1.json`` /
+``_pod2.json``, one rank of the mesh) beside the one-card ones: per-rank
+FLOPs, HBM bytes and collective bytes (the roofline's, an all-reduce
+counted twice) with the three terms and the bottleneck, the collectives by
+kind, and beside them the reference's HLO collective bytes of the same
+cell where its record (``benchmarks/results/dryrun/<arch>__<shape>__podN
+.json``) is present: bytes only, its times are the TPU's.
 """
 from __future__ import annotations
 
@@ -19,6 +28,8 @@ import os
 from repro_torch.launch.dryrun import RESULTS_DIR, TAG
 from repro_torch.launch.roofline import HBM_CAPACITY_BYTES
 
+REFERENCE_DIR = os.path.join(RESULTS_DIR, "..", "dryrun")
+
 ARCH_ORDER = [
     "internlm2-1.8b", "llama3-405b", "olmoe-1b-7b", "qwen2-vl-7b",
     "hubert-xlarge", "deepseek-coder-33b", "jamba-1.5-large-398b",
@@ -27,12 +38,12 @@ ARCH_ORDER = [
 SHAPE_ORDER = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
 
 
-def load(tag: str = "") -> list[dict]:
+def load(tag: str = "", directory: str = RESULTS_DIR) -> list[dict]:
     """The committed cells (``<arch>__<shape>__h100[_tag].json``), in the
     reference's order."""
     suffix = f"__{TAG}{('_' + tag) if tag else ''}.json"
     rows = []
-    for path in glob.glob(os.path.join(RESULTS_DIR, f"*{suffix}")):
+    for path in glob.glob(os.path.join(directory, f"*{suffix}")):
         with open(path) as f:
             rows.append(json.load(f))
     rows.sort(key=lambda r: (ARCH_ORDER.index(r["arch"]),
@@ -97,12 +108,60 @@ def dryrun_table(rows: list[dict]) -> str:
     return _table(hdr, out)
 
 
+def reference_collectives(arch: str, shape: str, pod: str,
+                          directory: str | None = REFERENCE_DIR
+                          ) -> float | None:
+    """The reference's HLO collective bytes a chip of the same cell (its
+    ``collective_bytes_per_chip``), or None without its record."""
+    if directory is None:
+        return None
+    path = os.path.join(directory, f"{arch}__{shape}__{pod}.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)["roofline"]["collective_bytes_per_chip"]
+
+
+def _kinds(by_kind: dict, counts: dict) -> str:
+    return ", ".join(f"{k} {counts[k]:.0f}x {v / 1e9:.2f}G"
+                     for k, v in sorted(by_kind.items()))
+
+
+def pod_table(rows: list[dict], pod: str,
+              reference_dir: str | None = REFERENCE_DIR) -> str:
+    hdr = ["arch", "shape", "fsdp", "flops/rank", "hbm/rank", "coll/rank",
+           "compute", "memory", "collective", "bottleneck", "args/rank",
+           "by kind", "reference HLO coll/chip"]
+    out = []
+    for r in rows:
+        rf = r["roofline"]
+        ref = reference_collectives(r["arch"], r["shape"], pod,
+                                    reference_dir)
+        out.append([
+            r["arch"], r["shape"], "Y" if r["fsdp"] else "N",
+            _fmt_n(rf["flops_per_chip"]),
+            f"{rf['bytes_per_chip'] / 1e9:.2f}G",
+            f"{rf['collective_bytes_per_chip'] / 1e9:.2f}G",
+            _fmt_s(rf["compute_s"]), _fmt_s(rf["memory_s"]),
+            _fmt_s(rf["collective_s"]), rf["bottleneck"],
+            f"{r['memory_analysis']['argument_bytes'] / 1e9:.2f}G",
+            _kinds(rf["collective_bytes_by_kind"], rf["collective_counts"]),
+            "-" if ref is None else f"{ref / 1e9:.2f}G"])
+    return _table(hdr, out)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="")
     ap.add_argument("--table", default="roofline",
                     choices=["roofline", "dryrun"])
+    ap.add_argument("--pod", choices=["pod1", "pod2"], default=None,
+                    help="the pod records of one rank of that mesh")
     args = ap.parse_args(argv)
+    if args.pod:
+        tag = args.pod + (f"_{args.tag}" if args.tag else "")
+        print(pod_table(load(tag), args.pod))
+        return
     rows = load(args.tag)
     if args.table == "roofline":
         print(roofline_table(rows))

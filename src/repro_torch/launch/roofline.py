@@ -1,10 +1,20 @@
-"""Roofline terms of one step on one NVIDIA H100.
+"""Roofline terms of one step on one NVIDIA H100, or on one rank of a mesh
+of them.
 
 Three terms per (arch x shape) cell, in seconds:
 
-  compute    = analytic FLOPs / BF16_FLOPS          (989 TFLOP/s, bf16 dense)
-  memory     = analytic HBM bytes / HBM_BYTES_PER_S (3.35 TB/s)
-  collective = 0: on one card nothing crosses a link
+  compute    = analytic FLOPs / chips / BF16_FLOPS     (989 TFLOP/s, bf16)
+  memory     = analytic HBM bytes / chips / HBM_BYTES_PER_S (3.35 TB/s)
+  collective = the trace's per-rank collective bytes (an all-reduce's twice,
+               the reference's ``_COLLECTIVE_FACTOR``) / the slowest link
+               the mesh's axes cross; 0 on one card
+
+A mesh of more than :data:`CARDS_PER_NODE` cards spans nodes, and some
+axis of it crosses them: the slowest link is then one InfiniBand NDR link
+a card (:data:`NDR_BYTES_PER_S`).  Within one node it is NVLink 4
+(:data:`NVLINK_BYTES_PER_S`).  Every axis of the production meshes
+((16, 16) and (2, 16, 16)) spans more than one node.  The TPU's ICI rate
+is not carried over.
 
 The rates are the H100 SXM's published ones at its full power limit, kept
 once in ``benchmarks/timing.py``.  The analytic model (``model_flops``,
@@ -22,10 +32,34 @@ import dataclasses
 from typing import Any
 
 from repro_torch.benchmarks.timing import BF16_FLOPS, HBM_BYTES_PER_S
-from repro_torch.launch.mesh import TENSOR_PARALLEL
 
 HBM_CAPACITY_BYTES = 80e9      # one H100's device memory, 80 GB
 ONE_CARD = "one card: no collective, the collective term is 0"
+# cards a node (NVIDIA DGX H100 / HGX H100 8-GPU)
+CARDS_PER_NODE = 8
+# NVLink 4: 900 GB/s a card, both directions together (NVIDIA H100 SXM
+# datasheet); one direction
+NVLINK_BYTES_PER_S = 450e9
+# one 400 Gb/s InfiniBand NDR link a card (DGX H100: eight ConnectX-7
+# NDR adapters, one a GPU), one direction
+NDR_BYTES_PER_S = 50e9
+# bytes on the link for each byte of a collective's result (the
+# reference's launch/roofline.py::_COLLECTIVE_FACTOR: a ring all-reduce
+# moves its data twice)
+COLLECTIVE_FACTOR = {"all-reduce": 2.0, "all-gather": 1.0,
+                     "reduce-scatter": 1.0, "all-to-all": 1.0,
+                     "collective-permute": 1.0}
+
+
+def link(mesh) -> tuple[float, str]:
+    """(bytes/s a direction, description) of the slowest link that the
+    axes of ``mesh`` cross."""
+    if mesh.size > CARDS_PER_NODE:
+        return NDR_BYTES_PER_S, (
+            f"{mesh.size} cards span nodes of {CARDS_PER_NODE}: one 400 "
+            "Gb/s InfiniBand NDR link a card, 50 GB/s a direction")
+    return NVLINK_BYTES_PER_S, (
+        f"{mesh.size} cards in one node: NVLink 4, 450 GB/s a direction")
 
 
 def model_flops(cfg, shape, kind: str) -> float:
@@ -200,27 +234,47 @@ def terms(cfg, shape, kind: str, *, param_bytes: float,
 
 def analyze(bundle, counted: dict[str, float | None], chips: int = 1, *,
             param_bytes_global: float = 0.0,
-            cache_bytes_global: float = 0.0) -> RooflineReport:
+            cache_bytes_global: float = 0.0, collectives: dict | None = None,
+            mesh=None) -> RooflineReport:
     """The roofline of ``bundle``'s step (a ``specs.StepBundle``) on one
-    card.  ``counted`` holds the trace's ``flops``, ``bytes`` and
-    ``peak_bytes`` (None where not traced), in place of the reference's
-    compiled XLA object."""
-    if chips != 1:
-        raise NotImplementedError(
-            "a roofline over several cards needs the pod dry-run's "
-            f"collective term: {TENSOR_PARALLEL}")
+    card, or on one rank of ``mesh`` (``chips`` its size): the analytic
+    terms divided by the chips, as the reference's, and the collective
+    term from ``collectives`` (the trace's ``bytes_by_kind`` and
+    ``count_by_kind`` a rank).  ``counted`` holds the trace's ``flops``,
+    ``bytes`` and ``peak_bytes`` (None where not traced), in place of the
+    reference's compiled XLA object."""
     cfg, shape, kind = bundle.cfg, bundle.shape, bundle.kind
     t = terms(cfg, shape, kind, param_bytes=param_bytes_global,
               cache_bytes=cache_bytes_global)
+    flops, hbm = t["flops"], t["bytes"]
+    coll_bytes, coll_s, note, desc = 0.0, 0.0, ONE_CARD, "h100x1"
+    by_kind: dict[str, float] = {}
+    counts: dict[str, float] = {}
+    if chips != 1:
+        if collectives is None or mesh is None or mesh.size != chips:
+            raise ValueError("a roofline over several cards takes the "
+                             "trace's collectives and its mesh")
+        flops, hbm = flops / chips, hbm / chips
+        by_kind = dict(collectives["bytes_by_kind"])
+        counts = dict(collectives["count_by_kind"])
+        coll_bytes = sum(COLLECTIVE_FACTOR.get(k, 1.0) * v
+                         for k, v in by_kind.items())
+        rate, note = link(mesh)
+        coll_s = coll_bytes / rate
+        desc = "x".join(f"{k}{v}" for k, v in mesh.shape.items())
+    compute_s, memory_s = flops / BF16_FLOPS, hbm / HBM_BYTES_PER_S
+    three = {"compute": compute_s, "memory": memory_s,
+             "collective": coll_s}
     return RooflineReport(
-        arch=bundle.arch, shape=shape.name, mesh_desc="h100x1", chips=1,
-        flops_per_chip=t["flops"], bytes_per_chip=t["bytes"],
-        collective_bytes_per_chip=0.0,
-        compute_s=t["compute_s"], memory_s=t["memory_s"], collective_s=0.0,
-        bottleneck=t["bottleneck"], model_flops_global=t["model_flops"],
-        useful_flops_ratio=(t["model_flops"] / t["flops"] if t["flops"] > 0
+        arch=bundle.arch, shape=shape.name, mesh_desc=desc, chips=chips,
+        flops_per_chip=flops, bytes_per_chip=hbm,
+        collective_bytes_per_chip=coll_bytes,
+        compute_s=compute_s, memory_s=memory_s, collective_s=coll_s,
+        bottleneck=max(three, key=three.get),
+        model_flops_global=t["model_flops"],
+        useful_flops_ratio=(t["model_flops"] / (flops * chips) if flops > 0
                             else float("nan")),
         peak_memory_per_chip=counted.get("peak_bytes"),
-        collective_counts={}, collective_bytes_by_kind={},
+        collective_counts=counts, collective_bytes_by_kind=by_kind,
         counted_flops=counted.get("flops"),
-        counted_bytes=counted.get("bytes"))
+        counted_bytes=counted.get("bytes"), collective_note=note)

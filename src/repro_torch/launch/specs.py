@@ -19,8 +19,15 @@ hybrid archs run their native constant-state decode.
 ``moe_impl="a2a"`` builds MoE layers that run the expert-parallel MoE
 (``models/moe_a2a.py``), traced under an active mesh
 (``launch/mesh.py::set_mesh``).  The reference's sharded activations
-(``act_pspec``) and expert-parallel constraints belong to the
-tensor-parallel model and raise (``launch/mesh.py::TENSOR_PARALLEL``).
+(``act_pspec``) raise (``launch/mesh.py::VARIANTS``), its expert-parallel
+constraints too (``launch/mesh.py::TP_FAMILIES``).
+
+``mesh=`` builds one rank's step of a pod mesh (the dense family's train
+and prefill steps): the model sharded by ``models/parallel.py`` under the
+production rules, FSDP decided as the reference's dry-run decides it, and
+every argument on meta at the rank's shard shape (its rows of the batch).
+The step runs under ``set_mesh(mesh)``; on a shape-only mesh its
+collectives only count (``launch/collectives.py``).
 """
 from __future__ import annotations
 
@@ -31,13 +38,17 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.shapes import SHAPES, InputShape
-from repro_torch.models import layers
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import shardings
+from repro_torch.models import layers, parallel, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 from repro_torch.training.optimizer import AdamW
 from repro_torch.training.train import ACT_PSPEC, TrainState, make_train_step
 
 SLIDING_WINDOW_LONG = 8192
+# per-rank parameter bytes past which the parameters are FSDP'd (ZeRO-3)
+FSDP_THRESHOLD_BYTES = 4 * 2**30
 
 
 def serving_config(arch: str, shape_name: str) -> ModelConfig:
@@ -62,6 +73,8 @@ class StepBundle:
     step_fn: Callable
     abstract_args: tuple            # meta tensors (and pos), step_fn(*args)
     kind: str                        # "train" | "prefill" | "decode"
+    mesh: Any = None                 # the pod mesh of one rank's step
+    fsdp: bool = False
 
 
 def tensors_of(tree: Any) -> list[torch.Tensor]:
@@ -81,6 +94,13 @@ def total_param_bytes(tree: Any) -> int:
     return sum(t.numel() * t.element_size() for t in tensors_of(tree))
 
 
+def decide_fsdp(params, mesh) -> bool:
+    """The reference's rule: the per-rank bytes of ``params`` (whole)
+    over the model axis pass :data:`FSDP_THRESHOLD_BYTES`."""
+    per_rank = total_param_bytes(params) / mesh_lib.model_axis_size(mesh)
+    return per_rank > FSDP_THRESHOLD_BYTES
+
+
 def make_optimizer(moment_dtype=torch.float32) -> AdamW:
     return AdamW(learning_rate=3e-4, moment_dtype=moment_dtype)
 
@@ -97,14 +117,25 @@ def build_step(arch: str, shape: str | InputShape, *,
                cast_params_bf16: bool = False,
                moe_ep_constraint: bool = False,
                moe_impl: str = "einsum",
-               cfg: ModelConfig | None = None) -> StepBundle:
+               cfg: ModelConfig | None = None,
+               mesh=None, fsdp: bool | None = None) -> StepBundle:
     """The step of ``arch`` at ``shape`` (a name of ``SHAPES`` or an
     :class:`InputShape`) on meta tensors.  ``cfg`` replaces the cell's
-    config (a run's own cut of it); by default :func:`serving_config`."""
+    config (a run's own cut of it); by default :func:`serving_config`.
+    With ``mesh``, one rank's step (``fsdp=None`` decides FSDP as the
+    reference does)."""
     if act_pspec is not None:
         raise NotImplementedError(ACT_PSPEC)
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     cfg = serving_config(arch, shape.name) if cfg is None else cfg
+    if mesh is not None:
+        if shape.kind == "decode":
+            raise NotImplementedError(
+                f"{arch} x {shape.name}: {transformer.NOT_PORTED['decode']}")
+        parallel.check_dense(cfg)
+        return _rank_step(arch, shape, cfg, mesh, fsdp,
+                          moment_dtype=moment_dtype, remat=remat,
+                          logits_mode=logits_mode)
     if cfg.moe is not None and (moe_ep_constraint or moe_impl != "einsum"):
         # the model's MoE layers raise on these (moe.check_options)
         cfg = dataclasses.replace(
@@ -172,3 +203,58 @@ def build_step(arch: str, shape: str | InputShape, *,
 
     return StepBundle(arch, shape, cfg, model, serve_step,
                       (params, cache, inputs, t - 1), "decode")
+
+
+def _rank_step(arch: str, shape: InputShape, cfg: ModelConfig, mesh,
+               fsdp: bool | None, *, moment_dtype, remat: bool,
+               logits_mode: str) -> StepBundle:
+    """One rank's train or prefill step over ``mesh`` (see the module's
+    docstring)."""
+    b, t = shape.global_batch, shape.seq_len
+    train = shape.kind == "train"
+    model = Model(cfg, device="meta",
+                  dtype=torch.float32 if train else torch.bfloat16,
+                  seed=None)
+    if fsdp is None:
+        # a train step's moments are never larger than its float32
+        # parameters, so the parameters decide, as in the reference
+        fsdp = decide_fsdp(dict(model.named_parameters()), mesh)
+    model.requires_grad_(train)
+    parallel.parallelize(model, mesh, fsdp=fsdp)
+    params = dict(model.named_parameters())
+    bl = shardings.shard_shape((b,), shardings.batch_pspec(b, mesh, 0),
+                               mesh)[0]
+
+    def on_mesh(fn):
+        def step(*args):
+            with mesh_lib.set_mesh(mesh):
+                return fn(*args)
+        return step
+
+    if train:
+        opt = make_optimizer(moment_dtype)
+        state = TrainState(params, opt.init(params))
+        step = make_train_step(model, opt, remat=remat)
+        tokens = _empty((bl, t), torch.long)
+        labels = _empty((bl, t), torch.long)
+        return StepBundle(arch, shape, cfg, model, on_mesh(step),
+                          (state, tokens, labels), "train", mesh, fsdp)
+
+    if cfg.embeds_input:
+        inputs = {"embeds": _empty((bl, t, cfg.d_model), torch.bfloat16)}
+    else:
+        inputs = {"tokens": _empty((bl, t), torch.long)}
+
+    def prefill_step(p, inputs):
+        with layers.parameters_as(model, p):
+            if cfg.is_encoder_only:
+                out = model(**inputs, logits_mode="all", attn_impl="kernel")
+                return {"logits": out.logits, "risk_score": out.risk_score}
+            out, cache = model.prefill(
+                **inputs, cache_capacity=t, logits_mode=logits_mode,
+                attn_impl="kernel")
+        return {"logits": out.logits, "risk_score": out.risk_score,
+                "cache": cache}
+
+    return StepBundle(arch, shape, cfg, model, on_mesh(prefill_step),
+                      (params, inputs), "prefill", mesh, fsdp)

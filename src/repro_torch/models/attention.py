@@ -7,6 +7,20 @@ reference path of the prefill and the decode path.  With
 ``attn_impl="kernel"`` and at least 128 prompt tokens the prefill goes
 through ``kernels.ops.flash_attention`` instead: the hand-written CUDA kernel
 for CUDA tensors, its plain PyTorch version for CPU tensors.
+
+The full-sequence attention (train, eval, prefill) reads the placement of
+its projections, as the layers do.  On a model sharded by
+``models/parallel.py`` the projections run on the rank's column blocks,
+which the production rules cut without regard to heads.  Per-head qk-norm
+and rotate-half RoPE need whole heads, so the rank moves to the whole
+heads that cover its q columns (``parallel.head_plan``): it all-gathers q
+over "model" where its q columns are not whole heads, and the keys and
+values where its kv columns are not exactly the heads its q heads use.  It
+attends over those heads (the flash kernel on the card), keeps its own
+columns of the output and runs the row-parallel wo.  A head on the
+boundary of two ranks' q columns is computed by both.  Without a
+placement every head is the rank's and nothing is exchanged.  The prefill
+cache is built from the keys and values the attention used.
 """
 from __future__ import annotations
 
@@ -17,7 +31,9 @@ from torch import nn
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF, softmax_scale
-from repro_torch.models import layers
+from repro_torch.launch import collectives as coll
+from repro_torch.launch.mesh import MODEL_AXIS
+from repro_torch.models import layers, parallel
 from repro_torch.models.config import ModelConfig
 
 ATTN_IMPLS = ("reference", "kernel")
@@ -127,11 +143,13 @@ def attention_forward(
     cache_pos: int = 0,           # absolute position of x[:, 0]
     chunk: int = 256,
     attn_impl: str = "reference",
+    capacity: int | None = None,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """Unified attention entry point.
 
-    * train / prefill: ``cache is None`` -> self-attention over x (the
-      prefill cache is built by :func:`prefill_kv`).
+    * train / prefill: ``cache is None`` -> self-attention over x
+      (:func:`_self_attention`); with ``capacity``, the prefill cache of
+      that capacity is built from the same keys and values.
     * decode: ``cache`` given, T == 1 -> write k/v at ``cache_pos`` (modulo
       the window for sliding-window layers) and attend over the cache.  The
       write goes into ``cache``'s tensors in place (the reference returns
@@ -140,70 +158,128 @@ def attention_forward(
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
                          f"not {attn_impl!r}")
-    b, t, _ = x.shape
-    hd, hq = cfg.head_dim, cfg.n_heads
-    q, k, v = _qkv(params, x, cfg, angles)
-
     if cache is None:
-        if attn_impl == "kernel" and t >= 128:
-            out = kops.flash_attention(
-                q, k, v, causal=cfg.causal, sliding_window=cfg.sliding_window)
-        else:
-            out = _gqa_scores_chunked(
-                q, k, v, causal=cfg.causal, q_offset=0,
-                sliding_window=cfg.sliding_window, chunk=chunk)
-        new_cache = None
-    else:
-        capacity = cache.k.shape[1]
-        ring = cfg.sliding_window > 0 and capacity == cfg.sliding_window
-        write_idx = cache_pos % capacity if ring else cache_pos
-        # dynamic_update_slice semantics: the start is clamped so the
-        # update fits inside the cache
-        write_idx = min(max(write_idx, 0), capacity - t)
-        cache.k[:, write_idx:write_idx + t] = k.to(cache.k.dtype)
-        cache.v[:, write_idx:write_idx + t] = v.to(cache.v.dtype)
-        new_cache = KVCache(k=cache.k, v=cache.v)
-        # ring buffer: every slot valid once pos >= capacity; positions are
-        # implicit (RoPE pre-applied), so validity is the only mask
-        valid = min(cache_pos + 1, capacity) if ring else cache_pos + 1
-        out = _gqa_scores_chunked(
-            q, cache.k, cache.v, causal=False, q_offset=cache_pos,
-            sliding_window=0, kv_valid_len=valid, chunk=chunk)
+        return _self_attention(params, x, cfg, angles=angles, chunk=chunk,
+                               attn_impl=attn_impl, capacity=capacity)
+    b, t, _ = x.shape
+    q, k, v = _qkv(params, x, cfg, angles)
+    capacity = cache.k.shape[1]
+    ring = cfg.sliding_window > 0 and capacity == cfg.sliding_window
+    write_idx = cache_pos % capacity if ring else cache_pos
+    # dynamic_update_slice semantics: the start is clamped so the
+    # update fits inside the cache
+    write_idx = min(max(write_idx, 0), capacity - t)
+    cache.k[:, write_idx:write_idx + t] = k.to(cache.k.dtype)
+    cache.v[:, write_idx:write_idx + t] = v.to(cache.v.dtype)
+    # ring buffer: every slot valid once pos >= capacity; positions are
+    # implicit (RoPE pre-applied), so validity is the only mask
+    valid = min(cache_pos + 1, capacity) if ring else cache_pos + 1
+    out = _gqa_scores_chunked(
+        q, cache.k, cache.v, causal=False, q_offset=cache_pos,
+        sliding_window=0, kv_valid_len=valid, chunk=chunk)
+    out = out.reshape(b, t, cfg.n_heads * cfg.head_dim)
+    return layers.linear(params.wo, out), KVCache(k=cache.k, v=cache.v)
 
-    out = out.reshape(b, t, hq * hd)
+
+def _self_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+                    *, angles, chunk: int, attn_impl: str,
+                    capacity: int | None
+                    ) -> tuple[torch.Tensor, KVCache | None]:
+    """Attention over the whole sequence, on the rank's heads of a sharded
+    model (``parallel.head_plan``; without a placement every head is the
+    rank's and nothing is exchanged): the output (B, T, d) after wo (the
+    row-parallel wo's all-reduce on a sharded model) and, with
+    ``capacity``, the prefill cache (:func:`_prefill_cache`)."""
+    pl = parallel.placement(params.wq)
+    m, r = (1, 0) if pl is None else (pl.model_size, pl.model_rank)
+    # the rules put every projection's columns on "model" wherever they
+    # divide, which head_plan requires
+    plan = parallel.head_plan(cfg, m, r)
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    (q_lo, nq), (kv_lo, nk) = plan.q_heads, plan.kv_heads
+    x = parallel.enter(x, params.wq)
+    q = layers.linear(params.wq, x)
+    k = layers.linear(params.wk, x)
+    v = layers.linear(params.wv, x)
+    if plan.gather_q:
+        q = coll.all_gather(q, pl.mesh, MODEL_AXIS, 2)[
+            ..., q_lo * hd:(q_lo + nq) * hd]
+    if plan.gather_kv:
+        k = coll.all_gather(k, pl.mesh, MODEL_AXIS, 2)
+        v = coll.all_gather(v, pl.mesh, MODEL_AXIS, 2)
+    q = q.reshape(b, t, nq, hd)
+    k = k.reshape(b, t, -1, hd)
+    v = v.reshape(b, t, -1, hd)
+    if cfg.qk_norm:
+        q_scale, k_scale = params.q_norm, params.k_norm
+        if pl is not None:
+            # the scales are replicated and each rank uses them on its
+            # heads: their gradient is the sum over the ranks ("f")
+            q_scale = coll.copy_to(q_scale, pl.mesh, MODEL_AXIS)
+            k_scale = coll.copy_to(k_scale, pl.mesh, MODEL_AXIS)
+        q = layers.rmsnorm_headwise(q_scale, q, cfg.norm_eps)
+        k = layers.rmsnorm_headwise(k_scale, k, cfg.norm_eps)
+    if angles is not None:
+        q = layers.apply_rope(q, angles)
+        k = layers.apply_rope(k, angles)
+    new_cache = None
+    if capacity is not None:
+        new_cache = KVCache(_prefill_cache(k, cfg, capacity, plan, pl),
+                            _prefill_cache(v, cfg, capacity, plan, pl))
+    if plan.gather_kv:
+        k, v = k[:, :, kv_lo:kv_lo + nk], v[:, :, kv_lo:kv_lo + nk]
+    if attn_impl == "kernel" and t >= 128:
+        out = kops.flash_attention(q, k, v, causal=cfg.causal,
+                                   sliding_window=cfg.sliding_window)
+    else:
+        out = _gqa_scores_chunked(q, k, v, causal=cfg.causal, q_offset=0,
+                                  sliding_window=cfg.sliding_window,
+                                  chunk=chunk)
+    start, cols = plan.q_cols
+    out = out.reshape(b, t, nq * hd)[..., start - q_lo * hd:
+                                     start - q_lo * hd + cols]
     return layers.linear(params.wo, out), new_cache
 
 
-def prefill_kv(
-    params: Attention,
-    x: torch.Tensor,
-    cfg: ModelConfig,
-    *,
-    angles: torch.Tensor | None,
-    capacity: int,
-) -> KVCache:
-    """Build a decode cache from a prompt (used by serve prefill)."""
-    b, t, _ = x.shape
-    hd, hkv = cfg.head_dim, cfg.n_kv_heads
-    k = layers.linear(params.wk, x).reshape(b, t, hkv, hd)
-    v = layers.linear(params.wv, x).reshape(b, t, hkv, hd)
-    if cfg.qk_norm:
-        k = layers.rmsnorm_headwise(params.k_norm, k, cfg.norm_eps)
-    if angles is not None:
-        k = layers.apply_rope(k, angles)
+def _prefill_cache(kv: torch.Tensor, cfg: ModelConfig, capacity: int,
+                   plan: parallel.HeadPlan, pl) -> torch.Tensor:
+    """(B, T, heads, D) keys or values -> the rank's block of the
+    (B, capacity, Hkv, D) decode cache.
+
+    A sliding-window layer keeps the last w = min(window, capacity)
+    tokens in a ring aligned so that absolute position p sits at slot
+    p % w.  Over more than one rank of "model" the block is
+    ``launch/shardings.py::cache_pspec``'s: the sequence on "model" where
+    it divides.  ``kv`` holds every head (gathered) or the rank's own
+    whole heads; the latter are exchanged by an all-to-all over "model"
+    (all-gathered where the capacity does not divide)."""
+    b, t, h, d = kv.shape
     if cfg.sliding_window > 0:
-        w = min(cfg.sliding_window, capacity)
-        orig_t = t
-        k, v = k[:, -w:], v[:, -w:]
-        t = k.shape[1]
-        capacity = w
-        if orig_t >= w:
-            # Align the ring buffer so absolute position p sits at slot p % w:
-            # token t-w+i must land at slot (t-w+i) % w = (i + t % w) % w.
-            k = torch.roll(k, shifts=orig_t % w, dims=1)
-            v = torch.roll(v, shifts=orig_t % w, dims=1)
-    pad = capacity - t
-    if pad > 0:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    return KVCache(k=k.contiguous(), v=v.contiguous())
+        capacity = min(cfg.sliding_window, capacity)
+        if t >= capacity:
+            # token t-w+i lands at slot (t-w+i) % w = (i + t % w) % w
+            kv = torch.roll(kv[:, t - capacity:], shifts=t % capacity,
+                            dims=1)
+    if capacity > kv.shape[1]:
+        kv = torch.nn.functional.pad(
+            kv, (0, 0, 0, 0, 0, capacity - kv.shape[1]))
+    m = 1 if pl is None else pl.model_size
+    if m == 1:
+        return kv.contiguous()
+    r, mesh = pl.model_rank, pl.mesh
+    split = capacity % m == 0
+    if plan.gather_kv:
+        if not split:
+            return kv.contiguous()
+        s = capacity // m
+        return kv[:, r * s:(r + 1) * s].contiguous()
+    if not split:
+        return coll.all_gather_raw(kv, mesh, MODEL_AXIS, 2)
+    s = capacity // m
+    # (m, B, S/m, h, D): chunk j of the sequence to rank j; back come the
+    # ranks' heads of this rank's chunk, in rank order
+    out = coll.all_to_all_raw(
+        kv.reshape(b, m, s, h, d).movedim(1, 0).contiguous(), mesh,
+        MODEL_AXIS)
+    return out.movedim(0, 2).reshape(b, s, m * h, d)

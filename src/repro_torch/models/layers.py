@@ -5,6 +5,13 @@ are drawn from a ``torch.Generator``.  ``Linear`` keeps its weight in
 ``nn.Linear`` order, (out, in); the functions cast each weight to the
 activation's dtype on every call and normalise in float32, exactly where the
 reference does, so the bfloat16 paths round at the same points.
+
+On a model sharded by ``models/parallel.py`` the same functions run the
+rank's blocks: :func:`linear` is column parallel (its output the rank's
+columns) or row parallel (one all-reduce over "model" of its partial
+output), :func:`embed` is vocab-parallel and :func:`mlp` is column,
+column, row.  FSDP'd weights are
+all-gathered over the data axes just before use.
 """
 from __future__ import annotations
 
@@ -14,6 +21,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.launch import collectives as coll
+from repro_torch.launch.mesh import MODEL_AXIS
+from repro_torch.models import parallel
 
 
 def empty_param(shape, device, dtype) -> nn.Parameter:
@@ -97,9 +108,18 @@ class MLP(nn.Module):
 
 
 def linear(params: Linear, x: torch.Tensor) -> torch.Tensor:
-    y = F.linear(x, params.weight.to(x.dtype))
+    """``x @ w (+ b)``.  Sharded, a column-parallel weight gives the
+    rank's output columns (its input entered through ``parallel.enter``
+    by the caller) and a row-parallel one takes the rank's input columns
+    and all-reduces its partial output over "model"."""
+    pl = parallel.placement(params)
+    y = F.linear(x, parallel.weight(params, "weight").to(x.dtype))
     if params.bias is not None:
+        if pl is not None and parallel.spec_axes(pl.specs["weight"]):
+            raise NotImplementedError("a bias beside a sharded weight")
         y = y + params.bias.to(x.dtype)
+    if parallel.sharded_on_model(params, "weight", 1):
+        y = coll.all_reduce(y, pl.mesh, MODEL_AXIS)
     return y
 
 
@@ -124,7 +144,19 @@ def rmsnorm_headwise(scale: torch.Tensor, x: torch.Tensor,
 
 def embed(params: Embedding, tokens: torch.Tensor,
           dtype=torch.bfloat16) -> torch.Tensor:
-    return params.table.to(dtype)[tokens]
+    """The table's rows of ``tokens``.  Vocab-parallel: each rank looks up
+    the ids in its rows, zeroes the others and the ranks' rows are summed
+    over "model"."""
+    table = parallel.weight(params, "table").to(dtype)
+    block = parallel.vocab_block(params, "table")
+    if block is None:
+        return table[tokens]
+    lo, rows = block
+    local = tokens - lo
+    inside = (local >= 0) & (local < rows)
+    out = table[torch.where(inside, local, 0)].masked_fill(
+        ~inside[..., None], 0)
+    return coll.all_reduce(out, parallel.placement(params).mesh, MODEL_AXIS)
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +225,7 @@ def text_position_ids(batch: int, seq: int, offset: int = 0,
 
 
 def mlp(params: MLP, x: torch.Tensor) -> torch.Tensor:
+    x = parallel.enter(x, params.gate)
     g = F.silu(linear(params.gate, x))
     u = linear(params.up, x)
     return linear(params.down, g * u)

@@ -10,6 +10,13 @@ consumes.
 (the card unless the caller asks for the CPU) from a ``torch.Generator``
 seeded with ``seed``; ``seed=None`` leaves them uninitialised for a caller
 that loads weights (``convert.model_from_numpy``).
+
+Sharded by ``models/parallel.py::parallelize``, the same entry points run
+one rank's share over its mesh: the lm head is column parallel, so the
+logits come out vocab-sharded (``launch/dryrun.py::_logits_pspec``; a
+vocabulary that does not divide is replicated), the score head runs on
+the replicated pooled hidden state, and ``prefill`` returns the rank's
+block of the cache in ``launch/shardings.py::cache_pspec``'s layout.
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import layers, transformer
+from repro_torch.models import layers, parallel, transformer
 from repro_torch.models.config import ModelConfig
 
 
@@ -88,8 +95,11 @@ class Model(nn.Module):
         h_norm = layers.rmsnorm(self.final_norm, h, cfg.norm_eps)
         h_lm = h_norm[:, -1:] if logits_mode == "last" else h_norm
         if cfg.tie_embeddings:
-            logits = h_lm @ self.embed.table.to(compute_dtype).T
+            h_lm = parallel.enter(h_lm, self.embed, "table")
+            logits = h_lm @ parallel.weight(self.embed, "table").to(
+                compute_dtype).T
         else:
+            h_lm = parallel.enter(h_lm, self.lm_head)
             logits = layers.linear(self.lm_head, h_lm)
         if cfg.score_head:
             # decoder: last-token hidden; encoder: mean pool
@@ -128,22 +138,23 @@ class Model(nn.Module):
     def prefill(self, tokens: torch.Tensor | None = None,
                 embeds: torch.Tensor | None = None, *, cache_capacity: int,
                 position_ids: torch.Tensor | None = None,
-                compute_dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+                compute_dtype=torch.bfloat16,
                 attn_impl: str = "reference", logits_mode: str = "all",
                 act_pspec=None) -> tuple[ModelOutput, list]:
         """Like the reference, the returned cache holds the prompt's keys and
-        values in ``compute_dtype``; ``cache_dtype`` only types the empty
-        cache that gives the capacities."""
+        values in ``compute_dtype``.  The reference's ``cache_dtype`` only
+        types the empty cache it builds to give the capacities; the port
+        passes ``cache_capacity`` on instead, so it has no such keyword."""
         cfg = self.cfg
         if not cfg.has_decode:
             raise ValueError(f"{cfg.name} is encoder-only: no decode/prefill")
         x = self._embed_input(tokens, embeds, compute_dtype)
         b, t = x.shape[:2]
         angles = self._angles(b, t, 0, position_ids)
-        cache = self.init_cache(b, cache_capacity, cache_dtype)
         x, new_cache, aux = transformer.stack_forward(
-            self.stack, x, cfg, angles=angles, mode="prefill", cache=cache,
-            attn_impl=attn_impl, act_pspec=act_pspec)
+            self.stack, x, cfg, angles=angles, mode="prefill",
+            attn_impl=attn_impl, act_pspec=act_pspec,
+            capacity=cache_capacity)
         logits, score, h = self._heads(x, compute_dtype, logits_mode)
         return ModelOutput(logits, score, aux, h), new_cache
 
@@ -171,6 +182,13 @@ class Model(nn.Module):
                             cache=new_cache)
 
     # -- convenience ----------------------------------------------------------
+    def vocab_block(self) -> tuple[int, int] | None:
+        """(first entry, entries) of the vocabulary this rank's logits
+        hold, or None where they hold all of it."""
+        if self.cfg.tie_embeddings:
+            return parallel.vocab_block(self.embed, "table")
+        return parallel.vocab_block(self.lm_head, "weight")
+
     def init_cache(self, batch: int, capacity: int, dtype=torch.bfloat16):
         return transformer.init_cache(self.cfg, batch, capacity, dtype,
                                       device=self.device)

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.launch.mesh import TENSOR_PARALLEL
+from repro_torch.launch.mesh import TP_FAMILIES
 from repro_torch.models import layers
 from repro_torch.models.config import MoEConfig
 
@@ -37,14 +37,15 @@ DISPATCH_CHUNK = 4096
 
 
 def check_options(mo: MoEConfig) -> None:
-    """The MoE options that need the tensor-parallel model raise, naming
-    it; ``impl="a2a"`` runs ``models/moe_a2a.py`` under an active mesh."""
+    """The MoE options that need the MoE's tensor parallelism raise,
+    naming it; ``impl="a2a"`` runs ``models/moe_a2a.py`` under an active
+    mesh."""
     if mo.impl not in ("einsum", "a2a"):
         raise ValueError(f"unknown MoE impl {mo.impl!r}")
     if mo.ep_sharding_constraint:
         raise NotImplementedError(
             "expert-parallel sharding constraints (ep_sharding_constraint) "
-            f"are sharded activations: {TENSOR_PARALLEL}")
+            f"are sharded activations: {TP_FAMILIES}")
 
 
 class MoE(nn.Module):

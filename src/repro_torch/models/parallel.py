@@ -1,0 +1,236 @@
+"""A rank's share of the dense model: its parameter shards under the
+production rules, and the Megatron column / row machinery over them.
+
+The reference has no hand-written tensor parallelism: GSPMD partitions its
+jitted step under the name-based rules of ``launch/shardings.py``.  The
+port does it by hand.  :func:`parallelize` replaces each parameter of a
+``Model`` by the block the rank holds (``shardings.local_shard`` under
+``shardings.param_pspecs``, FSDP included) and records each leaf's spec
+on the module that owns it (:class:`Placement`), so a rank's parameter
+bytes are exactly ``launch/dryrun.py::argument_bytes_per_device``'s.  At
+a mesh of one rank every block is the whole tensor, kept as a view: no
+copy.
+
+The layers read the placement of their module:
+
+  * a weight with an FSDP dim (one of the data axes' entries) is
+    all-gathered over those axes just before use, innermost axis first
+    (:func:`weight`); the gather's backward is the reduce-scatter of its
+    gradient over the data ranks;
+  * a column-parallel weight (output dim on "model") gives the rank its
+    block of output columns; its input enters through Megatron's "f"
+    (:func:`enter`), whose backward all-reduces over "model";
+  * a row-parallel weight (input dim on "model") takes the rank's block of
+    input columns and all-reduces its partial output over "model" ("g").
+
+A replicated activation is the same on every rank of "model"; a
+replicated parameter gets the whole gradient on every rank of "model"
+(the f / g pairing sees to it), and the data-parallel step
+(``training/train.py``) sums the ranks of the data axes.
+
+The attention's column blocks need not be whole heads (the rules cut
+columns: qwen3-8b's keys at 16 ranks are half a head each).
+:func:`head_plan` says which whole heads a rank computes and what it
+exchanges to get them (``models/attention.py``).
+
+Only the dense family (attention with a SwiGLU MLP or none) is sharded
+here; MoE, Mamba and xLSTM blocks raise, naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.launch import collectives as coll
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import shardings
+from repro_torch.launch.mesh import DATA_AXES, MODEL_AXIS, Mesh
+from repro_torch.launch.shardings import PartitionSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a module's parameters live: the mesh, this rank's coordinates
+    on it and each parameter's spec (by attribute name)."""
+
+    mesh: Mesh
+    coords: dict[str, int]
+    specs: dict[str, PartitionSpec]
+
+    @property
+    def model_size(self) -> int:
+        return mesh_lib.model_axis_size(self.mesh)
+
+    @property
+    def model_rank(self) -> int:
+        return self.coords.get(MODEL_AXIS, 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Parallel:
+    """A sharded model's mesh and every parameter's spec."""
+
+    mesh: Mesh
+    specs: dict[str, PartitionSpec]
+
+
+def placement(module: nn.Module | None) -> Placement | None:
+    return None if module is None else module.__dict__.get("placement")
+
+
+def of(model: nn.Module) -> Parallel | None:
+    """The model's :class:`Parallel`, or None for a whole model."""
+    return model.__dict__.get("parallel")
+
+
+def check_dense(cfg) -> None:
+    """Only attention blocks with a SwiGLU MLP (or none) are sharded."""
+    for spec in cfg.layer_pattern:
+        if spec.mixer != "attn" or spec.ffn not in ("mlp", "none"):
+            raise NotImplementedError(
+                f"{cfg.name}: a {spec.mixer} / {spec.ffn} block over a "
+                f"mesh is not ported yet: {mesh_lib.TP_FAMILIES}")
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            f"{cfg.name}: sliding-window attention over a mesh belongs to "
+            f"the decode under a mesh: {mesh_lib.TP_FAMILIES}")
+
+
+@torch.no_grad()
+def parallelize(model: nn.Module, mesh: Mesh, *, fsdp: bool = False
+                ) -> nn.Module:
+    """Give this rank of ``mesh`` (live, or shape-only: rank 0's block)
+    its shards of ``model``'s parameters, in place; returns the model.
+    A block smaller than its tensor is copied out, so the whole tensor is
+    freed with the model's old parameter."""
+    cfg = model.cfg
+    check_dense(cfg)
+    if of(model) is not None:
+        raise ValueError("the model is sharded already")
+    specs = shardings.param_pspecs(cfg, model, mesh, fsdp=fsdp)
+    coords = mesh.coords()
+    by_owner: dict[str, dict[str, PartitionSpec]] = {}
+    for name, p in list(model.named_parameters()):
+        owner_name, _, attr = name.rpartition(".")
+        owner = model.get_submodule(owner_name)
+        block = shardings.local_shard(p.detach(), specs[name], mesh, coords)
+        if block.shape != p.shape:
+            block = block.clone(memory_format=torch.contiguous_format)
+        owner._parameters[attr] = nn.Parameter(
+            block, requires_grad=p.requires_grad)
+        by_owner.setdefault(owner_name, {})[attr] = specs[name]
+    for owner_name, owned in by_owner.items():
+        model.get_submodule(owner_name).__dict__["placement"] = Placement(
+            mesh, coords, owned)
+    model.__dict__["parallel"] = Parallel(mesh, specs)
+    return model
+
+
+def _axes(entry) -> tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec: PartitionSpec) -> tuple[str, ...]:
+    """Every axis a spec shards on, in the spec's order."""
+    return tuple(a for entry in spec for a in _axes(entry))
+
+
+def gather_full(t: torch.Tensor, spec: PartitionSpec, mesh: Mesh
+                ) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's block, all-gathered
+    (no autograd) over the axes of ``spec``, the innermost axis of each
+    dim first."""
+    for dim, entry in enumerate(spec):
+        for a in reversed(_axes(entry)):
+            t = coll.all_gather_raw(t, mesh, a, dim)
+    return t
+
+
+def weight(module: nn.Module, attr: str) -> torch.Tensor:
+    """``module``'s parameter ``attr`` as a layer uses it: its FSDP dim
+    all-gathered over the data axes (differentiably), the model axis's
+    block kept."""
+    t = getattr(module, attr)
+    pl = placement(module)
+    if pl is None:
+        return t
+    for dim, entry in enumerate(pl.specs[attr]):
+        for a in reversed(_axes(entry)):
+            if a in DATA_AXES:
+                t = coll.all_gather(t, pl.mesh, a, dim)
+    return t
+
+
+def sharded_on_model(module: nn.Module, attr: str, dim: int) -> bool:
+    pl = placement(module)
+    return pl is not None and MODEL_AXIS in _axes(pl.specs[attr][dim])
+
+
+def enter(x: torch.Tensor, module: nn.Module, attr: str = "weight"
+          ) -> torch.Tensor:
+    """Megatron's "f" before ``module``, where its ``attr`` is column
+    parallel (dim 0 on "model"; the rows of an embedding table): ``x``
+    forward, the all-reduce of its cotangent over "model" backward."""
+    if not sharded_on_model(module, attr, 0):
+        return x
+    return coll.copy_to(x, placement(module).mesh, MODEL_AXIS)
+
+
+def vocab_block(module: nn.Module, attr: str, dim: int = 0
+                ) -> tuple[int, int] | None:
+    """(first row, rows) of the vocabulary this rank holds along ``dim``
+    of ``module.attr``, or None where the vocabulary is not on "model"."""
+    if not sharded_on_model(module, attr, dim):
+        return None
+    pl = placement(module)
+    rows = getattr(module, attr).shape[dim]
+    return pl.model_rank * rows, rows
+
+
+# ---------------------------------------------------------------------------
+# the attention's heads
+# ---------------------------------------------------------------------------
+
+class HeadPlan(NamedTuple):
+    """What one rank of "model" computes of an attention layer.
+
+    The rank holds q columns ``[q_cols[0], q_cols[0] + q_cols[1])`` and
+    the same block of wo's input; it attends with the whole q heads
+    ``q_heads`` (first, count) that cover them and the key / value heads
+    ``kv_heads`` those use, grouped as without a mesh.  ``gather_q`` /
+    ``gather_kv``: the projection's column blocks are not those whole
+    heads, so the rank all-gathers them over "model" first."""
+
+    q_cols: tuple[int, int]
+    q_heads: tuple[int, int]
+    kv_heads: tuple[int, int]
+    gather_q: bool
+    gather_kv: bool
+
+
+def head_plan(cfg, m: int, r: int) -> HeadPlan:
+    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    qpk = hq // hkv
+    cq, ck = hq * hd // m, hkv * hd // m
+    if cq * m != hq * hd or ck * m != hkv * hd:
+        raise ValueError(f"{cfg.name}: {hq} / {hkv} heads of {hd} do not "
+                         f"split in columns over {m} ranks")
+    q_lo, q_hi = r * cq // hd, ((r + 1) * cq - 1) // hd
+    kv_lo, kv_hi = q_lo // qpk, q_hi // qpk
+    nq, nk = q_hi - q_lo + 1, kv_hi - kv_lo + 1
+    if nq % nk or any((q_lo + i) // qpk - kv_lo != i // (nq // nk)
+                      for i in range(nq)):
+        # no shipped config at any m that divides its columns: their q
+        # heads a rank come in whole kv groups or within one
+        raise ValueError(f"{cfg.name}: rank {r} of {m} holds q heads "
+                         f"{q_lo}-{q_hi}, which split unevenly over their "
+                         "kv heads")
+    gather_kv = not (ck % hd == 0 and r * ck // hd == kv_lo
+                     and ck // hd == nk)
+    return HeadPlan((r * cq, cq), (q_lo, nq), (kv_lo, nk), cq % hd != 0,
+                    gather_kv)

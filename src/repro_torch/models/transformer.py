@@ -17,9 +17,13 @@ the reference's ``jax.checkpoint(group_body)``: the backward recomputes a
 group's activations from its input instead of keeping them.
 
 A MoE block with ``impl="a2a"`` runs the expert-parallel MoE
-(``models/moe_a2a.py``) over the active mesh.  Sharded activations and
-expert-parallel constraints raise ``NotImplementedError``, naming the
-ROADMAP item that ports them (the tensor-parallel model).
+(``models/moe_a2a.py``) over the active mesh.  A model sharded by
+``models/parallel.py`` (the dense family) runs each block on the rank's
+blocks: the layers' column / row machinery and the attention's
+head-aligned exchange (``attention.attention_forward``), with remat as
+without a mesh.  Sharded activations (``act_pspec``) and the decode of a
+model sharded over more than one rank raise ``NotImplementedError``,
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -29,9 +33,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.launch.mesh import TENSOR_PARALLEL
+from repro_torch.launch.mesh import TP_FAMILIES, VARIANTS
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers
+from repro_torch.models import layers, parallel
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import moe_a2a
@@ -42,7 +46,9 @@ from repro_torch.models.config import BlockSpec, ModelConfig
 # what is not ported yet -> the ROADMAP item that ports it
 NOT_PORTED = {
     "act_pspec": "sharded activations (act_pspec) are not ported yet: "
-                 + TENSOR_PARALLEL,
+                 + VARIANTS,
+    "decode": "the decode of a model sharded over more than one rank is "
+              "not ported yet: " + TP_FAMILIES,
 }
 MIXERS = ("attn", "mamba", "mlstm", "slstm")
 FFNS = ("mlp", "moe", "none")
@@ -141,7 +147,7 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
 
 
 def _mixer_forward(block: Block, x, cfg, *, angles, mode, cache, cache_pos,
-                   attn_impl):
+                   attn_impl, capacity=None):
     mixer, kind = block.mixer, block.spec.mixer
     if kind == "mamba":
         if mode == "decode":
@@ -159,27 +165,18 @@ def _mixer_forward(block: Block, x, cfg, *, angles, mode, cache, cache_pos,
             return xlstm_mod.slstm_decode_step(mixer, x, cfg.xlstm, cache)
         return xlstm_mod.slstm_forward(mixer, x, cfg.xlstm,
                                        return_state=(mode == "prefill"))
-    if mode == "decode":
-        return attn_mod.attention_forward(
-            mixer, x, cfg, angles=angles, cache=cache, cache_pos=cache_pos,
-            attn_impl=attn_impl)
-    out, _ = attn_mod.attention_forward(
-        mixer, x, cfg, angles=angles, cache=None, attn_impl=attn_impl)
-    new_cache = None
-    if mode == "prefill":
-        new_cache = attn_mod.prefill_kv(
-            mixer, x, cfg, angles=angles,
-            capacity=cache.k.shape[1] if cache is not None else x.shape[1])
-    return out, new_cache
+    return attn_mod.attention_forward(
+        mixer, x, cfg, angles=angles, cache=cache, cache_pos=cache_pos,
+        attn_impl=attn_impl, capacity=capacity if mode == "prefill" else None)
 
 
 def block_forward(block: Block, x, cfg, *, angles, mode, cache, cache_pos,
-                  attn_impl):
+                  attn_impl, capacity=None):
     """Pre-norm residual block. Returns (x, new_cache, moe_aux)."""
     h = layers.rmsnorm(block.mixer_norm, x, cfg.norm_eps)
     out, new_cache = _mixer_forward(
         block, h, cfg, angles=angles, mode=mode, cache=cache,
-        cache_pos=cache_pos, attn_impl=attn_impl)
+        cache_pos=cache_pos, attn_impl=attn_impl, capacity=capacity)
     x = x + out
     aux = None
     if block.spec.ffn == "mlp":
@@ -236,20 +233,27 @@ def stack_forward(
     remat: bool = False,
     attn_impl: str = "reference",
     act_pspec=None,
+    capacity: int | None = None,
 ) -> tuple[torch.Tensor, list | None, torch.Tensor]:
     """Run the blocks in order.  Returns (x, new_cache_or_None, moe_aux),
     ``moe_aux`` the float32 sum of the MoE layers' load-balance losses in
     layer order (0 without MoE layers).
 
-    ``prefill`` takes the attention capacities from ``cache`` and returns a
-    new cache in the reference's layout; ``decode`` writes into ``cache``
-    in place (attention keys and values at ``cache_pos``, the Mamba SSM
+    ``prefill`` returns a new cache in the reference's layout, its
+    attention caches of ``capacity`` (a sliding-window layer's of the
+    window where that is less); ``decode`` writes into ``cache`` in
+    place (attention keys and values at ``cache_pos``, the Mamba SSM
     state by the scan itself, the Mamba conv tail and the xLSTM states
     replaced) and returns it.  ``remat`` (the full-sequence forward only)
     checkpoints each group of P blocks.
     """
     if act_pspec is not None:
         raise NotImplementedError(NOT_PORTED["act_pspec"])
+    if mode == "prefill" and capacity is None:
+        raise ValueError("a prefill needs the cache capacity")
+    placed = parallel.placement(stack[0].mixer_norm)
+    if mode == "decode" and placed is not None and placed.mesh.size > 1:
+        raise NotImplementedError(NOT_PORTED["decode"])
     if remat:
         if mode != "forward":
             raise ValueError("remat applies to the full-sequence forward, "
@@ -266,7 +270,7 @@ def stack_forward(
             c_in = type(cache[i])(*(a[g] for a in cache[i]))
         x, c_out, layer_aux = block_forward(
             block, x, cfg, angles=angles, mode=mode, cache=c_in,
-            cache_pos=cache_pos, attn_impl=attn_impl)
+            cache_pos=cache_pos, attn_impl=attn_impl, capacity=capacity)
         if layer_aux is not None:
             aux = aux + layer_aux
         if mode == "prefill":

@@ -17,6 +17,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.launch import collectives as coll
+from repro_torch.models.parallel import spec_axes
+
 Tree = dict[str, torch.Tensor]
 
 
@@ -30,12 +33,31 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32)
 
 
-def global_norm(grads: Tree) -> torch.Tensor:
+def global_norm(grads: Tree, specs=None, mesh=None) -> torch.Tensor:
     """sqrt of the float32 sum of squares over every leaf, the leaves added
-    in order (the reference's ``sum`` over ``jax.tree.leaves``)."""
+    in order (the reference's ``sum`` over ``jax.tree.leaves``).
+
+    Over a mesh, ``grads`` are a rank's blocks and ``specs`` their
+    ``PartitionSpec``s by name: each leaf's sum of squares is summed over
+    exactly the axes it is sharded on (a replicated leaf counted once),
+    the leaves sharded alike packed in one all-reduce an axis, before
+    the leaves are added in order."""
+    sq = [torch.sum(torch.square(_f32(g))) for g in grads.values()]
+    if specs is not None:
+        groups: dict[tuple[str, ...], list[int]] = {}
+        for i, name in enumerate(grads):
+            axes = spec_axes(specs[name])
+            if axes:
+                groups.setdefault(axes, []).append(i)
+        for axes, idx in groups.items():
+            packed = torch.stack([sq[i] for i in idx])
+            for a in axes:
+                packed = coll.all_reduce_raw(packed, mesh, a)
+            for j, i in enumerate(idx):
+                sq[i] = packed[j]
     gsq = 0
-    for g in grads.values():
-        gsq = gsq + torch.sum(torch.square(_f32(g)))
+    for s in sq:
+        gsq = gsq + s
     return torch.sqrt(gsq)
 
 
@@ -85,21 +107,22 @@ class AdamW:
                             device=step.device)
 
     @torch.no_grad()
-    def update(self, grads: Tree, state: AdamWState, params: Tree
-               ) -> tuple[Tree, AdamWState]:
+    def update(self, grads: Tree, state: AdamWState, params: Tree, *,
+               gnorm: torch.Tensor) -> tuple[Tree, AdamWState]:
         """One step from ``grads`` (a missing or None leaf counts as zeros,
         as ``jax.grad`` gives an unused parameter): global-norm clipping,
         moments updated in float32 and stored in ``moment_dtype``, bias
         corrections from the float32 step, weight decay on
         :func:`matrix_leaves` only, each new parameter cast back to its
         dtype.  Writes ``params``, ``state.mu`` and ``state.nu`` in
-        place."""
+        place.  ``gnorm`` is the clipping norm, :func:`global_norm` of
+        the whole gradients: a sharded step's over the ranks, which only
+        the caller knows."""
         step = state.step + 1
         grads = {k: (grads.get(k) if grads.get(k) is not None
                      else torch.zeros_like(p)) for k, p in params.items()}
         scale = None
         if self.grad_clip_norm > 0:
-            gnorm = global_norm(grads)
             scale = torch.clamp(self.grad_clip_norm / (gnorm + 1e-9),
                                 max=1.0)
         b1, b2 = self.b1, self.b2

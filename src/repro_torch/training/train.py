@@ -19,11 +19,13 @@ from typing import Any, Callable, Iterator, NamedTuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from repro_torch.launch.mesh import (TENSOR_PARALLEL, TRAIN_ACROSS_RANKS,
+from repro_torch.launch import collectives as coll
+from repro_torch.launch.mesh import (MODEL_AXIS, TP_FAMILIES,
+                                     TRAIN_ACROSS_RANKS, VARIANTS,
+                                     data_axes, data_axis_size,
                                      get_active_mesh)
-from repro_torch.models import layers
+from repro_torch.models import layers, parallel
 from repro_torch.models.model import Model
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.optimizer import (AdamW, AdamWState, global_norm,
@@ -45,7 +47,7 @@ class StepMetrics(NamedTuple):
 
 
 ACT_PSPEC = ("sharded activations (act_pspec) are not ported yet: "
-             + TENSOR_PARALLEL)
+             + VARIANTS)
 
 
 def _bf16_casts(params: Tree) -> Tree:
@@ -55,6 +57,56 @@ def _bf16_casts(params: Tree) -> Tree:
     return {k: p.to(torch.bfloat16)
             if p.dtype == torch.float32 and k in cast else p
             for k, p in params.items()}
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """Megatron's vocab-parallel cross entropy: the negated mean
+    log-probability of ``labels`` under float32 ``logits``, ``log Σ
+    exp(x - max) - (x_label - max)``.  Where the logits are the rank's
+    ``block`` (first entry, entries) of the vocabulary, the max, the
+    label's logit and the sum of exponentials are all-reduced over
+    "model".  One float32 copy of the logits is made and becomes the
+    softmax in place, the one tensor the backward keeps: the gradient is
+    (softmax - one-hot) over the count of labels, written into it."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, block, mesh):
+        x = logits.to(torch.float32, copy=True)
+        idx = labels[..., None].long()
+        hot = torch.ones(idx.shape, dtype=torch.float32, device=x.device)
+        if block is not None:
+            lo, rows = block
+            idx = idx - lo
+            inside = (idx >= 0) & (idx < rows)
+            idx = torch.where(inside, idx, 0)
+            hot = hot.masked_fill_(~inside, 0)
+        mx = torch.amax(x, dim=-1, keepdim=True)
+        picked = torch.gather(x, -1, idx) * hot
+        if block is not None:
+            mx = coll.all_reduce_raw(mx, mesh, MODEL_AXIS, op="max")
+            picked = coll.all_reduce_raw(picked, mesh, MODEL_AXIS)
+        total = torch.sum(x.sub_(mx).exp_(), dim=-1, keepdim=True)
+        if block is not None:
+            total = coll.all_reduce_raw(total, mesh, MODEL_AXIS)
+        ctx.save_for_backward(x.div_(total), idx, hot)
+        ctx.dtype = logits.dtype
+        return torch.mean(torch.log(total) - (picked - mx))
+
+    @staticmethod
+    def backward(ctx, g):
+        grad, idx, hot = ctx.saved_tensors
+        grad.scatter_add_(-1, idx, -hot).mul_(g / idx.numel())
+        return grad.to(ctx.dtype), None, None, None
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  model: Model) -> torch.Tensor:
+    """:class:`_CrossEntropy` of ``model``'s logits: over the rank's block
+    of the vocabulary where the lm head is column parallel, else over the
+    whole vocabulary with the same ops and no collective."""
+    block = model.vocab_block()
+    mesh = None if block is None else parallel.of(model).mesh
+    return _CrossEntropy.apply(logits, labels, block, mesh)
 
 
 def make_loss_fn(model: Model, *, aux_weight: float = 0.01,
@@ -77,8 +129,7 @@ def make_loss_fn(model: Model, *, aux_weight: float = 0.01,
             out = model.forward(tokens, remat=remat,
                                 compute_dtype=compute_dtype,
                                 attn_impl=attn_impl)
-        logp = F.log_softmax(out.logits.to(torch.float32), dim=-1)
-        ce = -torch.mean(torch.gather(logp, -1, labels[..., None].long()))
+        ce = cross_entropy(out.logits, labels, model)
         loss = ce + aux_weight * out.moe_aux
         return loss, (ce, out.moe_aux)
 
@@ -95,33 +146,76 @@ def make_train_step(model: Model, optimizer: AdamW, *,
     """``train_step(state, tokens, labels) -> (state, metrics)``: the loss
     and its gradients with respect to ``state.params`` (a parameter the
     loss does not reach gets zeros, as from ``jax.grad``), their global
-    norm, then AdamW, which writes the parameters and moments in place."""
+    norm, then AdamW, which writes the parameters and moments in place.
+
+    On a sharded model (``models/parallel.py``) ``tokens`` and ``labels``
+    are the rank's rows and the step runs over the model's mesh (an
+    active mesh must be that mesh); the metrics are the global batch's.
+    An unsharded model under an active mesh of several ranks raises."""
     loss_fn = make_loss_fn(model, aux_weight=aux_weight, remat=remat,
                            compute_dtype=compute_dtype, attn_impl=attn_impl,
                            act_pspec=act_pspec,
                            cast_params_bf16=cast_params_bf16)
 
+    par = parallel.of(model)
+
     def train_step(state: TrainState, tokens: torch.Tensor,
                    labels: torch.Tensor) -> tuple[TrainState, StepMetrics]:
-        mesh = get_active_mesh()
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                "a train step over several ranks needs the gradient "
-                f"all-reduce of the replicated leaves: {TRAIN_ACROSS_RANKS}")
+        active = get_active_mesh()
+        if par is None and active is not None and active.size > 1:
+            _refuse_unsharded(model)
+        if par is not None and active is not None and \
+                active.shape != par.mesh.shape:
+            raise ValueError(f"the model is sharded over {par.mesh.shape}, "
+                             f"the active mesh is {active.shape}")
+        mesh = None if par is None else par.mesh
+        # each rank's loss over the data ranks' count: the sum over the
+        # data axes is then the gradient of the global mean
+        n_data = 1 if mesh is None else data_axis_size(mesh)
         names = list(state.params)
         with torch.enable_grad():
             loss, (ce, aux) = loss_fn(state.params, tokens, labels)
             found = torch.autograd.grad(
-                loss, [state.params[k] for k in names], allow_unused=True)
+                loss / n_data, [state.params[k] for k in names],
+                allow_unused=True)
         grads = {k: torch.zeros_like(state.params[k]) if g is None else g
                  for k, g in zip(names, found)}
         del found
-        gnorm = global_norm(grads)
-        params, opt = optimizer.update(grads, state.opt, state.params)
-        return (TrainState(params, opt),
-                StepMetrics(loss.detach(), ce.detach(), aux.detach(), gnorm))
+        metrics = torch.stack([loss.detach(), ce.detach(), aux.detach()])
+        if mesh is None:
+            gnorm = global_norm(grads)
+        else:
+            metrics = metrics / n_data
+            for a in data_axes(mesh):
+                metrics = coll.all_reduce_raw(metrics, mesh, a)
+            for k, g in grads.items():
+                if not set(data_axes(mesh)) & set(
+                        parallel.spec_axes(par.specs[k])):
+                    for a in data_axes(mesh):
+                        coll.all_reduce_(g, mesh, a)
+            gnorm = global_norm(grads, par.specs, mesh)
+        params, opt = optimizer.update(grads, state.opt, state.params,
+                                       gnorm=gnorm)
+        loss, ce, aux = metrics.unbind()
+        return (TrainState(params, opt), StepMetrics(loss, ce, aux, gnorm))
 
     return train_step
+
+
+def _refuse_unsharded(model: Model) -> None:
+    kinds = {part for spec in model.cfg.layer_pattern
+             for part in (spec.mixer, spec.ffn)}
+    if "moe" in kinds:
+        raise NotImplementedError(
+            "a train step over several ranks with MoE blocks (the a2a "
+            "layer's loss alike on every rank against the data-parallel "
+            f"mean): {TRAIN_ACROSS_RANKS}")
+    if kinds & {"mamba", "mlstm", "slstm"}:
+        raise NotImplementedError(
+            f"a train step over several ranks of {model.cfg.name}: "
+            f"{TP_FAMILIES}")
+    raise ValueError("a train step over several ranks takes a model sharded "
+                     "by models.parallel.parallelize")
 
 
 @dataclasses.dataclass

@@ -671,8 +671,7 @@ def test_moe_and_xlstm_smoke_on_the_card_match_the_cpu(dev, no_tf32, arch):
     card.load_state_dict(cpu.state_dict())
     tok = torch.randint(0, cfg.vocab_size, (2, 42),
                         generator=torch.Generator().manual_seed(5))
-    kw = dict(cache_capacity=42, compute_dtype=torch.float32,
-              cache_dtype=torch.float32)
+    kw = dict(cache_capacity=42, compute_dtype=torch.float32)
     want, want_cache = cpu.prefill(tok[:, :40], **kw)
     got, got_cache = card.prefill(tok[:, :40].to(dev), **kw)
     torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=1e-4,
@@ -995,8 +994,7 @@ def test_jamba_smoke_on_the_card_matches_the_cpu(dev, no_tf32):
     card.load_state_dict(cpu.state_dict())
     tok = torch.randint(0, cfg.vocab_size, (2, 42),
                         generator=torch.Generator().manual_seed(5))
-    kw = dict(cache_capacity=42, compute_dtype=torch.float32,
-              cache_dtype=torch.float32)
+    kw = dict(cache_capacity=42, compute_dtype=torch.float32)
     before = ops.LAUNCHES["selective_scan"]
     want, want_cache = cpu.prefill(tok[:, :40], **kw)
     got, got_cache = card.prefill(tok[:, :40].to(dev), **kw)

@@ -151,7 +151,8 @@ SCRIPT = textwrap.dedent("""
             *(f"repro_torch.launch.{m}" for m in (
                 "specs", "roofline", "dryrun", "report", "mesh",
                 "shardings", "collectives")),
-            "repro_torch.models.moe_a2a"} <= set(names)
+            "repro_torch.models.moe_a2a",
+            "repro_torch.models.parallel"} <= set(names)
 
     from repro_torch.core.predictor import PredictorSpec
     from repro_torch.core.routing import (Condition, Intent, RoutingTable,
@@ -249,6 +250,14 @@ SCRIPT = textwrap.dedent("""
     model = Model(get_smoke_config("qwen3-8b"), device="cpu", seed=1)
     lm = model(torch.zeros((2, 8), dtype=torch.long))
     assert lm.logits.shape == (2, 8, 512) and lm.risk_score.shape == (2,)
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import parallel
+    rank = Model(get_smoke_config("qwen3-8b"), device="meta", seed=None)
+    parallel.parallelize(rank, mesh_lib.Mesh(("data", "model"), (2, 2)))
+    with coll.tally() as t:
+        lm = rank(torch.zeros((1, 8), dtype=torch.long, device="meta"))
+    assert lm.logits.shape == (1, 8, 256) and t.count_by_kind
     assert callable(serve.main)
     loaded = [m for m in sys.modules if m in ("repro", "benchmarks")
               or m.startswith(("repro.", "benchmarks."))]

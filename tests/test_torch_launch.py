@@ -41,6 +41,7 @@ from repro_torch.configs import (ARCH_IDS, SHAPES, InputShape,
                                  applicable_shapes, get_config,
                                  get_smoke_config)
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import dryrun, report, roofline, specs
 from repro_torch.models import layers
 
@@ -136,7 +137,20 @@ def test_roofline_uses_the_h100_rates_and_one_card():
     assert rep.compute_s == pytest.approx(rep.flops_per_chip / 989e12)
     assert rep.bottleneck == "memory"
     assert (rep.counted_flops, rep.counted_bytes) == (1.0, 2.0)
-    with pytest.raises(NotImplementedError, match="13f"):
+    # over two cards of one node the collective term runs over NVLink 4;
+    # without the trace's collectives there is none to give
+    two = mesh_lib.Mesh(("data", "model"), (1, 2))
+    coll = {"bytes_by_kind": {"all-reduce": 1e9, "all-gather": 5e8},
+            "count_by_kind": {"all-reduce": 3, "all-gather": 1}}
+    rep2 = roofline.analyze(bundle, {}, chips=2, param_bytes_global=1e10,
+                            cache_bytes_global=1e11, collectives=coll,
+                            mesh=two)
+    assert rep2.collective_bytes_per_chip == 2 * 1e9 + 5e8
+    assert rep2.collective_s == pytest.approx(2.5e9 / 450e9)
+    assert rep2.flops_per_chip == pytest.approx(rep.flops_per_chip / 2)
+    assert rep2.mesh_desc == "data1xmodel2" and "NVLink" in \
+        rep2.collective_note
+    with pytest.raises(ValueError, match="collectives"):
         roofline.analyze(bundle, {}, chips=2)
 
 
@@ -206,7 +220,7 @@ def test_reference_trains_float32_parameters_and_moments():
 
 
 def test_mesh_options_raise():
-    with pytest.raises(NotImplementedError, match="13f"):
+    with pytest.raises(NotImplementedError, match="13i"):
         specs.build_step("qwen3-8b", "decode_32k", act_pspec=("data",))
 
 

@@ -344,8 +344,7 @@ def test_smoke_prefill_and_decode_match_reference():
     jout, jcache = jm.prefill(params, tokens=jt[:, :t], **kw,
                               compute_dtype=jnp.float32,
                               cache_dtype=jnp.float32)
-    tout, tcache = tm.prefill(tt[:, :t], **kw, compute_dtype=torch.float32,
-                              cache_dtype=torch.float32)
+    tout, tcache = tm.prefill(tt[:, :t], **kw, compute_dtype=torch.float32)
     _close(tout.logits, jout.logits, F32)
     _close(tout.risk_score, jout.risk_score, RISK)
     assert type(tcache[0]).__name__ == "MambaState"
@@ -372,8 +371,7 @@ def test_decode_writes_the_ssm_state_once(monkeypatch):
     t = 24
     _, tt = _tokens(tm.cfg, t + 1, seed=7)
     _, cache = tm.prefill(tt[:, :t], cache_capacity=t + 1,
-                          compute_dtype=torch.float32,
-                          cache_dtype=torch.float32)
+                          compute_dtype=torch.float32)
     ssm = [c.ssm for c in cache if type(c).__name__ == "MambaState"]
     n_mamba = sum(s.mixer == "mamba" for s in tm.cfg.layer_pattern)
     assert len(ssm) == n_mamba >= 1
@@ -399,8 +397,7 @@ def test_smoke_decode_matches_forward():
     _, tt = _tokens(tm.cfg, t + steps, seed=7)
     full = tm(tt, compute_dtype=torch.float32)
     _, cache = tm.prefill(tt[:, :t], cache_capacity=t + steps,
-                          compute_dtype=torch.float32,
-                          cache_dtype=torch.float32)
+                          compute_dtype=torch.float32)
     for s in range(steps):
         dec = tm.decode_step(cache, tt[:, t + s:t + s + 1], pos=t + s,
                              compute_dtype=torch.float32)

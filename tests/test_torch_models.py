@@ -103,8 +103,7 @@ def test_prefill_and_decode_match_reference(arch):
     kw = dict(cache_capacity=T + steps)
     jout, jcache = jm.prefill(params, **jpre, **kw, compute_dtype=jnp.float32,
                               cache_dtype=jnp.float32)
-    tout, tcache = tm.prefill(**tpre, **kw, compute_dtype=torch.float32,
-                              cache_dtype=torch.float32)
+    tout, tcache = tm.prefill(**tpre, **kw, compute_dtype=torch.float32)
     _close(tout.logits, jout.logits, LOGITS)
     for jc, tc in zip(jcache, tcache):
         assert tuple(tc.k.shape) == jc.k.shape
@@ -135,8 +134,7 @@ def test_sliding_window_decode_matches_reference_and_forward():
     kw = dict(cache_capacity=total)
     _, jcache = jm.prefill(params, tokens=jtok[:, :-1], **kw,
                            compute_dtype=jnp.float32, cache_dtype=jnp.float32)
-    _, tcache = tm.prefill(ttok[:, :-1], **kw, compute_dtype=torch.float32,
-                           cache_dtype=torch.float32)
+    _, tcache = tm.prefill(ttok[:, :-1], **kw, compute_dtype=torch.float32)
     assert tcache[0].k.shape[2] == 8
     _close(tcache[0].k, jcache[0].k, LOGITS)
     jdec = jm.decode_step(params, jcache, tokens=jtok[:, -1:], pos=total - 1,
@@ -170,7 +168,7 @@ def _unported(case):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("ep_sharding", "item 13f, the tensor-parallel model")])
+    ("ep_sharding", "item 13h, tensor parallelism for the MoE einsum")])
 def test_unported_families_raise(case, item):
     for arch in ("jamba-1.5-large-398b", "olmoe-1b-7b"):
         get_config(arch)  # the registry builds every config
@@ -205,7 +203,7 @@ def test_mamba_families_build_and_serve(case):
     assert bool(torch.isfinite(res.prefill.logits.float()).all())
 
 
-@pytest.mark.parametrize("option,item", [("act_pspec", "13f")])
+@pytest.mark.parametrize("option,item", [("act_pspec", "13i")])
 def test_unported_options_raise(option, item):
     tm = Model(get_smoke_config("qwen3-8b"), device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.long)

@@ -198,7 +198,7 @@ def test_tied_router_probabilities_keep_top_k_order(dtype):
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"ep_sharding_constraint": True}, "item 13f, the tensor-parallel")])
+    ({"ep_sharding_constraint": True}, "item 13h, tensor parallelism")])
 def test_mesh_options_raise_in_the_layer(option, item):
     _, _, moe, tmo = _layer("olmoe-1b-7b")
     with pytest.raises(NotImplementedError, match=item):
@@ -392,8 +392,7 @@ def test_prefill_and_decode_match_reference(arch):
     jout, jcache = jm.prefill(params, tokens=jt[:, :t], **kw,
                               compute_dtype=jnp.float32,
                               cache_dtype=jnp.float32)
-    tout, tcache = tm.prefill(tt[:, :t], **kw, compute_dtype=torch.float32,
-                              cache_dtype=torch.float32)
+    tout, tcache = tm.prefill(tt[:, :t], **kw, compute_dtype=torch.float32)
     _close(tout.logits, jout.logits, F32)
     _close(tout.moe_aux, jout.moe_aux, RISK)
     for s in range(steps):
@@ -416,8 +415,7 @@ def test_decode_matches_forward(arch):
     _, tt = _tokens(tm.cfg, t + steps, seed=7)
     full = tm(tt, compute_dtype=torch.float32)
     _, cache = tm.prefill(tt[:, :t], cache_capacity=t + steps,
-                          compute_dtype=torch.float32,
-                          cache_dtype=torch.float32)
+                          compute_dtype=torch.float32)
     for s in range(steps):
         dec = tm.decode_step(cache, tt[:, t + s:t + s + 1], pos=t + s,
                              compute_dtype=torch.float32)

@@ -364,8 +364,9 @@ def test_a2a_without_an_active_mesh_raises():
 
 
 def test_train_step_over_several_ranks_raises_naming_13g():
-    """The a2a layer takes gradients (above); a train step across ranks,
-    with the all-reduce of the replicated leaves' gradients, is open."""
+    """The a2a layer takes gradients (above); a train step across ranks
+    with MoE blocks (the a2a layer's loss, alike on every rank, against
+    the data-parallel mean) is open."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import Model
     from repro_torch.training.optimizer import AdamW
@@ -381,7 +382,7 @@ def test_train_step_over_several_ranks_raises_naming_13g():
     tokens = torch.zeros((2, 8), dtype=torch.long)
     with mesh_lib.set_mesh(mesh_lib.Mesh(("data", "model"), (2, 2))), \
             pytest.raises(NotImplementedError,
-                          match="ROADMAP Queue 1 item 13g, a train step"):
+                          match="ROADMAP Queue 1 item 13g's MoE half"):
         step(TrainState(params, opt.init(params)), tokens, tokens)
 
 

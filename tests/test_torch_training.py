@@ -38,6 +38,7 @@ from repro_torch.models.model import Model
 from repro_torch.training import (AdamW, Trainer, cosine_schedule,
                                   make_train_step)
 from repro_torch.training.data import TokenStream
+from repro_torch.training.optimizer import global_norm
 from repro_torch.training.train import make_loss_fn
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -72,8 +73,8 @@ def test_adamw_matches_reference(clip, moments):
     for step in range(3):
         g = {k: v * 3.0 for k, v in _adam_tree(10 + step).items()}
         jp, js = jo.update(jax.tree.map(jnp.asarray, g), js, jp)
-        tp, ts = to.update({k: torch.tensor(v) for k, v in g.items()}, ts,
-                           tp)
+        tg = {k: torch.tensor(v) for k, v in g.items()}
+        tp, ts = to.update(tg, ts, tp, gnorm=global_norm(tg))
         assert int(ts.step) == int(js.step) == step + 1
         for k in tp:
             np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
@@ -99,7 +100,8 @@ def test_weight_decay_leaves_vectors_alone():
     """A zero gradient: only the matrix decays."""
     opt = AdamW(learning_rate=0.1, weight_decay=0.5)
     params = {"m": torch.ones(2, 2), "v": torch.ones(2)}
-    params, _ = opt.update({}, opt.init(params), params)
+    params, _ = opt.update({}, opt.init(params), params,
+                           gnorm=torch.zeros(()))
     assert torch.equal(params["v"], torch.ones(2))
     torch.testing.assert_close(params["m"], torch.full((2, 2), 0.95))
 
@@ -133,7 +135,7 @@ def test_fit_history_matches_reference():
 
 def test_act_pspec_raises_naming_13f():
     model = Model(get_smoke_config("qwen3-8b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13f"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13i"):
         make_train_step(model, AdamW(), act_pspec=object())
 
 

@@ -236,8 +236,7 @@ def test_prefill_and_decode_match_reference(pair):
     jout, jcache = jm.prefill(params, tokens=jt[:, :t], **kw,
                               compute_dtype=jnp.float32,
                               cache_dtype=jnp.float32)
-    tout, tcache = tm.prefill(tt[:, :t], **kw, compute_dtype=torch.float32,
-                              cache_dtype=torch.float32)
+    tout, tcache = tm.prefill(tt[:, :t], **kw, compute_dtype=torch.float32)
     _close(tout.logits, jout.logits, F32)
     for jc, tc in zip(jcache, tcache):
         _states_close(tc, jc, F32)
@@ -271,8 +270,7 @@ def test_decode_matches_forward(pair):
     _, tt = _tokens(t + steps, seed=7)
     full = tm(tt, compute_dtype=torch.float32)
     _, cache = tm.prefill(tt[:, :t], cache_capacity=t + steps,
-                          compute_dtype=torch.float32,
-                          cache_dtype=torch.float32)
+                          compute_dtype=torch.float32)
     for s in range(steps):
         dec = tm.decode_step(cache, tt[:, t + s:t + s + 1], pos=t + s,
                              compute_dtype=torch.float32)
