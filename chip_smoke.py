@@ -247,6 +247,19 @@ Phases, each printing one JSON line:
              sharded state from the same seed, held to each other, and 11
              more sharded steps: ms a step, tokens/s, mfu, peak, the
              step's all-reduces against the schedule's.
+17c. sharded_decode_moe — the decode of a sharded model and the placed
+             einsum MoE, NCCL as a world of one rank over the (1, 1) mesh:
+             (a) qwen3-8b's 16 decode steps after a 4 x 2,048 prefill and
+             (b) its window-8,192 config after a 9,000-token prompt (the
+             ring wrapped), each against the whole model on the same
+             weights (bitwise, else the 2x bf16 rule) and against a
+             softmax decode written here apart from the port's
+             (``_softmax_decode``: 4 steps under the 2x rule, layer 0 in
+             float32 within 2e-5 with its cache writes bitwise); (c)
+             olmoe-1b-7b's prefill and 16 steps, routes equal, logits
+             within 5e-2; every step's collectives against the schedule's;
+             (d) olmoe-1b-7b cut to 4 layers trained 12 steps, step 1
+             against the no-mesh step, ms a step, tokens/s, mfu, peak.
 18. roofline — every path phases 11, 12 and 16 timed (qwen3-8b, olmoe-1b-7b,
              xlstm-1.3b and jamba's five layers, prefill and decode; jamba's
              one-layer train step) read against the one-card roofline
@@ -4383,7 +4396,8 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
                   engine: dict, tiering: dict, sharding: dict,
                   main_bench: dict, paper_bench: dict, attention: dict,
                   llm: dict, zoo: dict, scores: dict, decode: dict,
-                  bench: dict, train: dict, ep: dict, tp: dict) -> None:
+                  bench: dict, train: dict, ep: dict, tp: dict,
+                  sdm: dict) -> None:
     from repro_torch.benchmarks.timing import banked_bound, device_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels import score_pipeline as sp
@@ -4457,6 +4471,11 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
         # (tensor_parallel)
         "tensor_parallel_launches": tp["prefill"]["runs"][
             "tensor_parallel"]["launches"]["flash_attention_wgmma"],
+        # the prefills before the sharded decodes and the placed MoE's
+        # (sharded_decode_moe), each counted on its own
+        "sharded_decode_moe_launches": {
+            part: sdm[part]["launches"]["flash_attention_wgmma"]
+            for part in ("dense", "ring", "moe")},
         "olmoe_shape": zoo["olmoe_flash"],
     }, {
         "name": "flash_attention", "route": "cuda",
@@ -4889,6 +4908,650 @@ def phase_tensor_parallel(dev, smi: str) -> dict:
     return result
 
 
+# ------------------------------------------------- sharded decode and MoE
+SDM_ARCH = "qwen3-8b"           # (a) and (b): the sharded decode
+SDM_MOE_ARCH = "olmoe-1b-7b"    # (c) and (d): the einsum MoE placed
+SDM_STEPS = 16
+SDM_RING_PROMPT = 9_000          # (b): past the 8,192-token window
+SDM_MOE_TOL = 5e-2               # the port's bf16 MoE rule (EP_PREFILL_TOL)
+SDM_TRAIN_LAYERS = 4
+SDM_TRAIN_REDUCED = {"n_layers": "16 -> 4 (about 6.9 B float32 parameters "
+                                 "need ~110 GB of state)"}
+SDM_BACKEND = "nccl"    # the card's; nothing falls back to gloo
+SDM_SOFTMAX_STEPS = 4   # (a), (b): steps held to the softmax decode
+SDM_LAYER_TOL = 2e-5    # float32, of the largest output (the f32 kernel rule)
+
+
+def _sdm_views(cfg, plain, mesh):
+    """A bf16 model of ``cfg`` on ``plain``'s weights (views, no copy),
+    sharded over ``mesh`` (at one rank every shard the whole tensor)."""
+    import torch
+    from repro_torch.models import Model, parallel
+
+    model = Model(cfg, device="meta", dtype=torch.bfloat16, seed=None)
+    model.load_state_dict(plain.state_dict(), assign=True)
+    if mesh is not None:
+        parallel.parallelize(model, mesh)
+        check(all(a.data_ptr() == b.data_ptr() for a, b in
+                  zip(model.parameters(), plain.parameters())),
+              "at one rank every shard is a view of the whole weight")
+    return model
+
+
+def _sdm_decode_schedule(cfg, batch: int) -> dict:
+    """The collectives of one bf16 decode step of a placed model at one
+    rank of "model", from the config: the embedding's all-reduce; a
+    layer's gather of the token's q, k and v, the combine's two float32
+    all-reduces (the largest logit, then the weighted values beside the
+    sum of exponentials), wo's all-reduce and the FFN's (a MoE's partial
+    output in float32, its shared expert's beside it); no gather of
+    expert counts (one data rank)."""
+    d, hd, hq, hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    ar_n, ar_b = 1, batch * d * 2
+    ag_n = ag_b = 0
+    for spec in cfg.layer_pattern * cfg.n_groups:
+        ag_n += 1
+        ag_b += batch * (hq + 2 * hkv) * hd * 2
+        ar_n += 4
+        ar_b += batch * hq * 4 + batch * hq * (hd + 1) * 4 + batch * d * 2
+        if spec.ffn == "moe":
+            ar_b += batch * d * 4
+            if cfg.moe.shared_expert:
+                ar_n, ar_b = ar_n + 1, ar_b + batch * d * 2
+        else:
+            ar_b += batch * d * 2
+    return {"bytes_by_kind": {"all-reduce": float(ar_b),
+                              "all-gather": float(ag_b)},
+            "count_by_kind": {"all-reduce": float(ar_n),
+                              "all-gather": float(ag_n)}}
+
+
+def _sdm_chain(model, prompt, capacity: int, tokens=None, *,
+               dtype: str = "bfloat16", routes: list | None = None) -> dict:
+    """``model``'s prefill of ``prompt`` (the flash kernel, last logits),
+    then one decode step a token: ``tokens`` (B, steps), or greedy from
+    its own logits where None.  Each step's logits, risk, host ms (ended
+    by a device sync) and collectives; the tokens fed; with ``routes``,
+    every MoE layer's expert ids in call order."""
+    import torch
+    from repro_torch.launch import collectives as coll
+    from repro_torch.models import moe as moe_mod
+
+    route = moe_mod.route
+
+    def spy(*a, **k):
+        out = route(*a, **k)
+        routes.append(out[2].clone())
+        return out
+
+    if routes is not None:
+        moe_mod.route = spy
+    try:
+        kw = dict(attn_impl="kernel", compute_dtype=getattr(torch, dtype))
+        res = {"logits": [], "risk": [], "step_ms": [], "collectives": []}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), coll.tally() as tally:
+            pre, cache = model.prefill(prompt, cache_capacity=capacity,
+                                       logits_mode="last", **kw)
+        torch.cuda.synchronize()
+        res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        res["prefill_collectives"] = _ep_collectives(tally)
+        greedy = tokens is None
+        fed = []
+        nxt = torch.argmax(pre.logits[:, -1], dim=-1, keepdim=True)
+        steps = SDM_STEPS if greedy else tokens.shape[1]
+        for s in range(steps):
+            tok = nxt if greedy else tokens[:, s:s + 1]
+            fed.append(tok)
+            t0 = time.perf_counter()
+            with coll.tally() as tally:
+                out = model.decode_step(cache, tok, pos=prompt.shape[1] + s,
+                                        cache_capacity=capacity, **kw)
+            torch.cuda.synchronize()
+            res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            res["logits"].append(out.logits)
+            res["risk"].append(out.risk_score)
+            res["collectives"].append(_ep_collectives(tally))
+            nxt = torch.argmax(out.logits, dim=-1, keepdim=True)
+        res["tokens"] = torch.cat(fed, dim=1)
+        del cache
+        return res
+    finally:
+        moe_mod.route = route
+
+
+def _sdm_profile(model, prompt, capacity: int, tokens) -> dict:
+    """Two decode steps of ``model`` after its prefill under
+    ``torch.profiler``: host ms a step (the profiler's cost in it), the
+    device ms by kind (NCCL's kernels apart) and the device's busy share,
+    launches a step, and the host's costliest ops by their own time; then
+    one more step under ``torch.cuda.set_sync_debug_mode``, counting the
+    calls that synchronise with the device."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t = prompt.shape[1]
+    kw = dict(attn_impl="kernel", cache_capacity=capacity)
+    _, cache = model.prefill(prompt, cache_capacity=capacity,
+                             attn_impl="kernel", logits_mode="last")
+    model.decode_step(cache, tokens[:, :1], pos=t, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in (1, 2):
+            model.decode_step(cache, tokens[:, i:i + 1], pos=t + i, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 2 * 1e3
+    # the synchronising calls PyTorch sees in one more step
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model.decode_step(cache, tokens[:, 3:4], pos=t + 3, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    del cache
+    split = _device_split(prof, {"nccl": ("nccl",)})
+    events = prof.key_averages()
+    host = sorted(((e.self_cpu_time_total / 2e3, e.key, e.count / 2)
+                   for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  reverse=True)[:10]
+    if split is not None:
+        split["device_ms"] = {k: v / 2 for k, v in
+                              split["device_ms"].items()}
+        split["device_ms_total"] /= 2
+    return {"wall_ms": wall, "split": split,
+            "device_busy_share": (split["device_ms_total"] / wall
+                                  if split else None),
+            "cuda_launches": sum(e.count for e in events if e.key in (
+                "cudaLaunchKernel", "cudaLaunchKernelExC")) / 2,
+            "host_top": [{"op": k[:60], "self_ms": ms, "calls": n}
+                         for ms, k, n in host],
+            "syncs_a_step": len(caught),
+            "sync_warnings": sorted({str(w.message)[:120]
+                                     for w in caught})[:5]}
+
+
+def _softmax_decode(params, x, cfg, *, angles, cache, cache_pos, capacity):
+    """The reference's decode (``src/repro/models/attention.py``'s decode
+    branch), written here apart from the port's ``_decode``: the write at
+    ``cache_pos`` (modulo the window on the ring, clamped as
+    ``dynamic_update_slice`` clamps), then ``_gqa_scores_chunked`` over
+    the whole cache under its ``kv_valid_len``.  A whole model only."""
+    from repro_torch.models import layers
+    from repro_torch.models.attention import KVCache, _gqa_scores_chunked
+
+    b, t, _ = x.shape
+    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q = layers.linear(params.wq, x).reshape(b, t, hq, hd)
+    k = layers.linear(params.wk, x).reshape(b, t, hkv, hd)
+    v = layers.linear(params.wv, x).reshape(b, t, hkv, hd)
+    if cfg.qk_norm:
+        q = layers.rmsnorm_headwise(params.q_norm, q, cfg.norm_eps)
+        k = layers.rmsnorm_headwise(params.k_norm, k, cfg.norm_eps)
+    if angles is not None:
+        q = layers.apply_rope(q, angles)
+        k = layers.apply_rope(k, angles)
+    size = cache.k.shape[1]
+    ring = 0 < cfg.sliding_window == size
+    at = min(cache_pos % size if ring else cache_pos, size - t)
+    cache.k[:, at:at + t] = k.to(cache.k.dtype)
+    cache.v[:, at:at + t] = v.to(cache.v.dtype)
+    valid = min(cache_pos + 1, size) if ring else cache_pos + 1
+    out = _gqa_scores_chunked(q, cache.k, cache.v, causal=False,
+                              q_offset=cache_pos, sliding_window=0,
+                              kv_valid_len=valid)
+    return (layers.linear(params.wo, out.reshape(b, t, hq * hd)),
+            KVCache(cache.k, cache.v))
+
+
+def _softmax_chains(whole, prompt, capacity: int, tokens) -> dict:
+    """``whole``'s chain with every attention layer's decode swapped for
+    :func:`_softmax_decode`, in bf16 and in float32."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+
+    decode = attn_mod._decode
+    attn_mod._decode = _softmax_decode
+    try:
+        with torch.no_grad():
+            return {dtype: _sdm_chain(whole, prompt, capacity, tokens,
+                                      dtype=dtype)
+                    for dtype in ("bfloat16", "float32")}
+    finally:
+        attn_mod._decode = decode
+
+
+def _softmax_rule(name: str, got: dict, soft: dict) -> dict:
+    """The sharded chain's first steps against the softmax decode's
+    (PERF.md §2's 2x rule: each step's error against the float32 softmax
+    chain at most twice the bf16 softmax chain's; the risk's at most
+    max(2x, 1e-3)), and their plain distance."""
+    ref, bf = soft["float32"], soft["bfloat16"]
+    n = len(ref["logits"])
+
+    def errs(key, chain):
+        return [_max_diff(a, r) for a, r in zip(chain[key][:n], ref[key])]
+
+    out = {"steps": n,
+           "logits": {"sharded": errs("logits", got),
+                      "softmax_bf16": errs("logits", bf)},
+           "risk": {"sharded": errs("risk", got),
+                    "softmax_bf16": errs("risk", bf)},
+           "sharded_vs_softmax_bf16": [
+               _max_diff(a, b) for a, b in zip(got["logits"][:n],
+                                               bf["logits"])]}
+    check(all(a <= 2 * b for a, b in zip(out["logits"]["sharded"],
+                                          out["logits"]["softmax_bf16"]))
+          and all(a <= max(2 * b, 1e-3) for a, b in zip(
+              out["risk"]["sharded"], out["risk"]["softmax_bf16"])),
+          f"{name}: the sharded decode outside the 2x bf16 rule against "
+          f"the softmax decode: {out}")
+    return out
+
+
+def _sdm_layer_check(name: str, model, prompt, capacity: int) -> dict:
+    """Layer 0's attention of the placed ``model`` after its prefill of
+    ``prompt``, at the SDM_SOFTMAX_STEPS positions that follow it, on a
+    random float32 token: the port's decode against
+    :func:`_softmax_decode` on copies of one cache (advanced step by
+    step), the written caches bitwise and the outputs within
+    SDM_LAYER_TOL of the largest, so float32's op order is all that
+    differs."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+
+    cfg = model.cfg
+    b, t = prompt.shape
+    g = torch.Generator(device=prompt.device).manual_seed(0)
+    mixer = model.stack[0].mixer
+    errs, same = [], []
+    with torch.no_grad():
+        _, cache = model.prefill(prompt, cache_capacity=capacity,
+                                 attn_impl="kernel", logits_mode="last")
+        layer = attn_mod.KVCache(*(a[0].clone() for a in cache[0]))
+        del cache
+        for pos in range(t, t + SDM_SOFTMAX_STEPS):
+            x = torch.randn((b, 1, cfg.d_model), generator=g,
+                            device=prompt.device)
+            angles = model._angles(b, 1, pos, None)
+            mine = attn_mod.KVCache(layer.k.clone(), layer.v.clone())
+            want_c = attn_mod.KVCache(layer.k.clone(), layer.v.clone())
+            got, _ = attn_mod.attention_forward(
+                mixer, x, cfg, angles=angles, cache=mine, cache_pos=pos,
+                capacity=capacity)
+            want, _ = _softmax_decode(mixer, x, cfg, angles=angles,
+                                      cache=want_c, cache_pos=pos,
+                                      capacity=capacity)
+            errs.append(_max_diff(got, want)
+                        / max(1.0, want.abs().max().item()))
+            same.append(torch.equal(mine.k, want_c.k)
+                        and torch.equal(mine.v, want_c.v))
+            layer = want_c
+    out = {"positions": [t, t + SDM_SOFTMAX_STEPS - 1],
+           "cache_slots": layer.k.shape[1], "max_rel_err": errs,
+           "caches_bitwise": same, "tol": SDM_LAYER_TOL}
+    check(all(same) and max(errs) <= SDM_LAYER_TOL,
+          f"{name}: layer 0's decode against the softmax decode: {out}")
+    return out
+
+
+def _sdm_pair(name: str, cfg, plain, mesh, prompt, capacity: int, *,
+              tol: float | None = None, moe: bool = False) -> dict:
+    """The sharded decode of ``cfg`` on ``plain``'s weights (over the
+    (1, 1) mesh) against the plain model's, on the same prompt and the
+    plain chain's greedy tokens: plain, sharded, plain, sharded (the
+    first two compared, the last two timed).  Each step's logits and risk
+    bitwise; else within ``tol`` (MoE) or PERF.md §2's 2x rule against
+    a float32 chain of the plain model.  The sharded chain's flash
+    launches (counts set to 0 just before its first run, read just
+    after) and every step's collectives against the schedule's.  The
+    dense decode's first steps are also held to the softmax decode, whose
+    code the two chains do not share: the chain under the 2x rule
+    (:func:`_softmax_rule`) and layer 0 in float32
+    (:func:`_sdm_layer_check`)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+
+    whole = _sdm_views(cfg, plain, None)
+    tp = _sdm_views(cfg, plain, mesh)
+    routes = {"plain": [], "sharded": []} if moe else None
+    with torch.no_grad(), mesh_lib.set_mesh(mesh):
+        first = _sdm_chain(whole, prompt, capacity,
+                           routes=routes and routes["plain"])
+        tokens = first["tokens"]
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        got = _sdm_chain(tp, prompt, capacity, tokens,
+                         routes=routes and routes["sharded"])
+        launches = dict(ops.LAUNCHES)
+        again = _sdm_chain(whole, prompt, capacity, tokens)
+        tp_again = _sdm_chain(tp, prompt, capacity, tokens)
+        profiled = {"plain": _sdm_profile(whole, prompt, capacity, tokens),
+                    "sharded": _sdm_profile(tp, prompt, capacity, tokens)}
+    n_attn = cfg.n_layers
+    check(launches.get("flash_attention") == n_attn
+          and launches.get("flash_attention_wgmma") == n_attn
+          and sum(launches.values()) == 2 * n_attn,
+          f"{name}: {launches}, expected {n_attn} tensor-core flash "
+          "launches (the prefill) and no other kernel")
+    predicted = _sdm_decode_schedule(cfg, prompt.shape[0])
+    for c in got["collectives"]:
+        check({k: c[k] for k in ("bytes_by_kind", "count_by_kind")}
+              == predicted, f"{name}: a step's collectives {c}, "
+              f"predicted {predicted}")
+    diffs = [max(_max_diff(a, b), _max_diff(ra, rb))
+             for a, b, ra, rb in zip(got["logits"], first["logits"],
+                                     got["risk"], first["risk"])]
+    bitwise = all(torch.equal(a, b) for a, b in zip(got["logits"],
+                                                     first["logits"])) \
+        and all(torch.equal(a, b) for a, b in zip(got["risk"],
+                                                   first["risk"]))
+    result = {"arch": cfg.name, "batch": prompt.shape[0],
+              "prompt_len": prompt.shape[1], "capacity": capacity,
+              "sliding_window": cfg.sliding_window, "steps": SDM_STEPS,
+              "bitwise": bitwise, "max_abs_diff_per_step": diffs,
+              "launches": launches,
+              "collectives_per_step": got["collectives"][0],
+              "collectives_predicted": predicted,
+              "prefill_collectives": got["prefill_collectives"],
+              "step_ms": {"plain": statistics.median(again["step_ms"]),
+                          "sharded": statistics.median(tp_again["step_ms"]),
+                          "plain_runs": again["step_ms"],
+                          "sharded_runs": tp_again["step_ms"]},
+              "prefill_ms": {"plain": again["prefill_ms"],
+                             "sharded": tp_again["prefill_ms"]},
+              "profiled_step": profiled,
+              "timing": "host clock, each step ended by a device sync; "
+                        "median of the 16 steps of the second run of each"}
+    if not moe:
+        with mesh_lib.set_mesh(mesh):
+            soft = _softmax_chains(whole, prompt, capacity,
+                                   tokens[:, :SDM_SOFTMAX_STEPS])
+        result["softmax_decode"] = _softmax_rule(name, got, soft)
+        del soft
+        with mesh_lib.set_mesh(mesh):
+            result["softmax_layer"] = _sdm_layer_check(name, tp, prompt,
+                                                       capacity)
+    if moe:
+        same = [torch.equal(a, b) for a, b in zip(routes["sharded"],
+                                                  routes["plain"])]
+        result["routes"] = {"layers_called": len(same),
+                            "equal": sum(same)}
+        check(len(routes["sharded"]) == len(routes["plain"]) and all(same),
+              f"{name}: routes differ from the no-mesh path's in "
+              f"{len(same) - sum(same)} of {len(same)} calls")
+    if not bitwise:
+        if tol is not None:
+            result["rule"] = {"tol": tol, "max_abs_diff": max(diffs)}
+            check(max(diffs) <= tol, f"{name}: sharded decode {max(diffs)} "
+                  f"from the plain one, over {tol}")
+        else:
+            with torch.no_grad(), mesh_lib.set_mesh(mesh):
+                ref = _sdm_chain(whole, prompt, capacity, tokens,
+                                 dtype="float32")
+            rule = {k: [max(_max_diff(a, r), 0.0) for a, r in
+                        zip(chain["logits"], ref["logits"])]
+                    for k, chain in (("sharded", got), ("plain", first))}
+            risk = {k: [_max_diff(a, r) for a, r in
+                        zip(chain["risk"], ref["risk"])]
+                    for k, chain in (("sharded", got), ("plain", first))}
+            result["rule_2x_bf16"] = {"logits": rule, "risk": risk}
+            check(all(a <= 2 * b for a, b in zip(rule["sharded"],
+                                                  rule["plain"]))
+                  and all(a <= max(2 * b, 1e-3) for a, b in
+                          zip(risk["sharded"], risk["plain"])),
+                  f"{name}: sharded decode outside the 2x bf16 rule: "
+                  f"{result['rule_2x_bf16']}")
+            del ref
+    del whole, tp, first, got, again, tp_again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _sdm_call_us(mesh, dev, calls: int = 200) -> dict:
+    """Host microseconds a call over the (1, 1) mesh at a decode step's
+    sizes (4 x 4,096 bf16), each kind back to back ``calls`` times and
+    ended by a device sync: the port's all-reduce and all-gather
+    (``launch/collectives.py``), the bare ``dist.all_reduce`` inside the
+    first, a copy of the same tensor (one kernel launch), and a chain of
+    36 dependent matmuls with and without an all-reduce after each."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch.mesh import MODEL_AXIS
+
+    x = torch.zeros((4, 1, 4096), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((4096, 4096), dtype=torch.bfloat16, device=dev)
+    group = mesh.group(MODEL_AXIS)
+
+    def chain(reduce):
+        # each link a matmul on the last link's output, then the
+        # collective on its result: a decode step's dependence
+        def run():
+            y = x
+            for _ in range(36):
+                y = y @ w
+                if reduce:
+                    y = coll.all_reduce_raw(y, mesh, MODEL_AXIS)
+        return run
+
+    kinds = {"all-reduce": lambda: coll.all_reduce_raw(x, mesh, MODEL_AXIS),
+             "all-gather": lambda: coll.all_gather_raw(x[None], mesh,
+                                                       MODEL_AXIS, 0),
+             "dist.all_reduce": lambda: dist.all_reduce(x, group=group),
+             "copy": lambda: x.clone(),
+             "chain_matmul_36": chain(False),
+             "chain_matmul_all_reduce_36": chain(True)}
+    out = {}
+    for kind, fn in kinds.items():
+        n = calls // 36 if kind.startswith("chain") else calls
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        out[kind] = (time.perf_counter() - t0) / n * 1e6
+    return out
+
+
+def _sdm_train_schedule(model) -> dict:
+    """The all-reduces of one train step (remat) of the placed MoE model
+    at one rank: a layer's two in the forward (wo, the experts' partial
+    output), both again in its recompute (the aux loss at the group's end
+    saves f and p, so the whole group reruns), five "f" in its backward
+    (wq's input, the two qk-norm scales, the MoE's input and gates); the
+    embedding's, the lm head's "f", the cross entropy's three, the
+    metrics', every leaf's gradient over "data" and the norm's one."""
+    leaves = sum(1 for _ in model.parameters())
+    return {"all-reduce": float(9 * model.cfg.n_layers + 1 + 1 + 3 + 1
+                                + leaves + 1)}
+
+
+def _sdm_train(dev, mesh) -> dict:
+    """(d) olmoe-1b-7b cut to 4 layers at full width, float32 masters,
+    bf16 compute, remat, AdamW, 4 x 2,048 tokens: step 1 of a fresh state
+    without a mesh, then the same step of a fresh state sharded over the
+    (1, 1) mesh (the einsum MoE placed: every expert on the rank), held
+    to each other, then 11 more steps of the sharded one, timed (host
+    clock, each step ended by reading its loss)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.benchmarks.timing import BF16_FLOPS
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import roofline
+    from repro_torch.models import Model, parallel
+    from repro_torch.training import AdamW, Trainer, cosine_schedule
+    from repro_torch.training.data import TokenStream
+    from repro_torch.training.train import make_train_step
+
+    cfg = dataclasses.replace(get_config(SDM_MOE_ARCH),
+                              n_layers=SDM_TRAIN_LAYERS)
+    stream = iter(TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+    batches = [tuple(torch.as_tensor(a, dtype=torch.long, device=dev)
+                     for a in next(stream)) for _ in range(TRAIN_STEPS)]
+    schedule = cosine_schedule(TRAIN_LR[0], TRAIN_LR[1], TRAIN_STEPS)
+
+    def fresh(sharded: bool):
+        model = Model(cfg, device=dev, dtype=torch.float32, seed=0)
+        if sharded:
+            parallel.parallelize(model, mesh)
+        opt = AdamW(learning_rate=schedule)
+        state = Trainer(model, opt).init_state(None)
+        step = make_train_step(model, opt, remat=True,
+                               compute_dtype=torch.bfloat16)
+        return model, state, step
+
+    model, state, step = fresh(False)
+    params = model.param_count()
+    with mesh_lib.set_mesh(mesh):
+        state, m = step(state, *batches[0])
+    plain_metrics = [float(v) for v in m]
+    plain_after = {k: p.detach().cpu() for k, p in state.params.items()}
+    plain_mu = {k: mu.detach().cpu() for k, mu in state.opt.mu.items()}
+    del model, state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, state, step = fresh(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    history, step_ms = [], []
+    with mesh_lib.set_mesh(mesh):
+        for i, (toks, labels) in enumerate(batches):
+            if i == 0:
+                for key in ops.LAUNCHES:
+                    ops.LAUNCHES[key] = 0
+            t0 = time.perf_counter()
+            with coll.tally() as tally:
+                state, m = step(state, toks, labels)
+                metrics = [float(v) for v in m]
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            history.append(dict(zip(("loss", "ce", "moe_aux", "grad_norm"),
+                                    metrics)))
+            if i == 0:
+                launches = dict(ops.LAUNCHES)
+                collectives = _ep_collectives(tally)
+                step1 = _step1_against(state, plain_after, plain_mu)
+                first_metrics = metrics
+    peak = torch.cuda.max_memory_allocated()
+    del plain_after, plain_mu
+    check(launches == {k: 0 for k in launches},
+          f"train launches {launches}: attention trains on the plain path")
+    predicted = _sdm_train_schedule(model)
+    check(collectives["count_by_kind"] == predicted,
+          f"the placed MoE step's collectives {collectives}, predicted "
+          f"{predicted}")
+    bitwise = first_metrics == plain_metrics and step1["bitwise"]
+    check(bitwise or (all(abs(a - b) <= 1e-5 * abs(b) for a, b in
+                          zip(first_metrics, plain_metrics))
+                      and step1["mu_diff_over_tol"] <= 1.0
+                      and step1["param_diff_over_tol"] <= 1.0),
+          f"step 1 sharded {first_metrics} against {plain_metrics}, "
+          f"leaves {step1}")
+    losses = [h["loss"] for h in history]
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"the sharded MoE model's loss falls: {losses}")
+    ms = statistics.median(step_ms[-8:])
+    shape = InputShape("sdm_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    mfu = roofline.model_flops(cfg, shape, "train") / (ms * 1e-3 * BF16_FLOPS)
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": SDM_MOE_ARCH, "reduced": SDM_TRAIN_REDUCED,
+            "params": params, "layers": cfg.n_layers,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+            "compute_dtype": "bfloat16", "remat": True,
+            "train_state_bytes": 16 * params,
+            "step1": {"no_mesh": plain_metrics, "sharded": first_metrics,
+                      **step1, "bitwise": bitwise},
+            "history": history, "step_ms": step_ms, "ms_per_step": ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms * 1e-3),
+            "mfu": mfu, "max_memory_allocated": peak,
+            "launches": launches, "collectives": collectives,
+            "collectives_predicted": predicted,
+            "timing": "host clock: each step ends in reading its loss; ms "
+                      "a step the median of the last 8 of 12"}
+
+
+def phase_sharded_decode_moe(dev, smi: str) -> dict:
+    """NCCL in process as a world of one rank over the (1, 1) mesh on the
+    card: (a) qwen3-8b's decode through the sharded model after a 4 x
+    2,048 prefill, (b) its sliding-window config (window 8,192) after a
+    9,000-token prompt, so the ring has wrapped, (c) olmoe-1b-7b's
+    einsum MoE under the placement, prefill and decode, each against the
+    plain model on the same weights, and (d) olmoe-1b-7b cut to 4 layers
+    trained 12 steps through the placed MoE."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    card = dev if dev.type != "cuda" or dev.index is not None else \
+        torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group(
+        SDM_BACKEND, store=dist.HashStore(), rank=0, world_size=1,
+        device_id=card if card.type == "cuda" else None)
+    try:
+        check(dist.get_backend() == SDM_BACKEND,
+              f"the process group runs {SDM_BACKEND}")
+        mesh = mesh_lib.init_mesh(mesh_lib.make_host_mesh(), device=card)
+        call_us = _sdm_call_us(mesh, card)
+        rng = np.random.default_rng(0)
+        cfg = get_config(SDM_ARCH)
+        plain = Model(cfg, device=card, dtype=torch.bfloat16, seed=0)
+        prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (
+            LLM_BATCH, LLM_PROMPT)), dtype=torch.long, device=card)
+        dense = _sdm_pair("(a) qwen3-8b", cfg, plain, mesh, prompt,
+                          LLM_PROMPT + SDM_STEPS)
+        ring_cfg = specs.serving_config(SDM_ARCH, "long_500k")
+        ring_prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (
+            1, SDM_RING_PROMPT)), dtype=torch.long, device=card)
+        ring = _sdm_pair("(b) the ring", ring_cfg, plain, mesh, ring_prompt,
+                         SDM_RING_PROMPT + SDM_STEPS)
+        check(ring["sliding_window"] == specs.SLIDING_WINDOW_LONG
+              < SDM_RING_PROMPT, "the ring has wrapped")
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_cfg = get_config(SDM_MOE_ARCH)
+        plain = Model(moe_cfg, device=card, dtype=torch.bfloat16, seed=0)
+        moe_prompt = torch.tensor(rng.integers(0, moe_cfg.vocab_size, (
+            LLM_BATCH, LLM_PROMPT)), dtype=torch.long, device=card)
+        moe = _sdm_pair("(c) olmoe-1b-7b", moe_cfg, plain, mesh, moe_prompt,
+                        LLM_PROMPT + SDM_STEPS, tol=SDM_MOE_TOL, moe=True)
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        train = _sdm_train(card, mesh)
+    finally:
+        dist.destroy_process_group()
+    result = {"phase": "sharded_decode_moe", "nvidia_smi": smi,
+              "backend": SDM_BACKEND, "world_size": 1, "mesh": mesh.shape,
+              "dense": dense, "ring": ring, "moe": moe, "train": train,
+              "collective_call_us": call_us,
+              "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -4929,10 +5592,11 @@ def main() -> int:
     train = phase_train(dev)
     ep = phase_expert_parallel(dev, smi)
     tp = phase_tensor_parallel(dev, smi)
+    sdm = phase_sharded_decode_moe(dev, smi)
     phase_roofline(dev, llm, zoo, train, smi)
     phase_kernels(kernel, serve, main_shapes, lifecycle, engine, tiering,
                   sharding, main_bench, paper_bench, attention, llm, zoo,
-                  scores, decode, bench, train, ep, tp)
+                  scores, decode, bench, train, ep, tp, sdm)
     emit({"phase": "wall", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

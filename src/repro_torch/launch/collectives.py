@@ -28,7 +28,9 @@ computes alike), so its backward passes the cotangent through: Megatron's
 "g".  :func:`copy_to` is its "f", the identity forward whose backward
 all-reduces: a replicated activation entering a column-parallel layer, or
 a replicated parameter used on a rank's share of the heads, gets on every
-rank the sum of the ranks' partial cotangents.
+rank the sum of the ranks' partial cotangents.  :func:`all_reduce_sum`
+all-reduces both ways: the adjoint of a sum that every rank's share of
+the objective uses (the MoE's global means over the data ranks).
 
 The tally is one stack for the process, not a context variable: on the
 card autograd runs the backward (and the recompute of a remat group) on
@@ -227,6 +229,17 @@ class _AllReduce(torch.autograd.Function):
         return g, None, None
 
 
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_reduce_raw(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_raw(g, ctx.mesh, ctx.axis), None, None
+
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
@@ -238,29 +251,53 @@ class _CopyTo(torch.autograd.Function):
         return all_reduce_raw(g, ctx.mesh, ctx.axis), None, None
 
 
+def _tracked(x: torch.Tensor) -> bool:
+    """Whether autograd follows ``x``: outside it (a decode step, a
+    prefill) the raw collective runs without a Function's cost a call."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
 def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
-    if mesh.shape[axis] == 1:
+    if mesh.shape[axis] == 1 or not _tracked(x):
         return all_to_all_raw(x, mesh, axis)
     return _AllToAll.apply(x, mesh, axis)
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
                ) -> torch.Tensor:
+    if not _tracked(x):
+        return all_gather_raw(x, mesh, axis, dim)
     return _AllGather.apply(x, mesh, axis, dim)
 
 
 def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
                    ) -> torch.Tensor:
+    if not _tracked(x):
+        return reduce_scatter_raw(x, mesh, axis, dim)
     return _ReduceScatter.apply(x, mesh, axis, dim)
 
 
 def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    if not _tracked(x):
+        return all_reduce_raw(x, mesh, axis)
     return _AllReduce.apply(x, mesh, axis)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum over the ranks of ``axis`` whose backward is the same sum
+    of the cotangents: the adjoint where the objective is the sum of the
+    ranks' objectives, each of which uses the result (the MoE's global
+    means over the data ranks under the data-parallel loss scale).
+    :func:`all_reduce` is Megatron's "g" instead, whose ranks' cotangents
+    are each the whole."""
+    if not _tracked(x):
+        return all_reduce_raw(x, mesh, axis)
+    return _AllReduceSum.apply(x, mesh, axis)
 
 
 def copy_to(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """Megatron's "f": ``x`` itself forward, the all-reduce of its
     cotangent over ``axis`` backward.  Outside autograd it is ``x``."""
-    if not (torch.is_grad_enabled() and x.requires_grad):
+    if not _tracked(x):
         return x
     return _CopyTo.apply(x, mesh, axis)

@@ -32,9 +32,10 @@ sharded by ``models/parallel.py``, its collectives counted by kind
 (``launch/collectives.py::tally``; on meta they only count), its argument
 bytes held to :func:`argument_bytes_per_device`, and the roofline's
 collective term over the mesh's slowest link (``launch/roofline.py``).
-The dense family's train and prefill cells run; the other families' pod
-cells and every decode cell over a pod raise, naming ROADMAP Queue 1 item
-13h (``launch/mesh.py::TP_FAMILIES``), and the ``--variant`` bundles item
+The dense and MoE decoders' cells run, decode included (flash-decoding
+over the cache's sequence on "model"); jamba's and xlstm-1.3b's pod
+cells raise, naming ROADMAP Queue 1 item 13h′
+(``launch/mesh.py::TP_RECURRENT``), and the ``--variant`` bundles item
 13i.
 
 Usage:
@@ -476,18 +477,15 @@ def run_cell(arch: str, shape_name: str, *, moment_dtype=torch.float32,
 
 
 def pod_cells() -> list[tuple[str, str]]:
-    """The cells a pod mesh traces: the dense family's train and prefill
-    steps (decode over a mesh and the other families: item 13h)."""
-    from repro_torch.configs import get_config
-
+    """The cells a pod mesh traces: every shape of the models
+    ``parallel.check_shardable`` takes (Mamba and xLSTM: item 13h′)."""
     cells = []
     for arch in ARCH_IDS:
         try:
-            parallel.check_dense(get_config(arch))
+            parallel.check_shardable(specs.serving_config(arch, "train_4k"))
         except NotImplementedError:
             continue
-        cells += [(arch, s) for s in applicable_shapes(arch)
-                  if specs.SHAPES[s].kind != "decode"]
+        cells += [(arch, s) for s in applicable_shapes(arch)]
     return cells
 
 

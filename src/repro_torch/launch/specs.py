@@ -18,16 +18,21 @@ hybrid archs run their native constant-state decode.
 
 ``moe_impl="a2a"`` builds MoE layers that run the expert-parallel MoE
 (``models/moe_a2a.py``), traced under an active mesh
-(``launch/mesh.py::set_mesh``).  The reference's sharded activations
-(``act_pspec``) raise (``launch/mesh.py::VARIANTS``), its expert-parallel
-constraints too (``launch/mesh.py::TP_FAMILIES``).
+(``launch/mesh.py::set_mesh``).  ``moe_ep_constraint`` sets the MoE's
+``ep_sharding_constraint``, which changes no number
+(``models/moe.py``).  The reference's sharded activations (``act_pspec``)
+raise (``launch/mesh.py::VARIANTS``).
 
-``mesh=`` builds one rank's step of a pod mesh (the dense family's train
-and prefill steps): the model sharded by ``models/parallel.py`` under the
-production rules, FSDP decided as the reference's dry-run decides it, and
-every argument on meta at the rank's shard shape (its rows of the batch).
-The step runs under ``set_mesh(mesh)``; on a shape-only mesh its
-collectives only count (``launch/collectives.py``).
+``mesh=`` builds one rank's step of a pod mesh (train, prefill and
+decode, for the models ``parallel.check_shardable`` takes): the model
+sharded by ``models/parallel.py`` under the production rules, FSDP
+decided as the reference's dry-run decides it, and every argument on
+meta at the rank's shard shape (its rows of the batch, its block of the
+decode cache under ``cache_pspec``).  The step runs under
+``set_mesh(mesh)`` with the global batch passed on (whole on every rank
+where it does not divide over the data axes); on a shape-only mesh its
+collectives only count (``launch/collectives.py``).  Mamba and xLSTM
+models raise over a mesh, naming ``launch/mesh.py::TP_RECURRENT``.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.shapes import SHAPES, InputShape
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import shardings
-from repro_torch.models import layers, parallel, transformer
+from repro_torch.models import layers, parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 from repro_torch.training.optimizer import AdamW
@@ -128,20 +133,18 @@ def build_step(arch: str, shape: str | InputShape, *,
         raise NotImplementedError(ACT_PSPEC)
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     cfg = serving_config(arch, shape.name) if cfg is None else cfg
-    if mesh is not None:
-        if shape.kind == "decode":
-            raise NotImplementedError(
-                f"{arch} x {shape.name}: {transformer.NOT_PORTED['decode']}")
-        parallel.check_dense(cfg)
-        return _rank_step(arch, shape, cfg, mesh, fsdp,
-                          moment_dtype=moment_dtype, remat=remat,
-                          logits_mode=logits_mode)
     if cfg.moe is not None and (moe_ep_constraint or moe_impl != "einsum"):
-        # the model's MoE layers raise on these (moe.check_options)
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(
                 cfg.moe, ep_sharding_constraint=moe_ep_constraint,
                 impl=moe_impl))
+    if mesh is not None:
+        if shape.kind == "decode" and not cfg.has_decode:
+            raise ValueError(f"{arch} is encoder-only: no decode shapes")
+        parallel.check_shardable(cfg)
+        return _rank_step(arch, shape, cfg, mesh, fsdp,
+                          moment_dtype=moment_dtype, remat=remat,
+                          logits_mode=logits_mode)
     b, t = shape.global_batch, shape.seq_len
 
     if shape.kind == "train":
@@ -208,8 +211,8 @@ def build_step(arch: str, shape: str | InputShape, *,
 def _rank_step(arch: str, shape: InputShape, cfg: ModelConfig, mesh,
                fsdp: bool | None, *, moment_dtype, remat: bool,
                logits_mode: str) -> StepBundle:
-    """One rank's train or prefill step over ``mesh`` (see the module's
-    docstring)."""
+    """One rank's train, prefill or decode step over ``mesh`` (see the
+    module's docstring)."""
     b, t = shape.global_batch, shape.seq_len
     train = shape.kind == "train"
     model = Model(cfg, device="meta",
@@ -234,25 +237,49 @@ def _rank_step(arch: str, shape: InputShape, cfg: ModelConfig, mesh,
     if train:
         opt = make_optimizer(moment_dtype)
         state = TrainState(params, opt.init(params))
-        step = make_train_step(model, opt, remat=remat)
+        step = make_train_step(model, opt, remat=remat, global_batch=b)
         tokens = _empty((bl, t), torch.long)
         labels = _empty((bl, t), torch.long)
         return StepBundle(arch, shape, cfg, model, on_mesh(step),
                           (state, tokens, labels), "train", mesh, fsdp)
 
+    tq = 1 if shape.kind == "decode" else t
     if cfg.embeds_input:
-        inputs = {"embeds": _empty((bl, t, cfg.d_model), torch.bfloat16)}
+        inputs = {"embeds": _empty((bl, tq, cfg.d_model), torch.bfloat16)}
     else:
-        inputs = {"tokens": _empty((bl, t), torch.long)}
+        inputs = {"tokens": _empty((bl, tq), torch.long)}
+
+    if shape.kind == "decode":
+        # the rank's block of the cache: made at its shard shape, not a
+        # view of a whole cache (whose storage the arguments would count)
+        whole_cache = model.init_cache(b, t)
+        cache = [type(c)(*(_empty(shardings.shard_shape(a.shape, sp, mesh),
+                                  a.dtype) for a, sp in zip(c, cs)))
+                 for c, cs in zip(whole_cache, shardings.cache_pspecs(
+                     whole_cache, b, mesh))]
+        del whole_cache
+
+        def serve_step(p, cache_in, inputs, pos):
+            with layers.parameters_as(model, p):
+                out = model.decode_step(cache_in, **inputs, pos=pos,
+                                        attn_impl="kernel",
+                                        cache_capacity=t, global_batch=b)
+            return {"logits": out.logits, "risk_score": out.risk_score,
+                    "cache": out.cache}
+
+        return StepBundle(arch, shape, cfg, model, on_mesh(serve_step),
+                          (params, cache, inputs, t - 1), "decode", mesh,
+                          fsdp)
 
     def prefill_step(p, inputs):
         with layers.parameters_as(model, p):
             if cfg.is_encoder_only:
-                out = model(**inputs, logits_mode="all", attn_impl="kernel")
+                out = model(**inputs, logits_mode="all", attn_impl="kernel",
+                            global_batch=b)
                 return {"logits": out.logits, "risk_score": out.risk_score}
             out, cache = model.prefill(
                 **inputs, cache_capacity=t, logits_mode=logits_mode,
-                attn_impl="kernel")
+                attn_impl="kernel", global_batch=b)
         return {"logits": out.logits, "risk_score": out.risk_score,
                 "cache": cache}
 

@@ -96,8 +96,10 @@ def main(argv: list[str] | None = None) -> None:
         moment_dtype=torch.bfloat16 if args.bf16_moments else torch.float32,
     )
     state = Trainer(model, opt).init_state(0 if mesh is None else None)
+    # a batch that does not divide over the data ranks is whole on each
     step_fn = make_train_step(model, opt, remat=True,
-                              compute_dtype=torch.float32)
+                              compute_dtype=torch.float32,
+                              global_batch=args.batch)
     stream = iter(TokenStream(cfg.vocab_size, args.seq, args.batch))
 
     def rows(a) -> torch.Tensor:

@@ -3,7 +3,8 @@ sliding-window variants, and single-token decode over KV caches.
 
 ``_gqa_scores_chunked`` is exact attention looped over query chunks, so the
 score block held at once is (B, C, H, T) instead of (B, T, H, T).  It is the
-reference path of the prefill and the decode path.  With
+reference path of the prefill (the reference's decode path too; its
+``kv_valid_len`` mask is the one the port's decode keeps).  With
 ``attn_impl="kernel"`` and at least 128 prompt tokens the prefill goes
 through ``kernels.ops.flash_attention`` instead: the hand-written CUDA kernel
 for CUDA tensors, its plain PyTorch version for CPU tensors.
@@ -21,6 +22,18 @@ columns of the output and runs the row-parallel wo.  A head on the
 boundary of two ranks' q columns is computed by both.  Without a
 placement every head is the rank's and nothing is exchanged.  The prefill
 cache is built from the keys and values the attention used.
+
+The decode (:func:`_decode`, one for whole and placed models) is
+flash-decoding over the cache's sequence on "model": one
+all-gather brings the new token's q, k and v columns whole, the rank
+that holds the token's slot writes it, each rank attends over its own
+slots in float32 under :func:`_gqa_scores_chunked`'s validity mask,
+mapped onto global slot numbers, and the partials are combined over
+"model" by two all-reduces: the largest logit, then the weighted values
+beside the sum of exponentials, each rank's taken against that one
+largest logit.  The rank keeps its own output columns for the
+row-parallel wo.  A whole model runs the same math over the whole cache,
+with nothing exchanged.
 """
 from __future__ import annotations
 
@@ -118,21 +131,6 @@ def _gqa_scores_chunked(
     return torch.cat(outs, dim=1)
 
 
-def _qkv(params: Attention, x: torch.Tensor, cfg: ModelConfig, angles):
-    b, t, _ = x.shape
-    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = layers.linear(params.wq, x).reshape(b, t, hq, hd)
-    k = layers.linear(params.wk, x).reshape(b, t, hkv, hd)
-    v = layers.linear(params.wv, x).reshape(b, t, hkv, hd)
-    if cfg.qk_norm:
-        q = layers.rmsnorm_headwise(params.q_norm, q, cfg.norm_eps)
-        k = layers.rmsnorm_headwise(params.k_norm, k, cfg.norm_eps)
-    if angles is not None:
-        q = layers.apply_rope(q, angles)
-        k = layers.apply_rope(k, angles)
-    return q, k, v
-
-
 def attention_forward(
     params: Attention,
     x: torch.Tensor,              # (B, T, d_model)
@@ -153,7 +151,10 @@ def attention_forward(
     * decode: ``cache`` given, T == 1 -> write k/v at ``cache_pos`` (modulo
       the window for sliding-window layers) and attend over the cache.  The
       write goes into ``cache``'s tensors in place (the reference returns
-      updated copies); the returned cache holds the same tensors.
+      updated copies); the returned cache holds the same tensors.  On a
+      placed model the cache is the rank's block (:func:`_decode`) and
+      ``capacity`` the capacity the cache was built with, which a mesh of
+      several ranks of "model" needs (the block does not say).
     """
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, "
@@ -161,24 +162,8 @@ def attention_forward(
     if cache is None:
         return _self_attention(params, x, cfg, angles=angles, chunk=chunk,
                                attn_impl=attn_impl, capacity=capacity)
-    b, t, _ = x.shape
-    q, k, v = _qkv(params, x, cfg, angles)
-    capacity = cache.k.shape[1]
-    ring = cfg.sliding_window > 0 and capacity == cfg.sliding_window
-    write_idx = cache_pos % capacity if ring else cache_pos
-    # dynamic_update_slice semantics: the start is clamped so the
-    # update fits inside the cache
-    write_idx = min(max(write_idx, 0), capacity - t)
-    cache.k[:, write_idx:write_idx + t] = k.to(cache.k.dtype)
-    cache.v[:, write_idx:write_idx + t] = v.to(cache.v.dtype)
-    # ring buffer: every slot valid once pos >= capacity; positions are
-    # implicit (RoPE pre-applied), so validity is the only mask
-    valid = min(cache_pos + 1, capacity) if ring else cache_pos + 1
-    out = _gqa_scores_chunked(
-        q, cache.k, cache.v, causal=False, q_offset=cache_pos,
-        sliding_window=0, kv_valid_len=valid, chunk=chunk)
-    out = out.reshape(b, t, cfg.n_heads * cfg.head_dim)
-    return layers.linear(params.wo, out), KVCache(k=cache.k, v=cache.v)
+    return _decode(params, x, cfg, angles=angles, cache=cache,
+                   cache_pos=cache_pos, capacity=capacity)
 
 
 def _self_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -283,3 +268,87 @@ def _prefill_cache(kv: torch.Tensor, cfg: ModelConfig, capacity: int,
         kv.reshape(b, m, s, h, d).movedim(1, 0).contiguous(), mesh,
         MODEL_AXIS)
     return out.movedim(0, 2).reshape(b, s, m * h, d)
+
+
+def _decode(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
+            angles, cache: KVCache, cache_pos: int, capacity: int | None
+            ) -> tuple[torch.Tensor, KVCache]:
+    """The new token's attention over the cache, written at ``cache_pos``
+    (modulo the window on the ring, clamped as ``dynamic_update_slice``
+    clamps), in float32 as flash-decoding: the max, the sum of
+    exponentials and the weighted values over the slots, then their
+    quotient.  On a placed model the cache is the rank's block
+    (``parallel.cache_plan``): see the module's docstring.  A whole model
+    is one rank with nothing exchanged, so at one rank of "model" (every
+    collective a copy) the placed decode is the whole model's to the
+    last bit.  Against the reference's softmax-then-values the order
+    differs by float32 rounding."""
+    pl = parallel.placement(params.wq)
+    m, r = (1, 0) if pl is None else (pl.model_size, pl.model_rank)
+    b, t, _ = x.shape
+    hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    plan = parallel.head_plan(cfg, m, r)
+    if capacity is None:
+        if m > 1:
+            raise ValueError("the decode of a model sharded over several "
+                             "ranks of 'model' needs the cache's capacity")
+        capacity = cache.k.shape[1]
+    elif cfg.sliding_window > 0:
+        capacity = min(capacity, cfg.sliding_window)
+    slots = parallel.cache_plan(capacity, m, r)
+    if cache.k.shape[1] != slots.held[1]:
+        raise ValueError(f"the rank holds {cache.k.shape[1]} slots of a "
+                         f"capacity of {capacity}, its plan {slots.held[1]}")
+    q = layers.linear(params.wq, x)
+    k = layers.linear(params.wk, x)
+    v = layers.linear(params.wv, x)
+    if pl is not None:
+        # the token's q, k and v columns of every rank, in one gather
+        full = coll.all_gather_raw(torch.cat([q, k, v], dim=-1)[None],
+                                   pl.mesh, MODEL_AXIS, 0)
+        cq, ck = hq * hd // m, hkv * hd // m
+        q, k, v = (full[..., lo:lo + cols].movedim(0, -2).reshape(b, t, -1)
+                   for lo, cols in ((0, cq), (cq, ck), (cq + ck, ck)))
+    q = q.reshape(b, t, hq, hd)
+    k = k.reshape(b, t, hkv, hd)
+    v = v.reshape(b, t, hkv, hd)
+    if cfg.qk_norm:
+        q = layers.rmsnorm_headwise(params.q_norm, q, cfg.norm_eps)
+        k = layers.rmsnorm_headwise(params.k_norm, k, cfg.norm_eps)
+    if angles is not None:
+        q = layers.apply_rope(q, angles)
+        k = layers.apply_rope(k, angles)
+    ring = cfg.sliding_window > 0 and capacity == cfg.sliding_window
+    write = cache_pos % capacity if ring else cache_pos
+    write = min(max(write, 0), capacity - t)
+    (h_lo, h_n), (a_lo, a_n) = slots.held, slots.attended
+    lo, hi = max(write, h_lo), min(write + t, h_lo + h_n)
+    if lo < hi:                      # only the rank that holds the slots
+        cache.k[:, lo - h_lo:hi - h_lo] = k[:, lo - write:hi - write].to(
+            cache.k.dtype)
+        cache.v[:, lo - h_lo:hi - h_lo] = v[:, lo - write:hi - write].to(
+            cache.v.dtype)
+    # ring buffer: every slot valid once pos >= capacity; positions are
+    # implicit (RoPE pre-applied), so validity is the only mask
+    valid = min(cache_pos + 1, capacity) if ring else cache_pos + 1
+    kk = cache.k[:, a_lo - h_lo:a_lo - h_lo + a_n].to(torch.float32)
+    vv = cache.v[:, a_lo - h_lo:a_lo - h_lo + a_n].to(torch.float32)
+    qg = q.reshape(b, t, hkv, hq // hkv, hd).to(torch.float32)
+    logits = torch.einsum("bchgd,bthd->bchgt", qg, kk) * softmax_scale(hd)
+    mask = torch.arange(a_lo, a_lo + a_n, device=x.device) < valid
+    logits = logits.masked_fill(~mask, float("-inf"))
+    mx = torch.amax(logits, dim=-1, keepdim=True)
+    if pl is not None:
+        # the largest logit over every rank's slots, finite as slot 0 is
+        # valid: a rank with no valid slot adds exp(-inf) = 0 below
+        mx = coll.all_reduce_raw(mx, pl.mesh, MODEL_AXIS, "max")
+    p = torch.exp(logits - mx)
+    acc = torch.cat([torch.einsum("bchgt,bthd->bchgd", p, vv),
+                     p.sum(dim=-1, keepdim=True)], dim=-1)
+    if pl is not None:
+        acc = coll.all_reduce_raw(acc, pl.mesh, MODEL_AXIS)
+    out = acc[..., :hd] / acc[..., hd:]
+    out = out.to(q.dtype).reshape(b, t, hq * hd)
+    start, cols = plan.q_cols
+    return (layers.linear(params.wo, out[..., start:start + cols]),
+            KVCache(k=cache.k, v=cache.v))

@@ -15,8 +15,13 @@ Sharded by ``models/parallel.py::parallelize``, the same entry points run
 one rank's share over its mesh: the lm head is column parallel, so the
 logits come out vocab-sharded (``launch/dryrun.py::_logits_pspec``; a
 vocabulary that does not divide is replicated), the score head runs on
-the replicated pooled hidden state, and ``prefill`` returns the rank's
-block of the cache in ``launch/shardings.py::cache_pspec``'s layout.
+the replicated pooled hidden state, ``prefill`` returns the rank's
+block of the cache in ``launch/shardings.py::cache_pspec``'s layout, and
+``decode_step`` takes that block back: flash-decoding over the rank's
+slots (``models/attention.py``), its logits vocab-sharded as the
+prefill's.  Each entry point takes the rank's rows of its batch over the
+data axes; ``global_batch`` equal to the rows says they are the whole
+batch, on every rank (``parallel.data_rows``, read by the MoE).
 """
 from __future__ import annotations
 
@@ -118,7 +123,8 @@ class Model(nn.Module):
                 position_ids: torch.Tensor | None = None,
                 remat: bool = False, compute_dtype=torch.bfloat16,
                 attn_impl: str = "reference", logits_mode: str = "all",
-                act_pspec=None) -> ModelOutput:
+                act_pspec=None, global_batch: int | None = None
+                ) -> ModelOutput:
         """The whole sequence, differentiable: it builds an autograd graph
         only where a parameter requires grad (a served model's do not; the
         trainer turns them on).  ``remat`` recomputes each group of
@@ -128,7 +134,8 @@ class Model(nn.Module):
         angles = self._angles(b, t, 0, position_ids)
         x, _, aux = transformer.stack_forward(
             self.stack, x, self.cfg, angles=angles, mode="forward",
-            remat=remat, attn_impl=attn_impl, act_pspec=act_pspec)
+            remat=remat, attn_impl=attn_impl, act_pspec=act_pspec,
+            global_batch=global_batch)
         logits, score, h = self._heads(x, compute_dtype, logits_mode)
         return ModelOutput(logits=logits, risk_score=score, moe_aux=aux,
                            hidden=h)
@@ -140,7 +147,8 @@ class Model(nn.Module):
                 position_ids: torch.Tensor | None = None,
                 compute_dtype=torch.bfloat16,
                 attn_impl: str = "reference", logits_mode: str = "all",
-                act_pspec=None) -> tuple[ModelOutput, list]:
+                act_pspec=None, global_batch: int | None = None
+                ) -> tuple[ModelOutput, list]:
         """Like the reference, the returned cache holds the prompt's keys and
         values in ``compute_dtype``.  The reference's ``cache_dtype`` only
         types the empty cache it builds to give the capacities; the port
@@ -154,7 +162,7 @@ class Model(nn.Module):
         x, new_cache, aux = transformer.stack_forward(
             self.stack, x, cfg, angles=angles, mode="prefill",
             attn_impl=attn_impl, act_pspec=act_pspec,
-            capacity=cache_capacity)
+            capacity=cache_capacity, global_batch=global_batch)
         logits, score, h = self._heads(x, compute_dtype, logits_mode)
         return ModelOutput(logits, score, aux, h), new_cache
 
@@ -165,9 +173,14 @@ class Model(nn.Module):
                     position_ids: torch.Tensor | None = None,
                     compute_dtype=torch.bfloat16,
                     attn_impl: str = "reference",
-                    act_pspec=None) -> DecodeOutput:
+                    act_pspec=None,
+                    cache_capacity: int | None = None,
+                    global_batch: int | None = None) -> DecodeOutput:
         """One token at absolute position ``pos``; writes its keys and
-        values into ``cache`` in place and returns that cache."""
+        values into ``cache`` in place and returns that cache.  On a
+        model sharded over several ranks of "model", ``cache_capacity``
+        is the prefill's (the rank's block of the cache does not say
+        it)."""
         cfg = self.cfg
         if not cfg.has_decode:
             raise ValueError(f"{cfg.name} is encoder-only: no decode step")
@@ -176,7 +189,8 @@ class Model(nn.Module):
         angles = self._angles(b, 1, pos, position_ids)
         x, new_cache, _ = transformer.stack_forward(
             self.stack, x, cfg, angles=angles, mode="decode", cache=cache,
-            cache_pos=pos, attn_impl=attn_impl, act_pspec=act_pspec)
+            cache_pos=pos, attn_impl=attn_impl, act_pspec=act_pspec,
+            capacity=cache_capacity, global_batch=global_batch)
         logits, score, _ = self._heads(x, compute_dtype)
         return DecodeOutput(logits=logits[:, 0], risk_score=score,
                             cache=new_cache)

@@ -18,6 +18,24 @@ is exactly the reference's; the layer makes no host sync.
 The expert weights keep the reference's (E, d, f) layout, so the expert
 products are ``torch.bmm`` (the reference computes them as XLA einsums
 outside any Pallas kernel).
+
+On a model sharded by ``models/parallel.py`` the layer runs under the
+production rules (``parallel.expert_plan``).  The router stays
+replicated.  With E on "model" a rank dispatches the (replicated) tokens
+only into its own experts' (E/m, cap, d) buffers; where E does not
+divide, every expert runs on the rank's block of ``d_ff_expert``.  Either
+way the rank's combine is a float32 partial, all-reduced over "model"
+before the cast to the compute dtype; the shared expert is col, col, row.
+Capacity and slots are the global batch's: a rank whose rows are a block
+of the batch on the data axes (``parallel.data_rows``; a
+``global_batch`` equal to the rows says they are the whole batch) takes
+the capacity of the global chunk and offsets its slot counts by the
+pairs of the data ranks before it in the same chunk (an all-gather of
+their counts, only where a chunk spans ranks), and the aux loss
+all-reduces f and p over the data axes before their product.  The expert-parallel
+constraint (``ep_sharding_constraint``) pins the reference's buffers to
+their experts' ranks; here they live there already, so the flag changes
+no number.
 """
 from __future__ import annotations
 
@@ -27,8 +45,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.launch.mesh import TP_FAMILIES
-from repro_torch.models import layers
+from repro_torch.launch import collectives as coll
+from repro_torch.launch.mesh import MODEL_AXIS, data_axes
+from repro_torch.models import layers, parallel
 from repro_torch.models.config import MoEConfig
 
 # token-chunk size of the dispatch: capacity is per chunk, as the
@@ -37,15 +56,11 @@ DISPATCH_CHUNK = 4096
 
 
 def check_options(mo: MoEConfig) -> None:
-    """The MoE options that need the MoE's tensor parallelism raise,
-    naming it; ``impl="a2a"`` runs ``models/moe_a2a.py`` under an active
-    mesh."""
+    """``impl="a2a"`` runs ``models/moe_a2a.py`` under an active mesh;
+    ``ep_sharding_constraint`` is accepted and changes nothing (see the
+    module's docstring)."""
     if mo.impl not in ("einsum", "a2a"):
         raise ValueError(f"unknown MoE impl {mo.impl!r}")
-    if mo.ep_sharding_constraint:
-        raise NotImplementedError(
-            "expert-parallel sharding constraints (ep_sharding_constraint) "
-            f"are sharded activations: {TP_FAMILIES}")
 
 
 class MoE(nn.Module):
@@ -102,12 +117,12 @@ def route(moe: MoE, xf: torch.Tensor, mo: MoEConfig):
     return probs, gate_vals, expert_idx
 
 
-def dispatch_slots(expert_idx: torch.Tensor, num_experts: int, cap: int
-                   ) -> torch.Tensor:
-    """Buffer slot of each (token, slot) pair of one chunk: ``e·cap + pos``
-    where ``pos`` counts the earlier pairs on expert ``e`` in flattened
-    token-major order, and ``E·cap`` (the spare entry) where ``pos`` reaches
-    ``cap`` and the pair drops.  ``expert_idx``: (c, k) -> (c, k) int64."""
+def positions(expert_idx: torch.Tensor, num_experts: int,
+              offset: torch.Tensor | None = None) -> torch.Tensor:
+    """Each (token, slot) pair's position in its expert: the earlier pairs
+    on that expert in flattened token-major order, plus ``offset`` (E,),
+    the pairs the data ranks before this one hold in the same chunk.
+    ``expert_idx``: (c, k) -> (c, k) int64."""
     flat = expert_idx.reshape(-1)
     experts = torch.arange(num_experts, device=flat.device)
     # (E, pairs), so the count runs along the innermost axis: a scan over
@@ -116,25 +131,49 @@ def dispatch_slots(expert_idx: torch.Tensor, num_experts: int, cap: int
     onehot = (experts[:, None] == flat[None, :]).to(torch.int32)
     count = torch.cumsum(onehot, dim=1, dtype=torch.int32)
     pos = torch.gather(count, 0, flat[None, :])[0].to(torch.int64) - 1
-    slot = torch.where(pos < cap, flat * cap + pos,
-                       torch.full_like(flat, num_experts * cap))
+    if offset is not None:
+        pos = pos + offset.to(torch.int64)[flat]
+    return pos.reshape(expert_idx.shape)
+
+
+def dispatch_slots(expert_idx: torch.Tensor, num_experts: int, cap: int, *,
+                   first: int = 0, count: int | None = None,
+                   offset: torch.Tensor | None = None) -> torch.Tensor:
+    """Buffer slot of each (token, slot) pair of one chunk: ``(e - first)
+    ·cap + pos`` (:func:`positions`) for experts ``first`` to ``first +
+    count`` (default all), and ``count·cap`` (the spare entry) where
+    ``pos`` reaches ``cap`` and the pair drops, or where its expert is
+    another rank's.  ``expert_idx``: (c, k) -> (c, k) int64."""
+    count = num_experts if count is None else count
+    flat = expert_idx.reshape(-1)
+    pos = positions(expert_idx, num_experts, offset).reshape(-1)
+    keep = pos < cap
+    if count != num_experts:
+        keep &= (flat >= first) & (flat < first + count)
+    slot = torch.where(keep, (flat - first) * cap + pos,
+                       torch.full_like(flat, count * cap))
     return slot.reshape(expert_idx.shape)
 
 
 def dispatch(xc: torch.Tensor, expert_idx: torch.Tensor, num_experts: int,
-             cap: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The (E, cap, d) expert buffers of one chunk ``xc`` (c, d) and each
-    pair's slot (:func:`dispatch_slots`); a slot no pair fills is 0."""
+             cap: int, *, first: int = 0, count: int | None = None,
+             offset: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (count, cap, d) buffers of experts ``first`` to ``first +
+    count`` (default all E) of one chunk ``xc`` (c, d) and each pair's
+    slot (:func:`dispatch_slots`); a slot no pair fills is 0."""
+    count = num_experts if count is None else count
     c, d = xc.shape
-    slot = dispatch_slots(expert_idx, num_experts, cap)        # (c, k)
+    slot = dispatch_slots(expert_idx, num_experts, cap, first=first,
+                          count=count, offset=offset)          # (c, k)
     # the token that fills each buffer slot; c (a zero row) where none does
     tokens = torch.arange(c, device=xc.device).repeat_interleave(
         expert_idx.shape[1])
-    filler = torch.full((num_experts * cap + 1,), c, dtype=torch.int64,
+    filler = torch.full((count * cap + 1,), c, dtype=torch.int64,
                         device=xc.device)
     filler.scatter_(0, slot.reshape(-1), tokens)
     xz = torch.cat([xc, xc.new_zeros(1, d)])
-    return xz[filler[:-1]].view(num_experts, cap, d), slot
+    return xz[filler[:-1]].view(count, cap, d), slot
 
 
 def expert_ffn(expert_in: torch.Tensor, gate: torch.Tensor,
@@ -146,11 +185,11 @@ def expert_ffn(expert_in: torch.Tensor, gate: torch.Tensor,
     return torch.bmm(g * u, down.to(dtype))
 
 
-def combine(expert_out: torch.Tensor, slot: torch.Tensor,
-            gate_vals: torch.Tensor) -> torch.Tensor:
-    """Each token's k outputs from the (E, cap, d) buffers (dropped pairs
-    read the zero row), weighted by its gates cast to the compute dtype,
-    summed in float32: -> (c, d)."""
+def combine_partial(expert_out: torch.Tensor, slot: torch.Tensor,
+                    gate_vals: torch.Tensor) -> torch.Tensor:
+    """Each token's outputs from the (E, cap, d) buffers (dropped pairs
+    and another rank's experts read the zero row), weighted by its gates
+    cast to the compute dtype, summed in float32: -> (c, d) float32."""
     c, k = slot.shape
     d = expert_out.shape[-1]
     dtype = expert_out.dtype
@@ -158,20 +197,37 @@ def combine(expert_out: torch.Tensor, slot: torch.Tensor,
     picked = out_z[slot.reshape(-1)].view(c, k, d)
     weighted = picked.to(torch.float32) \
         * gate_vals.to(dtype).to(torch.float32)[..., None]
-    return torch.sum(weighted, dim=1).to(dtype)
+    return torch.sum(weighted, dim=1)
 
 
-def _dispatch_chunk(moe: MoE, xc: torch.Tensor, gate_vals: torch.Tensor,
-                    expert_idx: torch.Tensor, mo: MoEConfig, cap: int
-                    ) -> torch.Tensor:
-    """One token chunk: xc (c, d), gates and ids (c, k) -> (c, d)."""
-    expert_in, slot = dispatch(xc, expert_idx, mo.num_experts, cap)
-    return combine(expert_ffn(expert_in, moe.gate, moe.up, moe.down), slot,
-                   gate_vals)
+def combine(expert_out: torch.Tensor, slot: torch.Tensor,
+            gate_vals: torch.Tensor) -> torch.Tensor:
+    """:func:`combine_partial` cast to the compute dtype: -> (c, d)."""
+    return combine_partial(expert_out, slot, gate_vals).to(expert_out.dtype)
+
+
+def _chunk_offsets(expert_idx: torch.Tensor, start: int, n: int, chunk: int,
+                   num_experts: int, pl, j: int) -> torch.Tensor:
+    """(chunks, E): the pairs on each expert in each chunk of the global
+    batch held by the data ranks before rank ``j`` (its tokens start at
+    global token ``start``), from every data rank's counts all-gathered
+    over the data axes, the innermost first (rank-major)."""
+    nl = expert_idx.shape[0]
+    n_chunks = -(-n // chunk)
+    cid = (start + torch.arange(nl, device=expert_idx.device)) // chunk
+    key = (cid[:, None] * num_experts + expert_idx).reshape(-1)
+    counts = torch.zeros(n_chunks * num_experts, dtype=torch.int32,
+                         device=expert_idx.device)
+    counts.index_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    every = counts[None]
+    for a in reversed(data_axes(pl.mesh)):
+        every = coll.all_gather_raw(every, pl.mesh, a, 0)
+    return every[:j].sum(dim=0).view(n_chunks, num_experts)
 
 
 def moe_forward(moe: MoE, x: torch.Tensor, mo: MoEConfig, *,
-                dispatch_chunk: int = DISPATCH_CHUNK
+                dispatch_chunk: int = DISPATCH_CHUNK, with_aux: bool = True,
+                global_batch: int | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, d) -> (out, aux_loss), as the reference's ``moe_forward``.
 
@@ -180,26 +236,67 @@ def moe_forward(moe: MoE, x: torch.Tensor, mo: MoEConfig, *,
     reference pads the last chunk with rows that route to expert 0 after
     every real row, so they push no real pair out).  ``aux_loss`` is the
     Switch load-balance loss ``E · Σ_e f_e · p_e``: ``f`` the share of
-    tokens whose top-1 expert is e, ``p`` the mean router probability.
+    tokens whose top-1 expert is e, ``p`` the mean router probability
+    (0 without ``with_aux``, as a decode step, which drops it).  On a
+    placed model: the module's docstring; n, the chunks and the means
+    are those of the batch of ``global_batch`` rows
+    (``parallel.data_rows``).
     """
     check_options(mo)
     b, t, d = x.shape
-    n = b * t
+    nl = b * t
     e = mo.num_experts
-    xf = x.reshape(n, d)
+    xf = x.reshape(nl, d)
+    pl = parallel.placement(moe)
+    plan = parallel.expert_plan(moe, e)
+    j, n_data = parallel.data_rows(pl, b, global_batch)
+    n, start = nl * n_data, j * nl
     probs, gate_vals, expert_idx = route(moe, xf, mo)
     chunk = min(dispatch_chunk, n)
     cap = capacity(chunk, mo)
-    out = torch.cat([
-        _dispatch_chunk(moe, xf[s:s + chunk], gate_vals[s:s + chunk],
-                        expert_idx[s:s + chunk], mo, cap)
-        for s in range(0, n, chunk)])
+    offsets = None
+    if n_data > 1 and nl % chunk:      # a chunk spans ranks' rows
+        offsets = _chunk_offsets(expert_idx, start, n, chunk, e, pl, j)
+    weights = [parallel.weight(moe, a) for a in ("gate", "up", "down")]
+    xd, gd = xf, gate_vals
+    if plan.mesh is not None:
+        # each rank's cotangents are its experts' (or its ff block's)
+        # partials: Megatron's "f" sums them over "model"
+        xd = coll.copy_to(xf, plan.mesh, MODEL_AXIS)
+        gd = coll.copy_to(gate_vals, plan.mesh, MODEL_AXIS)
+    parts = []
+    s = start
+    while s < start + nl:
+        c = s // chunk
+        end = min((c + 1) * chunk, start + nl)
+        lo, hi = s - start, end - start
+        expert_in, slot = dispatch(
+            xd[lo:hi], expert_idx[lo:hi], e, cap, first=plan.first,
+            count=plan.count, offset=None if offsets is None else offsets[c])
+        parts.append(combine_partial(expert_ffn(expert_in, *weights), slot,
+                                     gd[lo:hi]))
+        s = end
+    out = torch.cat(parts)
+    if plan.mesh is not None:
+        out = coll.all_reduce(out, plan.mesh, MODEL_AXIS)
+    out = out.to(x.dtype)
     if moe.shared is not None:
         out = out + layers.mlp(moe.shared, xf)
+    out = out.reshape(b, t, d)
+    if not with_aux:
+        return out, torch.zeros((), dtype=torch.float32, device=x.device)
 
     top1 = (expert_idx[:, :1] == torch.arange(e, device=x.device)
             ).to(torch.float32)
-    f = torch.mean(top1, dim=0)
-    p = torch.mean(probs, dim=0)
+    if n_data == 1:
+        f = torch.mean(top1, dim=0)
+        p = torch.mean(probs, dim=0)
+    else:
+        # the global means: the ranks' sums over n, all-reduced over the
+        # data axes before the product
+        fp = torch.cat([torch.sum(top1, dim=0), torch.sum(probs, dim=0)]) / n
+        for a in data_axes(pl.mesh):
+            fp = coll.all_reduce_sum(fp, pl.mesh, a)
+        f, p = fp[:e], fp[e:]
     aux = e * torch.sum(f * p)
-    return out.reshape(b, t, d), aux
+    return out, aux

@@ -33,8 +33,22 @@ columns: qwen3-8b's keys at 16 ranks are half a head each).
 :func:`head_plan` says which whole heads a rank computes and what it
 exchanges to get them (``models/attention.py``).
 
-Only the dense family (attention with a SwiGLU MLP or none) is sharded
-here; MoE, Mamba and xLSTM blocks raise, naming their ROADMAP item.
+Attention blocks (sliding windows too) with a SwiGLU MLP, an einsum MoE
+or no FFN are sharded here (:func:`check_shardable`); Mamba and xLSTM
+blocks raise, naming their ROADMAP item.  The einsum MoE reads its
+experts' placement (:func:`expert_plan`): E on "model" (whole experts a
+rank) or, where E does not divide, every expert on the rank's block of
+``d_ff_expert``.  The decode reads :func:`cache_plan`: which slots of a
+KV cache a rank holds where ``cache_pspec`` puts the sequence on "model",
+and which it attends over (flash-decoding).
+
+A placed model's rows of a batch are its block of the batch sharded over
+the data axes, as ``shardings.batch_pspec`` gives every batch that
+divides over them.  A caller whose batch does not divide (and so is
+whole on every rank) says so with the call that carries it:
+``global_batch`` equal to the rows it passes (:func:`data_rows`).  Only
+the MoE reads it: its capacity and slots are counted over the global
+batch.
 """
 from __future__ import annotations
 
@@ -86,17 +100,21 @@ def of(model: nn.Module) -> Parallel | None:
     return model.__dict__.get("parallel")
 
 
-def check_dense(cfg) -> None:
-    """Only attention blocks with a SwiGLU MLP (or none) are sharded."""
+def check_shardable(cfg) -> None:
+    """What can be sharded: attention blocks (sliding windows included)
+    with a SwiGLU MLP, an einsum MoE or no FFN.  Mamba and the xLSTM
+    mixers raise, naming their ROADMAP item; the all-to-all MoE, which
+    cuts its own blocks out of whole weights, raises naming the variant
+    bundles."""
     for spec in cfg.layer_pattern:
-        if spec.mixer != "attn" or spec.ffn not in ("mlp", "none"):
+        if spec.mixer != "attn":
             raise NotImplementedError(
-                f"{cfg.name}: a {spec.mixer} / {spec.ffn} block over a "
-                f"mesh is not ported yet: {mesh_lib.TP_FAMILIES}")
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention over a mesh belongs to "
-            f"the decode under a mesh: {mesh_lib.TP_FAMILIES}")
+                f"{cfg.name}: a {spec.mixer} block over a mesh is not "
+                f"ported yet: {mesh_lib.TP_RECURRENT}")
+        if spec.ffn == "moe" and cfg.moe.impl != "einsum":
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.moe.impl} MoE takes whole weights, "
+                f"not a placement: {mesh_lib.VARIANTS}")
 
 
 @torch.no_grad()
@@ -107,7 +125,7 @@ def parallelize(model: nn.Module, mesh: Mesh, *, fsdp: bool = False
     A block smaller than its tensor is copied out, so the whole tensor is
     freed with the model's old parameter."""
     cfg = model.cfg
-    check_dense(cfg)
+    check_shardable(cfg)
     if of(model) is not None:
         raise ValueError("the model is sharded already")
     specs = shardings.param_pspecs(cfg, model, mesh, fsdp=fsdp)
@@ -234,3 +252,75 @@ def head_plan(cfg, m: int, r: int) -> HeadPlan:
                      and ck // hd == nk)
     return HeadPlan((r * cq, cq), (q_lo, nq), (kv_lo, nk), cq % hd != 0,
                     gather_kv)
+
+
+# ---------------------------------------------------------------------------
+# the experts, the cache's slots and the batch's rows
+# ---------------------------------------------------------------------------
+
+class ExpertPlan(NamedTuple):
+    """What one rank computes of a MoE layer's experts: experts ``first``
+    to ``first + count`` whole (E on "model"), or every expert on its
+    block of ``d_ff_expert`` (the col / row fallback).  ``mesh``: the
+    mesh over whose "model" axis the rank's partial output is summed,
+    None where the rank computes the whole output (no placement, or
+    experts replicated)."""
+
+    first: int
+    count: int
+    mesh: Mesh | None
+
+
+def expert_plan(moe: nn.Module, num_experts: int) -> ExpertPlan:
+    pl = placement(moe)
+    if pl is None:
+        return ExpertPlan(0, num_experts, None)
+    gate = pl.specs["gate"]                  # (E, d, f)
+    if MODEL_AXIS in _axes(gate[0]):
+        count = num_experts // pl.model_size
+        return ExpertPlan(pl.model_rank * count, count, pl.mesh)
+    if MODEL_AXIS in _axes(gate[2]):
+        return ExpertPlan(0, num_experts, pl.mesh)
+    return ExpertPlan(0, num_experts, None)
+
+
+class CachePlan(NamedTuple):
+    """A rank's slots of one KV cache: it holds ``held`` (first slot,
+    slots) and attends over ``attended``.  Where the capacity divides
+    over "model" both are the rank's block of the sequence; where it does
+    not, ``cache_pspec`` keeps the cache whole on every rank, each rank
+    writes every slot and attends over its share of them, so the combine
+    over "model" sees each slot once."""
+
+    held: tuple[int, int]
+    attended: tuple[int, int]
+
+
+def cache_plan(capacity: int, m: int, r: int) -> CachePlan:
+    if capacity % m == 0:
+        s = capacity // m
+        return CachePlan((r * s, s), (r * s, s))
+    lo, hi = r * capacity // m, (r + 1) * capacity // m
+    return CachePlan((0, capacity), (lo, hi - lo))
+
+
+def data_rows(pl: Placement | None, rows: int,
+              global_batch: int | None = None) -> tuple[int, int]:
+    """(index, count) of this rank's block of the batch over the data
+    axes (row-major, the first axis the slowest), for ``rows`` rows of a
+    batch of ``global_batch``: their block where it is ``rows`` times the
+    data ranks (None: so), (0, 1) where it is ``rows`` (the whole batch
+    on every rank).  Any other ``global_batch`` raises."""
+    n = 1 if pl is None else mesh_lib.data_axis_size(pl.mesh)
+    if global_batch is None:
+        global_batch = rows * n
+    if global_batch == rows:
+        return 0, 1
+    if global_batch != rows * n:
+        raise ValueError(f"{rows} rows are neither the batch of "
+                         f"{global_batch} nor its block over {n} data "
+                         "ranks")
+    j = 0
+    for a in mesh_lib.data_axes(pl.mesh):
+        j = j * pl.mesh.shape[a] + pl.coords[a]
+    return j, n

@@ -18,12 +18,13 @@ group's activations from its input instead of keeping them.
 
 A MoE block with ``impl="a2a"`` runs the expert-parallel MoE
 (``models/moe_a2a.py``) over the active mesh.  A model sharded by
-``models/parallel.py`` (the dense family) runs each block on the rank's
-blocks: the layers' column / row machinery and the attention's
-head-aligned exchange (``attention.attention_forward``), with remat as
-without a mesh.  Sharded activations (``act_pspec``) and the decode of a
-model sharded over more than one rank raise ``NotImplementedError``,
-naming the ROADMAP item that ports them.
+``models/parallel.py`` (attention with an MLP, an einsum MoE or no FFN)
+runs each block on the rank's blocks: the layers' column / row
+machinery, the attention's head-aligned exchange and its flash-decoding
+over the rank's slots of the cache (``attention.attention_forward``) and
+the MoE on the rank's experts (``moe.moe_forward``), with remat as
+without a mesh.  Sharded activations (``act_pspec``) raise
+``NotImplementedError``, naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -33,9 +34,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.launch.mesh import TP_FAMILIES, VARIANTS
+from repro_torch.launch.mesh import VARIANTS
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import layers, parallel
+from repro_torch.models import layers
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import moe_a2a
@@ -47,8 +48,6 @@ from repro_torch.models.config import BlockSpec, ModelConfig
 NOT_PORTED = {
     "act_pspec": "sharded activations (act_pspec) are not ported yet: "
                  + VARIANTS,
-    "decode": "the decode of a model sharded over more than one rank is "
-              "not ported yet: " + TP_FAMILIES,
 }
 MIXERS = ("attn", "mamba", "mlstm", "slstm")
 FFNS = ("mlp", "moe", "none")
@@ -167,12 +166,13 @@ def _mixer_forward(block: Block, x, cfg, *, angles, mode, cache, cache_pos,
                                        return_state=(mode == "prefill"))
     return attn_mod.attention_forward(
         mixer, x, cfg, angles=angles, cache=cache, cache_pos=cache_pos,
-        attn_impl=attn_impl, capacity=capacity if mode == "prefill" else None)
+        attn_impl=attn_impl, capacity=capacity if mode != "forward" else None)
 
 
 def block_forward(block: Block, x, cfg, *, angles, mode, cache, cache_pos,
-                  attn_impl, capacity=None):
-    """Pre-norm residual block. Returns (x, new_cache, moe_aux)."""
+                  attn_impl, capacity=None, global_batch=None):
+    """Pre-norm residual block. Returns (x, new_cache, moe_aux).
+    ``global_batch``: the batch x's rows belong to (``moe.moe_forward``)."""
     h = layers.rmsnorm(block.mixer_norm, x, cfg.norm_eps)
     out, new_cache = _mixer_forward(
         block, h, cfg, angles=angles, mode=mode, cache=cache,
@@ -187,13 +187,15 @@ def block_forward(block: Block, x, cfg, *, angles, mode, cache, cache_pos,
         if cfg.moe.impl == "a2a":
             out2, aux = moe_a2a.moe_forward_a2a(block.ffn, h2, cfg.moe)
         else:
-            out2, aux = moe_mod.moe_forward(block.ffn, h2, cfg.moe)
+            out2, aux = moe_mod.moe_forward(block.ffn, h2, cfg.moe,
+                                            with_aux=mode != "decode",
+                                            global_batch=global_batch)
         x = x + out2
     return x, new_cache, aux
 
 
 def _group_forward(blocks: nn.ModuleList, names: list[str], cfg, angles,
-                   attn_impl, x, aux, *tensors):
+                   attn_impl, global_batch, x, aux, *tensors):
     """One remat group: ``blocks`` run on ``tensors`` (their parameters, by
     ``names``), so a recompute uses the tensors the first run used even if
     the caller swapped the parameters for that run only (the training
@@ -203,20 +205,20 @@ def _group_forward(blocks: nn.ModuleList, names: list[str], cfg, angles,
         for block in blocks:
             x, _, layer_aux = block_forward(
                 block, x, cfg, angles=angles, mode="forward", cache=None,
-                cache_pos=0, attn_impl=attn_impl)
+                cache_pos=0, attn_impl=attn_impl, global_batch=global_batch)
             if layer_aux is not None:
                 aux = aux + layer_aux
     return x, aux
 
 
-def _remat_forward(stack, x, cfg, *, angles, attn_impl):
+def _remat_forward(stack, x, cfg, *, angles, attn_impl, global_batch):
     n_pat = len(cfg.layer_pattern)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(0, len(stack), n_pat):
         blocks = stack[g:g + n_pat]
         names, tensors = zip(*blocks.named_parameters())
         run = functools.partial(_group_forward, blocks, list(names), cfg,
-                                angles, attn_impl)
+                                angles, attn_impl, global_batch)
         x, aux = checkpoint(run, x, aux, *tensors, use_reentrant=False)
     return x, None, aux
 
@@ -234,6 +236,7 @@ def stack_forward(
     attn_impl: str = "reference",
     act_pspec=None,
     capacity: int | None = None,
+    global_batch: int | None = None,
 ) -> tuple[torch.Tensor, list | None, torch.Tensor]:
     """Run the blocks in order.  Returns (x, new_cache_or_None, moe_aux),
     ``moe_aux`` the float32 sum of the MoE layers' load-balance losses in
@@ -244,22 +247,23 @@ def stack_forward(
     window where that is less); ``decode`` writes into ``cache`` in
     place (attention keys and values at ``cache_pos``, the Mamba SSM
     state by the scan itself, the Mamba conv tail and the xLSTM states
-    replaced) and returns it.  ``remat`` (the full-sequence forward only)
-    checkpoints each group of P blocks.
+    replaced) and returns it; on a sharded model ``capacity`` is then the
+    capacity the cache was built with (``attention.attention_forward``).
+    ``remat`` (the full-sequence forward only) checkpoints each group of
+    P blocks.  ``global_batch``: the batch x's rows belong to on a
+    sharded model (``parallel.data_rows``; None: their block over the
+    data axes).
     """
     if act_pspec is not None:
         raise NotImplementedError(NOT_PORTED["act_pspec"])
     if mode == "prefill" and capacity is None:
         raise ValueError("a prefill needs the cache capacity")
-    placed = parallel.placement(stack[0].mixer_norm)
-    if mode == "decode" and placed is not None and placed.mesh.size > 1:
-        raise NotImplementedError(NOT_PORTED["decode"])
     if remat:
         if mode != "forward":
             raise ValueError("remat applies to the full-sequence forward, "
                              f"not to {mode!r}")
         return _remat_forward(stack, x, cfg, angles=angles,
-                              attn_impl=attn_impl)
+                              attn_impl=attn_impl, global_batch=global_batch)
     n_pat = len(cfg.layer_pattern)
     built: list[list] = [[] for _ in range(n_pat)]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -270,7 +274,8 @@ def stack_forward(
             c_in = type(cache[i])(*(a[g] for a in cache[i]))
         x, c_out, layer_aux = block_forward(
             block, x, cfg, angles=angles, mode=mode, cache=c_in,
-            cache_pos=cache_pos, attn_impl=attn_impl, capacity=capacity)
+            cache_pos=cache_pos, attn_impl=attn_impl, capacity=capacity,
+            global_batch=global_batch)
         if layer_aux is not None:
             aux = aux + layer_aux
         if mode == "prefill":

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.launch import collectives as coll
-from repro_torch.launch.mesh import (MODEL_AXIS, TP_FAMILIES,
+from repro_torch.launch.mesh import (MODEL_AXIS, TP_RECURRENT,
                                      TRAIN_ACROSS_RANKS, VARIANTS,
                                      data_axes, data_axis_size,
                                      get_active_mesh)
@@ -112,11 +112,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def make_loss_fn(model: Model, *, aux_weight: float = 0.01,
                  remat: bool = True, compute_dtype=torch.bfloat16,
                  attn_impl: str = "reference", act_pspec=None,
-                 cast_params_bf16: bool = False):
+                 cast_params_bf16: bool = False,
+                 global_batch: int | None = None):
     """``loss_fn(params, tokens, labels) -> (loss, (ce, moe_aux))``: the
     model run on ``params`` (its parameters by name), float32 logits,
     ``ce`` the negated mean log-probability of the labels, ``loss = ce +
-    aux_weight · moe_aux``."""
+    aux_weight · moe_aux``.  ``global_batch``: ``Model.forward``'s."""
     if act_pspec is not None:
         raise NotImplementedError(ACT_PSPEC)
 
@@ -128,7 +129,8 @@ def make_loss_fn(model: Model, *, aux_weight: float = 0.01,
         with layers.parameters_as(model, params):
             out = model.forward(tokens, remat=remat,
                                 compute_dtype=compute_dtype,
-                                attn_impl=attn_impl)
+                                attn_impl=attn_impl,
+                                global_batch=global_batch)
         ce = cross_entropy(out.logits, labels, model)
         loss = ce + aux_weight * out.moe_aux
         return loss, (ce, out.moe_aux)
@@ -140,7 +142,8 @@ def make_train_step(model: Model, optimizer: AdamW, *,
                     aux_weight: float = 0.01, remat: bool = True,
                     compute_dtype=torch.bfloat16,
                     attn_impl: str = "reference", act_pspec=None,
-                    cast_params_bf16: bool = False
+                    cast_params_bf16: bool = False,
+                    global_batch: int | None = None
                     ) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
                                   tuple[TrainState, StepMetrics]]:
     """``train_step(state, tokens, labels) -> (state, metrics)``: the loss
@@ -151,11 +154,14 @@ def make_train_step(model: Model, optimizer: AdamW, *,
     On a sharded model (``models/parallel.py``) ``tokens`` and ``labels``
     are the rank's rows and the step runs over the model's mesh (an
     active mesh must be that mesh); the metrics are the global batch's.
+    ``global_batch`` equal to the rows: they are the whole batch on every
+    rank (``parallel.data_rows``).
     An unsharded model under an active mesh of several ranks raises."""
     loss_fn = make_loss_fn(model, aux_weight=aux_weight, remat=remat,
                            compute_dtype=compute_dtype, attn_impl=attn_impl,
                            act_pspec=act_pspec,
-                           cast_params_bf16=cast_params_bf16)
+                           cast_params_bf16=cast_params_bf16,
+                           global_batch=global_batch)
 
     par = parallel.of(model)
 
@@ -203,17 +209,18 @@ def make_train_step(model: Model, optimizer: AdamW, *,
 
 
 def _refuse_unsharded(model: Model) -> None:
-    kinds = {part for spec in model.cfg.layer_pattern
+    cfg = model.cfg
+    kinds = {part for spec in cfg.layer_pattern
              for part in (spec.mixer, spec.ffn)}
-    if "moe" in kinds:
-        raise NotImplementedError(
-            "a train step over several ranks with MoE blocks (the a2a "
-            "layer's loss alike on every rank against the data-parallel "
-            f"mean): {TRAIN_ACROSS_RANKS}")
     if kinds & {"mamba", "mlstm", "slstm"}:
         raise NotImplementedError(
-            f"a train step over several ranks of {model.cfg.name}: "
-            f"{TP_FAMILIES}")
+            f"a train step over several ranks of {cfg.name}: "
+            f"{TP_RECURRENT}")
+    if "moe" in kinds and cfg.moe.impl != "einsum":
+        raise NotImplementedError(
+            "a train step over several ranks with a2a MoE blocks (the a2a "
+            "layer's loss alike on every rank against the data-parallel "
+            f"mean): {TRAIN_ACROSS_RANKS}")
     raise ValueError("a train step over several ranks takes a model sharded "
                      "by models.parallel.parallelize")
 

@@ -159,7 +159,7 @@ def test_bfloat16_forward_tracks_reference():
 
 
 def _unported(case):
-    """A smoke config the port refuses: olmoe with expert-parallel
+    """A smoke config the port once refused: olmoe with expert-parallel
     constraints."""
     cfg = get_smoke_config("olmoe-1b-7b")
     change = {"ep_sharding": {"ep_sharding_constraint": True}}[case]
@@ -170,11 +170,27 @@ def _unported(case):
 @pytest.mark.parametrize("case,item", [
     ("ep_sharding", "item 13h, tensor parallelism for the MoE einsum")])
 def test_unported_families_raise(case, item):
+    """olmoe with expert-parallel constraints once raised, naming
+    ``item``; it now builds and its forward is the plain config's to the
+    last bit.  What is left of that item, the Mamba and xLSTM mixers over
+    a mesh, raises naming item 13h′."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import parallel
+
     for arch in ("jamba-1.5-large-398b", "olmoe-1b-7b"):
         get_config(arch)  # the registry builds every config
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 {item}"):
-        Model(_unported(case), device="cpu")
+    tok = torch.tensor(np.random.default_rng(0).integers(0, 512, (2, 8)))
+    got = Model(_unported(case), device="cpu", seed=0)(tok)
+    want = Model(get_smoke_config("olmoe-1b-7b"), device="cpu", seed=0)(tok)
+    assert torch.equal(got.logits, want.logits)
+    assert item not in mesh_lib.TP_RECURRENT
+    for arch in ("jamba-1.5-large-398b", "xlstm-1.3b"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 13h′, tensor "
+                                 "parallelism for the Mamba and xLSTM"):
+            parallel.parallelize(Model(get_smoke_config(arch),
+                                       device="meta", seed=None),
+                                 mesh_lib.Mesh(("data", "model"), (1, 2)))
 
 
 def _mamba_family(case):

@@ -200,10 +200,18 @@ def test_tied_router_probabilities_keep_top_k_order(dtype):
 @pytest.mark.parametrize("option,item", [
     ({"ep_sharding_constraint": True}, "item 13h, tensor parallelism")])
 def test_mesh_options_raise_in_the_layer(option, item):
+    """The option once raised, naming ``item``; now the layer takes it
+    and it changes no number (the port's buffers live on their experts'
+    ranks already; ``test_torch_moe_ranks.py`` holds both packages to it
+    over a mesh), and no error of the port names that item any more."""
+    from repro_torch.launch import mesh as mesh_lib
+
     _, _, moe, tmo = _layer("olmoe-1b-7b")
-    with pytest.raises(NotImplementedError, match=item):
-        t_moe.moe_forward(moe, torch.zeros((1, 2, 128)),
-                          dataclasses.replace(tmo, **option))
+    x = torch.tensor(_x((2, 16, 128), seed=3))
+    got = t_moe.moe_forward(moe, x, dataclasses.replace(tmo, **option))
+    want = t_moe.moe_forward(moe, x, tmo)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert item not in mesh_lib.TP_RECURRENT + mesh_lib.VARIANTS
 
 
 # ---------------------------------------------------------------- models

@@ -3,17 +3,28 @@ rank of the (16, 16) and (2, 16, 16) meshes traced on meta, its
 collectives counted (``launch/collectives.py``), and the roofline's
 collective term (``launch/roofline.py``).
 
-* The meta trace of one rank of the dense smoke configs' train and
-  prefill steps on a shape-only (2, 2) and (2, 1, 2) mesh counts, kind by
-  kind, what four live gloo ranks count running the same steps (float32
-  there: gloo has no bfloat16, so the bytes differ and the counts are
-  compared).
+* The meta trace of one rank of the dense and MoE smoke configs' train,
+  prefill and decode steps on a shape-only (2, 2) and (2, 1, 2) mesh
+  counts, kind by kind, what four live gloo ranks count running the same
+  steps (float32 there: gloo has no bfloat16, so the bytes differ and the
+  counts are compared).
 * Full-size cells: the argument bytes of a rank are
   ``argument_bytes_per_device``'s, the collective term is the trace's
   bytes (an all-reduce's twice) over one 50 GB/s NDR link a card, FSDP is
-  on where the reference turns it on, and the records' names and fields.
+  on where the reference turns it on, and the records' names and fields;
+  the 18 cells a mesh that the decode and the MoE added (every mesh of
+  them on the (16, 16) mesh, a few on (2, 16, 16)) with the tally of the
+  schedule: a decode step's gathers of the token's q, k and v and of
+  the combine's partials and its two all-reduces a layer, a MoE layer's
+  partial output and, where the batch is sharded, the gather of the data
+  ranks' expert counts.
 * The CLI over both meshes and the report's pod table, in a temporary
-  directory (no test reads a file under ``benchmarks/``).
+  directory.
+* The committed records under ``benchmarks/results/dryrun_h100`` (every
+  pod cell of both meshes): each decode and MoE prefill record's tally
+  is the schedule's, so a record traced from code that has since changed
+  its collectives fails here, and each record's collective term is its
+  own bytes'.
 """
 import dataclasses
 import json
@@ -26,14 +37,17 @@ import pytest
 import torch
 
 import torch_ranks as tr
-from repro_torch.configs import get_smoke_config
-from repro_torch.configs.shapes import InputShape
+from repro_torch.configs import applicable_shapes, get_smoke_config
+from repro_torch.configs.shapes import SHAPES, InputShape
 from repro_torch.launch import dryrun, report, roofline, specs
 from repro_torch.launch import mesh as mesh_lib
 
 POD_MESHES = {k: tr.MESHES[k] for k in ("2x2", "2x1x2")}
 TRAIN = InputShape("smoke_train", tr.T, tr.B, "train")
 PREFILL = InputShape("smoke_prefill", tr.T, tr.B, "prefill")
+DECODE = InputShape("smoke_decode", tr.T, tr.B, "decode")
+SMOKE = {"train": TRAIN, "prefill": PREFILL, "decode": DECODE}
+ARCHS = tr.ARCHS + tr.MOE_ARCHS
 
 PORT = r"""
 from repro_torch.models import Model
@@ -48,14 +62,21 @@ for name, (axes, shape) in meshes.items():
         model = parallel.parallelize(Model(cfg, device="cpu", seed=0), mesh)
         with coll.tally() as t, torch.no_grad():
             if cfg.has_decode:
-                model.prefill(**{key: rows(inp[key], mesh)},
-                              cache_capacity=%(T)d, logits_mode="last",
-                              compute_dtype=torch.float32,
-                              attn_impl="kernel")
+                _, cache = model.prefill(
+                    **{key: rows(inp[key], mesh)}, cache_capacity=%(T)d,
+                    logits_mode="last", compute_dtype=torch.float32,
+                    attn_impl="kernel")
             else:
                 model(**{key: rows(inp[key], mesh)},
                       compute_dtype=torch.float32, attn_impl="kernel")
         out[f"{name}/{arch}/prefill"] = tally_blob(t)
+        if cfg.has_decode:
+            with coll.tally() as t:
+                model.decode_step(
+                    cache, **{key: rows(inp[key], mesh)[:, :1]},
+                    pos=%(T)d - 1, cache_capacity=%(T)d,
+                    compute_dtype=torch.float32, attn_impl="kernel")
+            out[f"{name}/{arch}/decode"] = tally_blob(t)
         model.requires_grad_(True)
         opt = AdamW()
         params = dict(model.named_parameters())
@@ -71,17 +92,20 @@ for name, (axes, shape) in meshes.items():
 @pytest.fixture(scope="module")
 def live(tmp_path_factory):
     return tr.run(tmp_path_factory.mktemp("pod"), None, PORT,
-                  POD_MESHES)["port"]
+                  POD_MESHES, archs=ARCHS)["port"]
 
 
-@pytest.mark.parametrize("mesh", list(POD_MESHES))
-@pytest.mark.parametrize("arch", tr.ARCHS)
-@pytest.mark.parametrize("kind", ["train", "prefill"])
+LIVE = [(kind, arch, mesh) for kind in ("train", "prefill", "decode")
+        for arch in ARCHS for mesh in POD_MESHES
+        if kind != "decode" or get_smoke_config(arch).has_decode]
+
+
+@pytest.mark.parametrize("kind,arch,mesh", LIVE)
 def test_meta_trace_counts_what_the_live_ranks_count(live, mesh, arch,
                                                      kind):
     cfg = get_smoke_config(arch)
-    bundle = specs.build_step(arch, TRAIN if kind == "train" else PREFILL,
-                              cfg=cfg, mesh=tr.shape_mesh(mesh), fsdp=False)
+    bundle = specs.build_step(arch, SMOKE[kind], cfg=cfg,
+                              mesh=tr.shape_mesh(mesh), fsdp=False)
     counted = dryrun.trace(bundle)["collectives"]["count_by_kind"]
     for rank in live:
         assert tr.tally(rank[f"{mesh}/{arch}/{kind}"])[1] == counted
@@ -153,10 +177,19 @@ def test_unaligned_vocabulary_and_heads_on_the_pod(cells):
 
 
 def test_pod_cells_are_the_dense_family():
-    assert dryrun.pod_cells() == [
-        (a, s) for a in ("internlm2-1.8b", "llama3-405b", "qwen2-vl-7b",
-                         "hubert-xlarge", "deepseek-coder-33b", "qwen3-8b")
-        for s in ("train_4k", "prefill_32k")]
+    """Once the dense family's train and prefill cells (12 a mesh); now
+    every shape of every model but the Mamba and xLSTM ones: 30 a mesh,
+    the encoder's two and four of each decoder."""
+    cells = dryrun.pod_cells()
+    assert len(cells) == 30
+    assert {a for a, _ in cells} == {
+        "internlm2-1.8b", "llama3-405b", "olmoe-1b-7b", "qwen2-vl-7b",
+        "hubert-xlarge", "deepseek-coder-33b", "qwen3-8b",
+        "llama4-maverick-400b-a17b"}
+    for arch in {a for a, _ in cells}:
+        assert [s for a, s in cells if a == arch] == list(
+            applicable_shapes(arch))
+    assert len(NEW_CELLS) == 18 and set(NEW_CELLS) <= set(cells)
 
 
 def test_cli_both_meshes_and_the_pod_table(tmp_path):
@@ -178,14 +211,130 @@ def test_cli_both_meshes_and_the_pod_table(tmp_path):
 
 
 def test_other_families_and_decode_raise_naming_13h():
+    """The MoE einsum and the decode over a pod once raised here, naming
+    item 13h; what is left of it, the Mamba and xLSTM mixers, raises for
+    every shape, naming item 13h′."""
     pod1 = mesh_lib.make_production_mesh()
+    for arch in ("jamba-1.5-large-398b", "xlstm-1.3b"):
+        for shape in applicable_shapes(arch):
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP Queue 1 item 13h′, tensor "
+                                     "parallelism for the Mamba and xLSTM "
+                                     "mixers and their decode states"):
+                specs.build_step(arch, shape, mesh=pod1)
     for arch, shape in (("olmoe-1b-7b", "train_4k"),
-                        ("jamba-1.5-large-398b", "prefill_32k"),
-                        ("xlstm-1.3b", "train_4k"),
                         ("internlm2-1.8b", "decode_32k")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 13h"):
-            specs.build_step(arch, shape, mesh=pod1)
+        assert specs.build_step(arch, shape, mesh=pod1).mesh is pod1
+
+
+# the cells the decode and the MoE added to each mesh
+NEW_CELLS = [(a, s) for a in ("internlm2-1.8b", "llama3-405b", "olmoe-1b-7b",
+                              "qwen2-vl-7b", "deepseek-coder-33b",
+                              "qwen3-8b", "llama4-maverick-400b-a17b")
+             for s in applicable_shapes(a)
+             if a in ("olmoe-1b-7b", "llama4-maverick-400b-a17b")
+             or SHAPES[s].kind == "decode"]
+POD2_CELLS = [("olmoe-1b-7b", "decode_32k"), ("olmoe-1b-7b", "prefill_32k"),
+              ("qwen3-8b", "long_500k"),
+              ("llama4-maverick-400b-a17b", "long_500k")]
+NEW_RUNS = [(a, s, "pod1") for a, s in NEW_CELLS] + [
+    (a, s, "pod2") for a, s in POD2_CELLS]
+# the reference's rule (the per-rank parameter bytes past 4 GiB): the
+# two 400 B models everywhere, nothing else among these cells
+FSDP = ("llama3-405b", "llama4-maverick-400b-a17b")
+
+
+@pytest.fixture(scope="module")
+def new_cells(tmp_path_factory):
+    out = tmp_path_factory.mktemp("new_cells")
+    meshes = {"pod1": mesh_lib.make_production_mesh(),
+              "pod2": mesh_lib.make_production_mesh(multi_pod=True)}
+    return out, {(a, s, pod): dryrun.run_cell(a, s, mesh=meshes[pod],
+                                              out_dir=str(out))
+                 for a, s, pod in NEW_RUNS}
+
+
+@pytest.mark.parametrize("arch,shape,pod", NEW_RUNS)
+def test_new_pod_records_hold_the_rules(new_cells, arch, shape, pod):
+    """Each decode and MoE cell: the record on disk, a rank's argument
+    bytes the rules' (the decode's cache block included), FSDP where the
+    reference turns it on, and the collective term of the trace's
+    bytes."""
+    out, recs = new_cells
+    rec = recs[(arch, shape, pod)]
+    assert (out / f"{arch}__{shape}__h100_{pod}.json").exists()
+    assert rec["memory_analysis"]["argument_bytes"] == \
+        rec["argument_bytes_per_device"]["total"]
+    assert rec["fsdp"] == (arch in FSDP) == \
+        rec["argument_bytes_per_device"]["fsdp"]
+    rf = rec["roofline"]
+    assert rf["chips"] == (256 if pod == "pod1" else 512)
+    weighted = sum(v * (2.0 if k == "all-reduce" else 1.0)
+                   for k, v in rec["collectives"]["bytes_by_kind"].items())
+    assert rf["collective_s"] == pytest.approx(weighted / 50e9)
+
+
+def test_pod_table_shows_the_decode_and_moe_cells(new_cells):
+    """``report.py --pod`` renders the new records beside the dense ones:
+    a decode row, a long_500k row and a MoE row of the (16, 16) mesh."""
+    out, _ = new_cells
+    table = report.pod_table(report.load("pod1", directory=str(out)),
+                             "pod1", reference_dir=None)
+    for row in ("qwen3-8b | decode_32k", "olmoe-1b-7b | long_500k",
+                "llama4-maverick-400b-a17b | train_4k"):
+        assert row in table, row
+
+
+def _schedule(arch: str, shape: str, pod: str) -> dict | None:
+    """Counts by kind of one rank's decode step or MoE prefill: the
+    embedding's all-reduce (not where embeddings come in), four
+    all-reduces a layer in a decode (the combine's largest logit and its
+    weighted values and sums, wo, the down projection or the MoE's
+    partial output, plus the shared expert's) and one gather (the
+    token's q, k and v); a MoE prefill's wo, its
+    partial output and the aux loss's all-reduce over each data axis, and
+    the cache's two all-to-alls; where the dispatch chunk spans the data
+    ranks (a decode batch over them), a gather of their expert counts
+    over each data axis.  None for the train steps and FSDP'd models (a
+    gather a sharded leaf a use)."""
+    cfg = specs.serving_config(arch, shape)
+    kind = SHAPES[shape].kind
+    if arch in FSDP or kind == "train":
+        return None
+    n_axes = 1 if pod == "pod1" else 2
+    moe = sum(1 for b in cfg.layer_pattern if b.ffn == "moe") \
+        * cfg.n_groups
+    shared = moe if cfg.moe is not None and cfg.moe.shared_expert else 0
+    embed = 0 if cfg.embeds_input else 1
+    if kind == "prefill":
+        return {"all-reduce": embed + 2 * cfg.n_layers + n_axes * moe
+                + shared, "all-to-all": 2 * cfg.n_layers}
+    spread = SHAPES[shape].global_batch > 1 and moe
+    return {"all-reduce": embed + 4 * cfg.n_layers + shared,
+            "all-gather": cfg.n_layers + (n_axes * moe if spread else 0)}
+
+
+@pytest.mark.parametrize("arch,shape,pod", [
+    r for r in NEW_RUNS if _schedule(*r) is not None])
+def test_new_pod_tallies_are_the_schedule(new_cells, arch, shape, pod):
+    rec = new_cells[1][(arch, shape, pod)]
+    assert rec["collectives"]["count_by_kind"] == _schedule(arch, shape,
+                                                            pod)
+
+
+COMMITTED = [(a, s, pod) for pod in ("pod1", "pod2") for a, s in NEW_CELLS
+             if _schedule(a, s, pod) is not None]
+
+
+@pytest.mark.parametrize("arch,shape,pod", COMMITTED)
+def test_committed_pod_tallies_are_the_schedule(arch, shape, pod):
+    rec, = [r for r in report.load(pod)
+            if (r["arch"], r["shape"]) == (arch, shape)]
+    assert rec["collectives"]["count_by_kind"] == _schedule(arch, shape,
+                                                            pod)
+    weighted = sum(v * (2.0 if k == "all-reduce" else 1.0)
+                   for k, v in rec["collectives"]["bytes_by_kind"].items())
+    assert rec["roofline"]["collective_s"] == pytest.approx(weighted / 50e9)
 
 
 def test_link_is_nvlink_within_a_node_and_ndr_across():

@@ -353,8 +353,9 @@ def test_local_shards_tile_the_tensor():
 def test_pod_mesh_dry_run_and_roofline_raise_naming_13f(tmp_path):
     """Once both raised (item 13f); now the dense family's prefill traces
     as one rank of the pod mesh, its argument bytes the rules', and its
-    roofline has a collective term.  Decode over a pod and the other
-    families raise, naming item 13h."""
+    roofline has a collective term.  Decode over a pod and the MoE
+    einsum run too since item 13h's first half; the Mamba and xLSTM
+    families raise, naming item 13h′."""
     rec = dryrun.run_cell("qwen3-8b", "prefill_32k", mesh=MESHES["pod1"],
                           out_dir=str(tmp_path))
     assert rec["memory_analysis"]["argument_bytes"] == \
@@ -362,10 +363,10 @@ def test_pod_mesh_dry_run_and_roofline_raise_naming_13f(tmp_path):
     assert rec["roofline"]["chips"] == 256
     assert rec["roofline"]["collective_s"] > 0
     assert (tmp_path / "qwen3-8b__prefill_32k__h100_pod1.json").exists()
-    for arch, shape in (("qwen3-8b", "decode_32k"),
-                        ("olmoe-1b-7b", "prefill_32k")):
+    for arch, shape in (("jamba-1.5-large-398b", "decode_32k"),
+                        ("xlstm-1.3b", "prefill_32k")):
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 13h, tensor "
+                           match="ROADMAP Queue 1 item 13h′, tensor "
                                  "parallelism"):
             dryrun.run_cell(arch, shape, mesh=MESHES["pod1"],
                             out_dir=str(tmp_path))

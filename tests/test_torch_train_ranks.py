@@ -259,8 +259,10 @@ def test_mesh_for_devices_is_the_references():
 
 
 def test_unsharded_models_over_several_ranks_raise():
-    """A dense model must be sharded first; MoE blocks are item 13g's MoE
-    half, Mamba and xLSTM item 13h."""
+    """A dense or einsum-MoE model must be sharded first (olmoe once
+    raised, naming item 13g's MoE half, which the a2a MoE still names:
+    ``test_torch_moe_a2a.py``); Mamba and xLSTM raise item 13h′, over a
+    mesh sharded or not."""
     import dataclasses
 
     from repro_torch.launch import mesh as mesh_lib
@@ -270,8 +272,9 @@ def test_unsharded_models_over_several_ranks_raise():
     toks = torch.zeros((2, 8), dtype=torch.long)
     for arch, err, match in (
             ("qwen3-8b", ValueError, "parallelize"),
-            ("jamba-1.5-large-398b", NotImplementedError, "13g's MoE half"),
-            ("xlstm-1.3b", NotImplementedError, "item 13h")):
+            ("olmoe-1b-7b", ValueError, "parallelize"),
+            ("jamba-1.5-large-398b", NotImplementedError, "item 13h′"),
+            ("xlstm-1.3b", NotImplementedError, "item 13h′")):
         cfg = get_smoke_config(arch)
         if arch == "jamba-1.5-large-398b":
             cfg = dataclasses.replace(cfg, n_layers=len(cfg.layer_pattern))
@@ -282,7 +285,7 @@ def test_unsharded_models_over_several_ranks_raise():
                 pytest.raises(err, match=match):
             make_train_step(model, opt)(TrainState(params, opt.init(params)),
                                         toks, toks)
-    with pytest.raises(NotImplementedError, match="item 13h"):
-        parallel.parallelize(Model(get_smoke_config("olmoe-1b-7b"),
+    with pytest.raises(NotImplementedError, match="item 13h′"):
+        parallel.parallelize(Model(get_smoke_config("xlstm-1.3b"),
                                    device="meta", seed=None),
                              mesh_lib.Mesh(("data", "model"), (2, 2)))

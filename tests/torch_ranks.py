@@ -1,9 +1,12 @@
 """Shared by the tensor-parallel tests (``test_torch_tensor_parallel.py``,
-``test_torch_train_ranks.py``, ``test_torch_pod_dryrun.py``): the smoke
+``test_torch_train_ranks.py``, ``test_torch_pod_dryrun.py``,
+``test_torch_decode_ranks.py``, ``test_torch_moe_ranks.py``): the smoke
 configs chosen for their head layouts at four ranks of "model", the
 meshes, numpy-seeded weights and inputs, and the runs of the port's four
 gloo ranks beside one reference process, each subprocess with
-``OMP_NUM_THREADS=1`` and its own time limit.
+``OMP_NUM_THREADS=1`` and its own time limit.  The MoE configs
+(:data:`MOE_ARCHS`) have weights of their own, written where a run asks
+for them.
 
 * qwen3-8b: qk-norm, its keys half a head a rank at m = 4;
 * deepseek-coder-33b: 7 heads of 32 over d = 224, 1.75 q heads a rank;
@@ -23,11 +26,13 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ("qwen3-8b", "deepseek-coder-33b", "hubert-xlarge", "qwen2-vl-7b")
+MOE_ARCHS = ("olmoe-1b-7b", "llama4-maverick-400b-a17b")
 MESHES = {"1x4": (("data", "model"), (1, 4)),
           "2x2": (("data", "model"), (2, 2)),
           "4x1": (("data", "model"), (4, 1)),
           "2x1x2": (("pod", "data", "model"), (2, 1, 2))}
 B, T, CAP = 4, 8, 12
+STEPS = 8          # decode tokens in the inputs
 TIMEOUT = 240
 
 # the ranks' common preamble: argv is (rank, tmp, meshes as JSON)
@@ -114,31 +119,42 @@ def env() -> dict:
             "GLOO_SOCKET_IFNAME": "lo"}
 
 
-def write_inputs(tmp: pathlib.Path) -> None:
-    """The four smoke models' weights (the port's seeded init in the
-    reference's tree) and the tokens, embeddings and labels."""
+def seeded_tree(cfg, seed: int):
+    """The port's init of ``cfg`` from ``seed`` in the reference's tree,
+    every 1-d leaf perturbed (no norm scale is exactly 1)."""
     import torch
 
     from repro_torch import convert
-    from repro_torch.configs import get_smoke_config
     from repro_torch.models import Model
 
-    trees = {}
-    for i, arch in enumerate(ARCHS):
-        cfg = get_smoke_config(arch)
-        model = Model(cfg, device="cpu", seed=10 + i)
-        with torch.no_grad():       # no norm scale is exactly 1
-            for name, p in model.named_parameters():
-                if p.dim() == 1:
-                    p.add_(torch.linspace(-0.1, 0.1, p.numel()))
-        trees[arch] = convert.model_to_numpy(cfg, model)
+    model = Model(cfg, device="cpu", seed=seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 1:
+                p.add_(torch.linspace(-0.1, 0.1, p.numel()))
+    return convert.model_to_numpy(cfg, model)
+
+
+def write_inputs(tmp: pathlib.Path, archs=ARCHS) -> None:
+    """The smoke models' weights (``ARCHS`` seeded 10, 11, ...; the MoE
+    configs 20, 21, ...) and the tokens, embeddings and labels, and the
+    decode steps' tokens and embeddings."""
+    from repro_torch.configs import get_smoke_config
+
+    seeds = {**{a: 10 + i for i, a in enumerate(ARCHS)},
+             **{a: 20 + i for i, a in enumerate(MOE_ARCHS)}}
+    trees = {arch: seeded_tree(get_smoke_config(arch), seeds[arch])
+             for arch in archs}
     with open(tmp / "params.pkl", "wb") as f:
         pickle.dump(trees, f)
     rng = np.random.default_rng(28)
     np.savez(tmp / "inputs.npz",
              tokens=rng.integers(0, 104, (B, T)),
              labels=rng.integers(0, 104, (B, T)),
-             embeds=rng.normal(0, 1, (B, T, 256)).astype(np.float32))
+             embeds=rng.normal(0, 1, (B, T, 256)).astype(np.float32),
+             decode_tokens=rng.integers(0, 104, (B, STEPS)),
+             decode_embeds=rng.normal(0, 1, (B, STEPS, 256)).astype(
+                 np.float32))
 
 
 def _finish(proc, what):
@@ -152,12 +168,13 @@ def _finish(proc, what):
 
 
 def run(tmp: pathlib.Path, reference: str | None, port: str,
-        meshes: dict = MESHES) -> dict:
+        meshes: dict = MESHES, archs=ARCHS) -> dict:
     """The reference process (``REFERENCE_HEAD + reference +
     REFERENCE_TAIL``) and four ranks (``PORT_HEAD + port + PORT_TAIL``)
-    started together; their results."""
+    started together, the weights of ``archs`` in ``trees``; their
+    results."""
     if not (tmp / "params.pkl").exists():
-        write_inputs(tmp)
+        write_inputs(tmp, archs)
     m = json.dumps(meshes)
     procs = []
     if reference is not None:
