@@ -139,7 +139,8 @@ Phases, each printing one JSON line:
 12. zoo_serve — the MoE, xLSTM and Mamba families at full width, each
              built in bf16 from seed 0 and freed before the next:
              olmoe-1b-7b (16 layers, d_model 2,048, 64 experts of 1,024,
-             top-8), xlstm-1.3b (48 blocks, sLSTM:mLSTM 1:7) and the first
+             top-8), xlstm-1.3b (its first 24 of 48 blocks, sLSTM:mLSTM
+             1:7, for the script's time limit) and the first
              five layers of jamba-1.5-large-398b (d_model 8,192: four
              Mamba layers of d_inner 16,384, N = 16, one attention layer of
              64/8 heads of 128, three MLPs of 24,576, two MoEs of 16
@@ -260,9 +261,21 @@ Phases, each printing one JSON line:
              within 5e-2; every step's collectives against the schedule's;
              (d) olmoe-1b-7b cut to 4 layers trained 12 steps, step 1
              against the no-mesh step, ms a step, tokens/s, mfu, peak.
+17d. tp_recurrent — the Mamba and xLSTM mixers placed by
+             ``models/parallel.py``, NCCL as a world of one rank over the
+             (1, 1) mesh: (a) jamba's first five layers and (b)
+             xlstm-1.3b whole (bf16, seed 0), each a 4 x 2,048 prefill
+             and 16 decode steps, the placed model (views of the whole
+             one's weights) against the whole one: logits and risk
+             bitwise (else the 2x bf16 rule), selective-scan and flash
+             launches equal, the prefill's and each step's collectives
+             the schedule's; (c) one train step of jamba cut to one layer
+             (4 x 2,048) and of xlstm-1.3b (2 x 512) sharded against the
+             no-mesh step, two more timed: ms a step, tokens/s, mfu,
+             peak, the step's collectives the schedule's.
 18. roofline — every path phases 11, 12 and 16 timed (qwen3-8b, olmoe-1b-7b,
-             xlstm-1.3b and jamba's five layers, prefill and decode; jamba's
-             one-layer train step) read against the one-card roofline
+             xlstm-1.3b's 24 layers and jamba's five, prefill and decode;
+             jamba's one-layer train step) read against the one-card roofline
              (``launch/roofline.py`` at the H100's published rates) at that
              run's batch, length and kind: mfu, flops_share, hbm_share,
              roofline_share and the bottleneck, none over 1.05; the
@@ -2530,10 +2543,15 @@ def phase_llm_serve(dev, attention: dict) -> dict:
 # ---------------------------------------------------------------- phase 12
 JAMBA = "jamba-1.5-large-398b"
 ZOO_ARCHS = ("olmoe-1b-7b", "xlstm-1.3b", JAMBA)
-# what is cut, by architecture: jamba keeps its first five layers
+# what is cut, by architecture: jamba keeps its first five layers, xlstm
+# its first three groups (its sLSTM time loop is host-bound: at 48 layers
+# this phase took 339 s of a 1,200 s script; tp_recurrent serves it whole)
 ZOO_REDUCED = {JAMBA: {"n_layers": "72 -> 5 (layers 0-4 of the 8-layer "
                                    "period; 90.5 GB bf16 for one period "
-                                   "does not fit one 80 GB card)"}}
+                                   "does not fit one 80 GB card)"},
+               "xlstm-1.3b": {"n_layers": "48 -> 24 (3 of its 6 groups; "
+                                          "the script's time limit)"}}
+XLSTM_ZOO_LAYERS = 24
 OLMOE_ATTN = (4, 2048, 2048, 16, 16, 128, True, 0)   # olmoe-1b-7b prefill
 # the Mamba scan's kernel; then the MoE's dispatch and combine (slot table
 # scatter, buffer and output gathers, the stable sort of the router, the
@@ -2565,7 +2583,8 @@ print("LAUNCHES " + json.dumps(ops.LAUNCHES))
 
 def _zoo_config(arch: str):
     """The architecture's full config, cut in depth where ``ZOO_REDUCED``
-    says so (jamba: its first five layers, every width kept)."""
+    says so (jamba: its first five layers; xlstm-1.3b: its first three
+    groups; every width kept)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2574,6 +2593,8 @@ def _zoo_config(arch: str):
     if arch == JAMBA:
         cfg = dataclasses.replace(cfg, n_layers=5,
                                   layer_pattern=cfg.layer_pattern[:5])
+    elif arch == "xlstm-1.3b":
+        cfg = dataclasses.replace(cfg, n_layers=XLSTM_ZOO_LAYERS)
     return cfg
 
 
@@ -3075,8 +3096,9 @@ def _serve_e2e() -> dict:
 
 
 def phase_zoo_serve(dev) -> dict:
-    """olmoe-1b-7b, xlstm-1.3b and jamba-1.5-large-398b's first five layers
-    at full width through the serve launcher, each freed before the next;
+    """olmoe-1b-7b, xlstm-1.3b's first 24 layers and jamba-1.5-large-398b's
+    first five at full width through the serve launcher, each freed before
+    the next;
     the selective-scan kernel on small cases; the flash kernel at olmoe's
     prefill shape; the end-to-end serving example on the card."""
     t0 = time.perf_counter()
@@ -4397,7 +4419,7 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
                   main_bench: dict, paper_bench: dict, attention: dict,
                   llm: dict, zoo: dict, scores: dict, decode: dict,
                   bench: dict, train: dict, ep: dict, tp: dict,
-                  sdm: dict) -> None:
+                  sdm: dict, tpr: dict) -> None:
     from repro_torch.benchmarks.timing import banked_bound, device_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels import score_pipeline as sp
@@ -4476,6 +4498,9 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
         "sharded_decode_moe_launches": {
             part: sdm[part]["launches"]["flash_attention_wgmma"]
             for part in ("dense", "ring", "moe")},
+        # jamba's prefill through the placed Mamba layers (tp_recurrent)
+        "tp_recurrent_launches": tpr["serve"][JAMBA]["launches"][
+            "sharded"]["flash_attention_wgmma"],
         "olmoe_shape": zoo["olmoe_flash"],
     }, {
         "name": "flash_attention", "route": "cuda",
@@ -4518,11 +4543,11 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
                  "src/repro/kernels/decode_attention.py:24", bench,
                  decode["timings"]["bench"]["library_ms"],
                  decode["timings"]),
-        _selective_scan_entry(zoo, train),
-        _selective_scan_bwd_entry(train)]})
+        _selective_scan_entry(zoo, train, tpr),
+        _selective_scan_bwd_entry(train, tpr)]})
 
 
-def _selective_scan_entry(zoo: dict, train: dict) -> dict:
+def _selective_scan_entry(zoo: dict, train: dict, tpr: dict) -> dict:
     """The Mamba scan: launches on jamba's serve path (zoo_serve's main
     path run) and on its training path (the train phase's), its error over
     the small cases and the four layers' live inputs, its times at the
@@ -4543,10 +4568,17 @@ def _selective_scan_entry(zoo: dict, train: dict) -> dict:
                                           "shape")},
             "path": "jamba-1.5-large-398b serve (zoo_serve): 4 a prefill, "
                     "4 a decode step",
-            "train_launches": train["launches"]["selective_scan"]}
+            "train_launches": train["launches"]["selective_scan"],
+            # the placed Mamba layers' prefill and decode, and step 1 of
+            # the placed one-layer train step (tp_recurrent)
+            "tp_recurrent_launches": {
+                "serve": tpr["serve"][JAMBA]["launches"]["sharded"][
+                    "selective_scan"],
+                "train": tpr["train"][JAMBA]["launches"]["sharded"][
+                    "selective_scan"]}}
 
 
-def _selective_scan_bwd_entry(train: dict) -> dict:
+def _selective_scan_bwd_entry(train: dict, tpr: dict) -> dict:
     """The scan's backward: launches on jamba's training path (the train
     phase's main path run), its error over the small cases and step 1's
     live inputs, its times at the training shape.  The JAX package
@@ -4566,7 +4598,10 @@ def _selective_scan_bwd_entry(train: dict) -> dict:
                                           "bound_by", "library_ms",
                                           "shape")},
             "path": "jamba-1.5-large-398b training (train): 1 a step, and "
-                    "1 launch of its reduction"}
+                    "1 launch of its reduction",
+            # step 1 of the placed one-layer train step (tp_recurrent)
+            "tp_recurrent_launches": tpr["train"][JAMBA]["launches"][
+                "sharded"]["selective_scan_bwd"]}
 
 
 # ------------------------------------------------------- tensor parallel
@@ -4997,6 +5032,8 @@ def _sdm_chain(model, prompt, capacity: int, tokens=None, *,
         torch.cuda.synchronize()
         res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
         res["prefill_collectives"] = _ep_collectives(tally)
+        res["prefill_logits"], res["prefill_risk"] = pre.logits, \
+            pre.risk_score
         greedy = tokens is None
         fed = []
         nxt = torch.argmax(pre.logits[:, -1], dim=-1, keepdim=True)
@@ -5310,7 +5347,7 @@ def _sdm_pair(name: str, cfg, plain, mesh, prompt, capacity: int, *,
                   f"{name}: sharded decode outside the 2x bf16 rule: "
                   f"{result['rule_2x_bf16']}")
             del ref
-    del whole, tp, first, got, again, tp_again
+    del whole, tp, first, got
     gc.collect()
     torch.cuda.empty_cache()
     return result
@@ -5552,6 +5589,360 @@ def phase_sharded_decode_moe(dev, smi: str) -> dict:
     return result
 
 
+# ------------------------------------------------------- tp_recurrent
+TPR_BACKEND = "nccl"    # the card's; nothing falls back to gloo
+TPR_XLSTM = "xlstm-1.3b"
+TPR_XLSTM_TRAIN = (2, 512, 3)   # batch, tokens, steps: the sLSTM time loop
+TPR_JAMBA_TRAIN_STEPS = 3
+
+
+def _tpr_schedule(cfg, rows: int, what: str) -> dict:
+    """The collectives of a bf16 prefill of ``rows`` tokens or decode step
+    of ``rows`` sequences of a placed model at one rank of "model" (every
+    all-to-all dropped), from the config: the embedding's all-reduce; a
+    Mamba layer's x_proj and out_proj all-reduces; an attention layer's
+    wo (a decode's gather of the token's q, k, v and the combine's two
+    float32 all-reduces too); an sLSTM's two gathers (a prefill's of
+    w_in and w_rec, a decode's of h before and after the cell) and its
+    down projection's all-reduce; an mLSTM's gathers of up's output and
+    of v (float32), the normaliser's all-reduce and the numerator's
+    reduce-scatter (float32) and down's all-reduce; an MLP's down and a
+    MoE's float32 partial output."""
+    from repro_torch.models.mamba import dt_rank_of
+    from repro_torch.models.xlstm import mlstm_dims
+
+    d, hd, hq, hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    out = {"bytes_by_kind": {}, "count_by_kind": {}}
+
+    def add(kind, n, each):
+        out["bytes_by_kind"][kind] = out["bytes_by_kind"].get(kind, 0.0) \
+            + n * each
+        out["count_by_kind"][kind] = out["count_by_kind"].get(kind, 0.0) + n
+
+    act = rows * d * 2
+    add("all-reduce", 1, act)
+    for spec in cfg.layer_pattern * cfg.n_groups:
+        if spec.mixer == "mamba":
+            xproj = dt_rank_of(d, cfg.mamba) + 2 * cfg.mamba.d_state
+            add("all-reduce", 1, rows * xproj * 2)
+        elif spec.mixer == "attn" and what == "decode":
+            add("all-gather", 1, rows * (hq + 2 * hkv) * hd * 2)
+            add("all-reduce", 1, rows * hq * 4)
+            add("all-reduce", 1, rows * hq * (hd + 1) * 4)
+        elif spec.mixer == "slstm":
+            add("all-gather", 2, rows * d * 4 if what == "decode"
+                else 4 * d * d * 2)
+        elif spec.mixer == "mlstm":
+            d_in, mhd = mlstm_dims(d, cfg.n_heads, cfg.xlstm)
+            add("all-gather", 1, rows * 2 * d_in * 2)
+            add("all-gather", 1, rows * cfg.n_heads * mhd * 4)
+            add("all-reduce", 1, rows * cfg.n_heads * 4)
+            add("reduce-scatter", 1, rows * d_in * 4)
+        add("all-reduce", 1, act)         # out_proj / wo / down
+        if spec.ffn == "mlp":
+            add("all-reduce", 1, act)
+        elif spec.ffn == "moe":
+            add("all-reduce", 1, rows * d * 4)
+    return out
+
+
+def _tpr_train_schedule(model) -> dict:
+    """The collectives of one train step (remat) of a placed model at one
+    rank, counted from its layers.  A group's forward runs again in the
+    backward up to its last saved tensor, the input of the last layer's
+    down / out projection, whose all-reduce is not repeated.  Mamba: two
+    all-reduces forward (x_proj, out_proj), three "f" backward (in_proj's
+    input, x_proj's output, the replicated dt_bias); an MLP: one and one;
+    an sLSTM: the gathers of w_in and w_rec (no backward exchange: every
+    rank uses them alike), down's all-reduce and up's "f"; an mLSTM: the
+    gathers of up's output and v, the normaliser's and down's
+    all-reduces and the numerator's reduce-scatter forward, and up's
+    "f", w_if's weight and bias, the normaliser's all-reduce, two
+    reduce-scatters and a gather backward.  Then the embedding, the lm
+    head's "f", the cross entropy's three, the metrics', every leaf's
+    gradient over "data" and the norm's one."""
+    cfg = model.cfg
+    fwd = {"mamba": (2, 0, 0), "slstm": (1, 2, 0), "mlstm": (2, 2, 1)}
+    bwd = {"mamba": (3, 0, 0), "slstm": (1, 0, 0), "mlstm": (4, 1, 2)}
+    ar = ag = rs = 0
+    pattern = cfg.layer_pattern
+    for g in range(cfg.n_groups):
+        for i, spec in enumerate(pattern):
+            f_ar, f_ag, f_rs = fwd[spec.mixer]
+            b_ar, b_ag, b_rs = bwd[spec.mixer]
+            f_ar += spec.ffn == "mlp"
+            b_ar += spec.ffn == "mlp"
+            last = i == len(pattern) - 1
+            ar += 2 * f_ar - last + b_ar
+            ag += 2 * f_ag + b_ag
+            rs += 2 * f_rs + b_rs
+    leaves = sum(1 for _ in model.parameters())
+    out = {"all-reduce": float(ar + 1 + 1 + 3 + 1 + leaves + 1),
+           "all-gather": float(ag), "reduce-scatter": float(rs)}
+    return {k: v for k, v in out.items() if v}
+
+
+def _tpr_pair(name: str, cfg, plain, mesh, prompt) -> dict:
+    """``cfg`` on ``plain``'s bf16 weights, whole and sharded over the
+    (1, 1) mesh (views): the whole model's prefill of ``prompt`` (the
+    kernel branch, last logits) and 16 greedy decode steps, then the
+    sharded model's on the same tokens, both timed after a warm-up
+    prefill.  The prefill's and every step's
+    logits and risk bitwise, else PERF.md §2's 2x rule against a float32
+    chain of the whole model (where it fits); the selective-scan and
+    flash launches of each run (counts set to 0 just before it, read
+    just after) equal; the prefill's and each step's collectives the
+    schedule's."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_lib
+
+    whole = _sdm_views(cfg, plain, None)
+    tp = _sdm_views(cfg, plain, mesh)
+    capacity = prompt.shape[1] + SDM_STEPS
+    launches = {}
+    with torch.no_grad(), mesh_lib.set_mesh(mesh):
+        # a short prefill first, so neither timed run is the card's first
+        whole.prefill(prompt[:1, :128], cache_capacity=128,
+                      logits_mode="last", attn_impl="kernel",
+                      compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        first = _sdm_chain(whole, prompt, capacity)
+        launches["whole"] = dict(ops.LAUNCHES)
+        tokens = first["tokens"]
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        got = _sdm_chain(tp, prompt, capacity, tokens)
+        launches["sharded"] = dict(ops.LAUNCHES)
+    check(launches["whole"] == launches["sharded"],
+          f"{name}: launches {launches}")
+    mamba = sum(s.mixer == "mamba" for s in cfg.layer_pattern) * cfg.n_groups
+    attn = sum(s.mixer == "attn" for s in cfg.layer_pattern) * cfg.n_groups
+    check(launches["sharded"].get("selective_scan", 0)
+          == mamba * (1 + SDM_STEPS)
+          and launches["sharded"].get("flash_attention_wgmma", 0) == attn,
+          f"{name}: {launches['sharded']}, expected {mamba} x 17 scans "
+          f"and {attn} tensor-core flash launches")
+    b, t = prompt.shape
+    predicted = {"prefill": _tpr_schedule(cfg, b * t, "prefill"),
+                 "step": _tpr_schedule(cfg, b, "decode")}
+    keys = ("bytes_by_kind", "count_by_kind")
+    check({k: got["prefill_collectives"][k] for k in keys}
+          == predicted["prefill"], f"{name}: the prefill's collectives "
+          f"{got['prefill_collectives']}, predicted {predicted['prefill']}")
+    for c in got["collectives"]:
+        check({k: c[k] for k in keys} == predicted["step"],
+              f"{name}: a step's collectives {c}, predicted "
+              f"{predicted['step']}")
+    pairs = [(got["prefill_logits"], first["prefill_logits"],
+              got["prefill_risk"], first["prefill_risk"])] + list(zip(
+                  got["logits"], first["logits"], got["risk"],
+                  first["risk"]))
+    bitwise = all(torch.equal(a, b) and torch.equal(ra, rb)
+                  for a, b, ra, rb in pairs)
+    diffs = [max(_max_diff(a, b), _max_diff(ra, rb))
+             for a, b, ra, rb in pairs]
+    result = {"arch": cfg.name, "layers": cfg.n_layers, "batch": b,
+              "prompt_len": t, "steps": SDM_STEPS, "bitwise": bitwise,
+              "max_abs_diff": diffs, "launches": launches,
+              "prefill_collectives": got["prefill_collectives"],
+              "collectives_per_step": got["collectives"][0],
+              "collectives_predicted": predicted,
+              "prefill_ms": {"whole": first["prefill_ms"],
+                             "sharded": got["prefill_ms"]},
+              "step_ms": {"whole": statistics.median(first["step_ms"]),
+                          "sharded": statistics.median(got["step_ms"])},
+              "timing": "host clock, each step ended by a device sync; "
+                        "the median of the 16 steps; the whole run, then "
+                        "the sharded one, after a 1 x 128 warm-up "
+                        "prefill"}
+    if not bitwise:
+        check(cfg.name != JAMBA, f"{name}: not bitwise ({diffs}); jamba's "
+              "five layers have no float32 copy on one card for the 2x "
+              "rule")
+        with torch.no_grad(), mesh_lib.set_mesh(mesh):
+            ref = _sdm_chain(whole, prompt, capacity, tokens,
+                             dtype="float32")
+        rule = {k: [_max_diff(a, r) for a, r in zip(
+            [chain["prefill_logits"]] + chain["logits"],
+            [ref["prefill_logits"]] + ref["logits"])]
+            for k, chain in (("sharded", got), ("whole", first))}
+        result["rule_2x_bf16"] = rule
+        check(all(a <= 2 * b for a, b in zip(rule["sharded"],
+                                              rule["whole"])),
+              f"{name}: outside the 2x bf16 rule: {rule}")
+        del ref
+    del whole, tp, first, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _tpr_train(name: str, cfg, dev, mesh, batch: int, seq: int,
+               steps: int) -> dict:
+    """``cfg`` at float32 masters, bf16 compute, remat, AdamW: step 1 of a
+    fresh state from seed 0 without a mesh, then the same step of a fresh
+    state sharded over the (1, 1) mesh, held to each other (bitwise, else
+    ``_step1_against``'s rule), then ``steps - 1`` more sharded steps,
+    timed (host clock, each step ended by reading its loss).  The kernel
+    launches of each step 1 (counts set to 0 just before it) equal, the
+    sharded step's collectives the schedule's."""
+    import torch
+    from repro_torch.benchmarks.timing import BF16_FLOPS
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import roofline
+    from repro_torch.models import Model, parallel
+    from repro_torch.training import AdamW, Trainer, cosine_schedule
+    from repro_torch.training.data import TokenStream
+    from repro_torch.training.train import make_train_step
+
+    stream = iter(TokenStream(cfg.vocab_size, seq, batch))
+    batches = [tuple(torch.as_tensor(a, dtype=torch.long, device=dev)
+                     for a in next(stream)) for _ in range(steps)]
+    schedule = cosine_schedule(TRAIN_LR[0], TRAIN_LR[1], steps)
+
+    def fresh(sharded: bool):
+        model = Model(cfg, device=dev, dtype=torch.float32, seed=0)
+        if sharded:
+            parallel.parallelize(model, mesh)
+        opt = AdamW(learning_rate=schedule)
+        state = Trainer(model, opt).init_state(None)
+        step = make_train_step(model, opt, remat=True,
+                               compute_dtype=torch.bfloat16)
+        return model, state, step
+
+    launches = {}
+    model, state, step = fresh(False)
+    params = model.param_count()
+    with mesh_lib.set_mesh(mesh):
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        state, m = step(state, *batches[0])
+        plain_metrics = [float(v) for v in m]
+    launches["whole"] = dict(ops.LAUNCHES)
+    plain_after = {k: p.detach().cpu() for k, p in state.params.items()}
+    plain_mu = {k: mu.detach().cpu() for k, mu in state.opt.mu.items()}
+    del model, state, step, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, state, step = fresh(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    history, step_ms = [], []
+    with mesh_lib.set_mesh(mesh):
+        for i, (toks, labels) in enumerate(batches):
+            if i == 0:
+                for key in ops.LAUNCHES:
+                    ops.LAUNCHES[key] = 0
+            t0 = time.perf_counter()
+            with coll.tally() as tally:
+                state, m = step(state, toks, labels)
+                metrics = [float(v) for v in m]
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            history.append(dict(zip(("loss", "ce", "moe_aux", "grad_norm"),
+                                    metrics)))
+            if i == 0:
+                launches["sharded"] = dict(ops.LAUNCHES)
+                collectives = _ep_collectives(tally)
+                step1 = _step1_against(state, plain_after, plain_mu)
+                first_metrics = metrics
+    peak = torch.cuda.max_memory_allocated()
+    del plain_after, plain_mu
+    check(launches["whole"] == launches["sharded"],
+          f"{name}: step 1 launches {launches}")
+    predicted = _tpr_train_schedule(model)
+    check(collectives["count_by_kind"] == predicted,
+          f"{name}: the step's collectives {collectives}, predicted "
+          f"{predicted}")
+    bitwise = first_metrics == plain_metrics and step1["bitwise"]
+    check(bitwise or (all(abs(a - b) <= 1e-5 * abs(b) for a, b in
+                          zip(first_metrics, plain_metrics))
+                      and step1["mu_diff_over_tol"] <= 1.0
+                      and step1["param_diff_over_tol"] <= 1.0),
+          f"{name}: step 1 sharded {first_metrics} against "
+          f"{plain_metrics}, leaves {step1}")
+    losses = [h["loss"] for h in history]
+    check(all(map(math.isfinite, losses)), f"{name}: losses {losses}")
+    ms = statistics.median(step_ms[1:])
+    shape = InputShape("tpr_train", seq, batch, "train")
+    mfu = roofline.model_flops(cfg, shape, "train") / (ms * 1e-3 * BF16_FLOPS)
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "params": params,
+            "batch": batch, "seq": seq, "steps": steps,
+            "compute_dtype": "bfloat16", "remat": True,
+            "step1": {"no_mesh": plain_metrics, "sharded": first_metrics,
+                      **step1, "bitwise": bitwise},
+            "history": history, "step_ms": step_ms, "ms_per_step": ms,
+            "tokens_per_s": batch * seq / (ms * 1e-3), "mfu": mfu,
+            "max_memory_allocated": peak, "launches": launches,
+            "collectives": collectives, "collectives_predicted": predicted,
+            "timing": "host clock: each step ends in reading its loss; ms "
+                      f"a step the median of the last {steps - 1}"}
+
+
+def phase_tp_recurrent(dev, smi: str) -> dict:
+    """The Mamba and xLSTM mixers placed by ``models/parallel.py``, NCCL
+    in process as a world of one rank over the (1, 1) mesh: (a) jamba's
+    first five layers (bf16, seed 0) and (b) xlstm-1.3b whole, each a 4
+    x 2,048 prefill and 16 decode steps, whole against sharded
+    (:func:`_tpr_pair`); (c) one train step of jamba cut to one layer
+    (4 x 2,048) and of xlstm-1.3b (2 x 512), sharded against the no-mesh
+    step, and a few more timed (:func:`_tpr_train`)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    card = dev if dev.type != "cuda" or dev.index is not None else \
+        torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group(
+        TPR_BACKEND, store=dist.HashStore(), rank=0, world_size=1,
+        device_id=card if card.type == "cuda" else None)
+    try:
+        check(dist.get_backend() == TPR_BACKEND,
+              f"the process group runs {TPR_BACKEND}")
+        mesh = mesh_lib.init_mesh(mesh_lib.make_host_mesh(), device=card)
+        rng = np.random.default_rng(0)
+        serve = {}
+        for arch, cfg in ((JAMBA, _zoo_config(JAMBA)),
+                          (TPR_XLSTM, get_config(TPR_XLSTM))):
+            plain = Model(cfg, device=card, dtype=torch.bfloat16, seed=0)
+            prompt = torch.tensor(rng.integers(0, cfg.vocab_size, (
+                LLM_BATCH, LLM_PROMPT)), dtype=torch.long, device=card)
+            serve[arch] = _tpr_pair(arch, cfg, plain, mesh, prompt)
+            del plain
+            gc.collect()
+            torch.cuda.empty_cache()
+        train = {JAMBA: _tpr_train(JAMBA, _train_config(), card, mesh,
+                                   TRAIN_BATCH, TRAIN_SEQ,
+                                   TPR_JAMBA_TRAIN_STEPS),
+                 TPR_XLSTM: _tpr_train(TPR_XLSTM, get_config(TPR_XLSTM),
+                                       card, mesh, *TPR_XLSTM_TRAIN)}
+        check(train[JAMBA]["params"] == TRAIN_PARAMS,
+              f"jamba's one layer has {train[JAMBA]['params']} parameters")
+    finally:
+        dist.destroy_process_group()
+    result = {"phase": "tp_recurrent", "nvidia_smi": smi,
+              "backend": TPR_BACKEND, "world_size": 1, "mesh": mesh.shape,
+              "reduced": {JAMBA: {"serve": ZOO_REDUCED[JAMBA],
+                                  "train": TRAIN_REDUCED}},
+              "serve": serve, "train": train,
+              "wall_s": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -5593,10 +5984,11 @@ def main() -> int:
     ep = phase_expert_parallel(dev, smi)
     tp = phase_tensor_parallel(dev, smi)
     sdm = phase_sharded_decode_moe(dev, smi)
+    tpr = phase_tp_recurrent(dev, smi)
     phase_roofline(dev, llm, zoo, train, smi)
     phase_kernels(kernel, serve, main_shapes, lifecycle, engine, tiering,
                   sharding, main_bench, paper_bench, attention, llm, zoo,
-                  scores, decode, bench, train, ep, tp, sdm)
+                  scores, decode, bench, train, ep, tp, sdm, tpr)
     emit({"phase": "wall", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -30,7 +30,19 @@ all-reduces: a replicated activation entering a column-parallel layer, or
 a replicated parameter used on a rank's share of the heads, gets on every
 rank the sum of the ranks' partial cotangents.  :func:`all_reduce_sum`
 all-reduces both ways: the adjoint of a sum that every rank's share of
-the objective uses (the MoE's global means over the data ranks).
+the objective uses (the MoE's global means over the data ranks, the
+mLSTM's normaliser).  Each collective's backward follows from whether
+its result's cotangent is the same on every rank: an all-gather whose
+result every rank uses alike (:func:`all_gather_same`, the sLSTM's
+gathered weights) keeps the rank's block of that cotangent and
+exchanges nothing, where :func:`all_gather`, whose ranks use the result
+each on their own share, reduce-scatters it.
+
+:func:`all_to_all_split` is the all-to-all with a split size a rank: the
+pieces a rank sends each rank are any number of rows of dim 0, as the
+Mamba's x / z exchange and the sLSTM decode's gate exchange need
+(``models/parallel.py::gate_plan``); its backward is the reverse
+exchange.
 
 The tally is one stack for the process, not a context variable: on the
 card autograd runs the backward (and the recompute of a remat group) on
@@ -119,6 +131,28 @@ def all_to_all_raw(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     return _count("all-to-all", out)
 
 
+def all_to_all_split_raw(x: torch.Tensor, mesh: Mesh, axis: str,
+                        send: list[int], recv: list[int]) -> torch.Tensor:
+    """Rows of dim 0 of ``x``, ``send[j]`` of them (in order) to rank j of
+    ``axis``; dim 0 of the result is the ``recv[j]`` rows each rank j sent
+    here, by rank.  Over one rank it is ``x`` (not issued)."""
+    n = mesh.shape[axis]
+    if len(send) != n or len(recv) != n or sum(send) != x.shape[0]:
+        raise ValueError(f"splits {send} / {recv} of {x.shape[0]} rows "
+                         f"over {axis}'s {n} ranks")
+    if n == 1:
+        return x
+    shape = (sum(recv),) + tuple(x.shape[1:])
+    if x.device.type == "meta":
+        return _count("all-to-all", x.new_empty(shape))
+    import torch.distributed as dist
+
+    out = x.new_empty(shape)
+    dist.all_to_all_single(out, x.contiguous(), list(recv), list(send),
+                           group=mesh.group(axis))
+    return _count("all-to-all", out)
+
+
 def all_gather_raw(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
                    ) -> torch.Tensor:
     """Every rank's ``x`` of ``axis`` concatenated along ``dim``, by rank
@@ -195,6 +229,18 @@ class _AllToAll(torch.autograd.Function):
         return all_to_all_raw(g, ctx.mesh, ctx.axis), None, None
 
 
+class _AllToAllSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, send, recv):
+        ctx.mesh, ctx.axis, ctx.send, ctx.recv = mesh, axis, send, recv
+        return all_to_all_split_raw(x, mesh, axis, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_to_all_split_raw(g, ctx.mesh, ctx.axis, ctx.recv,
+                                     ctx.send), None, None, None, None)
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis, dim):
@@ -204,6 +250,19 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return (reduce_scatter_raw(g, ctx.mesh, ctx.axis, ctx.dim), None,
+                None, None)
+
+
+class _AllGatherSame(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.dim, ctx.n, ctx.rows = dim, mesh.shape[axis], x.shape[dim]
+        ctx.index = (mesh.coords()[axis] if mesh.live else 0)
+        return all_gather_raw(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.index * ctx.rows, ctx.rows), None,
                 None, None)
 
 
@@ -263,11 +322,28 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     return _AllToAll.apply(x, mesh, axis)
 
 
+def all_to_all_split(x: torch.Tensor, mesh: Mesh, axis: str,
+                     send: list[int], recv: list[int]) -> torch.Tensor:
+    if mesh.shape[axis] == 1 or not _tracked(x):
+        return all_to_all_split_raw(x, mesh, axis, send, recv)
+    return _AllToAllSplit.apply(x, mesh, axis, tuple(send), tuple(recv))
+
+
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
                ) -> torch.Tensor:
     if not _tracked(x):
         return all_gather_raw(x, mesh, axis, dim)
     return _AllGather.apply(x, mesh, axis, dim)
+
+
+def all_gather_same(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
+                    ) -> torch.Tensor:
+    """The all-gather of a block whose whole every rank of ``axis`` uses
+    alike, so that the whole's cotangent is the same on every rank: the
+    backward keeps this rank's block of it (no collective)."""
+    if not _tracked(x):
+        return all_gather_raw(x, mesh, axis, dim)
+    return _AllGatherSame.apply(x, mesh, axis, dim)
 
 
 def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str, dim: int

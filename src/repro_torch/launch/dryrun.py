@@ -32,11 +32,10 @@ sharded by ``models/parallel.py``, its collectives counted by kind
 (``launch/collectives.py::tally``; on meta they only count), its argument
 bytes held to :func:`argument_bytes_per_device`, and the roofline's
 collective term over the mesh's slowest link (``launch/roofline.py``).
-The dense and MoE decoders' cells run, decode included (flash-decoding
-over the cache's sequence on "model"); jamba's and xlstm-1.3b's pod
-cells raise, naming ROADMAP Queue 1 item 13h′
-(``launch/mesh.py::TP_RECURRENT``), and the ``--variant`` bundles item
-13i.
+Every model's cells run, decode included (flash-decoding over the
+cache's sequence on "model"; the Mamba and xLSTM mixers on their channel
+blocks, ``models/mamba.py`` and ``models/xlstm.py``); the ``--variant``
+bundles raise, naming item 13i.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \\
@@ -68,7 +67,7 @@ from repro_torch.launch import collectives as coll
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import roofline, shardings, specs
 from repro_torch.launch.shardings import P
-from repro_torch.models import parallel
+from repro_torch.models import parallel, transformer
 from repro_torch.training.optimizer import AdamWState
 from repro_torch.training.train import StepMetrics, TrainState
 
@@ -355,7 +354,8 @@ def build_shardings(bundle: specs.StepBundle, mesh, *,
                   "risk_score": batch_sh}
         if cfg.has_decode:
             out_sh["cache"] = shardings.cache_pspecs(
-                model.init_cache(b, bundle.shape.seq_len), b, mesh)
+                transformer.init_cache(cfg, b, bundle.shape.seq_len,
+                                       device="meta"), b, mesh)
         return (psh, in_sh), out_sh, fsdp
 
     _, cache, inputs, _pos = bundle.abstract_args
@@ -478,7 +478,7 @@ def run_cell(arch: str, shape_name: str, *, moment_dtype=torch.float32,
 
 def pod_cells() -> list[tuple[str, str]]:
     """The cells a pod mesh traces: every shape of the models
-    ``parallel.check_shardable`` takes (Mamba and xLSTM: item 13h′)."""
+    ``parallel.check_shardable`` takes (every model of the catalog)."""
     cells = []
     for arch in ARCH_IDS:
         try:

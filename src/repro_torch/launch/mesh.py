@@ -40,8 +40,6 @@ from repro_torch.core.transforms import TENANT_AXIS
 from repro_torch.device import resolve_device
 
 # what is not ported yet, named as ROADMAP Queue 1 names it
-TP_RECURRENT = ("ROADMAP Queue 1 item 13h′, tensor parallelism for the "
-                "Mamba and xLSTM mixers and their decode states")
 VARIANTS = ("ROADMAP Queue 1 item 13i, the --variant bundles (act_pspec "
             "sequence parallelism, cast_params_bf16 before the FSDP "
             "gathers, remat off, a2a)")

@@ -31,8 +31,8 @@ meta at the rank's shard shape (its rows of the batch, its block of the
 decode cache under ``cache_pspec``).  The step runs under
 ``set_mesh(mesh)`` with the global batch passed on (whole on every rank
 where it does not divide over the data axes); on a shape-only mesh its
-collectives only count (``launch/collectives.py``).  Mamba and xLSTM
-models raise over a mesh, naming ``launch/mesh.py::TP_RECURRENT``.
+collectives only count (``launch/collectives.py``).  Every family runs
+over a mesh, the Mamba and xLSTM mixers on their channel blocks.
 """
 from __future__ import annotations
 
@@ -252,12 +252,7 @@ def _rank_step(arch: str, shape: InputShape, cfg: ModelConfig, mesh,
     if shape.kind == "decode":
         # the rank's block of the cache: made at its shard shape, not a
         # view of a whole cache (whose storage the arguments would count)
-        whole_cache = model.init_cache(b, t)
-        cache = [type(c)(*(_empty(shardings.shard_shape(a.shape, sp, mesh),
-                                  a.dtype) for a, sp in zip(c, cs)))
-                 for c, cs in zip(whole_cache, shardings.cache_pspecs(
-                     whole_cache, b, mesh))]
-        del whole_cache
+        cache = model.init_cache(b, t)
 
         def serve_step(p, cache_in, inputs, pos):
             with layers.parameters_as(model, p):

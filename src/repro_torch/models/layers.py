@@ -111,15 +111,21 @@ def linear(params: Linear, x: torch.Tensor) -> torch.Tensor:
     """``x @ w (+ b)``.  Sharded, a column-parallel weight gives the
     rank's output columns (its input entered through ``parallel.enter``
     by the caller) and a row-parallel one takes the rank's input columns
-    and all-reduces its partial output over "model"."""
+    and all-reduces its partial output over "model".  The rules keep a
+    bias whole: beside a column-parallel weight the rank adds its
+    columns' block of it (``parallel.rank_block``), beside a row-parallel
+    one it is added once, after the all-reduce."""
     pl = parallel.placement(params)
     y = F.linear(x, parallel.weight(params, "weight").to(x.dtype))
-    if params.bias is not None:
-        if pl is not None and parallel.spec_axes(pl.specs["weight"]):
-            raise NotImplementedError("a bias beside a sharded weight")
-        y = y + params.bias.to(x.dtype)
-    if parallel.sharded_on_model(params, "weight", 1):
+    row = parallel.sharded_on_model(params, "weight", 1)
+    if row:
         y = coll.all_reduce(y, pl.mesh, MODEL_AXIS)
+    if params.bias is not None:
+        block = None
+        if parallel.sharded_on_model(params, "weight", 0):
+            n = params.weight.shape[0]
+            block = (pl.model_rank * n, n)
+        y = y + parallel.rank_block(params, "bias", 0, block).to(x.dtype)
     return y
 
 

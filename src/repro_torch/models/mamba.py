@@ -20,6 +20,31 @@ and a (B, d_inner, N) float32 SSM state.  Unlike the reference, which
 returns a new state, the step writes the SSM state into the state it was
 given, in place (the kernel's output aliases its input), as the port's
 decode writes keys and values and the xLSTM states.
+
+On a model sharded by ``models/parallel.py`` a rank runs the mixer on its
+block of the d_inner channels, the block its conv tail and SSM state hold
+under ``cache_pspec``.  The rules make ``in_proj`` column parallel over
+the concatenated (x | z) columns, so the rank's columns are two channel
+blocks of x or of z that other ranks own (at 16 ranks, ranks 0-7 hold
+only x, 8-15 only z).  The port's own schedule, a deliberate difference
+from the reference's GSPMD, which has none of its own:
+
+  1. Megatron's "f" before ``in_proj``;
+  2. one split all-to-all over "model" (``parallel.gate_plan``) sends
+     each of the rank's two pieces of xz to its owner: the rank ends with
+     its x block and its z block, and no rank gathers xz;
+  3. the conv, ``dt_proj`` (column parallel) and the scan run on the
+     block, the per-channel leaves at the rank's block
+     (``parallel.rank_block``: ``dt_bias`` is whole under the rules);
+  4. ``x_proj`` is row parallel: one all-reduce of its small (dt_rank +
+     2N) output, and "f" after it, since every rank uses all of it on its
+     own channels;
+  5. the skip and the gate, then the row-parallel ``out_proj``'s
+     all-reduce.
+
+A decode step runs the same per token.  Where the columns do not divide
+over "model" the rules keep the mixer whole, and every rank runs all of
+it.
 """
 from __future__ import annotations
 
@@ -31,7 +56,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ops
-from repro_torch.models import layers
+from repro_torch.launch import collectives as coll
+from repro_torch.launch.mesh import MODEL_AXIS
+from repro_torch.models import layers, parallel
 from repro_torch.models.config import MambaConfig
 
 
@@ -102,26 +129,72 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b.to(x.dtype)
 
 
-def _ssm_inputs(params: Mamba, x_conv: torch.Tensor, mc: MambaConfig):
+def plan(params: Mamba, d_model: int, mc: MambaConfig
+         ) -> parallel.GatePlan | None:
+    """The rank's :class:`~repro_torch.models.parallel.GatePlan` over
+    ``in_proj``'s (x | z) columns; None where the mixer runs whole (no
+    placement, or columns that do not divide)."""
+    pl = parallel.placement(params.in_proj)
+    if pl is None:
+        return None
+    return parallel.gate_plan(2, mc.expand * d_model, pl.model_size,
+                              pl.model_rank, "Mamba in_proj")
+
+
+def _in_proj(params: Mamba, x: torch.Tensor, gp: parallel.GatePlan | None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x_in and z of the rank's channel block: ``in_proj`` of x, then the
+    split all-to-all of its column pieces to their owners (none over one
+    rank, where the pieces are the rank's own)."""
+    x = parallel.enter(x, params.in_proj)
+    xz = layers.linear(params.in_proj, x)
+    if gp is None or len(gp.send) == 1:
+        x_in, z = torch.chunk(xz, 2, dim=-1)
+        return x_in, z
+    c = gp.channels[1]
+    pieces = xz.unflatten(-1, (len(gp.pieces), c)).movedim(-2, 0)
+    if gp.order != tuple(range(len(gp.order))):
+        pieces = pieces[list(gp.order)]
+    mine = coll.all_to_all_split(pieces, parallel.placement(
+        params.in_proj).mesh, MODEL_AXIS, list(gp.send), list(gp.recv))
+    return mine[0], mine[1]
+
+
+def _ssm_inputs(params: Mamba, x_conv: torch.Tensor, mc: MambaConfig,
+                d_model: int, block: tuple[int, int] | None):
     """dt (float32, softplus in x's dtype), Bm and Cm (float32,
-    contiguous) and A = -exp(A_log) (float32) of the scan."""
-    rank = dt_rank_of(params.in_proj.weight.shape[1], mc)
+    contiguous) and A = -exp(A_log) (float32) of the scan, on the
+    channels ``block`` (None: all of them)."""
+    rank = dt_rank_of(d_model, mc)
     n = mc.d_state
     proj = layers.linear(params.x_proj, x_conv)
+    if parallel.sharded_on_model(params.x_proj, "weight", 1):
+        # every rank uses all of dt_raw, Bm and Cm on its own channels
+        proj = coll.copy_to(proj, parallel.placement(params.x_proj).mesh,
+                            MODEL_AXIS)
     dt_raw, b_mat, c_mat = torch.split(proj, [rank, n, n], dim=-1)
+    dt_bias = parallel.rank_block(params, "dt_bias", 0, block)
     dt = F.softplus(layers.linear(params.dt_proj, dt_raw)
-                    + params.dt_bias.to(x_conv.dtype)).to(torch.float32)
-    a = -torch.exp(params.A_log.to(torch.float32))
+                    + dt_bias.to(x_conv.dtype)).to(torch.float32)
+    a = -torch.exp(parallel.rank_block(params, "A_log", 0, block).to(
+        torch.float32))
     f32 = torch.float32
     return (dt.contiguous(), b_mat.to(f32).contiguous(),
             c_mat.to(f32).contiguous(), a.contiguous())
 
 
+def _conv(params: Mamba, x_in: torch.Tensor, tail, block):
+    return F.silu(causal_conv(
+        x_in, parallel.rank_block(params, "conv_w", 1, block),
+        parallel.rank_block(params, "conv_b", 0, block), tail))
+
+
 def _gate_out(params: Mamba, y: torch.Tensor, x_conv: torch.Tensor,
-              z: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+              z: torch.Tensor, dtype: torch.dtype, block) -> torch.Tensor:
     """The skip and the gate in float32, cast back before ``out_proj``."""
     f32 = torch.float32
-    y = y + x_conv.to(f32) * params.D.to(f32)
+    y = y + x_conv.to(f32) * parallel.rank_block(params, "D", 0,
+                                                 block).to(f32)
     y = (y * F.silu(z.to(f32))).to(dtype)
     return layers.linear(params.out_proj, y)
 
@@ -131,20 +204,23 @@ def mamba_forward(params: Mamba, x: torch.Tensor, mc: MambaConfig, *,
                   return_state: bool = False
                   ) -> tuple[torch.Tensor, MambaState | None]:
     """Full-sequence mixer: x (B, T, d_model) -> (out, the final state if
-    ``return_state``).  ``initial_state`` continues a sequence."""
-    xz = layers.linear(params.in_proj, x)
-    x_in, z = torch.chunk(xz, 2, dim=-1)
+    ``return_state``).  ``initial_state`` continues a sequence.  On a
+    sharded model the states are the rank's channel block."""
+    d_model = x.shape[-1]
+    gp = plan(params, d_model, mc)
+    block = None if gp is None else gp.channels
+    x_in, z = _in_proj(params, x, gp)
     tail = initial_state.conv if initial_state is not None else None
-    x_conv = F.silu(causal_conv(x_in, params.conv_w, params.conv_b, tail))
-    dt, b_mat, c_mat, a = _ssm_inputs(params, x_conv, mc)
+    x_conv = _conv(params, x_in, tail, block)
+    dt, b_mat, c_mat, a = _ssm_inputs(params, x_conv, mc, d_model, block)
     h0 = initial_state.ssm if initial_state is not None else None
     y, h_final = ops.selective_scan(
         dt, x_conv.to(torch.float32).contiguous(), b_mat, c_mat, a, h0)
-    out = _gate_out(params, y, x_conv, z, x.dtype)
+    out = _gate_out(params, y, x_conv, z, x.dtype, block)
 
     state = None
     if return_state:
-        k = params.conv_w.shape[0]
+        k = mc.d_conv
         src = x_in if initial_state is None else torch.cat(
             [initial_state.conv.to(x_in.dtype), x_in], dim=1)
         conv_tail = src[:, -(k - 1):]
@@ -160,23 +236,25 @@ def mamba_decode_step(params: Mamba, x: torch.Tensor, mc: MambaConfig,
                       ) -> tuple[torch.Tensor, MambaState]:
     """One-token step, x (B, 1, d_model).  Writes the new SSM state into
     ``state.ssm`` in place and returns it with the new conv tail."""
-    xz = layers.linear(params.in_proj, x)
-    x_in, z = torch.chunk(xz, 2, dim=-1)                   # (B, 1, d_in)
-    x_conv = F.silu(causal_conv(x_in, params.conv_w, params.conv_b,
-                                state.conv))
+    d_model = x.shape[-1]
+    gp = plan(params, d_model, mc)
+    block = None if gp is None else gp.channels
+    x_in, z = _in_proj(params, x, gp)                      # (B, 1, c)
+    x_conv = _conv(params, x_in, state.conv, block)
     new_conv = torch.cat([state.conv.to(x_in.dtype), x_in], dim=1)[:, 1:]
-    dt, b_mat, c_mat, a = _ssm_inputs(params, x_conv, mc)
+    dt, b_mat, c_mat, a = _ssm_inputs(params, x_conv, mc, d_model, block)
     y, ssm = ops.selective_scan(
         dt, x_conv.to(torch.float32).contiguous(), b_mat, c_mat, a,
         state.ssm, state_out=state.ssm)
-    out = _gate_out(params, y, x_conv, z, x.dtype)
+    out = _gate_out(params, y, x_conv, z, x.dtype, block)
     return out, MambaState(conv=new_conv, ssm=ssm)
 
 
 def init_mamba_state(batch: int, d_model: int, mc: MambaConfig,
                      dtype=torch.bfloat16, device=None) -> MambaState:
-    """A zero state: the conv tail in ``dtype`` (the cache's), the SSM
-    state in float32."""
+    """A zero state of every channel: the conv tail in ``dtype`` (the
+    cache's), the SSM state in float32 (``transformer.init_cache`` cuts a
+    sharded model's block of it)."""
     d_in = mc.expand * d_model
     return MambaState(
         conv=torch.zeros((batch, mc.d_conv - 1, d_in), dtype=dtype,

@@ -204,8 +204,12 @@ class Model(nn.Module):
         return parallel.vocab_block(self.lm_head, "weight")
 
     def init_cache(self, batch: int, capacity: int, dtype=torch.bfloat16):
+        """A zero decode cache; on a sharded model this rank's block of
+        the cache of a global ``batch`` (``transformer.init_cache``)."""
+        par = parallel.of(self)
         return transformer.init_cache(self.cfg, batch, capacity, dtype,
-                                      device=self.device)
+                                      device=self.device,
+                                      mesh=None if par is None else par.mesh)
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -33,9 +33,18 @@ columns: qwen3-8b's keys at 16 ranks are half a head each).
 :func:`head_plan` says which whole heads a rank computes and what it
 exchanges to get them (``models/attention.py``).
 
-Attention blocks (sliding windows too) with a SwiGLU MLP, an einsum MoE
-or no FFN are sharded here (:func:`check_shardable`); Mamba and xLSTM
-blocks raise, naming their ROADMAP item.  The einsum MoE reads its
+Attention, Mamba, mLSTM and sLSTM blocks with a SwiGLU MLP, an einsum
+MoE or no FFN are sharded here (:func:`check_shardable`).  The rules cut
+the recurrent mixers where no Megatron pairing fits: the Mamba's
+``in_proj`` and the mLSTM's ``up`` are column parallel over the
+concatenated (x | z) columns, so a rank's columns are channel blocks of x
+or of z that other ranks' states hold, and the sLSTM's ``w_in`` /
+``w_rec`` are column parallel over the concatenated gates [i | f | z |
+o].  :func:`gate_plan` says which channel block of which part each of a
+rank's column pieces is and which rank owns it, and :func:`mlstm_plan`
+which block of a head's d_k / d_v the head-wise projections give a rank;
+the mixers' exchanges (``models/mamba.py``, ``models/xlstm.py``) follow
+them.  The einsum MoE reads its
 experts' placement (:func:`expert_plan`): E on "model" (whole experts a
 rank) or, where E does not divide, every expert on the rank's block of
 ``d_ff_expert``.  The decode reads :func:`cache_plan`: which slots of a
@@ -101,16 +110,11 @@ def of(model: nn.Module) -> Parallel | None:
 
 
 def check_shardable(cfg) -> None:
-    """What can be sharded: attention blocks (sliding windows included)
-    with a SwiGLU MLP, an einsum MoE or no FFN.  Mamba and the xLSTM
-    mixers raise, naming their ROADMAP item; the all-to-all MoE, which
-    cuts its own blocks out of whole weights, raises naming the variant
-    bundles."""
+    """What can be sharded: attention (sliding windows included), Mamba,
+    mLSTM and sLSTM blocks with a SwiGLU MLP, an einsum MoE or no FFN.
+    The all-to-all MoE, which cuts its own blocks out of whole weights,
+    raises naming the variant bundles."""
     for spec in cfg.layer_pattern:
-        if spec.mixer != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: a {spec.mixer} block over a mesh is not "
-                f"ported yet: {mesh_lib.TP_RECURRENT}")
         if spec.ffn == "moe" and cfg.moe.impl != "einsum":
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.moe.impl} MoE takes whole weights, "
@@ -189,6 +193,23 @@ def sharded_on_model(module: nn.Module, attr: str, dim: int) -> bool:
     return pl is not None and MODEL_AXIS in _axes(pl.specs[attr][dim])
 
 
+def rank_block(module: nn.Module, attr: str, dim: int,
+               block: tuple[int, int] | None) -> torch.Tensor:
+    """``module.attr`` as :func:`weight` gives it, narrowed along ``dim``
+    to ``block`` (first, count): the rank's channels of a per-channel
+    parameter.  A parameter the rules put on "model" along ``dim`` is that
+    block already; a replicated one (the Mamba's ``dt_bias``, which the
+    rules' "bias" keeps whole) is narrowed after Megatron's "f", so that
+    its gradient, the ranks' blocks' sum, is whole on every rank.
+    ``block`` None: the whole tensor (no placement, or the mixer whole on
+    every rank)."""
+    t = weight(module, attr)
+    if block is None or sharded_on_model(module, attr, dim):
+        return t
+    t = coll.copy_to(t, placement(module).mesh, MODEL_AXIS)
+    return t.narrow(dim, *block)
+
+
 def enter(x: torch.Tensor, module: nn.Module, attr: str = "weight"
           ) -> torch.Tensor:
     """Megatron's "f" before ``module``, where its ``attr`` is column
@@ -252,6 +273,93 @@ def head_plan(cfg, m: int, r: int) -> HeadPlan:
                      and ck // hd == nk)
     return HeadPlan((r * cq, cq), (q_lo, nq), (kv_lo, nk), cq % hd != 0,
                     gather_kv)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent mixers' column pieces
+# ---------------------------------------------------------------------------
+
+class GatePlan(NamedTuple):
+    """A rank's share of a projection whose ``parts`` x ``width`` columns
+    (the concatenated parts: the Mamba's / mLSTM's (x | z), the sLSTM's
+    [i | f | z | o]) the rules cut in m equal column blocks, beside
+    ``width`` cut in m channel blocks of ``c`` each.
+
+    ``channels``: (first, count) of the rank's channel block, which its
+    states hold and whose every part it computes.  ``pieces``: the
+    (part, channel block) of each c-wide piece of the rank's column
+    block, in column order; channel block b is rank b's.  ``order``: the
+    pieces' indices sorted by the rank they go to, and ``send`` / ``recv``
+    the pieces the rank sends each rank and receives from each rank: one
+    split all-to-all over "model" gives each rank every part of its own
+    channel block, in part order."""
+
+    channels: tuple[int, int]
+    pieces: tuple[tuple[int, int], ...]
+    order: tuple[int, ...]
+    send: tuple[int, ...]
+    recv: tuple[int, ...]
+
+
+def gate_plan(parts: int, width: int, m: int, r: int, name: str = ""
+              ) -> GatePlan | None:
+    """Rank r of m's :class:`GatePlan`, or None where the columns do not
+    divide over m (the rules keep the projection, and so every
+    per-channel leaf and state beside it, whole on every rank).  Columns
+    that divide where the channels do not (a column block that ends
+    inside a channel block) raise."""
+    if (parts * width) % m:
+        return None
+    if width % m:
+        raise ValueError(f"{name}: {parts} x {width} columns divide over "
+                         f"{m} ranks but the {width} channels do not: a "
+                         "rank's columns would end inside another rank's "
+                         "channel block")
+    c, per = width // m, parts
+    first = r * per                    # the rank's first c-wide piece
+    pieces = tuple(divmod(j, m) for j in range(first, first + per))
+    order = tuple(sorted(range(per), key=lambda i: pieces[i][1]))
+    send = tuple(sum(1 for _, b in pieces if b == j) for j in range(m))
+    # part p of channel block r sits in piece p * m + r, held by the rank
+    # whose column block holds it
+    owners = [(p * m + r) // per for p in range(parts)]
+    recv = tuple(owners.count(j) for j in range(m))
+    return GatePlan((r * c, c), pieces, order, send, recv)
+
+
+class MLSTMPlan(NamedTuple):
+    """A rank's share of an mLSTM layer: ``up``'s column pieces
+    (:func:`gate_plan` over (x | z); the layer all-gathers them, as its
+    head-wise products read every feature of a head), ``head_block``:
+    (first, count) of each head's d_k (q, k, the states C and n) and d_v
+    (v) the head-wise projections give the rank, and ``channels``: its
+    block of d_in, ``down``'s row-parallel input."""
+
+    up: GatePlan
+    head_block: tuple[int, int]
+    channels: tuple[int, int]
+
+
+def mlstm_plan(n_heads: int, head_dim: int, m: int, r: int,
+               name: str = "") -> MLSTMPlan | None:
+    """Rank r of m's :class:`MLSTMPlan`, None where the rules keep the
+    layer whole (``up``'s columns do not divide); a layout the port does
+    not handle raises: d_in on "model" but the heads' width not (q, k, v
+    and the states then whole beside a sharded ``down``), or a cache
+    spec that puts the heads, not d_k, on "model" (more heads than
+    their width: no config)."""
+    d_in = n_heads * head_dim
+    up = gate_plan(2, d_in, m, r, name)
+    if up is None:
+        return None
+    if head_dim % m:
+        raise ValueError(f"{name}: d_in = {d_in} divides over {m} ranks "
+                         f"but the heads' width {head_dim} does not")
+    if n_heads > head_dim:
+        raise ValueError(f"{name}: {n_heads} heads of {head_dim}: the "
+                         "cache's rule would put the heads on 'model'")
+    w = head_dim // m
+    return MLSTMPlan(up, (r * w, w), up.channels)
 
 
 # ---------------------------------------------------------------------------

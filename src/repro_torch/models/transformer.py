@@ -18,11 +18,12 @@ group's activations from its input instead of keeping them.
 
 A MoE block with ``impl="a2a"`` runs the expert-parallel MoE
 (``models/moe_a2a.py``) over the active mesh.  A model sharded by
-``models/parallel.py`` (attention with an MLP, an einsum MoE or no FFN)
-runs each block on the rank's blocks: the layers' column / row
-machinery, the attention's head-aligned exchange and its flash-decoding
-over the rank's slots of the cache (``attention.attention_forward``) and
-the MoE on the rank's experts (``moe.moe_forward``), with remat as
+``models/parallel.py`` runs each block on the rank's blocks: the layers'
+column / row machinery, the attention's head-aligned exchange and its
+flash-decoding over the rank's slots of the cache
+(``attention.attention_forward``), the Mamba and xLSTM mixers on the
+rank's channels with their states' blocks (``mamba.py``, ``xlstm.py``)
+and the MoE on the rank's experts (``moe.moe_forward``), with remat as
 without a mesh.  Sharded activations (``act_pspec``) raise
 ``NotImplementedError``, naming the ROADMAP item that ports them.
 """
@@ -34,6 +35,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import shardings
 from repro_torch.launch.mesh import VARIANTS
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
@@ -115,11 +117,20 @@ def _stacked_zeros(state, n_groups: int):
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
-               dtype=torch.bfloat16, device=None) -> list:
+               dtype=torch.bfloat16, device=None, mesh=None) -> list:
     """Fresh decode cache, one entry per pattern position, leaves stacked
     over ``n_groups``.  Attention caches and the Mamba conv tail take
     ``dtype``; the Mamba SSM state and the xLSTM states are float32, as the
-    reference's."""
+    reference's.  With ``mesh`` (a sharded model's), each leaf is this
+    rank's block of the cache of a global ``batch`` under
+    ``launch/shardings.py::cache_pspec``, made at its block's shape."""
+    if mesh is not None:
+        whole = init_cache(cfg, batch, capacity, dtype, device="meta")
+        return [type(c)(*(torch.zeros(
+            shardings.shard_shape(a.shape, sp, mesh), dtype=a.dtype,
+            device=device) for a, sp in zip(c, cs)))
+            for c, cs in zip(whole, shardings.cache_pspecs(whole, batch,
+                                                           mesh))]
     out = []
     for spec in cfg.layer_pattern:
         check_ported(spec)

@@ -15,6 +15,40 @@ sLSTM, a time loop with exponential gating and its stabiliser m:
   c_t = f' c_{t-1} + i' z_t ;  n_t = f' n_{t-1} + i' ;  h_t = o_t · c_t / max(n_t, 1)
 The input product ``w_in`` is taken over all T at once; ``w_rec`` stays in
 the loop.  Both states are float32, whatever the compute dtype.
+
+On a model sharded by ``models/parallel.py`` each rank holds the rules'
+blocks, and runs the port's own schedule (a deliberate difference from
+the reference's GSPMD, which has none of its own):
+
+mLSTM (``parallel.mlstm_plan``): ``up`` is column parallel over (x | z)
+and the head-wise q / k / v over each head's last dim, so a rank holds
+every head on a block of d_k (q, k) and d_v (v), and the states C and n
+on that block of d_k.  The rank all-gathers ``up``'s output (the
+head-wise products read every feature of a head, ``w_if`` all of x) and
+its v block; the gates are whole (``w_if`` is replicated).  The chunk
+loop then runs with no collective: C's and n's d_k blocks update from
+the rank's k block, the whole v and the gates, and the numerator and the
+normaliser (sums over d_k) come out as the rank's partial sums, since
+the inter- and intra-chunk terms are both linear in them.  After the loop
+one reduce-scatter gives the rank its d_in block of the numerator
+(``down``'s row-parallel input) and one all-reduce the whole normaliser;
+only max(|den|, 1) after the sum is nonlinear.  The normaliser meets a
+rank-own block of the numerator, so its cotangent differs between ranks
+and its all-reduce's backward all-reduces too.  The decode step runs the
+same per token.
+
+sLSTM: ``w_in`` and ``w_rec`` are column parallel over the gates [i | f |
+z | o], the four states on their channel block of d.  A prefill or train
+step all-gathers both weights over "model" once a call, runs the
+recurrence whole on every rank (a per-step exchange would be 2·T
+dependent collectives a layer) and cuts the final state to the rank's
+block; every rank uses the gathered weights alike, so the gather's
+backward keeps the rank's block (``collectives.all_gather_same``).  A
+decode step all-gathers h, computes the rank's gate columns, sends each
+column piece to the rank whose channels it holds in one split all-to-all
+(``parallel.gate_plan``) and runs the cell on the rank's block; it
+gathers no weight.  ``up`` and ``down`` follow their specs (at full size
+d_up does not divide over 16 ranks: both whole).
 """
 from __future__ import annotations
 
@@ -25,7 +59,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models import layers
+from repro_torch.launch import collectives as coll
+from repro_torch.launch.mesh import MODEL_AXIS
+from repro_torch.models import layers, parallel
 from repro_torch.models.config import XLSTMConfig
 
 
@@ -80,8 +116,10 @@ class MLSTM(nn.Module):
 
 
 def _mlstm_chunk(q, k, v, log_f, log_i, state: MLSTMState):
-    """One chunk: q, k, v (B, H, Q, d); log_f, log_i (B, H, Q); state C
-    (B, H, d, d), n (B, H, d).  Returns (h (B, H, Q, d), new state)."""
+    """One chunk: q, k (B, H, Q, d_k), v (B, H, Q, d_v); log_f, log_i (B,
+    H, Q); state C (B, H, d_k, d_v), n (B, H, d_k).  Returns (num (B, H,
+    Q, d_v), den (B, H, Q), new state): h is num / max(|den|, 1).  On a
+    rank's block of d_k, num and den are its partial sums over d_k."""
     bq = q.shape[2]
     gamma = torch.cumsum(log_f, dim=-1)                    # (B, H, Q)
     decay_t = torch.exp(gamma)
@@ -98,7 +136,6 @@ def _mlstm_chunk(q, k, v, log_f, log_i, state: MLSTMState):
 
     num = h_inter + h_intra
     den = n_inter + n_intra
-    h = num / torch.clamp_min(torch.abs(den), 1.0)[..., None]
 
     total_decay = torch.exp(gamma[..., -1])                # (B, H)
     per_s = torch.exp(gamma[..., -1:] - gamma + log_i)     # (B, H, Q)
@@ -106,16 +143,81 @@ def _mlstm_chunk(q, k, v, log_f, log_i, state: MLSTMState):
         (k * per_s[..., None]).transpose(-1, -2), v)
     n_new = state.n * total_decay[..., None] + torch.einsum(
         "bhsk,bhs->bhk", k, per_s)
-    return h, MLSTMState(c=c_new, n=n_new)
+    return num, den, MLSTMState(c=c_new, n=n_new)
 
 
-def _mlstm_qkv(params: MLSTM, xh: torch.Tensor, scale: float):
-    """Head-wise block products in the compute dtype, then float32:
-    xh (..., H, hd) -> q, k, v (..., H, hd)."""
+def _mlstm_in(params: MLSTM, x: torch.Tensor, n_heads: int, hd: int,
+              plan: parallel.MLSTMPlan | None):
+    """``up`` of x, all-gathered over "model" on a sharded model; then z
+    (the rank's d_in block), the head-wise products of x's half in the
+    compute dtype, then float32 (q, k on the rank's d_k block, v
+    gathered whole), and the whole gates' pre-activations in float32:
+    z, q, k, v (..., H, ·), gates (..., 2H)."""
+    xz = layers.linear(params.up, parallel.enter(x, params.up))
+    pl = parallel.placement(params.up)
+    if plan is not None:
+        xz = coll.all_gather(xz, pl.mesh, MODEL_AXIS, xz.dim() - 1)
+    xm, z = torch.chunk(xz, 2, dim=-1)
+    if plan is not None:
+        z = z.narrow(-1, *plan.channels)
+    xh = xm.unflatten(-1, (n_heads, hd))
+
     def heads(w):
-        return torch.einsum("...hd,hde->...he", xh, w.to(xh.dtype)
+        return torch.einsum("...hd,hde->...he",
+                            xh, parallel.weight(params, w).to(xh.dtype)
                             ).to(torch.float32)
-    return heads(params.wq) * scale, heads(params.wk), heads(params.wv)
+    q, k, v = heads("wq") * (1.0 / math.sqrt(hd)), heads("wk"), heads("wv")
+    if plan is not None:
+        v = coll.all_gather(v, pl.mesh, MODEL_AXIS, v.dim() - 1)
+    # w_if and its bias are replicated and every rank uses them on its
+    # own partial sums: "f" makes their gradients whole
+    w_if, b_if = parallel.weight(params.w_if, "weight"), params.w_if.bias
+    if plan is not None:
+        w_if = coll.copy_to(w_if, pl.mesh, MODEL_AXIS)
+        b_if = coll.copy_to(b_if, pl.mesh, MODEL_AXIS)
+    gates = (F.linear(xm, w_if.to(xm.dtype)) + b_if.to(xm.dtype)).to(
+        torch.float32)
+    return z, q, k, v, gates
+
+
+def _mlstm_h(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """h = num / max(|den|, 1): num (..., H, d_v), den (..., H)."""
+    return num / torch.clamp_min(torch.abs(den), 1.0)[..., None]
+
+
+def _mlstm_down(params: MLSTM, h: torch.Tensor, z: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    return layers.linear(params.down, h.to(dtype) * F.silu(z))
+
+
+def _mlstm_placed_out(params: MLSTM, num: torch.Tensor, den: torch.Tensor,
+                      z: torch.Tensor, dtype: torch.dtype,
+                      plan: parallel.MLSTMPlan) -> torch.Tensor:
+    """The rank's partial sums over its d_k block, num (..., H, d_v) and
+    den (..., H) -> ``down`` of h · silu(z): the numerator
+    reduce-scattered onto the rank's d_in block, the normaliser
+    all-reduced and read at each channel's head (max(|den|, 1) stays a
+    head's, never a channel's, tensor)."""
+    mesh = parallel.placement(params.up).mesh
+    lo, c = plan.channels
+    # the head of each of the rank's d_in channels
+    head = torch.arange(lo, lo + c, device=num.device) // num.shape[-1]
+    den = coll.all_reduce_sum(den.contiguous(), mesh, MODEL_AXIS)
+    num = coll.reduce_scatter(num.flatten(-2), mesh, MODEL_AXIS,
+                              num.dim() - 2)
+    h = num / torch.clamp_min(torch.abs(den), 1.0)[..., head]
+    return _mlstm_down(params, h, z, dtype)
+
+
+def mlstm_plan(params: MLSTM, n_heads: int, hd: int
+               ) -> parallel.MLSTMPlan | None:
+    """The rank's :class:`~repro_torch.models.parallel.MLSTMPlan`; None
+    where the layer runs whole."""
+    pl = parallel.placement(params.up)
+    if pl is None:
+        return None
+    return parallel.mlstm_plan(n_heads, hd, pl.model_size, pl.model_rank,
+                               "mLSTM")
 
 
 def mlstm_forward(params: MLSTM, x: torch.Tensor, n_heads: int,
@@ -127,34 +229,41 @@ def mlstm_forward(params: MLSTM, x: torch.Tensor, n_heads: int,
 
     Chunks of ``min(chunk_size, T)``; a short last chunk runs at its own
     length, which is the reference's padding (log f = 0, log i = -1e9)
-    without the pad rows: no pad reaches the output or the state.
+    without the pad rows: no pad reaches the output or the state.  On a
+    sharded model the states are the rank's d_k block.
     """
     b, t, _ = x.shape
-    d_in, hd = mlstm_dims(x.shape[-1], n_heads, xc)
-    scale = 1.0 / math.sqrt(hd)
-
-    xm, z = torch.chunk(layers.linear(params.up, x), 2, dim=-1)
-    q, k, v = (a.transpose(1, 2) for a in _mlstm_qkv(
-        params, xm.reshape(b, t, n_heads, hd), scale))    # (B, H, T, hd)
-    gates = layers.linear(params.w_if, xm).to(torch.float32)  # (B, T, 2H)
+    _, hd = mlstm_dims(x.shape[-1], n_heads, xc)
+    plan = mlstm_plan(params, n_heads, hd)
+    z, q, k, v, gates = _mlstm_in(params, x, n_heads, hd, plan)
+    q, k, v = (a.transpose(1, 2) for a in (q, k, v))     # (B, H, T, ·)
     i_raw, f_raw = torch.chunk(gates, 2, dim=-1)
     log_i = F.logsigmoid(i_raw).transpose(1, 2)            # (B, H, T)
     log_f = F.logsigmoid(f_raw).transpose(1, 2)
 
     state = initial_state or MLSTMState(
-        c=torch.zeros((b, n_heads, hd, hd), dtype=torch.float32,
+        c=torch.zeros((b, n_heads, k.shape[-1], hd), dtype=torch.float32,
                       device=x.device),
-        n=torch.zeros((b, n_heads, hd), dtype=torch.float32,
+        n=torch.zeros((b, n_heads, k.shape[-1]), dtype=torch.float32,
                       device=x.device))
     qc = min(xc.chunk_size, t)
-    hs = []
+    parts = []
     for s in range(0, t, qc):
-        h, state = _mlstm_chunk(q[:, :, s:s + qc], k[:, :, s:s + qc],
-                                v[:, :, s:s + qc], log_f[..., s:s + qc],
-                                log_i[..., s:s + qc], state)
-        hs.append(h)
-    h = torch.cat(hs, dim=2).transpose(1, 2).reshape(b, t, d_in).to(x.dtype)
-    out = layers.linear(params.down, h * F.silu(z))
+        num, den, state = _mlstm_chunk(
+            q[:, :, s:s + qc], k[:, :, s:s + qc], v[:, :, s:s + qc],
+            log_f[..., s:s + qc], log_i[..., s:s + qc], state)
+        # whole, h a chunk at a time; placed, the partial sums, combined
+        # over "model" after the loop
+        parts.append(_mlstm_h(num, den) if plan is None else (num, den))
+    if plan is None:
+        h = torch.cat(parts, dim=2).transpose(1, 2).reshape(b, t, -1).to(
+            x.dtype)
+        out = _mlstm_down(params, h, z, x.dtype)
+    else:
+        nums, dens = zip(*parts)
+        out = _mlstm_placed_out(
+            params, torch.cat(nums, dim=2).transpose(1, 2),   # (B, T, H, ·)
+            torch.cat(dens, dim=2).transpose(1, 2), z, x.dtype, plan)
     return out, (state if return_state else None)
 
 
@@ -162,14 +271,9 @@ def mlstm_decode_step(params: MLSTM, x: torch.Tensor, n_heads: int,
                       xc: XLSTMConfig, state: MLSTMState
                       ) -> tuple[torch.Tensor, MLSTMState]:
     """One-token recurrent step. x: (B, 1, d_model)."""
-    b = x.shape[0]
-    d_in, hd = mlstm_dims(x.shape[-1], n_heads, xc)
-    scale = 1.0 / math.sqrt(hd)
-
-    xm, z = torch.chunk(layers.linear(params.up, x), 2, dim=-1)
-    q, k, v = _mlstm_qkv(params, xm.reshape(b, n_heads, hd), scale)
-    gates = layers.linear(params.w_if, xm).to(torch.float32).reshape(
-        b, 2 * n_heads)
+    _, hd = mlstm_dims(x.shape[-1], n_heads, xc)
+    plan = mlstm_plan(params, n_heads, hd)
+    z, q, k, v, gates = _mlstm_in(params, x[:, 0], n_heads, hd, plan)
     i_g = torch.sigmoid(gates[:, :n_heads])
     f_g = torch.sigmoid(gates[:, n_heads:])
 
@@ -178,10 +282,11 @@ def mlstm_decode_step(params: MLSTM, x: torch.Tensor, n_heads: int,
     n = state.n * f_g[..., None] + i_g[..., None] * k
     num = torch.einsum("bhk,bhkv->bhv", q, c)
     den = torch.einsum("bhk,bhk->bh", q, n)
-    h = num / torch.clamp_min(torch.abs(den), 1.0)[..., None]
-    h = h.reshape(b, 1, d_in).to(x.dtype)
-    out = layers.linear(params.down, h * F.silu(z))
-    return out, MLSTMState(c=c, n=n)
+    if plan is None:
+        out = _mlstm_down(params, _mlstm_h(num, den).flatten(-2), z, x.dtype)
+    else:
+        out = _mlstm_placed_out(params, num, den, z, x.dtype, plan)
+    return out[:, None], MLSTMState(c=c, n=n)
 
 
 # ---------------------------------------------------------------------------
@@ -207,14 +312,30 @@ class SLSTM(nn.Module):
             lin.reset_parameters(gen)
 
 
-def _slstm_cell(params: SLSTM, pre_in: torch.Tensor, state: SLSTMState,
-                dtype: torch.dtype) -> SLSTMState:
-    """One step from the float32 input pre-activations ``pre_in`` (B, 4d)
-    (``w_in`` of x_t in the compute dtype, then float32); ``h`` enters
-    ``w_rec`` in the compute dtype."""
-    pre = pre_in + layers.linear(params.w_rec, state.h.to(dtype)).to(
-        torch.float32)
-    i_raw, f_raw, z_raw, o_raw = torch.chunk(pre, 4, dim=-1)
+def slstm_plan(params: SLSTM, d_model: int) -> parallel.GatePlan | None:
+    """The rank's :class:`~repro_torch.models.parallel.GatePlan` over
+    ``w_in`` / ``w_rec``'s gate columns; None where the layer runs whole."""
+    pl = parallel.placement(params.w_in)
+    if pl is None:
+        return None
+    return parallel.gate_plan(4, d_model, pl.model_size, pl.model_rank,
+                              "sLSTM w_in")
+
+
+def _slstm_cell(pre: torch.Tensor, state: SLSTMState,
+                gp: parallel.GatePlan | None, mesh) -> SLSTMState:
+    """One step from the float32 pre-activations ``pre`` (B, 4d): ``w_in``
+    of x_t and ``w_rec`` of h, each in the compute dtype, then float32.
+    On a rank's gate columns (``gp``) one split all-to-all gives it the
+    four gates of its channel block, which its ``state`` holds."""
+    if gp is None or len(gp.send) == 1:
+        i_raw, f_raw, z_raw, o_raw = torch.chunk(pre, 4, dim=-1)
+    else:
+        pieces = pre.unflatten(-1, (4, gp.channels[1])).movedim(-2, 0)
+        if gp.order != tuple(range(4)):
+            pieces = pieces[list(gp.order)]
+        i_raw, f_raw, z_raw, o_raw = coll.all_to_all_split_raw(
+            pieces, mesh, MODEL_AXIS, list(gp.send), list(gp.recv))
     f_m = f_raw + state.m
     m_new = torch.maximum(f_m, i_raw)
     i_g = torch.exp(i_raw - m_new)
@@ -227,30 +348,66 @@ def _slstm_cell(params: SLSTM, pre_in: torch.Tensor, state: SLSTMState,
 
 def _slstm_out(params: SLSTM, h: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
+    h = parallel.enter(h, params.up)
     return layers.linear(params.down, F.gelu(layers.linear(params.up, h),
                                              approximate="tanh"))
+
+
+def _whole(params: layers.Linear, gp: parallel.GatePlan | None) -> torch.Tensor:
+    """The whole (4d, d) weight: the rank's gate columns all-gathered over
+    "model" (every rank runs the whole recurrence with it)."""
+    w = parallel.weight(params, "weight")
+    if gp is None:
+        return w
+    return coll.all_gather_same(w, parallel.placement(params).mesh,
+                                MODEL_AXIS, 0)
 
 
 def slstm_forward(params: SLSTM, x: torch.Tensor, xc: XLSTMConfig, *,
                   initial_state: SLSTMState | None = None,
                   return_state: bool = False
                   ) -> tuple[torch.Tensor, SLSTMState | None]:
+    """x (B, T, d) -> (out, final state if ``return_state``).  On a
+    sharded model the recurrence runs whole on every rank and the states
+    (``initial_state`` and the final one) are the rank's channel block."""
     b, t, d = x.shape
+    gp = slstm_plan(params, d)
+    mesh = None if gp is None else parallel.placement(params.w_in).mesh
+    if initial_state is not None and gp is not None:
+        initial_state = SLSTMState(*(coll.all_gather_raw(
+            a, mesh, MODEL_AXIS, 1) for a in initial_state))
     state = initial_state or init_slstm_state(b, d, device=x.device)
-    pre_in = layers.linear(params.w_in, x).to(torch.float32)  # (B, T, 4d)
+    w_rec = _whole(params.w_rec, gp).to(x.dtype)
+    pre_in = (F.linear(x, _whole(params.w_in, gp).to(x.dtype))
+              + params.w_in.bias.to(x.dtype)).to(torch.float32)  # (B, T, 4d)
     hs = []
     for step in range(t):
-        state = _slstm_cell(params, pre_in[:, step], state, x.dtype)
+        pre = pre_in[:, step] + F.linear(state.h.to(x.dtype), w_rec).to(
+            torch.float32)
+        state = _slstm_cell(pre, state, None, None)
         hs.append(state.h)
     h = torch.stack(hs, dim=1).to(x.dtype)                   # (B, T, d)
+    if return_state and gp is not None:
+        state = SLSTMState(*(a.narrow(1, *gp.channels) for a in state))
     return _slstm_out(params, h), (state if return_state else None)
 
 
 def slstm_decode_step(params: SLSTM, x: torch.Tensor, xc: XLSTMConfig,
                       state: SLSTMState) -> tuple[torch.Tensor, SLSTMState]:
-    pre_in = layers.linear(params.w_in, x[:, 0]).to(torch.float32)
-    new_state = _slstm_cell(params, pre_in, state, x.dtype)
-    return _slstm_out(params, new_state.h[:, None].to(x.dtype)), new_state
+    """One step, x (B, 1, d).  On a sharded model ``state`` is the rank's
+    channel block: h is all-gathered for ``w_rec``, the rank computes its
+    gate columns and the cell runs on its block after the gates'
+    exchange; the new h is all-gathered for ``up``."""
+    gp = slstm_plan(params, x.shape[-1])
+    mesh = None if gp is None else parallel.placement(params.w_in).mesh
+    h = state.h if gp is None else coll.all_gather_raw(state.h, mesh,
+                                                       MODEL_AXIS, 1)
+    pre = layers.linear(params.w_in, x[:, 0]).to(torch.float32) + \
+        layers.linear(params.w_rec, h.to(x.dtype)).to(torch.float32)
+    new_state = _slstm_cell(pre, state, gp, mesh)
+    h = new_state.h if gp is None else coll.all_gather_raw(
+        new_state.h, mesh, MODEL_AXIS, 1)
+    return _slstm_out(params, h[:, None].to(x.dtype)), new_state
 
 
 def init_mlstm_state(batch: int, d_model: int, n_heads: int,

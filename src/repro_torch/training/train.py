@@ -21,8 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch.launch import collectives as coll
-from repro_torch.launch.mesh import (MODEL_AXIS, TP_RECURRENT,
-                                     TRAIN_ACROSS_RANKS, VARIANTS,
+from repro_torch.launch.mesh import (MODEL_AXIS, TRAIN_ACROSS_RANKS,
+                                     VARIANTS,
                                      data_axes, data_axis_size,
                                      get_active_mesh)
 from repro_torch.models import layers, parallel
@@ -210,12 +210,7 @@ def make_train_step(model: Model, optimizer: AdamW, *,
 
 def _refuse_unsharded(model: Model) -> None:
     cfg = model.cfg
-    kinds = {part for spec in cfg.layer_pattern
-             for part in (spec.mixer, spec.ffn)}
-    if kinds & {"mamba", "mlstm", "slstm"}:
-        raise NotImplementedError(
-            f"a train step over several ranks of {cfg.name}: "
-            f"{TP_RECURRENT}")
+    kinds = {spec.ffn for spec in cfg.layer_pattern}
     if "moe" in kinds and cfg.moe.impl != "einsum":
         raise NotImplementedError(
             "a train step over several ranks with a2a MoE blocks (the a2a "

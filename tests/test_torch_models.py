@@ -172,8 +172,9 @@ def _unported(case):
 def test_unported_families_raise(case, item):
     """olmoe with expert-parallel constraints once raised, naming
     ``item``; it now builds and its forward is the plain config's to the
-    last bit.  What is left of that item, the Mamba and xLSTM mixers over
-    a mesh, raises naming item 13h′."""
+    last bit.  What was left of that item, the Mamba and xLSTM mixers
+    over a mesh (item 13h′), is sharded now: no error of the port names
+    either item, and the models take a placement."""
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import parallel
 
@@ -183,14 +184,15 @@ def test_unported_families_raise(case, item):
     got = Model(_unported(case), device="cpu", seed=0)(tok)
     want = Model(get_smoke_config("olmoe-1b-7b"), device="cpu", seed=0)(tok)
     assert torch.equal(got.logits, want.logits)
-    assert item not in mesh_lib.TP_RECURRENT
+    named = mesh_lib.VARIANTS + mesh_lib.TRAIN_ACROSS_RANKS
+    assert item not in named and "13h′" not in named
+    assert not hasattr(mesh_lib, "TP_RECURRENT")
     for arch in ("jamba-1.5-large-398b", "xlstm-1.3b"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 13h′, tensor "
-                                 "parallelism for the Mamba and xLSTM"):
-            parallel.parallelize(Model(get_smoke_config(arch),
-                                       device="meta", seed=None),
-                                 mesh_lib.Mesh(("data", "model"), (1, 2)))
+        model = parallel.parallelize(Model(get_smoke_config(arch),
+                                           device="meta", seed=None),
+                                     mesh_lib.Mesh(("data", "model"),
+                                                   (1, 2)))
+        assert parallel.of(model).mesh.shape == {"data": 1, "model": 2}
 
 
 def _mamba_family(case):

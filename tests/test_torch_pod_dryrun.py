@@ -177,19 +177,24 @@ def test_unaligned_vocabulary_and_heads_on_the_pod(cells):
 
 
 def test_pod_cells_are_the_dense_family():
-    """Once the dense family's train and prefill cells (12 a mesh); now
-    every shape of every model but the Mamba and xLSTM ones: 30 a mesh,
-    the encoder's two and four of each decoder."""
+    """Once the dense family's train and prefill cells (12 a mesh), then
+    every shape of every model but the Mamba and xLSTM ones (30); now
+    every cell of the catalog: 38 a mesh, the encoder's two and four of
+    each decoder."""
     cells = dryrun.pod_cells()
-    assert len(cells) == 30
+    assert len(cells) == 38
     assert {a for a, _ in cells} == {
         "internlm2-1.8b", "llama3-405b", "olmoe-1b-7b", "qwen2-vl-7b",
         "hubert-xlarge", "deepseek-coder-33b", "qwen3-8b",
-        "llama4-maverick-400b-a17b"}
+        "llama4-maverick-400b-a17b", "jamba-1.5-large-398b", "xlstm-1.3b"}
     for arch in {a for a, _ in cells}:
         assert [s for a, s in cells if a == arch] == list(
             applicable_shapes(arch))
     assert len(NEW_CELLS) == 18 and set(NEW_CELLS) <= set(cells)
+    # the committed records: 76, 38 a mesh, one a cell
+    for pod in ("pod1", "pod2"):
+        assert sorted((r["arch"], r["shape"]) for r in report.load(pod)) \
+            == sorted(cells)
 
 
 def test_cli_both_meshes_and_the_pod_table(tmp_path):
@@ -212,19 +217,19 @@ def test_cli_both_meshes_and_the_pod_table(tmp_path):
 
 def test_other_families_and_decode_raise_naming_13h():
     """The MoE einsum and the decode over a pod once raised here, naming
-    item 13h; what is left of it, the Mamba and xLSTM mixers, raises for
-    every shape, naming item 13h′."""
+    item 13h, and then the Mamba and xLSTM mixers, naming item 13h′; now
+    every shape of every family builds as one rank of the pod mesh.  The
+    all-to-all MoE still raises, naming the variant bundles (item 13i)."""
     pod1 = mesh_lib.make_production_mesh()
     for arch in ("jamba-1.5-large-398b", "xlstm-1.3b"):
         for shape in applicable_shapes(arch):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP Queue 1 item 13h′, tensor "
-                                     "parallelism for the Mamba and xLSTM "
-                                     "mixers and their decode states"):
-                specs.build_step(arch, shape, mesh=pod1)
+            assert specs.build_step(arch, shape, mesh=pod1).mesh is pod1
     for arch, shape in (("olmoe-1b-7b", "train_4k"),
                         ("internlm2-1.8b", "decode_32k")):
         assert specs.build_step(arch, shape, mesh=pod1).mesh is pod1
+    with pytest.raises(NotImplementedError, match="item 13i"):
+        specs.build_step("olmoe-1b-7b", "train_4k", mesh=pod1,
+                         moe_impl="a2a")
 
 
 # the cells the decode and the MoE added to each mesh
@@ -365,3 +370,122 @@ def test_nested_tallies_each_count_and_close():
     assert outer.bytes_by_kind == {"all-reduce": 2 * 4.0 * 32,
                                    "all-gather": 4.0 * 64}
     assert coll._TALLIES == []
+
+
+# ---------------------------------------------------------------------------
+# the Mamba and xLSTM families' pod records
+# ---------------------------------------------------------------------------
+
+RECURRENT = ("jamba-1.5-large-398b", "xlstm-1.3b")
+RECURRENT_RECORDS = [(a, s, pod) for pod in ("pod1", "pod2")
+                     for a in RECURRENT for s in applicable_shapes(a)]
+
+
+def _recurrent_schedule(arch: str, shape: str, pod: str) -> dict | None:
+    """Counts by kind of one rank's step of jamba or xlstm-1.3b under the
+    schedule of ``models/mamba.py`` and ``models/xlstm.py`` (16 ranks of
+    "model"): a Mamba layer's split all-to-all and its x_proj and
+    out_proj all-reduces; an sLSTM's two gathers (a prefill's of the
+    weights, a decode's of h) and, decoding, its gate exchange (d_up =
+    2,730 does not divide: up and down are whole); an mLSTM's gathers of
+    up's output and v, the normaliser's and down's all-reduces and the
+    numerator's reduce-scatter; the attention and MoE layers as
+    :func:`_schedule` counts them; every FSDP'd leaf's gather over each
+    data axis (one use a step).  The train step of xlstm-1.3b: each
+    group's forward twice but the last mLSTM's down all-reduce (remat),
+    the backward's "f" all-reduces (up's input, w_if's weight and bias,
+    the normaliser) and adjoint exchanges, then the tail.  None for
+    jamba's FSDP'd train step."""
+    from repro_torch.launch.mesh import DATA_AXES
+    from repro_torch.launch.shardings import param_pspecs
+    from repro_torch.models import Model, parallel
+
+    cfg = specs.serving_config(arch, shape)
+    kind = SHAPES[shape].kind
+    fsdp = arch == "jamba-1.5-large-398b"
+    if kind == "train" and fsdp:
+        return None
+    n_axes = 1 if pod == "pod1" else 2
+    mesh = mesh_lib.make_production_mesh(multi_pod=pod == "pod2")
+    counts: dict[str, int] = {}
+
+    def add(k, n=1):
+        counts[k] = counts.get(k, 0) + n
+
+    add("all-reduce")                        # the embedding
+    plan = parallel.head_plan(cfg, 16, 0)
+    spread = SHAPES[shape].global_batch > 1
+    for spec in cfg.layer_pattern * cfg.n_groups:
+        if spec.mixer == "mamba":
+            add("all-to-all")
+            add("all-reduce", 2)
+        elif spec.mixer == "attn":
+            if kind == "decode":
+                add("all-gather")
+                add("all-reduce", 3)
+            else:
+                add("all-gather", plan.gather_q + 2 * plan.gather_kv)
+                add("all-reduce")
+        elif spec.mixer == "slstm":
+            add("all-gather", 2)
+            add("all-to-all", kind == "decode")
+        else:
+            add("all-gather", 2)
+            add("all-reduce", 2)
+            add("reduce-scatter")
+        if spec.ffn == "mlp":
+            add("all-reduce")
+        elif spec.ffn == "moe":
+            add("all-reduce")
+            if kind == "prefill":
+                add("all-reduce", n_axes)
+            elif spread:
+                add("all-gather", n_axes)
+    model = Model(cfg, device="meta", seed=None)
+    specs_ = param_pspecs(cfg, model, mesh, fsdp=fsdp)
+    data = {k: sum(1 for a in parallel.spec_axes(s) if a in DATA_AXES)
+            for k, s in specs_.items()}
+    add("all-gather", sum(data.values()))
+    if kind == "train":
+        # xlstm-1.3b: the forward above runs again in the recompute but
+        # for the last mLSTM's down; the backward and the tail
+        g = cfg.n_groups
+        per = len(cfg.layer_pattern) - 1     # mLSTMs a group
+        counts = {"all-gather": 2 * counts["all-gather"] + g * per,
+                  "all-reduce": 2 * (counts["all-reduce"] - 1) - g
+                  + g * per * 4 + 1 + 1 + 3 + n_axes
+                  + n_axes * len(specs_) + 1,
+                  "reduce-scatter": 2 * counts["reduce-scatter"]
+                  + g * per * 2}
+    return {k: float(v) for k, v in counts.items() if v}
+
+
+@pytest.mark.parametrize("arch,shape,pod", RECURRENT_RECORDS)
+def test_committed_recurrent_records(arch, shape, pod, record_property):
+    """The 16 records of jamba and xlstm-1.3b: a rank's argument bytes
+    the rules' (``argument_bytes_per_device``, which
+    ``test_torch_shardings.py`` holds to the reference's shardings); FSDP
+    where the reference turns it on (jamba's 398 B parameters); the
+    collective term of the trace's bytes; the tally the schedule's; the
+    80 GB verdict recorded.  The reference's GSPMD collective bytes a
+    chip of the same cell are recorded beside the port's, not held."""
+    rec, = [r for r in report.load(pod)
+            if (r["arch"], r["shape"]) == (arch, shape)]
+    assert rec["memory_analysis"]["argument_bytes"] == \
+        rec["argument_bytes_per_device"]["total"]
+    whole = specs.build_step(arch, shape)
+    mesh = mesh_lib.make_production_mesh(multi_pod=pod == "pod2")
+    assert dryrun.argument_bytes_per_device(whole, mesh) == \
+        rec["argument_bytes_per_device"]
+    assert rec["fsdp"] == (arch == "jamba-1.5-large-398b")
+    weighted = sum(v * (2.0 if k == "all-reduce" else 1.0)
+                   for k, v in rec["collectives"]["bytes_by_kind"].items())
+    assert rec["roofline"]["collective_s"] == pytest.approx(weighted / 50e9)
+    assert isinstance(rec["fits_one_card"]["80GB"], bool)
+    want = _recurrent_schedule(arch, shape, pod)
+    if want is not None:
+        assert rec["collectives"]["count_by_kind"] == want
+    record_property("reference_gspmd_collective_bytes_per_chip",
+                    report.reference_collectives(arch, shape, pod))
+    record_property("port_collective_bytes_per_chip",
+                    rec["roofline"]["collective_bytes_per_chip"])

@@ -354,8 +354,9 @@ def test_pod_mesh_dry_run_and_roofline_raise_naming_13f(tmp_path):
     """Once both raised (item 13f); now the dense family's prefill traces
     as one rank of the pod mesh, its argument bytes the rules', and its
     roofline has a collective term.  Decode over a pod and the MoE
-    einsum run too since item 13h's first half; the Mamba and xLSTM
-    families raise, naming item 13h′."""
+    einsum run too since item 13h's first half, and the Mamba and xLSTM
+    families since item 13h′: their decode cells trace as one rank too,
+    the rank's block of the recurrent states among its arguments."""
     rec = dryrun.run_cell("qwen3-8b", "prefill_32k", mesh=MESHES["pod1"],
                           out_dir=str(tmp_path))
     assert rec["memory_analysis"]["argument_bytes"] == \
@@ -364,12 +365,12 @@ def test_pod_mesh_dry_run_and_roofline_raise_naming_13f(tmp_path):
     assert rec["roofline"]["collective_s"] > 0
     assert (tmp_path / "qwen3-8b__prefill_32k__h100_pod1.json").exists()
     for arch, shape in (("jamba-1.5-large-398b", "decode_32k"),
-                        ("xlstm-1.3b", "prefill_32k")):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 13h′, tensor "
-                                 "parallelism"):
-            dryrun.run_cell(arch, shape, mesh=MESHES["pod1"],
-                            out_dir=str(tmp_path))
+                        ("xlstm-1.3b", "decode_32k")):
+        rec = dryrun.run_cell(arch, shape, mesh=MESHES["pod1"],
+                              out_dir=str(tmp_path))
+        assert rec["memory_analysis"]["argument_bytes"] == \
+            rec["argument_bytes_per_device"]["total"]
+        assert rec["roofline"]["collective_s"] > 0
 
 
 def test_a2a_step_traces_on_meta_under_the_host_mesh():

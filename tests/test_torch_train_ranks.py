@@ -259,10 +259,12 @@ def test_mesh_for_devices_is_the_references():
 
 
 def test_unsharded_models_over_several_ranks_raise():
-    """A dense or einsum-MoE model must be sharded first (olmoe once
-    raised, naming item 13g's MoE half, which the a2a MoE still names:
-    ``test_torch_moe_a2a.py``); Mamba and xLSTM raise item 13h′, over a
-    mesh sharded or not."""
+    """A model must be sharded first (olmoe once raised, naming item
+    13g's MoE half, which the a2a MoE still names:
+    ``test_torch_moe_a2a.py``; Mamba and xLSTM once raised item 13h′):
+    every family's whole model under a mesh of several ranks raises,
+    asking for ``parallelize``, which now takes the Mamba and xLSTM
+    families too."""
     import dataclasses
 
     from repro_torch.launch import mesh as mesh_lib
@@ -273,8 +275,8 @@ def test_unsharded_models_over_several_ranks_raise():
     for arch, err, match in (
             ("qwen3-8b", ValueError, "parallelize"),
             ("olmoe-1b-7b", ValueError, "parallelize"),
-            ("jamba-1.5-large-398b", NotImplementedError, "item 13h′"),
-            ("xlstm-1.3b", NotImplementedError, "item 13h′")):
+            ("jamba-1.5-large-398b", ValueError, "parallelize"),
+            ("xlstm-1.3b", ValueError, "parallelize")):
         cfg = get_smoke_config(arch)
         if arch == "jamba-1.5-large-398b":
             cfg = dataclasses.replace(cfg, n_layers=len(cfg.layer_pattern))
@@ -285,7 +287,7 @@ def test_unsharded_models_over_several_ranks_raise():
                 pytest.raises(err, match=match):
             make_train_step(model, opt)(TrainState(params, opt.init(params)),
                                         toks, toks)
-    with pytest.raises(NotImplementedError, match="item 13h′"):
-        parallel.parallelize(Model(get_smoke_config("xlstm-1.3b"),
-                                   device="meta", seed=None),
-                             mesh_lib.Mesh(("data", "model"), (2, 2)))
+    placed = parallel.parallelize(Model(get_smoke_config("xlstm-1.3b"),
+                                        device="meta", seed=None),
+                                  mesh_lib.Mesh(("data", "model"), (2, 2)))
+    assert parallel.of(placed).mesh.shape == {"data": 2, "model": 2}

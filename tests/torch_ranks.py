@@ -1,12 +1,14 @@
 """Shared by the tensor-parallel tests (``test_torch_tensor_parallel.py``,
 ``test_torch_train_ranks.py``, ``test_torch_pod_dryrun.py``,
-``test_torch_decode_ranks.py``, ``test_torch_moe_ranks.py``): the smoke
+``test_torch_decode_ranks.py``, ``test_torch_moe_ranks.py``,
+``test_torch_mamba_ranks.py``, ``test_torch_xlstm_ranks.py``): the smoke
 configs chosen for their head layouts at four ranks of "model", the
 meshes, numpy-seeded weights and inputs, and the runs of the port's four
 gloo ranks beside one reference process, each subprocess with
 ``OMP_NUM_THREADS=1`` and its own time limit.  The MoE configs
-(:data:`MOE_ARCHS`) have weights of their own, written where a run asks
-for them.
+(:data:`MOE_ARCHS`) and the Mamba and xLSTM ones
+(:data:`RECURRENT_ARCHS`) have weights of their own, written where a run
+asks for them.
 
 * qwen3-8b: qk-norm, its keys half a head a rank at m = 4;
 * deepseek-coder-33b: 7 heads of 32 over d = 224, 1.75 q heads a rank;
@@ -27,12 +29,14 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ("qwen3-8b", "deepseek-coder-33b", "hubert-xlarge", "qwen2-vl-7b")
 MOE_ARCHS = ("olmoe-1b-7b", "llama4-maverick-400b-a17b")
+RECURRENT_ARCHS = ("jamba-1.5-large-398b", "xlstm-1.3b")
 MESHES = {"1x4": (("data", "model"), (1, 4)),
           "2x2": (("data", "model"), (2, 2)),
           "4x1": (("data", "model"), (4, 1)),
           "2x1x2": (("pod", "data", "model"), (2, 1, 2))}
 B, T, CAP = 4, 8, 12
 STEPS = 8          # decode tokens in the inputs
+LONG_T = 40        # a prompt past the xLSTM smoke's chunk of 32
 TIMEOUT = 240
 
 # the ranks' common preamble: argv is (rank, tmp, meshes as JSON)
@@ -137,12 +141,14 @@ def seeded_tree(cfg, seed: int):
 
 def write_inputs(tmp: pathlib.Path, archs=ARCHS) -> None:
     """The smoke models' weights (``ARCHS`` seeded 10, 11, ...; the MoE
-    configs 20, 21, ...) and the tokens, embeddings and labels, and the
-    decode steps' tokens and embeddings."""
+    configs 20, 21, ...; jamba and xlstm-1.3b 30, 31) and the tokens,
+    embeddings and labels, and the decode steps' tokens and
+    embeddings."""
     from repro_torch.configs import get_smoke_config
 
     seeds = {**{a: 10 + i for i, a in enumerate(ARCHS)},
-             **{a: 20 + i for i, a in enumerate(MOE_ARCHS)}}
+             **{a: 20 + i for i, a in enumerate(MOE_ARCHS)},
+             **{a: 30 + i for i, a in enumerate(RECURRENT_ARCHS)}}
     trees = {arch: seeded_tree(get_smoke_config(arch), seeds[arch])
              for arch in archs}
     with open(tmp / "params.pkl", "wb") as f:
@@ -154,7 +160,9 @@ def write_inputs(tmp: pathlib.Path, archs=ARCHS) -> None:
              embeds=rng.normal(0, 1, (B, T, 256)).astype(np.float32),
              decode_tokens=rng.integers(0, 104, (B, STEPS)),
              decode_embeds=rng.normal(0, 1, (B, STEPS, 256)).astype(
-                 np.float32))
+                 np.float32),
+             long_tokens=rng.integers(0, 104, (B, LONG_T)),
+             long_labels=rng.integers(0, 104, (B, LONG_T)))
 
 
 def _finish(proc, what):
@@ -216,3 +224,303 @@ def model_input(cfg) -> str:
     ``inputs.npz``."""
     return "embeds" if cfg.embeds_input else "tokens"
 
+
+
+# ---------------------------------------------------------------------------
+# the recurrent mixers' runs (test_torch_mamba_ranks.py,
+# test_torch_xlstm_ranks.py): CASES maps a case to (arch, the inputs' key
+# prefix of its prompt and labels, the key of its weights in params.pkl);
+# each runs forward, prefill, STEPS
+# decode steps and one train step (remat, float32, AdamW at LR), on every
+# mesh and once more on (2, 2) with FSDP on
+# ---------------------------------------------------------------------------
+
+RECURRENT_REFERENCE = r"""
+from repro.training.train import TrainState, make_loss_fn, make_train_step
+from repro.training.optimizer import AdamW
+CASES, STEPS, LR = %(CASES)r, %(STEPS)d, %(LR)r
+for case, (arch, key, weights) in CASES.items():
+    cfg = get_smoke_config(arch)
+    model = Model(cfg)
+    params = jax.tree.map(jnp.asarray, trees[weights])
+    x = jnp.asarray(inp[key + "tokens"])
+    labels = jnp.asarray(inp[key + "labels"])
+    t = x.shape[1]
+    o = jax.jit(lambda p, xx: model.forward(
+        p, tokens=xx, compute_dtype=jnp.float32))(params, x)
+    out[f"{case}/fwd/logits"], out[f"{case}/fwd/risk"] = o.logits, \
+        o.risk_score
+    o, cache = jax.jit(lambda p, xx: model.prefill(
+        p, tokens=xx, cache_capacity=t + STEPS,
+        compute_dtype=jnp.float32))(params, x)
+    out[f"{case}/prefill/logits"] = o.logits
+    out[f"{case}/prefill/risk"] = o.risk_score
+    for i, c in enumerate(cache):
+        for f, leaf in zip(c._fields, c):
+            out[f"{case}/prefill/cache/{i}/{f}"] = leaf
+    step = jax.jit(lambda p, c, xx, pos: model.decode_step(
+        p, c, tokens=xx, pos=pos, compute_dtype=jnp.float32))
+    for s in range(STEPS):
+        o = step(params, cache, jnp.asarray(inp["decode_tokens"][:, s:s + 1]),
+                 t + s)
+        cache = o.cache
+        out[f"{case}/{s}/logits"], out[f"{case}/{s}/risk"] = o.logits, \
+            o.risk_score
+    for i, c in enumerate(cache):
+        for f, leaf in zip(c._fields, c):
+            out[f"{case}/decode/cache/{i}/{f}"] = leaf
+    opt = AdamW(learning_rate=LR)
+    loss_fn = make_loss_fn(model, remat=False, compute_dtype=jnp.float32)
+    grads = jax.jit(jax.grad(lambda p: loss_fn(p, x, labels)[0]))(params)
+    train = make_train_step(model, opt, remat=True,
+                            compute_dtype=jnp.float32)
+    state = TrainState(params, opt.init(params))
+    new, metrics = jax.jit(train)(state, x, labels)
+    out[f"{case}/metrics"] = np.array([float(v) for v in metrics])
+    for what, tree_ in (("params", new.params), ("mu", new.opt.mu),
+                        ("nu", new.opt.nu), ("grads", grads)):
+        for i, leaf in enumerate(jax.tree.leaves(tree_)):
+            out[f"{case}/{what}/{i}"] = leaf
+    if key:
+        continue            # the compiled forward of the T = 8 prompt only
+    for name, (axes, shape) in meshes.items():
+        mesh = jax_compat.make_mesh(tuple(shape), tuple(axes))
+        with mesh, jax_compat.set_mesh(mesh):
+            psh = shardings.params_shardings(params, mesh)
+            xsh = NamedSharding(mesh, shardings.batch_pspec(
+                x.shape[0], mesh, 1))
+            compiled = jax.jit(
+                lambda p, xx: model.forward(
+                    p, tokens=xx, compute_dtype=jnp.float32).logits,
+                in_shardings=(psh, xsh)).lower(params, x).compile()
+        out[f"{case}/{name}/hlo"] = tally_blob(compiled)
+"""
+
+RECURRENT_PORT = r"""
+from repro_torch.training.optimizer import AdamW
+from repro_torch.training.train import TrainState, make_train_step
+CASES, STEPS, LR = %(CASES)r, %(STEPS)d, %(LR)r
+runs = {**{m: (a, s, False) for m, (a, s) in meshes.items()},
+        "2x2_fsdp": (*meshes["2x2"], True)}
+f32 = torch.float32
+for name, (axes, shape, fsdp) in runs.items():
+    mesh = mesh_lib.init_mesh(mesh_lib.Mesh(tuple(axes), tuple(shape)),
+                              device="cpu")
+    for case, (arch, key, weights) in CASES.items():
+        cfg = get_smoke_config(arch)
+        model = convert.model_from_numpy(cfg, trees[weights], device="cpu",
+                                         mesh=mesh, fsdp=fsdp)
+        x, labels = rows(inp[key + "tokens"], mesh), rows(
+            inp[key + "labels"], mesh)
+        t, cap = x.shape[1], x.shape[1] + STEPS
+        tag = f"{name}/{case}"
+        with coll.tally() as tl, torch.no_grad():
+            o = model(x, compute_dtype=f32)
+        out[f"{tag}/fwd/logits"], out[f"{tag}/fwd/risk"] = \
+            o.logits.numpy(), o.risk_score.numpy()
+        out[f"{tag}/fwd/tally"] = tally_blob(tl)
+        with coll.tally() as tl:
+            o, cache = model.prefill(x, cache_capacity=cap, compute_dtype=f32)
+        out[f"{tag}/prefill/logits"] = o.logits.numpy()
+        out[f"{tag}/prefill/risk"] = o.risk_score.numpy()
+        out[f"{tag}/prefill/tally"] = tally_blob(tl)
+        for i, c in enumerate(cache):
+            for f, leaf in zip(c._fields, c):
+                out[f"{tag}/prefill/cache/{i}/{f}"] = leaf.clone().numpy()
+        xs = rows(inp["decode_tokens"], mesh)
+        for s in range(STEPS):
+            with coll.tally() as tl:
+                o = model.decode_step(cache, xs[:, s:s + 1], pos=t + s,
+                                      cache_capacity=cap, compute_dtype=f32)
+            out[f"{tag}/{s}/logits"] = o.logits.numpy()
+            out[f"{tag}/{s}/risk"] = o.risk_score.numpy()
+            out[f"{tag}/{s}/tally"] = tally_blob(tl)
+        for i, c in enumerate(cache):
+            for f, leaf in zip(c._fields, c):
+                out[f"{tag}/decode/cache/{i}/{f}"] = leaf.numpy()
+        model.requires_grad_(True)
+        opt = AdamW(learning_rate=LR)
+        params = dict(model.named_parameters())
+        state = TrainState(params, opt.init(params))
+        out[f"{tag}/state_bytes"] = np.array(sum(
+            a.numel() * a.element_size() for part in (params, state.opt.mu,
+                                                     state.opt.nu)
+            for a in part.values()))
+        step = make_train_step(model, opt, remat=True, compute_dtype=f32)
+        with mesh_lib.set_mesh(mesh), coll.tally() as tl:
+            state, metrics = step(state, x, labels)
+        out[f"{tag}/metrics"] = np.array([float(v) for v in metrics])
+        out[f"{tag}/train/tally"] = tally_blob(tl)
+        for what, values in (("params", None), ("mu", state.opt.mu),
+                             ("nu", state.opt.nu)):
+            tree_ = convert.model_to_numpy(cfg, model, values)
+            if rank == 0:
+                for i, leaf in enumerate(leaves(tree_)):
+                    out[f"{tag}/{what}/{i}"] = leaf
+"""
+RECURRENT_RUNS = (*MESHES, "2x2_fsdp")
+
+
+def recurrent_run(tmp: pathlib.Path, cases: dict, lr: float) -> dict:
+    """The reference and the four ranks over :data:`RECURRENT_REFERENCE` /
+    :data:`RECURRENT_PORT` for ``cases`` (the weights a case names that
+    are not an arch's are in ``params.pkl`` already)."""
+    fill = dict(CASES=cases, STEPS=STEPS, LR=lr)
+    return run(tmp, RECURRENT_REFERENCE % fill, RECURRENT_PORT % fill,
+               archs=tuple(sorted({a for a, _, _ in cases.values()})))
+
+
+def _block(ref, spec, mesh: str, rank: int):
+    import torch
+
+    from repro_torch.launch.shardings import local_shard
+
+    return local_shard(torch.tensor(np.asarray(ref)), spec,
+                       shape_mesh(mesh), coords(mesh, rank)).numpy()
+
+
+def check_outputs(runs: dict, run: str, case: str, cfg, keys, tol) -> None:
+    """Each rank's logits (its rows, its block of the vocabulary) and risk
+    (its rows) of every key (``fwd``, ``prefill``, a decode step) within
+    ``tol`` of the reference's."""
+    from repro_torch.launch.dryrun import _logits_pspec
+    from repro_torch.launch.shardings import batch_pspec
+
+    mesh = run.split("_")[0]
+    m = shape_mesh(mesh)
+    ref = runs["ref"]
+    for rank, port in enumerate(runs["port"]):
+        for key in keys:
+            want = ref[f"{case}/{key}/logits"]
+            got = port[f"{run}/{case}/{key}/logits"]
+            want = _block(want, _logits_pspec(m, B, cfg.vocab_size,
+                                              want.ndim), mesh, rank)
+            assert got.shape == want.shape, (key, got.shape, want.shape)
+            np.testing.assert_allclose(got, want, **tol, err_msg=key)
+            np.testing.assert_allclose(
+                port[f"{run}/{case}/{key}/risk"],
+                _block(ref[f"{case}/{key}/risk"], batch_pspec(B, m, 0),
+                       mesh, rank), **tol, err_msg=key)
+
+
+def check_cache(runs: dict, run: str, case: str, what: str, tol) -> None:
+    """Each rank's block of every leaf of the ``what`` cache (``prefill``:
+    the prefill's; ``decode``: after the last step) is its slice of the
+    reference's under ``cache_pspec``, within ``tol``."""
+    from repro_torch.launch.shardings import cache_pspec
+
+    mesh = run.split("_")[0]
+    m = shape_mesh(mesh)
+    ref = runs["ref"]
+    prefix = f"{case}/{what}/cache/"
+    names = [k[len(prefix):] for k in ref if k.startswith(prefix)]
+    assert names
+    for name in names:
+        leaf = ref[prefix + name]
+        i, field = name.split("/")
+        spec = cache_pspec(f"{i}/{field}/", leaf.shape, B, m)
+        for rank, port in enumerate(runs["port"]):
+            got = port[f"{run}/{prefix}{name}"]
+            want = _block(leaf, spec, mesh, rank)
+            assert got.shape == want.shape, (name, got.shape, want.shape)
+            np.testing.assert_allclose(got, want, **tol, err_msg=name)
+
+
+def _leaves(res: dict, prefix: str) -> list:
+    n = sum(1 for k in res if k.startswith(prefix + "/"))
+    return [res[f"{prefix}/{i}"] for i in range(n)]
+
+
+def check_train(runs: dict, run: str, case: str, metric_rtol: float,
+                leaf_tol: float) -> None:
+    """Loss, ce, aux and grad norm within ``metric_rtol`` on every rank;
+    both moments within ``leaf_tol`` of each leaf's largest entry, the
+    parameters too where |g| is at least 50 times that of the leaf's
+    largest gradient (``test_torch_train_ranks.py``'s rule)."""
+    ref, port = runs["ref"], runs["port"]
+    for p in port:
+        np.testing.assert_allclose(p[f"{run}/{case}/metrics"],
+                                   ref[f"{case}/metrics"],
+                                   rtol=metric_rtol, atol=1e-6)
+    grads = _leaves(ref, f"{case}/grads")
+    for what in ("mu", "nu", "params"):
+        got = _leaves(port[0], f"{run}/{case}/{what}")
+        want = _leaves(ref, f"{case}/{what}")
+        assert len(got) == len(want) == len(grads)
+        for i, (a, b, g) in enumerate(zip(got, want, grads)):
+            tol = leaf_tol * max(np.abs(b).max(), 1e-6)
+            if what == "params":
+                clear = np.abs(g) > 50 * leaf_tol * np.abs(g).max()
+                a, b = a[clear], b[clear]
+            np.testing.assert_allclose(a, b, rtol=0, atol=tol,
+                                       err_msg=f"{what} leaf {i}")
+
+
+class Tally:
+    """A hand count: bytes and counts by kind."""
+
+    def __init__(self):
+        self.bytes: dict[str, int] = {}
+        self.counts: dict[str, int] = {}
+
+    def add(self, kind: str, n: int, each: int = 0) -> None:
+        if n:
+            self.bytes[kind] = self.bytes.get(kind, 0) + n * each
+            self.counts[kind] = self.counts.get(kind, 0) + n
+
+
+def fsdp_gathers(cfg, run: str, prefix: str = "stack.") -> tuple[int, int]:
+    """(count, float32 bytes) of the all-gathers over the data axes of
+    every parameter whose name starts with ``prefix`` (one use each) where
+    ``run`` FSDPs the model."""
+    import math
+
+    from repro_torch.launch.mesh import DATA_AXES
+    from repro_torch.launch.shardings import param_pspecs, shard_shape
+    from repro_torch.models import Model, parallel
+
+    if not run.endswith("_fsdp"):
+        return 0, 0
+    mesh = shape_mesh(run.split("_")[0])
+    model = Model(cfg, device="meta", seed=None)
+    specs = param_pspecs(cfg, model, mesh, fsdp=True)
+    n = nbytes = 0
+    for name, p in model.named_parameters():
+        if not name.startswith(prefix):
+            continue
+        axes = [a for a in parallel.spec_axes(specs[name])
+                if a in DATA_AXES]
+        local = math.prod(shard_shape(p.shape, specs[name], mesh))
+        for a in reversed(axes):
+            local *= mesh.shape[a]
+            n += 1
+            nbytes += local * 4
+    return n, nbytes
+
+
+def train_tail(cfg, run: str) -> tuple[dict, int, int]:
+    """The train step's collectives outside the layers: all-reduce counts
+    (the embedding, the lm head's "f", the cross entropy's three, the
+    metrics and each whole leaf's gradient over each data axis, the
+    global norm) and the gathers / reduce-scatters of the FSDP'd leaves
+    outside the stack (one use each); returns (counts, layer FSDP
+    gathers, their reduce-scatters)."""
+    from repro_torch.launch.mesh import DATA_AXES
+    from repro_torch.launch.shardings import param_pspecs
+    from repro_torch.models import Model, parallel
+
+    mesh = shape_mesh(run.split("_")[0])
+    fsdp = run.endswith("_fsdp")
+    n_axes = sum(1 for a in mesh.axis_names if a in DATA_AXES)
+    specs = param_pspecs(cfg, Model(cfg, device="meta", seed=None), mesh,
+                         fsdp=fsdp)
+    data = {k: sum(1 for a in parallel.spec_axes(s) if a in DATA_AXES)
+            for k, s in specs.items()}
+    heads = sum(v for k, v in data.items() if not k.startswith("stack."))
+    layer = sum(v for k, v in data.items() if k.startswith("stack."))
+    counts = {"all-reduce": 1 + 1 + 3 + n_axes
+              + n_axes * sum(1 for k in specs if not data[k])
+              + sum(len(axes) for axes in {parallel.spec_axes(s)
+                                           for s in specs.values()}),
+              "all-gather": heads, "reduce-scatter": heads}
+    return counts, layer, layer
