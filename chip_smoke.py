@@ -139,7 +139,7 @@ Phases, each printing one JSON line:
 12. zoo_serve — the MoE, xLSTM and Mamba families at full width, each
              built in bf16 from seed 0 and freed before the next:
              olmoe-1b-7b (16 layers, d_model 2,048, 64 experts of 1,024,
-             top-8), xlstm-1.3b (its first 24 of 48 blocks, sLSTM:mLSTM
+             top-8), xlstm-1.3b (its first 16 of 48 blocks, sLSTM:mLSTM
              1:7, for the script's time limit) and the first
              five layers of jamba-1.5-large-398b (d_model 8,192: four
              Mamba layers of d_inner 16,384, N = 16, one attention layer of
@@ -247,7 +247,11 @@ Phases, each printing one JSON line:
              step 1 of a fresh state without a mesh, then of a fresh
              sharded state from the same seed, held to each other, and 11
              more sharded steps: ms a step, tokens/s, mfu, peak, the
-             step's all-reduces against the schedule's.
+             step's all-reduces against the schedule's; then the
+             ``--variant`` bundles: qwen3-8b's opt prefill, 16
+             weight-stationary decode steps against 16 baseline steps
+             from copies of its cache, and internlm2's opt step (step 1
+             held to a no-mesh step with the same bf16 casts) and opt3's.
 17c. sharded_decode_moe — the decode of a sharded model and the placed
              einsum MoE, NCCL as a world of one rank over the (1, 1) mesh:
              (a) qwen3-8b's 16 decode steps after a 4 x 2,048 prefill and
@@ -274,7 +278,7 @@ Phases, each printing one JSON line:
              no-mesh step, two more timed: ms a step, tokens/s, mfu,
              peak, the step's collectives the schedule's.
 18. roofline — every path phases 11, 12 and 16 timed (qwen3-8b, olmoe-1b-7b,
-             xlstm-1.3b's 24 layers and jamba's five, prefill and decode;
+             xlstm-1.3b's 16 layers and jamba's five, prefill and decode;
              jamba's one-layer train step) read against the one-card roofline
              (``launch/roofline.py`` at the H100's published rates) at that
              run's batch, length and kind: mfu, flops_share, hbm_share,
@@ -2544,14 +2548,15 @@ def phase_llm_serve(dev, attention: dict) -> dict:
 JAMBA = "jamba-1.5-large-398b"
 ZOO_ARCHS = ("olmoe-1b-7b", "xlstm-1.3b", JAMBA)
 # what is cut, by architecture: jamba keeps its first five layers, xlstm
-# its first three groups (its sLSTM time loop is host-bound: at 48 layers
-# this phase took 339 s of a 1,200 s script; tp_recurrent serves it whole)
+# its first two groups (its sLSTM time loop is host-bound: at 48 layers
+# this phase took 339 s of a 1,200 s script, at 24 on a slow host 185 s;
+# tp_recurrent serves it whole)
 ZOO_REDUCED = {JAMBA: {"n_layers": "72 -> 5 (layers 0-4 of the 8-layer "
                                    "period; 90.5 GB bf16 for one period "
                                    "does not fit one 80 GB card)"},
-               "xlstm-1.3b": {"n_layers": "48 -> 24 (3 of its 6 groups; "
+               "xlstm-1.3b": {"n_layers": "48 -> 16 (2 of its 6 groups; "
                                           "the script's time limit)"}}
-XLSTM_ZOO_LAYERS = 24
+XLSTM_ZOO_LAYERS = 16
 OLMOE_ATTN = (4, 2048, 2048, 16, 16, 128, True, 0)   # olmoe-1b-7b prefill
 # the Mamba scan's kernel; then the MoE's dispatch and combine (slot table
 # scatter, buffer and output gathers, the stable sort of the router, the
@@ -2583,7 +2588,7 @@ print("LAUNCHES " + json.dumps(ops.LAUNCHES))
 
 def _zoo_config(arch: str):
     """The architecture's full config, cut in depth where ``ZOO_REDUCED``
-    says so (jamba: its first five layers; xlstm-1.3b: its first three
+    says so (jamba: its first five layers; xlstm-1.3b: its first two
     groups; every width kept)."""
     import dataclasses
 
@@ -3096,7 +3101,7 @@ def _serve_e2e() -> dict:
 
 
 def phase_zoo_serve(dev) -> dict:
-    """olmoe-1b-7b, xlstm-1.3b's first 24 layers and jamba-1.5-large-398b's
+    """olmoe-1b-7b, xlstm-1.3b's first 16 layers and jamba-1.5-large-398b's
     first five at full width through the serve launcher, each freed before
     the next;
     the selective-scan kernel on small cases; the flash kernel at olmoe's
@@ -4493,6 +4498,13 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
         # (tensor_parallel)
         "tensor_parallel_launches": tp["prefill"]["runs"][
             "tensor_parallel"]["launches"]["flash_attention_wgmma"],
+        # the same prefill under the opt bundle's sequence-parallel
+        # residual (tensor_parallel), and before its decode steps
+        "tensor_parallel_opt_launches": {
+            "prefill": tp["prefill"]["runs"]["opt"]["launches"][
+                "flash_attention_wgmma"],
+            "before_decode": tp["prefill"]["opt"]["decode"][
+                "opt_prefill_launches"]["flash_attention_wgmma"]},
         # the prefills before the sharded decodes and the placed MoE's
         # (sharded_decode_moe), each counted on its own
         "sharded_decode_moe_launches": {
@@ -4501,6 +4513,9 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
         # jamba's prefill through the placed Mamba layers (tp_recurrent)
         "tp_recurrent_launches": tpr["serve"][JAMBA]["launches"][
             "sharded"]["flash_attention_wgmma"],
+        # the same under the opt bundle's sequence-parallel prefill
+        "tp_recurrent_opt_launches": tpr["serve"][JAMBA]["launches"][
+            "opt"]["flash_attention_wgmma"],
         "olmoe_shape": zoo["olmoe_flash"],
     }, {
         "name": "flash_attention", "route": "cuda",
@@ -4575,6 +4590,12 @@ def _selective_scan_entry(zoo: dict, train: dict, tpr: dict) -> dict:
                 "serve": tpr["serve"][JAMBA]["launches"]["sharded"][
                     "selective_scan"],
                 "train": tpr["train"][JAMBA]["launches"]["sharded"][
+                    "selective_scan"]},
+            # the opt bundle's prefill (and its decode) and train step 1
+            "tp_recurrent_opt_launches": {
+                "serve": tpr["serve"][JAMBA]["launches"]["opt"][
+                    "selective_scan"],
+                "train": tpr["train"][JAMBA]["launches"]["opt"][
                     "selective_scan"]}}
 
 
@@ -4601,7 +4622,10 @@ def _selective_scan_bwd_entry(train: dict, tpr: dict) -> dict:
                     "1 launch of its reduction",
             # step 1 of the placed one-layer train step (tp_recurrent)
             "tp_recurrent_launches": tpr["train"][JAMBA]["launches"][
-                "sharded"]["selective_scan_bwd"]}
+                "sharded"]["selective_scan_bwd"],
+            # step 1 under the opt bundle (tp_recurrent)
+            "tp_recurrent_opt_launches": tpr["train"][JAMBA]["launches"][
+                "opt"]["selective_scan_bwd"]}
 
 
 # ------------------------------------------------------- tensor parallel
@@ -4613,6 +4637,12 @@ TP_TRAIN_PARAMS = 1_889_112_065
 TP_RUNS = 3
 TP_BACKEND = "nccl"     # the card's; nothing falls back to gloo
 TP_LEAF_TOL = 2e-5      # PERF.md §2's training rule, of a leaf's largest
+TP_OPT_STEPS = 16       # decode steps after the opt prefill
+TP_OPT_TRAIN_STEPS = 3  # steps of each --variant bundle's train step
+TP_OPT3_ROWS = 1        # opt3 (no remat): rows of each 4 x 2,048 batch
+TP_OPT3_REDUCED = {"batch": "4 -> 1 rows of 2,048 for opt3: without remat "
+                            "the activations of 4 x 2,048 do not fit 80 GB "
+                            "beside the 30.2 GB state"}
 
 
 def _tp_prefill_schedule(cfg, batch: int, seq: int) -> dict:
@@ -4625,6 +4655,39 @@ def _tp_prefill_schedule(cfg, batch: int, seq: int) -> dict:
     n = 1 + 2 * cfg.n_layers
     return {"bytes_by_kind": {"all-reduce": float(n * act)},
             "count_by_kind": {"all-reduce": float(n)}}
+
+
+def _tp_opt_prefill_schedule(cfg, batch: int, seq: int) -> dict:
+    """The collectives of one rank's bf16 prefill under the opt bundle's
+    sequence-parallel residual at a mesh of one rank: the embedding's
+    reduce-scatter, each layer's two entries' all-gathers and its two
+    closes' reduce-scatters (wo, down), and the heads' all-gather of the
+    final hidden states (logits of every token); at one rank each moves
+    the whole (batch, seq, d)."""
+    act = batch * seq * cfg.d_model * 2
+    n = 1 + 2 * cfg.n_layers
+    return {"bytes_by_kind": {"reduce-scatter": float(n * act),
+                              "all-gather": float(n * act)},
+            "count_by_kind": {"reduce-scatter": float(n),
+                              "all-gather": float(n)}}
+
+
+def _tp_opt_train_schedule(model, remat: bool) -> dict:
+    """The counts of one rank's train step under the opt bundle at a mesh
+    of one rank (no FSDP): the forward's embedding reduce-scatter, two
+    all-gathers and two reduce-scatters a layer and the heads'
+    all-gather; with remat each layer's recompute (its two entries and
+    wo's close; the down projection's is not recomputed); the
+    backward's adjoints (the embedding's and each close's all-gather,
+    each entry's and the heads' reduce-scatter) and the norms' "f"
+    all-reduces (two a layer and the final norm's); then the cross
+    entropy's three, the metrics', each leaf's gradient over "data" and
+    the global norm's."""
+    n = model.cfg.n_layers
+    leaves = sum(1 for _ in model.parameters())
+    return {"all-gather": float(2 * n + 1 + 2 * n * remat + 1 + 2 * n),
+            "reduce-scatter": float(1 + 2 * n + n * remat + 2 * n + 1),
+            "all-reduce": float(2 * n + 1 + 3 + 1 + leaves + 1)}
 
 
 def _tp_train_schedule(model) -> dict:
@@ -4701,6 +4764,122 @@ def _step1_against(state, plain_params: dict, plain_mu: dict) -> dict:
             "param_diff_over_tol": param_worst}
 
 
+def _tp_ws_decode_schedule(cfg, batch: int) -> dict:
+    """The collectives of one weight-stationary bf16 decode step at a
+    mesh of one rank (the batch whole on the one data rank: no row moves):
+    the embedding's all-reduce over "model"; a layer's two norms' sums of
+    squares and its q | k | v partials (float32) all-reduced over
+    "data", the token's q, k, v gathered over "model", the combine's two
+    float32 all-reduces, wo's all-reduce, the MLP's gate | up partials
+    (float32) over "data" and down over "model"; the final norm's, the
+    lm head's and the score head's partials (float32) over "data"."""
+    d, hd, hq, hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    qkv = (hq + 2 * hkv) * hd
+    per = (2 * batch * 4 + batch * qkv * 4 + batch * hq * 4
+           + batch * hq * (hd + 1) * 4 + batch * d * 2
+           + batch * 2 * cfg.d_ff * 4 + batch * d * 2)
+    n = cfg.n_layers
+    return {"bytes_by_kind": {
+                "all-reduce": float(batch * d * 2 + n * per + batch * 4
+                                    + batch * cfg.vocab_size * 4
+                                    + batch * 4),
+                "all-gather": float(n * batch * qkv * 2)},
+            "count_by_kind": {"all-reduce": float(1 + 8 * n + 3),
+                              "all-gather": float(n)}}
+
+
+def _tp_opt_decode(tp, prompt, mesh, act) -> dict:
+    """The placed qwen3-8b's opt prefill (last-token logits), then
+    ``TP_OPT_STEPS`` decode steps from two copies of its cache: the
+    baseline decode on one, the opt bundle's weight-stationary decode on
+    the other.  Every step's logits and the caches after them bitwise (at
+    one rank every collective is a copy), or else each step's logits no
+    farther from a float32 decode from a third copy than twice the
+    baseline's (PERF.md §2's 2x rule); each opt step's collectives the
+    hand count (:func:`_tp_ws_decode_schedule`, no weight gathered)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    cfg = tp.cfg
+    t = prompt.shape[1]
+    cap = t + TP_OPT_STEPS
+    ws = dryrun.variant_build_kwargs("opt", "decode", mesh)["act_pspec"]
+    tokens = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (prompt.shape[0], TP_OPT_STEPS)),
+        dtype=torch.long, device=prompt.device)
+
+    def copy(cache):
+        return [type(c)(*(a.clone() for a in c)) for c in cache]
+
+    def decode(cache, **kw):
+        logits, ms, steps = [], [], []
+        for s in range(TP_OPT_STEPS):
+            t0 = time.perf_counter()
+            with coll.tally() as step_tally:
+                out = tp.decode_step(cache, tokens[:, s:s + 1], pos=t + s,
+                                     cache_capacity=cap, **kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(out.logits)
+            steps.append(_ep_collectives(step_tally))
+        return {"logits": logits, "cache": cache, "ms": ms, "steps": steps}
+
+    with torch.no_grad(), mesh_lib.set_mesh(mesh):
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        with coll.tally() as tally:
+            _, fresh = tp.prefill(prompt, cache_capacity=cap,
+                                  logits_mode="last", attn_impl="kernel",
+                                  act_pspec=act)
+        launches = dict(ops.LAUNCHES)
+        base = decode(copy(fresh), attn_impl="kernel")
+        opt = decode(copy(fresh), attn_impl="kernel", act_pspec=ws)
+    n = cfg.n_layers
+    check(launches["flash_attention_wgmma"] == n
+          and sum(launches.values()) == 2 * n,
+          f"the opt prefill before the decode: {launches}")
+    predicted = _tp_ws_decode_schedule(cfg, prompt.shape[0])
+    keys = ("bytes_by_kind", "count_by_kind")
+    for c in opt["steps"]:
+        check({k: c[k] for k in keys} == predicted,
+              f"a weight-stationary step's collectives {c}, predicted "
+              f"{predicted}")
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip(opt["logits"], base["logits"])) and all(
+        torch.equal(x, y) for a, b in zip(opt["cache"], base["cache"])
+        for x, y in zip(a, b))
+    worst = max(_max_diff(a, b) for a, b in zip(opt["logits"],
+                                                base["logits"]))
+    result = {"steps": TP_OPT_STEPS, "capacity": cap, "bitwise": bitwise,
+              "max_abs_diff_logits": worst,
+              "step_collectives": opt["steps"][0],
+              "step_collectives_predicted": predicted,
+              "baseline_step_collectives": base["steps"][0],
+              "opt_prefill_collectives": _ep_collectives(tally),
+              "opt_prefill_launches": launches,
+              "step_ms_median": {"baseline": statistics.median(base["ms"]),
+                                 "opt": statistics.median(opt["ms"])},
+              "layout": "the weight-stationary decode (act_pspec P(None, "
+                        "None, 'data')) against the baseline decode, both "
+                        "from copies of the opt prefill's cache"}
+    del base["cache"], opt["cache"]
+    if not bitwise:
+        with torch.no_grad(), mesh_lib.set_mesh(mesh):
+            ref32 = decode(fresh, compute_dtype=torch.float32)
+        rule = {name: max(_max_diff(a, b) for a, b in
+                          zip(r["logits"], ref32["logits"]))
+                for name, r in (("opt", opt), ("baseline", base))}
+        result["rule_2x_bf16"] = rule
+        check(rule["opt"] <= 2 * rule["baseline"],
+              f"the opt decode's logits outside the 2x bf16 rule: {rule}")
+    del fresh
+    return result
+
+
 def _tp_prefill(dev, mesh) -> dict:
     """(a) qwen3-8b at full width and depth in bf16 from seed 0, sharded
     over the (1, 1) mesh (every shard a view of the plain model's
@@ -4714,6 +4893,7 @@ def _tp_prefill(dev, mesh) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import collectives as coll
+    from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import Model, parallel
 
@@ -4729,12 +4909,15 @@ def _tp_prefill(dev, mesh) -> dict:
         0, cfg.vocab_size, (LLM_BATCH, LLM_PROMPT)), dtype=torch.long,
         device=dev)
     predicted = _tp_prefill_schedule(cfg, LLM_BATCH, LLM_PROMPT)
+    act = dryrun.variant_build_kwargs("opt", "prefill", mesh)["act_pspec"]
     runs, outs = {}, {}
     with torch.no_grad(), mesh_lib.set_mesh(mesh):
-        for name, model in (("tensor_parallel", tp), ("plain", plain)):
+        for name, model, kw in (("tensor_parallel", tp, {}),
+                                ("plain", plain, {}),
+                                ("opt", tp, {"act_pspec": act})):
             def prefill():
                 out, _ = model.prefill(prompt, cache_capacity=LLM_PROMPT,
-                                       attn_impl="kernel")
+                                       attn_impl="kernel", **kw)
                 return out
 
             prefill()
@@ -4761,6 +4944,7 @@ def _tp_prefill(dev, mesh) -> dict:
                           "max_memory_allocated":
                               torch.cuda.max_memory_allocated()}
     got, want = outs.pop("tensor_parallel"), outs.pop("plain")
+    opt = outs.pop("opt")
     n = cfg.n_layers
     for name, r in runs.items():
         check(r["launches"]["flash_attention"] == n
@@ -4772,6 +4956,15 @@ def _tp_prefill(dev, mesh) -> dict:
     check({k: tally[k] for k in ("bytes_by_kind", "count_by_kind")}
           == predicted and runs["plain"]["collectives"]["total_bytes"] == 0,
           f"the TP prefill's collectives {tally}, predicted {predicted}")
+    opt_predicted = _tp_opt_prefill_schedule(cfg, LLM_BATCH, LLM_PROMPT)
+    tally = runs["opt"]["collectives"]
+    check({k: tally[k] for k in ("bytes_by_kind", "count_by_kind")}
+          == opt_predicted,
+          f"the opt prefill's collectives {tally}, predicted {opt_predicted}")
+    # at one rank every collective is a copy: the opt prefill is the TP
+    # prefill to the last bit, or else held to the same 2x rule below
+    opt_bitwise = bool(torch.equal(opt.logits, got.logits)
+                       and torch.equal(opt.risk_score, got.risk_score))
     bitwise = bool(torch.equal(got.logits, want.logits)
                    and torch.equal(got.risk_score, want.risk_score))
     result = {"arch": TP_ARCH, "batch": LLM_BATCH, "prompt_len": LLM_PROMPT,
@@ -4780,8 +4973,26 @@ def _tp_prefill(dev, mesh) -> dict:
               "max_abs_diff_logits": _max_diff(got.logits, want.logits),
               "max_abs_diff_risk": _max_diff(got.risk_score,
                                              want.risk_score),
+              "opt": {"act_pspec": list(act),
+                      "tally_predicted": opt_predicted,
+                      "bitwise_tensor_parallel": opt_bitwise,
+                      "max_abs_diff_logits": _max_diff(opt.logits,
+                                                       got.logits)},
               "timing": "host clock, each prefill ended by a device sync; "
                         "median of 3 runs after one warm-up run"}
+    if not opt_bitwise:
+        with torch.no_grad():
+            ref32, _ = plain.prefill(prompt, cache_capacity=LLM_PROMPT,
+                                     compute_dtype=torch.float32,
+                                     logits_mode="last")
+        rule = {"opt": _max_diff(opt.logits[:, -1:], ref32.logits),
+                "plain": _max_diff(want.logits[:, -1:], ref32.logits)}
+        result["opt"]["rule_2x_bf16"] = rule
+        check(rule["opt"] <= 2 * rule["plain"],
+              f"opt prefill logits outside the 2x bf16 rule: {rule}")
+        del ref32
+    del opt
+    result["opt"]["decode"] = _tp_opt_decode(tp, prompt, mesh, act)
     if not bitwise:
         # name the op, then the port's 2x bf16 rule against a float32
         # reference prefill of the same weights (last-token logits)
@@ -4809,7 +5020,8 @@ def _tp_train(dev, mesh) -> dict:
     from seed 0 without a mesh, then the same step of a fresh state from
     the same seed sharded over the (1, 1) mesh (two states side by side
     would not fit), held to each other, then 11 more steps of the sharded
-    one, timed (host clock, each step ended by reading its loss)."""
+    one, timed (host clock, each step ended by reading its loss); then
+    the opt and opt3 bundles' train steps (:func:`_tp_variant_train`)."""
     import torch
     from repro_torch.benchmarks.timing import BF16_FLOPS
     from repro_torch.configs import get_config
@@ -4829,26 +5041,32 @@ def _tp_train(dev, mesh) -> dict:
                      for a in next(stream)) for _ in range(TRAIN_STEPS)]
     schedule = cosine_schedule(TRAIN_LR[0], TRAIN_LR[1], TRAIN_STEPS)
 
-    def fresh(sharded: bool):
+    def fresh(sharded: bool, cast: bool = False):
         model = Model(cfg, device=dev, dtype=torch.float32, seed=0)
         if sharded:
             parallel.parallelize(model, mesh)
         opt = AdamW(learning_rate=schedule)
         state = Trainer(model, opt).init_state(None)
         step = make_train_step(model, opt, remat=True,
-                               compute_dtype=torch.bfloat16)
+                               compute_dtype=torch.bfloat16,
+                               cast_params_bf16=cast)
         return model, state, step
 
-    model, state, step = fresh(False)
-    params = model.param_count()
+    def no_mesh_step1(cast: bool):
+        """Step 1 without a mesh: its metrics, parameters and first
+        moments (these on the host)."""
+        model, state, step = fresh(False, cast)
+        state, m = step(state, *batches[0])
+        out = ([float(v) for v in m], model.param_count(),
+               {k: p.detach().cpu() for k, p in state.params.items()},
+               {k: mu.detach().cpu() for k, mu in state.opt.mu.items()})
+        del model, state, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    plain_metrics, params, plain_after, plain_mu = no_mesh_step1(False)
     check(params == TP_TRAIN_PARAMS, f"{params} parameters built")
-    state, m = step(state, *batches[0])
-    plain_metrics = [float(v) for v in m]
-    plain_after = {k: p.detach().cpu() for k, p in state.params.items()}
-    plain_mu = {k: mu.detach().cpu() for k, mu in state.opt.mu.items()}
-    del model, state, step, m
-    gc.collect()
-    torch.cuda.empty_cache()
 
     model, state, step = fresh(True)
     torch.cuda.synchronize()
@@ -4872,10 +5090,12 @@ def _tp_train(dev, mesh) -> dict:
                 step1 = _step1_against(state, plain_after, plain_mu)
                 first_metrics = metrics
     peak = torch.cuda.max_memory_allocated()
-    del plain_after, plain_mu
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
     check(launches == {k: 0 for k in launches},
           f"train launches {launches}: attention trains on the plain path")
-    predicted = _tp_train_schedule(model)
+    predicted = _tp_train_schedule(Model(cfg, device="meta", seed=None))
     check(collectives["count_by_kind"] == predicted,
           f"the TP step's collectives {collectives}, predicted {predicted}")
     bitwise = first_metrics == plain_metrics and step1["bitwise"]
@@ -4890,12 +5110,15 @@ def _tp_train(dev, mesh) -> dict:
     losses = [h["loss"] for h in history]
     check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
           f"the sharded model's loss falls: {losses}")
+    del plain_after, plain_mu
+    # the opt bundle's step 1 is held to a no-mesh step 1 with its casts
+    cast_metrics, _, cast_after, cast_mu = no_mesh_step1(True)
+    variants = _tp_variant_train(cfg, dev, mesh, batches, schedule,
+                                 cast_metrics, cast_after, cast_mu)
+    del cast_after, cast_mu
     ms = statistics.median(step_ms[-8:])
     shape = InputShape("tp_train", TRAIN_SEQ, TRAIN_BATCH, "train")
     mfu = roofline.model_flops(cfg, shape, "train") / (ms * 1e-3 * BF16_FLOPS)
-    del model, state, step
-    gc.collect()
-    torch.cuda.empty_cache()
     return {"arch": TP_TRAIN_ARCH, "params": params,
             "config_param_count": cfg.param_count(), "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "steps": TRAIN_STEPS, "compute_dtype": "bfloat16",
@@ -4906,17 +5129,131 @@ def _tp_train(dev, mesh) -> dict:
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms * 1e-3),
             "mfu": mfu, "max_memory_allocated": peak,
             "launches": launches, "collectives": collectives,
-            "collectives_predicted": predicted,
+            "collectives_predicted": predicted, "variants": variants,
+            "variants_reduced": TP_OPT3_REDUCED,
             "timing": "host clock: each step ends in reading its loss; ms "
                       "a step the median of the last 8 of 12"}
+
+
+def _tp_variant_run(cfg, dev, mesh, batches, schedule, variant: str,
+                    steps: int, against=None, count=None) -> tuple:
+    """``steps`` steps of internlm2-1.8b's train step under ``variant``
+    (``launch/dryrun.py::variant_build_kwargs``) at whole depth on the
+    (1, 1) mesh from a fresh state (seed 0): the state, each step's
+    metrics, ms and collective counts, the peak, the kwargs and, with
+    ``against`` (parameters and first moments after another run's step
+    1), the state after step 1 held to them (:func:`_step1_against`).
+    ``count(model, remat)`` gives the hand count of a step's collectives
+    (default :func:`_tp_opt_train_schedule`)."""
+    import torch
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import Model, parallel
+    from repro_torch.training import AdamW, Trainer
+    from repro_torch.training.train import make_train_step
+
+    kw = dryrun.variant_build_kwargs(variant, "train", mesh)
+    kw.pop("moe_ep_constraint", None)          # no MoE: changes nothing
+    remat = kw.pop("remat", True)
+    model = parallel.parallelize(
+        Model(cfg, device=dev, dtype=torch.float32, seed=0), mesh)
+    opt = AdamW(learning_rate=schedule)
+    state = Trainer(model, opt).init_state(None)
+    step = make_train_step(model, opt, remat=remat,
+                           compute_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    history, step_ms, tallies = [], [], []
+    step1 = None
+    with mesh_lib.set_mesh(mesh):
+        for toks, labels in batches[:steps]:
+            t0 = time.perf_counter()
+            with coll.tally() as tally:
+                state, m = step(state, toks, labels)
+                history.append([float(v) for v in m])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            tallies.append(dict(tally.count_by_kind))
+            if against is not None and step1 is None:
+                step1 = _step1_against(state, *against)
+    predicted = (count or _tp_opt_train_schedule)(model, remat)
+    check(all(t == predicted for t in tallies),
+          f"{variant} train collectives {tallies[0]}, predicted {predicted}")
+    return state, {"kwargs": {k: (list(v) if k == "act_pspec" else v)
+                              for k, v in kw.items()},
+                   "remat": remat, "steps": steps,
+                   "rows": batches[0][0].shape[0], "history": history,
+                   "step_ms": step_ms,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "collectives": tallies[0],
+                   "collectives_predicted": predicted, "step1": step1}
+
+
+def _tp_variant_train(cfg, dev, mesh, batches, schedule, cast_metrics,
+                      cast_after, cast_mu) -> dict:
+    """internlm2-1.8b's train step under the opt and opt3 bundles (the
+    sequence-parallel residual, the bf16 casts before the FSDP gathers,
+    opt3 without remat) at whole depth on the (1, 1) mesh, a fresh state
+    from seed 0 each, ``TP_OPT_TRAIN_STEPS`` steps (:func:`_tp_variant_run`):
+    opt on the baseline's batches, its step 1 held to the no-mesh step 1
+    with the same bf16 casts (``cast_metrics``, its parameters and first
+    moments on the host): bitwise, or else the metrics within rtol 1e-5
+    and the leaves within the training rule (:func:`_step1_against`);
+    opt3 on ``TP_OPT3_ROWS`` of each batch's rows (without remat 4 x 2,048
+    does not fit beside the state), its step 1 held bitwise to one opt
+    step on the same rows (remat changes no bit).  Every step's
+    collectives are the hand count."""
+    import torch
+
+    out = {}
+    state, out["opt"] = _tp_variant_run(
+        cfg, dev, mesh, batches, schedule, "opt", TP_OPT_TRAIN_STEPS,
+        (cast_after, cast_mu))
+    first, step1 = out["opt"]["history"][0], out["opt"]["step1"]
+    bitwise = first == cast_metrics and step1["bitwise"]
+    check(bitwise or (all(abs(a - b) <= 1e-5 * abs(b) for a, b in
+                          zip(first, cast_metrics))
+                      and step1["mu_diff_over_tol"] <= 1.0
+                      and step1["param_diff_over_tol"] <= 1.0),
+          f"opt step 1 {first} against the no-mesh cast step "
+          f"{cast_metrics}, leaves {step1}")
+    out["opt"]["step1"] = {**step1, "bitwise": bitwise}
+    out["opt"]["no_mesh_cast"] = cast_metrics
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = [(t[:TP_OPT3_ROWS], lab[:TP_OPT3_ROWS]) for t, lab in batches]
+    state, out["opt_rows"] = _tp_variant_run(cfg, dev, mesh, rows, schedule,
+                                             "opt", 1)
+    after = {k: p.detach().cpu() for k, p in state.params.items()}
+    mu = {k: m.detach().cpu() for k, m in state.opt.mu.items()}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, out["opt3"] = _tp_variant_run(cfg, dev, mesh, rows, schedule,
+                                         "opt3", TP_OPT_TRAIN_STEPS,
+                                         (after, mu))
+    step1 = out["opt3"]["step1"]
+    del state, after, mu
+    gc.collect()
+    torch.cuda.empty_cache()
+    bitwise = out["opt3"]["history"][0] == out["opt_rows"]["history"][0] \
+        and step1["bitwise"]
+    out["opt3"]["step1"] = {**step1, "bitwise": bitwise}
+    check(bitwise, "opt3's step 1 (remat off) is opt's on the same rows to "
+          f"the last bit: {out['opt3']['history'][0]} against "
+          f"{out['opt_rows']['history'][0]}, leaves {step1}")
+    return out
 
 
 def phase_tensor_parallel(dev, smi: str) -> dict:
     """NCCL in process as a world of one rank over the (1, 1) ("data",
     "model") mesh on the card: qwen3-8b's prefill through the
-    tensor-parallel model against the plain model, then internlm2-1.8b
-    trained 12 steps at whole depth through the train step across
-    ranks."""
+    tensor-parallel model against the plain model and under the opt
+    bundle (the sequence-parallel residual), then 16 decode steps from
+    the opt prefill's cache; internlm2-1.8b trained 12 steps at whole
+    depth through the train step across ranks, then under the opt and
+    opt3 bundles (``launch/dryrun.py::variant_build_kwargs``)."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
@@ -5002,12 +5339,15 @@ def _sdm_decode_schedule(cfg, batch: int) -> dict:
 
 
 def _sdm_chain(model, prompt, capacity: int, tokens=None, *,
-               dtype: str = "bfloat16", routes: list | None = None) -> dict:
+               dtype: str = "bfloat16", routes: list | None = None,
+               act_pspec=None) -> dict:
     """``model``'s prefill of ``prompt`` (the flash kernel, last logits),
     then one decode step a token: ``tokens`` (B, steps), or greedy from
     its own logits where None.  Each step's logits, risk, host ms (ended
     by a device sync) and collectives; the tokens fed; with ``routes``,
-    every MoE layer's expert ids in call order."""
+    every MoE layer's expert ids in call order.  ``act_pspec``: the
+    prefill's (a --variant bundle's layout; the decode steps run the
+    baseline's)."""
     import torch
     from repro_torch.launch import collectives as coll
     from repro_torch.models import moe as moe_mod
@@ -5028,7 +5368,8 @@ def _sdm_chain(model, prompt, capacity: int, tokens=None, *,
         t0 = time.perf_counter()
         with torch.no_grad(), coll.tally() as tally:
             pre, cache = model.prefill(prompt, cache_capacity=capacity,
-                                       logits_mode="last", **kw)
+                                       logits_mode="last",
+                                       act_pspec=act_pspec, **kw)
         torch.cuda.synchronize()
         res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
         res["prefill_collectives"] = _ep_collectives(tally)
@@ -5114,13 +5455,17 @@ def _sdm_profile(model, prompt, capacity: int, tokens) -> dict:
                                      for w in caught})[:5]}
 
 
-def _softmax_decode(params, x, cfg, *, angles, cache, cache_pos, capacity):
+def _softmax_decode(params, x, cfg, *, angles, cache, cache_pos, capacity,
+                    ws=None):
     """The reference's decode (``src/repro/models/attention.py``'s decode
     branch), written here apart from the port's ``_decode``: the write at
     ``cache_pos`` (modulo the window on the ring, clamped as
     ``dynamic_update_slice`` clamps), then ``_gqa_scores_chunked`` over
-    the whole cache under its ``kv_valid_len``.  A whole model only."""
+    the whole cache under its ``kv_valid_len``.  A whole model, the
+    baseline layout, only."""
     from repro_torch.models import layers
+
+    check(ws is None, "the softmax decode takes the baseline layout")
     from repro_torch.models.attention import KVCache, _gqa_scores_chunked
 
     b, t, _ = x.shape
@@ -5255,6 +5600,7 @@ def _sdm_pair(name: str, cfg, plain, mesh, prompt, capacity: int, *,
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.shardings import P
 
     whole = _sdm_views(cfg, plain, None)
     tp = _sdm_views(cfg, plain, mesh)
@@ -5646,6 +5992,68 @@ def _tpr_schedule(cfg, rows: int, what: str) -> dict:
     return out
 
 
+def _tpr_opt_prefill_schedule(cfg, batch: int, seq: int) -> dict:
+    """:func:`_tpr_schedule`'s prefill under the opt bundle's
+    sequence-parallel residual at one rank of "model": the embedding's
+    all-reduce and every close's (out_proj, wo, down, a MoE's float32
+    partial) become reduce-scatters of the same bytes (one rank), each
+    mixer's and FFN's entry adds an all-gather of (batch, seq, d) and the
+    heads one of the ranks' last rows (batch, 1, d)."""
+    out = _tpr_schedule(cfg, batch * seq, "prefill")
+    by, n = out["bytes_by_kind"], out["count_by_kind"]
+    act = batch * seq * cfg.d_model * 2
+    rs_n, rs_b, entries = 1, act, 0
+    for spec in cfg.layer_pattern * cfg.n_groups:
+        rs_n, rs_b, entries = rs_n + 1, rs_b + act, entries + 1
+        if spec.ffn != "none":
+            entries += 1
+            rs_n += 1
+            rs_b += act * (2 if spec.ffn == "moe" else 1)
+    by["all-reduce"] -= rs_b
+    n["all-reduce"] -= rs_n
+    by["reduce-scatter"] = by.get("reduce-scatter", 0.0) + rs_b
+    n["reduce-scatter"] = n.get("reduce-scatter", 0.0) + rs_n
+    by["all-gather"] = by.get("all-gather", 0.0) + entries * act \
+        + batch * cfg.d_model * 2
+    n["all-gather"] = n.get("all-gather", 0.0) + entries + 1
+    for d in (by, n):
+        for k in [k for k, v in d.items() if not v]:
+            del d[k]
+    return out
+
+
+def _sp_train_delta(cfg) -> dict:
+    """What the opt bundle's sequence-parallel residual changes in the
+    counts of a train step (remat) at one rank of "model", where every
+    entry and close is sharded: the forward's embedding, closes and
+    entries (:func:`_tpr_opt_prefill_schedule`'s, the heads' gather of
+    every row), each group's recompute of its entries and closes (the
+    group's last close apart unless a MoE ends it), the backward's
+    all-gathers (the embedding's, each close's), each entry's
+    reduce-scatter where its "f" all-reduced, each norm's all-reduce and
+    the lm head's "f" a reduce-scatter."""
+    blocks = []
+    for spec in cfg.layer_pattern * cfg.n_groups:
+        blocks.append(1 + (spec.ffn != "none"))
+    n = sum(blocks)
+    per = sum(blocks[:len(cfg.layer_pattern)])
+    last = 0 if cfg.layer_pattern[-1].ffn == "moe" else 1
+    recomputed = cfg.n_groups * (per - last)
+    norms = n + 1
+    return {"all-reduce": -(1 + n) - recomputed - n + norms - 1,
+            "reduce-scatter": (1 + n) + recomputed + n + 1,
+            "all-gather": (n + 1) + cfg.n_groups * per + 1 + n}
+
+
+def _tpr_opt_train_schedule(model, remat: bool) -> dict:
+    """:func:`_tpr_train_schedule` with :func:`_sp_train_delta` (remat)."""
+    assert remat
+    out = dict(_tpr_train_schedule(model))
+    for k, v in _sp_train_delta(model.cfg).items():
+        out[k] = out.get(k, 0.0) + v
+    return {k: float(v) for k, v in out.items() if v}
+
+
 def _tpr_train_schedule(model) -> dict:
     """The collectives of one train step (remat) of a placed model at one
     rank, counted from its layers.  A group's forward runs again in the
@@ -5696,6 +6104,7 @@ def _tpr_pair(name: str, cfg, plain, mesh, prompt) -> dict:
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.shardings import P
 
     whole = _sdm_views(cfg, plain, None)
     tp = _sdm_views(cfg, plain, mesh)
@@ -5716,7 +6125,16 @@ def _tpr_pair(name: str, cfg, plain, mesh, prompt) -> dict:
             ops.LAUNCHES[key] = 0
         got = _sdm_chain(tp, prompt, capacity, tokens)
         launches["sharded"] = dict(ops.LAUNCHES)
-    check(launches["whole"] == launches["sharded"],
+        opt = None
+        if name == JAMBA:
+            # the opt bundle's sequence-parallel prefill, then the
+            # baseline decode (the weight-stationary one is not ported)
+            for key in ops.LAUNCHES:
+                ops.LAUNCHES[key] = 0
+            opt = _sdm_chain(tp, prompt, capacity, tokens, act_pspec=P(
+                "data", "model", None))
+            launches["opt"] = dict(ops.LAUNCHES)
+    check(all(v == launches["whole"] for v in launches.values()),
           f"{name}: launches {launches}")
     mamba = sum(s.mixer == "mamba" for s in cfg.layer_pattern) * cfg.n_groups
     attn = sum(s.mixer == "attn" for s in cfg.layer_pattern) * cfg.n_groups
@@ -5744,6 +6162,27 @@ def _tpr_pair(name: str, cfg, plain, mesh, prompt) -> dict:
                   for a, b, ra, rb in pairs)
     diffs = [max(_max_diff(a, b), _max_diff(ra, rb))
              for a, b, ra, rb in pairs]
+    opt_result = None
+    if opt is not None:
+        opt_predicted = _tpr_opt_prefill_schedule(cfg, b, t)
+        check({k: opt["prefill_collectives"][k] for k in keys}
+              == opt_predicted, f"{name}: the opt prefill's collectives "
+              f"{opt['prefill_collectives']}, predicted {opt_predicted}")
+        check(all(c == got["collectives"][0] for c in opt["collectives"]),
+              f"{name}: the decode steps after the opt prefill issue the "
+              "baseline's collectives")
+        chains = [opt["prefill_logits"]] + opt["logits"]
+        sharded = [got["prefill_logits"]] + got["logits"]
+        opt_bitwise = all(torch.equal(a, c) for a, c in zip(chains, sharded))
+        # at one rank every collective is a copy: bitwise, or no result
+        check(opt_bitwise, f"{name}: the opt prefill and its decode "
+              "differ from the sharded baseline's")
+        opt_result = {"bitwise_sharded": opt_bitwise,
+                      "prefill_collectives": opt["prefill_collectives"],
+                      "collectives_predicted": opt_predicted,
+                      "prefill_ms": opt["prefill_ms"],
+                      "step_ms": statistics.median(opt["step_ms"])}
+        del opt
     result = {"arch": cfg.name, "layers": cfg.n_layers, "batch": b,
               "prompt_len": t, "steps": SDM_STEPS, "bitwise": bitwise,
               "max_abs_diff": diffs, "launches": launches,
@@ -5754,6 +6193,7 @@ def _tpr_pair(name: str, cfg, plain, mesh, prompt) -> dict:
                              "sharded": got["prefill_ms"]},
               "step_ms": {"whole": statistics.median(first["step_ms"]),
                           "sharded": statistics.median(got["step_ms"])},
+              "opt": opt_result,
               "timing": "host clock, each step ended by a device sync; "
                         "the median of the 16 steps; the whole run, then "
                         "the sharded one, after a 1 x 128 warm-up "
@@ -5853,10 +6293,48 @@ def _tpr_train(name: str, cfg, dev, mesh, batch: int, seq: int,
                 step1 = _step1_against(state, plain_after, plain_mu)
                 first_metrics = metrics
     peak = torch.cuda.max_memory_allocated()
-    del plain_after, plain_mu
-    check(launches["whole"] == launches["sharded"],
-          f"{name}: step 1 launches {launches}")
     predicted = _tpr_train_schedule(model)
+    opt = None
+    if name == JAMBA:
+        # one step under the opt bundle (the sequence-parallel residual,
+        # the bf16 casts) from a fresh state, held to a no-mesh step 1
+        # with the same casts: they round A_log, D and the conv to bf16,
+        # which the baseline's float32 scan reads unrounded
+        del model, state, step, plain_after, plain_mu
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = Model(cfg, device=dev, dtype=torch.float32, seed=0)
+        opt_ = AdamW(learning_rate=schedule)
+        state = Trainer(model, opt_).init_state(None)
+        with mesh_lib.set_mesh(mesh):
+            state, m = make_train_step(
+                model, opt_, remat=True, compute_dtype=torch.bfloat16,
+                cast_params_bf16=True)(state, *batches[0])
+            cast_metrics = [float(v) for v in m]
+        plain_after = {k: p.detach().cpu() for k, p in state.params.items()}
+        plain_mu = {k: mu.detach().cpu() for k, mu in state.opt.mu.items()}
+        del model, state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        state, opt = _tp_variant_run(cfg, dev, mesh, batches[:1], schedule,
+                                     "opt", 1, (plain_after, plain_mu),
+                                     count=_tpr_opt_train_schedule)
+        launches["opt"] = dict(ops.LAUNCHES)
+        model = step = None
+        o = opt["step1"]
+        opt["no_mesh_cast"] = cast_metrics
+        check((opt["history"][0] == cast_metrics and o["bitwise"])
+              or (all(abs(a - c) <= 1e-5 * abs(c) for a, c in
+                      zip(opt["history"][0], cast_metrics))
+                  and o["mu_diff_over_tol"] <= 1.0
+                  and o["param_diff_over_tol"] <= 1.0),
+              f"{name}: opt step 1 {opt['history'][0]} against the no-mesh "
+              f"cast step {cast_metrics}, leaves {o}")
+    del plain_after, plain_mu
+    check(all(v == launches["whole"] for v in launches.values()),
+          f"{name}: step 1 launches {launches}")
     check(collectives["count_by_kind"] == predicted,
           f"{name}: the step's collectives {collectives}, predicted "
           f"{predicted}")
@@ -5884,6 +6362,7 @@ def _tpr_train(name: str, cfg, dev, mesh, batch: int, seq: int,
             "tokens_per_s": batch * seq / (ms * 1e-3), "mfu": mfu,
             "max_memory_allocated": peak, "launches": launches,
             "collectives": collectives, "collectives_predicted": predicted,
+            "opt": opt,
             "timing": "host clock: each step ends in reading its loss; ms "
                       f"a step the median of the last {steps - 1}"}
 

@@ -38,6 +38,15 @@ gathered weights) keeps the rank's block of that cotangent and
 exchanges nothing, where :func:`all_gather`, whose ranks use the result
 each on their own share, reduce-scatters it.
 
+:func:`split` is the adjoint of the all-gather whose result every rank
+uses alike: the rank's chunk forward, the all-gather of the chunks'
+cotangents backward (a replicated tensor cut to the rank's block of the
+sequence, Megatron's "scatter to the sequence-parallel region").
+:func:`once` passes a replicated value through and, backward, keeps its
+cotangent on rank 0 of the axis only (zeros elsewhere): where every rank
+computes the value alike but the cotangents around it are the ranks'
+partials, whose sum is then the whole.
+
 :func:`all_to_all_split` is the all-to-all with a split size a rank: the
 pieces a rank sends each rank are any number of rows of dim 0, as the
 Mamba's x / z exchange and the sLSTM decode's gate exchange need
@@ -310,6 +319,29 @@ class _CopyTo(torch.autograd.Function):
         return all_reduce_raw(g, ctx.mesh, ctx.axis), None, None
 
 
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return chunk_of(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather_raw(g, ctx.mesh, ctx.axis, ctx.dim), None, None,
+                None)
+
+
+class _Once(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.keep = mesh.coords()[axis] == 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.keep else torch.zeros_like(g)), None, None
+
+
 def _tracked(x: torch.Tensor) -> bool:
     """Whether autograd follows ``x``: outside it (a decode step, a
     prefill) the raw collective runs without a Function's cost a call."""
@@ -369,6 +401,36 @@ def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     if not _tracked(x):
         return all_reduce_raw(x, mesh, axis)
     return _AllReduceSum.apply(x, mesh, axis)
+
+
+def chunk_of(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
+             ) -> torch.Tensor:
+    """This rank's chunk of ``dim`` cut in equal chunks over the ranks of
+    ``axis``, in rank order (contiguous; no collective)."""
+    n = mesh.shape[axis]
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} ({x.shape[dim]}) is not a multiple of "
+                         f"{axis}'s {n} ranks")
+    size = x.shape[dim] // n
+    return x.narrow(dim, mesh.coords()[axis] * size, size).contiguous()
+
+
+def split(x: torch.Tensor, mesh: Mesh, axis: str, dim: int
+          ) -> torch.Tensor:
+    """:func:`chunk_of` a tensor every rank of ``axis`` holds alike; its
+    backward all-gathers the chunks' cotangents, so the whole cotangent
+    is the same on every rank."""
+    if not _tracked(x):
+        return chunk_of(x, mesh, axis, dim)
+    return _Split.apply(x, mesh, axis, dim)
+
+
+def once(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``x`` forward; backward its cotangent on rank 0 of ``axis`` and
+    zeros on the others, so a sum over the ranks counts it once."""
+    if not _tracked(x):
+        return x
+    return _Once.apply(x, mesh, axis)
 
 
 def copy_to(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:

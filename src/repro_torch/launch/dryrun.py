@@ -34,8 +34,18 @@ bytes held to :func:`argument_bytes_per_device`, and the roofline's
 collective term over the mesh's slowest link (``launch/roofline.py``).
 Every model's cells run, decode included (flash-decoding over the
 cache's sequence on "model"; the Mamba and xLSTM mixers on their channel
-blocks, ``models/mamba.py`` and ``models/xlstm.py``); the ``--variant``
-bundles raise, naming item 13i.
+blocks, ``models/mamba.py`` and ``models/xlstm.py``).
+
+``--variant`` takes the reference's bundles (:func:`variant_build_kwargs`)
+over a pod mesh and tags the records as the reference does
+(``<arch>__<shape>__h100_pod1_opt.json``): ``opt`` runs train and
+prefill with the sequence-parallel residual, train with the bf16 casts
+before the FSDP gathers and decode weight-stationary (the residual's d
+on the data axes, no weight gathered; the Mamba and xLSTM mixers' raises,
+``launch/mesh.py::VARIANTS``), ``opt2`` adds ``moe_ep_constraint``
+(which changes no number in the port) and ``opt3`` turns remat off for
+train.  ``opt4`` raises naming item 13g
+(``launch/mesh.py::TRAIN_ACROSS_RANKS``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \\
@@ -44,6 +54,7 @@ Usage:
       [--continue-on-error] [--bf16-moments] [--out DIR]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both
       (--single-pod: the (16, 16) mesh, --multi-pod: (2, 16, 16))
+      [--variant opt|opt2|opt3] [--continue-on-error]
 """
 from __future__ import annotations
 
@@ -385,15 +396,63 @@ def _card_memory() -> int | None:
     return torch.cuda.get_device_properties(0).total_memory
 
 
+VARIANTS = ("baseline", "opt", "opt2", "opt3", "opt4")
+
+
+def variant_build_kwargs(variant: str, kind_hint: str, mesh) -> dict:
+    """The reference's ``--variant`` bundles (its ``launch/dryrun.py``),
+    as ``specs.build_step`` keywords in the port's ``PartitionSpec``:
+
+    ``opt``: train and prefill, the sequence-parallel residual (T on
+    "model") and, for train, the bf16 casts before the FSDP gathers;
+    decode, the weight-stationary layout (the residual's d on the data
+    axes; the Mamba and xLSTM mixers' raises, ``launch/mesh.py::
+    VARIANTS``).
+    ``opt2`` / ``opt3`` add ``moe_ep_constraint``; ``opt3`` turns remat
+    off for train.  ``opt4`` (the a2a MoE for train and prefill) raises
+    naming the item that brings the a2a MoE to the train step across
+    ranks; the reference's ``opt4`` of a model without MoE blocks is
+    ``opt``, the port refuses the bundle whole."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}: one of {VARIANTS}")
+    if variant == "baseline":
+        return {}
+    if variant == "opt4":
+        raise NotImplementedError(f"--variant opt4 (the a2a MoE for train "
+                                  f"and prefill): "
+                                  f"{mesh_lib.TRAIN_ACROSS_RANKS}")
+    daxes = mesh_lib.data_axes(mesh)
+    out: dict = {}
+    if kind_hint == "decode":
+        out["act_pspec"] = P(None, None, "data")
+    elif kind_hint == "train":
+        out["act_pspec"] = P(daxes, "model", None)
+        out["cast_params_bf16"] = True
+    else:
+        out["act_pspec"] = P(daxes, "model", None)
+    if variant in ("opt2", "opt3"):
+        out["moe_ep_constraint"] = True
+    if variant == "opt3" and kind_hint == "train":
+        out["remat"] = False
+    return out
+
+
 def run_cell(arch: str, shape_name: str, *, moment_dtype=torch.float32,
              out_dir: str = RESULTS_DIR, extra_tag: str = "", mesh=None,
-             **build_kwargs) -> dict:
+             variant: str = "baseline", **build_kwargs) -> dict:
     """Dry-run one cell on one card, or one rank of a pod ``mesh``
     (``make_production_mesh``); writes ``<arch>__<shape>__h100[_tag].json``
-    (``h100_pod1`` / ``h100_pod2`` over a pod) into ``out_dir`` and
+    (``h100_pod1`` / ``h100_pod2`` over a pod, ``_<variant>`` after it
+    for a bundle of :func:`variant_build_kwargs`) into ``out_dir`` and
     returns its record."""
     t0 = time.perf_counter()
     pod = mesh is not None and mesh.size > 1
+    if variant != "baseline":
+        if not pod:
+            raise ValueError("a --variant bundle lays the step out over a "
+                             "pod mesh")
+        build_kwargs = {**variant_build_kwargs(
+            variant, specs.SHAPES[shape_name].kind, mesh), **build_kwargs}
     expected = None
     if pod:
         whole = specs.build_step(arch, shape_name, moment_dtype=moment_dtype,
@@ -456,6 +515,8 @@ def run_cell(arch: str, shape_name: str, *, moment_dtype=torch.float32,
             "collectives": counts["collectives"],
             "argument_bytes_per_device": expected,
         })
+    if variant != "baseline":
+        result["variant"] = variant
     ma = result["memory_analysis"]
     print(f"[dryrun] {arch:>26s} x {shape_name:<12s}"
           f" mesh={report.mesh_desc:<16s}"
@@ -469,6 +530,7 @@ def run_cell(arch: str, shape_name: str, *, moment_dtype=torch.float32,
     tag = TAG
     if pod:
         tag += "_pod2" if "pod" in mesh.shape else "_pod1"
+    tag += f"_{variant}" if variant != "baseline" else ""
     tag += f"_{extra_tag}" if extra_tag else ""
     with open(os.path.join(out_dir, f"{arch}__{shape_name}__{tag}.json"),
               "w") as f:
@@ -504,6 +566,9 @@ def main(argv=None) -> None:
                     help="single-pod AND multi-pod meshes")
     ap.add_argument("--bf16-moments", action="store_true",
                     help="AdamW moments in bf16 (memory optimization)")
+    ap.add_argument("--variant", default="baseline", choices=VARIANTS,
+                    help="the reference's bundle (variant_build_kwargs), "
+                         "over a pod mesh")
     ap.add_argument("--continue-on-error", action="store_true")
     ap.add_argument("--out", default=RESULTS_DIR,
                     help="directory of the cells' JSON files")
@@ -511,6 +576,10 @@ def main(argv=None) -> None:
 
     moment_dtype = torch.bfloat16 if args.bf16_moments else torch.float32
     meshes = [None]
+    if args.variant != "baseline" and not (args.both or args.single_pod
+                                           or args.multi_pod):
+        ap.error("--variant lays the step out over a pod mesh: give "
+                 "--single-pod, --multi-pod or --both")
     if args.both or args.single_pod or args.multi_pod:
         meshes = [mesh_lib.make_production_mesh(multi_pod=mp)
                   for mp in (False, True)
@@ -534,7 +603,7 @@ def main(argv=None) -> None:
         try:
             run_cell(arch, shape, moment_dtype=moment_dtype, out_dir=args.out,
                      extra_tag="bf16m" if args.bf16_moments else "",
-                     mesh=mesh)
+                     mesh=mesh, variant=args.variant)
         except Exception as e:  # noqa: BLE001 - reported, then re-raised
             failures.append((arch, shape, repr(e)))
             print(f"[dryrun] FAILED {arch} x {shape}: {e}")

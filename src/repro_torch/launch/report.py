@@ -17,6 +17,12 @@ counted twice) with the three terms and the bottleneck, the collectives by
 kind, and beside them the reference's HLO collective bytes of the same
 cell where its record (``benchmarks/results/dryrun/<arch>__<shape>__podN
 .json``) is present: bytes only, its times are the TPU's.
+
+``--pod pod1 --variant opt`` sets each record of a ``--variant`` bundle
+(``<arch>__<shape>__h100_pod1_opt.json``) beside the baseline record of
+the same cell: resident bytes a rank and whether they fit 80 GB, the
+all-gather, all-reduce and reduce-scatter bytes and the collective term,
+baseline -> variant.
 """
 from __future__ import annotations
 
@@ -150,6 +156,38 @@ def pod_table(rows: list[dict], pod: str,
     return _table(hdr, out)
 
 
+def _pair(a: float, b: float, unit: float = 1e9, fmt: str = "{:.2f}"
+          ) -> str:
+    return f"{fmt.format(a / unit)} -> {fmt.format(b / unit)}"
+
+
+def variant_table(pod: str, variant: str,
+                  directory: str = RESULTS_DIR) -> str:
+    """Each ``variant`` record of ``pod`` beside its baseline record:
+    resident GB a rank, fits 80 GB, all-gather / all-reduce /
+    reduce-scatter GB and the collective term, baseline -> variant."""
+    base = {(r["arch"], r["shape"]): r for r in load(pod, directory)}
+    hdr = ["arch", "shape", "resident/rank", "fits80G", "all-gather",
+           "all-reduce", "reduce-scatter", "collective"]
+    out = []
+    for r in load(f"{pod}_{variant}", directory):
+        b = base.get((r["arch"], r["shape"]))
+        if b is None:
+            continue
+        kinds = [(b["collectives"]["bytes_by_kind"].get(k, 0.0),
+                  r["collectives"]["bytes_by_kind"].get(k, 0.0))
+                 for k in ("all-gather", "all-reduce", "reduce-scatter")]
+        fit = ["Y" if x["fits_one_card"]["80GB"] else "N" for x in (b, r)]
+        out.append([
+            r["arch"], r["shape"],
+            _pair(b["fits_one_card"]["resident_bytes"],
+                  r["fits_one_card"]["resident_bytes"]),
+            " -> ".join(fit), *(_pair(x, y) for x, y in kinds),
+            " -> ".join(_fmt_s(x["roofline"]["collective_s"])
+                        for x in (b, r))])
+    return _table(hdr, out)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="")
@@ -157,7 +195,13 @@ def main(argv=None) -> None:
                     choices=["roofline", "dryrun"])
     ap.add_argument("--pod", choices=["pod1", "pod2"], default=None,
                     help="the pod records of one rank of that mesh")
+    ap.add_argument("--variant", default=None,
+                    help="with --pod: a --variant bundle's records beside "
+                         "the baseline's")
     args = ap.parse_args(argv)
+    if args.pod and args.variant:
+        print(variant_table(args.pod, args.variant))
+        return
     if args.pod:
         tag = args.pod + (f"_{args.tag}" if args.tag else "")
         print(pod_table(load(tag), args.pod))

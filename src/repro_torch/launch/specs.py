@@ -20,8 +20,13 @@ hybrid archs run their native constant-state decode.
 (``models/moe_a2a.py``), traced under an active mesh
 (``launch/mesh.py::set_mesh``).  ``moe_ep_constraint`` sets the MoE's
 ``ep_sharding_constraint``, which changes no number
-(``models/moe.py``).  The reference's sharded activations (``act_pspec``)
-raise (``launch/mesh.py::VARIANTS``).
+(``models/moe.py``).  ``act_pspec``, ``cast_params_bf16`` and ``remat``
+(the ``--variant`` bundles, ``launch/dryrun.py::variant_build_kwargs``)
+reach every step, the rank's too: the sequence-parallel residual for
+train and prefill and the weight-stationary decode
+(``models/parallel.py::act_layout``; the Mamba and xLSTM mixers' raises,
+``launch/mesh.py::VARIANTS``), the bf16 casts before the FSDP gathers
+(``training/train.py``) and remat off.
 
 ``mesh=`` builds one rank's step of a pod mesh (train, prefill and
 decode, for the models ``parallel.check_shardable`` takes): the model
@@ -49,7 +54,7 @@ from repro_torch.models import layers, parallel
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model
 from repro_torch.training.optimizer import AdamW
-from repro_torch.training.train import ACT_PSPEC, TrainState, make_train_step
+from repro_torch.training.train import TrainState, make_train_step
 
 SLIDING_WINDOW_LONG = 8192
 # per-rank parameter bytes past which the parameters are FSDP'd (ZeRO-3)
@@ -128,9 +133,9 @@ def build_step(arch: str, shape: str | InputShape, *,
     :class:`InputShape`) on meta tensors.  ``cfg`` replaces the cell's
     config (a run's own cut of it); by default :func:`serving_config`.
     With ``mesh``, one rank's step (``fsdp=None`` decides FSDP as the
-    reference does)."""
-    if act_pspec is not None:
-        raise NotImplementedError(ACT_PSPEC)
+    reference does).  An ``act_pspec`` the port does not take raises
+    here (``parallel.act_layout``)."""
+    parallel.act_layout(act_pspec, mesh)
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     cfg = serving_config(arch, shape.name) if cfg is None else cfg
     if cfg.moe is not None and (moe_ep_constraint or moe_impl != "einsum"):
@@ -144,7 +149,8 @@ def build_step(arch: str, shape: str | InputShape, *,
         parallel.check_shardable(cfg)
         return _rank_step(arch, shape, cfg, mesh, fsdp,
                           moment_dtype=moment_dtype, remat=remat,
-                          logits_mode=logits_mode)
+                          logits_mode=logits_mode, act_pspec=act_pspec,
+                          cast_params_bf16=cast_params_bf16)
     b, t = shape.global_batch, shape.seq_len
 
     if shape.kind == "train":
@@ -153,7 +159,7 @@ def build_step(arch: str, shape: str | InputShape, *,
         params = dict(model.named_parameters())
         opt = make_optimizer(moment_dtype)
         state = TrainState(params, opt.init(params))
-        step = make_train_step(model, opt, remat=remat,
+        step = make_train_step(model, opt, remat=remat, act_pspec=act_pspec,
                                cast_params_bf16=cast_params_bf16)
         tokens = _empty((b, t), torch.long)
         labels = _empty((b, t), torch.long)
@@ -174,7 +180,7 @@ def build_step(arch: str, shape: str | InputShape, *,
             def encode_step(p, inputs):
                 with layers.parameters_as(model, p):
                     out = model(**inputs, logits_mode="all",
-                                attn_impl="kernel")
+                                attn_impl="kernel", act_pspec=act_pspec)
                 return {"logits": out.logits, "risk_score": out.risk_score}
 
             return StepBundle(arch, shape, cfg, model, encode_step,
@@ -184,7 +190,7 @@ def build_step(arch: str, shape: str | InputShape, *,
             with layers.parameters_as(model, p):
                 out, cache = model.prefill(
                     **inputs, cache_capacity=t, logits_mode=logits_mode,
-                    attn_impl="kernel")
+                    attn_impl="kernel", act_pspec=act_pspec)
             return {"logits": out.logits, "risk_score": out.risk_score,
                     "cache": cache}
 
@@ -200,7 +206,7 @@ def build_step(arch: str, shape: str | InputShape, *,
     def serve_step(p, cache_in, inputs, pos):
         with layers.parameters_as(model, p):
             out = model.decode_step(cache_in, **inputs, pos=pos,
-                                    attn_impl="kernel")
+                                    attn_impl="kernel", act_pspec=act_pspec)
         return {"logits": out.logits, "risk_score": out.risk_score,
                 "cache": out.cache}
 
@@ -210,7 +216,8 @@ def build_step(arch: str, shape: str | InputShape, *,
 
 def _rank_step(arch: str, shape: InputShape, cfg: ModelConfig, mesh,
                fsdp: bool | None, *, moment_dtype, remat: bool,
-               logits_mode: str) -> StepBundle:
+               logits_mode: str, act_pspec=None,
+               cast_params_bf16: bool = False) -> StepBundle:
     """One rank's train, prefill or decode step over ``mesh`` (see the
     module's docstring)."""
     b, t = shape.global_batch, shape.seq_len
@@ -237,7 +244,9 @@ def _rank_step(arch: str, shape: InputShape, cfg: ModelConfig, mesh,
     if train:
         opt = make_optimizer(moment_dtype)
         state = TrainState(params, opt.init(params))
-        step = make_train_step(model, opt, remat=remat, global_batch=b)
+        step = make_train_step(model, opt, remat=remat, global_batch=b,
+                               act_pspec=act_pspec,
+                               cast_params_bf16=cast_params_bf16)
         tokens = _empty((bl, t), torch.long)
         labels = _empty((bl, t), torch.long)
         return StepBundle(arch, shape, cfg, model, on_mesh(step),
@@ -258,7 +267,8 @@ def _rank_step(arch: str, shape: InputShape, cfg: ModelConfig, mesh,
             with layers.parameters_as(model, p):
                 out = model.decode_step(cache_in, **inputs, pos=pos,
                                         attn_impl="kernel",
-                                        cache_capacity=t, global_batch=b)
+                                        cache_capacity=t, global_batch=b,
+                                        act_pspec=act_pspec)
             return {"logits": out.logits, "risk_score": out.risk_score,
                     "cache": out.cache}
 
@@ -270,11 +280,11 @@ def _rank_step(arch: str, shape: InputShape, cfg: ModelConfig, mesh,
         with layers.parameters_as(model, p):
             if cfg.is_encoder_only:
                 out = model(**inputs, logits_mode="all", attn_impl="kernel",
-                            global_batch=b)
+                            global_batch=b, act_pspec=act_pspec)
                 return {"logits": out.logits, "risk_score": out.risk_score}
             out, cache = model.prefill(
                 **inputs, cache_capacity=t, logits_mode=logits_mode,
-                attn_impl="kernel", global_batch=b)
+                attn_impl="kernel", global_batch=b, act_pspec=act_pspec)
         return {"logits": out.logits, "risk_score": out.risk_score,
                 "cache": cache}
 

@@ -142,8 +142,12 @@ def attention_forward(
     chunk: int = 256,
     attn_impl: str = "reference",
     capacity: int | None = None,
+    seq=None,
+    ws=None,
 ) -> tuple[torch.Tensor, KVCache | None]:
-    """Unified attention entry point.
+    """Unified attention entry point.  ``seq``: the mesh of a
+    sequence-parallel residual, x the rank's block of T (train and
+    prefill only; ``parallel.act_layout``).
 
     * train / prefill: ``cache is None`` -> self-attention over x
       (:func:`_self_attention`); with ``capacity``, the prefill cache of
@@ -161,29 +165,32 @@ def attention_forward(
                          f"not {attn_impl!r}")
     if cache is None:
         return _self_attention(params, x, cfg, angles=angles, chunk=chunk,
-                               attn_impl=attn_impl, capacity=capacity)
+                               attn_impl=attn_impl, capacity=capacity,
+                               seq=seq)
     return _decode(params, x, cfg, angles=angles, cache=cache,
-                   cache_pos=cache_pos, capacity=capacity)
+                   cache_pos=cache_pos, capacity=capacity, ws=ws)
 
 
 def _self_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
                     *, angles, chunk: int, attn_impl: str,
-                    capacity: int | None
+                    capacity: int | None, seq=None
                     ) -> tuple[torch.Tensor, KVCache | None]:
     """Attention over the whole sequence, on the rank's heads of a sharded
     model (``parallel.head_plan``; without a placement every head is the
     rank's and nothing is exchanged): the output (B, T, d) after wo (the
     row-parallel wo's all-reduce on a sharded model) and, with
-    ``capacity``, the prefill cache (:func:`_prefill_cache`)."""
+    ``capacity``, the prefill cache (:func:`_prefill_cache`).  With
+    ``seq`` x is the rank's block of T: all-gathered over "model" at
+    entry, wo's output reduce-scattered back to the block."""
     pl = parallel.placement(params.wq)
     m, r = (1, 0) if pl is None else (pl.model_size, pl.model_rank)
     # the rules put every projection's columns on "model" wherever they
     # divide, which head_plan requires
     plan = parallel.head_plan(cfg, m, r)
+    x = parallel.enter(x, params.wq, seq=seq)
     b, t, _ = x.shape
     hd = cfg.head_dim
     (q_lo, nq), (kv_lo, nk) = plan.q_heads, plan.kv_heads
-    x = parallel.enter(x, params.wq)
     q = layers.linear(params.wq, x)
     k = layers.linear(params.wk, x)
     v = layers.linear(params.wv, x)
@@ -224,7 +231,7 @@ def _self_attention(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     start, cols = plan.q_cols
     out = out.reshape(b, t, nq * hd)[..., start - q_lo * hd:
                                      start - q_lo * hd + cols]
-    return layers.linear(params.wo, out), new_cache
+    return layers.linear(params.wo, out, seq=seq), new_cache
 
 
 def _prefill_cache(kv: torch.Tensor, cfg: ModelConfig, capacity: int,
@@ -271,8 +278,8 @@ def _prefill_cache(kv: torch.Tensor, cfg: ModelConfig, capacity: int,
 
 
 def _decode(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
-            angles, cache: KVCache, cache_pos: int, capacity: int | None
-            ) -> tuple[torch.Tensor, KVCache]:
+            angles, cache: KVCache, cache_pos: int, capacity: int | None,
+            ws=None) -> tuple[torch.Tensor, KVCache]:
     """The new token's attention over the cache, written at ``cache_pos``
     (modulo the window on the ring, clamped as ``dynamic_update_slice``
     clamps), in float32 as flash-decoding: the max, the sum of
@@ -282,10 +289,14 @@ def _decode(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     is one rank with nothing exchanged, so at one rank of "model" (every
     collective a copy) the placed decode is the whole model's to the
     last bit.  Against the reference's softmax-then-values the order
-    differs by float32 rounding."""
+    differs by float32 rounding.  Under the weight-stationary layout
+    (``ws``) x is every row of the batch at the rank's block of d: q, k
+    and v come from the weights' blocks of d (``layers.ws_in``), the
+    rank keeps its rows (the cache's) for the attention, and the output
+    rows are all-gathered over the data axes for wo (``layers.ws_out``):
+    rows move, no weight does."""
     pl = parallel.placement(params.wq)
     m, r = (1, 0) if pl is None else (pl.model_size, pl.model_rank)
-    b, t, _ = x.shape
     hd, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     plan = parallel.head_plan(cfg, m, r)
     if capacity is None:
@@ -299,9 +310,16 @@ def _decode(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     if cache.k.shape[1] != slots.held[1]:
         raise ValueError(f"the rank holds {cache.k.shape[1]} slots of a "
                          f"capacity of {capacity}, its plan {slots.held[1]}")
-    q = layers.linear(params.wq, x)
-    k = layers.linear(params.wk, x)
-    v = layers.linear(params.wv, x)
+    if ws is None:
+        q = layers.linear(params.wq, x)
+        k = layers.linear(params.wk, x)
+        v = layers.linear(params.wv, x)
+    else:
+        rows = cache.k.shape[0]
+        j = parallel.data_index(ws) if rows < x.shape[0] else 0
+        q, k, v = (a[j * rows:(j + 1) * rows] for a in layers.ws_in(
+            [params.wq, params.wk, params.wv], x, ws))
+    b, t, _ = q.shape
     if pl is not None:
         # the token's q, k and v columns of every rank, in one gather
         full = coll.all_gather_raw(torch.cat([q, k, v], dim=-1)[None],
@@ -335,7 +353,7 @@ def _decode(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     vv = cache.v[:, a_lo - h_lo:a_lo - h_lo + a_n].to(torch.float32)
     qg = q.reshape(b, t, hkv, hq // hkv, hd).to(torch.float32)
     logits = torch.einsum("bchgd,bthd->bchgt", qg, kk) * softmax_scale(hd)
-    mask = torch.arange(a_lo, a_lo + a_n, device=x.device) < valid
+    mask = torch.arange(a_lo, a_lo + a_n, device=q.device) < valid
     logits = logits.masked_fill(~mask, float("-inf"))
     mx = torch.amax(logits, dim=-1, keepdim=True)
     if pl is not None:
@@ -350,5 +368,10 @@ def _decode(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     out = acc[..., :hd] / acc[..., hd:]
     out = out.to(q.dtype).reshape(b, t, hq * hd)
     start, cols = plan.q_cols
-    return (layers.linear(params.wo, out[..., start:start + cols]),
-            KVCache(k=cache.k, v=cache.v))
+    out = out[..., start:start + cols]
+    if ws is not None:
+        if b < x.shape[0]:
+            out = parallel.gather_data(out, ws, 0)
+        return layers.ws_out(params.wo, out, ws), KVCache(k=cache.k,
+                                                          v=cache.v)
+    return layers.linear(params.wo, out), KVCache(k=cache.k, v=cache.v)

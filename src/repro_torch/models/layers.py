@@ -11,7 +11,11 @@ rank's blocks: :func:`linear` is column parallel (its output the rank's
 columns) or row parallel (one all-reduce over "model" of its partial
 output), :func:`embed` is vocab-parallel and :func:`mlp` is column,
 column, row.  FSDP'd weights are
-all-gathered over the data axes just before use.
+all-gathered over the data axes just before use.  With ``seq`` (the
+mesh of a sequence-parallel residual, ``parallel.act_layout``) a
+block's closing row-parallel all-reduce is a reduce-scatter over the
+sequence, the embedding's too, and a norm's scale takes Megatron's "f"
+(its gradient is the sum of the ranks' blocks of tokens).
 """
 from __future__ import annotations
 
@@ -107,19 +111,26 @@ class MLP(nn.Module):
             lin.reset_parameters(gen)
 
 
-def linear(params: Linear, x: torch.Tensor) -> torch.Tensor:
+def linear(params: Linear, x: torch.Tensor, seq=None) -> torch.Tensor:
     """``x @ w (+ b)``.  Sharded, a column-parallel weight gives the
     rank's output columns (its input entered through ``parallel.enter``
     by the caller) and a row-parallel one takes the rank's input columns
     and all-reduces its partial output over "model".  The rules keep a
     bias whole: beside a column-parallel weight the rank adds its
     columns' block of it (``parallel.rank_block``), beside a row-parallel
-    one it is added once, after the all-reduce."""
+    one it is added once, after the all-reduce.  With ``seq`` (the
+    layer closes a block of a sequence-parallel residual, x of shape
+    (B, T, ·)) the all-reduce is a reduce-scatter over T, and a layer
+    the rules keep whole gives the rank's block of T of its output."""
     pl = parallel.placement(params)
     y = F.linear(x, parallel.weight(params, "weight").to(x.dtype))
     row = parallel.sharded_on_model(params, "weight", 1)
-    if row:
+    if row and seq is not None:
+        y = coll.reduce_scatter(y, pl.mesh, MODEL_AXIS, 1)
+    elif row:
         y = coll.all_reduce(y, pl.mesh, MODEL_AXIS)
+    elif seq is not None:
+        y = coll.split(y, seq, MODEL_AXIS, 1)
     if params.bias is not None:
         block = None
         if parallel.sharded_on_model(params, "weight", 0):
@@ -127,6 +138,63 @@ def linear(params: Linear, x: torch.Tensor) -> torch.Tensor:
             block = (pl.model_rank * n, n)
         y = y + parallel.rank_block(params, "bias", 0, block).to(x.dtype)
     return y
+
+
+def ws_in(params: list[Linear], x: torch.Tensor, ws) -> list[torch.Tensor]:
+    """Under the weight-stationary decode (``ws`` the mesh; x the rows'
+    block of d over the data axes): each linear of ``params`` on the
+    rank's block of its input d (``parallel.d_block``, no weight
+    gathered), the partial outputs summed over the data ranks in one
+    float32 all-reduce an axis, then cast back and the biases added as
+    :func:`linear` adds them."""
+    ys = [F.linear(x, parallel.d_block(lin, "weight", 1).to(x.dtype))
+          for lin in params]
+    sizes = [y.shape[-1] for y in ys]
+    summed = parallel.reduce_data(torch.cat(ys, dim=-1).to(torch.float32),
+                                  ws).to(x.dtype)
+    out = []
+    for lin, y in zip(params, torch.split(summed, sizes, dim=-1)):
+        if lin.bias is not None:
+            block = None
+            if parallel.sharded_on_model(lin, "weight", 0):
+                pl = parallel.placement(lin)
+                n = lin.weight.shape[0]
+                block = (pl.model_rank * n, n)
+            y = y + parallel.rank_block(lin, "bias", 0, block).to(x.dtype)
+        out.append(y)
+    return out
+
+
+def ws_out(params: Linear, x: torch.Tensor, ws) -> torch.Tensor:
+    """Under the weight-stationary decode, a linear whose output is the
+    residual's d: the rank's rows of the weight at its block of d
+    (``parallel.d_block``), its row-parallel partial all-reduced over
+    "model"; the bias (whole under the rules) at the block of d."""
+    pl = parallel.placement(params)
+    y = F.linear(x, parallel.d_block(params, "weight", 0).to(x.dtype))
+    if parallel.sharded_on_model(params, "weight", 1):
+        y = coll.all_reduce_raw(y, pl.mesh, MODEL_AXIS)
+    if params.bias is not None:
+        n = y.shape[-1]
+        y = y + params.bias.narrow(0, parallel.data_index(ws) * n, n).to(
+            x.dtype)
+    return y
+
+
+def rmsnorm_ws(params: RMSNorm, x: torch.Tensor, eps: float, ws
+               ) -> torch.Tensor:
+    """RMSNorm of the rows' blocks of d over the data axes: each rank's
+    mean of squares over its block, scaled by its share of d, summed over
+    the data ranks (at one data rank the plain norm's own bits)."""
+    dtype = x.dtype
+    x32 = x.to(torch.float32)
+    share = x.shape[-1] / params.scale.shape[0]
+    var = parallel.reduce_data(
+        torch.mean(x32 * x32, dim=-1, keepdim=True) * share, ws)
+    y = x32 * torch.rsqrt(var + eps)
+    n = x.shape[-1]
+    scale = params.scale.narrow(0, parallel.data_index(ws) * n, n)
+    return (y * scale.to(torch.float32)).to(dtype)
 
 
 def _rms(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -137,9 +205,12 @@ def _rms(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * scale.to(torch.float32)).to(dtype)
 
 
-def rmsnorm(params: RMSNorm, x: torch.Tensor, eps: float = 1e-5
-            ) -> torch.Tensor:
-    return _rms(params.scale, x, eps)
+def rmsnorm(params: RMSNorm, x: torch.Tensor, eps: float = 1e-5,
+            seq=None) -> torch.Tensor:
+    scale = params.scale
+    if seq is not None:
+        scale = coll.copy_to(scale, seq, MODEL_AXIS)
+    return _rms(scale, x, eps)
 
 
 def rmsnorm_headwise(scale: torch.Tensor, x: torch.Tensor,
@@ -149,19 +220,22 @@ def rmsnorm_headwise(scale: torch.Tensor, x: torch.Tensor,
 
 
 def embed(params: Embedding, tokens: torch.Tensor,
-          dtype=torch.bfloat16) -> torch.Tensor:
+          dtype=torch.bfloat16, seq=None) -> torch.Tensor:
     """The table's rows of ``tokens``.  Vocab-parallel: each rank looks up
     the ids in its rows, zeroes the others and the ranks' rows are summed
-    over "model"."""
+    over "model" (with ``seq``, reduce-scattered over the sequence)."""
     table = parallel.weight(params, "table").to(dtype)
     block = parallel.vocab_block(params, "table")
     if block is None:
-        return table[tokens]
+        out = table[tokens]
+        return out if seq is None else coll.split(out, seq, MODEL_AXIS, 1)
     lo, rows = block
     local = tokens - lo
     inside = (local >= 0) & (local < rows)
     out = table[torch.where(inside, local, 0)].masked_fill(
         ~inside[..., None], 0)
+    if seq is not None:
+        return coll.reduce_scatter(out, seq, MODEL_AXIS, 1)
     return coll.all_reduce(out, parallel.placement(params).mesh, MODEL_AXIS)
 
 
@@ -230,8 +304,42 @@ def text_position_ids(batch: int, seq: int, offset: int = 0,
     return pos.expand(batch, seq)[None].expand(3, batch, seq)
 
 
-def mlp(params: MLP, x: torch.Tensor) -> torch.Tensor:
-    x = parallel.enter(x, params.gate)
+def embed_ws(params: Embedding, tokens: torch.Tensor, dtype, ws
+             ) -> torch.Tensor:
+    """The table's rows of ``tokens`` at the rank's block of d over the
+    data axes (the weight-stationary decode): vocab-parallel as
+    :func:`embed`, on the table's block of d."""
+    table = parallel.d_block(params, "table", 1).to(dtype)
+    block = parallel.vocab_block(params, "table")
+    if block is None:
+        return table[tokens]
+    lo, rows = block
+    local = tokens - lo
+    inside = (local >= 0) & (local < rows)
+    out = table[torch.where(inside, local, 0)].masked_fill(
+        ~inside[..., None], 0)
+    return coll.all_reduce_raw(out, parallel.placement(params).mesh,
+                               MODEL_AXIS)
+
+
+def mlp_ws(params: MLP, x: torch.Tensor, ws) -> torch.Tensor:
+    """The SwiGLU under the weight-stationary decode (:func:`ws_in`,
+    :func:`ws_out`): no weight gathered."""
+    g, u = ws_in([params.gate, params.up], x, ws)
+    return ws_out(params.down, F.silu(g) * u, ws)
+
+
+def mlp(params: MLP, x: torch.Tensor, seq=None, entered: bool = False
+        ) -> torch.Tensor:
+    """The SwiGLU on x; with ``seq`` on the rank's block of a
+    sequence-parallel residual (gathered at entry, reduce-scattered at the
+    close), or, ``entered``, on a sequence gathered already (a MoE's
+    shared expert), whose cotangent is then the ranks' partials."""
+    if not entered:
+        x = parallel.enter(x, params.gate, seq=seq)
+    elif not parallel.sharded_on_model(params.gate, "weight", 0):
+        raise ValueError("a gathered sequence takes a column-parallel MLP: "
+                         "this one is whole on every rank")
     g = F.silu(linear(params.gate, x))
     u = linear(params.up, x)
-    return linear(params.down, g * u)
+    return linear(params.down, g * u, seq=seq)

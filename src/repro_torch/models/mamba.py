@@ -141,12 +141,13 @@ def plan(params: Mamba, d_model: int, mc: MambaConfig
                               pl.model_rank, "Mamba in_proj")
 
 
-def _in_proj(params: Mamba, x: torch.Tensor, gp: parallel.GatePlan | None
-             ) -> tuple[torch.Tensor, torch.Tensor]:
+def _in_proj(params: Mamba, x: torch.Tensor, gp: parallel.GatePlan | None,
+             seq=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x_in and z of the rank's channel block: ``in_proj`` of x, then the
     split all-to-all of its column pieces to their owners (none over one
-    rank, where the pieces are the rank's own)."""
-    x = parallel.enter(x, params.in_proj)
+    rank, where the pieces are the rank's own).  With ``seq`` x is the
+    rank's block of T, all-gathered at entry."""
+    x = parallel.enter(x, params.in_proj, seq=seq)
     xz = layers.linear(params.in_proj, x)
     if gp is None or len(gp.send) == 1:
         x_in, z = torch.chunk(xz, 2, dim=-1)
@@ -190,33 +191,36 @@ def _conv(params: Mamba, x_in: torch.Tensor, tail, block):
 
 
 def _gate_out(params: Mamba, y: torch.Tensor, x_conv: torch.Tensor,
-              z: torch.Tensor, dtype: torch.dtype, block) -> torch.Tensor:
-    """The skip and the gate in float32, cast back before ``out_proj``."""
+              z: torch.Tensor, dtype: torch.dtype, block, seq=None
+              ) -> torch.Tensor:
+    """The skip and the gate in float32, cast back before ``out_proj``
+    (with ``seq``, reduce-scattered onto the rank's block of T)."""
     f32 = torch.float32
     y = y + x_conv.to(f32) * parallel.rank_block(params, "D", 0,
                                                  block).to(f32)
     y = (y * F.silu(z.to(f32))).to(dtype)
-    return layers.linear(params.out_proj, y)
+    return layers.linear(params.out_proj, y, seq=seq)
 
 
 def mamba_forward(params: Mamba, x: torch.Tensor, mc: MambaConfig, *,
                   initial_state: MambaState | None = None,
-                  return_state: bool = False
+                  return_state: bool = False, seq=None
                   ) -> tuple[torch.Tensor, MambaState | None]:
     """Full-sequence mixer: x (B, T, d_model) -> (out, the final state if
     ``return_state``).  ``initial_state`` continues a sequence.  On a
-    sharded model the states are the rank's channel block."""
+    sharded model the states are the rank's channel block; with ``seq``
+    x and out are the rank's block of T (the scan runs the whole T)."""
     d_model = x.shape[-1]
     gp = plan(params, d_model, mc)
     block = None if gp is None else gp.channels
-    x_in, z = _in_proj(params, x, gp)
+    x_in, z = _in_proj(params, x, gp, seq)
     tail = initial_state.conv if initial_state is not None else None
     x_conv = _conv(params, x_in, tail, block)
     dt, b_mat, c_mat, a = _ssm_inputs(params, x_conv, mc, d_model, block)
     h0 = initial_state.ssm if initial_state is not None else None
     y, h_final = ops.selective_scan(
         dt, x_conv.to(torch.float32).contiguous(), b_mat, c_mat, a, h0)
-    out = _gate_out(params, y, x_conv, z, x.dtype, block)
+    out = _gate_out(params, y, x_conv, z, x.dtype, block, seq)
 
     state = None
     if return_state:

@@ -36,6 +36,17 @@ all-reduces f and p over the data axes before their product.  The expert-paralle
 constraint (``ep_sharding_constraint``) pins the reference's buffers to
 their experts' ranks; here they live there already, so the flag changes
 no number.
+
+Under sequence parallelism (``seq``, ``parallel.act_layout``) the layer
+takes the rank's block of T: it all-gathers the sequence over "model"
+(backward a reduce-scatter of the ranks' partial cotangents), routes and
+dispatches as above with no "f" on the tokens or the gates, and
+reduce-scatters its float32 partial (and its shared expert's) over T.
+The router, which every rank runs alike on the gathered tokens, takes
+"f" on its weight, and the aux loss passes its cotangent on from rank 0
+of "model" only (``collectives.once``), so that the reduce-scatter's sum
+counts it once.  Experts the rules keep whole run on every rank on the
+gathered sequence, and the rank keeps its block of their output.
 """
 from __future__ import annotations
 
@@ -46,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.launch import collectives as coll
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import MODEL_AXIS, data_axes
 from repro_torch.models import layers, parallel
 from repro_torch.models.config import MoEConfig
@@ -99,7 +111,7 @@ def capacity(n_tokens: int, mo: MoEConfig) -> int:
     return max(cap, mo.top_k)
 
 
-def route(moe: MoE, xf: torch.Tensor, mo: MoEConfig):
+def route(moe: MoE, xf: torch.Tensor, mo: MoEConfig, seq=None):
     """Router probabilities and the top-k experts of each token.
 
     ``xf``: (n, d) in the compute dtype.  Returns float32 ``probs`` (n, E),
@@ -107,8 +119,20 @@ def route(moe: MoE, xf: torch.Tensor, mo: MoEConfig):
     expert ids (n, k) in descending probability, equal probabilities by
     the lower expert id first (``jax.lax.top_k``'s order; a stable
     descending sort gives it, ``torch.topk`` does not promise it).
+    With ``seq`` the router's weight takes Megatron's "f" (module
+    docstring).
     """
-    logits = layers.linear(moe.router, xf).to(torch.float32)
+    if seq is None:
+        logits = layers.linear(moe.router, xf).to(torch.float32)
+    else:
+        w = coll.copy_to(parallel.weight(moe.router, "weight"),
+                         seq, MODEL_AXIS)
+        logits = F.linear(xf, w.to(xf.dtype)).to(torch.float32)
+    return _pick(logits, mo)
+
+
+def _pick(logits: torch.Tensor, mo: MoEConfig):
+    """:func:`route` from the router's float32 logits."""
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, expert_idx = vals[:, :mo.top_k], idx[:, :mo.top_k]
@@ -206,6 +230,72 @@ def combine(expert_out: torch.Tensor, slot: torch.Tensor,
     return combine_partial(expert_out, slot, gate_vals).to(expert_out.dtype)
 
 
+def _moe_ws(moe: MoE, x: torch.Tensor, mo: MoEConfig, dispatch_chunk: int,
+            ws) -> tuple[torch.Tensor, torch.Tensor]:
+    """A decode step's layer under the weight-stationary layout: x is
+    every row of the batch at the rank's block of d over the data axes.
+    The router runs on its block of d (``layers.ws_in``).  Gate and up
+    FSDP'd on d (or whole over the data axes, then sliced) are contracted
+    on the rank's block of d, their partials summed over the data ranks;
+    FSDP'd on d_ff they take x's whole d (gathered: activations, not
+    weights) and give the rank's block of d_ff.  A down FSDP'd on d (or
+    whole) gives the block of d; one FSDP'd on d_ff takes the block of
+    d_ff, its output reduce-scattered over the data axes onto the block
+    of d.  No weight is gathered; the aux loss is not formed (a decode
+    step's)."""
+    b, t, _ = x.shape
+    n = b * t
+    e = mo.num_experts
+    xf = x.reshape(n, -1)
+    plan = parallel.expert_plan(moe, e)
+    logits, = layers.ws_in([moe.router], xf, ws)
+    _, gate_vals, expert_idx = _pick(logits.to(torch.float32), mo)
+    # gate / up (E, d, f) and down (E, f, d): each FSDP'd on d, on d_ff
+    # or on neither (then sliced at the rank's block of d)
+    up_ff = parallel.data_dim(moe, "gate") == 2
+    down_ff = parallel.data_dim(moe, "down") == 1
+    if up_ff:
+        xin = parallel.gather_data(xf, ws, 1)
+        w_gate, w_up = moe.gate, moe.up
+    else:
+        xin = xf
+        w_gate, w_up = (parallel.d_block(moe, a, 1) for a in ("gate", "up"))
+    w_down = moe.down if down_ff else parallel.d_block(moe, "down", 2)
+    j, n_data = parallel.data_index(ws), mesh_lib.data_axis_size(ws)
+    chunk = min(dispatch_chunk, n)
+    cap = capacity(chunk, mo)
+    parts = []
+    for s in range(0, n, chunk):
+        expert_in, slot = dispatch(xin[s:s + chunk], expert_idx[s:s + chunk],
+                                   e, cap, first=plan.first,
+                                   count=plan.count)
+        dtype = expert_in.dtype
+        g = torch.bmm(expert_in, w_gate.to(dtype))
+        u = torch.bmm(expert_in, w_up.to(dtype))
+        if not up_ff:
+            gu = parallel.reduce_data(torch.cat([g, u], dim=-1).to(
+                torch.float32), ws).to(dtype)
+            g, u = torch.split(gu, [g.shape[-1], u.shape[-1]], dim=-1)
+        h = F.silu(g) * u
+        if down_ff and not up_ff:
+            f = h.shape[-1] // n_data
+            h = h.narrow(-1, j * f, f)
+        elif up_ff and not down_ff:
+            h = parallel.gather_data(h, ws, 2)
+        y = torch.bmm(h, w_down.to(dtype))
+        parts.append(combine_partial(y, slot, gate_vals[s:s + chunk]))
+    out = torch.cat(parts)
+    if plan.mesh is not None:
+        out = coll.all_reduce_raw(out, plan.mesh, MODEL_AXIS)
+    if down_ff:
+        out = parallel.scatter_data(out, ws, 1)
+    out = out.to(x.dtype)
+    if moe.shared is not None:
+        out = out + layers.mlp_ws(moe.shared, xf, ws)
+    return out.reshape(b, t, -1), torch.zeros((), dtype=torch.float32,
+                                              device=x.device)
+
+
 def _chunk_offsets(expert_idx: torch.Tensor, start: int, n: int, chunk: int,
                    num_experts: int, pl, j: int) -> torch.Tensor:
     """(chunks, E): the pairs on each expert in each chunk of the global
@@ -227,7 +317,7 @@ def _chunk_offsets(expert_idx: torch.Tensor, start: int, n: int, chunk: int,
 
 def moe_forward(moe: MoE, x: torch.Tensor, mo: MoEConfig, *,
                 dispatch_chunk: int = DISPATCH_CHUNK, with_aux: bool = True,
-                global_batch: int | None = None
+                global_batch: int | None = None, seq=None, ws=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, d) -> (out, aux_loss), as the reference's ``moe_forward``.
 
@@ -240,18 +330,31 @@ def moe_forward(moe: MoE, x: torch.Tensor, mo: MoEConfig, *,
     (0 without ``with_aux``, as a decode step, which drops it).  On a
     placed model: the module's docstring; n, the chunks and the means
     are those of the batch of ``global_batch`` rows
-    (``parallel.data_rows``).
+    (``parallel.data_rows``).  With ``seq`` x and out are the rank's
+    block of T (the module's docstring); with ``ws`` (a decode step) every
+    row at the rank's block of d (:func:`_moe_ws`).
     """
     check_options(mo)
+    if ws is not None:
+        return _moe_ws(moe, x, mo, dispatch_chunk, ws)
+    pl = parallel.placement(moe)
+    plan = parallel.expert_plan(moe, mo.num_experts)
+    if seq is not None and plan.mesh is None:
+        out, aux = moe_forward(
+            moe, coll.all_gather_same(x, seq, MODEL_AXIS, 1), mo,
+            dispatch_chunk=dispatch_chunk, with_aux=with_aux,
+            global_batch=global_batch)
+        return coll.split(out, seq, MODEL_AXIS, 1), aux
+    if seq is not None:
+        x = coll.all_gather(x, seq, MODEL_AXIS, 1)
     b, t, d = x.shape
     nl = b * t
     e = mo.num_experts
     xf = x.reshape(nl, d)
-    pl = parallel.placement(moe)
-    plan = parallel.expert_plan(moe, e)
     j, n_data = parallel.data_rows(pl, b, global_batch)
     n, start = nl * n_data, j * nl
-    probs, gate_vals, expert_idx = route(moe, xf, mo)
+    probs, gate_vals, expert_idx = (route(moe, xf, mo) if seq is None
+                                    else route(moe, xf, mo, seq=seq))
     chunk = min(dispatch_chunk, n)
     cap = capacity(chunk, mo)
     offsets = None
@@ -259,7 +362,7 @@ def moe_forward(moe: MoE, x: torch.Tensor, mo: MoEConfig, *,
         offsets = _chunk_offsets(expert_idx, start, n, chunk, e, pl, j)
     weights = [parallel.weight(moe, a) for a in ("gate", "up", "down")]
     xd, gd = xf, gate_vals
-    if plan.mesh is not None:
+    if plan.mesh is not None and seq is None:
         # each rank's cotangents are its experts' (or its ff block's)
         # partials: Megatron's "f" sums them over "model"
         xd = coll.copy_to(xf, plan.mesh, MODEL_AXIS)
@@ -277,12 +380,17 @@ def moe_forward(moe: MoE, x: torch.Tensor, mo: MoEConfig, *,
                                      gd[lo:hi]))
         s = end
     out = torch.cat(parts)
-    if plan.mesh is not None:
+    if seq is not None:
+        out = coll.reduce_scatter(out.view(b, t, d), plan.mesh, MODEL_AXIS,
+                                  1)
+    elif plan.mesh is not None:
         out = coll.all_reduce(out, plan.mesh, MODEL_AXIS)
     out = out.to(x.dtype)
     if moe.shared is not None:
-        out = out + layers.mlp(moe.shared, xf)
-    out = out.reshape(b, t, d)
+        out = out + (layers.mlp(moe.shared, xf) if seq is None else
+                     layers.mlp(moe.shared, xf.view(b, t, d), seq=seq,
+                                entered=True))
+    out = out.reshape(b, -1, d)
     if not with_aux:
         return out, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -299,4 +407,6 @@ def moe_forward(moe: MoE, x: torch.Tensor, mo: MoEConfig, *,
             fp = coll.all_reduce_sum(fp, pl.mesh, a)
         f, p = fp[:e], fp[e:]
     aux = e * torch.sum(f * p)
+    if seq is not None:
+        aux = coll.once(aux, seq, MODEL_AXIS)
     return out, aux

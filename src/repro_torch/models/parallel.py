@@ -51,6 +51,34 @@ rank) or, where E does not divide, every expert on the rank's block of
 KV cache a rank holds where ``cache_pspec`` puts the sequence on "model",
 and which it attends over (flash-decoding).
 
+The reference's ``act_pspec`` names one of two layouts of the residual
+stream (:func:`act_layout`).  ``P(data axes, "model", None)`` is
+Megatron's sequence parallelism, which the port writes as its own
+schedule: between blocks the residual is the rank's (rows, T/m, d)
+block of the sequence, norms run on the block (their scales' gradients
+all-reduced over "model"), a block's entry is an all-gather over T on
+"model" (:func:`enter` with ``seq``; backward a reduce-scatter) where
+Megatron's "f" was, and its closing row-parallel all-reduce a
+reduce-scatter over T (``layers.linear`` with ``seq``; backward an
+all-gather).  A layer the rules keep whole runs on the whole sequence on
+every rank: an all-gather whose backward keeps the rank's block before
+it, the rank's block of its output after (``collectives.split``).
+A sequence that does not divide over "model" raises with its sizes
+(:func:`check_seq`): GSPMD would pad it, the port does not (no catalog
+cell needs it).
+
+``P(None, None, "data")`` is the weight-stationary decode
+(:func:`ws_mesh`): the residual is every row of the batch at the rank's
+block of d over the data axes (on the multi-pod mesh "pod" and "data"
+together, as the FSDP dim of every weight spans both).  Each weight is
+contracted in place on its block (:func:`d_block`): a weight whose
+input is d gives partial sums, all-reduced over the data axes; one whose
+output is d gives the rank's block of it; norms all-reduce their sums
+of squares.  The cache stays batch-sharded under ``cache_pspec``, so
+attention works on the rank's rows and the rows, not the weights, move
+(:func:`gather_data`).  The Mamba and xLSTM mixers' decode under it
+raises (``launch/mesh.py::VARIANTS``).
+
 A placed model's rows of a batch are its block of the batch sharded over
 the data axes, as ``shardings.batch_pspec`` gives every batch that
 divides over them.  A caller whose batch does not divide (and so is
@@ -113,12 +141,152 @@ def check_shardable(cfg) -> None:
     """What can be sharded: attention (sliding windows included), Mamba,
     mLSTM and sLSTM blocks with a SwiGLU MLP, an einsum MoE or no FFN.
     The all-to-all MoE, which cuts its own blocks out of whole weights,
-    raises naming the variant bundles."""
+    raises naming the item that brings it to the train step across
+    ranks (and with it the ``opt4`` bundle)."""
     for spec in cfg.layer_pattern:
         if spec.ffn == "moe" and cfg.moe.impl != "einsum":
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.moe.impl} MoE takes whole weights, "
-                f"not a placement: {mesh_lib.VARIANTS}")
+                f"not a placement: {mesh_lib.TRAIN_ACROSS_RANKS}")
+
+
+SEQUENCE, WEIGHT_STATIONARY = "sequence", "weight_stationary"
+
+
+def act_layout(act_pspec, mesh: Mesh | None = None) -> str | None:
+    """Which of the reference's residual layouts ``act_pspec`` names:
+    None for none, :data:`SEQUENCE` for ``P(data axes, "model", None)``
+    (the data axes of ``mesh`` where one is given), and
+    :data:`WEIGHT_STATIONARY` for the decode's ``P(None, None, "data")``;
+    any other spec raises ``ValueError`` naming it."""
+    if act_pspec is None:
+        return None
+    if isinstance(act_pspec, tuple):
+        spec = PartitionSpec(*act_pspec)
+        if tuple(spec) == (None, None, "data"):
+            return WEIGHT_STATIONARY
+        if len(spec) == 3 and spec[1] == MODEL_AXIS and spec[2] is None:
+            daxes = _axes(spec[0])
+            want = daxes if mesh is None else mesh_lib.data_axes(mesh)
+            if daxes and set(daxes) <= set(DATA_AXES) and daxes == want:
+                return SEQUENCE
+    raise ValueError(
+        f"act_pspec {act_pspec!r} is neither of the reference's layouts: "
+        f"P(<the data axes>, 'model', None) (sequence parallel) or "
+        f"P(None, None, 'data') (the weight-stationary decode)")
+
+
+def seq_mesh(model: nn.Module, act_pspec) -> Mesh | None:
+    """The mesh over whose "model" axis ``model``'s residual is cut in
+    blocks of the sequence under ``act_pspec``, None where it is whole
+    (no spec, or a whole model, on which the layout changes nothing).
+    The weight-stationary layout, the decode's, raises here."""
+    par = of(model)
+    layout = act_layout(act_pspec, None if par is None else par.mesh)
+    if layout == WEIGHT_STATIONARY:
+        raise ValueError("act_pspec P(None, None, 'data'), the "
+                         "weight-stationary layout, is a decode step's")
+    return par.mesh if layout == SEQUENCE and par is not None else None
+
+
+def ws_mesh(model: nn.Module, act_pspec) -> Mesh | None:
+    """The mesh over whose data axes a decode step's residual is cut in
+    blocks of d under ``act_pspec`` (the weight-stationary layout), None
+    where the step runs the baseline layout (no spec, or a whole model,
+    on which the layout changes nothing).  The sequence-parallel layout
+    raises here (a decode step has one token); so do the Mamba and
+    xLSTM mixers (:data:`~repro_torch.launch.mesh.VARIANTS`)."""
+    par = of(model)
+    layout = act_layout(act_pspec, None if par is None else par.mesh)
+    if layout == SEQUENCE:
+        raise ValueError("a decode step has one token: no sequence to cut "
+                         "over 'model'")
+    if layout != WEIGHT_STATIONARY or par is None:
+        return None
+    mixers = {spec.mixer for spec in model.cfg.layer_pattern}
+    if mixers != {"attn"}:
+        raise NotImplementedError(
+            f"{model.cfg.name}: the weight-stationary decode of "
+            f"{sorted(mixers - {'attn'})} blocks: {mesh_lib.VARIANTS}")
+    d = model.cfg.d_model
+    if d % mesh_lib.data_axis_size(par.mesh):
+        raise ValueError(f"the weight-stationary decode cuts d = {d} over "
+                         f"{mesh_lib.data_axis_size(par.mesh)} data ranks, "
+                         "which it does not divide")
+    return par.mesh
+
+
+def data_index(mesh: Mesh) -> int:
+    """This rank's index over the data axes, row-major (the first axis the
+    slowest), as FSDP and the batch's rows number their blocks."""
+    j = 0
+    coords = mesh.coords()
+    for a in mesh_lib.data_axes(mesh):
+        j = j * mesh.shape[a] + coords[a]
+    return j
+
+
+def d_block(module: nn.Module, attr: str, dim: int) -> torch.Tensor:
+    """``module.attr`` at the rank's block of d along ``dim`` (the
+    residual's d under the weight-stationary decode): the parameter
+    itself where its spec puts ``dim`` on the data axes (FSDP), the
+    rank's slice of it where ``dim`` is whole.  A parameter FSDP'd on
+    another dim raises: it cannot be contracted in place on d."""
+    t = getattr(module, attr)
+    pl = placement(module)
+    spec = pl.specs[attr]
+    data = [i for i, entry in enumerate(spec)
+            if set(_axes(entry)) & set(DATA_AXES)]
+    if data == [dim]:
+        return t
+    if data:
+        raise ValueError(f"{attr} is FSDP'd on dim {data}, not on d "
+                         f"(dim {dim})")
+    n = mesh_lib.data_axis_size(pl.mesh)
+    size = t.shape[dim] // n
+    return t.narrow(dim, data_index(pl.mesh) * size, size)
+
+
+def data_dim(module: nn.Module, attr: str) -> int | None:
+    """The dim of ``module.attr`` its spec puts on the data axes (FSDP),
+    None for none."""
+    spec = placement(module).specs[attr]
+    for i, entry in enumerate(spec):
+        if set(_axes(entry)) & set(DATA_AXES):
+            return i
+    return None
+
+
+def reduce_data(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``y`` over the data ranks (each data axis in turn)."""
+    for a in mesh_lib.data_axes(mesh):
+        y = coll.all_reduce_raw(y, mesh, a)
+    return y
+
+
+def gather_data(y: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """Every data rank's block of ``y`` along ``dim``, in block order (the
+    innermost data axis first)."""
+    for a in reversed(mesh_lib.data_axes(mesh)):
+        y = coll.all_gather_raw(y, mesh, a, dim)
+    return y
+
+
+def scatter_data(y: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The sum of ``y`` over the data ranks, the rank keeping its block
+    along ``dim`` (the outermost data axis first)."""
+    for a in mesh_lib.data_axes(mesh):
+        y = coll.reduce_scatter_raw(y, mesh, a, dim)
+    return y
+
+
+def check_seq(t: int, seq: Mesh | None) -> None:
+    """A sequence of ``t`` tokens must divide over "model" of ``seq``."""
+    if seq is not None and t % mesh_lib.model_axis_size(seq):
+        raise ValueError(
+            f"sequence parallelism cuts T = {t} over "
+            f"{mesh_lib.model_axis_size(seq)} ranks of 'model', which it "
+            "does not divide (the port does not pad it)")
 
 
 @torch.no_grad()
@@ -176,7 +344,9 @@ def gather_full(t: torch.Tensor, spec: PartitionSpec, mesh: Mesh
 def weight(module: nn.Module, attr: str) -> torch.Tensor:
     """``module``'s parameter ``attr`` as a layer uses it: its FSDP dim
     all-gathered over the data axes (differentiably), the model axis's
-    block kept."""
+    block kept.  Under a train step's bf16 casts (``training/train.py``)
+    the leaf is bf16 already, so the gathers and the reduce-scatters of
+    its gradient move bf16."""
     t = getattr(module, attr)
     pl = placement(module)
     if pl is None:
@@ -210,11 +380,20 @@ def rank_block(module: nn.Module, attr: str, dim: int,
     return t.narrow(dim, *block)
 
 
-def enter(x: torch.Tensor, module: nn.Module, attr: str = "weight"
-          ) -> torch.Tensor:
+def enter(x: torch.Tensor, module: nn.Module, attr: str = "weight",
+          seq: Mesh | None = None) -> torch.Tensor:
     """Megatron's "f" before ``module``, where its ``attr`` is column
     parallel (dim 0 on "model"; the rows of an embedding table): ``x``
-    forward, the all-reduce of its cotangent over "model" backward."""
+    forward, the all-reduce of its cotangent over "model" backward.
+    With ``seq`` (sequence parallel, x the rank's block of dim 1) the
+    all-gather of the sequence over "model", whose backward
+    reduce-scatters the ranks' partial cotangents; before a module the
+    rules keep whole, the all-gather whose backward keeps the rank's
+    block (every rank then computes the whole layer alike)."""
+    if seq is not None:
+        if sharded_on_model(module, attr, 0):
+            return coll.all_gather(x, seq, MODEL_AXIS, 1)
+        return coll.all_gather_same(x, seq, MODEL_AXIS, 1)
     if not sharded_on_model(module, attr, 0):
         return x
     return coll.copy_to(x, placement(module).mesh, MODEL_AXIS)

@@ -24,8 +24,11 @@ flash-decoding over the rank's slots of the cache
 (``attention.attention_forward``), the Mamba and xLSTM mixers on the
 rank's channels with their states' blocks (``mamba.py``, ``xlstm.py``)
 and the MoE on the rank's experts (``moe.moe_forward``), with remat as
-without a mesh.  Sharded activations (``act_pspec``) raise
-``NotImplementedError``, naming the ROADMAP item that ports them.
+without a mesh.  With ``seq`` (the reference's sequence-parallel
+``act_pspec``, ``parallel.act_layout``) the residual between blocks is
+the rank's block of T: norms run on it, each mixer and FFN gathers T at
+entry and reduce-scatters at its close, and a remat group keeps that
+block, not a gathered one.
 """
 from __future__ import annotations
 
@@ -36,7 +39,6 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch import shardings
-from repro_torch.launch.mesh import VARIANTS
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models import mamba as mamba_mod
@@ -46,19 +48,11 @@ from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import BlockSpec, ModelConfig
 
-# what is not ported yet -> the ROADMAP item that ports it
-NOT_PORTED = {
-    "act_pspec": "sharded activations (act_pspec) are not ported yet: "
-                 + VARIANTS,
-}
 MIXERS = ("attn", "mamba", "mlstm", "slstm")
 FFNS = ("mlp", "moe", "none")
 
 
 def check_ported(spec: BlockSpec) -> None:
-    for part in (spec.mixer, spec.ffn):
-        if part in NOT_PORTED:
-            raise NotImplementedError(NOT_PORTED[part])
     if spec.mixer not in MIXERS:
         raise ValueError(spec.mixer)
     if spec.ffn not in FFNS:
@@ -157,56 +151,91 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
 
 
 def _mixer_forward(block: Block, x, cfg, *, angles, mode, cache, cache_pos,
-                   attn_impl, capacity=None):
+                   attn_impl, capacity=None, seq=None, ws=None):
     mixer, kind = block.mixer, block.spec.mixer
     if kind == "mamba":
         if mode == "decode":
             return mamba_mod.mamba_decode_step(mixer, x, cfg.mamba, cache)
         return mamba_mod.mamba_forward(mixer, x, cfg.mamba,
-                                       return_state=(mode == "prefill"))
+                                       return_state=(mode == "prefill"),
+                                       seq=seq)
     if kind == "mlstm":
         if mode == "decode":
             return xlstm_mod.mlstm_decode_step(mixer, x, cfg.n_heads,
                                                cfg.xlstm, cache)
         return xlstm_mod.mlstm_forward(mixer, x, cfg.n_heads, cfg.xlstm,
-                                       return_state=(mode == "prefill"))
+                                       return_state=(mode == "prefill"),
+                                       seq=seq)
     if kind == "slstm":
         if mode == "decode":
             return xlstm_mod.slstm_decode_step(mixer, x, cfg.xlstm, cache)
         return xlstm_mod.slstm_forward(mixer, x, cfg.xlstm,
-                                       return_state=(mode == "prefill"))
+                                       return_state=(mode == "prefill"),
+                                       seq=seq)
     return attn_mod.attention_forward(
         mixer, x, cfg, angles=angles, cache=cache, cache_pos=cache_pos,
-        attn_impl=attn_impl, capacity=capacity if mode != "forward" else None)
+        attn_impl=attn_impl, capacity=capacity if mode != "forward" else None,
+        seq=seq, ws=ws)
 
 
 def block_forward(block: Block, x, cfg, *, angles, mode, cache, cache_pos,
-                  attn_impl, capacity=None, global_batch=None):
+                  attn_impl, capacity=None, global_batch=None, seq=None,
+                  ws=None):
     """Pre-norm residual block. Returns (x, new_cache, moe_aux).
-    ``global_batch``: the batch x's rows belong to (``moe.moe_forward``)."""
-    h = layers.rmsnorm(block.mixer_norm, x, cfg.norm_eps)
+    ``global_batch``: the batch x's rows belong to (``moe.moe_forward``);
+    ``seq``: the mesh of a sequence-parallel residual, x the rank's block
+    of T; ``ws``: the mesh of a weight-stationary decode, x every row at
+    the rank's block of d."""
+    if ws is not None:
+        return _ws_block(block, x, cfg, angles=angles, cache=cache,
+                         cache_pos=cache_pos, capacity=capacity, ws=ws)
+    h = layers.rmsnorm(block.mixer_norm, x, cfg.norm_eps, seq=seq)
     out, new_cache = _mixer_forward(
         block, h, cfg, angles=angles, mode=mode, cache=cache,
-        cache_pos=cache_pos, attn_impl=attn_impl, capacity=capacity)
+        cache_pos=cache_pos, attn_impl=attn_impl, capacity=capacity,
+        seq=seq)
     x = x + out
     aux = None
     if block.spec.ffn == "mlp":
-        h2 = layers.rmsnorm(block.ffn_norm, x, cfg.norm_eps)
-        x = x + layers.mlp(block.ffn, h2)
+        h2 = layers.rmsnorm(block.ffn_norm, x, cfg.norm_eps, seq=seq)
+        x = x + layers.mlp(block.ffn, h2, seq=seq)
     elif block.spec.ffn == "moe":
-        h2 = layers.rmsnorm(block.ffn_norm, x, cfg.norm_eps)
+        h2 = layers.rmsnorm(block.ffn_norm, x, cfg.norm_eps, seq=seq)
         if cfg.moe.impl == "a2a":
             out2, aux = moe_a2a.moe_forward_a2a(block.ffn, h2, cfg.moe)
         else:
             out2, aux = moe_mod.moe_forward(block.ffn, h2, cfg.moe,
                                             with_aux=mode != "decode",
-                                            global_batch=global_batch)
+                                            global_batch=global_batch,
+                                            seq=seq)
         x = x + out2
     return x, new_cache, aux
 
 
+def _ws_block(block: Block, x, cfg, *, angles, cache, cache_pos, capacity,
+              ws):
+    """A decode step's block under the weight-stationary layout: norms,
+    attention, the MLP or the MoE on every row at the rank's block of d
+    (``layers.rmsnorm_ws``, ``attention._decode``, ``layers.mlp_ws``,
+    ``moe.moe_forward``), no weight gathered."""
+    h = layers.rmsnorm_ws(block.mixer_norm, x, cfg.norm_eps, ws)
+    out, new_cache = attn_mod.attention_forward(
+        block.mixer, h, cfg, angles=angles, cache=cache, cache_pos=cache_pos,
+        capacity=capacity, ws=ws)
+    x = x + out
+    if block.spec.ffn == "mlp":
+        x = x + layers.mlp_ws(block.ffn, layers.rmsnorm_ws(
+            block.ffn_norm, x, cfg.norm_eps, ws), ws)
+    elif block.spec.ffn == "moe":
+        out2, _ = moe_mod.moe_forward(
+            block.ffn, layers.rmsnorm_ws(block.ffn_norm, x, cfg.norm_eps, ws),
+            cfg.moe, with_aux=False, global_batch=x.shape[0], ws=ws)
+        x = x + out2
+    return x, new_cache, None
+
+
 def _group_forward(blocks: nn.ModuleList, names: list[str], cfg, angles,
-                   attn_impl, global_batch, x, aux, *tensors):
+                   attn_impl, global_batch, seq, x, aux, *tensors):
     """One remat group: ``blocks`` run on ``tensors`` (their parameters, by
     ``names``), so a recompute uses the tensors the first run used even if
     the caller swapped the parameters for that run only (the training
@@ -216,20 +245,21 @@ def _group_forward(blocks: nn.ModuleList, names: list[str], cfg, angles,
         for block in blocks:
             x, _, layer_aux = block_forward(
                 block, x, cfg, angles=angles, mode="forward", cache=None,
-                cache_pos=0, attn_impl=attn_impl, global_batch=global_batch)
+                cache_pos=0, attn_impl=attn_impl, global_batch=global_batch,
+                seq=seq)
             if layer_aux is not None:
                 aux = aux + layer_aux
     return x, aux
 
 
-def _remat_forward(stack, x, cfg, *, angles, attn_impl, global_batch):
+def _remat_forward(stack, x, cfg, *, angles, attn_impl, global_batch, seq):
     n_pat = len(cfg.layer_pattern)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(0, len(stack), n_pat):
         blocks = stack[g:g + n_pat]
         names, tensors = zip(*blocks.named_parameters())
         run = functools.partial(_group_forward, blocks, list(names), cfg,
-                                angles, attn_impl, global_batch)
+                                angles, attn_impl, global_batch, seq)
         x, aux = checkpoint(run, x, aux, *tensors, use_reentrant=False)
     return x, None, aux
 
@@ -245,9 +275,10 @@ def stack_forward(
     cache_pos: int = 0,
     remat: bool = False,
     attn_impl: str = "reference",
-    act_pspec=None,
     capacity: int | None = None,
     global_batch: int | None = None,
+    seq=None,
+    ws=None,
 ) -> tuple[torch.Tensor, list | None, torch.Tensor]:
     """Run the blocks in order.  Returns (x, new_cache_or_None, moe_aux),
     ``moe_aux`` the float32 sum of the MoE layers' load-balance losses in
@@ -263,10 +294,16 @@ def stack_forward(
     ``remat`` (the full-sequence forward only) checkpoints each group of
     P blocks.  ``global_batch``: the batch x's rows belong to on a
     sharded model (``parallel.data_rows``; None: their block over the
-    data axes).
+    data axes).  ``seq``: the mesh of a sequence-parallel residual (x
+    the rank's block of T; train and prefill), as ``Model`` resolves it
+    from the reference's ``act_pspec`` (``parallel.seq_mesh``); ``ws``:
+    the mesh of a weight-stationary decode step (x every row of the
+    batch at the rank's block of d, ``parallel.ws_mesh``).
     """
-    if act_pspec is not None:
-        raise NotImplementedError(NOT_PORTED["act_pspec"])
+    if seq is not None and mode == "decode":
+        raise ValueError("a decode step has one token: no sequence to cut")
+    if ws is not None and mode != "decode":
+        raise ValueError("the weight-stationary layout is a decode step's")
     if mode == "prefill" and capacity is None:
         raise ValueError("a prefill needs the cache capacity")
     if remat:
@@ -274,7 +311,8 @@ def stack_forward(
             raise ValueError("remat applies to the full-sequence forward, "
                              f"not to {mode!r}")
         return _remat_forward(stack, x, cfg, angles=angles,
-                              attn_impl=attn_impl, global_batch=global_batch)
+                              attn_impl=attn_impl, global_batch=global_batch,
+                              seq=seq)
     n_pat = len(cfg.layer_pattern)
     built: list[list] = [[] for _ in range(n_pat)]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -286,7 +324,7 @@ def stack_forward(
         x, c_out, layer_aux = block_forward(
             block, x, cfg, angles=angles, mode=mode, cache=c_in,
             cache_pos=cache_pos, attn_impl=attn_impl, capacity=capacity,
-            global_batch=global_batch)
+            global_batch=global_batch, seq=seq, ws=ws)
         if layer_aux is not None:
             aux = aux + layer_aux
         if mode == "prefill":

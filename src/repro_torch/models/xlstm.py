@@ -49,6 +49,14 @@ column piece to the rank whose channels it holds in one split all-to-all
 (``parallel.gate_plan``) and runs the cell on the rank's block; it
 gathers no weight.  ``up`` and ``down`` follow their specs (at full size
 d_up does not divide over 16 ranks: both whole).
+
+Under sequence parallelism (``seq``, ``parallel.act_layout``) x and the
+output are the rank's block of T.  The mLSTM gathers T at entry where
+Megatron's "f" was (``parallel.enter``) and reduce-scatters ``down``'s
+output; the sLSTM, whose recurrence every rank runs whole, gathers T
+with the all-gather whose backward keeps the rank's block and closes
+with ``down``'s reduce-scatter (the rank's block of the output where
+``down`` is whole).
 """
 from __future__ import annotations
 
@@ -147,13 +155,13 @@ def _mlstm_chunk(q, k, v, log_f, log_i, state: MLSTMState):
 
 
 def _mlstm_in(params: MLSTM, x: torch.Tensor, n_heads: int, hd: int,
-              plan: parallel.MLSTMPlan | None):
+              plan: parallel.MLSTMPlan | None, seq=None):
     """``up`` of x, all-gathered over "model" on a sharded model; then z
     (the rank's d_in block), the head-wise products of x's half in the
     compute dtype, then float32 (q, k on the rank's d_k block, v
     gathered whole), and the whole gates' pre-activations in float32:
     z, q, k, v (..., H, ·), gates (..., 2H)."""
-    xz = layers.linear(params.up, parallel.enter(x, params.up))
+    xz = layers.linear(params.up, parallel.enter(x, params.up, seq=seq))
     pl = parallel.placement(params.up)
     if plan is not None:
         xz = coll.all_gather(xz, pl.mesh, MODEL_AXIS, xz.dim() - 1)
@@ -186,13 +194,13 @@ def _mlstm_h(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
 
 
 def _mlstm_down(params: MLSTM, h: torch.Tensor, z: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
-    return layers.linear(params.down, h.to(dtype) * F.silu(z))
+                dtype: torch.dtype, seq=None) -> torch.Tensor:
+    return layers.linear(params.down, h.to(dtype) * F.silu(z), seq=seq)
 
 
 def _mlstm_placed_out(params: MLSTM, num: torch.Tensor, den: torch.Tensor,
                       z: torch.Tensor, dtype: torch.dtype,
-                      plan: parallel.MLSTMPlan) -> torch.Tensor:
+                      plan: parallel.MLSTMPlan, seq=None) -> torch.Tensor:
     """The rank's partial sums over its d_k block, num (..., H, d_v) and
     den (..., H) -> ``down`` of h · silu(z): the numerator
     reduce-scattered onto the rank's d_in block, the normaliser
@@ -206,7 +214,7 @@ def _mlstm_placed_out(params: MLSTM, num: torch.Tensor, den: torch.Tensor,
     num = coll.reduce_scatter(num.flatten(-2), mesh, MODEL_AXIS,
                               num.dim() - 2)
     h = num / torch.clamp_min(torch.abs(den), 1.0)[..., head]
-    return _mlstm_down(params, h, z, dtype)
+    return _mlstm_down(params, h, z, dtype, seq)
 
 
 def mlstm_plan(params: MLSTM, n_heads: int, hd: int
@@ -223,19 +231,20 @@ def mlstm_plan(params: MLSTM, n_heads: int, hd: int
 def mlstm_forward(params: MLSTM, x: torch.Tensor, n_heads: int,
                   xc: XLSTMConfig, *,
                   initial_state: MLSTMState | None = None,
-                  return_state: bool = False
+                  return_state: bool = False, seq=None
                   ) -> tuple[torch.Tensor, MLSTMState | None]:
     """x: (B, T, d_model) -> (out, final state if ``return_state``).
 
     Chunks of ``min(chunk_size, T)``; a short last chunk runs at its own
     length, which is the reference's padding (log f = 0, log i = -1e9)
     without the pad rows: no pad reaches the output or the state.  On a
-    sharded model the states are the rank's d_k block.
+    sharded model the states are the rank's d_k block; with ``seq`` x
+    and out are the rank's block of T.
     """
-    b, t, _ = x.shape
     _, hd = mlstm_dims(x.shape[-1], n_heads, xc)
     plan = mlstm_plan(params, n_heads, hd)
-    z, q, k, v, gates = _mlstm_in(params, x, n_heads, hd, plan)
+    z, q, k, v, gates = _mlstm_in(params, x, n_heads, hd, plan, seq)
+    b, t = q.shape[:2]
     q, k, v = (a.transpose(1, 2) for a in (q, k, v))     # (B, H, T, ·)
     i_raw, f_raw = torch.chunk(gates, 2, dim=-1)
     log_i = F.logsigmoid(i_raw).transpose(1, 2)            # (B, H, T)
@@ -258,12 +267,12 @@ def mlstm_forward(params: MLSTM, x: torch.Tensor, n_heads: int,
     if plan is None:
         h = torch.cat(parts, dim=2).transpose(1, 2).reshape(b, t, -1).to(
             x.dtype)
-        out = _mlstm_down(params, h, z, x.dtype)
+        out = _mlstm_down(params, h, z, x.dtype, seq)
     else:
         nums, dens = zip(*parts)
         out = _mlstm_placed_out(
             params, torch.cat(nums, dim=2).transpose(1, 2),   # (B, T, H, ·)
-            torch.cat(dens, dim=2).transpose(1, 2), z, x.dtype, plan)
+            torch.cat(dens, dim=2).transpose(1, 2), z, x.dtype, plan, seq)
     return out, (state if return_state else None)
 
 
@@ -346,11 +355,11 @@ def _slstm_cell(pre: torch.Tensor, state: SLSTMState,
     return SLSTMState(c=c, n=n, h=h, m=m_new)
 
 
-def _slstm_out(params: SLSTM, h: torch.Tensor) -> torch.Tensor:
+def _slstm_out(params: SLSTM, h: torch.Tensor, seq=None) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     h = parallel.enter(h, params.up)
     return layers.linear(params.down, F.gelu(layers.linear(params.up, h),
-                                             approximate="tanh"))
+                                             approximate="tanh"), seq=seq)
 
 
 def _whole(params: layers.Linear, gp: parallel.GatePlan | None) -> torch.Tensor:
@@ -365,11 +374,14 @@ def _whole(params: layers.Linear, gp: parallel.GatePlan | None) -> torch.Tensor:
 
 def slstm_forward(params: SLSTM, x: torch.Tensor, xc: XLSTMConfig, *,
                   initial_state: SLSTMState | None = None,
-                  return_state: bool = False
+                  return_state: bool = False, seq=None
                   ) -> tuple[torch.Tensor, SLSTMState | None]:
     """x (B, T, d) -> (out, final state if ``return_state``).  On a
     sharded model the recurrence runs whole on every rank and the states
-    (``initial_state`` and the final one) are the rank's channel block."""
+    (``initial_state`` and the final one) are the rank's channel block;
+    with ``seq`` x and out are the rank's block of T."""
+    if seq is not None:
+        x = coll.all_gather_same(x, seq, MODEL_AXIS, 1)
     b, t, d = x.shape
     gp = slstm_plan(params, d)
     mesh = None if gp is None else parallel.placement(params.w_in).mesh
@@ -389,7 +401,7 @@ def slstm_forward(params: SLSTM, x: torch.Tensor, xc: XLSTMConfig, *,
     h = torch.stack(hs, dim=1).to(x.dtype)                   # (B, T, d)
     if return_state and gp is not None:
         state = SLSTMState(*(a.narrow(1, *gp.channels) for a in state))
-    return _slstm_out(params, h), (state if return_state else None)
+    return _slstm_out(params, h, seq), (state if return_state else None)
 
 
 def slstm_decode_step(params: SLSTM, x: torch.Tensor, xc: XLSTMConfig,

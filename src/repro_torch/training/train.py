@@ -22,7 +22,6 @@ import torch
 
 from repro_torch.launch import collectives as coll
 from repro_torch.launch.mesh import (MODEL_AXIS, TRAIN_ACROSS_RANKS,
-                                     VARIANTS,
                                      data_axes, data_axis_size,
                                      get_active_mesh)
 from repro_torch.models import layers, parallel
@@ -46,13 +45,12 @@ class StepMetrics(NamedTuple):
     grad_norm: torch.Tensor
 
 
-ACT_PSPEC = ("sharded activations (act_pspec) are not ported yet: "
-             + VARIANTS)
-
-
 def _bf16_casts(params: Tree) -> Tree:
     """float32 ``matrix_leaves`` cast to bf16 (differentiably, so the
-    gradients reach the float32 masters); the rest as they are."""
+    gradients reach the float32 masters); the rest as they are.  On a
+    sharded model the cast is of the rank's block, before the FSDP
+    gathers of ``parallel.weight``: they and the reduce-scatters of the
+    gradients move bf16."""
     cast = matrix_leaves(params)
     return {k: p.to(torch.bfloat16)
             if p.dtype == torch.float32 and k in cast else p
@@ -117,9 +115,9 @@ def make_loss_fn(model: Model, *, aux_weight: float = 0.01,
     """``loss_fn(params, tokens, labels) -> (loss, (ce, moe_aux))``: the
     model run on ``params`` (its parameters by name), float32 logits,
     ``ce`` the negated mean log-probability of the labels, ``loss = ce +
-    aux_weight · moe_aux``.  ``global_batch``: ``Model.forward``'s."""
-    if act_pspec is not None:
-        raise NotImplementedError(ACT_PSPEC)
+    aux_weight · moe_aux``.  ``global_batch`` and ``act_pspec``:
+    ``Model.forward``'s (a spec the port does not take raises here)."""
+    parallel.seq_mesh(model, act_pspec)
 
     def loss_fn(params: Tree, tokens: torch.Tensor, labels: torch.Tensor):
         if cast_params_bf16:
@@ -129,7 +127,7 @@ def make_loss_fn(model: Model, *, aux_weight: float = 0.01,
         with layers.parameters_as(model, params):
             out = model.forward(tokens, remat=remat,
                                 compute_dtype=compute_dtype,
-                                attn_impl=attn_impl,
+                                attn_impl=attn_impl, act_pspec=act_pspec,
                                 global_batch=global_batch)
         ce = cross_entropy(out.logits, labels, model)
         loss = ce + aux_weight * out.moe_aux

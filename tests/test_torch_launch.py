@@ -220,8 +220,19 @@ def test_reference_trains_float32_parameters_and_moments():
 
 
 def test_mesh_options_raise():
-    with pytest.raises(NotImplementedError, match="13i"):
+    """A spec neither of the reference's layouts raises naming itself;
+    the weight-stationary decode of a Mamba model over a pod names item
+    13i's decode half (an attention model's traces)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.shardings import P
+
+    with pytest.raises(ValueError, match="act_pspec"):
         specs.build_step("qwen3-8b", "decode_32k", act_pspec=("data",))
+    pod = mesh_lib.make_production_mesh()
+    bundle = specs.build_step("jamba-1.5-large-398b", "decode_32k",
+                              mesh=pod, act_pspec=P(None, None, "data"))
+    with pytest.raises(NotImplementedError, match="13i"):
+        bundle.step_fn(*bundle.abstract_args)
 
 
 # ---------------------------------------------------------------------------

@@ -223,11 +223,28 @@ def test_mamba_families_build_and_serve(case):
 
 @pytest.mark.parametrize("option,item", [("act_pspec", "13i")])
 def test_unported_options_raise(option, item):
-    tm = Model(get_smoke_config("qwen3-8b"), device="cpu")
-    tok = torch.zeros((1, 4), dtype=torch.long)
+    """Of act_pspec only the weight-stationary decode of the Mamba and
+    xLSTM mixers still raises, naming what is left of ``item``; a spec
+    neither layout is raises naming itself, and the sequence-parallel one
+    changes nothing on a whole model."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.shardings import P
+    from repro_torch.models import parallel
+
+    jm = parallel.parallelize(
+        Model(get_smoke_config("jamba-1.5-large-398b"), device="meta",
+              seed=None), mesh_lib.Mesh(("data", "model"), (1, 2)))
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item}"):
+        jm.decode_step(jm.init_cache(2, 8), torch.zeros(
+            (2, 1), dtype=torch.long, device="meta"), pos=4,
+            cache_capacity=8, **{option: P(None, None, "data")})
+    tm = Model(get_smoke_config("qwen3-8b"), device="cpu")
+    tok = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(ValueError, match=option):
         tm(tok, **{option: object()})
+    assert torch.equal(tm(tok, **{option: P("data", "model", None)}).logits,
+                       tm(tok).logits)
 
 
 def test_unknown_attn_impl_raises():

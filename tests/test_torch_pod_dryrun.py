@@ -27,6 +27,7 @@ collective term (``launch/roofline.py``).
   own bytes'.
 """
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -111,19 +112,30 @@ def test_meta_trace_counts_what_the_live_ranks_count(live, mesh, arch,
         assert tr.tally(rank[f"{mesh}/{arch}/{kind}"])[1] == counted
 
 
+def _run_cell(*args, **kwargs) -> dict:
+    """``dryrun.run_cell`` with a deep pod rank traced at 1 and 2 groups
+    (the records trace 2 and 3): the tests read counts and bytes, linear
+    in the groups from the first, not the peak that needs 2 and 3."""
+    count_step = dryrun.count_step
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dryrun, "count_step", lambda *a, **kw: count_step(
+            *a, **{**kw, "lo": 1}))
+        return dryrun.run_cell(*args, **kwargs)
+
+
 @pytest.fixture(scope="module")
 def cells(tmp_path_factory):
     out = tmp_path_factory.mktemp("cells")
     pod1 = mesh_lib.make_production_mesh()
     pod2 = mesh_lib.make_production_mesh(multi_pod=True)
     return out, {
-        ("qwen3-8b", "train_4k", "pod1"): dryrun.run_cell(
+        ("qwen3-8b", "train_4k", "pod1"): _run_cell(
             "qwen3-8b", "train_4k", mesh=pod1, out_dir=str(out)),
-        ("llama3-405b", "train_4k", "pod1"): dryrun.run_cell(
+        ("llama3-405b", "train_4k", "pod1"): _run_cell(
             "llama3-405b", "train_4k", mesh=pod1, out_dir=str(out)),
-        ("hubert-xlarge", "prefill_32k", "pod2"): dryrun.run_cell(
+        ("hubert-xlarge", "prefill_32k", "pod2"): _run_cell(
             "hubert-xlarge", "prefill_32k", mesh=pod2, out_dir=str(out)),
-        ("deepseek-coder-33b", "prefill_32k", "pod2"): dryrun.run_cell(
+        ("deepseek-coder-33b", "prefill_32k", "pod2"): _run_cell(
             "deepseek-coder-33b", "prefill_32k", mesh=pod2,
             out_dir=str(out))}
 
@@ -219,7 +231,8 @@ def test_other_families_and_decode_raise_naming_13h():
     """The MoE einsum and the decode over a pod once raised here, naming
     item 13h, and then the Mamba and xLSTM mixers, naming item 13h′; now
     every shape of every family builds as one rank of the pod mesh.  The
-    all-to-all MoE still raises, naming the variant bundles (item 13i)."""
+    all-to-all MoE still raises, now naming item 13g, which brings it to
+    the train step across ranks (and with it the opt4 bundle)."""
     pod1 = mesh_lib.make_production_mesh()
     for arch in ("jamba-1.5-large-398b", "xlstm-1.3b"):
         for shape in applicable_shapes(arch):
@@ -227,7 +240,7 @@ def test_other_families_and_decode_raise_naming_13h():
     for arch, shape in (("olmoe-1b-7b", "train_4k"),
                         ("internlm2-1.8b", "decode_32k")):
         assert specs.build_step(arch, shape, mesh=pod1).mesh is pod1
-    with pytest.raises(NotImplementedError, match="item 13i"):
+    with pytest.raises(NotImplementedError, match="item 13g"):
         specs.build_step("olmoe-1b-7b", "train_4k", mesh=pod1,
                          moe_impl="a2a")
 
@@ -254,8 +267,8 @@ def new_cells(tmp_path_factory):
     out = tmp_path_factory.mktemp("new_cells")
     meshes = {"pod1": mesh_lib.make_production_mesh(),
               "pod2": mesh_lib.make_production_mesh(multi_pod=True)}
-    return out, {(a, s, pod): dryrun.run_cell(a, s, mesh=meshes[pod],
-                                              out_dir=str(out))
+    return out, {(a, s, pod): _run_cell(a, s, mesh=meshes[pod],
+                                        out_dir=str(out))
                  for a, s, pod in NEW_RUNS}
 
 
@@ -460,6 +473,12 @@ def _recurrent_schedule(arch: str, shape: str, pod: str) -> dict | None:
     return {k: float(v) for k, v in counts.items() if v}
 
 
+@functools.cache
+def _whole_step(arch: str, shape: str) -> specs.StepBundle:
+    """The cell's one-card step on meta, built once for both meshes."""
+    return specs.build_step(arch, shape)
+
+
 @pytest.mark.parametrize("arch,shape,pod", RECURRENT_RECORDS)
 def test_committed_recurrent_records(arch, shape, pod, record_property):
     """The 16 records of jamba and xlstm-1.3b: a rank's argument bytes
@@ -473,7 +492,7 @@ def test_committed_recurrent_records(arch, shape, pod, record_property):
             if (r["arch"], r["shape"]) == (arch, shape)]
     assert rec["memory_analysis"]["argument_bytes"] == \
         rec["argument_bytes_per_device"]["total"]
-    whole = specs.build_step(arch, shape)
+    whole = _whole_step(arch, shape)
     mesh = mesh_lib.make_production_mesh(multi_pod=pod == "pod2")
     assert dryrun.argument_bytes_per_device(whole, mesh) == \
         rec["argument_bytes_per_device"]
@@ -489,3 +508,273 @@ def test_committed_recurrent_records(arch, shape, pod, record_property):
                     report.reference_collectives(arch, shape, pod))
     record_property("port_collective_bytes_per_chip",
                     rec["roofline"]["collective_bytes_per_chip"])
+
+
+# ---------------------------------------------------------------------------
+# the --variant bundles' pod records (opt: train_4k and prefill_32k of both
+# meshes; opt3: train_4k), beside the baseline records
+# ---------------------------------------------------------------------------
+
+OPT_RECORDS = [(a, s, pod) for pod in ("pod1", "pod2")
+               for a, s in dryrun.pod_cells() if SHAPES[s].kind != "decode"]
+# the weight-stationary decode: the attention models' decode cells
+WS_RECORDS = [(a, s, pod) for pod in ("pod1", "pod2")
+              for a, s in dryrun.pod_cells() if SHAPES[s].kind == "decode"
+              and a not in ("jamba-1.5-large-398b", "xlstm-1.3b")]
+OPT3_RECORDS = [(a, s, pod) for a, s, pod in OPT_RECORDS
+                if s == "train_4k"]
+UNFIT = ("llama3-405b", "jamba-1.5-large-398b", "llama4-maverick-400b-a17b")
+
+
+def _record(arch: str, shape: str, pod: str, variant: str = "") -> dict:
+    rec, = [r for r in report.load(pod + (f"_{variant}" if variant else ""))
+            if (r["arch"], r["shape"]) == (arch, shape)]
+    return rec
+
+
+@functools.cache
+def _placed(arch: str, pod: str, fsdp: bool = False):
+    """The model of ``arch``'s train and prefill cells placed on the
+    shape-only pod mesh (meta)."""
+    from repro_torch.models import Model, parallel
+
+    cfg = specs.serving_config(arch, "train_4k")
+    mesh = mesh_lib.make_production_mesh(multi_pod=pod == "pod2")
+    return parallel.parallelize(Model(cfg, device="meta", seed=None), mesh,
+                                fsdp=fsdp)
+
+
+def _sp_changes(arch: str, shape: str, pod: str) -> dict:
+    """The sequence-parallel schedule's changes to a baseline rank step
+    (``models/parallel.py``), counts by kind, from the placed model on the
+    shape-only pod mesh: the embedding's all-reduce a reduce-scatter
+    (tokens in and a vocabulary that divides); each mixer's and FFN's
+    entry one all-gather over T, its closing row-parallel all-reduce a
+    reduce-scatter (a MoE's shared expert's too); the heads' all-gather.
+    A train step (remat) adds each group's recompute of its entries and
+    row closes (the group's last close apart unless a MoE's aux loss ends
+    the group), and the backward: the embedding's and every close's
+    all-gather, a reduce-scatter for each entry whose "f" all-reduced
+    (a MoE's two "f" for one on the router's weight: one all-reduce fewer
+    all the same; a shared expert's "f" goes), each norm's all-reduce of
+    its scale's gradient and the lm head's "f" a reduce-scatter."""
+    from repro_torch.models import parallel
+
+    kind = SHAPES[shape].kind
+    model = _placed(arch, pod)
+    cfg = model.cfg
+    tokens_in = kind == "train" or not cfg.embeds_input
+    vocab = model.vocab_block() is not None
+    c: dict[str, int] = {}
+
+    def add(k, n=1):
+        c[k] = c.get(k, 0) + n
+
+    def row(lin) -> bool:
+        return parallel.sharded_on_model(lin, "weight", 1)
+
+    if tokens_in and parallel.vocab_block(model.embed, "table") is not None:
+        add("all-reduce", -1)
+        add("reduce-scatter")
+    blocks = []   # (f-entry, close kinds) of each mixer and FFN
+    for block in model.stack:
+        mix, spec = block.mixer, block.spec
+        if spec.mixer == "attn":
+            blocks.append((True, [row(mix.wo)]))
+        elif spec.mixer == "mamba":
+            blocks.append((parallel.sharded_on_model(mix.in_proj, "weight",
+                                                     0), [row(mix.out_proj)]))
+        elif spec.mixer == "mlstm":
+            blocks.append((parallel.sharded_on_model(mix.up, "weight", 0),
+                           [row(mix.down)]))
+        else:
+            blocks.append((False, [row(mix.down)]))
+        if spec.ffn == "mlp":
+            blocks.append((parallel.sharded_on_model(block.ffn.gate,
+                                                     "weight", 0),
+                           [row(block.ffn.down)]))
+        elif spec.ffn == "moe":
+            placed = parallel.expert_plan(block.ffn,
+                                          cfg.moe.num_experts).mesh is not None
+            closes = [placed]
+            if block.ffn.shared is not None:
+                closes.append(row(block.ffn.shared.down))
+            blocks.append((placed, closes))
+    for _, closes in blocks:
+        add("all-gather")
+        n = sum(closes)
+        add("all-reduce", -n)
+        add("reduce-scatter", n)
+    add("all-gather")                              # the heads
+    if kind != "train":
+        return {k: v for k, v in c.items() if v}
+    per = len(blocks) // cfg.n_groups
+    ends_in_moe = cfg.layer_pattern[-1].ffn == "moe"
+    for g in range(cfg.n_groups):
+        group = blocks[g * per:(g + 1) * per]
+        add("all-gather", len(group))
+        n = sum(sum(closes) for _, closes in group)
+        if not ends_in_moe:
+            n -= sum(group[-1][1])
+        add("all-reduce", -n)
+        add("reduce-scatter", n)
+    add("all-gather", 1 + sum(len(closes) for _, closes in blocks))
+    f = sum(1 for entered, _ in blocks if entered)
+    add("all-reduce", -f)
+    add("reduce-scatter", f)
+    shared = sum(1 for b in model.stack if b.spec.ffn == "moe"
+                 and b.ffn.shared is not None)
+    add("all-reduce", -shared)
+    norms = sum(1 for _ in model.stack) + sum(
+        1 for b in model.stack if b.ffn is not None) + 1
+    add("all-reduce", norms)
+    if vocab:
+        add("all-reduce", -1)
+        add("reduce-scatter")
+    return {k: v for k, v in c.items() if v}
+
+
+def _plus(a: dict, b: dict) -> dict:
+    out = dict(a)
+    for k, v in b.items():
+        out[k] = out.get(k, 0) + v
+    return {k: float(v) for k, v in out.items() if v}
+
+
+@pytest.mark.parametrize("arch,shape,pod", OPT_RECORDS)
+def test_committed_opt_records_hold_the_rules_and_the_schedule(arch, shape,
+                                                               pod):
+    """Each ``_opt`` record: the argument bytes a rank the rules' (the
+    bundle moves no argument), FSDP as the baseline's, the collective
+    term of its bytes, and its tally the baseline record's with the
+    sequence-parallel schedule's changes (:func:`_sp_changes`): one
+    all-gather and one reduce-scatter on "model" where the baseline has
+    one all-reduce at a block's end."""
+    base, rec = _record(arch, shape, pod), _record(arch, shape, pod, "opt")
+    assert rec["variant"] == "opt"
+    assert rec["memory_analysis"]["argument_bytes"] == \
+        rec["argument_bytes_per_device"]["total"] == \
+        base["argument_bytes_per_device"]["total"]
+    assert rec["fsdp"] == base["fsdp"]
+    weighted = sum(v * (2.0 if k == "all-reduce" else 1.0)
+                   for k, v in rec["collectives"]["bytes_by_kind"].items())
+    assert rec["roofline"]["collective_s"] == pytest.approx(weighted / 50e9)
+    assert rec["collectives"]["count_by_kind"] == _plus(
+        base["collectives"]["count_by_kind"], _sp_changes(arch, shape, pod))
+
+
+@pytest.mark.parametrize("arch,shape,pod", OPT3_RECORDS)
+def test_opt_train_records_hold_less_than_their_baselines(arch, shape, pod):
+    """The sequence-parallel residual: each opt train_4k record's
+    temporaries are below its baseline's (the remat groups keep a rank's
+    block of T); the opt3 record (remat off) issues no recompute, so fewer
+    all-gathers and reduce-scatters than the opt record, the same
+    arguments."""
+    base = _record(arch, shape, pod)
+    opt, opt3 = (_record(arch, shape, pod, v) for v in ("opt", "opt3"))
+    assert opt["memory_analysis"]["temp_bytes"] < \
+        base["memory_analysis"]["temp_bytes"]
+    assert opt3["variant"] == "opt3"
+    assert opt3["memory_analysis"]["argument_bytes"] == \
+        opt["memory_analysis"]["argument_bytes"]
+    for kind in ("all-gather", "reduce-scatter"):
+        assert opt3["collectives"]["count_by_kind"][kind] < \
+            opt["collectives"]["count_by_kind"][kind]
+
+
+def test_variant_cli_refuses_what_is_not_ported(tmp_path):
+    """``--variant opt4`` raises naming item 13g; the Mamba and xLSTM
+    models' opt decode cells (the weight-stationary layout) raise naming
+    item 13i's decode half; ``report.py --pod --variant`` sets the opt
+    records beside the baseline's."""
+    pod1 = mesh_lib.make_production_mesh()
+    with pytest.raises(NotImplementedError, match="item 13g"):
+        dryrun.run_cell("qwen3-8b", "train_4k", mesh=pod1, variant="opt4",
+                        out_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="item 13i's decode"):
+        dryrun.run_cell("jamba-1.5-large-398b", "decode_32k", mesh=pod1,
+                        variant="opt", out_dir=str(tmp_path))
+    with pytest.raises(ValueError, match="pod mesh"):
+        dryrun.run_cell("qwen3-8b", "train_4k", variant="opt",
+                        out_dir=str(tmp_path))
+    assert os.listdir(tmp_path) == []
+    table = report.variant_table("pod1", "opt")
+    assert "llama3-405b | train_4k" in table and " -> " in table
+
+
+def _ws_schedule(arch: str, shape: str, pod: str, fsdp: bool) -> dict:
+    """Counts by kind of one rank's weight-stationary decode step
+    (``parallel.ws_mesh``): the batch's tokens (or embeddings) gathered
+    over each data axis where the batch is cut there; the embedding's
+    all-reduce over "model" (a vocabulary that divides, tokens in); a
+    layer's two norms and its q | k | v partials over each data axis, the
+    token's q, k, v gathered over "model", the combine's two all-reduces,
+    the output rows gathered over each data axis (a cut batch) and wo's
+    all-reduce; an MLP's gate | up partials over each data axis and down
+    over "model"; a MoE's router partials over each data axis, its gate
+    | up partials (FSDP'd on d, or whole) or x and, down not on d_ff, h
+    gathered over each data axis (on d_ff), its partial output over
+    "model", a down on d_ff reduce-scattered over each data axis, and a
+    shared expert as an MLP; the final norm, the lm head and the score
+    head over each data axis.  No weight is gathered."""
+    from repro_torch.models import parallel
+
+    model = _placed(arch, pod, fsdp)
+    cfg = model.cfg
+    mesh = mesh_lib.make_production_mesh(multi_pod=pod == "pod2")
+    n_axes = len(mesh_lib.data_axes(mesh))
+    b = SHAPES[shape].global_batch
+    spread = b % mesh_lib.data_axis_size(mesh) == 0
+    c = {"all-reduce": 3 * n_axes, "all-gather": n_axes * spread}
+
+    def add(k, n=1):
+        c[k] = c.get(k, 0) + n
+
+    if not cfg.embeds_input and model.vocab_block() is not None:
+        add("all-reduce")
+    for block in model.stack:
+        add("all-reduce", 2 * n_axes + n_axes + 2 + parallel.sharded_on_model(
+            block.mixer.wo, "weight", 1))
+        add("all-gather", 1 + n_axes * spread)
+        mlps = [block.ffn] if block.spec.ffn == "mlp" else []
+        if block.spec.ffn == "moe":
+            moe = block.ffn
+            up_ff = parallel.data_dim(moe, "gate") == 2
+            down_ff = parallel.data_dim(moe, "down") == 1
+            add("all-reduce", n_axes + (0 if up_ff else n_axes) + (
+                parallel.expert_plan(moe, cfg.moe.num_experts).mesh
+                is not None))
+            add("all-gather", n_axes * (up_ff + (up_ff and not down_ff)))
+            add("reduce-scatter", n_axes * down_ff)
+            if moe.shared is not None:
+                mlps.append(moe.shared)
+        for mlp in mlps:
+            add("all-reduce", n_axes + parallel.sharded_on_model(
+                mlp.down, "weight", 1))
+    return {k: float(v) for k, v in c.items() if v}
+
+
+@pytest.mark.parametrize("arch,shape,pod", WS_RECORDS)
+def test_committed_opt_decode_records_gather_no_weight(arch, shape, pod):
+    """Each attention model's ``_opt`` decode record (the
+    weight-stationary layout): the argument bytes the rules' (the same
+    as the baseline's: the cache stays batch-sharded), the collective
+    term of its bytes, and its tally the hand count, which gathers no
+    parameter over the data axes: where FSDP gathers every weight a
+    baseline step, its all-gather bytes are a sliver of the baseline's
+    (elsewhere the baseline gathers no weight either and the rows'
+    gathers add bytes)."""
+    base, rec = _record(arch, shape, pod), _record(arch, shape, pod, "opt")
+    assert rec["variant"] == "opt" and rec["fsdp"] == base["fsdp"]
+    assert rec["memory_analysis"]["argument_bytes"] == \
+        rec["argument_bytes_per_device"]["total"] == \
+        base["argument_bytes_per_device"]["total"]
+    weighted = sum(v * (2.0 if k == "all-reduce" else 1.0)
+                   for k, v in rec["collectives"]["bytes_by_kind"].items())
+    assert rec["roofline"]["collective_s"] == pytest.approx(weighted / 50e9)
+    assert rec["collectives"]["count_by_kind"] == _ws_schedule(
+        arch, shape, pod, rec["fsdp"])
+    if rec["fsdp"]:
+        gathered = rec["collectives"]["bytes_by_kind"]["all-gather"]
+        assert gathered < 0.01 * base["collectives"]["bytes_by_kind"][
+            "all-gather"]

@@ -134,9 +134,18 @@ def test_fit_history_matches_reference():
 
 
 def test_act_pspec_raises_naming_13f():
+    """act_pspec once raised naming the --variant bundles (item 13i); the
+    step now takes the sequence-parallel layout and refuses a spec that
+    is neither of the reference's layouts (naming it) and the
+    weight-stationary one (a decode step's)."""
+    from repro_torch.launch.shardings import P
+
     model = Model(get_smoke_config("qwen3-8b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13i"):
+    make_train_step(model, AdamW(), act_pspec=P("data", "model", None))
+    with pytest.raises(ValueError, match="act_pspec"):
         make_train_step(model, AdamW(), act_pspec=object())
+    with pytest.raises(ValueError, match="decode step"):
+        make_train_step(model, AdamW(), act_pspec=P(None, None, "data"))
 
 
 def test_serving_builds_no_graph():

@@ -524,3 +524,200 @@ def train_tail(cfg, run: str) -> tuple[dict, int, int]:
                                            for s in specs.values()}),
               "all-gather": heads, "reduce-scatter": heads}
     return counts, layer, layer
+
+
+# ---------------------------------------------------------------------------
+# the --variant bundles' runs (test_torch_variant_ranks.py): the cases'
+# forward, prefill, STEPS decode steps and train step under the bundle's
+# kwargs (``launch/dryrun.py::variant_build_kwargs``), every case on every
+# mesh of VARIANT_MESHES with FSDP on, beside the baseline's forward,
+# prefill and train step for the tally; OPT3 also trains under opt3
+# ---------------------------------------------------------------------------
+
+VARIANT_MESHES = ("2x2", "2x1x2")
+
+VARIANT_REFERENCE = r"""
+import dataclasses
+import repro.launch.dryrun as rdry   # sets XLA_FLAGS: put back before use
+# LLVM at -O0: compiling is most of this process's time at the smoke sizes
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                           "--xla_backend_optimization_level=0")
+from repro.training.train import TrainState, make_train_step
+from repro.training.optimizer import AdamW
+CASES, OPT3, STEPS, LR = %(CASES)r, %(OPT3)r, %(STEPS)d, %(LR)r
+f32 = jnp.float32
+
+def spec_json(kw):
+    return {k: [list(e) if isinstance(e, tuple) else e for e in v]
+            if k == "act_pspec" else v for k, v in kw.items()}
+
+tables = {}
+for name, (axes, shape) in meshes.items():
+    one = jax_compat.make_mesh((1,) * len(axes), tuple(axes))
+    tables[name] = {f"{v}/{k}": spec_json(rdry.variant_build_kwargs(
+        v, k, one)) for v in ("opt", "opt2", "opt3")
+        for k in ("train", "prefill", "decode")}
+out["kwargs"] = np.frombuffer(json.dumps(tables).encode(), np.uint8)
+mesh = jax_compat.make_mesh((1, 1), ("data", "model"))
+
+def kwargs(variant, kind):
+    return rdry.variant_build_kwargs(variant, kind, mesh)
+
+with mesh, jax_compat.set_mesh(mesh):
+    for arch in CASES:
+        cfg = get_smoke_config(arch)
+        model = Model(cfg)
+        params = jax.tree.map(jnp.asarray, trees[arch])
+        x = jnp.asarray(inp["tokens"])
+        labels = jnp.asarray(inp["labels"])
+        t = x.shape[1]
+        act = kwargs("opt", "prefill")["act_pspec"]
+        o = jax.jit(lambda p, xx: model.forward(
+            p, tokens=xx, compute_dtype=f32, act_pspec=act))(params, x)
+        out[f"{arch}/fwd/logits"], out[f"{arch}/fwd/risk"] = o.logits, \
+            o.risk_score
+        o, cache = jax.jit(lambda p, xx: model.prefill(
+            p, tokens=xx, cache_capacity=t + STEPS, compute_dtype=f32,
+            act_pspec=act))(params, x)
+        out[f"{arch}/prefill/logits"] = o.logits
+        out[f"{arch}/prefill/risk"] = o.risk_score
+        for i, c in enumerate(cache):
+            for f, leaf in zip(c._fields, c):
+                out[f"{arch}/prefill/cache/{i}/{f}"] = leaf
+        dact = kwargs("opt", "decode")["act_pspec"]
+        step = jax.jit(lambda p, c, xx, pos: model.decode_step(
+            p, c, tokens=xx, pos=pos, compute_dtype=f32, act_pspec=dact))
+        for s in range(STEPS):
+            o = step(params, cache,
+                     jnp.asarray(inp["decode_tokens"][:, s:s + 1]), t + s)
+            cache = o.cache
+            out[f"{arch}/{s}/logits"], out[f"{arch}/{s}/risk"] = o.logits, \
+                o.risk_score
+        for i, c in enumerate(cache):
+            for f, leaf in zip(c._fields, c):
+                out[f"{arch}/decode/cache/{i}/{f}"] = leaf
+        for variant in ("opt", "opt3") if arch == OPT3 else ("opt",):
+            kw = kwargs(variant, "train")
+            tcfg = cfg
+            if kw.get("moe_ep_constraint") and cfg.moe is not None:
+                tcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, ep_sharding_constraint=True))
+            tmodel = Model(tcfg)
+            opt = AdamW(learning_rate=LR)
+            train = make_train_step(
+                tmodel, opt, remat=kw.get("remat", True), compute_dtype=f32,
+                act_pspec=kw["act_pspec"],
+                cast_params_bf16=kw["cast_params_bf16"])
+            state = TrainState(params, opt.init(params))
+            new, metrics = jax.jit(train)(state, x, labels)
+            tag = f"{arch}/{variant}"
+            out[f"{tag}/metrics"] = np.array([float(v) for v in metrics])
+            for what, tree_ in (("params", new.params), ("mu", new.opt.mu),
+                                ("nu", new.opt.nu)):
+                for i, leaf in enumerate(jax.tree.leaves(tree_)):
+                    out[f"{tag}/{what}/{i}"] = leaf
+"""
+
+VARIANT_PORT = r"""
+import dataclasses
+from repro_torch.launch import dryrun
+from repro_torch.training.optimizer import AdamW
+from repro_torch.training.train import TrainState, make_train_step
+CASES, OPT3, STEPS, LR = %(CASES)r, %(OPT3)r, %(STEPS)d, %(LR)r
+f32 = torch.float32
+
+def spec_json(kw):
+    return {k: [list(e) if isinstance(e, tuple) else e for e in v]
+            if k == "act_pspec" else v for k, v in kw.items()}
+
+tables = {}
+for name in meshes:
+    axes, shape = meshes[name]
+    mesh = mesh_lib.init_mesh(mesh_lib.Mesh(tuple(axes), tuple(shape)),
+                              device="cpu")
+    tables[name] = {f"{v}/{k}": spec_json(dryrun.variant_build_kwargs(
+        v, k, mesh)) for v in ("opt", "opt2", "opt3")
+        for k in ("train", "prefill", "decode")}
+    act = dryrun.variant_build_kwargs("opt", "prefill", mesh)["act_pspec"]
+    for arch in CASES:
+        cfg = get_smoke_config(arch)
+        model = convert.model_from_numpy(cfg, trees[arch], device="cpu",
+                                         mesh=mesh, fsdp=True)
+        x, labels = rows(inp["tokens"], mesh), rows(inp["labels"], mesh)
+        t, cap = x.shape[1], x.shape[1] + STEPS
+        tag = f"{name}/{arch}"
+        for variant, spec in (("base", None), ("opt", act)):
+            with coll.tally() as tl, torch.no_grad():
+                o = model(x, compute_dtype=f32, act_pspec=spec)
+            out[f"{tag}/{variant}/fwd/tally"] = tally_blob(tl)
+            with coll.tally() as tp:
+                p, cache = model.prefill(x, cache_capacity=cap,
+                                         compute_dtype=f32, act_pspec=spec)
+            out[f"{tag}/{variant}/prefill/tally"] = tally_blob(tp)
+        out[f"{tag}/fwd/logits"] = o.logits.numpy()
+        out[f"{tag}/fwd/risk"] = o.risk_score.numpy()
+        out[f"{tag}/prefill/logits"] = p.logits.numpy()
+        out[f"{tag}/prefill/risk"] = p.risk_score.numpy()
+        for i, c in enumerate(cache):
+            for f, leaf in zip(c._fields, c):
+                out[f"{tag}/prefill/cache/{i}/{f}"] = leaf.clone().numpy()
+        xs = rows(inp["decode_tokens"], mesh)
+        # the weight-stationary decode where the port takes it (attention
+        # blocks), else the baseline layout
+        ws = dryrun.variant_build_kwargs("opt", "decode", mesh)["act_pspec"]
+        if {b.mixer for b in cfg.layer_pattern} != {"attn"}:
+            ws = None
+        for s in range(STEPS):
+            with coll.tally() as tl:
+                o = model.decode_step(cache, xs[:, s:s + 1], pos=t + s,
+                                      cache_capacity=cap, compute_dtype=f32,
+                                      act_pspec=ws)
+            out[f"{tag}/{s}/logits"] = o.logits.numpy()
+            out[f"{tag}/{s}/risk"] = o.risk_score.numpy()
+            out[f"{tag}/{s}/tally"] = tally_blob(tl)
+        for i, c in enumerate(cache):
+            for f, leaf in zip(c._fields, c):
+                out[f"{tag}/decode/cache/{i}/{f}"] = leaf.numpy()
+        variants = ("base", "opt", "opt3") if arch == OPT3 else ("base",
+                                                                  "opt")
+        for variant in variants:
+            kw = ({} if variant == "base" else
+                  dryrun.variant_build_kwargs(variant, "train", mesh))
+            tcfg = cfg
+            if kw.get("moe_ep_constraint") and cfg.moe is not None:
+                tcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, ep_sharding_constraint=True))
+            model = convert.model_from_numpy(tcfg, trees[arch], device="cpu",
+                                             mesh=mesh, fsdp=True)
+            model.requires_grad_(True)
+            opt = AdamW(learning_rate=LR)
+            params = dict(model.named_parameters())
+            state = TrainState(params, opt.init(params))
+            step = make_train_step(
+                model, opt, remat=kw.get("remat", True), compute_dtype=f32,
+                act_pspec=kw.get("act_pspec"),
+                cast_params_bf16=kw.get("cast_params_bf16", False))
+            with mesh_lib.set_mesh(mesh), coll.tally() as tl:
+                state, metrics = step(state, x, labels)
+            vt = f"{tag}/{variant}"
+            out[f"{vt}/train/tally"] = tally_blob(tl)
+            if variant == "base":
+                continue
+            out[f"{vt}/metrics"] = np.array([float(v) for v in metrics])
+            for what, values in (("params", None), ("mu", state.opt.mu),
+                                 ("nu", state.opt.nu)):
+                tree_ = convert.model_to_numpy(tcfg, model, values)
+                if rank == 0:
+                    for i, leaf in enumerate(leaves(tree_)):
+                        out[f"{vt}/{what}/{i}"] = leaf
+out["kwargs"] = np.frombuffer(json.dumps(tables).encode(), np.uint8)
+"""
+
+
+def variant_run(tmp: pathlib.Path, cases: tuple, opt3: str,
+                lr: float) -> dict:
+    """The reference and the four ranks over :data:`VARIANT_REFERENCE` /
+    :data:`VARIANT_PORT` on the meshes of :data:`VARIANT_MESHES`."""
+    fill = dict(CASES=cases, OPT3=opt3, STEPS=STEPS, LR=lr)
+    return run(tmp, VARIANT_REFERENCE % fill, VARIANT_PORT % fill,
+               meshes={m: MESHES[m] for m in VARIANT_MESHES}, archs=cases)
