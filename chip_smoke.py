@@ -139,8 +139,8 @@ Phases, each printing one JSON line:
 12. zoo_serve — the MoE, xLSTM and Mamba families at full width, each
              built in bf16 from seed 0 and freed before the next:
              olmoe-1b-7b (16 layers, d_model 2,048, 64 experts of 1,024,
-             top-8), xlstm-1.3b (its first 16 of 48 blocks, sLSTM:mLSTM
-             1:7, for the script's time limit) and the first
+             top-8), xlstm-1.3b (its first 8 of 48 blocks, one group,
+             sLSTM:mLSTM 1:7, for the script's time limit) and the first
              five layers of jamba-1.5-large-398b (d_model 8,192: four
              Mamba layers of d_inner 16,384, N = 16, one attention layer of
              64/8 heads of 128, three MLPs of 24,576, two MoEs of 16
@@ -278,7 +278,7 @@ Phases, each printing one JSON line:
              no-mesh step, two more timed: ms a step, tokens/s, mfu,
              peak, the step's collectives the schedule's.
 18. roofline — every path phases 11, 12 and 16 timed (qwen3-8b, olmoe-1b-7b,
-             xlstm-1.3b's 16 layers and jamba's five, prefill and decode;
+             xlstm-1.3b's 8 layers and jamba's five, prefill and decode;
              jamba's one-layer train step) read against the one-card roofline
              (``launch/roofline.py`` at the H100's published rates) at that
              run's batch, length and kind: mfu, flops_share, hbm_share,
@@ -2548,15 +2548,15 @@ def phase_llm_serve(dev, attention: dict) -> dict:
 JAMBA = "jamba-1.5-large-398b"
 ZOO_ARCHS = ("olmoe-1b-7b", "xlstm-1.3b", JAMBA)
 # what is cut, by architecture: jamba keeps its first five layers, xlstm
-# its first two groups (its sLSTM time loop is host-bound: at 48 layers
-# this phase took 339 s of a 1,200 s script, at 24 on a slow host 185 s;
-# tp_recurrent serves it whole)
+# its first group (its sLSTM time loop is host-bound: at 48 layers this
+# phase took 339 s of a 1,200 s script, at 24 on a slow host 185 s, at
+# 16 121 s of a 961 s script; tp_recurrent serves it whole)
 ZOO_REDUCED = {JAMBA: {"n_layers": "72 -> 5 (layers 0-4 of the 8-layer "
                                    "period; 90.5 GB bf16 for one period "
                                    "does not fit one 80 GB card)"},
-               "xlstm-1.3b": {"n_layers": "48 -> 16 (2 of its 6 groups; "
+               "xlstm-1.3b": {"n_layers": "48 -> 8 (1 of its 6 groups; "
                                           "the script's time limit)"}}
-XLSTM_ZOO_LAYERS = 16
+XLSTM_ZOO_LAYERS = 8
 OLMOE_ATTN = (4, 2048, 2048, 16, 16, 128, True, 0)   # olmoe-1b-7b prefill
 # the Mamba scan's kernel; then the MoE's dispatch and combine (slot table
 # scatter, buffer and output gathers, the stable sort of the router, the
@@ -2588,8 +2588,8 @@ print("LAUNCHES " + json.dumps(ops.LAUNCHES))
 
 def _zoo_config(arch: str):
     """The architecture's full config, cut in depth where ``ZOO_REDUCED``
-    says so (jamba: its first five layers; xlstm-1.3b: its first two
-    groups; every width kept)."""
+    says so (jamba: its first five layers; xlstm-1.3b: its first group;
+    every width kept)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3101,7 +3101,7 @@ def _serve_e2e() -> dict:
 
 
 def phase_zoo_serve(dev) -> dict:
-    """olmoe-1b-7b, xlstm-1.3b's first 16 layers and jamba-1.5-large-398b's
+    """olmoe-1b-7b, xlstm-1.3b's first 8 layers and jamba-1.5-large-398b's
     first five at full width through the serve launcher, each freed before
     the next;
     the selective-scan kernel on small cases; the flash kernel at olmoe's
@@ -4044,6 +4044,7 @@ EP_AUX_RTOL = 1e-5      # float32 sums of 8,192 rows in another order
 # model tests (tests/test_torch_moe.py::BF16), rtol = atol
 EP_PREFILL_TOL = 5e-2
 EP_RUNS = 3
+EP_TRAIN_STEPS = 4      # the a2a train step: step 1 checked, 3 more timed
 EP_BACKEND = "nccl"     # the card's; nothing falls back to gloo
 
 
@@ -4196,10 +4197,274 @@ def _ep_prefill(dev, mesh, impl: str, prompt) -> dict:
             "moe_aux": aux, "logits": logits}
 
 
+def _ep_opt4_prefill(dev, mesh, prompt) -> dict:
+    """olmoe-1b-7b placed over the (1, 1) mesh at full width in bf16 from
+    seed 0 at the drop-free capacity: the opt4 bundle's prefill (the
+    sequence-parallel residual, the all-to-all MoE) against opt's (the
+    einsum MoE) on the same weights (views), each one warm-up run and
+    ``EP_RUNS`` timed (host clock ended by a device sync), the first with
+    the kernels' counts set to 0 just before and read just after and the
+    collectives tallied.  The last-token logits bitwise (at one rank the
+    two layers take the same routes, slots and products), else within
+    the port's bf16 MoE rule; each MoE layer's collectives opt's with its
+    entry's all-gather and close's reduce-scatter over T traded for the
+    buffers' gather and reduce-scatter over "data" and the aux stats'
+    two all-reduces."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import Model, moe
+
+    cfg = get_config(EP_ARCH)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=EP_DROP_FREE))
+    plain = Model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    runs = {}
+    for variant in ("opt", "opt4"):
+        kw = dryrun.variant_build_kwargs(variant, "prefill", mesh)
+        vcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl=kw.get("moe_impl", "einsum")))
+        model = _sdm_views(vcfg, plain, mesh)
+
+        def prefill():
+            out, _ = model.prefill(prompt, cache_capacity=LLM_PROMPT,
+                                   attn_impl="kernel", logits_mode="last",
+                                   act_pspec=kw["act_pspec"])
+            return out
+
+        with torch.no_grad(), mesh_lib.set_mesh(mesh):
+            prefill()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for run in range(EP_RUNS):
+                if run == 0:
+                    for name in ops.LAUNCHES:
+                        ops.LAUNCHES[name] = 0
+                t0 = time.perf_counter()
+                with coll.tally() as tally:
+                    out = prefill()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if run == 0:
+                    launches = dict(ops.LAUNCHES)
+                    collectives = _ep_collectives(tally)
+                    logits = out.logits[:, -1].float()
+        n_layers = cfg.n_layers
+        check(launches["flash_attention"] == n_layers
+              and launches["flash_attention_wgmma"] == n_layers
+              and sum(launches.values()) == 2 * n_layers,
+              f"{variant} prefill: {launches}, expected {n_layers} "
+              "tensor-core flash launches and no other kernel")
+        runs[variant] = {"moe_impl": vcfg.moe.impl, "launches": launches,
+                         "collectives": collectives,
+                         "prefill_ms": statistics.median(times),
+                         "prefill_ms_runs": times,
+                         "max_memory_allocated":
+                             torch.cuda.max_memory_allocated(),
+                         "logits": logits}
+        del model, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    del plain
+    a, e = runs["opt4"].pop("logits"), runs["opt"].pop("logits")
+    err = float((a - e).abs().max())
+    bitwise = bool(torch.equal(a, e))
+    check(bitwise or bool(torch.allclose(a, e, rtol=EP_PREFILL_TOL,
+                                         atol=EP_PREFILL_TOL)),
+          f"opt4 prefill's last-token logits {err} from opt's")
+    n = LLM_BATCH * LLM_PROMPT
+    act = n * cfg.d_model * 2
+    buf = cfg.moe.num_experts * moe.capacity(n, cfg.moe) * cfg.d_model * 2
+    stats = (2 * cfg.moe.num_experts + 1) * 4
+    delta = {"all-gather": (buf - act, 0), "reduce-scatter": (buf - 2 * act,
+                                                              0),
+             "all-reduce": (2 * stats, 2)}
+    base = runs["opt"]["collectives"]
+    kinds = set(base["count_by_kind"]) | set(delta)
+    predicted = {
+        "bytes_by_kind": {k: base["bytes_by_kind"].get(k, 0.0)
+                          + cfg.n_layers * delta.get(k, (0, 0))[0]
+                          for k in kinds},
+        "count_by_kind": {k: base["count_by_kind"].get(k, 0.0)
+                          + cfg.n_layers * delta.get(k, (0, 0))[1]
+                          for k in kinds}}
+    got = {k: runs["opt4"]["collectives"][k] for k in predicted}
+    check(got == predicted, f"the opt4 prefill's collectives {got}, "
+          f"predicted {predicted}")
+    return {"arch": EP_ARCH, "batch": LLM_BATCH, "prompt_len": LLM_PROMPT,
+            "capacity_factor": EP_DROP_FREE, "runs": runs,
+            "max_abs_diff_last_logits": err, "bitwise": bitwise,
+            "tolerance": EP_PREFILL_TOL,
+            "collectives_predicted": predicted,
+            "timing": "host clock, each prefill ended by a device sync; "
+                      "median of 3 runs after one warm-up run"}
+
+
+def _ep_a2a_train_schedule(model) -> dict:
+    """The collectives of one train step (remat) of the placed model with
+    the all-to-all MoE at one rank (every all-to-all over one rank
+    dropped): a layer's wo all-reduce in the forward and its recompute
+    and three "f" in its backward (wq's input, the two qk-norm scales);
+    its MoE's buffers gathered and reduce-scattered over "data" and the
+    aux stats' two all-reduces in the forward and the recompute, the
+    output's gather over "model" in the forward only (the recompute stops
+    at the aux loss), and in the backward the buffers' reduce-scatter and
+    gather, the token block's gather over "model", the aux stats' sum
+    over "data" and the router's "f"; then the embedding's, the lm head's
+    "f", the cross entropy's three, the metrics', every leaf's gradient
+    over "data" and the norm's one."""
+    leaves = sum(1 for _ in model.parameters())
+    n = model.cfg.n_layers
+    return {"all-reduce": float(11 * n + 1 + 1 + 3 + 1 + leaves + 1),
+            "all-gather": float(5 * n), "reduce-scatter": float(3 * n)}
+
+
+def _mu_distance(mu: dict, want: dict, dev) -> float:
+    """The largest difference of two first-moment trees on the host,
+    compared on ``dev`` a leaf at a time, each leaf's over its largest
+    entry in ``want``."""
+    worst = 0.0
+    for k, m in mu.items():
+        m, w = m.to(dev), want[k].to(dev)
+        worst = max(worst, (m - w).abs().max().item()
+                    / max(w.abs().max().item(), 1e-6))
+    return worst
+
+
+def _ep_a2a_train(dev, mesh) -> dict:
+    """olmoe-1b-7b cut to ``SDM_TRAIN_LAYERS`` layers at full width and
+    the drop-free capacity, float32 masters, bf16 compute, remat, AdamW,
+    4 x 2,048 tokens, placed over the (1, 1) mesh: step 1 of the einsum
+    MoE from seed 0, then the same step with the all-to-all MoE from the
+    same initial state, held to it bitwise, else by PERF.md §2's rules:
+    the metrics within the MoE's 5e-2 and the gradients (step 1's first
+    moments) no farther from a float32-compute einsum step 1's than twice
+    the einsum step's (floor 1e-3 of each leaf's largest); then
+    ``EP_TRAIN_STEPS`` - 1 more steps of the all-to-all one, timed (host
+    clock, each step ended by reading its loss), the peak read after a
+    reset."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import Model, parallel
+    from repro_torch.training import AdamW, Trainer, cosine_schedule
+    from repro_torch.training.data import TokenStream
+    from repro_torch.training.train import make_train_step
+
+    base = get_config(EP_ARCH)
+    cfg = dataclasses.replace(base, n_layers=SDM_TRAIN_LAYERS,
+                              moe=dataclasses.replace(
+                                  base.moe, capacity_factor=EP_DROP_FREE))
+    stream = iter(TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+    batches = [tuple(torch.as_tensor(a, dtype=torch.long, device=dev)
+                     for a in next(stream)) for _ in range(EP_TRAIN_STEPS)]
+    schedule = cosine_schedule(TRAIN_LR[0], TRAIN_LR[1], TRAIN_STEPS)
+
+    def fresh(impl: str, dtype=torch.bfloat16):
+        vcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, impl=impl))
+        model = parallel.parallelize(
+            Model(vcfg, device=dev, dtype=torch.float32, seed=0), mesh)
+        opt = AdamW(learning_rate=schedule)
+        state = Trainer(model, opt).init_state(None)
+        step = make_train_step(model, opt, remat=True, compute_dtype=dtype)
+        return model, state, step
+
+    def step1(impl: str, dtype=torch.bfloat16):
+        model, state, step = fresh(impl, dtype)
+        with mesh_lib.set_mesh(mesh):
+            state, m = step(state, *batches[0])
+        out = ([float(v) for v in m],
+               {k: p.detach().cpu() for k, p in state.params.items()},
+               {k: mu.detach().cpu() for k, mu in state.opt.mu.items()})
+        del model, state, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    einsum_metrics, einsum_after, einsum_mu = step1("einsum")
+    model, state, step = fresh("a2a")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    history, step_ms = [], []
+    with mesh_lib.set_mesh(mesh):
+        for i, (toks, labels) in enumerate(batches):
+            if i == 0:
+                for key in ops.LAUNCHES:
+                    ops.LAUNCHES[key] = 0
+            t0 = time.perf_counter()
+            with coll.tally() as tally:
+                state, m = step(state, toks, labels)
+                metrics = [float(v) for v in m]
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            history.append(dict(zip(("loss", "ce", "moe_aux", "grad_norm"),
+                                    metrics)))
+            if i == 0:
+                launches = dict(ops.LAUNCHES)
+                collectives = _ep_collectives(tally)
+                first = _step1_against(state, einsum_after, einsum_mu)
+                a2a_mu = {k: mu.detach().to("cpu", copy=True)
+                          for k, mu in state.opt.mu.items()}
+                first_metrics = metrics
+    peak = torch.cuda.max_memory_allocated()
+    params = model.param_count()
+    predicted = _ep_a2a_train_schedule(model)
+    del model, state, step, einsum_after
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(launches == {k: 0 for k in launches},
+          f"train launches {launches}: attention trains on the plain path")
+    check(collectives["count_by_kind"] == predicted,
+          f"the a2a MoE step's collectives {collectives}, predicted "
+          f"{predicted}")
+    bitwise = first_metrics == einsum_metrics and first["bitwise"]
+    rule = None
+    if not bitwise:
+        _, _, f32_mu = step1("einsum", torch.float32)
+        rule = {"a2a": _mu_distance(a2a_mu, f32_mu, dev),
+                "einsum": _mu_distance(einsum_mu, f32_mu, dev)}
+        del f32_mu
+        check(all(abs(a - b) <= EP_PREFILL_TOL * abs(b) for a, b in
+                  zip(first_metrics, einsum_metrics))
+              and rule["a2a"] <= max(2 * rule["einsum"], 1e-3),
+              f"a2a step 1 {first_metrics} against the einsum step's "
+              f"{einsum_metrics}: gradients from a float32 step {rule}")
+    del einsum_mu, a2a_mu
+    losses = [h["loss"] for h in history]
+    check(all(map(math.isfinite, losses)), f"a2a losses {losses}")
+    return {"arch": EP_ARCH, "reduced": SDM_TRAIN_REDUCED,
+            "params": params, "layers": cfg.n_layers,
+            "capacity_factor": EP_DROP_FREE, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "steps": EP_TRAIN_STEPS,
+            "compute_dtype": "bfloat16", "remat": True,
+            "step1": {"einsum": einsum_metrics, "a2a": first_metrics,
+                      **first, "bitwise": bitwise,
+                      "rule_2x_from_float32": rule},
+            "history": history, "step_ms": step_ms,
+            "ms_per_step": statistics.median(step_ms[1:]),
+            "max_memory_allocated": peak, "launches": launches,
+            "collectives": collectives, "collectives_predicted": predicted,
+            "timing": "host clock: each step ends in reading its loss; ms "
+                      "a step the median of steps 2-4"}
+
+
 def phase_expert_parallel(dev, smi: str) -> dict:
     """NCCL in process as a world of one rank over a (1, 1) ("data",
     "model") mesh on the card: olmoe's MoE layer through the all-to-all
-    MoE against the einsum layer, then olmoe's whole prefill with each."""
+    MoE against the einsum layer, then olmoe's whole prefill with each;
+    the placed model's opt4 prefill against its opt prefill
+    (:func:`_ep_opt4_prefill`) and the placed all-to-all MoE's train step
+    against the placed einsum step (:func:`_ep_a2a_train`)."""
     import dataclasses
 
     import numpy as np
@@ -4226,6 +4491,8 @@ def phase_expert_parallel(dev, smi: str) -> dict:
             device=card)
         runs = {impl: _ep_prefill(card, mesh, impl, prompt)
                 for impl in ("a2a", "einsum")}
+        opt4 = _ep_opt4_prefill(card, mesh, prompt)
+        a2a_train = _ep_a2a_train(card, mesh)
     finally:
         dist.destroy_process_group()
     a, e = runs["a2a"].pop("logits"), runs["einsum"].pop("logits")
@@ -4258,6 +4525,8 @@ def phase_expert_parallel(dev, smi: str) -> dict:
                           "timing": "host clock, each prefill ended by a "
                                     "device sync; median of 3 runs after "
                                     "one warm-up run"},
+              "opt4_prefill": opt4, "a2a_train": a2a_train,
+              "reduced": {"a2a_train": SDM_TRAIN_REDUCED},
               "wall_s": time.perf_counter() - t0}
     emit(result)
     return result
@@ -4491,9 +4760,12 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
             "flash_attention_wgmma"],
         "jamba_launches": zoo["models"][JAMBA]["launches"][
             "flash_attention_wgmma"],
-        # olmoe's prefill with the all-to-all MoE (expert_parallel)
+        # olmoe's prefill with the all-to-all MoE (expert_parallel), and
+        # the placed model's under the opt4 bundle
         "expert_parallel_launches": ep["prefill"]["runs"]["a2a"][
             "launches"]["flash_attention_wgmma"],
+        "expert_parallel_opt4_launches": ep["opt4_prefill"]["runs"][
+            "opt4"]["launches"]["flash_attention_wgmma"],
         # qwen3-8b's prefill through the tensor-parallel model
         # (tensor_parallel)
         "tensor_parallel_launches": tp["prefill"]["runs"][
@@ -5340,14 +5612,14 @@ def _sdm_decode_schedule(cfg, batch: int) -> dict:
 
 def _sdm_chain(model, prompt, capacity: int, tokens=None, *,
                dtype: str = "bfloat16", routes: list | None = None,
-               act_pspec=None) -> dict:
+               act_pspec=None, decode_pspec=None) -> dict:
     """``model``'s prefill of ``prompt`` (the flash kernel, last logits),
     then one decode step a token: ``tokens`` (B, steps), or greedy from
     its own logits where None.  Each step's logits, risk, host ms (ended
     by a device sync) and collectives; the tokens fed; with ``routes``,
     every MoE layer's expert ids in call order.  ``act_pspec``: the
-    prefill's (a --variant bundle's layout; the decode steps run the
-    baseline's)."""
+    prefill's, ``decode_pspec`` the decode steps' (a --variant bundle's
+    layouts; None the baseline's)."""
     import torch
     from repro_torch.launch import collectives as coll
     from repro_torch.models import moe as moe_mod
@@ -5385,7 +5657,8 @@ def _sdm_chain(model, prompt, capacity: int, tokens=None, *,
             t0 = time.perf_counter()
             with coll.tally() as tally:
                 out = model.decode_step(cache, tok, pos=prompt.shape[1] + s,
-                                        cache_capacity=capacity, **kw)
+                                        cache_capacity=capacity,
+                                        act_pspec=decode_pspec, **kw)
             torch.cuda.synchronize()
             res["step_ms"].append((time.perf_counter() - t0) * 1e3)
             res["logits"].append(out.logits)
@@ -5992,6 +6265,78 @@ def _tpr_schedule(cfg, rows: int, what: str) -> dict:
     return out
 
 
+def _tpr_ws_schedule(cfg, batch: int) -> dict:
+    """The collectives of one weight-stationary bf16 decode step of
+    ``batch`` rows at a mesh of one rank (every row on the one data rank:
+    no row moves, every all-to-all dropped), from the config: the
+    embedding's all-reduce over "model"; each norm's float32 sums of
+    squares over "data"; a Mamba layer's in_proj partials (float32) over
+    "data", x_proj's and out_proj's all-reduces; an attention layer's q |
+    k | v partials, the token's q, k, v gathered over "model", the
+    combine's two and wo's; an mLSTM's up partials, up's columns and v
+    gathered over "model", the normaliser's all-reduce, the numerator's
+    reduce-scatter and down's all-reduce; an sLSTM's h gathered before
+    and after the cell, w_in's and up's partials and down's all-reduce;
+    an MLP's gate | up partials and down's; a MoE's router and gate | up
+    partials (float32, every expert's capacity) and its float32 partial
+    output; the final norm's, the lm head's and the score head's
+    partials."""
+    from repro_torch.models import moe
+    from repro_torch.models.mamba import dt_rank_of
+    from repro_torch.models.xlstm import mlstm_dims
+
+    d, hd, hq, hkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    out = {"bytes_by_kind": {}, "count_by_kind": {}}
+
+    def add(kind, n, each):
+        out["bytes_by_kind"][kind] = out["bytes_by_kind"].get(kind, 0.0) \
+            + n * each
+        out["count_by_kind"][kind] = out["count_by_kind"].get(kind, 0.0) + n
+
+    act, norm = batch * d * 2, batch * 4
+    add("all-reduce", 1, act)
+    for spec in cfg.layer_pattern * cfg.n_groups:
+        add("all-reduce", 1 + (spec.ffn != "none"), norm)
+        if spec.mixer == "mamba":
+            d_in = cfg.mamba.expand * d
+            xproj = dt_rank_of(d, cfg.mamba) + 2 * cfg.mamba.d_state
+            add("all-reduce", 1, batch * 2 * d_in * 4)
+            add("all-reduce", 1, batch * xproj * 2)
+        elif spec.mixer == "attn":
+            add("all-reduce", 1, batch * (hq + 2 * hkv) * hd * 4)
+            add("all-gather", 1, batch * (hq + 2 * hkv) * hd * 2)
+            add("all-reduce", 1, batch * hq * 4)
+            add("all-reduce", 1, batch * hq * (hd + 1) * 4)
+        elif spec.mixer == "mlstm":
+            d_in, _ = mlstm_dims(d, cfg.n_heads, cfg.xlstm)
+            add("all-reduce", 1, batch * 2 * d_in * 4)
+            add("all-gather", 1, batch * 2 * d_in * 2)
+            add("all-gather", 1, batch * d_in * 4)
+            add("all-reduce", 1, batch * cfg.n_heads * 4)
+            add("reduce-scatter", 1, batch * d_in * 4)
+        else:
+            d_up = int(cfg.xlstm.slstm_proj_factor * d)
+            add("all-gather", 2, batch * d * 4)
+            add("all-reduce", 1, batch * 4 * d * 4)
+            add("all-reduce", 1, batch * d_up * 4)
+        add("all-reduce", 1, act)         # out_proj / wo / down
+        if spec.ffn == "mlp":
+            add("all-reduce", 1, batch * 2 * cfg.d_ff * 4)
+            add("all-reduce", 1, act)
+        elif spec.ffn == "moe":
+            mo = cfg.moe
+            cap = moe.capacity(batch, mo)
+            add("all-reduce", 1, batch * mo.num_experts * 4)
+            add("all-reduce", 1, mo.num_experts * cap * 2
+                * mo.d_ff_expert * 4)
+            add("all-reduce", 1, batch * d * 4)
+    add("all-reduce", 1, norm)
+    add("all-reduce", 1, batch * cfg.vocab_size * 4)
+    if cfg.score_head:
+        add("all-reduce", 1, batch * 4)
+    return out
+
+
 def _tpr_opt_prefill_schedule(cfg, batch: int, seq: int) -> dict:
     """:func:`_tpr_schedule`'s prefill under the opt bundle's
     sequence-parallel residual at one rank of "model": the embedding's
@@ -6100,7 +6445,9 @@ def _tpr_pair(name: str, cfg, plain, mesh, prompt) -> dict:
     chain of the whole model (where it fits); the selective-scan and
     flash launches of each run (counts set to 0 just before it, read
     just after) equal; the prefill's and each step's collectives the
-    schedule's."""
+    schedule's.  Then the opt bundle's chain on the same tokens: the
+    sequence-parallel prefill and the weight-stationary decode
+    (:func:`_tpr_ws_schedule`), bitwise the sharded baseline's."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
@@ -6125,15 +6472,13 @@ def _tpr_pair(name: str, cfg, plain, mesh, prompt) -> dict:
             ops.LAUNCHES[key] = 0
         got = _sdm_chain(tp, prompt, capacity, tokens)
         launches["sharded"] = dict(ops.LAUNCHES)
-        opt = None
-        if name == JAMBA:
-            # the opt bundle's sequence-parallel prefill, then the
-            # baseline decode (the weight-stationary one is not ported)
-            for key in ops.LAUNCHES:
-                ops.LAUNCHES[key] = 0
-            opt = _sdm_chain(tp, prompt, capacity, tokens, act_pspec=P(
-                "data", "model", None))
-            launches["opt"] = dict(ops.LAUNCHES)
+        # the opt bundle's sequence-parallel prefill, then its
+        # weight-stationary decode
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        opt = _sdm_chain(tp, prompt, capacity, tokens, act_pspec=P(
+            "data", "model", None), decode_pspec=P(None, None, "data"))
+        launches["opt"] = dict(ops.LAUNCHES)
     check(all(v == launches["whole"] for v in launches.values()),
           f"{name}: launches {launches}")
     mamba = sum(s.mixer == "mamba" for s in cfg.layer_pattern) * cfg.n_groups
@@ -6162,27 +6507,37 @@ def _tpr_pair(name: str, cfg, plain, mesh, prompt) -> dict:
                   for a, b, ra, rb in pairs)
     diffs = [max(_max_diff(a, b), _max_diff(ra, rb))
              for a, b, ra, rb in pairs]
-    opt_result = None
-    if opt is not None:
-        opt_predicted = _tpr_opt_prefill_schedule(cfg, b, t)
-        check({k: opt["prefill_collectives"][k] for k in keys}
-              == opt_predicted, f"{name}: the opt prefill's collectives "
-              f"{opt['prefill_collectives']}, predicted {opt_predicted}")
-        check(all(c == got["collectives"][0] for c in opt["collectives"]),
-              f"{name}: the decode steps after the opt prefill issue the "
-              "baseline's collectives")
-        chains = [opt["prefill_logits"]] + opt["logits"]
-        sharded = [got["prefill_logits"]] + got["logits"]
-        opt_bitwise = all(torch.equal(a, c) for a, c in zip(chains, sharded))
-        # at one rank every collective is a copy: bitwise, or no result
-        check(opt_bitwise, f"{name}: the opt prefill and its decode "
-              "differ from the sharded baseline's")
-        opt_result = {"bitwise_sharded": opt_bitwise,
-                      "prefill_collectives": opt["prefill_collectives"],
-                      "collectives_predicted": opt_predicted,
-                      "prefill_ms": opt["prefill_ms"],
-                      "step_ms": statistics.median(opt["step_ms"])}
-        del opt
+    opt_predicted = _tpr_opt_prefill_schedule(cfg, b, t)
+    check({k: opt["prefill_collectives"][k] for k in keys}
+          == opt_predicted, f"{name}: the opt prefill's collectives "
+          f"{opt['prefill_collectives']}, predicted {opt_predicted}")
+    ws_predicted = _tpr_ws_schedule(cfg, b)
+    for c in opt["collectives"]:
+        check({k: c[k] for k in keys} == ws_predicted,
+              f"{name}: a weight-stationary step's collectives {c}, "
+              f"predicted {ws_predicted}")
+    chains = list(zip([opt["prefill_logits"]] + opt["logits"],
+                      [opt["prefill_risk"]] + opt["risk"]))
+    sharded = list(zip([got["prefill_logits"]] + got["logits"],
+                       [got["prefill_risk"]] + got["risk"]))
+    opt_bitwise = all(torch.equal(a, c) and torch.equal(ra, rc)
+                      for (a, ra), (c, rc) in zip(chains, sharded))
+    # at one rank every collective is a copy: bitwise, or no result
+    check(opt_bitwise, f"{name}: the opt prefill and its weight-stationary "
+          "decode differ from the sharded baseline's")
+    opt_result = {"bitwise_sharded": opt_bitwise,
+                  "prefill_collectives": opt["prefill_collectives"],
+                  "collectives_predicted": opt_predicted,
+                  "step_collectives": opt["collectives"][0],
+                  "step_collectives_predicted": ws_predicted,
+                  "prefill_ms": opt["prefill_ms"],
+                  "step_ms": statistics.median(opt["step_ms"]),
+                  "baseline_step_ms": statistics.median(got["step_ms"]),
+                  "layout": "the sequence-parallel prefill, then the "
+                            "weight-stationary decode (act_pspec P(None, "
+                            "None, 'data')), against the sharded baseline "
+                            "prefill and decode on the same tokens"}
+    del opt
     result = {"arch": cfg.name, "layers": cfg.n_layers, "batch": b,
               "prompt_len": t, "steps": SDM_STEPS, "bitwise": bitwise,
               "max_abs_diff": diffs, "launches": launches,
@@ -6371,10 +6726,11 @@ def phase_tp_recurrent(dev, smi: str) -> dict:
     """The Mamba and xLSTM mixers placed by ``models/parallel.py``, NCCL
     in process as a world of one rank over the (1, 1) mesh: (a) jamba's
     first five layers (bf16, seed 0) and (b) xlstm-1.3b whole, each a 4
-    x 2,048 prefill and 16 decode steps, whole against sharded
-    (:func:`_tpr_pair`); (c) one train step of jamba cut to one layer
-    (4 x 2,048) and of xlstm-1.3b (2 x 512), sharded against the no-mesh
-    step, and a few more timed (:func:`_tpr_train`)."""
+    x 2,048 prefill and 16 decode steps, whole against sharded, and the
+    opt bundle's prefill and weight-stationary decode against the
+    sharded baseline (:func:`_tpr_pair`); (c) one train step of jamba
+    cut to one layer (4 x 2,048) and of xlstm-1.3b (2 x 512), sharded
+    against the no-mesh step, and a few more timed (:func:`_tpr_train`)."""
     import numpy as np
     import torch
     import torch.distributed as dist

@@ -41,11 +41,11 @@ over a pod mesh and tags the records as the reference does
 (``<arch>__<shape>__h100_pod1_opt.json``): ``opt`` runs train and
 prefill with the sequence-parallel residual, train with the bf16 casts
 before the FSDP gathers and decode weight-stationary (the residual's d
-on the data axes, no weight gathered; the Mamba and xLSTM mixers' raises,
-``launch/mesh.py::VARIANTS``), ``opt2`` adds ``moe_ep_constraint``
-(which changes no number in the port) and ``opt3`` turns remat off for
-train.  ``opt4`` raises naming item 13g
-(``launch/mesh.py::TRAIN_ACROSS_RANKS``).
+on the data axes; no weight gathered but the recurrent mixers' that never
+touch the residual, ``models/mamba.py``, ``models/xlstm.py``), ``opt2``
+adds ``moe_ep_constraint`` (which changes no number in the port),
+``opt3`` turns remat off for train and ``opt4`` runs train and prefill
+with the all-to-all MoE (``models/moe_a2a.py``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \\
@@ -54,7 +54,7 @@ Usage:
       [--continue-on-error] [--bf16-moments] [--out DIR]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --both
       (--single-pod: the (16, 16) mesh, --multi-pod: (2, 16, 16))
-      [--variant opt|opt2|opt3] [--continue-on-error]
+      [--variant opt|opt2|opt3|opt4] [--continue-on-error]
 """
 from __future__ import annotations
 
@@ -78,7 +78,7 @@ from repro_torch.launch import collectives as coll
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import roofline, shardings, specs
 from repro_torch.launch.shardings import P
-from repro_torch.models import parallel, transformer
+from repro_torch.models import transformer
 from repro_torch.training.optimizer import AdamWState
 from repro_torch.training.train import StepMetrics, TrainState
 
@@ -406,21 +406,15 @@ def variant_build_kwargs(variant: str, kind_hint: str, mesh) -> dict:
     ``opt``: train and prefill, the sequence-parallel residual (T on
     "model") and, for train, the bf16 casts before the FSDP gathers;
     decode, the weight-stationary layout (the residual's d on the data
-    axes; the Mamba and xLSTM mixers' raises, ``launch/mesh.py::
-    VARIANTS``).
+    axes).
     ``opt2`` / ``opt3`` add ``moe_ep_constraint``; ``opt3`` turns remat
-    off for train.  ``opt4`` (the a2a MoE for train and prefill) raises
-    naming the item that brings the a2a MoE to the train step across
-    ranks; the reference's ``opt4`` of a model without MoE blocks is
-    ``opt``, the port refuses the bundle whole."""
+    off for train.  ``opt4`` is ``opt`` with the all-to-all MoE
+    (``moe_impl="a2a"``) for train and prefill; its decode is ``opt``'s,
+    and for a model without MoE blocks the keyword is inert."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}: one of {VARIANTS}")
     if variant == "baseline":
         return {}
-    if variant == "opt4":
-        raise NotImplementedError(f"--variant opt4 (the a2a MoE for train "
-                                  f"and prefill): "
-                                  f"{mesh_lib.TRAIN_ACROSS_RANKS}")
     daxes = mesh_lib.data_axes(mesh)
     out: dict = {}
     if kind_hint == "decode":
@@ -434,6 +428,8 @@ def variant_build_kwargs(variant: str, kind_hint: str, mesh) -> dict:
         out["moe_ep_constraint"] = True
     if variant == "opt3" and kind_hint == "train":
         out["remat"] = False
+    if variant == "opt4" and kind_hint != "decode":
+        out["moe_impl"] = "a2a"
     return out
 
 
@@ -539,16 +535,9 @@ def run_cell(arch: str, shape_name: str, *, moment_dtype=torch.float32,
 
 
 def pod_cells() -> list[tuple[str, str]]:
-    """The cells a pod mesh traces: every shape of the models
-    ``parallel.check_shardable`` takes (every model of the catalog)."""
-    cells = []
-    for arch in ARCH_IDS:
-        try:
-            parallel.check_shardable(specs.serving_config(arch, "train_4k"))
-        except NotImplementedError:
-            continue
-        cells += [(arch, s) for s in applicable_shapes(arch)]
-    return cells
+    """The cells a pod mesh traces: every shape of every model of the
+    catalog."""
+    return [(arch, s) for arch in ARCH_IDS for s in applicable_shapes(arch)]
 
 
 def main(argv=None) -> None:

@@ -40,12 +40,6 @@ from repro_torch.core.transforms import TENANT_AXIS
 from repro_torch.device import resolve_device
 
 # what is not ported yet, named as ROADMAP Queue 1 names it
-VARIANTS = ("ROADMAP Queue 1 item 13i's decode half, now Queue 1 item 1: "
-            "the weight-stationary decode of the Mamba and xLSTM mixers "
-            "(act_pspec P(None, None, 'data'): the residual's d on the "
-            "data axes, every FSDP'd weight contracted in place)")
-TRAIN_ACROSS_RANKS = ("ROADMAP Queue 1 item 13g's MoE half, a train step "
-                      "across ranks with MoE blocks")
 SEVERAL_CARDS = ("ROADMAP Queue 1 item 11b, the tenant mesh over several "
                  "cards")
 

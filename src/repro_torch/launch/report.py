@@ -21,8 +21,8 @@ cell where its record (``benchmarks/results/dryrun/<arch>__<shape>__podN
 ``--pod pod1 --variant opt`` sets each record of a ``--variant`` bundle
 (``<arch>__<shape>__h100_pod1_opt.json``) beside the baseline record of
 the same cell: resident bytes a rank and whether they fit 80 GB, the
-all-gather, all-reduce and reduce-scatter bytes and the collective term,
-baseline -> variant.
+all-gather, all-reduce, reduce-scatter and all-to-all bytes and the
+collective term, baseline -> variant.
 """
 from __future__ import annotations
 
@@ -165,10 +165,11 @@ def variant_table(pod: str, variant: str,
                   directory: str = RESULTS_DIR) -> str:
     """Each ``variant`` record of ``pod`` beside its baseline record:
     resident GB a rank, fits 80 GB, all-gather / all-reduce /
-    reduce-scatter GB and the collective term, baseline -> variant."""
+    reduce-scatter / all-to-all GB and the collective term, baseline ->
+    variant."""
     base = {(r["arch"], r["shape"]): r for r in load(pod, directory)}
     hdr = ["arch", "shape", "resident/rank", "fits80G", "all-gather",
-           "all-reduce", "reduce-scatter", "collective"]
+           "all-reduce", "reduce-scatter", "all-to-all", "collective"]
     out = []
     for r in load(f"{pod}_{variant}", directory):
         b = base.get((r["arch"], r["shape"]))
@@ -176,7 +177,8 @@ def variant_table(pod: str, variant: str,
             continue
         kinds = [(b["collectives"]["bytes_by_kind"].get(k, 0.0),
                   r["collectives"]["bytes_by_kind"].get(k, 0.0))
-                 for k in ("all-gather", "all-reduce", "reduce-scatter")]
+                 for k in ("all-gather", "all-reduce", "reduce-scatter",
+                           "all-to-all")]
         fit = ["Y" if x["fits_one_card"]["80GB"] else "N" for x in (b, r)]
         out.append([
             r["arch"], r["shape"],

@@ -24,12 +24,13 @@ hybrid archs run their native constant-state decode.
 (the ``--variant`` bundles, ``launch/dryrun.py::variant_build_kwargs``)
 reach every step, the rank's too: the sequence-parallel residual for
 train and prefill and the weight-stationary decode
-(``models/parallel.py::act_layout``; the Mamba and xLSTM mixers' raises,
-``launch/mesh.py::VARIANTS``), the bf16 casts before the FSDP gathers
-(``training/train.py``) and remat off.
+(``models/parallel.py::act_layout``), the bf16 casts before the FSDP
+gathers (``training/train.py``) and remat off.  A placed model's
+``moe_impl="a2a"`` MoE runs over its own mesh
+(``models/moe_a2a.py``).
 
 ``mesh=`` builds one rank's step of a pod mesh (train, prefill and
-decode, for the models ``parallel.check_shardable`` takes): the model
+decode, for every model of the catalog): the model
 sharded by ``models/parallel.py`` under the production rules, FSDP
 decided as the reference's dry-run decides it, and every argument on
 meta at the rank's shard shape (its rows of the batch, its block of the
@@ -146,7 +147,6 @@ def build_step(arch: str, shape: str | InputShape, *,
     if mesh is not None:
         if shape.kind == "decode" and not cfg.has_decode:
             raise ValueError(f"{arch} is encoder-only: no decode shapes")
-        parallel.check_shardable(cfg)
         return _rank_step(arch, shape, cfg, mesh, fsdp,
                           moment_dtype=moment_dtype, remat=remat,
                           logits_mode=logits_mode, act_pspec=act_pspec,

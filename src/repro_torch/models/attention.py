@@ -315,10 +315,9 @@ def _decode(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         k = layers.linear(params.wk, x)
         v = layers.linear(params.wv, x)
     else:
-        rows = cache.k.shape[0]
-        j = parallel.data_index(ws) if rows < x.shape[0] else 0
-        q, k, v = (a[j * rows:(j + 1) * rows] for a in layers.ws_in(
-            [params.wq, params.wk, params.wv], x, ws))
+        q, k, v = (parallel.ws_rows(a, cache.k.shape[0], ws)
+                   for a in layers.ws_in([params.wq, params.wk, params.wv],
+                                         x, ws))
     b, t, _ = q.shape
     if pl is not None:
         # the token's q, k and v columns of every rank, in one gather
@@ -370,8 +369,7 @@ def _decode(params: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     start, cols = plan.q_cols
     out = out[..., start:start + cols]
     if ws is not None:
-        if b < x.shape[0]:
-            out = parallel.gather_data(out, ws, 0)
+        out = parallel.ws_all_rows(out, x.shape[0], ws)
         return layers.ws_out(params.wo, out, ws), KVCache(k=cache.k,
                                                           v=cache.v)
     return layers.linear(params.wo, out), KVCache(k=cache.k, v=cache.v)

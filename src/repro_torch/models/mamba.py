@@ -45,6 +45,25 @@ from the reference's GSPMD, which has none of its own:
 A decode step runs the same per token.  Where the columns do not divide
 over "model" the rules keep the mixer whole, and every rank runs all of
 it.
+
+Under the weight-stationary decode (``ws``, ``parallel.ws_mesh``) x is
+every row of the batch at the rank's block of d over the data axes, and
+the states are the rank's rows (``cache_pspec``: batch on the data axes,
+d_inner on "model").  ``in_proj`` is contracted on its block of d
+(``layers.ws_in``: partial sums, one float32 all-reduce an axis); the
+rank keeps its rows and runs steps 2-5 on them as above; the output rows
+are all-gathered over the data axes for ``out_proj``, contracted on its
+block of d (``layers.ws_out``).  ``x_proj``, ``dt_proj`` and ``A_log``
+(and ``conv_w`` where FSDP cuts its K taps, as on two data ranks; not at
+full width) never touch the residual and stay gathered over the data
+axes where FSDP put them (``parallel.weight``, as the baseline step
+gathers them): at
+jamba's full width the three come to about 2.1 MB a Mamba layer a rank
+in bf16 (x_proj 1.1, dt_proj 1.0, A_log 0.03), 0.27% of the baseline
+decode_32k step's 49.82 GB of all-gathers on pod1.  Contracting them
+where the rows are would move about as many bytes at decode_32k's 128
+rows (the rows of x_conv to every data rank, dt_proj's float32 partials
+back) and put three more dependent collectives on every layer's path.
 """
 from __future__ import annotations
 
@@ -57,6 +76,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.launch import collectives as coll
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import MODEL_AXIS
 from repro_torch.models import layers, parallel
 from repro_torch.models.config import MambaConfig
@@ -148,7 +168,13 @@ def _in_proj(params: Mamba, x: torch.Tensor, gp: parallel.GatePlan | None,
     rank, where the pieces are the rank's own).  With ``seq`` x is the
     rank's block of T, all-gathered at entry."""
     x = parallel.enter(x, params.in_proj, seq=seq)
-    xz = layers.linear(params.in_proj, x)
+    return _split_xz(params, layers.linear(params.in_proj, x), gp)
+
+
+def _split_xz(params: Mamba, xz: torch.Tensor, gp: parallel.GatePlan | None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x_in and z of the rank's channel block from the rank's columns of
+    ``in_proj``'s output (:func:`_in_proj`)."""
     if gp is None or len(gp.send) == 1:
         x_in, z = torch.chunk(xz, 2, dim=-1)
         return x_in, z
@@ -190,16 +216,22 @@ def _conv(params: Mamba, x_in: torch.Tensor, tail, block):
         parallel.rank_block(params, "conv_b", 0, block), tail))
 
 
-def _gate_out(params: Mamba, y: torch.Tensor, x_conv: torch.Tensor,
-              z: torch.Tensor, dtype: torch.dtype, block, seq=None
-              ) -> torch.Tensor:
-    """The skip and the gate in float32, cast back before ``out_proj``
-    (with ``seq``, reduce-scattered onto the rank's block of T)."""
+def _gate(params: Mamba, y: torch.Tensor, x_conv: torch.Tensor,
+          z: torch.Tensor, dtype: torch.dtype, block) -> torch.Tensor:
+    """The skip and the gate in float32, cast back to ``dtype``."""
     f32 = torch.float32
     y = y + x_conv.to(f32) * parallel.rank_block(params, "D", 0,
                                                  block).to(f32)
-    y = (y * F.silu(z.to(f32))).to(dtype)
-    return layers.linear(params.out_proj, y, seq=seq)
+    return (y * F.silu(z.to(f32))).to(dtype)
+
+
+def _gate_out(params: Mamba, y: torch.Tensor, x_conv: torch.Tensor,
+              z: torch.Tensor, dtype: torch.dtype, block, seq=None
+              ) -> torch.Tensor:
+    """:func:`_gate`, then ``out_proj`` (with ``seq``, reduce-scattered
+    onto the rank's block of T)."""
+    return layers.linear(params.out_proj,
+                         _gate(params, y, x_conv, z, dtype, block), seq=seq)
 
 
 def mamba_forward(params: Mamba, x: torch.Tensor, mc: MambaConfig, *,
@@ -236,21 +268,34 @@ def mamba_forward(params: Mamba, x: torch.Tensor, mc: MambaConfig, *,
 
 
 def mamba_decode_step(params: Mamba, x: torch.Tensor, mc: MambaConfig,
-                      state: MambaState
+                      state: MambaState, ws=None
                       ) -> tuple[torch.Tensor, MambaState]:
     """One-token step, x (B, 1, d_model).  Writes the new SSM state into
-    ``state.ssm`` in place and returns it with the new conv tail."""
-    d_model = x.shape[-1]
+    ``state.ssm`` in place and returns it with the new conv tail.  With
+    ``ws`` (the weight-stationary decode) x and out are every row of the
+    batch at the rank's block of d: the module's docstring."""
+    d_model = x.shape[-1] * (1 if ws is None else
+                             mesh_lib.data_axis_size(ws))
     gp = plan(params, d_model, mc)
+    if ws is None:
+        x_in, z = _in_proj(params, x, gp)                  # (B, 1, c)
+    else:
+        xz, = layers.ws_in([params.in_proj], x, ws)
+        x_in, z = _split_xz(params, parallel.ws_rows(
+            xz, state.conv.shape[0], ws), gp)
     block = None if gp is None else gp.channels
-    x_in, z = _in_proj(params, x, gp)                      # (B, 1, c)
     x_conv = _conv(params, x_in, state.conv, block)
     new_conv = torch.cat([state.conv.to(x_in.dtype), x_in], dim=1)[:, 1:]
     dt, b_mat, c_mat, a = _ssm_inputs(params, x_conv, mc, d_model, block)
     y, ssm = ops.selective_scan(
         dt, x_conv.to(torch.float32).contiguous(), b_mat, c_mat, a,
         state.ssm, state_out=state.ssm)
-    out = _gate_out(params, y, x_conv, z, x.dtype, block)
+    if ws is None:
+        out = _gate_out(params, y, x_conv, z, x.dtype, block)
+    else:
+        out = layers.ws_out(params.out_proj, parallel.ws_all_rows(
+            _gate(params, y, x_conv, z, x.dtype, block), x.shape[0], ws),
+            ws)
     return out, MambaState(conv=new_conv, ssm=ssm)
 
 

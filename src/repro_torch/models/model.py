@@ -32,10 +32,10 @@ gather T back, the whole of it for logits of every token, each rank's
 last row for the last token's; ``ModelOutput.hidden`` is then the rank's
 block.  The weight-stationary one (a decode step) keeps every row of
 the batch at the rank's block of d over the data axes and contracts
-each weight on its block in place, so no weight is gathered
-(``_ws_decode_step``); the Mamba and xLSTM mixers' raises
-(``launch/mesh.py::VARIANTS``).  On a whole model either changes
-nothing.
+each weight on its block in place (``_ws_decode_step``), so no weight
+is gathered but the recurrent mixers' that never touch the residual
+(``models/mamba.py``, ``models/xlstm.py``).  On a whole model either
+changes nothing.
 """
 from __future__ import annotations
 

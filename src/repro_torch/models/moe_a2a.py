@@ -34,15 +34,52 @@ The load-balance aux loss sums each rank's top-1 counts, router
 probabilities and token count over the data axes, then "model"; the three
 travel packed in one all-reduce an axis, the one tuple all-reduce an axis
 that XLA's combiner makes of the reference's three psums.
+
+A whole model's layer (no placement) takes the same global tokens on
+every rank and gives the global output on every rank, so every rank
+computes the same loss.  A placed model's layer (``models/parallel.py``)
+meets the train step's data-parallel mean instead (each rank's loss over
+the data ranks' count, the gradients summed over the data axes):
+
+  * the tokens are the block's residual: under the sequence-parallel
+    layout the rank's (B/data, T/model) block already, with no exchange;
+    under the baseline layout (every rank of "model" holds its rows' whole
+    T) the rank takes its block of T (``collectives.split``, whose
+    backward gathers over "model") and all-gathers the output back (the
+    gather whose backward keeps the rank's block);
+  * the experts are placed by ``param_pspec``, so the optimizer state and
+    the records keep the production rules' layout.  Where FSDP put the
+    data axes on ff the rank's block is the layer's block (jamba's and
+    llama4's, whose ff is the larger dim); where it put them on d (the
+    smoke configs' gate and up, d = ff, the tie going to d) one
+    all-to-all a data axis trades the block of
+    d for the block of ff (:func:`_d_to_ff`, counted in the tally; its
+    backward is the reverse exchange); an expert weight FSDP did not cut
+    is sliced to the rank's block of ff (olmoe at full width, which the
+    rules do not FSDP), its gradient the data ranks' blocks, which the
+    train step's all-reduce sums;
+  * the router routes only the rank's tokens, so its weight takes "f"
+    over "model" (its gradient summed there; the train step sums the data
+    axes);
+  * the aux loss's stats are summed over the data axes by
+    ``collectives.all_reduce_sum``, whose backward sums the data ranks'
+    cotangents (each rank's loss carries the aux once over the data
+    ranks' count), and over "model" by the all-reduce that passes its
+    cotangent through, so a sum over the ranks counts it once;
+  * the capacity is the rank's, from its own tokens, as in the
+    reference's ``shard_map``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.launch import collectives as coll
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.mesh import MODEL_AXIS
 from repro_torch.launch.shardings import P, local_shard
-from repro_torch.models import layers
+from repro_torch.models import layers, parallel
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import MoEConfig
 
@@ -66,17 +103,21 @@ def expert_specs(mesh, model_axis: str = "model"
 
 def moe_a2a_local(moe: moe_mod.MoE, xl: torch.Tensor, mo: MoEConfig, mesh,
                   *, experts: tuple[torch.Tensor, ...],
-                  model_axis: str = "model"
+                  model_axis: str = "model", placed: bool = False
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """One rank's body: ``xl`` (B/data, T/model, d) its tokens, ``moe``'s
     router (replicated), ``experts`` its (gate, up, down) blocks.  Returns
-    its (B/data, T/model, d) outputs and the global aux loss."""
+    its (B/data, T/model, d) outputs and the global aux loss.  ``placed``:
+    the layer of a placed model under the data-parallel mean (the module's
+    docstring): the router's weight takes "f" over ``model_axis`` and the
+    aux stats' sums over the data axes are summed back."""
     daxes, m = _axes(mesh, model_axis)
     bl, tl, d = xl.shape
     n = bl * tl
     e = mo.num_experts
     xf = xl.reshape(n, d)
-    probs, gate_vals, expert_idx = moe_mod.route(moe, xf, mo)
+    probs, gate_vals, expert_idx = moe_mod.route(
+        moe, xf, mo, seq=mesh if placed else None)
     cap = moe_mod.capacity(n, mo)
     expert_in, slot = moe_mod.dispatch(xf, expert_idx, e, cap)
 
@@ -104,7 +145,10 @@ def moe_a2a_local(moe: moe_mod.MoE, xl: torch.Tensor, mo: MoEConfig, mesh,
     stats = torch.cat([torch.sum(top1, dim=0), torch.sum(probs, dim=0),
                        probs.new_full((1,), float(n))])
     for ax in daxes + (model_axis,):
-        stats = coll.all_reduce(stats, mesh, ax)
+        if placed and ax != model_axis:
+            stats = coll.all_reduce_sum(stats, mesh, ax)
+        else:
+            stats = coll.all_reduce(stats, mesh, ax)
     f_sum, p_sum, count = stats[:e], stats[e:2 * e], stats[2 * e]
     aux = e * torch.sum((f_sum / count) * (p_sum / count))
     return y.reshape(bl, tl, d), aux
@@ -153,12 +197,18 @@ class _GlobalTokens(torch.autograd.Function):
 
 
 def moe_forward_a2a(moe: moe_mod.MoE, x: torch.Tensor, mo: MoEConfig, *,
-                    model_axis: str = "model"
+                    model_axis: str = "model", seq=None,
+                    global_batch: int | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, T, d), the same on every rank -> (out, aux), the global
-    output on every rank.  Runs under :func:`~repro_torch.launch.mesh.
-    set_mesh` with a mesh that has a "model" axis, else raises
-    ``RuntimeError`` (the reference's ``moe_forward_a2a``)."""
+    """x: (B, T, d) -> (out, aux).  A whole model's layer (no placement)
+    takes the same x on every rank and gives the global output on every
+    rank; it runs under :func:`~repro_torch.launch.mesh.set_mesh` with a
+    mesh that has a "model" axis, else raises ``RuntimeError`` (the
+    reference's ``moe_forward_a2a``).  A placed model's layer runs over
+    its own mesh on the rank's rows (:func:`_placed`): ``seq`` and
+    ``global_batch`` as ``moe.moe_forward`` takes them."""
+    if parallel.placement(moe) is not None:
+        return _placed(moe, x, mo, seq, global_batch)
     mesh = mesh_lib.get_active_mesh()
     if mesh is None:
         raise RuntimeError("moe impl='a2a' needs a mesh made active by "
@@ -174,4 +224,83 @@ def moe_forward_a2a(moe: moe_mod.MoE, x: torch.Tensor, mo: MoEConfig, *,
     out = _GlobalTokens.apply(yl, mesh, model_axis)
     if moe.shared is not None:
         out = out + layers.mlp(moe.shared, x)
+    return out, aux
+
+
+def _ff_blocks(moe: moe_mod.MoE, mesh) -> tuple[torch.Tensor, ...]:
+    """The rank's (E/m, d, ff/n) gate and up and (E/m, ff/n, d) down
+    (``expert_specs``) from a placed layer's blocks under the production
+    rules: the block itself where FSDP put the data axes on ff, the
+    rank's slice of ff where it did not shard the weight over them, and
+    where it put them on d, the exchange of :func:`_d_to_ff`."""
+    out = []
+    for attr, d_dim, ff_dim in (("gate", 1, 2), ("up", 1, 2),
+                                ("down", 2, 1)):
+        t = getattr(moe, attr)
+        fsdp = parallel.data_dim(moe, attr)
+        if fsdp == d_dim:
+            t = _d_to_ff(t, mesh, d_dim, ff_dim)
+        elif fsdp is None:
+            f = t.shape[ff_dim] // mesh_lib.data_axis_size(mesh)
+            t = t.narrow(ff_dim, parallel.data_index(mesh) * f, f)
+        elif fsdp != ff_dim:
+            raise ValueError(f"the a2a MoE's {attr} is FSDP'd on dim "
+                             f"{fsdp}, neither d nor ff")
+        out.append(t)
+    return tuple(out)
+
+
+def _d_to_ff(t: torch.Tensor, mesh, d_dim: int, ff_dim: int
+             ) -> torch.Tensor:
+    """An expert weight's block of d over the data axes (every ff) ->
+    its block of ff (every d): ff cut row-major over the data axes, one
+    all-to-all an axis (the outermost first) sends each rank its ff
+    block's piece, and the pieces of d come back in block order.  The
+    backward is the reverse exchange, so the gradient of the rank's d
+    block is whole (every data rank's tokens)."""
+    sizes = [mesh.shape[a] for a in mesh_lib.data_axes(mesh)]
+    k = len(sizes)
+    x = t if d_dim == 1 else t.transpose(1, 2)       # (E/m, d/n, ff)
+    e, dl, ff = x.shape
+    x = x.reshape(e, dl, *sizes, ff // math.prod(sizes))
+    for i, a in enumerate(mesh_lib.data_axes(mesh)):
+        x = coll.all_to_all(x.movedim(2 + i, 0).contiguous(), mesh, a)
+        x = x.movedim(0, 2 + i)
+    # dims 2 .. 2 + k - 1 now index the sender's block of d, outermost
+    # axis first: d in block order
+    x = x.movedim(1, 1 + k).reshape(e, dl * math.prod(sizes), -1)
+    return x if d_dim == 1 else x.transpose(1, 2)
+
+
+def _placed(moe: moe_mod.MoE, x: torch.Tensor, mo: MoEConfig, seq,
+            global_batch: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The layer of a placed model (the module's docstring): x is the
+    block's residual, the rank's rows over the data axes at the whole T
+    (the baseline layout) or, with ``seq``, at its block of T, which is
+    the layer's own token block already."""
+    pl = parallel.placement(moe)
+    mesh = pl.mesh
+    m = mesh_lib.model_axis_size(mesh)
+    b, t, _ = x.shape
+    if parallel.data_rows(pl, b, global_batch)[1] == 1 and \
+            mesh_lib.data_axis_size(mesh) > 1:
+        raise ValueError(f"the a2a MoE cuts the batch over the data axes: "
+                         f"a batch of {b} rows whole on every data rank "
+                         "does not divide there")
+    if mo.num_experts % m:
+        raise ValueError(f"the a2a MoE puts {mo.num_experts} experts on "
+                         f"{m} ranks of 'model', which they do not divide")
+    if seq is None:
+        if t % m:
+            raise ValueError(f"the a2a MoE cuts T = {t} over {m} ranks of "
+                             "'model', which it does not divide")
+        xl = coll.split(x, mesh, MODEL_AXIS, 1)
+    else:
+        xl = x
+    yl, aux = moe_a2a_local(moe, xl, mo, mesh, experts=_ff_blocks(moe, mesh),
+                            placed=True)
+    out = yl if seq is not None else coll.all_gather_same(yl, mesh,
+                                                          MODEL_AXIS, 1)
+    if moe.shared is not None:
+        out = out + layers.mlp(moe.shared, x, seq=seq)
     return out, aux

@@ -33,8 +33,10 @@ columns: qwen3-8b's keys at 16 ranks are half a head each).
 :func:`head_plan` says which whole heads a rank computes and what it
 exchanges to get them (``models/attention.py``).
 
-Attention, Mamba, mLSTM and sLSTM blocks with a SwiGLU MLP, an einsum
-MoE or no FFN are sharded here (:func:`check_shardable`).  The rules cut
+Every block of the catalog shards: attention, Mamba, mLSTM and sLSTM
+mixers with a SwiGLU MLP, an einsum or an all-to-all MoE
+(``models/moe_a2a.py``, on the rank's own token block) or no FFN.  The
+rules cut
 the recurrent mixers where no Megatron pairing fits: the Mamba's
 ``in_proj`` and the mLSTM's ``up`` are column parallel over the
 concatenated (x | z) columns, so a rank's columns are channel blocks of x
@@ -75,9 +77,12 @@ contracted in place on its block (:func:`d_block`): a weight whose
 input is d gives partial sums, all-reduced over the data axes; one whose
 output is d gives the rank's block of it; norms all-reduce their sums
 of squares.  The cache stays batch-sharded under ``cache_pspec``, so
-attention works on the rank's rows and the rows, not the weights, move
-(:func:`gather_data`).  The Mamba and xLSTM mixers' decode under it
-raises (``launch/mesh.py::VARIANTS``).
+attention and the recurrent mixers work on the rank's rows
+(:func:`ws_rows`) and the rows, not the weights, move
+(:func:`ws_all_rows`).  The Mamba's ``x_proj``, ``dt_proj``, ``A_log``
+(and ``conv_w``), the mLSTM's head-wise blocks and ``w_if`` and the
+sLSTM's ``w_rec`` never touch the residual: they stay gathered where
+FSDP put them (``models/mamba.py``, ``models/xlstm.py`` say why).
 
 A placed model's rows of a batch are its block of the batch sharded over
 the data axes, as ``shardings.batch_pspec`` gives every batch that
@@ -137,19 +142,6 @@ def of(model: nn.Module) -> Parallel | None:
     return model.__dict__.get("parallel")
 
 
-def check_shardable(cfg) -> None:
-    """What can be sharded: attention (sliding windows included), Mamba,
-    mLSTM and sLSTM blocks with a SwiGLU MLP, an einsum MoE or no FFN.
-    The all-to-all MoE, which cuts its own blocks out of whole weights,
-    raises naming the item that brings it to the train step across
-    ranks (and with it the ``opt4`` bundle)."""
-    for spec in cfg.layer_pattern:
-        if spec.ffn == "moe" and cfg.moe.impl != "einsum":
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.moe.impl} MoE takes whole weights, "
-                f"not a placement: {mesh_lib.TRAIN_ACROSS_RANKS}")
-
-
 SEQUENCE, WEIGHT_STATIONARY = "sequence", "weight_stationary"
 
 
@@ -194,8 +186,8 @@ def ws_mesh(model: nn.Module, act_pspec) -> Mesh | None:
     blocks of d under ``act_pspec`` (the weight-stationary layout), None
     where the step runs the baseline layout (no spec, or a whole model,
     on which the layout changes nothing).  The sequence-parallel layout
-    raises here (a decode step has one token); so do the Mamba and
-    xLSTM mixers (:data:`~repro_torch.launch.mesh.VARIANTS`)."""
+    raises here (a decode step has one token), and so does a d that does
+    not divide over the data ranks."""
     par = of(model)
     layout = act_layout(act_pspec, None if par is None else par.mesh)
     if layout == SEQUENCE:
@@ -203,17 +195,30 @@ def ws_mesh(model: nn.Module, act_pspec) -> Mesh | None:
                          "over 'model'")
     if layout != WEIGHT_STATIONARY or par is None:
         return None
-    mixers = {spec.mixer for spec in model.cfg.layer_pattern}
-    if mixers != {"attn"}:
-        raise NotImplementedError(
-            f"{model.cfg.name}: the weight-stationary decode of "
-            f"{sorted(mixers - {'attn'})} blocks: {mesh_lib.VARIANTS}")
     d = model.cfg.d_model
     if d % mesh_lib.data_axis_size(par.mesh):
         raise ValueError(f"the weight-stationary decode cuts d = {d} over "
                          f"{mesh_lib.data_axis_size(par.mesh)} data ranks, "
                          "which it does not divide")
     return par.mesh
+
+
+def ws_rows(y: torch.Tensor, rows: int, ws: Mesh) -> torch.Tensor:
+    """The rank's ``rows`` rows of ``y`` (every row of the batch, dim 0)
+    under the weight-stationary decode: its block over the data axes, as
+    ``cache_pspec`` cuts the decode states, or every row where the batch
+    does not divide there (``rows`` is then all of them)."""
+    if rows == y.shape[0]:
+        return y
+    j = data_index(ws)
+    return y[j * rows:(j + 1) * rows]
+
+
+def ws_all_rows(y: torch.Tensor, batch: int, ws: Mesh) -> torch.Tensor:
+    """Every row of the batch of ``batch`` from the rank's rows of ``y``
+    (:func:`ws_rows`): all-gathered over the data axes where they are a
+    block of it."""
+    return y if y.shape[0] == batch else gather_data(y, ws, 0)
 
 
 def data_index(mesh: Mesh) -> int:
@@ -297,7 +302,6 @@ def parallelize(model: nn.Module, mesh: Mesh, *, fsdp: bool = False
     A block smaller than its tensor is copied out, so the whole tensor is
     freed with the model's old parameter."""
     cfg = model.cfg
-    check_shardable(cfg)
     if of(model) is not None:
         raise ValueError("the model is sharded already")
     specs = shardings.param_pspecs(cfg, model, mesh, fsdp=fsdp)

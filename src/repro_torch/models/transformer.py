@@ -155,20 +155,22 @@ def _mixer_forward(block: Block, x, cfg, *, angles, mode, cache, cache_pos,
     mixer, kind = block.mixer, block.spec.mixer
     if kind == "mamba":
         if mode == "decode":
-            return mamba_mod.mamba_decode_step(mixer, x, cfg.mamba, cache)
+            return mamba_mod.mamba_decode_step(mixer, x, cfg.mamba, cache,
+                                               ws=ws)
         return mamba_mod.mamba_forward(mixer, x, cfg.mamba,
                                        return_state=(mode == "prefill"),
                                        seq=seq)
     if kind == "mlstm":
         if mode == "decode":
             return xlstm_mod.mlstm_decode_step(mixer, x, cfg.n_heads,
-                                               cfg.xlstm, cache)
+                                               cfg.xlstm, cache, ws=ws)
         return xlstm_mod.mlstm_forward(mixer, x, cfg.n_heads, cfg.xlstm,
                                        return_state=(mode == "prefill"),
                                        seq=seq)
     if kind == "slstm":
         if mode == "decode":
-            return xlstm_mod.slstm_decode_step(mixer, x, cfg.xlstm, cache)
+            return xlstm_mod.slstm_decode_step(mixer, x, cfg.xlstm, cache,
+                                               ws=ws)
         return xlstm_mod.slstm_forward(mixer, x, cfg.xlstm,
                                        return_state=(mode == "prefill"),
                                        seq=seq)
@@ -202,7 +204,8 @@ def block_forward(block: Block, x, cfg, *, angles, mode, cache, cache_pos,
     elif block.spec.ffn == "moe":
         h2 = layers.rmsnorm(block.ffn_norm, x, cfg.norm_eps, seq=seq)
         if cfg.moe.impl == "a2a":
-            out2, aux = moe_a2a.moe_forward_a2a(block.ffn, h2, cfg.moe)
+            out2, aux = moe_a2a.moe_forward_a2a(
+                block.ffn, h2, cfg.moe, seq=seq, global_batch=global_batch)
         else:
             out2, aux = moe_mod.moe_forward(block.ffn, h2, cfg.moe,
                                             with_aux=mode != "decode",
@@ -215,13 +218,16 @@ def block_forward(block: Block, x, cfg, *, angles, mode, cache, cache_pos,
 def _ws_block(block: Block, x, cfg, *, angles, cache, cache_pos, capacity,
               ws):
     """A decode step's block under the weight-stationary layout: norms,
-    attention, the MLP or the MoE on every row at the rank's block of d
-    (``layers.rmsnorm_ws``, ``attention._decode``, ``layers.mlp_ws``,
-    ``moe.moe_forward``), no weight gathered."""
+    the mixer, the MLP or the MoE on every row at the rank's block of d
+    (``layers.rmsnorm_ws``, ``attention._decode``, the Mamba's and the
+    xLSTM mixers' decode steps, ``layers.mlp_ws``, ``moe.moe_forward``);
+    the only weights gathered are the recurrent mixers' that never touch
+    the residual (``models/mamba.py``, ``models/xlstm.py``)."""
     h = layers.rmsnorm_ws(block.mixer_norm, x, cfg.norm_eps, ws)
-    out, new_cache = attn_mod.attention_forward(
-        block.mixer, h, cfg, angles=angles, cache=cache, cache_pos=cache_pos,
-        capacity=capacity, ws=ws)
+    out, new_cache = _mixer_forward(
+        block, h, cfg, angles=angles, mode="decode", cache=cache,
+        cache_pos=cache_pos, attn_impl="reference", capacity=capacity,
+        ws=ws)
     x = x + out
     if block.spec.ffn == "mlp":
         x = x + layers.mlp_ws(block.ffn, layers.rmsnorm_ws(

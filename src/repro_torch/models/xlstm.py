@@ -57,6 +57,24 @@ output; the sLSTM, whose recurrence every rank runs whole, gathers T
 with the all-gather whose backward keeps the rank's block and closes
 with ``down``'s reduce-scatter (the rank's block of the output where
 ``down`` is whole).
+
+Under the weight-stationary decode (``ws``, ``parallel.ws_mesh``) x and
+the output are every row of the batch at the rank's block of d over the
+data axes, and the states are the rank's rows (``cache_pspec``).  The
+weights that read the residual are contracted on their block of d
+(``layers.ws_in``: the mLSTM's ``up``, the sLSTM's ``w_in``), the rank
+keeps its rows for the step above, and the rows are all-gathered over
+the data axes before the weights that write it (``layers.ws_out``: the
+mLSTM's ``down``; the sLSTM's ``up``, contracted on the rank's block of
+the gathered h, then ``down``).  The mLSTM's head-wise blocks ``wq``,
+``wk`` and ``wv`` and ``w_if`` and the sLSTM's ``w_rec`` read the
+mixer's own features or its state, never the residual: they stay
+gathered over the data axes where FSDP put them (``parallel.weight``, as
+the baseline step does).
+Contracting them in place would move every row's features to every data
+rank and back each step; at xlstm-1.3b's width the rules do not FSDP
+the model at all, so nothing is gathered, and at a width they do, the
+head-wise blocks are d_in x d_in / H, a 1 / H share of one ``up``.
 """
 from __future__ import annotations
 
@@ -68,6 +86,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.launch import collectives as coll
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import MODEL_AXIS
 from repro_torch.models import layers, parallel
 from repro_torch.models.config import XLSTMConfig
@@ -156,12 +175,19 @@ def _mlstm_chunk(q, k, v, log_f, log_i, state: MLSTMState):
 
 def _mlstm_in(params: MLSTM, x: torch.Tensor, n_heads: int, hd: int,
               plan: parallel.MLSTMPlan | None, seq=None):
-    """``up`` of x, all-gathered over "model" on a sharded model; then z
-    (the rank's d_in block), the head-wise products of x's half in the
-    compute dtype, then float32 (q, k on the rank's d_k block, v
-    gathered whole), and the whole gates' pre-activations in float32:
-    z, q, k, v (..., H, ·), gates (..., 2H)."""
+    """``up`` of x, then :func:`_mlstm_heads`."""
     xz = layers.linear(params.up, parallel.enter(x, params.up, seq=seq))
+    return _mlstm_heads(params, xz, n_heads, hd, plan)
+
+
+def _mlstm_heads(params: MLSTM, xz: torch.Tensor, n_heads: int, hd: int,
+                 plan: parallel.MLSTMPlan | None):
+    """From the rank's columns of ``up``'s output, all-gathered over
+    "model" on a sharded model: z (the rank's d_in block), the head-wise
+    products of x's half in the compute dtype, then float32 (q, k on the
+    rank's d_k block, v gathered whole), and the whole gates'
+    pre-activations in float32: z, q, k, v (..., H, ·), gates (...,
+    2H)."""
     pl = parallel.placement(params.up)
     if plan is not None:
         xz = coll.all_gather(xz, pl.mesh, MODEL_AXIS, xz.dim() - 1)
@@ -198,14 +224,13 @@ def _mlstm_down(params: MLSTM, h: torch.Tensor, z: torch.Tensor,
     return layers.linear(params.down, h.to(dtype) * F.silu(z), seq=seq)
 
 
-def _mlstm_placed_out(params: MLSTM, num: torch.Tensor, den: torch.Tensor,
-                      z: torch.Tensor, dtype: torch.dtype,
-                      plan: parallel.MLSTMPlan, seq=None) -> torch.Tensor:
+def _mlstm_placed_h(params: MLSTM, num: torch.Tensor, den: torch.Tensor,
+                    plan: parallel.MLSTMPlan) -> torch.Tensor:
     """The rank's partial sums over its d_k block, num (..., H, d_v) and
-    den (..., H) -> ``down`` of h · silu(z): the numerator
-    reduce-scattered onto the rank's d_in block, the normaliser
-    all-reduced and read at each channel's head (max(|den|, 1) stays a
-    head's, never a channel's, tensor)."""
+    den (..., H) -> h on the rank's d_in block: the numerator
+    reduce-scattered onto that block, the normaliser all-reduced and read
+    at each channel's head (max(|den|, 1) stays a head's, never a
+    channel's, tensor)."""
     mesh = parallel.placement(params.up).mesh
     lo, c = plan.channels
     # the head of each of the rank's d_in channels
@@ -213,8 +238,16 @@ def _mlstm_placed_out(params: MLSTM, num: torch.Tensor, den: torch.Tensor,
     den = coll.all_reduce_sum(den.contiguous(), mesh, MODEL_AXIS)
     num = coll.reduce_scatter(num.flatten(-2), mesh, MODEL_AXIS,
                               num.dim() - 2)
-    h = num / torch.clamp_min(torch.abs(den), 1.0)[..., head]
-    return _mlstm_down(params, h, z, dtype, seq)
+    return num / torch.clamp_min(torch.abs(den), 1.0)[..., head]
+
+
+def _mlstm_placed_out(params: MLSTM, num: torch.Tensor, den: torch.Tensor,
+                      z: torch.Tensor, dtype: torch.dtype,
+                      plan: parallel.MLSTMPlan, seq=None) -> torch.Tensor:
+    """``down`` of h · silu(z), h from the partial sums
+    (:func:`_mlstm_placed_h`)."""
+    return _mlstm_down(params, _mlstm_placed_h(params, num, den, plan), z,
+                       dtype, seq)
 
 
 def mlstm_plan(params: MLSTM, n_heads: int, hd: int
@@ -277,12 +310,22 @@ def mlstm_forward(params: MLSTM, x: torch.Tensor, n_heads: int,
 
 
 def mlstm_decode_step(params: MLSTM, x: torch.Tensor, n_heads: int,
-                      xc: XLSTMConfig, state: MLSTMState
+                      xc: XLSTMConfig, state: MLSTMState, ws=None
                       ) -> tuple[torch.Tensor, MLSTMState]:
-    """One-token recurrent step. x: (B, 1, d_model)."""
-    _, hd = mlstm_dims(x.shape[-1], n_heads, xc)
+    """One-token recurrent step. x: (B, 1, d_model); with ``ws`` (the
+    weight-stationary decode) every row of the batch at the rank's block
+    of d, as the output (the module's docstring)."""
+    d_model = x.shape[-1] * (1 if ws is None else
+                             mesh_lib.data_axis_size(ws))
+    _, hd = mlstm_dims(d_model, n_heads, xc)
     plan = mlstm_plan(params, n_heads, hd)
-    z, q, k, v, gates = _mlstm_in(params, x[:, 0], n_heads, hd, plan)
+    if ws is None:
+        z, q, k, v, gates = _mlstm_in(params, x[:, 0], n_heads, hd, plan)
+    else:
+        xz, = layers.ws_in([params.up], x[:, 0], ws)
+        z, q, k, v, gates = _mlstm_heads(
+            params, parallel.ws_rows(xz, state.n.shape[0], ws), n_heads, hd,
+            plan)
     i_g = torch.sigmoid(gates[:, :n_heads])
     f_g = torch.sigmoid(gates[:, n_heads:])
 
@@ -291,6 +334,12 @@ def mlstm_decode_step(params: MLSTM, x: torch.Tensor, n_heads: int,
     n = state.n * f_g[..., None] + i_g[..., None] * k
     num = torch.einsum("bhk,bhkv->bhv", q, c)
     den = torch.einsum("bhk,bhk->bh", q, n)
+    if ws is not None:
+        h = (_mlstm_h(num, den).flatten(-2) if plan is None
+             else _mlstm_placed_h(params, num, den, plan))
+        y = parallel.ws_all_rows(h.to(x.dtype) * F.silu(z), x.shape[0], ws)
+        return layers.ws_out(params.down, y, ws)[:, None], MLSTMState(c=c,
+                                                                      n=n)
     if plan is None:
         out = _mlstm_down(params, _mlstm_h(num, den).flatten(-2), z, x.dtype)
     else:
@@ -405,21 +454,39 @@ def slstm_forward(params: SLSTM, x: torch.Tensor, xc: XLSTMConfig, *,
 
 
 def slstm_decode_step(params: SLSTM, x: torch.Tensor, xc: XLSTMConfig,
-                      state: SLSTMState) -> tuple[torch.Tensor, SLSTMState]:
+                      state: SLSTMState, ws=None
+                      ) -> tuple[torch.Tensor, SLSTMState]:
     """One step, x (B, 1, d).  On a sharded model ``state`` is the rank's
     channel block: h is all-gathered for ``w_rec``, the rank computes its
     gate columns and the cell runs on its block after the gates'
-    exchange; the new h is all-gathered for ``up``."""
-    gp = slstm_plan(params, x.shape[-1])
+    exchange; the new h is all-gathered for ``up``.  With ``ws`` (the
+    weight-stationary decode) x and out are every row of the batch at the
+    rank's block of d, the state the rank's rows (the module's
+    docstring)."""
+    d = x.shape[-1] * (1 if ws is None else mesh_lib.data_axis_size(ws))
+    gp = slstm_plan(params, d)
     mesh = None if gp is None else parallel.placement(params.w_in).mesh
     h = state.h if gp is None else coll.all_gather_raw(state.h, mesh,
                                                        MODEL_AXIS, 1)
-    pre = layers.linear(params.w_in, x[:, 0]).to(torch.float32) + \
+    if ws is None:
+        pre_in = layers.linear(params.w_in, x[:, 0])
+    else:
+        pre_in, = layers.ws_in([params.w_in], x[:, 0], ws)
+        pre_in = parallel.ws_rows(pre_in, state.h.shape[0], ws)
+    pre = pre_in.to(torch.float32) + \
         layers.linear(params.w_rec, h.to(x.dtype)).to(torch.float32)
     new_state = _slstm_cell(pre, state, gp, mesh)
     h = new_state.h if gp is None else coll.all_gather_raw(
         new_state.h, mesh, MODEL_AXIS, 1)
-    return _slstm_out(params, h[:, None].to(x.dtype)), new_state
+    if ws is None:
+        return _slstm_out(params, h[:, None].to(x.dtype)), new_state
+    # every row of h at the rank's block of d: up and down contracted on
+    # their blocks of it
+    h = parallel.ws_all_rows(h, x.shape[0], ws)
+    hb = h.narrow(-1, parallel.data_index(ws) * x.shape[-1], x.shape[-1])
+    u, = layers.ws_in([params.up], hb[:, None].to(x.dtype), ws)
+    return layers.ws_out(params.down, F.gelu(u, approximate="tanh"),
+                         ws), new_state
 
 
 def init_mlstm_state(batch: int, d_model: int, n_heads: int,

@@ -21,9 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch.launch import collectives as coll
-from repro_torch.launch.mesh import (MODEL_AXIS, TRAIN_ACROSS_RANKS,
-                                     data_axes, data_axis_size,
-                                     get_active_mesh)
+from repro_torch.launch.mesh import (MODEL_AXIS, data_axes,
+                                     data_axis_size, get_active_mesh)
 from repro_torch.models import layers, parallel
 from repro_torch.models.model import Model
 from repro_torch.training import checkpoint as ckpt
@@ -167,7 +166,8 @@ def make_train_step(model: Model, optimizer: AdamW, *,
                    labels: torch.Tensor) -> tuple[TrainState, StepMetrics]:
         active = get_active_mesh()
         if par is None and active is not None and active.size > 1:
-            _refuse_unsharded(model)
+            raise ValueError("a train step over several ranks takes a model "
+                             "sharded by models.parallel.parallelize")
         if par is not None and active is not None and \
                 active.shape != par.mesh.shape:
             raise ValueError(f"the model is sharded over {par.mesh.shape}, "
@@ -204,18 +204,6 @@ def make_train_step(model: Model, optimizer: AdamW, *,
         return (TrainState(params, opt), StepMetrics(loss, ce, aux, gnorm))
 
     return train_step
-
-
-def _refuse_unsharded(model: Model) -> None:
-    cfg = model.cfg
-    kinds = {spec.ffn for spec in cfg.layer_pattern}
-    if "moe" in kinds and cfg.moe.impl != "einsum":
-        raise NotImplementedError(
-            "a train step over several ranks with a2a MoE blocks (the a2a "
-            "layer's loss alike on every rank against the data-parallel "
-            f"mean): {TRAIN_ACROSS_RANKS}")
-    raise ValueError("a train step over several ranks takes a model sharded "
-                     "by models.parallel.parallelize")
 
 
 @dataclasses.dataclass

@@ -174,7 +174,8 @@ def test_unported_families_raise(case, item):
     ``item``; it now builds and its forward is the plain config's to the
     last bit.  What was left of that item, the Mamba and xLSTM mixers
     over a mesh (item 13h′), is sharded now: no error of the port names
-    either item, and the models take a placement."""
+    either item, and the models take a placement.  The only item the
+    port still names is the tenant mesh over several cards."""
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import parallel
 
@@ -184,9 +185,10 @@ def test_unported_families_raise(case, item):
     got = Model(_unported(case), device="cpu", seed=0)(tok)
     want = Model(get_smoke_config("olmoe-1b-7b"), device="cpu", seed=0)(tok)
     assert torch.equal(got.logits, want.logits)
-    named = mesh_lib.VARIANTS + mesh_lib.TRAIN_ACROSS_RANKS
+    named = mesh_lib.SEVERAL_CARDS
     assert item not in named and "13h′" not in named
-    assert not hasattr(mesh_lib, "TP_RECURRENT")
+    for gone in ("TP_RECURRENT", "VARIANTS", "TRAIN_ACROSS_RANKS"):
+        assert not hasattr(mesh_lib, gone)
     for arch in ("jamba-1.5-large-398b", "xlstm-1.3b"):
         model = parallel.parallelize(Model(get_smoke_config(arch),
                                            device="meta", seed=None),
@@ -223,10 +225,11 @@ def test_mamba_families_build_and_serve(case):
 
 @pytest.mark.parametrize("option,item", [("act_pspec", "13i")])
 def test_unported_options_raise(option, item):
-    """Of act_pspec only the weight-stationary decode of the Mamba and
-    xLSTM mixers still raises, naming what is left of ``item``; a spec
-    neither layout is raises naming itself, and the sequence-parallel one
-    changes nothing on a whole model."""
+    """Of act_pspec the weight-stationary decode of the Mamba and xLSTM
+    mixers once raised, naming what was left of ``item``; it now runs (a
+    placed jamba on meta, its logits at the rank's rows and block of the
+    vocabulary).  A spec neither layout is raises naming itself, and the
+    sequence-parallel one changes nothing on a whole model."""
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.shardings import P
     from repro_torch.models import parallel
@@ -234,11 +237,11 @@ def test_unported_options_raise(option, item):
     jm = parallel.parallelize(
         Model(get_smoke_config("jamba-1.5-large-398b"), device="meta",
               seed=None), mesh_lib.Mesh(("data", "model"), (1, 2)))
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item}"):
-        jm.decode_step(jm.init_cache(2, 8), torch.zeros(
-            (2, 1), dtype=torch.long, device="meta"), pos=4,
-            cache_capacity=8, **{option: P(None, None, "data")})
+    out = jm.decode_step(jm.init_cache(2, 8), torch.zeros(
+        (2, 1), dtype=torch.long, device="meta"), pos=4,
+        cache_capacity=8, **{option: P(None, None, "data")})
+    assert out.logits.shape == (2, jm.cfg.vocab_size // 2)
+    assert item not in mesh_lib.SEVERAL_CARDS
     tm = Model(get_smoke_config("qwen3-8b"), device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(ValueError, match=option):

@@ -364,9 +364,13 @@ def test_a2a_without_an_active_mesh_raises():
 
 
 def test_train_step_over_several_ranks_raises_naming_13g():
-    """The a2a layer takes gradients (above); a train step across ranks
-    with MoE blocks (the a2a layer's loss, alike on every rank, against
-    the data-parallel mean) is open."""
+    """The a2a layer takes gradients (above), and a placed model's a2a
+    MoE trains across ranks (``tests/test_torch_variant_ranks.py``: the
+    baseline layout and opt4 against the reference's steps on four gloo
+    ranks).  A model that is not placed, under an active mesh of several
+    ranks, raises naming ``parallelize``: its a2a layer gives every rank
+    the same loss, which the data-parallel mean would count once a data
+    rank."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import Model
     from repro_torch.training.optimizer import AdamW
@@ -381,8 +385,7 @@ def test_train_step_over_several_ranks_raises_naming_13g():
     step = make_train_step(model, opt)
     tokens = torch.zeros((2, 8), dtype=torch.long)
     with mesh_lib.set_mesh(mesh_lib.Mesh(("data", "model"), (2, 2))), \
-            pytest.raises(NotImplementedError,
-                          match="ROADMAP Queue 1 item 13g's MoE half"):
+            pytest.raises(ValueError, match="parallelize"):
         step(TrainState(params, opt.init(params)), tokens, tokens)
 
 

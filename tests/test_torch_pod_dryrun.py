@@ -231,8 +231,8 @@ def test_other_families_and_decode_raise_naming_13h():
     """The MoE einsum and the decode over a pod once raised here, naming
     item 13h, and then the Mamba and xLSTM mixers, naming item 13h′; now
     every shape of every family builds as one rank of the pod mesh.  The
-    all-to-all MoE still raises, now naming item 13g, which brings it to
-    the train step across ranks (and with it the opt4 bundle)."""
+    all-to-all MoE raised too, naming item 13g; now it builds placed,
+    its experts where ``param_pspec`` puts them."""
     pod1 = mesh_lib.make_production_mesh()
     for arch in ("jamba-1.5-large-398b", "xlstm-1.3b"):
         for shape in applicable_shapes(arch):
@@ -240,9 +240,12 @@ def test_other_families_and_decode_raise_naming_13h():
     for arch, shape in (("olmoe-1b-7b", "train_4k"),
                         ("internlm2-1.8b", "decode_32k")):
         assert specs.build_step(arch, shape, mesh=pod1).mesh is pod1
-    with pytest.raises(NotImplementedError, match="item 13g"):
-        specs.build_step("olmoe-1b-7b", "train_4k", mesh=pod1,
-                         moe_impl="a2a")
+    a2a = specs.build_step("olmoe-1b-7b", "train_4k", mesh=pod1,
+                           moe_impl="a2a")
+    einsum = specs.build_step("olmoe-1b-7b", "train_4k", mesh=pod1)
+    assert a2a.cfg.moe.impl == "a2a" and a2a.mesh is pod1
+    assert {k: tuple(p.shape) for k, p in a2a.model.named_parameters()} \
+        == {k: tuple(p.shape) for k, p in einsum.model.named_parameters()}
 
 
 # the cells the decode and the MoE added to each mesh
@@ -517,10 +520,13 @@ def test_committed_recurrent_records(arch, shape, pod, record_property):
 
 OPT_RECORDS = [(a, s, pod) for pod in ("pod1", "pod2")
                for a, s in dryrun.pod_cells() if SHAPES[s].kind != "decode"]
-# the weight-stationary decode: the attention models' decode cells
+# the weight-stationary decode: every decode cell
 WS_RECORDS = [(a, s, pod) for pod in ("pod1", "pod2")
-              for a, s in dryrun.pod_cells() if SHAPES[s].kind == "decode"
-              and a not in ("jamba-1.5-large-398b", "xlstm-1.3b")]
+              for a, s in dryrun.pod_cells() if SHAPES[s].kind == "decode"]
+# opt4: the train and prefill cells of the models with MoE blocks
+OPT4_RECORDS = [(a, s, pod) for a, s, pod in OPT_RECORDS
+                if a in ("olmoe-1b-7b", "llama4-maverick-400b-a17b",
+                         "jamba-1.5-large-398b")]
 OPT3_RECORDS = [(a, s, pod) for a, s, pod in OPT_RECORDS
                 if s == "train_4k"]
 UNFIT = ("llama3-405b", "jamba-1.5-large-398b", "llama4-maverick-400b-a17b")
@@ -683,40 +689,65 @@ def test_opt_train_records_hold_less_than_their_baselines(arch, shape, pod):
 
 
 def test_variant_cli_refuses_what_is_not_ported(tmp_path):
-    """``--variant opt4`` raises naming item 13g; the Mamba and xLSTM
-    models' opt decode cells (the weight-stationary layout) raise naming
-    item 13i's decode half; ``report.py --pod --variant`` sets the opt
-    records beside the baseline's."""
+    """``--variant opt4`` once raised naming item 13g and the Mamba and
+    xLSTM models' opt decode cells item 13i's decode half; both build
+    now (their records below).  opt4 of a model without MoE blocks builds
+    opt's step, its ``moe_impl`` inert; a bundle without a pod mesh
+    raises; ``report.py --pod --variant`` sets the opt and opt4 records
+    beside the baseline's."""
     pod1 = mesh_lib.make_production_mesh()
-    with pytest.raises(NotImplementedError, match="item 13g"):
-        dryrun.run_cell("qwen3-8b", "train_4k", mesh=pod1, variant="opt4",
-                        out_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 13i's decode"):
-        dryrun.run_cell("jamba-1.5-large-398b", "decode_32k", mesh=pod1,
-                        variant="opt", out_dir=str(tmp_path))
+    kw = dryrun.variant_build_kwargs("opt4", "train", pod1)
+    assert kw.pop("moe_impl") == "a2a"
+    assert kw == dryrun.variant_build_kwargs("opt", "train", pod1)
+    opt4 = specs.build_step("qwen3-8b", "train_4k", mesh=pod1, **{
+        **kw, "moe_impl": "a2a"})
+    assert opt4.cfg == specs.build_step("qwen3-8b", "train_4k", mesh=pod1,
+                                        **kw).cfg
     with pytest.raises(ValueError, match="pod mesh"):
-        dryrun.run_cell("qwen3-8b", "train_4k", variant="opt",
+        dryrun.run_cell("qwen3-8b", "train_4k", variant="opt4",
                         out_dir=str(tmp_path))
     assert os.listdir(tmp_path) == []
     table = report.variant_table("pod1", "opt")
     assert "llama3-405b | train_4k" in table and " -> " in table
+    assert "jamba-1.5-large-398b | decode_32k" in table
+    table = report.variant_table("pod1", "opt4")
+    assert "olmoe-1b-7b | train_4k" in table and "all-to-all" in table
+
+
+# the weights a weight-stationary decode step gathers where FSDP put
+# them: the recurrent mixers' that never touch the residual
+# (models/mamba.py, models/xlstm.py)
+WS_GATHERED = {"mamba": ("conv_w", "x_proj.weight", "dt_proj.weight",
+                         "A_log"),
+               "mlstm": ("wq", "wk", "wv", "w_if.weight"),
+               "slstm": ("w_rec.weight",)}
 
 
 def _ws_schedule(arch: str, shape: str, pod: str, fsdp: bool) -> dict:
     """Counts by kind of one rank's weight-stationary decode step
     (``parallel.ws_mesh``): the batch's tokens (or embeddings) gathered
     over each data axis where the batch is cut there; the embedding's
-    all-reduce over "model" (a vocabulary that divides, tokens in); a
-    layer's two norms and its q | k | v partials over each data axis, the
-    token's q, k, v gathered over "model", the combine's two all-reduces,
-    the output rows gathered over each data axis (a cut batch) and wo's
-    all-reduce; an MLP's gate | up partials over each data axis and down
-    over "model"; a MoE's router partials over each data axis, its gate
-    | up partials (FSDP'd on d, or whole) or x and, down not on d_ff, h
-    gathered over each data axis (on d_ff), its partial output over
-    "model", a down on d_ff reduce-scattered over each data axis, and a
-    shared expert as an MLP; the final norm, the lm head and the score
-    head over each data axis.  No weight is gathered."""
+    all-reduce over "model" (a vocabulary that divides, tokens in); each
+    block's norms over each data axis; an attention layer's q | k | v
+    partials over each data axis, the token's q, k, v gathered over
+    "model", the combine's two all-reduces, the output rows gathered over
+    each data axis (a cut batch) and wo's all-reduce; a Mamba layer's
+    in_proj partials, the (x | z) exchange over "model", x_proj's and
+    out_proj's all-reduces and the rows; an mLSTM layer's up partials,
+    up's columns and v gathered over "model", the normaliser's
+    all-reduce, the numerator's reduce-scatter, the rows and down's
+    all-reduce; an sLSTM layer's w_in partials, h gathered over "model"
+    before and after the gates' exchange, the rows, up's partials and
+    down's all-reduce (each row-parallel projection's only where the
+    rules put its input on "model"); the recurrent mixers' gathered
+    weights (:data:`WS_GATHERED`, one a data axis their spec names); an
+    MLP's gate | up partials over each data axis and down over "model";
+    a MoE's router partials over each data axis, its gate | up partials
+    (FSDP'd on d, or whole) or x and, down not on d_ff, h gathered over
+    each data axis (on d_ff), its partial output over "model", a down on
+    d_ff reduce-scattered over each data axis, and a shared expert as an
+    MLP; the final norm, the lm head and the score head over each data
+    axis."""
     from repro_torch.models import parallel
 
     model = _placed(arch, pod, fsdp)
@@ -730,12 +761,36 @@ def _ws_schedule(arch: str, shape: str, pod: str, fsdp: bool) -> dict:
     def add(k, n=1):
         c[k] = c.get(k, 0) + n
 
+    def row(lin) -> int:
+        return int(parallel.sharded_on_model(lin, "weight", 1))
+
     if not cfg.embeds_input and model.vocab_block() is not None:
         add("all-reduce")
     for block in model.stack:
-        add("all-reduce", 2 * n_axes + n_axes + 2 + parallel.sharded_on_model(
-            block.mixer.wo, "weight", 1))
-        add("all-gather", 1 + n_axes * spread)
+        mix, kind = block.mixer, block.spec.mixer
+        add("all-reduce", n_axes * (1 + (block.spec.ffn != "none")))
+        add("all-gather", n_axes * spread)            # the output rows
+        if kind == "attn":
+            add("all-reduce", n_axes + 2 + row(mix.wo))
+            add("all-gather")
+        elif kind == "mamba":
+            add("all-reduce", n_axes + row(mix.x_proj) + row(mix.out_proj))
+            add("all-to-all")
+        elif kind == "mlstm":
+            add("all-reduce", n_axes + 1 + row(mix.down))
+            add("all-gather", 2)
+            add("reduce-scatter")
+        else:
+            add("all-reduce", 2 * n_axes + row(mix.down))
+            add("all-gather", 2)
+            add("all-to-all")
+        for name in WS_GATHERED.get(kind, ()):
+            owner, _, attr = name.rpartition(".")
+            mod = mix.get_submodule(owner) if owner else mix
+            add("all-gather", sum(
+                1 for a in parallel.spec_axes(
+                    parallel.placement(mod).specs[attr])
+                if a in mesh_lib.DATA_AXES))
         mlps = [block.ffn] if block.spec.ffn == "mlp" else []
         if block.spec.ffn == "moe":
             moe = block.ffn
@@ -749,20 +804,20 @@ def _ws_schedule(arch: str, shape: str, pod: str, fsdp: bool) -> dict:
             if moe.shared is not None:
                 mlps.append(moe.shared)
         for mlp in mlps:
-            add("all-reduce", n_axes + parallel.sharded_on_model(
-                mlp.down, "weight", 1))
+            add("all-reduce", n_axes + row(mlp.down))
     return {k: float(v) for k, v in c.items() if v}
 
 
 @pytest.mark.parametrize("arch,shape,pod", WS_RECORDS)
 def test_committed_opt_decode_records_gather_no_weight(arch, shape, pod):
-    """Each attention model's ``_opt`` decode record (the
-    weight-stationary layout): the argument bytes the rules' (the same
-    as the baseline's: the cache stays batch-sharded), the collective
-    term of its bytes, and its tally the hand count, which gathers no
-    parameter over the data axes: where FSDP gathers every weight a
-    baseline step, its all-gather bytes are a sliver of the baseline's
-    (elsewhere the baseline gathers no weight either and the rows'
+    """Each ``_opt`` decode record (the weight-stationary layout): the
+    argument bytes the rules' (the same as the baseline's: the cache
+    stays batch-sharded), the collective term of its bytes, and its tally
+    the hand count, which gathers no parameter over the data axes but
+    the recurrent mixers' named in :data:`WS_GATHERED`: where FSDP
+    gathers every weight a baseline step, its all-gather bytes are under
+    1% of the baseline's (jamba's decode_32k on pod1: 0.23 of 49.82 GB;
+    elsewhere the baseline gathers no weight either and the rows'
     gathers add bytes)."""
     base, rec = _record(arch, shape, pod), _record(arch, shape, pod, "opt")
     assert rec["variant"] == "opt" and rec["fsdp"] == base["fsdp"]
@@ -778,3 +833,111 @@ def test_committed_opt_decode_records_gather_no_weight(arch, shape, pod):
         gathered = rec["collectives"]["bytes_by_kind"]["all-gather"]
         assert gathered < 0.01 * base["collectives"]["bytes_by_kind"][
             "all-gather"]
+
+
+def _a2a_changes(arch: str, shape: str, pod: str, fsdp: bool) -> dict:
+    """What opt4's all-to-all MoE changes in opt's counts (the
+    sequence-parallel residual), from the placed model on the shape-only
+    pod mesh, every MoE layer alike.
+
+    opt's einsum layer: the entry's all-gather over T, the FSDP gathers
+    of the experts' and the shared expert's weights (one a data axis
+    their spec names), the data ranks' expert counts gathered over each
+    data axis where a chunk spans them, the close's reduce-scatter over
+    T (and the shared expert's), the aux stats over each data axis.
+    opt4's layer: the exchange of each expert weight FSDP'd on d over
+    each data axis of more than one rank, the dispatch and return
+    all-to-alls over "model", the buffers gathered and reduce-scattered
+    over each data axis, the aux stats over each data axis and "model";
+    a shared expert enters and closes on its own (an all-gather over T,
+    its FSDP gathers, a reduce-scatter).
+
+    A train step adds remat's recompute (the whole group for the einsum
+    layer, whose aux loss comes last; the all-to-all layer's stops before
+    the shared expert's close, which follows its aux loss) and the
+    backward: each all-gather's reduce-scatter and back, the exchanges
+    and all-to-alls again, the aux stats' sum over the data axes and the
+    router's "f" (and, for the einsum layer's and the shared expert's
+    entry, the reduce-scatter of the gathered sequence's cotangent)."""
+    from repro_torch.models import parallel
+
+    kind = SHAPES[shape].kind
+    model = _placed(arch, pod, fsdp)
+    cfg = model.cfg
+    mesh = mesh_lib.make_production_mesh(multi_pod=pod == "pod2")
+    daxes = mesh_lib.data_axes(mesh)
+    na, wide = len(daxes), sum(1 for a in daxes if mesh.shape[a] > 1)
+    m = mesh_lib.model_axis_size(mesh)
+    b, t = SHAPES[shape].global_batch, SHAPES[shape].seq_len
+    rows = b // mesh_lib.data_axis_size(mesh)
+    n = rows * t * mesh_lib.data_axis_size(mesh)
+    spans = (rows * t) % min(4096, n) != 0
+
+    def gathers(mod, names) -> int:
+        return sum(1 for w in names for a in parallel.spec_axes(
+            parallel.placement(mod).specs[w]) if a in mesh_lib.DATA_AXES)
+
+    out: dict[str, int] = {}
+
+    def add(k, v):
+        out[k] = out.get(k, 0) + v
+
+    for block in model.stack:
+        if block.spec.ffn != "moe":
+            continue
+        moe = block.ffn
+        g = gathers(moe, ("gate", "up", "down"))
+        sh = moe.shared
+        sg = 0 if sh is None else sum(gathers(lin, ("weight",))
+                                      for lin in (sh.gate, sh.up, sh.down))
+        s_rs = 0 if sh is None else int(parallel.sharded_on_model(
+            sh.down, "weight", 1))
+        s_in = int(sh is not None)
+        on_d = sum(1 for w, d_dim in (("gate", 1), ("up", 1), ("down", 2))
+                   if parallel.data_dim(moe, w) == d_dim)
+        a2a = on_d * wide + 2 * (m > 1)
+        e_f = {"all-gather": 1 + g + sg + na * spans,
+               "reduce-scatter": 1 + s_rs, "all-reduce": na}
+        a_f = {"all-to-all": a2a, "all-gather": na + s_in + sg,
+               "reduce-scatter": na + s_rs, "all-reduce": na + 1}
+        if kind == "train":
+            e_b = {"reduce-scatter": 1 + g + sg, "all-gather": 1 + s_rs,
+                   "all-reduce": na + 1}
+            a_b = {"all-to-all": a2a, "all-gather": na + s_rs,
+                   "reduce-scatter": na + s_in + sg,
+                   "all-reduce": na + 1}
+            a_r = dict(a_f, **{"reduce-scatter": na})
+            e = [e_f, e_f, e_b]
+            a = [a_f, a_r, a_b]
+        else:
+            e, a = [e_f], [a_f]
+        for part in a:
+            for k, v in part.items():
+                add(k, v)
+        for part in e:
+            for k, v in part.items():
+                add(k, -v)
+    return out
+
+
+@pytest.mark.parametrize("arch,shape,pod", OPT4_RECORDS)
+def test_committed_opt4_records_hold_the_rules_and_the_schedule(arch, shape,
+                                                                pod):
+    """Each ``_opt4`` record (opt with the all-to-all MoE for train and
+    prefill): the argument bytes a rank the rules' (the experts stay where
+    ``param_pspec`` puts them), FSDP as the baseline's, the collective
+    term of its bytes, and its tally the ``_opt`` record's with the MoE
+    layers' changes (:func:`_a2a_changes`)."""
+    base = _record(arch, shape, pod)
+    opt, rec = (_record(arch, shape, pod, v) for v in ("opt", "opt4"))
+    assert rec["variant"] == "opt4"
+    assert rec["memory_analysis"]["argument_bytes"] == \
+        rec["argument_bytes_per_device"]["total"] == \
+        base["argument_bytes_per_device"]["total"]
+    assert rec["fsdp"] == base["fsdp"]
+    weighted = sum(v * (2.0 if k == "all-reduce" else 1.0)
+                   for k, v in rec["collectives"]["bytes_by_kind"].items())
+    assert rec["roofline"]["collective_s"] == pytest.approx(weighted / 50e9)
+    assert rec["collectives"]["count_by_kind"] == _plus(
+        opt["collectives"]["count_by_kind"],
+        _a2a_changes(arch, shape, pod, rec["fsdp"]))

@@ -260,11 +260,10 @@ def test_mesh_for_devices_is_the_references():
 
 def test_unsharded_models_over_several_ranks_raise():
     """A model must be sharded first (olmoe once raised, naming item
-    13g's MoE half, which the a2a MoE still names:
-    ``test_torch_moe_a2a.py``; Mamba and xLSTM once raised item 13h′):
-    every family's whole model under a mesh of several ranks raises,
-    asking for ``parallelize``, which now takes the Mamba and xLSTM
-    families too."""
+    13g's MoE half, and its a2a MoE did until that item landed; Mamba and
+    xLSTM once raised item 13h′): every family's whole model under a mesh
+    of several ranks raises, asking for ``parallelize``, which now takes
+    the Mamba and xLSTM families and the a2a MoE too."""
     import dataclasses
 
     from repro_torch.launch import mesh as mesh_lib
@@ -275,9 +274,13 @@ def test_unsharded_models_over_several_ranks_raise():
     for arch, err, match in (
             ("qwen3-8b", ValueError, "parallelize"),
             ("olmoe-1b-7b", ValueError, "parallelize"),
+            ("olmoe-1b-7b a2a", ValueError, "parallelize"),
             ("jamba-1.5-large-398b", ValueError, "parallelize"),
             ("xlstm-1.3b", ValueError, "parallelize")):
-        cfg = get_smoke_config(arch)
+        cfg = get_smoke_config(arch.split()[0])
+        if arch.endswith("a2a"):
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, impl="a2a"))
         if arch == "jamba-1.5-large-398b":
             cfg = dataclasses.replace(cfg, n_layers=len(cfg.layer_pattern))
         model = Model(cfg, device="cpu", seed=0).requires_grad_(True)
@@ -287,7 +290,12 @@ def test_unsharded_models_over_several_ranks_raise():
                 pytest.raises(err, match=match):
             make_train_step(model, opt)(TrainState(params, opt.init(params)),
                                         toks, toks)
-    placed = parallel.parallelize(Model(get_smoke_config("xlstm-1.3b"),
-                                        device="meta", seed=None),
-                                  mesh_lib.Mesh(("data", "model"), (2, 2)))
-    assert parallel.of(placed).mesh.shape == {"data": 2, "model": 2}
+    for arch in ("xlstm-1.3b", "olmoe-1b-7b a2a"):
+        cfg = get_smoke_config(arch.split()[0])
+        if arch.endswith("a2a"):
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, impl="a2a"))
+        placed = parallel.parallelize(Model(cfg, device="meta", seed=None),
+                                      mesh_lib.Mesh(("data", "model"),
+                                                    (2, 2)))
+        assert parallel.of(placed).mesh.shape == {"data": 2, "model": 2}

@@ -10,12 +10,21 @@ MoE) and xlstm-1.3b smoke configs on the meshes (2, 2) and ("pod",
 
 * ``opt``'s forward and prefill (the sequence-parallel residual), then 8
   decode steps from the prefill's cache (the weight-stationary layout,
-  whose constraint changes no number on the reference's one device; the
-  port's raises for the Mamba and xLSTM mixers, so jamba's and
-  xlstm-1.3b's steps run the baseline layout): logits and risk within
-  rtol = atol = 2e-5 of the reference's, each rank's cache blocks its
-  slices of the reference's; every weight-stationary step's tally the
-  hand count, with no parameter gathered.
+  whose constraint changes no number on the reference's one device;
+  jamba's Mamba and xlstm-1.3b's mLSTM and sLSTM blocks too): logits and
+  risk within rtol = atol = 2e-5 of the reference's, each rank's cache
+  blocks its slices of the reference's; every weight-stationary step's
+  tally the hand count, which gathers no parameter but the recurrent
+  mixers' that never touch the residual (:data:`WS_GATHERED`, as
+  ``models/mamba.py`` and ``models/xlstm.py`` name them).
+* olmoe's ``opt4`` (``opt`` with the all-to-all MoE, drop-free at the
+  smoke config's capacity factor of E / k): its forward and prefill
+  within 2e-5 and its train step under the cast rule below; the
+  all-to-all MoE's train step in the baseline layout (no casts) within
+  rtol 1e-5 (loss, ce, aux, grad norm) and 2e-5 of each leaf's largest
+  (moments), its summed gradients (step 1's first moments) those of the
+  port's placed einsum step within 2e-5; each tally the einsum step's
+  with the hand count of the layer's changes (:func:`a2a_delta`).
 * ``opt``'s train step (sequence parallel, remat, the bf16 casts before
   the FSDP gathers) and olmoe's ``opt3`` (remat off): loss, ce and aux
   within rtol 1e-5, the grad norm within rtol 2^-8; both moments within
@@ -37,6 +46,8 @@ MoE) and xlstm-1.3b smoke configs on the meshes (2, 2) and ("pod",
   the baseline step with the same casts and remat; the layouts the port
   refuses raise, naming themselves or their item.
 """
+import collections
+import dataclasses
 import json
 import math
 
@@ -58,17 +69,18 @@ METRIC_RTOL, LEAF_TOL, LR = 1e-5, 2e-5, 1e-3
 GNORM_RTOL = 2.0 ** -8      # a norm of bf16 gradients: bf16's precision
 MU_TOL, NU_TOL = 2.0 ** -7, 2.0 ** -6
 CASES = ("qwen3-8b", "olmoe-1b-7b", "jamba-1.5-large-398b", "xlstm-1.3b")
-OPT3 = "olmoe-1b-7b"
+OPT3 = OPT4 = "olmoe-1b-7b"
 RUNS = [(run, case) for run in tr.VARIANT_MESHES for case in CASES]
 KEYS = ["fwd", "prefill"] + [str(s) for s in range(tr.STEPS)]
 TRAINS = [(run, case, v) for run, case in RUNS
-          for v in (("opt", "opt3") if case == OPT3 else ("opt",))]
+          for v in ["opt"] + (["opt3"] if case == OPT3 else [])
+          + (["opt4", "a2a"] if case == OPT4 else [])]
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     return tr.variant_run(tmp_path_factory.mktemp("variant"), CASES, OPT3,
-                          LR)
+                          OPT4, LR)
 
 
 def _norm(tables):
@@ -90,6 +102,15 @@ def test_kwargs_are_the_reference_table(runs):
         "cast_params_bf16": True}
     assert want["2x2"]["opt3/decode"] == {
         "act_pspec": [None, None, "data"], "moe_ep_constraint": True}
+    assert want["2x2"]["opt4/prefill"] == {
+        "act_pspec": ["data", "model", None], "moe_impl": "a2a"}
+    assert want["2x2"]["opt4/decode"] == want["2x2"]["opt/decode"]
+
+
+@pytest.mark.parametrize("run", tr.VARIANT_MESHES)
+def test_opt4_outputs_match_reference(runs, run):
+    tr.check_outputs(runs, run, OPT4, get_smoke_config(OPT4),
+                     ["opt4/fwd", "opt4/prefill"], TOL)
 
 
 @pytest.mark.parametrize("run,case", RUNS)
@@ -105,18 +126,26 @@ def test_rank_cache_is_its_slice_of_the_reference(runs, run, case, what):
 
 @pytest.mark.parametrize("run,case,variant", TRAINS)
 def test_train_step_matches_reference(runs, run, case, variant):
+    """The bundles with the bf16 casts under the cast rule; the
+    all-to-all MoE's baseline-layout step ("a2a", float32 throughout)
+    under float32's: the grad norm within rtol 1e-5, the moments within
+    2e-5 of a leaf's largest."""
     ref, port = runs["ref"], runs["port"]
+    if variant == "a2a":
+        gnorm_rtol, mu_tol, nu_tol = METRIC_RTOL, LEAF_TOL, LEAF_TOL
+    else:
+        gnorm_rtol, mu_tol, nu_tol = GNORM_RTOL, MU_TOL, NU_TOL
     for p in port:
         got, want = (r[f"{run}/{case}/{variant}/metrics"] if r is p
                      else r[f"{case}/{variant}/metrics"] for r in (p, ref))
         np.testing.assert_allclose(got[:3], want[:3], rtol=METRIC_RTOL,
                                    atol=1e-6)
-        np.testing.assert_allclose(got[3], want[3], rtol=GNORM_RTOL)
+        np.testing.assert_allclose(got[3], want[3], rtol=gnorm_rtol)
     # step 1's first moments are (1 - b1) times the gradients scaled by
     # the clipping: the gradients back, near enough to pick the clear ones
     clip = max(float(ref[f"{case}/{variant}/metrics"][3]), 1.0)
     grads = [m / 0.1 * clip for m in tr._leaves(ref, f"{case}/{variant}/mu")]
-    for what, tol in (("mu", MU_TOL), ("nu", NU_TOL), ("params", LEAF_TOL)):
+    for what, tol in (("mu", mu_tol), ("nu", nu_tol), ("params", LEAF_TOL)):
         got = tr._leaves(port[0], f"{run}/{case}/{variant}/{what}")
         want = tr._leaves(ref, f"{case}/{variant}/{what}")
         assert len(got) == len(want) == len(grads)
@@ -126,7 +155,7 @@ def test_train_step_matches_reference(runs, run, case, variant):
                 # AdamW's step 1 moves a parameter by lr·g/(|g| + eps),
                 # g clipped: held where g is clear of the bf16 precision
                 # of the leaf and its clipped value 100 times eps
-                clear = (np.abs(g) > MU_TOL * np.abs(g).max()) & (
+                clear = (np.abs(g) > mu_tol * np.abs(g).max()) & (
                     np.abs(g) / clip > 100 * 1e-8)
                 a, b = a[clear], b[clear]
             np.testing.assert_allclose(a, b, rtol=0, atol=atol,
@@ -249,31 +278,175 @@ def test_tally_is_the_schedule(runs, run, case):
             assert opt3 == _plus(got_c, recompute(cfg, run), -1), opt3
 
 
-WS_CASES = ("qwen3-8b", "olmoe-1b-7b")      # attention blocks only
+def _moe_counts(cfg, run: str, impl: str, seq: bool, what: str) -> dict:
+    """Counts by kind of one placed MoE layer of ``cfg`` (FSDP on, two
+    ranks of "model"), ``what`` "fwd" (a forward or a prefill) or "train"
+    (the forward, remat's recompute and the backward).
+
+    einsum: FSDP gathers of gate, up and down (one an axis their spec
+    names; backward reduce-scatters), the data ranks' expert counts
+    gathered over each data axis (a chunk spans them), the aux stats
+    all-reduced over each data axis both ways; in the baseline layout the
+    partial output's all-reduce over "model" and the tokens' and gates'
+    "f" (backward), under ``seq`` the entry's all-gather over T and the
+    close's reduce-scatter (each the other's backward) and the router's
+    "f".  The whole group recomputes (its aux saves f and p).
+
+    a2a: the exchange of each expert weight FSDP'd on d over each data
+    axis of two ranks and the dispatch and return all-to-alls over
+    "model" (each backward the same), the buffers gathered over each data
+    axis and reduce-scattered back (each the other's backward), the aux
+    stats over each data axis both ways and over "model" forward, the
+    router's "f"; in the baseline layout the output gathered over "model"
+    (its backward keeps the rank's block, and the recompute stops before
+    it) and the token block's backward gather."""
+    mesh = tr.shape_mesh(run)
+    daxes = [a for a in mesh.axis_names if a in mesh_lib.DATA_AXES]
+    na = len(daxes)
+    kw = {} if impl == "einsum" else {"impl": impl}
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **kw))
+    model = parallel.parallelize(Model(cfg, device="meta", seed=None),
+                                 mesh, fsdp=True)
+    moe = next(b.ffn for b in model.stack if b.spec.ffn == "moe")
+    specs = parallel.placement(moe).specs
+    if impl == "einsum":
+        g = sum(1 for w in ("gate", "up", "down")
+                for a in parallel.spec_axes(specs[w])
+                if a in mesh_lib.DATA_AXES)
+        fwd = {"all-gather": g + na + seq, "reduce-scatter": seq,
+               "all-reduce": na + (not seq)}
+        back = {"reduce-scatter": g + seq, "all-gather": seq,
+                "all-reduce": na + (1 if seq else 2)}
+        again = fwd
+    else:
+        on_d = sum(1 for w, d_dim in (("gate", 1), ("up", 1), ("down", 2))
+                   if parallel.data_dim(moe, w) == d_dim)
+        x = on_d * sum(1 for a in daxes if mesh.shape[a] > 1)
+        fwd = {"all-to-all": x + 2, "all-gather": na + (not seq),
+               "reduce-scatter": na, "all-reduce": na + 1}
+        back = fwd
+        again = _plus(fwd, {"all-gather": not seq}, -1)
+    return fwd if what == "fwd" else _plus(_plus(fwd, again), back)
+
+
+def a2a_delta(cfg, run: str, seq: bool, what: str) -> dict:
+    """The all-to-all MoE's changes to the einsum MoE's step in counts,
+    every MoE layer of ``cfg`` (:func:`_moe_counts`)."""
+    n = cfg.n_groups * sum(1 for s in cfg.layer_pattern if s.ffn == "moe")
+    a2a = _moe_counts(cfg, run, "a2a", seq, what)
+    einsum = _moe_counts(cfg, run, "einsum", seq, what)
+    return {k: n * (a2a.get(k, 0) - einsum.get(k, 0))
+            for k in set(a2a) | set(einsum)}
+
+
+@pytest.mark.parametrize("run", tr.VARIANT_MESHES)
+def test_a2a_tally_is_the_schedule(runs, run):
+    """opt4's forward, prefill and train step are opt's with the MoE
+    layers' changes (:func:`a2a_delta`, sequence parallel); the
+    all-to-all MoE's baseline-layout train step the placed einsum
+    step's with the baseline layout's."""
+    cfg = get_smoke_config(OPT4)
+    for port in runs["port"]:
+        for what in ("fwd", "prefill"):
+            _, opt = tr.tally(port[f"{run}/{OPT4}/opt/{what}/tally"])
+            _, got = tr.tally(port[f"{run}/{OPT4}/opt4/{what}/tally"])
+            assert got == _plus(opt, a2a_delta(cfg, run, True, "fwd")), (
+                what, got, opt)
+        for variant, base, seq in (("opt4", "opt", True),
+                                   ("a2a", "base", False)):
+            _, want = tr.tally(port[f"{run}/{OPT4}/{base}/train/tally"])
+            _, got = tr.tally(port[f"{run}/{OPT4}/{variant}/train/tally"])
+            assert got == _plus(want, a2a_delta(cfg, run, seq, "train")), (
+                variant, got, want)
+
+
+@pytest.mark.parametrize("run", tr.VARIANT_MESHES)
+def test_a2a_gradients_are_the_einsum_steps(runs, run):
+    """The all-to-all MoE's baseline-layout train step and the placed
+    einsum step from the same weights (drop-free): the metrics within
+    rtol 1e-5 on every rank and step 1's first moments (the summed
+    gradients, clipped alike) within 2e-5 of each leaf's largest."""
+    for port in runs["port"]:
+        np.testing.assert_allclose(port[f"{run}/{OPT4}/a2a/metrics"],
+                                   port[f"{run}/{OPT4}/base/metrics"],
+                                   rtol=METRIC_RTOL)
+    got = tr._leaves(runs["port"][0], f"{run}/{OPT4}/a2a/mu")
+    want = tr._leaves(runs["port"][0], f"{run}/{OPT4}/base/mu")
+    assert len(got) == len(want) > 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=LEAF_TOL * max(
+            np.abs(b).max(), 1e-6), err_msg=f"mu leaf {i}")
+
+
+# the weights a weight-stationary decode step gathers over the data axes
+# where FSDP put them: the recurrent mixers' that never touch the
+# residual, as models/mamba.py and models/xlstm.py name them
+WS_GATHERED = {"mamba": ("conv_w", "x_proj.weight", "dt_proj.weight",
+                         "A_log"),
+               "mlstm": ("wq", "wk", "wv", "w_if.weight"),
+               "slstm": ("w_rec.weight",)}
+
+
+def _ws_gathers(block) -> int:
+    """All-gathers of :data:`WS_GATHERED`'s weights of ``block``'s mixer:
+    one a data axis their spec names."""
+    n = 0
+    for name in WS_GATHERED.get(block.spec.mixer, ()):
+        owner, _, attr = name.rpartition(".")
+        mod = block.mixer.get_submodule(owner) if owner else block.mixer
+        n += sum(1 for a in parallel.spec_axes(
+            parallel.placement(mod).specs[attr])
+            if a in mesh_lib.DATA_AXES)
+    return n
 
 
 def ws_decode_schedule(cfg, run: str) -> dict:
     """Counts by kind of one rank's weight-stationary decode step
-    (``parallel.ws_mesh``), FSDP on: the tokens all-gathered over each
-    data axis (the batch is cut there); the embedding's all-reduce over
-    "model"; a layer's two norms and its q | k | v partials all-reduced
-    over each data axis, the token's q, k, v gathered over "model", the
-    combine's two all-reduces, the output rows gathered over each data
-    axis, wo's all-reduce over "model"; an MLP's gate | up partials over
-    each data axis and down over "model"; a MoE's router partials over
-    each data axis, its gate | up partials (FSDP'd on d) or x and h
-    gathered (on d_ff), its partial output over "model" and, down FSDP'd
-    on d_ff, reduce-scattered over each data axis; the final norm, the
-    lm head and the score head over each data axis.  No weight is
-    gathered."""
+    (``parallel.ws_mesh``), FSDP on, two ranks of "model": the tokens
+    all-gathered over each data axis (the batch is cut there); the
+    embedding's all-reduce over "model"; a block's norms over each data
+    axis; an attention layer's q | k | v partials over each data axis,
+    the token's q, k, v gathered over "model", the combine's two
+    all-reduces, the output rows gathered over each data axis, wo's
+    all-reduce over "model"; a Mamba layer's in_proj partials over each
+    data axis, the (x | z) exchange over "model", x_proj's and
+    out_proj's all-reduces over "model" and the output rows; an mLSTM
+    layer's up partials, up's columns and v gathered over "model", the
+    numerator's reduce-scatter and the normaliser's all-reduce, the rows
+    and down's all-reduce; an sLSTM layer's w_in partials, h gathered
+    over "model" before and after the gates' exchange, the rows, up's
+    partials and down's all-reduce; the recurrent mixers' gathered
+    weights (:data:`WS_GATHERED`); an MLP's gate | up partials over each
+    data axis and down over "model"; a MoE's router partials over each
+    data axis, its gate | up partials (FSDP'd on d) or x and h gathered
+    (on d_ff), its partial output over "model" and, down FSDP'd on d_ff,
+    reduce-scattered over each data axis; the final norm, the lm head
+    and the score head over each data axis."""
     mesh = tr.shape_mesh(run)
     n_axes = sum(1 for a in mesh.axis_names if a in mesh_lib.DATA_AXES)
     model = parallel.parallelize(Model(cfg, device="meta", seed=None),
                                  mesh, fsdp=True)
-    c = {"all-reduce": 1 + 3 * n_axes, "all-gather": n_axes}
+    c = collections.Counter({"all-reduce": 1 + 3 * n_axes,
+                             "all-gather": n_axes})
     for block in model.stack:
-        c["all-reduce"] += 2 * n_axes + n_axes + 2 + 1
-        c["all-gather"] += 1 + n_axes
+        kind = block.spec.mixer
+        c["all-reduce"] += n_axes * (1 + (block.spec.ffn != "none"))
+        if kind == "attn":
+            c["all-reduce"] += n_axes + 2 + 1
+            c["all-gather"] += 1 + n_axes
+        elif kind == "mamba":
+            c["all-reduce"] += n_axes + 2
+            c["all-to-all"] += 1
+            c["all-gather"] += n_axes
+        elif kind == "mlstm":
+            c["all-reduce"] += n_axes + 2
+            c["all-gather"] += 2 + n_axes
+            c["reduce-scatter"] += 1
+        else:
+            c["all-reduce"] += 2 * n_axes + 1
+            c["all-gather"] += 2 + n_axes
+            c["all-to-all"] += 1
+        c["all-gather"] += _ws_gathers(block)
         if block.spec.ffn == "mlp":
             c["all-reduce"] += n_axes + 1
         elif block.spec.ffn == "moe":
@@ -282,24 +455,35 @@ def ws_decode_schedule(cfg, run: str) -> dict:
             c["all-reduce"] += n_axes + (0 if up_ff else n_axes) + 1
             c["all-gather"] += n_axes * (up_ff + (up_ff and not down_ff))
             if down_ff:
-                c["reduce-scatter"] = c.get("reduce-scatter", 0) + n_axes
-    return {k: float(v) for k, v in c.items()}
+                c["reduce-scatter"] += n_axes
+    return {k: float(v) for k, v in c.items() if v}
 
 
-@pytest.mark.parametrize("case", WS_CASES)
+@pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("run", tr.VARIANT_MESHES)
 def test_weight_stationary_decode_is_the_schedule(runs, run, case):
     """Every opt decode step's tally is the hand count, which gathers no
-    parameter: all its all-gathers are the tokens', the token's q, k, v
-    columns' and the output rows' (the baseline step gathers every
+    parameter but :data:`WS_GATHERED`'s: its other all-gathers are the
+    tokens', the token's q, k, v columns', the recurrent mixers' own
+    features' and the output rows' (the baseline step gathers every
     FSDP'd leaf over the data axes)."""
     want = ws_decode_schedule(get_smoke_config(case), run)
-    n_fsdp, _ = tr.fsdp_gathers(get_smoke_config(case), run + "_fsdp", "")
+    _, f32_fsdp = tr.fsdp_gathers(get_smoke_config(case), run + "_fsdp", "")
     for port in runs["port"]:
         for s in range(tr.STEPS):
-            got = tr.tally(port[f"{run}/{case}/{s}/tally"])[1]
+            nbytes, got = tr.tally(port[f"{run}/{case}/{s}/tally"])
             assert got == want, (s, got, want)
-    assert n_fsdp > want["all-gather"]
+            assert nbytes["all-gather"] < f32_fsdp
+
+
+def test_ws_gathered_weights_are_the_docstrings():
+    """Each weight the weight-stationary decode gathers is named in its
+    mixer module's docstring, where the choice is argued."""
+    from repro_torch.models import mamba, xlstm
+    for kind, names in WS_GATHERED.items():
+        doc = (mamba if kind == "mamba" else xlstm).__doc__
+        for name in names:
+            assert f"``{name.split('.')[0]}``" in doc, (kind, name)
 
 
 def fsdp_scatter_bytes(cfg, run: str) -> int:
@@ -327,15 +511,14 @@ def test_train_bytes_are_the_schedule(runs, run, case):
     of (rows, T, d): the forward's n + 1, the recompute's n and the
     backward's n + 1 (n entries and closes); the reduce-scatters of the
     FSDP gradients move bf16 too, beside the sequence's of (rows, T/m,
-    d).  jamba's and xlstm-1.3b's decode steps after
-    the opt prefill gather every FSDP'd leaf, as the baseline's do (their
-    weight-stationary decode raises)."""
+    d).  Every decode step after the opt prefill is alike and gathers
+    fewer bytes than the baseline's FSDP gathers."""
     cfg = get_smoke_config(case)
     mesh = tr.shape_mesh(run)
     m = mesh.shape["model"]
     act = tr.B // (mesh.size // m) * tr.T * cfg.d_model * 4
     n = len(_blocks(cfg))
-    n_all, f32_all = tr.fsdp_gathers(cfg, run + "_fsdp", "")
+    _, f32_all = tr.fsdp_gathers(cfg, run + "_fsdp", "")
     _, f32_stack = tr.fsdp_gathers(cfg, run + "_fsdp", "stack.")
     scatter = fsdp_scatter_bytes(cfg, run)
     # w_in and w_rec of each sLSTM, whole: in the forward and the recompute
@@ -357,9 +540,9 @@ def test_train_bytes_are_the_schedule(runs, run, case):
         steps = [tr.tally(port[f"{run}/{case}/{s}/tally"])
                  for s in range(tr.STEPS)]
         assert all(t == steps[0] for t in steps)
-        if case not in WS_CASES:
-            # the Mamba and xLSTM decode keeps the baseline layout
-            assert steps[0][1]["all-gather"] > n_all
+        # the weight-stationary steps gather fewer bytes than the
+        # baseline's FSDP gathers
+        assert steps[0][0]["all-gather"] < f32_all
 
 
 # ---------------------------------------------------------------------------
@@ -391,19 +574,23 @@ def _train(model, mesh, tokens, **kw):
 
 @pytest.mark.parametrize("case", CASES)
 def test_one_rank_bundles_are_bitwise_the_baseline(world_of_one, case):
-    """At one rank every collective is a copy: under opt, opt2 and opt3
-    the forward, the prefill (logits, risk, every cache leaf) and, for
-    the attention models, the weight-stationary decode steps are the
-    baseline's to the last bit, and each bundle's train step is the
-    baseline step with the same bf16 casts and remat (opt3's without
-    remat is opt's: remat changes no bit)."""
+    """At one rank every collective is a copy: under opt, opt2, opt3 and
+    opt4 the forward, the prefill (logits, risk, every cache leaf) and the
+    weight-stationary decode steps are the baseline's to the last bit
+    (opt4's all-to-all MoE the einsum MoE's), and each bundle's train step
+    is the baseline step with the same bf16 casts and remat (opt3's
+    without remat is opt's: remat changes no bit)."""
     cfg = get_smoke_config(case)
     f32 = torch.float32
     tok = torch.tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (2, 8)))
 
-    def placed():
-        return parallel.parallelize(Model(cfg, device="cpu", seed=4),
+    def placed(kw=None):
+        c = cfg
+        if cfg.moe is not None and (kw or {}).get("moe_impl"):
+            c = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, impl=kw["moe_impl"]))
+        return parallel.parallelize(Model(c, device="cpu", seed=4),
                                     world_of_one)
 
     model = placed()
@@ -411,35 +598,37 @@ def test_one_rank_bundles_are_bitwise_the_baseline(world_of_one, case):
         want = model(tok, compute_dtype=f32)
         wp, wc = model.prefill(tok, cache_capacity=12, compute_dtype=f32)
     trains = {}
-    for variant in ("opt", "opt2", "opt3"):
-        act = dryrun.variant_build_kwargs(variant, "prefill",
-                                          world_of_one)["act_pspec"]
+    for variant in ("opt", "opt2", "opt3", "opt4"):
+        pkw = dryrun.variant_build_kwargs(variant, "prefill", world_of_one)
+        vmodel = placed(pkw)
         with torch.no_grad():
-            got = model(tok, compute_dtype=f32, act_pspec=act)
-            gp, gc = model.prefill(tok, cache_capacity=12, compute_dtype=f32,
-                                   act_pspec=act)
+            got = vmodel(tok, compute_dtype=f32, act_pspec=pkw["act_pspec"])
+            gp, gc = vmodel.prefill(tok, cache_capacity=12,
+                                    compute_dtype=f32,
+                                    act_pspec=pkw["act_pspec"])
         assert torch.equal(got.logits, want.logits)
         assert torch.equal(got.risk_score, want.risk_score)
         assert torch.equal(gp.logits, wp.logits)
         assert all(torch.equal(x, y) for a, b in zip(gc, wc)
                    for x, y in zip(a, b))
-        if case in WS_CASES:
-            ws = dryrun.variant_build_kwargs(variant, "decode",
-                                             world_of_one)["act_pspec"]
-            gd, wd = ([type(c)(*(a.clone() for a in c)) for c in cache]
-                      for cache in (gc, wc))
-            for pos in (8, 9, 10):
-                step = tok[:, pos - 8:pos - 7]
-                a = model.decode_step(gd, step, pos=pos, act_pspec=ws,
-                                      compute_dtype=f32)
-                b = model.decode_step(wd, step, pos=pos, compute_dtype=f32)
-                assert torch.equal(a.logits, b.logits)
-                assert torch.equal(a.risk_score, b.risk_score)
-            assert all(torch.equal(x, y) for a, b in zip(gd, wd)
-                       for x, y in zip(a, b))
+        ws = dryrun.variant_build_kwargs(variant, "decode",
+                                         world_of_one)["act_pspec"]
+        gd, wd = ([type(c)(*(a.clone() for a in c)) for c in cache]
+                  for cache in (gc, wc))
+        for pos in (8, 9, 10):
+            step = tok[:, pos - 8:pos - 7]
+            a = model.decode_step(gd, step, pos=pos, act_pspec=ws,
+                                  compute_dtype=f32)
+            b = model.decode_step(wd, step, pos=pos, compute_dtype=f32)
+            assert torch.equal(a.logits, b.logits)
+            assert torch.equal(a.risk_score, b.risk_score)
+        assert all(torch.equal(x, y) for a, b in zip(gd, wd)
+                   for x, y in zip(a, b))
         kw = dryrun.variant_build_kwargs(variant, "train", world_of_one)
         kw.pop("moe_ep_constraint", None)
-        trains[variant] = _train(placed(), world_of_one, tok, **kw)
+        trains[variant] = _train(placed(kw), world_of_one, tok,
+                                 **{k: v for k, v in kw.items()
+                                    if k != "moe_impl"})
     base = _train(placed(), world_of_one, tok, cast_params_bf16=True)
     for variant, (metrics, mu, params) in trains.items():
         assert metrics == base[0], variant
@@ -448,24 +637,20 @@ def test_one_rank_bundles_are_bitwise_the_baseline(world_of_one, case):
 
 
 def test_refused_layouts_name_themselves(world_of_one):
-    """The weight-stationary decode of a Mamba or xLSTM model raises
-    naming its item, and in a forward, a prefill or a train step it
-    raises naming the decode; ``opt4`` names item 13g; a spec neither
-    layout is, or one naming other data axes than the mesh's, raises
-    naming itself; a sequence that does not divide over "model" raises
-    with its sizes."""
+    """The weight-stationary layout in a forward, a prefill or a train
+    step raises naming the decode; ``opt4`` is ``opt`` with the
+    all-to-all MoE for train and prefill and ``opt``'s decode (the
+    weight-stationary decode of the Mamba and xLSTM models runs, above);
+    a spec neither layout is, or one naming other data axes than the
+    mesh's, raises naming itself; a sequence that does not divide over
+    "model" raises with its sizes."""
     ws = dryrun.variant_build_kwargs("opt", "decode", world_of_one)
     assert ws["act_pspec"] == P(None, None, "data")
-    for arch in ("jamba-1.5-large-398b", "xlstm-1.3b"):
-        model = parallel.parallelize(
-            Model(get_smoke_config(arch), device="cpu", seed=4),
-            world_of_one)
-        _, cache = model.prefill(torch.zeros((2, 8), dtype=torch.long),
-                                 cache_capacity=12)
-        with pytest.raises(NotImplementedError,
-                           match=mesh_lib.VARIANTS[:30]):
-            model.decode_step(cache, torch.zeros((2, 1), dtype=torch.long),
-                              pos=8, act_pspec=ws["act_pspec"])
+    for kind in ("train", "prefill", "decode"):
+        opt = dryrun.variant_build_kwargs("opt", kind, world_of_one)
+        opt4 = dryrun.variant_build_kwargs("opt4", kind, world_of_one)
+        assert opt4 == (opt if kind == "decode"
+                        else {**opt, "moe_impl": "a2a"}), kind
     cfg = get_smoke_config("qwen3-8b")
     model = parallel.parallelize(Model(cfg, device="cpu", seed=4),
                                  world_of_one)
@@ -477,8 +662,6 @@ def test_refused_layouts_name_themselves(world_of_one):
                                  act_pspec=P("data", "model", None))
         model.decode_step(cache, tok[:, :1], pos=8,
                           act_pspec=P("data", "model", None))
-    with pytest.raises(NotImplementedError, match="item 13g"):
-        dryrun.variant_build_kwargs("opt4", "train", world_of_one)
     for spec in (P("model", None, None), P(("pod", "data"), "model", None),
                  object()):
         with pytest.raises(ValueError, match="act_pspec"):

@@ -531,7 +531,9 @@ def train_tail(cfg, run: str) -> tuple[dict, int, int]:
 # forward, prefill, STEPS decode steps and train step under the bundle's
 # kwargs (``launch/dryrun.py::variant_build_kwargs``), every case on every
 # mesh of VARIANT_MESHES with FSDP on, beside the baseline's forward,
-# prefill and train step for the tally; OPT3 also trains under opt3
+# prefill and train step for the tally; OPT3 also trains under opt3, and
+# OPT4 runs opt4's forward, prefill and train step (the all-to-all MoE)
+# and the all-to-all MoE's train step in the baseline layout ("a2a")
 # ---------------------------------------------------------------------------
 
 VARIANT_MESHES = ("2x2", "2x1x2")
@@ -544,7 +546,8 @@ os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
                            "--xla_backend_optimization_level=0")
 from repro.training.train import TrainState, make_train_step
 from repro.training.optimizer import AdamW
-CASES, OPT3, STEPS, LR = %(CASES)r, %(OPT3)r, %(STEPS)d, %(LR)r
+CASES, OPT3, OPT4, STEPS, LR = (%(CASES)r, %(OPT3)r, %(OPT4)r, %(STEPS)d,
+                                %(LR)r)
 f32 = jnp.float32
 
 def spec_json(kw):
@@ -555,13 +558,22 @@ tables = {}
 for name, (axes, shape) in meshes.items():
     one = jax_compat.make_mesh((1,) * len(axes), tuple(axes))
     tables[name] = {f"{v}/{k}": spec_json(rdry.variant_build_kwargs(
-        v, k, one)) for v in ("opt", "opt2", "opt3")
+        v, k, one)) for v in ("opt", "opt2", "opt3", "opt4")
         for k in ("train", "prefill", "decode")}
 out["kwargs"] = np.frombuffer(json.dumps(tables).encode(), np.uint8)
 mesh = jax_compat.make_mesh((1, 1), ("data", "model"))
 
 def kwargs(variant, kind):
+    if variant == "a2a":
+        return {"moe_impl": "a2a"}
     return rdry.variant_build_kwargs(variant, kind, mesh)
+
+def variant_cfg(cfg, kw):
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, ep_sharding_constraint=kw.get("moe_ep_constraint", False),
+        impl=kw.get("moe_impl", "einsum")))
 
 with mesh, jax_compat.set_mesh(mesh):
     for arch in CASES:
@@ -596,18 +608,29 @@ with mesh, jax_compat.set_mesh(mesh):
         for i, c in enumerate(cache):
             for f, leaf in zip(c._fields, c):
                 out[f"{arch}/decode/cache/{i}/{f}"] = leaf
-        for variant in ("opt", "opt3") if arch == OPT3 else ("opt",):
+        if arch == OPT4:
+            kw = kwargs("opt4", "prefill")
+            m4 = Model(variant_cfg(cfg, kw))
+            o = jax.jit(lambda p, xx: m4.forward(
+                p, tokens=xx, compute_dtype=f32,
+                act_pspec=kw["act_pspec"]))(params, x)
+            out[f"{arch}/opt4/fwd/logits"] = o.logits
+            out[f"{arch}/opt4/fwd/risk"] = o.risk_score
+            o, _ = jax.jit(lambda p, xx: m4.prefill(
+                p, tokens=xx, cache_capacity=t + STEPS, compute_dtype=f32,
+                act_pspec=kw["act_pspec"]))(params, x)
+            out[f"{arch}/opt4/prefill/logits"] = o.logits
+            out[f"{arch}/opt4/prefill/risk"] = o.risk_score
+        variants = ["opt"] + (["opt3"] if arch == OPT3 else []) + (
+            ["opt4", "a2a"] if arch == OPT4 else [])
+        for variant in variants:
             kw = kwargs(variant, "train")
-            tcfg = cfg
-            if kw.get("moe_ep_constraint") and cfg.moe is not None:
-                tcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-                    cfg.moe, ep_sharding_constraint=True))
-            tmodel = Model(tcfg)
+            tmodel = Model(variant_cfg(cfg, kw))
             opt = AdamW(learning_rate=LR)
             train = make_train_step(
                 tmodel, opt, remat=kw.get("remat", True), compute_dtype=f32,
-                act_pspec=kw["act_pspec"],
-                cast_params_bf16=kw["cast_params_bf16"])
+                act_pspec=kw.get("act_pspec"),
+                cast_params_bf16=kw.get("cast_params_bf16", False))
             state = TrainState(params, opt.init(params))
             new, metrics = jax.jit(train)(state, x, labels)
             tag = f"{arch}/{variant}"
@@ -623,7 +646,8 @@ import dataclasses
 from repro_torch.launch import dryrun
 from repro_torch.training.optimizer import AdamW
 from repro_torch.training.train import TrainState, make_train_step
-CASES, OPT3, STEPS, LR = %(CASES)r, %(OPT3)r, %(STEPS)d, %(LR)r
+CASES, OPT3, OPT4, STEPS, LR = (%(CASES)r, %(OPT3)r, %(OPT4)r, %(STEPS)d,
+                                %(LR)r)
 f32 = torch.float32
 
 def spec_json(kw):
@@ -636,9 +660,22 @@ for name in meshes:
     mesh = mesh_lib.init_mesh(mesh_lib.Mesh(tuple(axes), tuple(shape)),
                               device="cpu")
     tables[name] = {f"{v}/{k}": spec_json(dryrun.variant_build_kwargs(
-        v, k, mesh)) for v in ("opt", "opt2", "opt3")
+        v, k, mesh)) for v in ("opt", "opt2", "opt3", "opt4")
         for k in ("train", "prefill", "decode")}
     act = dryrun.variant_build_kwargs("opt", "prefill", mesh)["act_pspec"]
+
+    def kwargs(variant):
+        if variant in ("base", "a2a"):
+            return {"moe_impl": "a2a"} if variant == "a2a" else {}
+        return dryrun.variant_build_kwargs(variant, "train", mesh)
+
+    def variant_cfg(cfg, kw):
+        if cfg.moe is None:
+            return cfg
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, ep_sharding_constraint=kw.get("moe_ep_constraint",
+                                                   False),
+            impl=kw.get("moe_impl", "einsum")))
     for arch in CASES:
         cfg = get_smoke_config(arch)
         model = convert.model_from_numpy(cfg, trees[arch], device="cpu",
@@ -662,11 +699,7 @@ for name in meshes:
             for f, leaf in zip(c._fields, c):
                 out[f"{tag}/prefill/cache/{i}/{f}"] = leaf.clone().numpy()
         xs = rows(inp["decode_tokens"], mesh)
-        # the weight-stationary decode where the port takes it (attention
-        # blocks), else the baseline layout
         ws = dryrun.variant_build_kwargs("opt", "decode", mesh)["act_pspec"]
-        if {b.mixer for b in cfg.layer_pattern} != {"attn"}:
-            ws = None
         for s in range(STEPS):
             with coll.tally() as tl:
                 o = model.decode_step(cache, xs[:, s:s + 1], pos=t + s,
@@ -678,15 +711,25 @@ for name in meshes:
         for i, c in enumerate(cache):
             for f, leaf in zip(c._fields, c):
                 out[f"{tag}/decode/cache/{i}/{f}"] = leaf.numpy()
-        variants = ("base", "opt", "opt3") if arch == OPT3 else ("base",
-                                                                  "opt")
+        if arch == OPT4:
+            spec = dryrun.variant_build_kwargs("opt4", "prefill", mesh)
+            model = convert.model_from_numpy(
+                variant_cfg(cfg, spec), trees[arch], device="cpu",
+                mesh=mesh, fsdp=True)
+            with coll.tally() as tl, torch.no_grad():
+                o = model(x, compute_dtype=f32, act_pspec=spec["act_pspec"])
+            with coll.tally() as tp:
+                p, _ = model.prefill(x, cache_capacity=cap, compute_dtype=f32,
+                                     act_pspec=spec["act_pspec"])
+            for what, res, t_ in (("fwd", o, tl), ("prefill", p, tp)):
+                out[f"{tag}/opt4/{what}/logits"] = res.logits.numpy()
+                out[f"{tag}/opt4/{what}/risk"] = res.risk_score.numpy()
+                out[f"{tag}/opt4/{what}/tally"] = tally_blob(t_)
+        variants = ["base", "opt"] + (["opt3"] if arch == OPT3 else []) + (
+            ["opt4", "a2a"] if arch == OPT4 else [])
         for variant in variants:
-            kw = ({} if variant == "base" else
-                  dryrun.variant_build_kwargs(variant, "train", mesh))
-            tcfg = cfg
-            if kw.get("moe_ep_constraint") and cfg.moe is not None:
-                tcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-                    cfg.moe, ep_sharding_constraint=True))
+            kw = kwargs(variant)
+            tcfg = variant_cfg(cfg, kw)
             model = convert.model_from_numpy(tcfg, trees[arch], device="cpu",
                                              mesh=mesh, fsdp=True)
             model.requires_grad_(True)
@@ -701,7 +744,7 @@ for name in meshes:
                 state, metrics = step(state, x, labels)
             vt = f"{tag}/{variant}"
             out[f"{vt}/train/tally"] = tally_blob(tl)
-            if variant == "base":
+            if variant == "base" and arch != OPT4:
                 continue
             out[f"{vt}/metrics"] = np.array([float(v) for v in metrics])
             for what, values in (("params", None), ("mu", state.opt.mu),
@@ -714,10 +757,10 @@ out["kwargs"] = np.frombuffer(json.dumps(tables).encode(), np.uint8)
 """
 
 
-def variant_run(tmp: pathlib.Path, cases: tuple, opt3: str,
+def variant_run(tmp: pathlib.Path, cases: tuple, opt3: str, opt4: str,
                 lr: float) -> dict:
     """The reference and the four ranks over :data:`VARIANT_REFERENCE` /
     :data:`VARIANT_PORT` on the meshes of :data:`VARIANT_MESHES`."""
-    fill = dict(CASES=cases, OPT3=opt3, STEPS=STEPS, LR=lr)
+    fill = dict(CASES=cases, OPT3=opt3, OPT4=opt4, STEPS=STEPS, LR=lr)
     return run(tmp, VARIANT_REFERENCE % fill, VARIANT_PORT % fill,
                meshes={m: MESHES[m] for m in VARIANT_MESHES}, archs=cases)
