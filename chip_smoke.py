@@ -81,12 +81,19 @@ Phases, each printing one JSON line:
              4 / 8), every sharded row bitwise the dense launch, one launch
              a call, resident bytes exact (1,064,960 a shard at T = 4,096,
              S = 8); the dispatcher on an uneven assignment leaving one of 8
-             shards empty at the same sizes, bitwise; the serve phase's
-             configuration served at S = 4, at S = 8 and tiered over S = 4
-             (4 hot + 3 victim slots a shard) through the async engine,
-             each response bitwise the dense server's with equal
-             generations across a mid-run publish, launches held to the
-             sharded dispatches (passes on the composed store); then fleet
+             shards empty at the same sizes, bitwise; at T = 4,096, batch
+             8,192, S = 8 over P = 1, 2, 4 and 8 placements on cuda:0 (and
+             over distinct cards where the machine has several, else a
+             ``{"several_cards": false, ...}`` line), round-robin and
+             uneven: bitwise, P launches a pass, each placement's stacks on
+             its device holding (S/P)·Tl·(2K+2N)·4 bytes, the round trip's
+             host us beside P = 1's; the serve phase's configuration served
+             at S = 4, at S = 8, at S = 8 over 8 placements and tiered over
+             S = 4 (4 hot + 3 victim slots a shard) on one and on 4
+             placements through the async engine, each response bitwise
+             the dense server's with equal generations across a mid-run
+             publish, launches held to P times the sharded dispatches
+             (passes on the composed store); then fleet
              refreshes published by a writer thread while traffic runs
              through the engine on the S = 4 server: consecutive
              generations, every response replayed bit for bit through the
@@ -645,9 +652,9 @@ def _serve_setup(dev):
                                             for i in range(8))), ("cand",)),),
         version="v1")
 
-    def server(fused: bool, **config) -> MuseServer:
+    def server(fused: bool, device=dev, **config) -> MuseServer:
         s = MuseServer(routing, ServerConfig(fused_kernel=fused, **config),
-                       device=dev)
+                       device=device)
         factories = world.model_factories(dev)
         for spec in specs + [cand]:
             s.deploy(spec, factories)
@@ -1474,6 +1481,11 @@ SHARD_S8_BYTES = {256: 66_560, 1024: 266_240, 4096: 1_064_960}
 SERVE_SHARDS = (4, 8)
 SHARD_TIERS = (4, 3)      # hot, victim slots a shard of the composed run
 EMPTY_SHARD = 5           # the shard the uneven assignment leaves empty
+PLACEMENTS = (1, 2, 4, 8)  # placements of the S = 8 tenant mesh
+SERVE_PLACED = 8          # placements of the S = 8 serve topology
+TIERED_PLACED = 4         # placements of the tiered S = 4 engine run
+PLACED_ROUNDS = 20        # timed rounds of the placed dispatcher, 2 calls
+                          # a placement count a round
 
 
 def _sharded_uneven(dev) -> list[dict]:
@@ -1509,6 +1521,84 @@ def _sharded_uneven(dev) -> list[dict]:
                      "per_shard_bytes": sbank.per_shard_bytes,
                      **bsb.sharded_row(disp, sbank, scores, tid, dense, 10)})
     return rows
+
+
+def _placed_dispatch(cards: list) -> dict:
+    """The dispatcher at the benchmark's size (T = 4,096, batch 8,192, S =
+    8) over P = 1, 2, 4 and 8 placements, the placements cycling over
+    ``cards``: on the round-robin and the uneven assignment with an empty
+    shard, every score bitwise the dense launch and exactly P banked
+    launches a pass (the benchmark's ``sharded_row`` raises otherwise);
+    each placement's stacks on its device, their storages holding
+    (S/P)·Tl·(2K+2N)·4 bytes; the host us of a whole round trip beside
+    P = 1's, in this process: ``PLACED_ROUNDS`` rounds over the
+    round-robin banks, P = 1, 2, 4, 8 then 8, 4, 2, 1 in each, so drift
+    falls on every P alike (the median and quartiles of each)."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks import bench_sharded_bank as bsb
+    from repro_torch.core.transforms import ShardedTransformBank
+    from repro_torch.device import to_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_tenant_mesh
+    from repro_torch.serving.server import ShardedBankDispatcher
+
+    rng = np.random.default_rng(13)
+    t, b, s = 4096, 8192, 8
+    bank = bsb.random_bank(rng, t, cards[0])
+    scores = rng.uniform(0, 1, (b, bsb.K)).astype(np.float32)
+    tid = rng.integers(0, t, b)
+    dense = to_numpy(ops.score_pipeline_banked(
+        torch.from_numpy(scores).to(cards[0]),
+        torch.from_numpy(tid.astype(np.int32)).to(cards[0]), bank.betas,
+        bank.weights, bank.src_quantiles, bank.ref_quantiles))
+    owners = np.array([x for x in range(s) if x != EMPTY_SHARD])
+    weights = 0.6 ** np.arange(len(owners))
+    uneven = rng.choice(owners, t, p=weights / weights.sum())
+    rows, timed = [], {}
+    for p in PLACEMENTS:
+        mesh = make_tenant_mesh(s, [cards[i % len(cards)] for i in range(p)])
+        disp = ShardedBankDispatcher(mesh)
+        for layout, assign in (("round_robin", None), ("uneven", uneven)):
+            sbank = ShardedTransformBank.from_dense(
+                bank, s, shard_of=assign, placements=mesh.placements)
+            want = (s // p * sbank.rows_per_shard
+                    * (2 * bsb.K + 2 * bsb.N) * 4)
+            held = []
+            for st, place in zip(sbank.stacks, mesh.placements):
+                check(all(x.device == place for x in st),
+                      f"P={p}: a stack off its placement {place}")
+                held.append(sum(x.untyped_storage().nbytes() for x in st))
+            check(held == [want] * p == [sbank.per_placement_bytes] * p,
+                  f"P={p}, {layout}: placement bytes {held}, expected {want}")
+            check(layout == "round_robin"
+                  or sbank.row_counts[EMPTY_SHARD] == 0, "an empty shard")
+            row = bsb.sharded_row(disp, sbank, scores, tid, dense, 10)
+            check(row["launches_per_call"] == p,
+                  f"P={p}: {row['launches_per_call']} launches a pass")
+            rows.append({"placements": p, "layout": layout,
+                         "cards": sorted({str(d) for d in mesh.placements}),
+                         "row_counts": sbank.row_counts.tolist(),
+                         "placement_bytes": held, **row})
+            if assign is None:
+                timed[p] = (disp, sbank)
+    samples = {p: [] for p in PLACEMENTS}
+    for _ in range(PLACED_ROUNDS):
+        for p in PLACEMENTS + PLACEMENTS[::-1]:
+            disp, sbank = timed[p]
+            start = time.perf_counter()
+            disp(scores, tid, sbank)
+            samples[p].append((time.perf_counter() - start) * 1e6)
+    round_trip = {}
+    for p, xs in samples.items():
+        q1, med, q3 = statistics.quantiles(xs, n=4)
+        round_trip[p] = {"median_us": med, "q1_us": q1, "q3_us": q3,
+                         "samples": len(xs)}
+    for p in PLACEMENTS:
+        round_trip[p]["median_vs_p1"] = (round_trip[p]["median_us"]
+                                         / round_trip[1]["median_us"])
+    return {"tenants": t, "batch": b, "shards": s, "rows": rows,
+            "round_trip_us": round_trip}
 
 
 def _sharded_kernel_ms(dev) -> dict:
@@ -1568,6 +1658,7 @@ def _serve_topologies(setup) -> dict:
     dense server's, equal generations.  Launches are counted per topology
     (set to 0 just before its run, read just after)."""
     import numpy as np
+    import torch
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import AsyncDispatchEngine
     from repro_torch.serving.tiering import TieringConfig
@@ -1598,24 +1689,35 @@ def _serve_topologies(setup) -> dict:
                         "p50_window_ms": float(np.median(secs[1:])) * 1e3,
                         "window_ms": window_ms(secs),
                         "stage_ms": _stage_ms(dense, windows[-1])}}
-    for s in SERVE_SHARDS:
-        server = make_server(True, tenant_shards=s)
+    place = torch.device("cuda", 0) if dense.device.type == "cuda" \
+        else dense.device
+    for s, p in [(s, 1) for s in SERVE_SHARDS] + [(8, SERVE_PLACED)]:
+        server = make_server(True, tenant_shards=s,
+                             device=[place] * p if p > 1 else dense.device)
         (got, secs), launches = counted(
             lambda: _drive(server, windows, refresh))
         check(_responses([r for w in got for r in w]) == want,
-              f"S={s}: responses bitwise equal to the dense server's")
+              f"S={s}, P={p}: responses bitwise equal to the dense "
+              "server's")
         m = server.metrics
-        check(launches == m["kernel_dispatches"] == m["shard_dispatches"]
-              > 0, f"S={s}: {launches} launches, {m['kernel_dispatches']} "
-              f"dispatches, {m['shard_dispatches']} sharded")
+        check(launches == p * m["kernel_dispatches"]
+              == p * m["shard_dispatches"] > 0,
+              f"S={s}, P={p}: {launches} launches, "
+              f"{m['kernel_dispatches']} dispatches, "
+              f"{m['shard_dispatches']} sharded")
+        check(p == 1 or m["shard_dispatches"]
+              == result["s8"]["shard_dispatches"],
+              f"S={s}, P={p}: one dispatch a window")
         key = max(server.plane.banks, key=len)
         sbank = server.plane.banks[key].sharded
-        check(sbank.generation == server.bank_generation == 1,
-              f"S={s}: the sharded bank's generation")
-        result[f"s{s}"] = {
+        check(sbank.generation == server.bank_generation == 1
+              and sbank.num_placements == p,
+              f"S={s}, P={p}: the sharded bank's generation, placements")
+        result[f"s{s}" if p == 1 else f"s{s}_p{p}"] = {
             "launches": launches, "shard_dispatches": m["shard_dispatches"],
-            "rows_per_shard": sbank.rows_per_shard,
+            "placements": p, "rows_per_shard": sbank.rows_per_shard,
             "per_shard_bytes": sbank.per_shard_bytes,
+            "per_placement_bytes": sbank.per_placement_bytes,
             "dense_bytes": server.plane.banks[key].bank.num_rows
             * (2 * sbank.num_experts + 2 * sbank.num_quantiles) * 4,
             "p50_window_ms": float(np.median(secs[1:])) * 1e3,
@@ -1624,48 +1726,60 @@ def _serve_topologies(setup) -> dict:
             "stage_ms": _stage_ms(server, windows[-1])}
 
     hot, victims = SHARD_TIERS
-    composed = make_server(True, tenant_shards=SERVE_SHARDS[0],
-                           tiering=TieringConfig(hot_capacity=hot,
-                                                 victim_capacity=victims))
-    engine = AsyncDispatchEngine(composed, max_batch=WINDOW, max_wait_ms=1e9)
     half = N_WINDOWS // 2
+    for p in (1, TIERED_PLACED):
+        composed = make_server(
+            True, tenant_shards=SERVE_SHARDS[0],
+            device=[place] * p if p > 1 else dense.device,
+            tiering=TieringConfig(hot_capacity=hot, victim_capacity=victims))
+        engine = AsyncDispatchEngine(composed, max_batch=WINDOW,
+                                     max_wait_ms=1e9)
 
-    def run():
-        out, marks = [], [time.perf_counter()]
-        for part in (windows[:1], windows[1:half], windows[half:]):
-            for reqs in part:
-                engine.submit_many(reqs)
-            out += engine.drain(timeout=300.0)
-            marks.append(time.perf_counter())
-            if len(out) == WINDOW:
-                composed.rebalance_tiers()
-            elif len(out) == half * WINDOW:
-                refresh(composed)
-        return out, marks
+        def run():
+            out, marks = [], [time.perf_counter()]
+            for part in (windows[:1], windows[1:half], windows[half:]):
+                for reqs in part:
+                    engine.submit_many(reqs)
+                out += engine.drain(timeout=300.0)
+                marks.append(time.perf_counter())
+                if len(out) == WINDOW:
+                    composed.rebalance_tiers()
+                elif len(out) == half * WINDOW:
+                    refresh(composed)
+            return out, marks
 
-    (out, marks), launches = counted(run)
-    errors, prefetch_errors = list(engine.errors), engine.prefetch_errors
-    engine.close()
-    check(not errors and not prefetch_errors,
-          f"composed engine stage errors: {errors[:3]}")
-    check(_responses(out) == want, "tiered over sharded through the engine: "
-          "responses bitwise equal to the dense server's")
-    tm = composed.tier_metrics()
-    passes = tm["dispatches"] + tm["extra_passes"]
-    check(launches == passes > 0, f"the composed stores launched the banked "
-          f"kernel {launches} times for {passes} passes")
-    check(tm["prefetched_rows"] > 0 and tm["cold_miss_stalls"] > 0
-          and tm["extra_passes"] > 0, f"prefetch, stalls, extra passes: {tm}")
-    stores = composed.tiered_stores()
-    store = stores[max(stores, key=len)]
-    result["tiered_s4"] = {
-        "launches": launches, "passes": passes, "hot": hot,
-        "victims": victims, "tier_metrics": tm,
-        "per_shard_device_bytes": store.per_shard_device_bytes,
-        "device_bytes": store.device_bytes, "host_bytes": store.host_bytes,
-        "shard_dispatches": composed.metrics["shard_dispatches"],
-        "ms_per_window_after_rebalance":
-            (marks[-1] - marks[1]) * 1e3 / (N_WINDOWS - 1)}
+        (out, marks), launches = counted(run)
+        errors, prefetch_errors = list(engine.errors), engine.prefetch_errors
+        engine.close()
+        check(not errors and not prefetch_errors,
+              f"composed engine stage errors (P={p}): {errors[:3]}")
+        check(_responses(out) == want, f"tiered over sharded, P={p}, "
+              "through the engine: responses bitwise equal to the dense "
+              "server's")
+        tm = composed.tier_metrics()
+        passes = tm["dispatches"] + tm["extra_passes"]
+        check(launches == p * passes > 0, f"the composed stores over {p} "
+              f"placements launched the banked kernel {launches} times for "
+              f"{passes} passes")
+        check(tm["prefetched_rows"] > 0 and tm["cold_miss_stalls"] > 0
+              and tm["extra_passes"] > 0,
+              f"prefetch, stalls, extra passes: {tm}")
+        stores = composed.tiered_stores()
+        store = stores[max(stores, key=len)]
+        check(len(store.placements) == p
+              and all(st._view.betas.device == store.placements[i * p // 4]
+                      for i, st in enumerate(store.shards)),
+              f"P={p}: each shard's tier on its placement")
+        result["tiered_s4" if p == 1 else f"tiered_s4_p{p}"] = {
+            "launches": launches, "passes": passes, "hot": hot,
+            "victims": victims, "placements": p, "tier_metrics": tm,
+            "per_shard_device_bytes": store.per_shard_device_bytes,
+            "per_placement_device_bytes": store.per_placement_device_bytes,
+            "device_bytes": store.device_bytes,
+            "host_bytes": store.host_bytes,
+            "shard_dispatches": composed.metrics["shard_dispatches"],
+            "ms_per_window_after_rebalance":
+                (marks[-1] - marks[1]) * 1e3 / (N_WINDOWS - 1)}
     return result
 
 
@@ -1794,9 +1908,13 @@ def _publish_under_traffic(dev, setup) -> dict:
 
 def phase_sharding(dev, setup) -> dict:
     """The tenant-sharded topology on the card: the sharded benchmark at
-    full size, an uneven assignment with an empty shard, the serve
-    configuration at S = 4, 8 and tiered over S = 4, and fleet publishes
-    under traffic.  Launches: each part counted on its own."""
+    full size, an uneven assignment with an empty shard, the S = 8
+    dispatcher over 1, 2, 4 and 8 placements on one card (and over
+    distinct cards where there are several), the serve configuration at S
+    = 4, 8, 8 over 8 placements, tiered over S = 4 on one and on 4
+    placements, and fleet publishes under traffic.  Launches: each part
+    counted on its own."""
+    import torch
     from repro_torch.benchmarks import bench_sharded_bank
     from repro_torch.kernels import ops
 
@@ -1820,16 +1938,32 @@ def phase_sharding(dev, setup) -> dict:
         ops.LAUNCHES[name] = 0
     uneven = _sharded_uneven(dev)
     uneven_launches = ops.LAUNCHES["score_pipeline_banked"]
+    placed_launches = {}
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 1
+    on = {"one_card": [torch.device(dev.type, 0) if dev.type == "cuda"
+                       else dev]}
+    if cards >= 2:
+        on["distinct_cards"] = [torch.device("cuda", i)
+                                for i in range(cards)]
+    else:
+        emit({"several_cards": False, "device_count": cards})
+    placed = {}
+    for name, devices in on.items():
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        placed[name] = _placed_dispatch(devices)
+        placed_launches[name] = ops.LAUNCHES["score_pipeline_banked"]
     serve = _serve_topologies(setup)
     publish = _publish_under_traffic(dev, setup)
     kernel_ms = _sharded_kernel_ms(dev)
     launches = {"bench": bench_launches, "uneven": uneven_launches,
+                **{f"placed_{k}": v for k, v in placed_launches.items()},
                 **{f"serve_{k}": v["launches"] for k, v in serve.items()},
                 "publish_under_traffic": publish["launches"]}
     check(all(n > 0 for n in launches.values()),
           f"every sharded run launched the banked kernel: {launches}")
     result = {"phase": "sharding", "launches": launches, "bench": bench,
-              "uneven": uneven, "serve": serve,
+              "uneven": uneven, "placed": placed, "serve": serve,
               "publish_under_traffic": publish, "kernel_ms": kernel_ms,
               "wall_s": time.perf_counter() - t0}
     emit(result)
@@ -2074,6 +2208,9 @@ ATTN_CASES = {
     "d128_gqa": (3, 256, 256, 8, 2, 128, True, 0),
 }
 MAIN_ATTN = (4, 2048, 2048, 32, 8, 128, True, 0)   # qwen3-8b prefill
+# hubert-xlarge's encoder attention at the same batch and length: 16 / 16
+# heads of D = 80, bidirectional; in bf16 it takes the SIMT form
+HUBERT_ATTN = (4, 2048, 2048, 16, 16, 80, False, 0)
 
 
 def _qkv(case, dtype, dev, seed):
@@ -2190,6 +2327,7 @@ def phase_attention(dev) -> dict:
     bound_ms, bound_by, flops = attention_bound(*MAIN_ATTN, itemsize=2)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
+    hubert = _hubert_attention(dev, form_of)
     result = {"phase": "attention", "name": "flash_attention_wgmma",
               "cases": {n: list(c) for n, c in ATTN_CASES.items()},
               "forms": forms, "tolerance": ATTN_TOL, "errors": errs,
@@ -2206,11 +2344,52 @@ def phase_attention(dev) -> dict:
               "bound_ms_issued": 1.5 * bound_ms,
               "tflop_per_s": flops / (ms * 1e-3) / 1e12,
               "simt_f32_ms": simt["ms"], "simt_f32": simt,
+              "hubert_bf16_d80": hubert,
               "timing": "CUDA events, median of 20 runs of 10 back-to-back "
                         "launches (SIMT form and plain versions: 3 runs of "
-                        "1) queued behind a busy card"}
+                        "1; hubert: 5 runs of 3) queued behind a busy card"}
     emit(result)
     return result
+
+
+def _hubert_attention(dev, form_of) -> dict:
+    """The form hubert-xlarge runs (bf16, D = 80, bidirectional: the SIMT
+    kernel) at its width, B = 4, T = 2,048: its error against the plain
+    version, its time beside the plain version's and
+    ``scaled_dot_product_attention``'s on the same inputs, and its bound
+    (4·D flops a pair at the bf16 tensor-core rate)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.benchmarks.timing import attention_bound, device_ms
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    b, tq, tk, hq, hkv, d, causal, win = HUBERT_ATTN
+    q, k, v = _qkv(HUBERT_ATTN, torch.bfloat16, dev, seed=124)
+    got, form = form_of(lambda: fa.flash_attention(q, k, v, causal=causal))
+    check(form == "simt", "bf16 with D = 80 runs the SIMT form")
+    err = _attn_err("hubert_d80/bfloat16", got,
+                    ref.flash_attention(q, k, v, causal=causal),
+                    ATTN_TOL["bfloat16"])
+    del got
+    torch.cuda.synchronize()
+    ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                   reps=5, inner=3)
+    plain_ms = device_ms(lambda: ref.flash_attention(q, k, v, causal=causal),
+                         reps=3, inner=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=False), reps=5, inner=3)
+    bound_ms, bound_by, flops = attention_bound(*HUBERT_ATTN, itemsize=2)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"form": form, "dtype": "bfloat16",
+            "shape": {"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv,
+                      "D": d, "causal": causal},
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "gflop": flops / 1e9,
+            "tflop_per_s": flops / (ms * 1e-3) / 1e12}
 
 
 # ---------------------------------------------------------------- phase 11

@@ -86,7 +86,8 @@ def sharded_row(disp: ShardedBankDispatcher, sbank: ShardedTransformBank,
                 scores: np.ndarray, tid: np.ndarray, dense: np.ndarray,
                 repeat: int) -> dict:
     """One sharded configuration: bitwise parity with ``dense`` (raises
-    otherwise), launches a call, the kernel form, the time."""
+    otherwise), launches a call (one a placement), the rows and kernel
+    form of each launch, the time."""
     dev = disp.mesh.device
     got, launches = _launched(lambda: disp(scores, tid, sbank))
     differ = int(np.sum(got.view(np.uint32) != dense.view(np.uint32)))
@@ -94,16 +95,16 @@ def sharded_row(disp: ShardedBankDispatcher, sbank: ShardedTransformBank,
         raise RuntimeError(f"S={sbank.num_shards}, T={sbank.num_rows}: "
                            f"{differ} of {len(tid)} scores differ from the "
                            f"dense launch")
-    if dev.type == "cuda" and launches != 1:
-        raise RuntimeError(f"a sharded dispatch made {launches} banked "
-                           f"launches")
+    if dev.type == "cuda" and launches != sbank.num_placements:
+        raise RuntimeError(f"a sharded dispatch over {sbank.num_placements} "
+                           f"placements made {launches} banked launches")
     counts = np.bincount(sbank.shard_of[tid], minlength=sbank.num_shards)
-    rows = sbank.num_shards * _shape_bucket(int(counts.max()))  # S·Bs
+    per = sbank.shards_per_placement
+    rows = per * _shape_bucket(int(counts.max()))  # S/P·Bs a launch
     secs = _timeit(lambda: disp(scores, tid, sbank), repeat)
     return {"us_per_batch": secs * 1e6, "events_per_s": len(tid) / secs,
             "launches_per_call": launches, "launch_rows": rows,
-            "banked_path": _path(dev, sbank.num_shards * sbank.rows_per_shard,
-                                 rows),
+            "banked_path": _path(dev, per * sbank.rows_per_shard, rows),
             "bitwise_parity": True}
 
 

@@ -15,7 +15,7 @@ Functions compute on the device of their inputs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Sequence
+from typing import Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -587,6 +587,16 @@ def shard_rows(num_rows: int, num_shards: int,
     return assign, local, counts
 
 
+class PlacementStack(NamedTuple):
+    """One placement's rows of a sharded bank: (S/P, Tl, K) / (S/P, Tl, N)
+    float32 stacks of its shards, on its device."""
+
+    betas: Tensor
+    weights: Tensor
+    src_quantiles: Tensor
+    ref_quantiles: Tensor
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ShardedTransformBank:
     """A :class:`TransformBank` row-partitioned over a "tenants" axis.
@@ -597,9 +607,17 @@ class ShardedTransformBank:
     ``local_of`` are the host-side (numpy) global<->local remap the serving
     layer buckets requests with; occupancy may be uneven and shards may be
     empty (rows beyond ``row_counts[s]`` are inert identity padding that no
-    request selects).  On one card every shard lives on the bank's device,
-    and the stacks are contiguous, so ``(S·Tl, ·)`` views of them are what
-    one launch of the banked kernel reads (``ShardedBankDispatcher``).
+    request selects).
+
+    The shards fall in contiguous blocks over P placements (the tenant
+    mesh's, ``launch/mesh.py``): ``stacks[p]`` holds shards ``p·S/P`` to
+    ``(p+1)·S/P - 1`` on placement p's device, and no placement holds
+    another's rows (``per_placement_bytes``).  The stacks are contiguous,
+    so ``(S/P·Tl, ·)`` views of them are what one launch of the banked
+    kernel a placement reads (``ShardedBankDispatcher``).  ``betas`` ...
+    ``ref_quantiles`` are the whole (S, Tl, ·) stacks: with one placement
+    its own tensors, with several a copy gathered on the first placement
+    (inspection only; serving reads ``stacks``).
 
     Like the dense bank, a sharded bank is immutable and generation-stamped:
     ``with_rows`` scatters refreshed T^Q tables ONLY into each row's owning
@@ -608,10 +626,7 @@ class ShardedTransformBank:
     control-plane assignment — per-shard generations can never diverge.
     """
 
-    betas: Tensor          # (S, Tl, K)
-    weights: Tensor        # (S, Tl, K)
-    src_quantiles: Tensor  # (S, Tl, N)
-    ref_quantiles: Tensor  # (S, Tl, N)
+    stacks: tuple[PlacementStack, ...]
     shard_of: np.ndarray   # (T,) owning shard per global bank row
     local_of: np.ndarray   # (T,) local row within the owning shard
     row_counts: np.ndarray  # (S,) occupied rows per shard
@@ -619,8 +634,20 @@ class ShardedTransformBank:
 
     # ------------------------------------------------------------ geometry
     @property
+    def num_placements(self) -> int:
+        return len(self.stacks)
+
+    @property
+    def placements(self) -> tuple[torch.device, ...]:
+        return tuple(st.betas.device for st in self.stacks)
+
+    @property
+    def shards_per_placement(self) -> int:
+        return int(self.stacks[0].betas.shape[0])
+
+    @property
     def num_shards(self) -> int:
-        return int(self.betas.shape[0])
+        return self.shards_per_placement * self.num_placements
 
     @property
     def num_rows(self) -> int:
@@ -628,25 +655,52 @@ class ShardedTransformBank:
 
     @property
     def rows_per_shard(self) -> int:
-        return int(self.betas.shape[1])
+        return int(self.stacks[0].betas.shape[1])
 
     @property
     def num_experts(self) -> int:
-        return int(self.betas.shape[-1])
+        return int(self.stacks[0].betas.shape[-1])
 
     @property
     def num_quantiles(self) -> int:
-        return int(self.src_quantiles.shape[-1])
+        return int(self.stacks[0].src_quantiles.shape[-1])
 
     @property
     def device(self) -> torch.device:
-        return self.betas.device
+        return self.stacks[0].betas.device
 
     @property
     def per_shard_bytes(self) -> int:
         """Bank bytes RESIDENT on one shard (the 1/S residency headline)."""
         tl, k, n = self.rows_per_shard, self.num_experts, self.num_quantiles
         return tl * (2 * k + 2 * n) * 4
+
+    @property
+    def per_placement_bytes(self) -> int:
+        """Bank bytes resident on one placement: (S/P)·Tl·(2K+2N)·4."""
+        return self.shards_per_placement * self.per_shard_bytes
+
+    def _whole(self, field: int) -> Tensor:
+        parts = [st[field] for st in self.stacks]
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([x.to(self.device) for x in parts])
+
+    @property
+    def betas(self) -> Tensor:              # (S, Tl, K)
+        return self._whole(0)
+
+    @property
+    def weights(self) -> Tensor:            # (S, Tl, K)
+        return self._whole(1)
+
+    @property
+    def src_quantiles(self) -> Tensor:      # (S, Tl, N)
+        return self._whole(2)
+
+    @property
+    def ref_quantiles(self) -> Tensor:      # (S, Tl, N)
+        return self._whole(3)
 
     def locate(self, tenant_idx) -> tuple[np.ndarray, np.ndarray]:
         """Global row ids -> (owning shard, local row) — the dispatch remap."""
@@ -656,18 +710,25 @@ class ShardedTransformBank:
     # --------------------------------------------------------- conversions
     @staticmethod
     def from_dense(bank: TransformBank, num_shards: int,
-                   shard_of: np.ndarray | None = None
+                   shard_of: np.ndarray | None = None,
+                   placements: Sequence[torch.device | str] | None = None
                    ) -> "ShardedTransformBank":
-        """Partition a dense bank's rows over ``num_shards`` shards, on the
-        dense bank's device.
+        """Partition a dense bank's rows over ``num_shards`` shards.
 
         ``shard_of`` (optional, (T,)) assigns each global row an owning
         shard — any assignment is legal, including empty shards.  Default is
         round-robin (``t % S``).  Local ids are assigned in global-row order
         within each shard; shards are padded to the max occupancy with
         identity rows (beta=1, weight=1, the float32 ``np.linspace`` grid as
-        both tables, bit for bit the reference's padding).
+        both tables, bit for bit the reference's padding).  ``placements``
+        (a tenant mesh's) puts each contiguous block of S/P shards straight
+        on its device; the default is one placement, the dense bank's device.
         """
+        devices = (bank.device,) if placements is None \
+            else tuple(torch.device(d) for d in placements)
+        if not devices or num_shards % len(devices):
+            raise ValueError(f"{num_shards} shards do not split evenly over "
+                             f"{len(devices)} placements")
         t = bank.num_rows
         assign, local, counts = shard_rows(t, num_shards, shard_of)
         tl = max(int(counts.max()) if counts.size else 0, 1)
@@ -682,23 +743,29 @@ class ShardedTransformBank:
         weights[assign, local] = to_numpy(bank.weights)
         src[assign, local] = to_numpy(bank.src_quantiles)
         ref[assign, local] = to_numpy(bank.ref_quantiles)
+        per = num_shards // len(devices)
         return ShardedTransformBank(
-            *(torch.from_numpy(a).to(bank.device)
-              for a in (betas, weights, src, ref)),
+            tuple(PlacementStack(*(torch.from_numpy(a[p * per:(p + 1) * per])
+                                   .to(dev)
+                                   for a in (betas, weights, src, ref)))
+                  for p, dev in enumerate(devices)),
             shard_of=assign, local_of=local, row_counts=counts,
             generation=bank.generation)
 
     def shard_bank(self, shard: int) -> TransformBank:
         """The dense sub-bank one shard serves (its occupied local rows)."""
         c = max(int(self.row_counts[shard]), 1)  # empty: one inert row
+        p, s = divmod(shard, self.shards_per_placement)
+        st = self.stacks[p]
         return TransformBank(
-            betas=self.betas[shard, :c], weights=self.weights[shard, :c],
-            src_quantiles=self.src_quantiles[shard, :c],
-            ref_quantiles=self.ref_quantiles[shard, :c],
+            betas=st.betas[s, :c], weights=st.weights[s, :c],
+            src_quantiles=st.src_quantiles[s, :c],
+            ref_quantiles=st.ref_quantiles[s, :c],
             generation=self.generation)
 
     def to_dense(self) -> TransformBank:
-        """Reassemble the global dense bank (parity/inspection path)."""
+        """Reassemble the global dense bank on the first placement
+        (parity/inspection path)."""
         sh = torch.from_numpy(self.shard_of).to(self.device)
         lo = torch.from_numpy(self.local_of).to(self.device)
         return TransformBank(
@@ -717,32 +784,43 @@ class ShardedTransformBank:
         """Functional T^Q update addressed by GLOBAL row id.
 
         Each replacement table is scattered only into its row's owning
-        shard (one out-of-place ``index_put`` per table stack, at (shard,
-        local)); every other row is carried over untouched.  Semantics
-        otherwise match :meth:`TransformBank.with_rows` (edge-padding of
-        narrow tables by :func:`pad_quantile_tables`, so the last-knot rule
-        holds here too; generation defaulting to current + 1).
+        shard (one out-of-place ``index_put`` per table stack of the
+        owning placement, at (shard, local)); every other row is carried
+        over untouched, and a placement that owns none of the rows keeps
+        its tensors (no copy, no upload).  Semantics otherwise match
+        :meth:`TransformBank.with_rows` (edge-padding of narrow tables by
+        :func:`pad_quantile_tables`, so the last-knot rule holds here too;
+        generation defaulting to current + 1).
         """
         if not rows:
             return self if generation is None else dataclasses.replace(
                 self, generation=generation)
         n = self.num_quantiles
-        s_idx, l_idx, srcs, refs = [], [], [], []
+        per = self.shards_per_placement
+        touched: dict[int, tuple[list, list, list, list]] = {}
         for row, value in sorted(rows.items()):
             if not 0 <= row < self.num_rows:
                 raise IndexError(f"row {row} outside bank of {self.num_rows}")
             src, ref = pad_quantile_tables(value, n, row=row)
-            s_idx.append(int(self.shard_of[row]))
+            p, s = divmod(int(self.shard_of[row]), per)
+            dev = self.stacks[p].betas.device
+            s_idx, l_idx, srcs, refs = touched.setdefault(p, ([], [], [], []))
+            s_idx.append(s)
             l_idx.append(int(self.local_of[row]))
-            srcs.append(src.to(self.device))
-            refs.append(ref.to(self.device))
-        where = (torch.tensor(s_idx, dtype=torch.long, device=self.device),
-                 torch.tensor(l_idx, dtype=torch.long, device=self.device))
+            srcs.append(src.to(dev))
+            refs.append(ref.to(dev))
+        stacks = list(self.stacks)
+        for p, (s_idx, l_idx, srcs, refs) in touched.items():
+            st = stacks[p]
+            dev = st.betas.device
+            where = (torch.tensor(s_idx, dtype=torch.long, device=dev),
+                     torch.tensor(l_idx, dtype=torch.long, device=dev))
+            stacks[p] = st._replace(
+                src_quantiles=st.src_quantiles.index_put(
+                    where, torch.stack(srcs)),
+                ref_quantiles=st.ref_quantiles.index_put(
+                    where, torch.stack(refs)))
         return dataclasses.replace(
-            self,
-            src_quantiles=self.src_quantiles.index_put(
-                where, torch.stack(srcs)),
-            ref_quantiles=self.ref_quantiles.index_put(
-                where, torch.stack(refs)),
+            self, stacks=tuple(stacks),
             generation=self.generation + 1 if generation is None else generation,
         )

@@ -29,6 +29,7 @@ hold one tenant only.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -72,6 +73,7 @@ def banked_skip_stats(tenant_idx, *, block: int = DEFAULT_BLOCK) -> dict:
             "skip_rate": uniform / total if total else 0.0}
 
 
+@functools.cache
 def _shared_library() -> ctypes.CDLL:
     """The shared-parameter kernel's library, with its C signatures."""
     lib = _build.library("score_pipeline")
@@ -180,6 +182,7 @@ def card(device: torch.device) -> tuple[int, int]:
     return _CARD[index]
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
     """The banked kernel's library, with its C signatures declared."""
     lib = _build.library("score_pipeline_banked")

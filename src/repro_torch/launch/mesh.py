@@ -19,12 +19,14 @@ card with NCCL unless the caller asks for the CPU, where it runs over gloo.
 The TPU's peak constants are not carried over: the one-card roofline takes
 the H100's published rates (``launch/roofline.py``).
 
-The tenant mesh is S shards of the "tenants" axis on ONE torch device:
-every shard's sub-bank lives on that device, and the sharded dispatcher
-(``serving/server.py::ShardedBankDispatcher``) scores all of them in one
-launch of the banked kernel.  That is the port's counterpart of the
-reference's S forced host devices on one CPU.  A tenant mesh over several
-cards (one launch a card) raises (:data:`SEVERAL_CARDS`).
+The tenant mesh is S shards of the "tenants" axis over P placements, one
+torch device each (``S % P == 0``): shard ``s`` lives on placement
+``s // (S / P)``.  Each placement holds only its shards' rows of a sharded
+bank, and the sharded dispatcher
+(``serving/server.py::ShardedBankDispatcher``) scores a window with one
+launch of the banked kernel a placement.  Two placements may name the same
+device, as the reference's forced host devices share one CPU: the whole
+path then runs on one card (or on the CPU) as it runs over several.
 """
 from __future__ import annotations
 
@@ -38,10 +40,6 @@ import torch
 
 from repro_torch.core.transforms import TENANT_AXIS
 from repro_torch.device import resolve_device
-
-# what is not ported yet, named as ROADMAP Queue 1 names it
-SEVERAL_CARDS = ("ROADMAP Queue 1 item 11b, the tenant mesh over several "
-                 "cards")
 
 DATA_AXES = ("pod", "data")
 MODEL_AXIS = "model"
@@ -157,11 +155,41 @@ def data_axis_size(mesh) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class TenantMesh:
-    """``num_shards`` shards of the "tenants" axis, all on ``device``."""
+    """``num_shards`` shards of the "tenants" axis in contiguous blocks over
+    ``placements``, one device each; ``device`` is the first placement's,
+    where results gather and a server's own tensors live."""
 
     num_shards: int
-    device: torch.device
+    placements: tuple[torch.device, ...]
     axis_name: str = TENANT_AXIS
+
+    def __post_init__(self) -> None:
+        if self.num_shards < 1:
+            raise ValueError(f"num_shards must be >= 1, got {self.num_shards}")
+        if not self.placements:
+            raise ValueError("a tenant mesh needs at least one placement")
+        if self.num_shards % len(self.placements):
+            raise ValueError(
+                f"{self.num_shards} shards do not split evenly over "
+                f"{len(self.placements)} placements")
+        for d in self.placements:
+            if d.type == "meta":
+                raise ValueError(f"a placement on {d} holds no rows")
+        if len({d.type for d in self.placements}) > 1:
+            raise ValueError("placements mix device types: "
+                             f"{[str(d) for d in self.placements]}")
+
+    @property
+    def device(self) -> torch.device:
+        return self.placements[0]
+
+    @property
+    def num_placements(self) -> int:
+        return len(self.placements)
+
+    @property
+    def shards_per_placement(self) -> int:
+        return self.num_shards // len(self.placements)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -175,25 +203,34 @@ def make_tenant_mesh(
 ) -> TenantMesh:
     """1-D serving mesh over the "tenants" axis (sharded transform banks).
 
-    ``device`` is where every shard lives: the card unless the caller asks
-    for another device.  A sequence of devices names one per shard; more
-    than one distinct device is a mesh over several cards, which raises
-    ``NotImplementedError`` (:data:`SEVERAL_CARDS`).
+    ``device`` is one device (one placement holding every shard), a
+    sequence of P devices (P placements, repeats allowed), or ``None``: the
+    reference's layout over the visible cards, P the largest divisor of
+    ``num_shards`` that is at most ``torch.cuda.device_count()``, on
+    ``cuda:0`` ... ``cuda:P-1`` (raises without a card).  ``num_shards %
+    P != 0``, a placement on ``meta`` and placements of mixed device types
+    raise ``ValueError``.
     """
-    if num_shards < 1:
-        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
     if isinstance(device, (list, tuple)):
-        devices = {resolve_device(d) for d in device}
-        if len(devices) > 1:
-            raise NotImplementedError(
-                "a tenant mesh over several cards (one launch a card) is not "
-                f"ported yet: {SEVERAL_CARDS}")
-        if not devices:
-            raise ValueError("no device given")
-        (dev,) = devices
+        placements = tuple(_placement(d) for d in device)
+    elif device is None:
+        resolve_device(None)          # raises without a card
+        p = max((d for d in range(1, torch.cuda.device_count() + 1)
+                 if num_shards % d == 0), default=1)
+        placements = tuple(torch.device("cuda", i) for i in range(p))
     else:
-        dev = resolve_device(device)
-    return TenantMesh(num_shards, dev)
+        placements = (_placement(device),)
+    return TenantMesh(num_shards, placements)
+
+
+def _placement(device: torch.device | str) -> torch.device:
+    """A placement's device; a card named without its index is the current
+    one, named by index, so a placement equals its tensors' device."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None \
+            and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def tenant_axis_size(mesh: TenantMesh) -> int:

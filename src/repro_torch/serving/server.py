@@ -66,22 +66,26 @@ Sharded serving topology
 With ``ServerConfig(tenant_shards=S)`` the server serves every model-group
 bank as a :class:`~repro_torch.core.transforms.ShardedTransformBank`
 row-partitioned over an S-way "tenants" axis
-(:func:`repro_torch.launch.mesh.make_tenant_mesh`).  ``apply_transforms``
-then routes through :class:`ShardedBankDispatcher`: a window's rows are
-bucketed by owning shard on the host and packed (S, Bs, K), and ONE launch
-of the banked kernel scores every shard against its own local rows (the
-reference's ``shard_map`` runs one program a device; the port's S shards
-share one card, so their (S, Tl, ·) stacks are read as (S·Tl, ·) views and
-each shard's ids are offset by ``s·Tl``).  Results gather back in request
-order.  The per-row compute is the dense path's kernel, so sharded and
-dense scores agree bitwise.  ``publish_quantile_maps`` rebuilds the dense
-bank AND its per-shard sub-banks (scattering only into each row's owning
-shard) inside the same single control-plane swap — one generation, never a
-torn per-shard mix.  Tiering composes with sharding
-(``ServerConfig(tenant_shards=S, tiering=...)``): every shard gets its own
-hot tier and victim cache (:class:`~repro_torch.serving.tiering.
+(:func:`repro_torch.launch.mesh.make_tenant_mesh`).  ``device`` may then be
+a sequence of P devices, one a placement of the mesh (repeats allowed); its
+first entry is the server's own device.  A placement holds only its S/P
+shards' rows.  ``apply_transforms`` routes through
+:class:`ShardedBankDispatcher`: a window's rows are bucketed by owning
+shard on the host and packed (S, Bs, K), and ONE launch of the banked
+kernel a placement scores its shards against their own local rows (the
+reference's ``shard_map`` runs one program a device; a placement's shards
+are read as (S/P·Tl, ·) views of its stacks and each shard's ids are
+offset by ``s·Tl``).  Results gather back in request order.  The per-row
+compute is the dense path's kernel, so sharded and dense scores agree
+bitwise.  ``publish_quantile_maps`` rebuilds the dense bank AND its
+per-shard sub-banks (scattering only into each row's owning shard, so a
+placement that owns none of the rows keeps its tensors) inside the same
+single control-plane swap — one generation, never a torn per-shard mix.
+Tiering composes with sharding (``ServerConfig(tenant_shards=S,
+tiering=...)``): every shard gets its own hot tier and victim cache on its
+placement's device (:class:`~repro_torch.serving.tiering.
 ShardedTieredBankStore`), scored through the same dispatcher, one launch a
-pass.
+placement a pass.
 """
 from __future__ import annotations
 
@@ -89,7 +93,7 @@ import dataclasses
 import threading
 import time
 import zlib
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -286,18 +290,24 @@ class _ControlPlane:
 
 
 class ShardedBankDispatcher:
-    """Banked dispatch over a tenant-sharded bank, one launch a pass.
+    """Banked dispatch over a tenant-sharded bank, one launch a placement.
 
     The data-plane half of the sharded topology: a window's rows are
     bucketed by owning shard on the host (the bank's global->local remap),
     packed into one (S, Bs, K) batch padded per shard, and every shard's
     rows are scored against ONLY its local rows.  The reference runs one
-    ``shard_map`` program a device; here the S shards share the mesh's
-    device, so :meth:`run_packed` is ONE launch of the banked kernel on the
-    packed window flattened to (S·Bs, K), with ids ``s·Tl + local`` into the
-    (S, Tl, ·) stacks viewed as (S·Tl, ·).  Results gather back into
-    request order on the host.  Shard buckets pad their id vector
-    edge-wise (an empty shard's padding reads its local row 0).
+    ``shard_map`` program a device, and ``shard_map`` scatters its (S, Tl,
+    ·) stacks to the devices on every call; here each placement of the
+    mesh keeps its shards' rows resident (``ShardedTransformBank.stacks``),
+    as the reference's docstring describes a device holding only its
+    tenant rows.  :meth:`run_packed` uploads each placement's block of the
+    window and launches the banked kernel once on that placement's device:
+    its (S/P·Bs, K) rows, ids ``s·Tl + local`` into its (S/P, Tl, ·)
+    stacks viewed as (S/P·Tl, ·).  Every placement's launch is enqueued
+    before the host waits on any result, so launches on distinct cards
+    overlap.  Results gather back into request order on the host.  Shard
+    buckets pad their id vector edge-wise (an empty shard's padding reads
+    its local row 0).
 
     Per-row compute is the dense path's kernel, independent of batch and
     bank shape, so sharded scores match the dense launch BITWISE.
@@ -310,37 +320,61 @@ class ShardedBankDispatcher:
         self.fused = fused
 
     def run_packed(self, packed: np.ndarray, pidx: np.ndarray,
-                   betas: torch.Tensor, weights: torch.Tensor,
-                   src_quantiles: torch.Tensor, ref_quantiles: torch.Tensor
-                   ) -> np.ndarray:
-        """One launch over an already-packed (S, Bs, K) window against
-        explicit (S, R, ·) per-shard parameter stacks; returns (S, Bs).
+                   stacks: Sequence[Sequence[torch.Tensor]]) -> np.ndarray:
+        """One launch a placement over an already-packed (S, Bs, K) window
+        against explicit per-placement (S/P, R, ·) parameter stacks (betas,
+        weights, src and ref tables, on the placement's device); returns
+        (S, Bs).
 
         The raw launch entry: ``__call__`` buckets and packs a window
         against a :class:`ShardedTransformBank` and lands here; the
         tiered-over-sharded store packs slot-remapped buckets itself and
-        calls this with its stacked per-shard tier views.  The stacks must
-        be contiguous: they are read through views, never copied.
+        calls this with its stacked per-placement tier views.  The stacks
+        must be contiguous: they are read through views, never copied.
         """
         s, bs, k = packed.shape
-        r = betas.shape[1]
-        ids = pidx.astype(np.int64) + (np.arange(s, dtype=np.int64) * r)[:, None]
-        device = self.mesh.device
-        scores = torch.from_numpy(
-            np.ascontiguousarray(packed.reshape(s * bs, k), np.float32))
-        idx = torch.from_numpy(ids.reshape(-1).astype(np.int32))
+        if len(stacks) != self.mesh.num_placements \
+                or s != self.mesh.num_shards:
+            raise ValueError(f"{len(stacks)} stacks of a ({s}, {bs}, {k}) "
+                             f"window for a mesh of {self.mesh.num_shards} "
+                             f"shards over {self.mesh.num_placements} "
+                             "placements")
+        per = self.mesh.shards_per_placement
         impl = ops.score_pipeline_banked if self.fused \
             else banked_score_pipeline
-        out = impl(scores.to(device), idx.to(device),
-                   *(x.view(s * r, x.shape[-1]) for x in (
-                       betas, weights, src_quantiles, ref_quantiles)))
-        return to_numpy(out).reshape(s, bs)
+        pending = []
+        for p, (dev, stack) in enumerate(zip(self.mesh.placements, stacks)):
+            cuda = dev.type == "cuda"
+            r = stack[0].shape[1]
+            block = slice(p * per, (p + 1) * per)
+            ids = pidx[block].astype(np.int64) \
+                + (np.arange(per, dtype=np.int64) * r)[:, None]
+            scores = torch.from_numpy(np.ascontiguousarray(
+                packed[block].reshape(per * bs, k), np.float32))
+            idx = torch.from_numpy(ids.reshape(-1).astype(np.int32))
+            if cuda:
+                scores, idx = scores.pin_memory(), idx.pin_memory()
+            out = impl(scores.to(dev, non_blocking=True),
+                       idx.to(dev, non_blocking=True),
+                       *(x.view(per * r, x.shape[-1]) for x in stack))
+            if not cuda:
+                pending.append((out, None))
+                continue
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+            pending.append((host, done))
+        for _, done in pending:
+            if done is not None:
+                done.synchronize()
+        return np.concatenate([host.numpy() for host, _ in pending]
+                              ).reshape(s, bs)
 
     def _run(self, packed: np.ndarray, pidx: np.ndarray,
              sbank: ShardedTransformBank) -> np.ndarray:
-        """One launch over the packed (S, Bs, ·) window."""
-        return self.run_packed(packed, pidx, sbank.betas, sbank.weights,
-                               sbank.src_quantiles, sbank.ref_quantiles)
+        """One launch a placement over the packed (S, Bs, ·) window."""
+        return self.run_packed(packed, pidx, sbank.stacks)
 
     @staticmethod
     def _pack_bucket(packed, pidx, shard, rows_raws, rows_idx, bs):
@@ -390,10 +424,19 @@ class ShardedBankDispatcher:
 class MuseServer:
     def __init__(self, routing: RoutingTable,
                  config: ServerConfig | None = None,
-                 device: torch.device | str | None = None) -> None:
+                 device: torch.device | str
+                 | Sequence[torch.device | str] | None = None) -> None:
         self.config = config or ServerConfig()
-        # where predictors' pipelines and the transform banks live
-        self.device = resolve_device(device)
+        # the tenant mesh's placements: the whole sequence when one is
+        # given; the server's own device (predictors' pipelines, dense
+        # banks, tracking, responses) is the first placement's
+        mesh = None
+        if self.config.tenant_shards > 1:
+            mesh = make_tenant_mesh(self.config.tenant_shards, device)
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(
+                device[0] if isinstance(device, (list, tuple)) else device)
         self.pool = ModelPool()
         self.routing = routing
         self.sink = ShadowSink()
@@ -423,10 +466,9 @@ class MuseServer:
         # tiered-over-sharded stores (per-shard hot tiers, one launch a
         # pass) instead of fully-resident sharded banks.
         self._sharded_dispatch: ShardedBankDispatcher | None = None
-        if self.config.tenant_shards > 1:
+        if mesh is not None:
             self._sharded_dispatch = ShardedBankDispatcher(
-                make_tenant_mesh(self.config.tenant_shards, self.device),
-                fused=self.config.fused_kernel)
+                mesh, fused=self.config.fused_kernel)
         # tiered topology: stateful stores OUTSIDE the plane (hotness, seen
         # counts and victim-cache residency survive plane swaps); the plane's
         # bank entries hold references, _tier_lock guards the dict itself
@@ -653,8 +695,7 @@ class MuseServer:
                     [(p.betas, p.weights, p.src_quantiles, p.ref_quantiles)
                      for p in pipelines], generation=gen, device=self.device)
             if sharded is None and self._sharded_dispatch is not None:
-                sharded = ShardedTransformBank.from_dense(
-                    bank, self.config.tenant_shards)
+                sharded = self._placed(bank)
             new_banks[key] = _BankEntry(pipelines, bank, sharded)
 
         # the publish point: ONE whole-plane swap, never in-place edits
@@ -747,11 +788,17 @@ class MuseServer:
             device=self.device)
         sharded = None
         if self._sharded_dispatch is not None:
-            sharded = ShardedTransformBank.from_dense(
-                bank, self.config.tenant_shards)
+            sharded = self._placed(bank)
         entry = _BankEntry(pipelines, bank, sharded)
         plane.banks[names] = entry
         return entry
+
+    def _placed(self, bank: TransformBank) -> ShardedTransformBank:
+        """``bank`` row-partitioned over the tenant mesh, each placement's
+        shards built straight on its device."""
+        mesh = self._sharded_dispatch.mesh
+        return ShardedTransformBank.from_dense(
+            bank, mesh.num_shards, placements=mesh.placements)
 
     def _tiered_store_for(
             self, names: tuple[str, ...], pipelines: tuple[Any, ...]

@@ -74,13 +74,15 @@ round-robin rule as :class:`~repro_torch.core.transforms.ShardedTransformBank`
 (``core.transforms.shard_rows``), each shard owns a per-shard
 :class:`HostBankStore` plus its own hot/victim/prior
 :class:`TieredBankStore`, and a dispatch buckets the window by owning
-shard, resolves slots per shard, and launches the banked kernel ONCE a
-pass through the sharded dispatcher over the stacked per-shard views (the
-dispatch stream waits on every view's ``ready`` event first).  Device
-residency is ``(hot+victims+1)·(2K+2N)·4`` bytes PER SHARD, independent of
-tenant count; publishes land in every shard's host rows and device view
-under ONE generation (all shard locks held in shard order, per-shard
-generations advance in lockstep).
+shard, resolves slots per shard, and launches the banked kernel once a
+placement a pass through the sharded dispatcher over each placement's
+stacked per-shard views (each shard's store lives on its placement's
+device, and a placement's dispatch stream waits on its own views' ``ready``
+events first).  Device residency is ``(hot+victims+1)·(2K+2N)·4`` bytes PER
+SHARD, ``S/P`` times that a placement, independent of tenant count;
+publishes land in every shard's host rows and device view under ONE
+generation (all shard locks held in shard order, per-shard generations
+advance in lockstep).
 """
 from __future__ import annotations
 
@@ -941,15 +943,18 @@ class ShardedTieredBankStore:
     A dispatch buckets events by owning shard, runs every shard's staging
     pass, packs one ``(S, Bs, K)`` slot-remapped batch (edge-padded per
     shard, as the pure-sharded dispatcher pads), and launches the banked
-    kernel ONCE through the dispatcher's ``run_packed`` over the stacked
-    per-shard views — per-row compute is the dense path's kernel, so
-    composed scores match the dense bank BITWISE.  Cross-shard operations
-    (dispatch, publish, rebalance, hotness snapshots) take every shard's
-    lock in shard order; per-shard operations (prefetch, mark_cold) take
-    one shard's lock at a time and never wait for another's while holding
-    one.  ``dispatcher`` defaults to a :class:`ShardedBankDispatcher` over
-    ``num_shards`` shards on ``device`` (the card unless the caller asks
-    for another); a given one's mesh device is the stores' device.
+    kernel ONCE a placement through the dispatcher's ``run_packed`` over
+    each placement's stacked per-shard views — per-row compute is the
+    dense path's kernel, so composed scores match the dense bank BITWISE.
+    Cross-shard operations (dispatch, publish, rebalance, hotness
+    snapshots) take every shard's lock in shard order; per-shard
+    operations (prefetch, mark_cold) take one shard's lock at a time and
+    never wait for another's while holding one.  ``dispatcher`` defaults
+    to a :class:`ShardedBankDispatcher` over ``num_shards`` shards on
+    ``device`` (a device, a sequence of placements, or ``None``:
+    ``make_tenant_mesh``'s rules); a given one's mesh placements are the
+    shards' devices, shard ``s`` on placement ``s // (S/P)``, and a
+    stand-in without a mesh puts every shard on ``device``.
     """
 
     def __init__(self, host: HostBankStore, num_shards: int,
@@ -957,7 +962,8 @@ class ShardedTieredBankStore:
                  dispatcher: Any = None,
                  generation: int = 0,
                  shard_of: np.ndarray | None = None,
-                 device: torch.device | str | None = None) -> None:
+                 device: torch.device | str
+                 | Sequence[torch.device | str] | None = None) -> None:
         self.config = config or TieringConfig()
         t = host.num_rows
         assign, local, counts = shard_rows(t, num_shards, shard_of)
@@ -977,10 +983,16 @@ class ShardedTieredBankStore:
             dispatcher = ShardedBankDispatcher(
                 make_tenant_mesh(num_shards, device),
                 fused=self.config.fused_kernel)
-        if device is None:    # where the dispatcher's shards live
-            device = getattr(getattr(dispatcher, "mesh", None), "device",
-                             None)
-        self.device = resolve_device(device)
+        mesh = getattr(dispatcher, "mesh", None)
+        if mesh is not None:  # where the dispatcher's placements live
+            if mesh.num_shards != num_shards:
+                raise ValueError(f"a store of {num_shards} shards behind a "
+                                 f"mesh of {mesh.num_shards}")
+            self.placements = mesh.placements
+        else:                 # a stand-in dispatcher: one placement
+            self.placements = (resolve_device(device),)
+        self.device = self.placements[0]
+        self._per = num_shards // len(self.placements)
         self.dispatcher = dispatcher
         self.shards: list[TieredBankStore] = []
         for s in range(num_shards):
@@ -991,17 +1003,20 @@ class ShardedTieredBankStore:
                 admitted=host.admitted[g])
             self.shards.append(TieredBankStore(
                 sub, self.config, generation=generation,
-                hot_slots=hot_slots, device=self.device))
+                hot_slots=hot_slots,
+                device=self.placements[s // self._per]))
         # identity witness for the serving layer's bank cache (same
         # contract as TieredBankStore.source_pipelines)
         self.source_pipelines: tuple | None = None
-        # stacked-view cache: restacking S x R rows costs a device copy
-        # per dispatch; keyed on the per-shard view IDENTITIES (strong
-        # refs — any staging/publish/rebalance swaps a view and misses).
-        # On the card the stack carries the event that marks it written.
-        self._stacked_key: tuple | None = None
-        self._stacked: tuple | None = None
-        self._stacked_ready: Any = None
+        # stacked-view cache, one entry a placement: restacking S/P x R
+        # rows costs a device copy; keyed on the placement's per-shard
+        # view IDENTITIES (strong refs — any staging/publish/rebalance
+        # swaps a view and misses).  On the card each stack carries the
+        # event that marks it written.
+        n_place = len(self.placements)
+        self._stacked_key: list[tuple | None] = [None] * n_place
+        self._stacked: list[tuple | None] = [None] * n_place
+        self._stacked_ready: list[Any] = [None] * n_place
         self.joint_metrics: dict[str, int] = {
             "dispatches": 0, "extra_passes": 0}
 
@@ -1036,6 +1051,12 @@ class ShardedTieredBankStore:
         """Device-resident bank bytes of ONE shard — a function of
         configured capacity, independent of tenant count."""
         return self.shards[0].device_bytes
+
+    @property
+    def per_placement_device_bytes(self) -> int:
+        """Device-resident bank bytes of one placement:
+        (S/P)·(hot+victims+1)·(2K+2N)·4, whatever the tenant count."""
+        return self._per * self.per_shard_device_bytes
 
     @property
     def device_bytes(self) -> int:
@@ -1104,42 +1125,47 @@ class ShardedTieredBankStore:
                 stack.enter_context(st._lock)
             yield
 
-    def _stacked_views(self, views: Sequence[_TierView]) -> tuple:
-        """The per-shard views stacked into (S, R, ·) operands, cached on
-        the views' identities.  On the card a view may have been built on
-        its shard's copier side stream: the stack (on the dispatch stream)
-        waits on every view's ``ready`` event first, and the views'
-        tensors are recorded on the dispatch stream so the allocator cannot
-        reuse them while it reads them.  A cached stack is waited on
-        through the event recorded when it was written."""
-        key = tuple(views)
-        cuda = self.device.type == "cuda"
-        stream = torch.cuda.current_stream(self.device) if cuda else None
-        if self._stacked is None or self._stacked_key is None \
-                or len(self._stacked_key) != len(key) \
-                or not all(a is b for a, b in zip(self._stacked_key, key)):
-            if cuda:
-                for v in key:
-                    if v.ready is not None:
-                        stream.wait_event(v.ready)
-                    for x in (v.betas, v.weights, v.src_quantiles,
-                              v.ref_quantiles):
-                        x.record_stream(stream)
-            self._stacked = (
-                torch.stack([v.betas for v in key]),
-                torch.stack([v.weights for v in key]),
-                torch.stack([v.src_quantiles for v in key]),
-                torch.stack([v.ref_quantiles for v in key]))
-            self._stacked_key = key
-            self._stacked_ready = None
-            if cuda:
-                self._stacked_ready = torch.cuda.Event()
-                self._stacked_ready.record(stream)
-        elif cuda:
-            stream.wait_event(self._stacked_ready)
-            for x in self._stacked:
-                x.record_stream(stream)
-        return self._stacked
+    def _stacked_views(self, views: Sequence[_TierView]) -> list[tuple]:
+        """The per-shard views stacked into one (S/P, R, ·) operand set a
+        placement, each cached on its views' identities.  On the card a
+        view may have been built on its shard's copier side stream: a
+        placement's stack (on its device's dispatch stream) waits on its
+        own views' ``ready`` events first, and the views' tensors are
+        recorded on that stream so the allocator cannot reuse them while
+        it reads them.  A cached stack is waited on through the event
+        recorded when it was written."""
+        out = []
+        for p, dev in enumerate(self.placements):
+            key = tuple(views[p * self._per:(p + 1) * self._per])
+            cuda = dev.type == "cuda"
+            stream = torch.cuda.current_stream(dev) if cuda else None
+            cached = self._stacked_key[p]
+            if self._stacked[p] is None or cached is None \
+                    or len(cached) != len(key) \
+                    or not all(a is b for a, b in zip(cached, key)):
+                if cuda:
+                    for v in key:
+                        if v.ready is not None:
+                            stream.wait_event(v.ready)
+                        for x in (v.betas, v.weights, v.src_quantiles,
+                                  v.ref_quantiles):
+                            x.record_stream(stream)
+                self._stacked[p] = (
+                    torch.stack([v.betas for v in key]),
+                    torch.stack([v.weights for v in key]),
+                    torch.stack([v.src_quantiles for v in key]),
+                    torch.stack([v.ref_quantiles for v in key]))
+                self._stacked_key[p] = key
+                self._stacked_ready[p] = None
+                if cuda:
+                    self._stacked_ready[p] = torch.cuda.Event()
+                    self._stacked_ready[p].record(stream)
+            elif cuda:
+                stream.wait_event(self._stacked_ready[p])
+                for x in self._stacked[p]:
+                    x.record_stream(stream)
+            out.append(self._stacked[p])
+        return out
 
     def _bucket(self, tid: np.ndarray
                 ) -> tuple[np.ndarray, list[np.ndarray]]:
@@ -1210,7 +1236,7 @@ class ShardedTieredBankStore:
                             # dispatcher's _pack_bucket pads
                             pidx[s, n:] = pidx[s, n - 1]
                 res = self.dispatcher.run_packed(
-                    packed, pidx, *self._stacked_views(views))
+                    packed, pidx, self._stacked_views(views))
                 for s, ev in enumerate(ready_evs):
                     n = len(ev)
                     if n:

@@ -1864,8 +1864,9 @@ def test_tiered_server_and_engine_equal_the_dense_server(dev):
 
 
 # ------------------------------------- sharded and tiered-over-sharded, card
-def _sharded_stores(dev, rows, s, **config):
-    """(pure-sharded bank + dispatcher, composed store) over ``rows``."""
+def _sharded_stores(dev, rows, s, placements=1, **config):
+    """(pure-sharded bank + dispatcher, composed store) over ``rows``, the
+    tenant mesh over ``placements`` placements of ``dev``."""
     from repro_torch.core.transforms import ShardedTransformBank, TransformBank
     from repro_torch.launch.mesh import make_tenant_mesh
     from repro_torch.serving import ShardedBankDispatcher
@@ -1874,41 +1875,48 @@ def _sharded_stores(dev, rows, s, **config):
                                              TieringConfig)
 
     bank = TransformBank(*(torch.tensor(r, device=dev) for r in rows))
-    disp = ShardedBankDispatcher(make_tenant_mesh(s, dev))
+    mesh = make_tenant_mesh(s, [dev] * placements)
+    disp = ShardedBankDispatcher(mesh)
     composed = ShardedTieredBankStore(
         HostBankStore(*rows), s, TieringConfig(**{
             "hot_capacity": 6, "victim_capacity": 4, **config}),
         dispatcher=disp)
-    return ShardedTransformBank.from_dense(bank, s), disp, composed
+    return (ShardedTransformBank.from_dense(bank, s,
+                                            placements=mesh.placements),
+            disp, composed)
 
 
-@pytest.mark.parametrize("s", [1, 2, 4, 8])
-def test_dense_sharded_and_composed_are_bitwise_equal(dev, s):
+@pytest.mark.parametrize("s,placements", [
+    *(pytest.param(s, 1, id=str(s)) for s in (1, 2, 4, 8)),
+    *(pytest.param(8, p, id=f"8-p{p}") for p in (2, 8))])
+def test_dense_sharded_and_composed_are_bitwise_equal(dev, s, placements):
     """Dense == sharded == tiered-over-sharded on the card, bit for bit,
     cold (multi-pass), after a rebalance and after a publish, over an
-    assignment with an empty shard too; one banked launch a pass."""
+    assignment with an empty shard too; one banked launch a placement a
+    pass."""
     from repro_torch.core.transforms import QuantileMap, ShardedTransformBank
 
     rng = np.random.default_rng(30 + s)
     t = 300
     rows = _tier_rows(rng, t)
-    sbank, disp, composed = _sharded_stores(dev, rows, s)
+    sbank, disp, composed = _sharded_stores(dev, rows, s, placements)
     raws = rng.uniform(0, 1, (2048, 4)).astype(np.float32)
     tid = rng.integers(0, t, 2048)
     want = _dense_on(dev, rows, raws, tid)
     before = ops.LAUNCHES["score_pipeline_banked"]
     assert np.array_equal(disp(raws, tid, sbank), want)
-    assert ops.LAUNCHES["score_pipeline_banked"] == before + 1
+    assert ops.LAUNCHES["score_pipeline_banked"] == before + placements
     if s > 1:
         empty = ShardedTransformBank.from_dense(
-            sbank.to_dense(), s, shard_of=rng.integers(0, s - 1, t))
+            sbank.to_dense(), s, shard_of=rng.integers(0, s - 1, t),
+            placements=sbank.placements)
         assert empty.row_counts[-1] == 0
         assert np.array_equal(disp(raws, tid, empty), want)
     before = ops.LAUNCHES["score_pipeline_banked"]
     got, _ = composed.dispatch(raws, tid)
     m = composed.metrics
     assert ops.LAUNCHES["score_pipeline_banked"] == \
-        before + m["dispatches"] + m["extra_passes"]
+        before + placements * (m["dispatches"] + m["extra_passes"])
     assert m["extra_passes"] > 0 and np.array_equal(got, want)
     composed.rebalance()
     assert np.array_equal(composed.dispatch(raws, tid)[0], want)

@@ -174,8 +174,9 @@ def test_unported_families_raise(case, item):
     ``item``; it now builds and its forward is the plain config's to the
     last bit.  What was left of that item, the Mamba and xLSTM mixers
     over a mesh (item 13h′), is sharded now: no error of the port names
-    either item, and the models take a placement.  The only item the
-    port still names is the tenant mesh over several cards."""
+    either item, and the models take a placement.  The tenant mesh over
+    several devices is ported too: ``launch/mesh.py`` names no item that
+    is left to port."""
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import parallel
 
@@ -185,9 +186,8 @@ def test_unported_families_raise(case, item):
     got = Model(_unported(case), device="cpu", seed=0)(tok)
     want = Model(get_smoke_config("olmoe-1b-7b"), device="cpu", seed=0)(tok)
     assert torch.equal(got.logits, want.logits)
-    named = mesh_lib.SEVERAL_CARDS
-    assert item not in named and "13h′" not in named
-    for gone in ("TP_RECURRENT", "VARIANTS", "TRAIN_ACROSS_RANKS"):
+    for gone in ("TP_RECURRENT", "VARIANTS", "TRAIN_ACROSS_RANKS",
+                 "SEVERAL_CARDS"):
         assert not hasattr(mesh_lib, gone)
     for arch in ("jamba-1.5-large-398b", "xlstm-1.3b"):
         model = parallel.parallelize(Model(get_smoke_config(arch),
@@ -241,7 +241,7 @@ def test_unported_options_raise(option, item):
         (2, 1), dtype=torch.long, device="meta"), pos=4,
         cache_capacity=8, **{option: P(None, None, "data")})
     assert out.logits.shape == (2, jm.cfg.vocab_size // 2)
-    assert item not in mesh_lib.SEVERAL_CARDS
+    assert not hasattr(mesh_lib, "SEVERAL_CARDS")
     tm = Model(get_smoke_config("qwen3-8b"), device="cpu")
     tok = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(ValueError, match=option):

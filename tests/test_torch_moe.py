@@ -211,7 +211,7 @@ def test_mesh_options_raise_in_the_layer(option, item):
     got = t_moe.moe_forward(moe, x, dataclasses.replace(tmo, **option))
     want = t_moe.moe_forward(moe, x, tmo)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert item not in mesh_lib.SEVERAL_CARDS
+    assert not hasattr(mesh_lib, "SEVERAL_CARDS")
 
 
 # ---------------------------------------------------------------- models

@@ -2,11 +2,13 @@
 dense bank and against the JAX package's composed store.
 
 Every shard of the tenant axis owns a bounded hot tier, victim cache and
-prior row over its slice of the host rows, and one launch of the banked
-kernel a pass scores all shards' slot-remapped buckets.  Inside the port,
-composed scores equal the dense bank's and the pure-sharded dispatcher's
-BITWISE — cold, warm, across multi-pass victim overflow, after prefetch,
-rebalance and publish — on 1/2/4/8 shards.  Against the JAX package's
+prior row over its slice of the host rows, on its placement's device, and
+one launch of the banked kernel a placement a pass scores the placement's
+shards' slot-remapped buckets.  Inside the port, composed scores equal the
+dense bank's and the pure-sharded dispatcher's BITWISE — cold, warm,
+across multi-pass victim overflow, after prefetch, rebalance and publish —
+on 1/2/4/8 shards over one placement and at S = 8 over 2, 4 and 8 CPU
+placements.  Against the JAX package's
 composed store fed the same windows, the per-shard slot maps, clock hands,
 seen counts, admission, hot and resident rows, every counter (``metrics``
 and ``joint_metrics``) and the lockstep generations are equal exactly, and
@@ -46,6 +48,10 @@ from test_torch_tiering import EASY_GATE, TIER, _req, _server
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 SHARD_COUNTS = (1, 2, 4, 8)
+# each shard count over one placement under its old id, then S = 8 over
+# 2, 4 and 8 CPU placements
+PLACED = [*(pytest.param(s, 1, id=str(s)) for s in SHARD_COUNTS),
+          *(pytest.param(8, p, id=f"8-p{p}") for p in (2, 4, 8))]
 
 
 class _ShardLoop:
@@ -79,13 +85,15 @@ def _cfg(hot=4, victims=2, **kw) -> dict:
     return dict(hot_capacity=hot, victim_capacity=victims, **EASY_GATE, **kw)
 
 
-def _pair(rng, t, s, *, hot=4, victims=2, shard_of=None, **kw):
-    """(port store, JAX store, rows) over the same host rows."""
+def _pair(rng, t, s, *, hot=4, victims=2, shard_of=None, placements=1,
+          **kw):
+    """(port store over ``placements`` CPU placements, JAX store, rows)
+    over the same host rows."""
     rows = _rows(rng, t)
     cfg = _cfg(hot, victims, **kw)
     mine = ShardedTieredBankStore(HostBankStore(*rows), s,
                                   TieringConfig(**cfg), shard_of=shard_of,
-                                  device="cpu")
+                                  device=["cpu"] * placements)
     theirs = jtier.ShardedTieredBankStore(
         jtier.HostBankStore(*rows), s,
         jtier.TieringConfig(**{**cfg, "fused_kernel": False}),
@@ -146,16 +154,19 @@ def _dispatch(mine, theirs, raws, tid):
 # --------------------------------------------------------------------------
 
 class TestComposedParity:
-    @pytest.mark.parametrize("s", SHARD_COUNTS)
-    def test_bitwise_parity_vs_dense_and_pure_sharded(self, s):
+    @pytest.mark.parametrize("s,placements", PLACED)
+    def test_bitwise_parity_vs_dense_and_pure_sharded(self, s, placements):
         rng = np.random.default_rng(100 + s)
         t, k = 37, 4
-        mine, theirs, _ = _pair(rng, t, s)
+        mine, theirs, _ = _pair(rng, t, s, placements=placements)
+        assert mine.placements == (torch.device("cpu"),) * placements
         raws = rng.uniform(0, 1, (48, k)).astype(np.float32)
         tid = rng.integers(0, t, 48)
         want = _dense(mine, raws, tid)
-        dispatcher = ShardedBankDispatcher(make_tenant_mesh(s, "cpu"))
-        sharded = ShardedTransformBank.from_dense(mine.dense_bank(0, "cpu"), s)
+        mesh = make_tenant_mesh(s, ["cpu"] * placements)
+        dispatcher = ShardedBankDispatcher(mesh)
+        sharded = ShardedTransformBank.from_dense(
+            mine.dense_bank(0, "cpu"), s, placements=mesh.placements)
         assert _bitwise(dispatcher(raws, tid, sharded), want)
         # cold: every row pages through victim caches (multi-pass)
         got = _dispatch(mine, theirs, raws, tid)
@@ -168,35 +179,46 @@ class TestComposedParity:
         _same_state(mine, theirs)
         assert _bitwise(_dispatch(mine, theirs, raws, tid), want)
 
-    @pytest.mark.parametrize("s", SHARD_COUNTS)
-    def test_multipass_overflow_parity(self, s):
+    @pytest.mark.parametrize("s,placements", PLACED)
+    def test_multipass_overflow_parity(self, s, placements):
         rng = np.random.default_rng(200 + s)
         t = 64
-        mine, theirs, _ = _pair(rng, t, s, hot=2, victims=1)
+        mine, theirs, _ = _pair(rng, t, s, hot=2, victims=1,
+                                placements=placements)
         tid = np.arange(t)
         raws = rng.uniform(0, 1, (t, 4)).astype(np.float32)
         _dispatch(mine, theirs, raws, tid)
         assert mine.metrics["extra_passes"] > 0
 
     def test_one_launch_a_pass(self, monkeypatch):
-        """Each pass is ONE call of the kernel wrapper: dispatches plus
-        extra passes count the launches."""
-        rng = np.random.default_rng(5)
-        mine, _, _ = _pair(rng, 40, 4, hot=2, victims=2)
+        """Each pass is ONE call of the kernel wrapper a placement, over
+        that placement's stacked views: P times dispatches plus extra
+        passes count the launches."""
         calls = []
         real = ops.score_pipeline_banked
 
         def spy(*args):
-            calls.append(args[0].shape)
+            calls.append((args[0].shape, args[2].data_ptr()))
             return real(*args)
 
         monkeypatch.setattr(ops, "score_pipeline_banked", spy)
-        for seed in range(3):
-            tid = np.random.default_rng(seed).integers(0, 40, 64)
-            mine.dispatch(np.full((64, 4), 0.5, np.float32), tid)
-        m = mine.metrics
-        assert len(calls) == m["dispatches"] + m["extra_passes"]
-        assert m["extra_passes"] > 0
+        for placements in (1, 2, 4):
+            rng = np.random.default_rng(5)
+            mine, _, _ = _pair(rng, 40, 4, hot=2, victims=2,
+                               placements=placements)
+            calls.clear()
+            for seed in range(3):
+                tid = np.random.default_rng(seed).integers(0, 40, 64)
+                mine.dispatch(np.full((64, 4), 0.5, np.float32), tid)
+            m = mine.metrics
+            assert len(calls) == \
+                placements * (m["dispatches"] + m["extra_passes"])
+            assert m["extra_passes"] > 0
+            # the last pass read each placement's own cached stack
+            stacks = mine._stacked
+            assert [c[1] for c in calls[-placements:]] == \
+                [st[0].data_ptr() for st in stacks]
+            assert all(st[0].shape[0] == 4 // placements for st in stacks)
 
     def test_row_partition_matches_sharded_bank_rule(self):
         assign, local, counts = shard_rows(11, 4)
@@ -234,22 +256,37 @@ class TestComposedResidency:
     def test_per_shard_device_bytes_independent_of_tenants(self):
         rng = np.random.default_rng(7)
         k, n, hot, victims = 4, 32, 4, 2
+        one = (hot + victims + 1) * (2 * k + 2 * n) * 4
         sizes = set()
         for t in (16, 64, 256):
             store = ShardedTieredBankStore(
                 HostBankStore(*_rows(rng, t, k, n)), 1,
                 TieringConfig(**_cfg(hot, victims)), device="cpu")
             sizes.add(store.per_shard_device_bytes)
-        assert sizes == {(hot + victims + 1) * (2 * k + 2 * n) * 4}
+        assert sizes == {one}
+        # a placement: (S/P)·(hot+victims+1)·(2K+2N)·4 at S = 8, once
+        # every shard has its hot slots' worth of rows
+        for t in (64, 256):
+            for p in (1, 2, 4, 8):
+                placed = ShardedTieredBankStore(
+                    HostBankStore(*_rows(rng, t, k, n)), 8,
+                    TieringConfig(**_cfg(hot, victims)), device=["cpu"] * p)
+                assert placed.per_placement_device_bytes == 8 // p * one
 
-    @pytest.mark.parametrize("s", SHARD_COUNTS)
-    def test_device_bytes_scale_with_shards_not_tenants(self, s):
+    @pytest.mark.parametrize("s,placements", PLACED)
+    def test_device_bytes_scale_with_shards_not_tenants(self, s, placements):
         rng = np.random.default_rng(8)
-        mine, theirs, rows = _pair(rng, 61, s)
+        mine, theirs, rows = _pair(rng, 61, s, placements=placements)
         assert mine.device_bytes == s * mine.per_shard_device_bytes \
-            == theirs.device_bytes
+            == theirs.device_bytes \
+            == placements * mine.per_placement_device_bytes
         assert mine.host_bytes == HostBankStore(*rows).nbytes \
             == theirs.host_bytes
+        # every shard's view on its placement's device
+        per = s // placements
+        for i, st in enumerate(mine.shards):
+            assert st.device == mine.placements[i // per]
+            assert st._view.betas.device == st.device
 
     def test_uneven_shards_share_hot_slot_count(self):
         store = ShardedTieredBankStore(
@@ -272,11 +309,12 @@ def _qm(rng, n):
 
 
 class TestComposedPublish:
-    @pytest.mark.parametrize("s", SHARD_COUNTS)
-    def test_publish_lands_on_every_shard_under_one_generation(self, s):
+    @pytest.mark.parametrize("s,placements", PLACED)
+    def test_publish_lands_on_every_shard_under_one_generation(
+            self, s, placements):
         rng = np.random.default_rng(11)
         t = 13
-        mine, theirs, _ = _pair(rng, t, s)
+        mine, theirs, _ = _pair(rng, t, s, placements=placements)
         raws = rng.uniform(0, 1, (t, 4)).astype(np.float32)
         tid = np.arange(t)
         _dispatch(mine, theirs, raws, tid)         # rows device-resident
@@ -409,8 +447,9 @@ class TestComposedConcurrency:
 # serving layer: server, engine, rollout warm start
 # --------------------------------------------------------------------------
 
-def _composed_server(n=4, shards=2, tiering=True):
-    return _server(n, tiering=tiering, tenant_shards=shards)
+def _composed_server(n=4, shards=2, tiering=True, placements=1):
+    return _server(n, tiering=tiering, tenant_shards=shards,
+                   device=["cpu"] * placements)
 
 
 class TestComposedServing:
@@ -452,20 +491,25 @@ class TestComposedServing:
         assert {st.generation for st in store.shards} == {4}
 
     def test_engine_pipeline_parity(self):
-        comp, dense = _composed_server(), _server(4, False)
-        engine = AsyncDispatchEngine(comp, max_batch=6, max_wait_ms=1e9)
-        try:
-            futs = [engine.submit(_req(f"t{i % 4}", seed=i))
-                    for i in range(24)]
-            engine.flush()
-            scores = [f.result(timeout=60).score for f in futs]
-            assert not engine.errors
-        finally:
-            engine.close()
+        """At S = 2 over one placement and at S = 4 over 4."""
+        dense = _server(4, False)
         want = [r.score for r in dense.score_batch(
             [_req(f"t{i % 4}", seed=i) for i in range(24)])]
-        assert scores == want
-        assert comp.metrics["shard_dispatches"] == 4
+        for shards, placements in ((2, 1), (4, 4)):
+            comp = _composed_server(shards=shards, placements=placements)
+            engine = AsyncDispatchEngine(comp, max_batch=6, max_wait_ms=1e9)
+            try:
+                futs = [engine.submit(_req(f"t{i % 4}", seed=i))
+                        for i in range(24)]
+                engine.flush()
+                scores = [f.result(timeout=60).score for f in futs]
+                assert not engine.errors
+            finally:
+                engine.close()
+            assert scores == want
+            assert comp.metrics["shard_dispatches"] == 4
+            (store,) = comp.tiered_stores().values()
+            assert len(store.placements) == placements
 
     def test_engine_prefetch_routes_to_composed_store(self):
         # 8 predictors over 2 shards: 4 rows a shard, hot=3 + victims=2

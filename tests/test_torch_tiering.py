@@ -766,7 +766,7 @@ JFACTORIES = {f"m{i}": (lambda i=i: _jlinear(i)) for i in (1, 2)}
 TIER = dict(hot_capacity=3, victim_capacity=2, **EASY_GATE)
 
 
-def _server(n=4, tiering=True, version="v1", **config):
+def _server(n=4, tiering=True, version="v1", device="cpu", **config):
     """A port server: one predictor per tenant over {m1, m2}."""
     rules = tuple(ScoringRule(Condition(tenants=(f"t{i}",)), f"p{i}")
                   for i in range(n)) + (ScoringRule(Condition(), "p0"),)
@@ -774,7 +774,7 @@ def _server(n=4, tiering=True, version="v1", **config):
         RoutingTable(rules, version=version),
         ServerConfig(refresh_alert_rate=0.05, refresh_rel_error=0.5,
                      tiering=TieringConfig(**TIER) if tiering is True
-                     else tiering or None, **config), device="cpu")
+                     else tiering or None, **config), device=device)
     for i in range(n):
         server.deploy(PredictorSpec(f"p{i}", ("m1", "m2"), (0.2, 0.4),
                                     (1.0, 1.0), QuantileMap.identity(64)),
