@@ -123,15 +123,20 @@ Phases, each printing one JSON line:
              then ``python -m repro_torch.examples.quickstart`` on the
              card, line for line its CPU run.
 10. attention — the two flash-attention kernels against their plain
-             version on the card, float32 and bfloat16 (bf16 with D = 64
-             or 128 runs the tensor-core form, the rest the SIMT form,
+             version on the card, float32 and bfloat16 (bf16 with D = 64,
+             80 or 128 runs the tensor-core form, the rest the SIMT form,
              checked per case): the reference's five cases, Tq < Tk, a
-             ragged T = 1,000, a window across tile edges, D = 80 and
-             D = 128, B > 1, and rows that see no key (exactly 0); then
-             at the prefill shape of qwen3-8b (B=4, T=2,048, 32/8 heads,
-             D=128, causal) the tensor-core form's time in bf16 and the
-             SIMT form's in float32, each beside the plain version,
-             PyTorch's own attention call and the bound.
+             ragged T = 1,000, a window across tile edges, D = 80
+             (bidirectional, and causal, windowed and ragged) and D = 128,
+             B > 1, and rows that see no key (exactly 0); then at the
+             prefill shape of qwen3-8b (B=4, T=2,048, 32/8 heads, D=128,
+             causal) the tensor-core form's time in bf16 and the SIMT
+             form's in float32, and at hubert-xlarge's (B=4, T=2,048,
+             16/16 heads, D=80, bidirectional) the tensor-core form's in
+             bf16 beside the SIMT kernel's on the same inputs, each
+             beside the plain version, PyTorch's own attention call and
+             the bound; ptxas's registers and spills of each tensor-core
+             instantiation (none may spill).
 11. llm_serve — the port's model path at the full width of qwen3-8b
              (36 layers, d_model 4,096, vocab 151,936; bf16 weights from a
              seed): ``launch.serve.serve`` prefills 4 x 2,048 tokens through
@@ -176,7 +181,17 @@ Phases, each printing one JSON line:
              and PyTorch's attention call; then ``python -m
              repro_torch.examples.serve_e2e`` on the card in a process of
              its own (three transformer experts, one of them olmoe smoke,
-             behind the banked kernel), with its banked launches.
+             behind the banked kernel), with its banked launches.  Then
+             hubert-xlarge whole (48 layers, d_model 1,280, 16/16 heads of
+             D = 80, bidirectional; bf16 from seed 0) through
+             ``Model.forward`` on 4 x 2,048 frame embeddings from a seeded
+             generator (the stub frontend's output), its risk score
+             through T^Q: 48 tensor-core flash launches and none of the
+             SIMT form, one ``score_pipeline``; the forward's time (median
+             of 3), split and peak; over six seeds its risk score and
+             hidden state no farther from a float32 forward than twice the
+             bf16 reference forward's, every attention launch within bf16
+             rounding of float32 on its last rows.
 13. score_kernels — the quantile-map and shared-parameter score-pipeline
              kernels against their plain versions, float32 and bfloat16
              (the score-pipeline kernel bit for bit on every case): the
@@ -286,7 +301,7 @@ Phases, each printing one JSON line:
              peak, the step's collectives the schedule's.
 18. roofline — every path phases 11, 12 and 16 timed (qwen3-8b, olmoe-1b-7b,
              xlstm-1.3b's 8 layers and jamba's five, prefill and decode;
-             jamba's one-layer train step) read against the one-card roofline
+             hubert-xlarge's forward; jamba's one-layer train step) read against the one-card roofline
              (``launch/roofline.py`` at the H100's published rates) at that
              run's batch, length and kind: mfu, flops_share, hbm_share,
              roofline_share and the bottleneck, none over 1.05; the
@@ -2205,11 +2220,13 @@ ATTN_CASES = {
     "ragged_1000": (1, 1000, 1000, 8, 2, 128, True, 0),
     "window_across_tiles": (2, 300, 300, 4, 2, 64, True, 50),
     "d80_hubert": (2, 192, 192, 4, 4, 80, False, 0),
+    "d80_window_ragged": (1, 300, 300, 4, 2, 80, True, 50),
     "d128_gqa": (3, 256, 256, 8, 2, 128, True, 0),
 }
 MAIN_ATTN = (4, 2048, 2048, 32, 8, 128, True, 0)   # qwen3-8b prefill
 # hubert-xlarge's encoder attention at the same batch and length: 16 / 16
-# heads of D = 80, bidirectional; in bf16 it takes the SIMT form
+# heads of D = 80, bidirectional; in bf16 the tensor-core form's D = 80
+# instantiation (32-byte swizzle)
 HUBERT_ATTN = (4, 2048, 2048, 16, 16, 80, False, 0)
 
 
@@ -2329,6 +2346,7 @@ def phase_attention(dev) -> dict:
     torch.cuda.empty_cache()
     hubert = _hubert_attention(dev, form_of)
     result = {"phase": "attention", "name": "flash_attention_wgmma",
+              "ptxas": _wgmma_ptxas(),
               "cases": {n: list(c) for n, c in ATTN_CASES.items()},
               "forms": forms, "tolerance": ATTN_TOL, "errors": errs,
               "fully_masked_rows": "exactly 0",
@@ -2347,17 +2365,46 @@ def phase_attention(dev) -> dict:
               "hubert_bf16_d80": hubert,
               "timing": "CUDA events, median of 20 runs of 10 back-to-back "
                         "launches (SIMT form and plain versions: 3 runs of "
-                        "1; hubert: 5 runs of 3) queued behind a busy card"}
+                        "1; hubert: hubert_bf16_d80.timing) queued behind a "
+                        "busy card"}
     emit(result)
     return result
 
 
+def _wgmma_ptxas() -> dict:
+    """What ptxas said of each instantiation of the tensor-core flash
+    kernel, by head dim: registers, stack frame and spill bytes (0: S, O
+    and the two P terms stay in registers)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    found = {}
+    for name, v in _build.ptxas_report("flash_attention_wgmma").items():
+        dim = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", name)
+        if dim:
+            found[f"D{dim.group(1)}"] = {
+                "registers": v.get("registers"),
+                "stack_frame_bytes": v.get("stack_frame", 0),
+                "spill_bytes": v.get("spill_stores", 0)
+                + v.get("spill_loads", 0)}
+    check(sorted(found) == ["D128", "D64", "D80"],
+          f"flash_attention_wgmma instantiations: {sorted(found)}")
+    check(all(v["spill_bytes"] == 0 and v["stack_frame_bytes"] == 0
+              for v in found.values()),
+          f"flash_attention_wgmma: ptxas reports spills: {found}")
+    return found
+
+
 def _hubert_attention(dev, form_of) -> dict:
-    """The form hubert-xlarge runs (bf16, D = 80, bidirectional: the SIMT
-    kernel) at its width, B = 4, T = 2,048: its error against the plain
-    version, its time beside the plain version's and
-    ``scaled_dot_product_attention``'s on the same inputs, and its bound
-    (4·D flops a pair at the bf16 tensor-core rate)."""
+    """hubert-xlarge's attention (bf16, D = 80, bidirectional) at its
+    width, B = 4, T = 2,048, on the tensor-core form: its error against the
+    plain version and, on every row, against float32 on the same bf16
+    inputs as a share of the bf16 rounding bound; its time beside the
+    plain version's, ``scaled_dot_product_attention``'s and the SIMT
+    kernel's on the same inputs (the form that ran this shape before, its
+    launches uncounted and on no served path); its bound at 4·D flops a
+    pair and at the 6·D issued with the P split."""
     import torch
     import torch.nn.functional as F
     from repro_torch.benchmarks.timing import attention_bound, device_ms
@@ -2367,29 +2414,47 @@ def _hubert_attention(dev, form_of) -> dict:
     b, tq, tk, hq, hkv, d, causal, win = HUBERT_ATTN
     q, k, v = _qkv(HUBERT_ATTN, torch.bfloat16, dev, seed=124)
     got, form = form_of(lambda: fa.flash_attention(q, k, v, causal=causal))
-    check(form == "simt", "bf16 with D = 80 runs the SIMT form")
+    check(form == "wgmma", "bf16 with D = 80 runs the tensor-core form")
     err = _attn_err("hubert_d80/bfloat16", got,
                     ref.flash_attention(q, k, v, causal=causal),
                     ATTN_TOL["bfloat16"])
-    del got
+    want32 = ref.flash_attention(*(x.float() for x in (q, k, v)),
+                                 causal=causal)
+    share = ((got.float() - want32).abs()
+             / (2.0 ** -8 * want32.abs() + 1e-5)).max().item()
+    check(share <= 1.0, f"hubert_d80: {share} of the bf16 rounding bound "
+          "from float32")
+    simt_err = _attn_err("hubert_d80/simt", fa._launch_form(
+        "simt", q, k, v, causal=causal, sliding_window=0),
+        ref.flash_attention(q, k, v, causal=causal), ATTN_TOL["bfloat16"])
+    del got, want32
     torch.cuda.synchronize()
     ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
-                   reps=5, inner=3)
+                   reps=20, inner=10)
+    simt_ms = device_ms(lambda: fa._launch_form(
+        "simt", q, k, v, causal=causal, sliding_window=0), reps=5, inner=3)
     plain_ms = device_ms(lambda: ref.flash_attention(q, k, v, causal=causal),
                          reps=3, inner=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=False), reps=5, inner=3)
+        qt, kt, vt, is_causal=False), reps=20, inner=10)
     bound_ms, bound_by, flops = attention_bound(*HUBERT_ATTN, itemsize=2)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return {"form": form, "dtype": "bfloat16",
             "shape": {"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv,
                       "D": d, "causal": causal},
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "gflop": flops / 1e9,
-            "tflop_per_s": flops / (ms * 1e-3) / 1e12}
+            "max_abs_err": err, "share_of_bf16_bound_vs_f32": share,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_issued": 1.5 * bound_ms, "gflop": flops / 1e9,
+            "tflop_per_s": flops / (ms * 1e-3) / 1e12,
+            "simt": {"ms": simt_ms, "max_abs_err": simt_err,
+                     "tflop_per_s": flops / (simt_ms * 1e-3) / 1e12},
+            "speedup_over_simt": simt_ms / ms,
+            "timing": "CUDA events, median of 20 runs of 10 back-to-back "
+                      "launches (SDPA too; the SIMT kernel 5 runs of 3, the "
+                      "plain version 3 runs of 1)"}
 
 
 # ---------------------------------------------------------------- phase 11
@@ -2441,39 +2506,54 @@ def _device_split(prof, extra: dict | None = None) -> dict:
 
 
 def _profile(model, prompt, transform, extra: dict | None = None) -> dict:
-    """One kernel prefill and two decode steps under ``torch.profiler``:
-    device time by kernel kind beside host wall time (the profiler's own
-    cost is in the wall time)."""
+    """One kernel prefill and two decode steps under ``torch.profiler``
+    (an encoder-only model: one kernel forward of the frame embeddings
+    ``prompt`` and its T^Q): device time by kernel kind beside host wall
+    time (the profiler's own cost is in the wall time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    t_len = prompt.shape[1]
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof_p:
-        t0 = time.perf_counter()
-        out, cache = model.prefill(prompt, cache_capacity=t_len + 2,
-                                   attn_impl="kernel", logits_mode="last")
-        torch.cuda.synchronize()
-        wall_p = time.perf_counter() - t0
-    tok = torch.argmax(out.logits[:, -1], dim=-1)[:, None]
-    with profile(activities=acts) as prof_d:
-        t0 = time.perf_counter()
-        for i in range(2):
-            step = model.decode_step(cache, tok, pos=t_len + i,
-                                     attn_impl="kernel")
-            tok = torch.argmax(step.logits, dim=-1)[:, None]
-            transform(step.risk_score)
-        torch.cuda.synchronize()
-        wall_d = (time.perf_counter() - t0) / 2
+    if not model.cfg.has_decode:
+        with profile(activities=acts) as prof_f:
+            t0 = time.perf_counter()
+            out = model(embeds=prompt, attn_impl="kernel",
+                        logits_mode="last")
+            transform(out.risk_score)
+            torch.cuda.synchronize()
+            wall_f = time.perf_counter() - t0
+        del out
+        windows = (("forward", prof_f, wall_f, 1),)
+    else:
+        t_len = prompt.shape[1]
+        with profile(activities=acts) as prof_p:
+            t0 = time.perf_counter()
+            out, cache = model.prefill(prompt, cache_capacity=t_len + 2,
+                                       attn_impl="kernel",
+                                       logits_mode="last")
+            torch.cuda.synchronize()
+            wall_p = time.perf_counter() - t0
+        tok = torch.argmax(out.logits[:, -1], dim=-1)[:, None]
+        with profile(activities=acts) as prof_d:
+            t0 = time.perf_counter()
+            for i in range(2):
+                step = model.decode_step(cache, tok, pos=t_len + i,
+                                         attn_impl="kernel")
+                tok = torch.argmax(step.logits, dim=-1)[:, None]
+                transform(step.risk_score)
+            torch.cuda.synchronize()
+            wall_d = (time.perf_counter() - t0) / 2
+        del out, cache
+        windows = (("prefill", prof_p, wall_p, 1),
+                   ("decode_step", prof_d, wall_d, 2))
     result = {}
-    for name, prof, wall in (("prefill", prof_p, wall_p),
-                             ("decode_step", prof_d, wall_d)):
+    for name, prof, wall, per in windows:
         split = _device_split(prof, extra)
-        if split is not None and name == "decode_step":
-            split["device_ms"] = {k: v / 2 for k, v in
+        if split is not None and per > 1:
+            split["device_ms"] = {k: v / per for k, v in
                                   split["device_ms"].items()}
-            split["device_ms_total"] /= 2
+            split["device_ms_total"] /= per
         result[name] = {"wall_ms": wall * 1e3, "split": split,
                         "device_busy_share": (split["device_ms_total"] /
                                               (wall * 1e3)
@@ -2481,9 +2561,7 @@ def _profile(model, prompt, transform, extra: dict | None = None) -> dict:
                         "cuda_launches": sum(
                             e.count for e in prof.key_averages()
                             if e.key in ("cudaLaunchKernel",
-                                         "cudaLaunchKernelExC"))
-                        / (2 if name == "decode_step" else 1)}
-    del out, cache
+                                         "cudaLaunchKernelExC")) / per}
     return result
 
 
@@ -3206,6 +3284,185 @@ def _zoo_model(arch: str, dev) -> dict:
                   "warm-up run"}
 
 
+HUBERT = "hubert-xlarge"
+
+
+def _frames(cfg, seed: int, dev):
+    """(LLM_BATCH, LLM_PROMPT, d_model) float32 frame embeddings from a
+    seeded generator: the stub frontend's output, which the model rounds
+    to its compute dtype."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((LLM_BATCH, LLM_PROMPT, cfg.d_model), generator=g,
+                       device=dev)
+
+
+def _hubert_accuracy(model, frames) -> dict:
+    """The kernel forward's risk score and last hidden state (the final
+    norm's output, every frame) and the bf16 reference forward's, each as
+    its max distance from a float32 forward of the same weights; each
+    attention launch of the kernel forward held against float32 by
+    ``_flash_witness``."""
+    import torch
+    from repro_torch.kernels import ops
+
+    launch = ops.flash_attention
+    witness, stats = _flash_witness(launch)
+    kw = dict(embeds=frames, logits_mode="last")
+    ops.flash_attention = witness
+    try:
+        ker = model(attn_impl="kernel", **kw)
+    finally:
+        ops.flash_attention = launch
+    check(stats["calls"] == model.cfg.n_layers,
+          f"{HUBERT}: {stats['calls']} witnessed attention launches")
+    ref16 = model(attn_impl="reference", **kw)
+    ref32 = model(attn_impl="reference", compute_dtype=torch.float32, **kw)
+    torch.cuda.empty_cache()
+    return {
+        "hidden": {"kernel": _max_diff(ker.hidden, ref32.hidden),
+                   "bf16_reference": _max_diff(ref16.hidden, ref32.hidden)},
+        "served_risk": {
+            "kernel": _max_diff(ker.risk_score, ref32.risk_score),
+            "bf16_reference": _max_diff(ref16.risk_score, ref32.risk_score),
+            "kernel_vs_bf16_reference": _max_diff(ker.risk_score,
+                                                  ref16.risk_score)},
+        "logits": {"kernel": _max_diff(ker.logits, ref32.logits),
+                   "bf16_reference": _max_diff(ref16.logits, ref32.logits)},
+        "attention_last_rows": stats["worst"],
+        "attention_last_rows_equal_to_rounded_f32": (
+            stats["equal"] / stats["total"])}
+
+
+def _hubert_forward(dev) -> dict:
+    """hubert-xlarge's whole encoder (48 layers, 16 / 16 heads of D = 80,
+    bidirectional; bf16 from seed 0, no cut) through ``Model.forward`` on
+    4 x 2,048 frame embeddings, its risk score through the served T^Q: the
+    main path (counts set to 0 just before, read just after: one
+    tensor-core flash launch a layer, none of the SIMT form, one
+    ``score_pipeline``), three timed forwards after it, a profiled one,
+    and the 2x rule over ``ACC_SEEDS`` against a float32 forward of the
+    same weights (floor 1e-3), every attention launch there witnessed.
+    An encoder has no decode: the serve launcher refuses it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+
+    cfg = get_config(HUBERT)
+    check(not cfg.has_decode and not cfg.causal and cfg.head_dim == 80,
+          f"{HUBERT}: an encoder with heads of 80")
+    n_attn = cfg.n_layers
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    frames = _frames(cfg, 0, dev)
+    transform = serve.business_transform(dev)
+
+    def forward():
+        out = model(embeds=frames, compute_dtype=torch.bfloat16,
+                    attn_impl="kernel", logits_mode="last")
+        return out, transform(out.risk_score)
+
+    # the main path: counts set to 0 just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, business = forward()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ops.LAUNCHES)
+    check(launches["flash_attention"] == n_attn
+          and launches["flash_attention_wgmma"] == n_attn,
+          f"{HUBERT}: {launches} for one forward, expected {n_attn} "
+          "tensor-core flash launches and none of the SIMT form")
+    check(launches["score_pipeline"] == 1 and sum(launches.values())
+          == 2 * n_attn + 1, f"{HUBERT}: no other kernel of the port "
+          f"launched but one score_pipeline: {launches}")
+    runs = []
+    for _ in range(3):
+        before = dict(ops.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, biz = forward()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        check(all(ops.LAUNCHES[k] - before[k] == launches[k]
+                  for k in launches), f"{HUBERT}: launches per run")
+        check(torch.equal(out.risk_score, first.risk_score)
+              and torch.equal(biz, business),
+              f"{HUBERT}: the forward repeats bit for bit")
+    peak = torch.cuda.max_memory_allocated()
+    del out, biz
+    check(first.logits.shape == (LLM_BATCH, 1, cfg.vocab_size)
+          and first.hidden.shape == (LLM_BATCH, LLM_PROMPT, cfg.d_model),
+          f"{HUBERT}: logits {tuple(first.logits.shape)}, hidden "
+          f"{tuple(first.hidden.shape)}")
+    check(bool(torch.isfinite(first.logits.float()).all())
+          and bool(torch.isfinite(first.hidden.float()).all()),
+          f"{HUBERT}: finite logits and hidden state")
+    biz = business.float()
+    check(bool(((biz >= 0) & (biz <= 1)).all()),
+          f"{HUBERT}: business scores in [0, 1]: {biz.tolist()}")
+    breakdown = _profile(model, frames, transform)
+
+    seeds, seed = [], 0
+    for ws, ps in ACC_SEEDS:
+        if ws != seed:
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            model, seed = Model(cfg, device=dev, dtype=torch.bfloat16,
+                                seed=ws), ws
+        acc = _hubert_accuracy(model, _frames(cfg, ps, dev))
+        seeds.append({"weight_seed": ws, "prompt_seed": ps, **acc})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    h_ker = max(a["hidden"]["kernel"] for a in seeds)
+    h_ref = max(a["hidden"]["bf16_reference"] for a in seeds)
+    r_ker = max(a["served_risk"]["kernel"] for a in seeds)
+    r_ref = max(a["served_risk"]["bf16_reference"] for a in seeds)
+    witness = max(a["attention_last_rows"]["kernel"] for a in seeds)
+    check(h_ker <= 2 * max(h_ref, 1e-3), f"{HUBERT}: the kernel forward's "
+          f"hidden state {h_ker} from float32, the bf16 reference's {h_ref}")
+    check(r_ker <= 2 * max(r_ref, 1e-3), f"{HUBERT}: the kernel forward's "
+          f"served risk {r_ker} from float32, the bf16 reference's {r_ref}")
+    check(witness <= 1.0, f"{HUBERT}: kernel attention inside the model "
+          f"{witness} of its bf16 rounding bound from float32")
+
+    forward_ms = statistics.median(runs)
+    return {
+        "arch": HUBERT,
+        "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                   "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+                   "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+                   "vocab_size": cfg.vocab_size, "causal": cfg.causal},
+        "params": cfg.param_count(), "reduced": None,
+        "weight_bytes": weight_bytes, "max_memory_allocated": peak,
+        "init_s": init_s, "batch": LLM_BATCH, "frames": LLM_PROMPT,
+        "launches": launches, "attention_layers": n_attn,
+        "forward_ms": forward_ms, "forward_ms_runs": runs,
+        "first_forward_ms": first_ms,
+        "frames_per_s": LLM_BATCH * LLM_PROMPT / (forward_ms * 1e-3),
+        "hidden_err_kernel_vs_f32": h_ker,
+        "hidden_err_bf16_ref_vs_f32": h_ref,
+        "risk_err_kernel_vs_f32": r_ker, "risk_err_bf16_ref_vs_f32": r_ref,
+        "attention_last_rows_vs_f32": witness,
+        "accuracy_seeds": seeds, "breakdown": breakdown,
+        "risk_scores": first.risk_score.tolist(),
+        "business_scores": business.tolist(),
+        "timing": "host clock, each forward and its T^Q ended by a device "
+                  "sync; median of 3 runs after the main path's run"}
+
+
 def _whole_model_rule(arch: str, seeds: list) -> dict:
     """qwen3's rule on whole-model prefills over the seeds: the kernel
     prefill's logits and served risk no farther from float32 than twice the
@@ -3281,7 +3538,8 @@ def _serve_e2e() -> dict:
 
 def phase_zoo_serve(dev) -> dict:
     """olmoe-1b-7b, xlstm-1.3b's first 8 layers and jamba-1.5-large-398b's
-    first five at full width through the serve launcher, each freed before
+    first five at full width through the serve launcher, then
+    hubert-xlarge's whole encoder through its forward, each freed before
     the next;
     the selective-scan kernel on small cases; the flash kernel at olmoe's
     prefill shape; the end-to-end serving example on the card."""
@@ -3291,10 +3549,13 @@ def phase_zoo_serve(dev) -> dict:
         t1 = time.perf_counter()
         models[arch] = _zoo_model(arch, dev)
         models[arch]["wall_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    hubert = _hubert_forward(dev)
+    hubert["wall_s"] = time.perf_counter() - t1
     scan_cases = _scan_cases(dev)
     flash = _olmoe_flash(dev)
     e2e = _serve_e2e()
-    result = {"phase": "zoo_serve", "models": models,
+    result = {"phase": "zoo_serve", "models": models, "hubert": hubert,
               "selective_scan_cases": scan_cases,
               "olmoe_flash": flash, "serve_e2e": e2e,
               "wall_s": time.perf_counter() - t0}
@@ -4801,7 +5062,8 @@ def _dryrun_cli() -> dict:
 
 def phase_roofline(dev, llm: dict, zoo: dict, train: dict,
                    smi: str = "") -> dict:
-    """Every path the llm_serve, zoo_serve and train phases timed, read
+    """Every path the llm_serve, zoo_serve (hubert-xlarge's forward too)
+    and train phases timed, read
     against the one-card roofline (``launch/roofline.py``) at that run's
     batch, length and kind: mfu, flops_share, hbm_share, roofline_share and
     the bottleneck, none over 1.05; the dry-run's predicted bytes of each
@@ -4831,6 +5093,13 @@ def phase_roofline(dev, llm: dict, zoo: dict, train: dict,
             param_bytes=m["weight_bytes"],
             launches={"selective_scan": m["launches"]["selective_scan"]
                       // runs}))
+    hub = zoo["hubert"]
+    paths.append(_roofline_path(
+        f"{HUBERT} forward", HUBERT, get_config(HUBERT),
+        InputShape("serve_forward", hub["frames"], hub["batch"], "prefill"),
+        hub["forward_ms"] / 1e3, hub["max_memory_allocated"],
+        param_bytes=hub["weight_bytes"],
+        launches={"flash_attention": hub["launches"]["flash_attention"]}))
     steps = train["steps"]
     paths.append(_roofline_path(
         f"{JAMBA} train step", JAMBA, _train_config(),
@@ -4939,6 +5208,12 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
             "flash_attention_wgmma"],
         "jamba_launches": zoo["models"][JAMBA]["launches"][
             "flash_attention_wgmma"],
+        # hubert-xlarge's forward (zoo_serve), the D = 80 instantiation,
+        # and the kernel at its shape beside the SIMT kernel it replaces
+        "hubert_launches": zoo["hubert"]["launches"][
+            "flash_attention_wgmma"],
+        "hubert_shape": attention["hubert_bf16_d80"],
+        "ptxas": attention["ptxas"],
         # olmoe's prefill with the all-to-all MoE (expert_parallel), and
         # the placed model's under the opt4 bundle
         "expert_parallel_launches": ep["prefill"]["runs"]["a2a"][

@@ -1,18 +1,22 @@
-// Flash attention on Hopper's tensor cores (sm_90a), bf16, head dim 64 or 128:
+// Flash attention on Hopper's tensor cores (sm_90a), bf16, head dim 64, 80
+// or 128:
 //
 //     o[b, i, h, :] = sum_j softmax_j( (q[b,i,h,:] . k[b,j,g,:]) * scale ) v[b,j,g,:]
 //     g = h / (Hq / Hkv),  scale = 1 / sqrt(D),  over the visible keys j
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/flash_attention.py:25
 // (function _flash_kernel, wrapper flash_attention) for bf16 q, k, v with
-// D in {64, 128}; csrc/flash_attention.cu keeps float32 and the other D.
+// D in {64, 80, 128}; csrc/flash_attention.cu keeps float32 and the other D.
 //
 // What bounds it on an H100: operations.  A visible (query, key) pair costs
 // 4*D flops (two products); with P split in two bf16 terms (below) the
 // tensor cores are issued 6*D.  At the qwen3-8b prefill shape (B=4,
 // T=2,048, 32/8 heads, D=128, causal) that is 137.5 GFLOP needed, 206
 // issued, against 168 MB of q, k, v and o: far above the ~295 flops a byte
-// where the bf16 tensor cores (989 TFLOP/s) stop waiting for memory.
+// where the bf16 tensor cores (989 TFLOP/s) stop waiting for memory.  At
+// hubert-xlarge's (B=4, T=2,048, 16/16 heads, D=80, bidirectional) 85.9
+// GFLOP needed, 128.8 issued; its 268 M exponentials weigh more against
+// the products at D=80 than at D=128.
 //
 // Design (FlashAttention-3's shape, without its intra-warpgroup overlap):
 // * One CTA per (128-row query tile, query head, batch row), heaviest tile
@@ -20,33 +24,41 @@
 //   each.  The producer gives back registers (setmaxnreg 24), the consumers
 //   take them (240): S, O and the two P terms live in registers.
 // * TMA loads the Q tile once, then K and V tiles of 128 keys into a ring
-//   of two stages, each with a full barrier per operand and one empty
-//   barrier, in 128-byte-swizzled shared memory (a 128-byte row holds 64
-//   bf16; at D=128 a tile is two such boxes).  q, k and v are read in
-//   place: each tensor map spans (D, T, H, B) with the tensor's strides.
-//   Rows past Tq or Tk arrive zero-filled.
-// * S = Q K^T: wgmma with both operands in shared memory, float32
-//   accumulators.  bf16 products are exact in float32, so S differs from
-//   the reference only in the order of summation.
+//   of stages, each with a full barrier per operand and one empty barrier,
+//   in swizzled shared memory.  An operand tile is D / C boxes of rows x C
+//   columns, box after box (struct Tile): for D = 64 and 128, C = 64 (a
+//   128-byte row, 128-byte swizzle, 1 KB atoms); for D = 80, whose 160-byte
+//   row is no whole number of 128-byte atoms, C = 16 (a 32-byte row,
+//   32-byte swizzle, 256-byte atoms: CUTLASS's choice for a K extent that
+//   is a multiple of 16 but not of 32), five boxes an operand.  q, k and v
+//   are read in place: each tensor map spans (D, T, H, B) with the
+//   tensor's strides.  Rows past Tq or Tk arrive zero-filled.
+// * S = Q K^T: wgmma m64n128k16, one k-step per 16 columns, with both
+//   operands K-major in shared memory, float32 accumulators.  bf16
+//   products are exact in float32, so S differs from the reference only in
+//   the order of summation.
 // * Online softmax on the accumulator fragment: each thread holds two rows'
 //   values, a row's max and sum span the thread's quad.  Masks are applied
 //   only to tiles that cross Tk, the causal diagonal or the window edge;
 //   tiles that no row can see are never loaded.
-// * O += P V with P in two bf16 terms, P_hi = bf16(P) and P_lo = bf16(P -
-//   P_hi), both re-laid from the accumulator fragment into wgmma's register
-//   A operand; V is the B operand read MN-major (the descriptor's transpose
-//   bit).  One bf16 term would round P to 8 bits, an error the model's
-//   check (attention within bf16 rounding of float32) does not allow; two
-//   terms carry 16 bits, as good as float32 P there.  l sums float32 P.
+// * O += P V (m64nDk16, one a 16-key step) with P in two bf16 terms, P_hi =
+//   bf16(P) and P_lo = bf16(P - P_hi), both re-laid from the accumulator
+//   fragment into wgmma's register A operand; V is the B operand read
+//   MN-major (the descriptor's transpose bit, its leading byte offset the
+//   stride between boxes).  One bf16 term would round P to 8 bits, an
+//   error the model's check (attention within bf16 rounding of float32)
+//   does not allow; two terms carry 16 bits, as good as float32 P there.
+//   l sums float32 P.  O is D/2 floats a thread (40 at D = 80).
 // * Epilogue: O / max(l, 1e-30) in bf16, staged through the consumer's
-//   rows of the Q tile, written with 16-byte stores; rows past Tq are not
-//   written.
+//   rows of the Q tile in the same swizzled layout, written with 16-byte
+//   stores, exactly D columns a row (the next head of a packed projection
+//   starts at column D); rows past Tq are not written.
 //
-// Numerics follow _flash_kernel: masks kpos < Tk, qpos >= kpos if causal,
-// kpos > qpos - window if window > 0, positions from 0; masked logits are
-// -inf; the running max is guarded (m_safe = 0 where m is -inf, alpha = 0
-// where the previous max is -inf), so a fully masked tile adds exactly 0
-// and a row that sees no key comes out exactly 0.  The logit is
+// Numerics follow _flash_kernel at every D: masks kpos < Tk, qpos >= kpos
+// if causal, kpos > qpos - window if window > 0, positions from 0; masked
+// logits are -inf; the running max is guarded (m_safe = 0 where m is -inf,
+// alpha = 0 where the previous max is -inf), so a fully masked tile adds
+// exactly 0 and a row that sees no key comes out exactly 0.  The logit is
 // (q . k) * scale; exp(x) is exp2f(x * log2(e)).
 #include <cuda.h>  // CUtensorMap; the encoder is reached through the runtime
 #include <cuda_bf16.h>
@@ -58,10 +70,39 @@ namespace {
 
 constexpr int kBQ = 128;       // query rows per CTA, 64 per consumer
 constexpr int kBK = 128;       // keys per K/V tile
-constexpr int kStages = 2;     // K/V ring depth
 constexpr int kThreads = 384;  // producer + two consumer warpgroups
-constexpr int kRowBytes = 128; // one swizzled row: 64 bf16
+constexpr int kStagesD80 = 2;  // K/V ring depth at D = 80
 constexpr float kLog2e = 1.4426950408889634f;
+
+// bytes of one swizzled shared-memory row of a D-column operand: 64 bf16
+// under the 128-byte swizzle where D is a multiple of 64, else 16 bf16
+// under the 32-byte swizzle
+__host__ __device__ constexpr int row_bytes(int d) {
+  return d % 64 == 0 ? 128 : 32;
+}
+
+// The shared-memory form of a D-column operand tile: D / kBoxCols boxes of
+// (rows x kRowBytes), each row swizzled in 16-byte chunks within atoms of
+// eight rows (CUTLASS's Swizzle<log2(kRowBytes / 16), 4, 3>).
+template <int D>
+struct Tile {
+  static_assert(D == 64 || D == 80 || D == 128, "head dim 64, 80 or 128");
+  static constexpr int kRowBytes = row_bytes(D);
+  static constexpr int kBoxCols = kRowBytes / 2;    // bf16 columns a box
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kChunks = kRowBytes / 16;    // 16-byte chunks a row
+  static constexpr int kAtomBytes = 8 * kRowBytes;  // the swizzle's repeat
+  static constexpr int kStages = D == 80 ? kStagesD80 : 2;
+  // wgmma descriptor layout type: 1 = 128-byte swizzle, 3 = 32-byte
+  static constexpr uint64_t kLayoutType = kRowBytes == 128 ? 1 : 3;
+
+  // byte offset of 16-byte chunk ``chunk`` of row ``row`` inside a box
+  // whose rows start at an atom boundary
+  __device__ static constexpr int at(int row, int chunk) {
+    return row * kRowBytes +
+           ((chunk ^ ((row * kRowBytes >> 7) & (kChunks - 1))) * 16);
+  }
+};
 
 struct Params {
   void* o;
@@ -71,10 +112,12 @@ struct Params {
   float scale;
 };
 
-// Byte offsets into the 1024-byte-aligned dynamic shared memory.  Each
-// operand tile is D/64 boxes of (rows x 128 bytes), box after box.
+// Byte offsets into the 1024-byte-aligned dynamic shared memory (every
+// box starts at an atom boundary).  Each operand tile is Tile<D>::kBoxes
+// boxes, box after box.
 template <int D>
 struct Layout {
+  static constexpr int kStages = Tile<D>::kStages;
   static constexpr int kQBytes = kBQ * D * 2;
   static constexpr int kKVBytes = kBK * D * 2;
   static constexpr int kQ = 0;
@@ -83,6 +126,7 @@ struct Layout {
   static constexpr int kBar = kV + kStages * kKVBytes;
   // q_full, k_full[kStages], v_full[kStages], empty[kStages]
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
+  static_assert(kBytes <= 232448, "more shared memory than a block gets");
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -122,12 +166,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
          "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// byte offset (unused K-major; the stride between 64-column boxes
-// MN-major), stride byte offset 1024 (eight 128-byte rows)
+// wgmma shared-memory descriptor of a Tile<D> operand: start address,
+// leading byte offset (unused K-major; the stride between boxes MN-major),
+// stride byte offset one atom (eight rows), the swizzle's layout type
+template <int D>
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  using T = Tile<D>;
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+         (uint64_t(T::kAtomBytes >> 4) << 32) | (T::kLayoutType << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -218,6 +264,35 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d(64x80) += a(64x16) * b(16x80); a in registers (the accumulator-shaped
+// fragment), b MN-major in shared memory (the descriptor's transpose bit)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d(64x128) += a(64x16) * b(16x128); a in registers (the accumulator-shaped
 // fragment), b MN-major in shared memory (the descriptor's transpose bit)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -256,12 +331,13 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
   if constexpr (D == 64) {
     wgmma_rs_n64(o, a, b);
+  } else if constexpr (D == 80) {
+    wgmma_rs_n80(o, a, b);
   } else {
     wgmma_rs_n128(o, a, b);
   }
@@ -279,11 +355,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap v_map,
                              const Params p) {
   using L = Layout<D>;
-  constexpr int kBoxes = D / 64;
+  using T = Tile<D>;
+  constexpr int kStages = L::kStages;
+  constexpr int kRowBytes = T::kRowBytes;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw =
       static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
-  const uint32_t base = (raw + 1023u) & ~1023u;  // 128B swizzle: 1 KB atoms
+  const uint32_t base = (raw + 1023u) & ~1023u;  // whole atoms at any D
   uint8_t* const base_ptr = smem_raw + (base - raw);
   const uint32_t bar_q = base + L::kBar;
   const uint32_t bar_k = bar_q + 8;                  // + 8 * stage
@@ -319,22 +397,22 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
     if (tid == 0 && n_tiles > 0) {
       mbar_expect_tx(bar_q, L::kQBytes);
-      for (int c = 0; c < kBoxes; ++c)
-        tma_load(base + L::kQ + c * kBQ * kRowBytes, &q_map, bar_q, 64 * c,
-                 q0, h, b);
+      for (int c = 0; c < T::kBoxes; ++c)
+        tma_load(base + L::kQ + c * kBQ * kRowBytes, &q_map, bar_q,
+                 T::kBoxCols * c, q0, h, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         if (it >= kStages)  // the consumers have released this stage
           mbar_wait(bar_e + 8 * s, ((it / kStages) - 1) & 1);
         const int k0 = (t_first + it) * kBK;
         mbar_expect_tx(bar_k + 8 * s, L::kKVBytes);
-        for (int c = 0; c < kBoxes; ++c)
+        for (int c = 0; c < T::kBoxes; ++c)
           tma_load(base + L::kK + s * L::kKVBytes + c * kBK * kRowBytes,
-                   &k_map, bar_k + 8 * s, 64 * c, k0, kvh, b);
+                   &k_map, bar_k + 8 * s, T::kBoxCols * c, k0, kvh, b);
         mbar_expect_tx(bar_v + 8 * s, L::kKVBytes);
-        for (int c = 0; c < kBoxes; ++c)
+        for (int c = 0; c < T::kBoxes; ++c)
           tma_load(base + L::kV + s * L::kKVBytes + c * kBK * kRowBytes,
-                   &v_map, bar_v + 8 * s, 64 * c, k0, kvh, b);
+                   &v_map, bar_v + 8 * s, T::kBoxCols * c, k0, kvh, b);
       }
     }
   } else {
@@ -364,9 +442,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const uint32_t k_base = base + L::kK + s * L::kKVBytes;
       const uint32_t v_base = base + L::kV + s * L::kKVBytes;
 
-      // S = Q K^T over D in steps of 16 (32 bytes inside a swizzled row);
-      // the first step overwrites S, zeroed only so that nothing stays
-      // live from the previous tile
+      // S = Q K^T over D in steps of 16 (32 bytes of a swizzled row: a
+      // quarter of a 128-byte row, a whole 32-byte one); the first step
+      // overwrites S, zeroed only so that nothing stays live from the
+      // previous tile
       float sacc[kBK / 2];
 #pragma unroll
       for (int i = 0; i < kBK / 2; ++i) sacc[i] = 0.0f;
@@ -375,11 +454,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
-        const uint32_t off = (ks % 4) * 32;
-        wgmma_ss_n128(sacc,
-                      desc(q_base + (ks / 4) * kBQ * kRowBytes + off, 16),
-                      desc(k_base + (ks / 4) * kBK * kRowBytes + off, 16),
-                      ks > 0);
+        constexpr int kSteps = T::kBoxCols / 16;  // k-steps a box
+        const uint32_t off = (ks % kSteps) * 32;
+        wgmma_ss_n128(
+            sacc, desc<D>(q_base + (ks / kSteps) * kBQ * kRowBytes + off, 16),
+            desc<D>(k_base + (ks / kSteps) * kBK * kRowBytes + off, 16),
+            ks > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -457,11 +537,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int ks = 0; ks < kBK / 16; ++ks)
         wgmma_pv<D>(o, p_hi[ks],
-                    desc(v_base + ks * 16 * kRowBytes, kBK * kRowBytes));
+                    desc<D>(v_base + ks * 16 * kRowBytes, kBK * kRowBytes));
 #pragma unroll
       for (int ks = 0; ks < kBK / 16; ++ks)
         wgmma_pv<D>(o, p_lo[ks],
-                    desc(v_base + ks * 16 * kRowBytes, kBK * kRowBytes));
+                    desc<D>(v_base + ks * 16 * kRowBytes, kBK * kRowBytes));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -485,13 +565,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     uint8_t* const ob = base_ptr + L::kQ + 64 * cw * kRowBytes;
     asm volatile("bar.sync %0, 128;" :: "r"(1 + cw) : "memory");
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {  // columns 8 j .. 8 j + 7
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
-        const int col = (8 * j) % 64 + 2 * quad;
-        const int off = (j / 8) * kBQ * kRowBytes + row * kRowBytes +
-                        (((col / 8) ^ (row % 8)) * 16) + (col % 8) * 2;
+        const int off = (j / T::kChunks) * kBQ * kRowBytes +
+                        T::at(row, j % T::kChunks) + 4 * quad;
         *reinterpret_cast<uint32_t*>(ob + off) =
             pack_bf16(o[4 * j + 2 * r] / denom[r],
                       o[4 * j + 2 * r + 1] / denom[r]);
@@ -505,8 +584,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const int g = e % (D / 8);  // 16-byte group of the row
       const int qp = q_lo + row;
       if (qp >= p.tq) continue;
-      const int off = (g / 8) * kBQ * kRowBytes + row * kRowBytes +
-                      (((g % 8) ^ (row % 8)) * 16);
+      const int off = (g / T::kChunks) * kBQ * kRowBytes +
+                      T::at(row, g % T::kChunks);
       *reinterpret_cast<uint4*>(og + qp * p.o_st + 8 * g) =
           *reinterpret_cast<const uint4*>(ob + off);
     }
@@ -534,9 +613,10 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A (B, T, H, D) bf16 tensor as a 4-d map (D, T, H, B), boxes of 64
-// columns x ``rows`` rows, 128-byte swizzle, zero fill past the edges.
-// Strides are in elements; a dimension of size 1 takes a placeholder.
+// A (B, T, H, D) bf16 tensor as a 4-d map (D, T, H, B), boxes of one
+// swizzled row's columns (Tile<D>::kBoxCols) x ``rows`` rows in Tile<D>'s
+// swizzle, zero fill past the edges.  Strides are in elements; a
+// dimension of size 1 takes a placeholder.
 CUresult encode(CUtensorMap* map, const void* ptr, long long b, long long t,
                 long long heads, int d, long long sb, long long st,
                 long long sh, int rows) {
@@ -545,11 +625,14 @@ CUresult encode(CUtensorMap* map, const void* ptr, long long b, long long t,
   const cuuint64_t strides[3] = {cuuint64_t(2 * (t > 1 ? st : d)),
                                  cuuint64_t(2 * (heads > 1 ? sh : d)),
                                  cuuint64_t(2 * (b > 1 ? sb : d))};
-  const cuuint32_t box[4] = {64, cuuint32_t(rows), 1, 1};
+  const cuuint32_t box[4] = {cuuint32_t(row_bytes(d) / 2), cuuint32_t(rows),
+                             1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                    const_cast<void*>(ptr), dims, strides, box, unit,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   row_bytes(d) == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                       : CU_TENSOR_MAP_SWIZZLE_32B,
                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
@@ -579,9 +662,10 @@ constexpr int kEncodeFailed = 100000;  // + the CUresult
 // returns the launch's cudaError_t (0 = success), or kEncodeFailed + the
 // CUresult when a tensor map cannot be encoded.  q, k and v are bf16 with
 // the head dim contiguous; strides are in elements.  The caller has checked
-// shapes, D in {64, 128}, Hq % Hkv == 0, B, Tq, Tk >= 1, and that every
-// data pointer and every B, T and H stride is a multiple of 16 bytes.  The
-// output is (B, Tq, Hq, D) with 16-byte-aligned rows.
+// shapes, D in {64, 80, 128} (any other D returns cudaErrorInvalidValue),
+// Hq % Hkv == 0, B, Tq, Tk >= 1, and that every data pointer and every B,
+// T and H stride is a multiple of 16 bytes.  The output is (B, Tq, Hq, D)
+// with 16-byte-aligned rows.
 extern "C" int flash_attention_wgmma_launch(
     const void* q, const void* k, const void* v, void* o,
     long long b, long long tq, long long tk, int hq, int hkv, int d,
@@ -592,7 +676,7 @@ extern "C" int flash_attention_wgmma_launch(
     int causal, int window, void* stream) {
   if (b < 1 || b > 65535 || hq < 1 || hq > 65535 || hkv < 1 ||
       hq % hkv != 0 || tq < 1 || tk < 1 || tq > 0x7fffff00LL ||
-      tk > 0x7fffff00LL || window < 0 || (d != 64 && d != 128))
+      tk > 0x7fffff00LL || window < 0 || (d != 64 && d != 80 && d != 128))
     return int(cudaErrorInvalidValue);
   if (encoder() == nullptr) return int(cudaErrorSymbolNotFound);
   CUtensorMap qm, km, vm;
@@ -613,8 +697,10 @@ extern "C" int flash_attention_wgmma_launch(
   p.window = window;
   p.scale = 1.0f / sqrtf(float(d));  // as the oracle: 1 / sqrt(f32(D))
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = d == 64 ? launch<64>(qm, km, vm, p, int(b), s)
-                                  : launch<128>(qm, km, vm, p, int(b), s);
+  const cudaError_t err =
+      d == 64   ? launch<64>(qm, km, vm, p, int(b), s)
+      : d == 80 ? launch<80>(qm, km, vm, p, int(b), s)
+                : launch<128>(qm, km, vm, p, int(b), s);
   return int(err);
 }
 

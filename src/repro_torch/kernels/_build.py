@@ -133,9 +133,14 @@ def ptxas_report(name: str) -> dict[str, dict[str, int]]:
     """Each kernel of ``csrc/<name>.cu`` (by its mangled name) and what
     ptxas said of it: ``registers``, ``stack_frame``, ``spill_stores`` and
     ``spill_loads`` (bytes)."""
+    return parse_ptxas(build_log(name)[1])
+
+
+def parse_ptxas(log: str) -> dict[str, dict[str, int]]:
+    """:func:`ptxas_report` of what nvcc printed for one build."""
     report: dict[str, dict[str, int]] = {}
     current = None
-    for line in build_log(name)[1].splitlines():
+    for line in log.splitlines():
         found = re.search(r"(?:Compiling entry function|Function properties "
                           r"for) '?([\w$.]+)'?", line)
         if found:

@@ -6,9 +6,12 @@
 
 * ``"wgmma"``, ``csrc/flash_attention_wgmma.cu``: bf16 with D in
   ``WGMMA_HEAD_DIMS``, on the tensor cores (wgmma, a TMA ring, warp
-  specialisation).  TMA reads only 16-byte-aligned rows, so such an input
-  whose data pointer or B, T or H stride is not a multiple of 16 bytes
-  raises ``ValueError``;
+  specialisation).  D = 64 and 128 stage operands as 64-column boxes under
+  the 128-byte swizzle; D = 80 (hubert-xlarge's heads), whose 160-byte row
+  is no whole number of 128-byte atoms, as five 16-column boxes under the
+  32-byte swizzle, with no padding of the work.  TMA reads only
+  16-byte-aligned rows, so such an input whose data pointer or B, T or H
+  stride is not a multiple of 16 bytes raises ``ValueError``;
 * ``"simt"``, ``csrc/flash_attention.cu``: float32, and bf16 with any other
   D, in float32 on the CUDA cores.
 
@@ -23,6 +26,7 @@ the kernels by the device of the tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,7 +35,7 @@ from repro_torch.kernels import _build
 LAUNCHES = _build.LAUNCHES
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 80, 128)
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,9 +84,10 @@ def _tma_aligned(x: torch.Tensor) -> bool:
 
 
 def kernel_form(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """``"wgmma"`` for bf16 with D in ``WGMMA_HEAD_DIMS``, else ``"simt"``
-    (for inputs :func:`check_inputs` accepts).  Raises ``ValueError`` for a
-    wgmma input that is not 16-byte aligned: no other form takes it."""
+    """``"wgmma"`` for bf16 with D in ``WGMMA_HEAD_DIMS`` (64, 80, 128),
+    else ``"simt"`` (for inputs :func:`check_inputs` accepts).  Raises
+    ``ValueError`` for a wgmma input that is not 16-byte aligned: no other
+    form takes it, and nothing falls back to the SIMT kernel."""
     if q.dtype != torch.bfloat16 or q.shape[3] not in WGMMA_HEAD_DIMS:
         return "simt"
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -103,11 +108,17 @@ _SOURCES = {"simt": ("flash_attention", _ARGS + [_I32] * 3 + [_PTR]),
             "wgmma": ("flash_attention_wgmma", _ARGS + [_I32] * 2 + [_PTR])}
 
 
+@functools.cache
 def _entry_points(form: str):
     """A form's launcher and error-string functions, their C signatures
-    declared for ctypes."""
+    declared for ctypes (once a form)."""
+    return _bind(_build.library(_SOURCES[form][0]), form)
+
+
+def _bind(lib: ctypes.CDLL, form: str):
+    """The launcher and error-string functions of ``lib``, a build of
+    ``form``'s source, their C signatures declared for ctypes."""
     name, argtypes = _SOURCES[form]
-    lib = _build.library(name)
     launch = getattr(lib, f"{name}_launch")
     launch.argtypes = argtypes
     launch.restype = ctypes.c_int
@@ -131,10 +142,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        ': train with attn_impl="reference"')
     check_inputs(q, k, v, sliding_window)
     form = kernel_form(q, k, v)
+    out = _launch_form(form, q, k, v, causal=causal,
+                       sliding_window=sliding_window)
+    LAUNCHES["flash_attention"] += 1
+    if form == "wgmma":
+        LAUNCHES["flash_attention_wgmma"] += 1
+    return out
+
+
+def _launch_form(form: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, *, causal: bool, sliding_window: int,
+                 entry=None) -> torch.Tensor:
+    """One launch of ``form``'s kernel on inputs :func:`check_inputs`
+    accepts, uncounted.  :func:`flash_attention` calls it with the form
+    :func:`kernel_form` picks; a measurement may name the other form that
+    takes the inputs (the SIMT kernel takes every dtype and D), or give
+    ``entry``, the :func:`_bind` of another build of the form's source, to
+    time it beside."""
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     out = torch.empty((b, tq, hq, d), dtype=q.dtype, device=q.device)
-    launch, error_string = _entry_points(form)
+    launch, error_string = entry or _entry_points(form)
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, tq, tk, hq, hkv, d,
             *(s for x in (q, k, v, out) for s in x.stride()[:3]),
@@ -146,7 +174,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if code != 0:
         raise RuntimeError(f"flash_attention ({form} form) launch failed: "
                            f"{error_string(code).decode()}")
-    LAUNCHES["flash_attention"] += 1
-    if form == "wgmma":
-        LAUNCHES["flash_attention_wgmma"] += 1
     return out

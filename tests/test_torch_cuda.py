@@ -483,7 +483,8 @@ def test_flash_kernel_fully_masked_rows_are_zero(dev):
                                rtol=5e-5, atol=5e-5)
 
 
-# the tensor-core form (csrc/flash_attention_wgmma.cu): bf16, D in (64, 128)
+# the tensor-core form (csrc/flash_attention_wgmma.cu): bf16, D in
+# (64, 80, 128); D = 80 runs its own 32-byte-swizzled layout
 # (b, tq, tk, hq, hkv, d, causal, window)
 WGMMA_CASES = [
     (1, 1, 1, 4, 1, 64, True, 0),           # T = 1
@@ -498,6 +499,15 @@ WGMMA_CASES = [
     (1, 500, 500, 4, 1, 128, False, 130),
     (2, 200, 333, 8, 2, 64, False, 0),      # non-causal, Tq < Tk
     (1, 1, 257, 2, 2, 128, False, 0),
+    (1, 1, 1, 4, 4, 80, False, 0),          # D = 80: T = 1
+    (2, 127, 127, 4, 2, 80, True, 0),       # T = 127
+    (2, 129, 129, 16, 16, 80, False, 0),    # T = 129, hubert's heads
+    (1, 2049, 2049, 4, 4, 80, False, 0),    # T = 2,049, bidirectional
+    (1, 2049, 2049, 4, 1, 80, True, 0),     # T = 2,049, causal
+    (2, 96, 300, 4, 2, 80, True, 0),        # Tq < Tk
+    (2, 200, 333, 4, 4, 80, False, 0),      # non-causal, Tq < Tk
+    (1, 300, 300, 4, 2, 80, True, 50),      # windows across tile edges
+    (1, 500, 500, 4, 1, 80, False, 130),
 ]
 
 
@@ -528,6 +538,21 @@ def test_wgmma_form_reads_packed_strided_views(dev):
                                atol=2e-2)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_wgmma_form_reads_packed_d80_views(dev, causal):
+    """hubert's heads as views of one packed (B, T, 48, 80) projection, read
+    in place; in the (B, T, 16, 80) output a head's row is 160 bytes and
+    the next head's starts right after it, so every row must be written
+    with exactly 80 columns."""
+    qkv = torch.randn(2, 300, 48, 80, device=dev).to(torch.bfloat16)
+    q, k, v = qkv[:, :, :16], qkv[:, :, 16:32], qkv[:, :, 32:]
+    assert fa.kernel_form(q, k, v) == "wgmma"
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
 def test_wgmma_form_fully_masked_rows_are_zero(dev):
     q, k, v = _qkv((1, 256, 64, 4, 2, 64), torch.bfloat16, dev)
     before = ops.LAUNCHES["flash_attention_wgmma"]
@@ -543,7 +568,7 @@ def test_wgmma_form_fully_masked_rows_are_zero(dev):
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
                                      (torch.float32, 128),
-                                     (torch.bfloat16, 80)])
+                                     (torch.bfloat16, 96)])
 def test_other_inputs_take_the_simt_form(dev, dtype, d):
     q, k, v = _qkv((1, 130, 130, 4, 2, d), dtype, dev)
     before = dict(ops.LAUNCHES)
@@ -566,9 +591,21 @@ def test_misaligned_bf16_view_raises(dev):
     assert ops.LAUNCHES == before
 
 
+def test_misaligned_d80_view_raises(dev):
+    """A bf16 D = 80 view whose pointer TMA cannot read raises: nothing
+    falls back to the SIMT kernel."""
+    base = torch.randn(1, 64, 4, 88, device=dev).to(torch.bfloat16)
+    q = base[..., 1:81]               # data pointer 2 bytes off
+    k = v = base[:, :, :2, :80]
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q, k, v)
+    assert ops.LAUNCHES == before
+
+
 def test_wgmma_kernel_uses_tensor_cores_and_tma_without_spills(dev):
-    """SASS of both instantiations holds HGMMA and UTMALDG; ptxas reports
-    no spills."""
+    """SASS of the three instantiations holds HGMMA and UTMALDG; ptxas
+    reports no spills."""
     import shutil
     import subprocess
     from pathlib import Path
@@ -583,7 +620,7 @@ def test_wgmma_kernel_uses_tensor_cores_and_tma_without_spills(dev):
                           text=True, check=True).stdout
     kernels = [f for f in sass.split("Function : ")[1:]
                if "flash_attention_wgmma_kernel" in f.splitlines()[0]]
-    assert len(kernels) == 2   # D = 64 and D = 128
+    assert len(kernels) == 3   # D = 64, 80 and 128
     for f in kernels:
         assert "HGMMA" in f and "UTMALDG" in f
     spills = [ln for ln in log.splitlines() if "spill" in ln]

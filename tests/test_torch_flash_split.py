@@ -87,12 +87,15 @@ def _oracle(q, k, v, *, causal, window):
 
 
 # (b, t, hq, hkv, d, causal, window); logit scales 1 and 4 as the
-# emulation that chose the design
+# emulation that chose the design; D = 80 at hubert-xlarge's head grouping
+# (bidirectional) and with a window across tile edges
 PLAN_CASES = [
     (1, 384, 4, 2, 64, True, 0),
     (1, 300, 4, 1, 128, True, 0),
     (2, 256, 2, 2, 64, False, 0),
     (1, 384, 4, 2, 128, True, 100),
+    (2, 256, 4, 4, 80, False, 0),
+    (1, 300, 4, 2, 80, True, 100),
 ]
 
 
@@ -127,8 +130,10 @@ def _qkv(d, dtype, *, hq=4, hkv=2, t=32):
 
 @pytest.mark.parametrize("dtype,d,form", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 80, "simt"), (torch.bfloat16, 32, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 32, "simt"),
+    (torch.bfloat16, 96, "simt"), (torch.bfloat16, 48, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 80, "simt")])
 def test_form_is_chosen_by_dtype_and_head_dim(dtype, d, form):
     assert tfa.kernel_form(*_qkv(d, dtype)) == form
 
@@ -145,6 +150,15 @@ def test_packed_views_take_the_wgmma_form():
     assert tfa.kernel_form(one, one, one) == "wgmma"
 
 
+def test_packed_d80_views_take_the_wgmma_form():
+    """hubert's q, k, v as views of one packed (B, T, 3·16, 80) bf16
+    projection: a head is 160 bytes, so every head's pointer and every
+    stride stays a multiple of 16 bytes."""
+    qkv = torch.zeros(2, 130, 48, 80, dtype=torch.bfloat16)
+    assert tfa.kernel_form(qkv[:, :, :16], qkv[:, :, 16:32],
+                           qkv[:, :, 32:]) == "wgmma"
+
+
 @pytest.mark.parametrize("bad", ["pointer", "head_stride", "row_stride"])
 def test_misaligned_bf16_views_raise(bad):
     q, k, v = _qkv(128, torch.bfloat16)
@@ -157,3 +171,34 @@ def test_misaligned_bf16_views_raise(bad):
             (1, 32, 2, 128), (32 * 260, 260, 128, 1))
     with pytest.raises(ValueError, match="16-byte"):
         tfa.kernel_form(q, k, v)
+
+
+def test_misaligned_d80_view_raises():
+    """A bf16 D = 80 view 2 bytes off: the tensor-core form cannot read it
+    and no other form stands in."""
+    q = torch.zeros(1, 32, 4, 88, dtype=torch.bfloat16)[..., 1:81]
+    k, v = _qkv(80, torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="D=80 kernel reads by TMA"):
+        tfa.kernel_form(q, k, v)
+
+
+def test_d80_ring_depth_is_one_constant():
+    """``benchmarks/bench_flash_stages.py`` builds the kernel at another
+    D = 80 ring depth by rewriting the one constant that fixes it."""
+    from repro_torch.benchmarks import bench_flash_stages as bench
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "flash_attention_wgmma.cu").read_text()
+    assert bench.CONSTANT.findall(src) == ["constexpr int kStagesD80 = 2;"]
+
+
+def test_bench_flash_stages_needs_a_card():
+    """The benchmark times the CUDA kernel only: asked for the CPU, or with
+    no card, it raises before anything is built."""
+    from repro_torch.benchmarks import bench_flash_stages as bench
+
+    for device in ("cpu", None):
+        if device is None and torch.cuda.is_available():
+            continue
+        with pytest.raises(RuntimeError, match="needs a card"):
+            bench.run(quick=True, device=device)

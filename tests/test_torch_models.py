@@ -36,11 +36,13 @@ RISK = dict(rtol=1e-5, atol=1e-5)
 B, T = 2, 24
 
 
-def _pair(arch, *, window=0):
-    jcfg, tcfg = j_smoke(arch), get_smoke_config(arch)
+def _pair(arch, *, window=0, **change):
+    """The smoke config of ``arch`` with ``change`` (and a sliding window)
+    in both packages, the reference's weights converted into the port."""
     if window:
-        jcfg = dataclasses.replace(jcfg, sliding_window=window)
-        tcfg = dataclasses.replace(tcfg, sliding_window=window)
+        change["sliding_window"] = window
+    jcfg = dataclasses.replace(j_smoke(arch), **change)
+    tcfg = dataclasses.replace(get_smoke_config(arch), **change)
     jm = JModel(jcfg)
     params = jm.init(jax.random.key(42))
     tm = model_from_numpy(tcfg, jax.tree.map(np.asarray, params),
@@ -84,6 +86,24 @@ def test_kernel_branch_matches_reference_pallas_path():
     ``attn_impl="pallas"`` in interpret mode."""
     jm, params, tm = _pair("qwen3-8b")
     jin, tin = _inputs(tm.cfg, 160, seed=3, batch=1)
+    want = jm.forward(params, **jin, compute_dtype=jnp.float32,
+                      attn_impl="pallas")
+    before = dict(ops.LAUNCHES)
+    got = tm(**tin, compute_dtype=torch.float32, attn_impl="kernel")
+    assert ops.LAUNCHES == before  # CPU tensors: no kernel launch
+    _close(got.logits, want.logits, LOGITS)
+    _close(got.risk_score, want.risk_score, RISK)
+
+
+def test_hubert_d80_kernel_branch_matches_reference_pallas_path():
+    """hubert smoke at hubert-xlarge's head dim (D = 80: 2 layers, 2 heads,
+    d_model 160), bidirectional, at T=160: the port's kernel branch (its
+    plain version on the CPU: the card runs the D = 80 tensor-core form)
+    against the reference's ``attn_impl="pallas"`` in interpret mode."""
+    jm, params, tm = _pair("hubert-xlarge", d_model=160, n_heads=2,
+                           n_kv_heads=2, head_dim=80)
+    assert tm.cfg.head_dim == 80 and not tm.cfg.causal
+    jin, tin = _inputs(tm.cfg, 160, seed=5, batch=1)
     want = jm.forward(params, **jin, compute_dtype=jnp.float32,
                       attn_impl="pallas")
     before = dict(ops.LAUNCHES)
