@@ -122,21 +122,24 @@ Phases, each printing one JSON line:
              the rollout's, the fleet's and the campaign's invariants;
              then ``python -m repro_torch.examples.quickstart`` on the
              card, line for line its CPU run.
-10. attention — the two flash-attention kernels against their plain
-             version on the card, float32 and bfloat16 (bf16 with D = 64,
-             80 or 128 runs the tensor-core form, the rest the SIMT form,
-             checked per case): the reference's five cases, Tq < Tk, a
+10. attention — the three flash-attention kernels against their plain
+             version on the card, float32 and bfloat16 (D = 64, 80 or 128
+             runs a tensor-core form, bf16 the wgmma one and float32 the
+             three-term TF32 one, the rest the SIMT form, checked per case
+             and counted by form): the reference's five cases, Tq < Tk, a
              ragged T = 1,000, a window across tile edges, D = 80
              (bidirectional, and causal, windowed and ragged) and D = 128,
              B > 1, and rows that see no key (exactly 0); then at the
              prefill shape of qwen3-8b (B=4, T=2,048, 32/8 heads, D=128,
-             causal) the tensor-core form's time in bf16 and the SIMT
-             form's in float32, and at hubert-xlarge's (B=4, T=2,048,
-             16/16 heads, D=80, bidirectional) the tensor-core form's in
-             bf16 beside the SIMT kernel's on the same inputs, each
-             beside the plain version, PyTorch's own attention call and
-             the bound; ptxas's registers and spills of each tensor-core
-             instantiation (none may spill).
+             causal) the bf16 tensor-core form's time, and the TF32 form's
+             in float32 beside the SIMT kernel's on the same inputs, and at
+             hubert-xlarge's (B=4, T=2,048, 16/16 heads, D=80,
+             bidirectional) both tensor-core forms, each beside the SIMT
+             kernel's on the same inputs, the plain version, PyTorch's own
+             attention call and the bound (the TF32 form also beside the
+             12·D flops a pair it issues at the TF32 rate); ptxas's
+             registers and spills of each tensor-core instantiation (none
+             may spill).
 11. llm_serve — the port's model path at the full width of qwen3-8b
              (36 layers, d_model 4,096, vocab 151,936; bf16 weights from a
              seed): ``launch.serve.serve`` prefills 4 x 2,048 tokens through
@@ -146,8 +149,10 @@ Phases, each printing one JSON line:
              held against float32 and bfloat16 reference prefills of the
              same weights, and each attention call's last rows inside the
              model against the plain version in float32.  A float32
-             prefill through the kernel branch (the SIMT form's path) is
-             held against the float32 reference prefill.
+             prefill through the kernel branch (36 launches of the TF32
+             tensor-core form, none of another) is held against the
+             float32 reference prefill, and timed beside the same prefill
+             on the SIMT kernel, in turns.
 12. zoo_serve — the MoE, xLSTM and Mamba families at full width, each
              built in bf16 from seed 0 and freed before the next:
              olmoe-1b-7b (16 layers, d_model 2,048, 64 experts of 1,024,
@@ -2260,13 +2265,18 @@ def phase_attention(dev) -> dict:
 
     def form_of(launch):
         """Run ``launch`` and name the form it ran by the launch counts."""
-        before = fa.LAUNCHES["flash_attention_wgmma"]
+        before = dict(fa.LAUNCHES)
         out = launch()
-        return out, ("wgmma" if fa.LAUNCHES["flash_attention_wgmma"] > before
-                     else "simt")
+        form = next((f for f, key in fa.FORM_KEYS.items()
+                     if fa.LAUNCHES[key] > before[key]), "simt")
+        return out, form
 
     errs: dict[str, dict[str, float]] = {}
     forms: dict[str, dict[str, str]] = {}
+    # the cases' launches by form (counts set to 0 just before, read just
+    # after): the SIMT kernel's are the launches left for it
+    for name in fa.LAUNCHES:
+        fa.LAUNCHES[name] = 0
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         errs[dname], forms[dname] = {}, {}
@@ -2275,8 +2285,9 @@ def phase_attention(dev) -> dict:
             q, k, v = _qkv(case, dtype, dev, seed=i)
             got, form = form_of(lambda: fa.flash_attention(
                 q, k, v, causal=causal, sliding_window=win))
-            want_form = ("wgmma" if dtype == torch.bfloat16
-                         and case[5] in fa.WGMMA_HEAD_DIMS else "simt")
+            want_form = ("simt" if case[5] not in fa.WGMMA_HEAD_DIMS
+                         else "wgmma" if dtype == torch.bfloat16
+                         else "tf32x3")
             check(form == want_form, f"{name}/{dname} ran the {form} form, "
                   f"not {want_form}")
             forms[dname][name] = form
@@ -2295,30 +2306,25 @@ def phase_attention(dev) -> dict:
         errs[dname]["partly_masked"] = _attn_err(
             f"partly_masked/{dname}", got[0, ~masked], want[0, ~masked],
             ATTN_TOL[dname])
+    case_launches = {key: fa.LAUNCHES[key] for key in (
+        "flash_attention", *fa.FORM_KEYS.values())}
+    case_launches["simt"] = case_launches["flash_attention"] - sum(
+        case_launches[key] for key in fa.FORM_KEYS.values())
 
     # the prefill shape of qwen3-8b (one launch per attention layer): the
-    # SIMT form in float32 at the tight tolerance, the tensor-core form in
-    # bfloat16 as the model runs it; each timed with its plain version and
-    # PyTorch's own attention call on the same inputs
+    # TF32 tensor-core form in float32 at the tight tolerance beside the
+    # SIMT kernel it replaces there, the bf16 tensor-core form as the model
+    # runs it; each timed with its plain version and PyTorch's own
+    # attention call on the same inputs
     b, tq, tk, hq, hkv, d, causal, win = MAIN_ATTN
     q, k, v = _qkv(MAIN_ATTN, torch.float32, dev, seed=123)
-    got, form = form_of(lambda: fa.flash_attention(q, k, v, causal=causal))
-    check(form == "simt", "float32 at the main shape runs the SIMT form")
-    errs["float32"]["main_shape"] = _attn_err(
-        "main_shape/float32", got, ref.flash_attention(q, k, v, causal=causal),
-        ATTN_TOL["float32"])
-    torch.cuda.synchronize()
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    bound32 = attention_bound(*MAIN_ATTN, itemsize=4)
-    simt = {"form": "simt", "dtype": "float32",
-            "max_abs_err": errs["float32"]["main_shape"],
-            "ms": device_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
-                            reps=3, inner=1),
-            "plain_ms": device_ms(lambda: ref.flash_attention(
-                q, k, v, causal=causal), reps=3, inner=1),
-            "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), reps=3, inner=3),
-            "bound_ms": bound32[0], "bound_by": bound32[1]}
+    tf32 = _float32_shape("main_shape", MAIN_ATTN, q, k, v, form_of,
+                          reps=20, inner=10)
+    errs["float32"]["main_shape"] = tf32["max_abs_err"]
+    simt = {"form": "simt", "dtype": "float32", **tf32["simt"],
+            **{key: tf32[key] for key in ("plain_ms", "library_ms",
+                                          "bound_ms", "bound_by",
+                                          "cuda_core_ms")}}
     want32 = ref.flash_attention(*(x.to(torch.bfloat16).float()
                                    for x in (q, k, v)), causal=causal)
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
@@ -2345,8 +2351,14 @@ def phase_attention(dev) -> dict:
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     hubert = _hubert_attention(dev, form_of)
+    q, k, v = _qkv(HUBERT_ATTN, torch.float32, dev, seed=125)
+    hubert32 = _float32_shape("hubert_d80", HUBERT_ATTN, q, k, v, form_of,
+                              reps=20, inner=10)
+    del q, k, v
+    torch.cuda.empty_cache()
     result = {"phase": "attention", "name": "flash_attention_wgmma",
-              "ptxas": _wgmma_ptxas(),
+              # ptxas of each head-dim instantiation (none may spill)
+              "ptxas": _ptxas_by_dim("flash_attention_wgmma"),
               "cases": {n: list(c) for n, c in ATTN_CASES.items()},
               "forms": forms, "tolerance": ATTN_TOL, "errors": errs,
               "fully_masked_rows": "exactly 0",
@@ -2362,37 +2374,99 @@ def phase_attention(dev) -> dict:
               "bound_ms_issued": 1.5 * bound_ms,
               "tflop_per_s": flops / (ms * 1e-3) / 1e12,
               "simt_f32_ms": simt["ms"], "simt_f32": simt,
+              "tf32x3_f32": tf32,
+              "ptxas_tf32x3": _ptxas_by_dim("flash_attention_tf32"),
+              "case_launches": case_launches,
               "hubert_bf16_d80": hubert,
+              "hubert_f32_d80": hubert32,
               "timing": "CUDA events, median of 20 runs of 10 back-to-back "
-                        "launches (SIMT form and plain versions: 3 runs of "
-                        "1; hubert: hubert_bf16_d80.timing) queued behind a "
-                        "busy card"}
+                        "launches (plain versions: 3 runs of 1; "
+                        "tf32x3_f32, hubert_bf16_d80, hubert_f32_d80: their "
+                        "own timing) queued behind a busy card"}
     emit(result)
     return result
 
 
-def _wgmma_ptxas() -> dict:
-    """What ptxas said of each instantiation of the tensor-core flash
-    kernel, by head dim: registers, stack frame and spill bytes (0: S, O
-    and the two P terms stay in registers)."""
-    import re
+def _float32_shape(name, shape, q, k, v, form_of, *, reps, inner) -> dict:
+    """The TF32 tensor-core form on float32 inputs at ``shape``: its error
+    against the plain version at the float32 tolerance, its time beside
+    the SIMT kernel's on the same inputs (the form that ran float32 at this
+    shape before, its launches uncounted), the plain version's and
+    ``scaled_dot_product_attention``'s in float32; the bound (the least
+    time the card needs to float32's accuracy: 12·D flops a pair, three
+    TF32 terms a product, at the TF32 rate) and, beside it, the 4·D flops
+    at the CUDA cores' float32 rate, each with its share."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.benchmarks.timing import (attention_bound,
+                                               attention_f32_bound,
+                                               device_ms)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
 
+    b, tq, tk, hq, hkv, d, causal, win = shape
+    got, form = form_of(lambda: fa.flash_attention(q, k, v, causal=causal))
+    check(form == "tf32x3", f"{name}: float32 runs the {form} form, not "
+          "tf32x3")
+    want = ref.flash_attention(q, k, v, causal=causal)
+    err = _attn_err(f"{name}/float32", got, want, ATTN_TOL["float32"])
+    simt_err = _attn_err(f"{name}/simt", fa._launch_form(
+        "simt", q, k, v, causal=causal, sliding_window=0), want,
+        ATTN_TOL["float32"])
+    del got, want
+    torch.cuda.synchronize()
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    # in turns: the form, the SIMT kernel, the form again
+    ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                   reps=reps, inner=inner)
+    simt_ms = device_ms(lambda: fa._launch_form(
+        "simt", q, k, v, causal=causal, sliding_window=0), reps=3, inner=1)
+    ms_again = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                         reps=reps, inner=inner)
+    plain_ms = device_ms(lambda: ref.flash_attention(q, k, v, causal=causal),
+                         reps=3, inner=1)
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=hq != hkv), reps=3, inner=3)
+    bound_ms, bound_by, issued_flops = attention_f32_bound(*shape)
+    cores_ms, _, flops = attention_bound(*shape, itemsize=4)
+    del qt, kt, vt
+    return {"form": form, "dtype": "float32",
+            "shape": {"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv,
+                      "D": d, "causal": causal},
+            "max_abs_err": err, "ms": ms, "ms_again": ms_again,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms,
+            "cuda_core_ms": cores_ms,
+            "share_of_cuda_core_ms": cores_ms / ms,
+            "gflop": flops / 1e9, "gflop_issued": issued_flops / 1e9,
+            "tflop_per_s": flops / (ms * 1e-3) / 1e12,
+            "simt": {"ms": simt_ms, "max_abs_err": simt_err,
+                     "tflop_per_s": flops / (simt_ms * 1e-3) / 1e12},
+            "speedup_over_simt": simt_ms / ms,
+            "speedup_over_library": library_ms / ms,
+            "timing": f"CUDA events, median of {reps} runs of {inner} "
+                      "back-to-back launches (ms, then the SIMT kernel 3 "
+                      "runs of 1, then ms_again; SDPA 3 runs of 3, the "
+                      "plain version 3 runs of 1) queued behind a busy "
+                      "card"}
+
+
+def _ptxas_by_dim(source: str) -> dict:
+    """ptxas's registers, stack frame and spill bytes of each head-dim
+    instantiation of ``csrc/<source>.cu``'s kernel (a tensor-core flash
+    form: S, O and the operand terms stay in registers); the three must be
+    there and none may spill."""
+    from repro_torch.benchmarks.source_versions import ptxas_by_dim
     from repro_torch.kernels import _build
 
-    found = {}
-    for name, v in _build.ptxas_report("flash_attention_wgmma").items():
-        dim = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", name)
-        if dim:
-            found[f"D{dim.group(1)}"] = {
-                "registers": v.get("registers"),
-                "stack_frame_bytes": v.get("stack_frame", 0),
-                "spill_bytes": v.get("spill_stores", 0)
-                + v.get("spill_loads", 0)}
+    found = {f"D{d}": v for d, v in ptxas_by_dim(
+        _build.build_log(source)[1], f"{source}_kernel").items()}
     check(sorted(found) == ["D128", "D64", "D80"],
-          f"flash_attention_wgmma instantiations: {sorted(found)}")
+          f"{source} instantiations: {sorted(found)}")
     check(all(v["spill_bytes"] == 0 and v["stack_frame_bytes"] == 0
               for v in found.values()),
-          f"flash_attention_wgmma: ptxas reports spills: {found}")
+          f"{source}: ptxas reports spills: {found}")
     return found
 
 
@@ -2486,7 +2560,8 @@ def _device_split(prof, extra: dict | None = None) -> dict:
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
         if any(k in name for k in ("flash_attention_kernel",
-                                   "flash_attention_wgmma_kernel")):
+                                   "flash_attention_wgmma_kernel",
+                                   "flash_attention_tf32_kernel")):
             cats["flash_attention"] += ms
         elif any(s in name for s in ("gemm", "gemv", "nvjet", "cutlass",
                                      "xmma", "cublas", "sm90_")):
@@ -2700,17 +2775,23 @@ def phase_llm_serve(dev, attention: dict) -> dict:
     del out, cache
 
     # the float32 path: a float32 prefill through the kernel branch runs
-    # the SIMT form; counts set to 0 just before, read just after
+    # the TF32 tensor-core form; counts set to 0 just before, read just
+    # after
     for name in ops.LAUNCHES:
         ops.LAUNCHES[name] = 0
     kw32 = dict(cache_capacity=LLM_PROMPT, compute_dtype=torch.float32,
                 logits_mode="last")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     f32_kernel, _ = model.prefill(prompt, attn_impl="kernel", **kw32)
+    torch.cuda.synchronize()
+    f32_ms = (time.perf_counter() - t0) * 1e3
     f32_launches = dict(ops.LAUNCHES)
     check(f32_launches["flash_attention"] == n_attn
+          and f32_launches["flash_attention_tf32x3"] == n_attn
           and f32_launches["flash_attention_wgmma"] == 0,
-          f"a float32 prefill runs the SIMT form {n_attn} times: "
-          f"{f32_launches}")
+          f"a float32 prefill runs the tf32x3 form {n_attn} times and no "
+          f"other: {f32_launches}")
     f32_reference, _ = model.prefill(prompt, attn_impl="reference", **kw32)
     f32_err = _max_diff(f32_kernel.logits, f32_reference.logits)
     del f32_kernel, f32_reference
@@ -2782,7 +2863,10 @@ def phase_llm_serve(dev, attention: dict) -> dict:
         "risk_err_kernel_vs_f32": r_ker, "risk_err_bf16_ref_vs_f32": r_ref,
         "f32_path": {"launches": f32_launches,
                      "logits_err_vs_f32_reference": f32_err,
-                     "bf16_reference_logits_err": f32_bf16_ref},
+                     "bf16_reference_logits_err": f32_bf16_ref,
+                     "prefill_ms": f32_ms,
+                     "timing": "host clock, the checked float32 prefill, "
+                               "ended by a device sync"},
         "attention_last_rows_vs_f32": witness,
         "served_risk_check_per_seed": sum(
             a["served_risk"]["kernel"]
@@ -4118,7 +4202,10 @@ def phase_bench_kernels() -> dict:
     launches = res["launches"]
     off = [n for n, e in res["entries"].items() if not e["kernel_allclose"]]
     check(not off, f"bench_kernels entries off their plain versions: {off}")
-    check(all(n > 0 for n in launches.values()),
+    # every entry's kernel, and the flash entry's form (bf16, D = 64: the
+    # wgmma form; the float32 form's count is reported, and 0)
+    ran = {e["kernel"] for e in res["entries"].values()}
+    check(all(launches[k] > 0 for k in ran | {"flash_attention_wgmma"}),
           f"bench_kernels launches every kernel: {launches}")
     result = {"phase": "bench_kernels", "launches": launches, "result": res,
               "wall_s": time.perf_counter() - t0}
@@ -5146,7 +5233,7 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
     from repro_torch.kernels import ref
     from repro_torch.kernels import score_pipeline as sp
 
-    simt = attention["simt_f32"]
+    simt, tf32 = attention["simt_f32"], attention["tf32x3_f32"]
     raws, idx, bank = main["raws"], main["idx"], main["bank"]
     m, k = raws.shape
     t, n = bank[2].shape
@@ -5244,14 +5331,37 @@ def phase_kernels(kernel: dict, serve: dict, main: dict, lifecycle: dict,
             "opt"]["flash_attention_wgmma"],
         "olmoe_shape": zoo["olmoe_flash"],
     }, {
+        "name": "flash_attention_tf32x3", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_tf32.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:25",
+        "launches": llm["f32_path"]["launches"]["flash_attention_tf32x3"],
+        **{key: tf32[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "share_of_bound", "cuda_core_ms",
+                                      "share_of_cuda_core_ms", "shape")},
+        "path": "float32 prefill (llm_serve)",
+        "f32_prefill_ms": llm["f32_path"]["prefill_ms"],
+        # the attention phase's float32 cases at D = 64, 80 and 128
+        "case_launches": attention["case_launches"][
+            "flash_attention_tf32x3"],
+        "simt_ms_same_inputs": tf32["simt"]["ms"],
+        "hubert_shape": attention["hubert_f32_d80"],
+        "ptxas": attention["ptxas_tf32x3"],
+    }, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:25",
-        "launches": llm["f32_path"]["launches"]["flash_attention"],
+        # no served path runs it since float32 moved to the tensor cores:
+        # the attention phase's cases at D = 32 (both dtypes) are its
+        # launches
+        "launches": attention["case_launches"]["simt"],
         **{key: simt[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms")},
+                                      "bound_ms", "bound_by", "library_ms",
+                                      "cuda_core_ms")},
         "shape": {**attention["shape"], "dtype": "float32"},
-        "path": "float32 prefill (llm_serve)",
+        "path": "float32 and bf16 at head dims other than 64, 80 and 128 "
+                "(attention cases); its time on float32 at the main shape "
+                "beside the tf32x3 form",
     }, {**_benched("quantile_map", "src/repro_torch/csrc/quantile_map.cu",
                    "src/repro/kernels/quantile_map.py:25", bench, None,
                    {"window": scores["timings"]["quantile_map"]}),

@@ -16,53 +16,24 @@ of each build (registers, spills).  Runs on the card only.
 """
 from __future__ import annotations
 
-import ctypes
 import re
 import statistics
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
 import torch
 
-from repro_torch.benchmarks import cli
-from repro_torch.benchmarks.timing import attention_bound, device_ms
-from repro_torch.kernels import _build, ref
+from repro_torch.benchmarks import cli, source_versions
+from repro_torch.benchmarks.timing import attention_bound
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
 
 FULL = (4, 2048, 2048, 16, 16, 80, False, 0)
 QUICK = (1, 512, 512, 16, 16, 80, False, 0)
 STAGES = (2, 3)
 TOL = 2e-2
 CONSTANT = re.compile(r"constexpr int kStagesD80 = \d+;")
-
-
-def _build_depth(stages: int, out_dir: Path) -> tuple[ctypes.CDLL, str]:
-    """The wgmma source with ``kStagesD80 = stages``, built and loaded."""
-    src = (_build.CSRC / "flash_attention_wgmma.cu").read_text()
-    if len(CONSTANT.findall(src)) != 1:
-        raise RuntimeError("kStagesD80 is not one constant in the source")
-    path = out_dir / f"flash_attention_wgmma_s{stages}.cu"
-    path.write_text(CONSTANT.sub(f"constexpr int kStagesD80 = {stages};",
-                                 src))
-    target = path.with_suffix(".so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                           str(target), str(path)], capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {stages} stages:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(target)), proc.stdout + proc.stderr
-
-
-def _ptxas_d80(log: str) -> dict:
-    """Registers and spill bytes ptxas reported for the D = 80 kernel."""
-    (found,) = [v for k, v in _build.parse_ptxas(log).items()
-                if "flash_attention_wgmma_kernelILi80E" in k]
-    return {"registers": found.get("registers"),
-            "spill_bytes": found.get("spill_stores", 0)
-            + found.get("spill_loads", 0)}
 
 
 def run(quick: bool = False, device: str | None = None) -> dict:
@@ -83,26 +54,25 @@ def run(quick: bool = False, device: str | None = None) -> dict:
               "bound_by": bound_by, "bound_ms_issued": 1.5 * bound_ms,
               "stages": {}}
     with tempfile.TemporaryDirectory() as tmp:
+        built = source_versions.build("flash_attention_wgmma", {
+            stages: [(CONSTANT, f"constexpr int kStagesD80 = {stages};")]
+            for stages in STAGES}, Path(tmp))
         calls = {}
-        for stages in STAGES:
-            lib, log = _build_depth(stages, Path(tmp))
+        for stages, (lib, log) in built.items():
             entry = fa._bind(lib, "wgmma")
 
             def call(entry=entry):
                 return fa._launch_form("wgmma", q, k, v, causal=causal,
                                        sliding_window=0, entry=entry)
 
-            got = call().float()
-            torch.cuda.synchronize()
-            excess = ((got - want).abs() - (TOL + TOL * want.abs())).max()
+            err, ok = source_versions.within(call(), want, TOL)
             calls[stages] = call
             result["stages"][stages] = {
-                "ptxas": _ptxas_d80(log),
-                "max_abs_err": (got - want).abs().max().item(),
-                "within_tolerance": bool(excess <= 0), "ms": []}
-        for stages in (*STAGES, *reversed(STAGES)):
-            result["stages"][stages]["ms"].append(
-                device_ms(calls[stages], reps=20, inner=10))
+                "ptxas": source_versions.ptxas_by_dim(
+                    log, "flash_attention_wgmma_kernel")[80],
+                "max_abs_err": err, "within_tolerance": ok}
+        for stages, ms in source_versions.in_turns(calls).items():
+            result["stages"][stages]["ms"] = ms
     for entry in result["stages"].values():
         entry["ms_median"] = statistics.median(entry["ms"])
         entry["tflop_per_s"] = flops / (entry["ms_median"] * 1e-3) / 1e12

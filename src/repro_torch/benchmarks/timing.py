@@ -23,6 +23,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor cores
+TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor cores
 # special-function results (exp2 and kin) a second: 16 a clock an SM at
 # compute capability 9.0 (CUDA C++ Programming Guide, arithmetic
 # instruction throughput), 132 SMs at the 1.98 GHz behind F32_FLOPS
@@ -151,14 +152,30 @@ def attention_work(b, tq, tk, hq, hkv, d, causal, window, itemsize
 
 def attention_bound(b, tq, tk, hq, hkv, d, causal, window, itemsize
                     ) -> tuple[float, str, float]:
-    """Prefill attention (:func:`attention_work`) over the peak rate of
-    the inputs' type (bf16 tensor cores for 2-byte items, float32 outside
-    them for 4-byte).  Returns (ms, bound_by, flops)."""
+    """Prefill attention (:func:`attention_work`) over the bf16 tensor
+    cores' rate for 2-byte items, the float32 rate outside the tensor
+    cores for 4-byte.  Returns (ms, bound_by, flops).  For float32 inputs
+    this is the CUDA cores' reading, not the least time the card needs:
+    that is :func:`attention_f32_bound`."""
     flops, nbytes = attention_work(b, tq, tk, hq, hkv, d, causal, window,
                                    itemsize)
     peak = F32_FLOPS if itemsize == 4 else BF16_FLOPS
     ms, by = _bound(nbytes, flops, peak)
     return ms, by, flops
+
+
+def attention_f32_bound(b, tq, tk, hq, hkv, d, causal, window
+                        ) -> tuple[float, str, float]:
+    """The least time the card needs for float32 attention to float32's
+    accuracy.  The tensor cores take float32 only as TF32 (10 mantissa
+    bits); a product to float32's accuracy is three TF32 terms (hi*hi +
+    hi*lo + lo*hi), so 12*D flops a visible (query, key) pair a query head
+    at the dense TF32 rate, against the bytes of :func:`attention_work`.
+    That is 2.4x faster than 4*D on the CUDA cores (:func:`attention_bound`
+    with ``itemsize=4``).  Returns (ms, bound_by, flops issued)."""
+    flops, nbytes = attention_work(b, tq, tk, hq, hkv, d, causal, window, 4)
+    ms, by = _bound(nbytes, 3.0 * flops, TF32_FLOPS)
+    return ms, by, 3.0 * flops
 
 
 def decode_work(valid: list[int], hq: int, hkv: int, d: int, itemsize: int

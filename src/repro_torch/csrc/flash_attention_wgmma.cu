@@ -60,13 +60,24 @@
 // alpha = 0 where the previous max is -inf), so a fully masked tile adds
 // exactly 0 and a row that sees no key comes out exactly 0.  The logit is
 // (q . k) * scale; exp(x) is exp2f(x * log2(e)).
-#include <cuda.h>  // CUtensorMap; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_tma.cuh"
+
 namespace {
+
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::tma_load;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_wait_all;
 
 constexpr int kBQ = 128;       // query rows per CTA, 64 per consumer
 constexpr int kBK = 128;       // keys per K/V tile
@@ -129,43 +140,6 @@ struct Layout {
   static_assert(kBytes <= 232448, "more shared memory than a block gets");
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(bar) : "memory");
-}
-
-// wait until the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
-}
-
 // wgmma shared-memory descriptor of a Tile<D> operand: start address,
 // leading byte offset (unused K-major; the stride between boxes MN-major),
 // stride byte offset one atom (eight rows), the swizzle's layout type
@@ -174,31 +148,6 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
   using T = Tile<D>;
   return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
          (uint64_t(T::kAtomBytes >> 4) << 32) | (T::kLayoutType << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keep the compiler from moving a register across an async wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
-  }
 }
 
 // d(64x128) = a(64x16) * b(16x128) (+ d if accumulate); a and b K-major in
@@ -592,80 +541,26 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-typedef CUresult (*EncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded, so the
-// library needs no -lcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A (B, T, H, D) bf16 tensor as a 4-d map (D, T, H, B), boxes of one
-// swizzled row's columns (Tile<D>::kBoxCols) x ``rows`` rows in Tile<D>'s
-// swizzle, zero fill past the edges.  Strides are in elements; a
-// dimension of size 1 takes a placeholder.
-CUresult encode(CUtensorMap* map, const void* ptr, long long b, long long t,
-                long long heads, int d, long long sb, long long st,
-                long long sh, int rows) {
-  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(t),
-                              cuuint64_t(heads), cuuint64_t(b)};
-  const cuuint64_t strides[3] = {cuuint64_t(2 * (t > 1 ? st : d)),
-                                 cuuint64_t(2 * (heads > 1 ? sh : d)),
-                                 cuuint64_t(2 * (b > 1 ? sb : d))};
-  const cuuint32_t box[4] = {cuuint32_t(row_bytes(d) / 2), cuuint32_t(rows),
-                             1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encoder()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                   const_cast<void*>(ptr), dims, strides, box, unit,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE,
-                   row_bytes(d) == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                       : CU_TENSOR_MAP_SWIZZLE_32B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int D>
 cudaError_t launch(const CUtensorMap& qm, const CUtensorMap& km,
-                   const CUtensorMap& vm, const Params& p, int b,
+                   const CUtensorMap& vm, const Params& p, long long b,
                    cudaStream_t stream) {
-  const int smem = Layout<D>::kBytes;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wgmma_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(unsigned((p.tq + kBQ - 1) / kBQ), unsigned(p.hq),
-                  unsigned(b));
-  flash_attention_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      qm, km, vm, p);
-  return cudaGetLastError();
+  return hopper::launch(flash_attention_wgmma_kernel<D>, Layout<D>::kBytes,
+                        kBQ, kThreads, qm, km, vm, p, p.tq, p.hq, b,
+                        stream);
 }
-
-constexpr int kEncodeFailed = 100000;  // + the CUresult
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  Launches on ``stream``
-// (PyTorch's current stream), allocates nothing, does not synchronise, and
-// returns the launch's cudaError_t (0 = success), or kEncodeFailed + the
-// CUresult when a tensor map cannot be encoded.  q, k and v are bf16 with
-// the head dim contiguous; strides are in elements.  The caller has checked
-// shapes, D in {64, 80, 128} (any other D returns cudaErrorInvalidValue),
-// Hq % Hkv == 0, B, Tq, Tk >= 1, and that every data pointer and every B,
-// T and H stride is a multiple of 16 bytes.  The output is (B, Tq, Hq, D)
-// with 16-byte-aligned rows.
+// Plain C entry point, loaded with ctypes.  Launches on ``stream`` (PyTorch's
+// current stream), allocates nothing, does not synchronise, and returns the
+// launch's cudaError_t (0 = success), or hopper::kEncodeFailed + the CUresult
+// when a tensor map cannot be encoded.  q, k and v are bf16 with the head dim
+// contiguous; strides are in elements.  The caller has checked shapes, D in
+// {64, 80, 128} (any other D returns cudaErrorInvalidValue), Hq % Hkv == 0,
+// B, Tq, Tk >= 1, and that every data pointer and every B, T and H stride is
+// a multiple of 16 bytes.  The output is (B, Tq, Hq, D) with 16-byte-aligned
+// rows.
 extern "C" int flash_attention_wgmma_launch(
     const void* q, const void* k, const void* v, void* o,
     long long b, long long tq, long long tk, int hq, int hkv, int d,
@@ -674,18 +569,20 @@ extern "C" int flash_attention_wgmma_launch(
     long long v_sb, long long v_st, long long v_sh,
     long long o_sb, long long o_st, long long o_sh,
     int causal, int window, void* stream) {
-  if (b < 1 || b > 65535 || hq < 1 || hq > 65535 || hkv < 1 ||
-      hq % hkv != 0 || tq < 1 || tk < 1 || tq > 0x7fffff00LL ||
-      tk > 0x7fffff00LL || window < 0 || (d != 64 && d != 80 && d != 128))
-    return int(cudaErrorInvalidValue);
-  if (encoder() == nullptr) return int(cudaErrorSymbolNotFound);
+  const int bad = hopper::check_shapes(b, tq, tk, hq, hkv, d, window);
+  if (bad != 0) return bad;
+  const auto encode = [&](CUtensorMap* map, const void* ptr, long long t,
+                          int heads, long long sb, long long st,
+                          long long sh, int rows) {
+    return hopper::encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                          row_bytes(d), ptr, b, t, heads, d, sb, st, sh,
+                          rows);
+  };
   CUtensorMap qm, km, vm;
-  CUresult r = encode(&qm, q, b, tq, hq, d, q_sb, q_st, q_sh, kBQ);
-  if (r == CUDA_SUCCESS)
-    r = encode(&km, k, b, tk, hkv, d, k_sb, k_st, k_sh, kBK);
-  if (r == CUDA_SUCCESS)
-    r = encode(&vm, v, b, tk, hkv, d, v_sb, v_st, v_sh, kBK);
-  if (r != CUDA_SUCCESS) return kEncodeFailed + int(r);
+  CUresult r = encode(&qm, q, tq, hq, q_sb, q_st, q_sh, kBQ);
+  if (r == CUDA_SUCCESS) r = encode(&km, k, tk, hkv, k_sb, k_st, k_sh, kBK);
+  if (r == CUDA_SUCCESS) r = encode(&vm, v, tk, hkv, v_sb, v_st, v_sh, kBK);
+  if (r != CUDA_SUCCESS) return hopper::kEncodeFailed + int(r);
   Params p;
   p.o = o;
   p.o_sb = o_sb; p.o_st = o_st; p.o_sh = o_sh;
@@ -698,13 +595,12 @@ extern "C" int flash_attention_wgmma_launch(
   p.scale = 1.0f / sqrtf(float(d));  // as the oracle: 1 / sqrt(f32(D))
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      d == 64   ? launch<64>(qm, km, vm, p, int(b), s)
-      : d == 80 ? launch<80>(qm, km, vm, p, int(b), s)
-                : launch<128>(qm, km, vm, p, int(b), s);
+      d == 64   ? launch<64>(qm, km, vm, p, b, s)
+      : d == 80 ? launch<80>(qm, km, vm, p, b, s)
+                : launch<128>(qm, km, vm, p, b, s);
   return int(err);
 }
 
 extern "C" const char* flash_attention_wgmma_error_string(int code) {
-  if (code >= kEncodeFailed) return "cuTensorMapEncodeTiled failed";
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return hopper::error_string(code);
 }

@@ -35,6 +35,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 LAUNCHES: dict[str, int] = {"score_pipeline_banked": 0,
                              "flash_attention": 0,
                              "flash_attention_wgmma": 0,
+                             "flash_attention_tf32x3": 0,
                              "quantile_map": 0,
                              "score_pipeline": 0,
                              "decode_attention": 0,

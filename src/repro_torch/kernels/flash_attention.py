@@ -1,6 +1,6 @@
 """Flash attention (GQA, causal and/or sliding window) for Hopper.
 
-:func:`flash_attention` launches one of two hand-written CUDA kernels
+:func:`flash_attention` launches one of three hand-written CUDA kernels
 (built by ``kernels/_build.py``) on PyTorch's current stream, chosen by
 :func:`kernel_form` from the dtype and head dim alone:
 
@@ -9,19 +9,26 @@
   specialisation).  D = 64 and 128 stage operands as 64-column boxes under
   the 128-byte swizzle; D = 80 (hubert-xlarge's heads), whose 160-byte row
   is no whole number of 128-byte atoms, as five 16-column boxes under the
-  32-byte swizzle, with no padding of the work.  TMA reads only
-  16-byte-aligned rows, so such an input whose data pointer or B, T or H
-  stride is not a multiple of 16 bytes raises ``ValueError``;
-* ``"simt"``, ``csrc/flash_attention.cu``: float32, and bf16 with any other
-  D, in float32 on the CUDA cores.
+  32-byte swizzle, with no padding of the work;
+* ``"tf32x3"``, ``csrc/flash_attention_tf32.cu``: float32 with D in
+  ``WGMMA_HEAD_DIMS``, on the tensor cores in the same shape, each product
+  in three TF32 terms (x_hi = tf32(x), x_lo = tf32(x - x_hi); a_lo b_hi +
+  a_hi b_lo + a_hi b_hi), as close to float32 as the float32 tolerance
+  asks; the producer warpgroup splits each K and V tile and writes V
+  key-contiguous, the one layout tf32 wgmma reads it in;
+* ``"simt"``, ``csrc/flash_attention.cu``: every other D, in either dtype,
+  in float32 on the CUDA cores.
 
-Either reads q, k and v in place from the model's (B, T, H, D) layout by
-their strides, so the innermost dim must be contiguous; it allocates the
-(B, Tq, Hq, D) output in q's dtype.  It takes CUDA tensors only and raises
-``ValueError`` on anything the kernels do not take; a failed build or
-launch raises too, and no form stands in for another.  The plain PyTorch
-version is ``kernels/ref.py``, and ``kernels/ops.py`` picks between it and
-the kernels by the device of the tensors.
+The two tensor-core forms read by TMA, which takes only 16-byte-aligned
+rows, so such an input whose data pointer or B, T or H stride is not a
+multiple of 16 bytes raises ``ValueError``.  Every form reads q, k and v
+in place from the model's (B, T, H, D) layout by their strides, so the
+innermost dim must be contiguous; it allocates the (B, Tq, Hq, D) output
+in q's dtype.  It takes CUDA tensors only and raises ``ValueError`` on
+anything the kernels do not take; a failed build or launch raises too, and
+no form stands in for another.  The plain PyTorch version is
+``kernels/ref.py``, and ``kernels/ops.py`` picks between it and the
+kernels by the device of the tensors.
 """
 from __future__ import annotations
 
@@ -35,7 +42,11 @@ from repro_torch.kernels import _build
 LAUNCHES = _build.LAUNCHES
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
-WGMMA_HEAD_DIMS = (64, 80, 128)
+WGMMA_HEAD_DIMS = (64, 80, 128)   # the tensor-core forms' head dims
+# each tensor-core form's own key of LAUNCHES (the SIMT form has none): a
+# launch counts under "flash_attention" and under its form's key
+FORM_KEYS = {"wgmma": "flash_attention_wgmma",
+             "tf32x3": "flash_attention_tf32x3"}
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,19 +95,22 @@ def _tma_aligned(x: torch.Tensor) -> bool:
 
 
 def kernel_form(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """``"wgmma"`` for bf16 with D in ``WGMMA_HEAD_DIMS`` (64, 80, 128),
-    else ``"simt"`` (for inputs :func:`check_inputs` accepts).  Raises
-    ``ValueError`` for a wgmma input that is not 16-byte aligned: no other
-    form takes it, and nothing falls back to the SIMT kernel."""
-    if q.dtype != torch.bfloat16 or q.shape[3] not in WGMMA_HEAD_DIMS:
+    """``"wgmma"`` for bf16 and ``"tf32x3"`` for float32 with D in
+    ``WGMMA_HEAD_DIMS`` (64, 80, 128), else ``"simt"`` (for inputs
+    :func:`check_inputs` accepts).  Raises ``ValueError`` for a
+    tensor-core input that is not 16-byte aligned: no other form takes it,
+    and nothing falls back to the SIMT kernel."""
+    if q.shape[3] not in WGMMA_HEAD_DIMS:
         return "simt"
+    bf16 = q.dtype == torch.bfloat16
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not _tma_aligned(x):
             raise ValueError(
-                f"{name}: the bf16 D={q.shape[3]} kernel reads by TMA, which "
-                "needs a 16-byte-aligned data pointer and B, T, H strides "
+                f"{name}: the {'bf16' if bf16 else 'float32'} "
+                f"D={q.shape[3]} kernel reads by TMA, which needs a "
+                "16-byte-aligned data pointer and B, T, H strides "
                 f"(pointer {x.data_ptr()}, strides {x.stride()})")
-    return "wgmma"
+    return "wgmma" if bf16 else "tf32x3"
 
 
 # each form's source and the ctypes signature of its launcher: pointers
@@ -105,7 +119,8 @@ def kernel_form(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 _I64, _I32, _PTR = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
 _ARGS = [_PTR] * 4 + [_I64] * 3 + [_I32] * 3 + [_I64] * 12
 _SOURCES = {"simt": ("flash_attention", _ARGS + [_I32] * 3 + [_PTR]),
-            "wgmma": ("flash_attention_wgmma", _ARGS + [_I32] * 2 + [_PTR])}
+            "wgmma": ("flash_attention_wgmma", _ARGS + [_I32] * 2 + [_PTR]),
+            "tf32x3": ("flash_attention_tf32", _ARGS + [_I32] * 2 + [_PTR])}
 
 
 @functools.cache
@@ -135,8 +150,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype, in ONE launch of the form :func:`kernel_form` picks.  Query head
     h reads KV head h // (Hq / Hkv); positions count from 0 on both sides.
     A query row that sees no key comes out 0.  ``LAUNCHES`` counts every
-    launch under ``"flash_attention"`` and the wgmma form's also under
-    ``"flash_attention_wgmma"``.  Raises ``RuntimeError`` under grad mode
+    launch under ``"flash_attention"``, the wgmma form's also under
+    ``"flash_attention_wgmma"`` and the tf32x3 form's under
+    ``"flash_attention_tf32x3"``.  Raises ``RuntimeError`` under grad mode
     when an input requires grad (the kernel has no backward)."""
     _build.refuse_grad("flash_attention", (q, k, v),
                        ': train with attn_impl="reference"')
@@ -145,8 +161,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = _launch_form(form, q, k, v, causal=causal,
                        sliding_window=sliding_window)
     LAUNCHES["flash_attention"] += 1
-    if form == "wgmma":
-        LAUNCHES["flash_attention_wgmma"] += 1
+    if form in FORM_KEYS:
+        LAUNCHES[FORM_KEYS[form]] += 1
     return out
 
 

@@ -51,9 +51,9 @@ def test_quick_cpu_run_writes_five_entries(tmp_path):
     # on the CPU no hand-written kernel launches
     assert set(result["launches"].values()) == {0}
     # one count per kernel; the flash entry's wrapper also counts the
-    # tensor-core form it picks on the card
+    # tensor-core forms it picks on the card
     assert set(result["launches"]) == set(ENTRIES.values()) | {
-        "flash_attention_wgmma"}
+        "flash_attention_wgmma", "flash_attention_tf32x3"}
 
 
 def _quick_cpu(module, tmp_path):
@@ -250,3 +250,21 @@ def test_attention_bounds():
     assert flops32 == flops and by32 == "operations"
     assert ms32 == pytest.approx(flops / timing.F32_FLOPS * 1e3)
 
+
+def test_tf32x3_issued_reading():
+    """Float32 attention to float32's accuracy is three TF32 terms on each
+    product: 12*D flops a visible pair at the dense TF32 rate, the least
+    time the card needs, under the 4*D reading on the CUDA cores."""
+    qwen3 = (4, 2048, 2048, 32, 8, 128, True, 0)
+    ms, by, flops = timing.attention_f32_bound(*qwen3)
+    assert flops == 12.0 * 4 * 32 * 128 * (2048 * 2049 // 2)
+    assert flops == pytest.approx(412.5e9, rel=1e-3)
+    assert by == "operations" and ms == pytest.approx(flops / 495e12 * 1e3)
+    assert ms == pytest.approx(0.833, abs=5e-4)
+    cuda_cores = timing.attention_bound(*qwen3, 4)[0]
+    assert cuda_cores == pytest.approx(2.052, abs=5e-4) and ms < cuda_cores
+    # hubert-xlarge in float32: bidirectional, 4 x 2,048, 16/16 heads of 80
+    ms, by, flops = timing.attention_f32_bound(4, 2048, 2048, 16, 16, 80,
+                                               False, 0)
+    assert flops == 12.0 * 4 * 16 * 80 * 2048 * 2048
+    assert by == "operations" and ms == pytest.approx(0.521, abs=5e-4)

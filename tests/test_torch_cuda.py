@@ -453,10 +453,14 @@ def _qkv(case, dtype, dev, seed=0):
 def test_flash_kernel_matches_plain_version(dev, case, dtype):
     causal, win = case[6:]
     q, k, v = _qkv(case, dtype, dev)
-    before = ops.LAUNCHES["flash_attention"]
+    before = dict(ops.LAUNCHES)
     got = ops.flash_attention(q, k, v, causal=causal, sliding_window=win)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    # float32 at D = 64, 80 and 128 runs the TF32 tensor-core form
+    tf32x3 = dtype == torch.float32 and case[5] in fa.WGMMA_HEAD_DIMS
+    assert ops.LAUNCHES["flash_attention_tf32x3"] == \
+        before["flash_attention_tf32x3"] + tf32x3
     assert got.dtype == dtype and got.shape == q.shape
     want = ref.flash_attention(q, k, v, causal=causal, sliding_window=win)
     tol = FLASH_TOL[dtype]
@@ -566,19 +570,89 @@ def test_wgmma_form_fully_masked_rows_are_zero(dev):
                                atol=2e-2)
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
-                                     (torch.float32, 128),
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 32),
+                                     (torch.float32, 96),
                                      (torch.bfloat16, 96)])
 def test_other_inputs_take_the_simt_form(dev, dtype, d):
     q, k, v = _qkv((1, 130, 130, 4, 2, d), dtype, dev)
     before = dict(ops.LAUNCHES)
     got = ops.flash_attention(q, k, v, causal=True)
-    assert ops.LAUNCHES["flash_attention_wgmma"] == \
-        before["flash_attention_wgmma"]
+    for form in ("flash_attention_wgmma", "flash_attention_tf32x3"):
+        assert ops.LAUNCHES[form] == before[form]
     assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
     want = ref.flash_attention(q, k, v, causal=True)
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# the float32 tensor-core form (csrc/flash_attention_tf32.cu): three TF32
+# terms a product, at the float32 tolerance
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_float32_takes_the_tf32x3_form(dev, d):
+    q, k, v = _qkv((1, 130, 130, 4, 2, d), torch.float32, dev)
+    before = dict(ops.LAUNCHES)
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_tf32x3"] == \
+        before["flash_attention_tf32x3"] + 1
+    assert ops.LAUNCHES["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"]
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert got.dtype == torch.float32
+    want = ref.flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_tf32x3_form_matches_plain_version(dev, case):
+    """The tensor-core form's cases in float32: T = 1, tiles cut at 127 /
+    129 rows, Tq < Tk, windows across tile edges, D = 80."""
+    causal, win = case[6:]
+    q, k, v = _qkv(case, torch.float32, dev, seed=2)
+    before = ops.LAUNCHES["flash_attention_tf32x3"]
+    got = ops.flash_attention(q, k, v, causal=causal, sliding_window=win)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_tf32x3"] == before + 1
+    want = ref.flash_attention(q, k, v, causal=causal, sliding_window=win)
+    torch.testing.assert_close(got, want, rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_tf32x3_form_reads_packed_views(dev, d):
+    """float32 q, k, v as views of one packed (B, T, Hq + 2 Hkv, D)
+    projection, read in place; the output's rows are exactly D floats."""
+    qkv = torch.randn(2, 300, 12, d, device=dev)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    assert fa.kernel_form(q, k, v) == "tf32x3"
+    got = fa.flash_attention(q, k, v, causal=True, sliding_window=100)
+    want = ref.flash_attention(q, k, v, causal=True, sliding_window=100)
+    torch.testing.assert_close(got, want, rtol=5e-5, atol=5e-5)
+
+
+def test_tf32x3_form_fully_masked_rows_are_zero(dev):
+    for d in (64, 80, 128):
+        q, k, v = _qkv((1, 256, 64, 4, 2, d), torch.float32, dev)
+        before = ops.LAUNCHES["flash_attention_tf32x3"]
+        got = fa.flash_attention(q, k, v, causal=True, sliding_window=16)
+        assert ops.LAUNCHES["flash_attention_tf32x3"] == before + 1
+        masked = torch.arange(256, device=dev) >= 64 + 16 - 1
+        assert torch.equal(got[0, masked], torch.zeros_like(got[0, masked]))
+        want = ref.flash_attention(q, k, v, causal=True, sliding_window=16)
+        torch.testing.assert_close(got[0, ~masked], want[0, ~masked],
+                                   rtol=5e-5, atol=5e-5)
+
+
+def test_misaligned_float32_view_raises(dev):
+    """A float32 view TMA cannot read raises: nothing falls back to the
+    SIMT kernel."""
+    base = torch.randn(1, 64, 4, 132, device=dev)
+    q = base[..., 1:129]              # data pointer 4 bytes off
+    k = v = base[:, :, :2, :128]
+    before = dict(ops.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q, k, v)
+    assert ops.LAUNCHES == before
 
 
 def test_misaligned_bf16_view_raises(dev):
@@ -629,6 +703,32 @@ def test_wgmma_kernel_uses_tensor_cores_and_tma_without_spills(dev):
     assert "setmaxnreg ignored" not in log, log
 
 
+def test_tf32_kernel_uses_tensor_cores_and_tma_without_spills(dev):
+    """SASS of the float32 form's three instantiations holds HGMMA and
+    UTMALDG; ptxas reports no spills and honours setmaxnreg."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+
+    lib, log = _build.build_log("flash_attention_tf32")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        pytest.skip("needs cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    kernels = [f for f in sass.split("Function : ")[1:]
+               if "flash_attention_tf32_kernel" in f.splitlines()[0]]
+    assert len(kernels) == 3   # D = 64, 80 and 128
+    for f in kernels:
+        assert "HGMMA" in f and "UTMALDG" in f
+    spills = [ln for ln in log.splitlines() if "spill" in ln]
+    assert spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                          for ln in spills), log
+    assert "setmaxnreg ignored" not in log, log
+
+
 def test_model_forward_through_the_kernel(dev):
     """qwen3 smoke at T=160: the kernel branch against the reference path,
     both on the card, one launch per attention layer."""
@@ -639,9 +739,14 @@ def test_model_forward_through_the_kernel(dev):
     model = Model(cfg, device=dev, seed=0)
     tok = torch.randint(0, cfg.vocab_size, (2, 160), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(1))
-    before = ops.LAUNCHES["flash_attention"]
+    before = dict(ops.LAUNCHES)
     got = model(tok, compute_dtype=torch.float32, attn_impl="kernel")
-    assert ops.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    assert ops.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + cfg.n_layers
+    # float32 at the smoke head dim runs the TF32 tensor-core form
+    tf32x3 = cfg.head_dim in fa.WGMMA_HEAD_DIMS
+    assert ops.LAUNCHES["flash_attention_tf32x3"] == \
+        before["flash_attention_tf32x3"] + tf32x3 * cfg.n_layers
     want = model(tok, compute_dtype=torch.float32, attn_impl="reference")
     torch.testing.assert_close(got.logits, want.logits, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got.risk_score, want.risk_score, rtol=1e-5,

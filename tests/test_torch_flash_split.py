@@ -12,8 +12,10 @@ share of the bf16 rounding bound 2^-8 |o| + 1e-5 (at most 1 when only the
 output's rounding separates them).  With one bf16 term the share is far
 above 1: that is why the kernel issues the second term.
 
-The wrapper's choice between the two CUDA kernels is a pure function of
-dtype, head dim and alignment; it is tested here on CPU tensors.
+The wrapper's choice between the three CUDA kernels is a pure function of
+dtype, head dim and alignment; it is tested here on CPU tensors (float32
+at D = 64, 80 and 128 takes the TF32 tensor-core form, whose precision
+plan ``tests/test_torch_flash_tf32.py`` holds to the oracle).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -132,8 +134,9 @@ def _qkv(d, dtype, *, hq=4, hkv=2, t=32):
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 32, "simt"),
     (torch.bfloat16, 96, "simt"), (torch.bfloat16, 48, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
-    (torch.float32, 80, "simt")])
+    (torch.float32, 64, "tf32x3"), (torch.float32, 128, "tf32x3"),
+    (torch.float32, 80, "tf32x3"), (torch.float32, 32, "simt"),
+    (torch.float32, 96, "simt")])
 def test_form_is_chosen_by_dtype_and_head_dim(dtype, d, form):
     assert tfa.kernel_form(*_qkv(d, dtype)) == form
 
@@ -170,6 +173,32 @@ def test_misaligned_bf16_views_raise(bad):
         v = torch.zeros(32 * 260, dtype=torch.bfloat16).as_strided(
             (1, 32, 2, 128), (32 * 260, 260, 128, 1))
     with pytest.raises(ValueError, match="16-byte"):
+        tfa.kernel_form(q, k, v)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128])
+def test_packed_float32_views_take_the_tf32x3_form(d):
+    """float32 q, k, v as views of one packed (B, T, Hq + 2 Hkv, D)
+    projection: a head is 4 D bytes, so every pointer and stride stays a
+    multiple of 16 bytes."""
+    qkv = torch.zeros(2, 130, 8, d)
+    assert tfa.kernel_form(qkv[:, :, :4], qkv[:, :, 4:6],
+                           qkv[:, :, 6:]) == "tf32x3"
+
+
+@pytest.mark.parametrize("bad", ["pointer", "head_stride", "row_stride"])
+def test_misaligned_float32_views_raise(bad):
+    """A float32 view TMA cannot read raises: nothing falls back to the
+    SIMT kernel."""
+    q, k, v = _qkv(128, torch.float32)
+    if bad == "pointer":
+        q = torch.zeros(1, 32, 4, 130)[..., 1:129]
+    elif bad == "head_stride":
+        k = torch.zeros(1, 32, 2, 130)[..., :128]
+    else:
+        v = torch.zeros(32 * 258).as_strided((1, 32, 2, 128),
+                                             (32 * 258, 258, 128, 1))
+    with pytest.raises(ValueError, match="float32 D=128 kernel reads by TMA"):
         tfa.kernel_form(q, k, v)
 
 
